@@ -1,0 +1,217 @@
+"""Card-only tests: each CUDA kernel of the PyTorch port against its plain
+version at small shapes, on an NVIDIA card. Marked ``cuda``; without a
+card they skip (the decision is made in a fixture, at run time). Run them
+on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The full-size checks at the main path's shapes are chip_smoke.py's."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()) / float(
+        b.float().abs().max())
+
+
+def _mean_rel(a, b, base=None):
+    """mean |a - b| / mean |b - base|."""
+    ref = b.float() if base is None else b.float() - base.float()
+    return float((a.float() - b.float()).abs().mean()) / float(
+        ref.abs().mean())
+
+
+def _steps(a, b):
+    """(largest |a - b| in bf16 steps of b, share of elements that differ):
+    a kernel summing in another order than the plain version (cuBLAS, torch
+    reductions), then rounding to bf16, is one step off where the f32 sum
+    sat near a rounding midpoint."""
+    w = b.float()
+    d = (a.float() - w).abs()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    return float((d / step).max()), float((d > 0).float().mean())
+
+
+def _bf16_close(a, b):
+    steps, share = _steps(a, b)
+    return steps <= 1 and share < 2e-2
+
+
+def test_mel_kernel(dev):
+    from whisper_aries_tpu_torch.audio.mel import log_mel_spectrogram
+    from whisper_aries_tpu_torch.ops import mel as M
+
+    rng = np.random.default_rng(0)
+    t = np.arange(480000) / 16000
+    audio = np.stack([0.3 * np.sin(2 * np.pi * 440 * t) * np.sin(t)
+                      + 0.05 * rng.standard_normal(480000)] * 2)
+    a = torch.as_tensor(audio, dtype=torch.float32, device=dev)
+    n = M.mel_power_kernel.launches
+    got, want = M.log_mel(a, 80), log_mel_spectrogram(a, 80)
+    assert M.mel_power_kernel.launches == n + 1
+    diff = (got - want).abs()
+    assert float(diff.max()) < 5e-4 and float(diff.mean()) < 5e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (2, 3, 1500, 64)])
+def test_encoder_attention_kernel(dev, shape):
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    # unit q: near-flat softmax rows, where scored pad keys would show;
+    # q x 4: peaked rows, where a dropped tail tile or a wrong scale would
+    for q_scale in (1, 4):
+        qs = (q.float() * q_scale).to(torch.bfloat16)
+        got = W.encoder_attention(qs, k, v)
+        want = W.attention_plain(qs, k, v)
+        # bf16 outputs of differently ordered f32 sums: one step apart in
+        # many elements (mean ~2e-3); scored pad keys or a dropped tail
+        # tile move the mean by > 1.4e-2
+        assert _rel(got, want) < 1e-2 and _mean_rel(got, want) < 5e-3
+
+
+@pytest.fixture(scope="module")
+def small(dev):
+    """d 128 (2 heads x dh 64), ff 512, 2 layers, Ta 96, T 16."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims = W.WhisperDims(80, 96, 128, 2, 2, 512, 64, 128, 2, 2)
+    params = W.fuse_decoder_qkv(W.init_params(dims, seed=3, device=dev,
+                                              dtype=torch.bfloat16))
+    wpack = DL.pack_layer_weights(params["decoder"]["blocks"])
+    g = torch.Generator(device=dev).manual_seed(1)
+    wpack["vecs"][:, :1280] += 0.05 * torch.randn(
+        (2, 1280), generator=g, device=dev)
+    return dims, params, wpack, g
+
+
+@pytest.mark.parametrize("R", [3, 20, 70])
+def test_decoder_layer_parts(small, R):
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    offs, _ = DL.vec_offsets(128, 512)
+    vec = wpack["vecs"][0]
+    seg = lambda i: vec[int(offs[i]):int(offs[i + 1])].contiguous()
+    x = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+    # every part within one bf16 step, in a small share of elements
+    assert _bf16_close(DL.layer_norm_kernel(x, seg(0), seg(1)),
+                       DL.layer_norm_plain(x, seg(0), seg(1)))
+    w = wpack["wq8"][0][:, :384]
+    assert _bf16_close(DL.w8a16_gemm_kernel(x, w, seg(12), seg(2)),
+                       DL.w8a16_gemm_plain(x, w, seg(12), seg(2)).to(
+                           torch.bfloat16))
+    w1 = wpack["wf18"][0]
+    assert _bf16_close(
+        DL.w8a16_gemm_kernel(x, w1, seg(16), seg(10), DL.EPI_GELU),
+        DL.gelu_as(DL.w8a16_gemm_plain(x, w1, seg(16), seg(10))).to(
+            torch.bfloat16))
+    h1 = torch.randn((R, 512), generator=g, device=dev).to(torch.bfloat16)
+    w2 = wpack["wf28"][0]
+    res = (0.01 * x.float()).to(torch.bfloat16)  # the product dominates
+    want = res + DL.w8a16_gemm_plain(h1, w2, seg(17), seg(11)).to(
+        torch.bfloat16)
+    got = DL.w8a16_gemm_kernel(h1, w2, seg(17), seg(11), DL.EPI_RESIDUAL,
+                               out=res.clone())
+    assert _bf16_close(got, want)
+    qkv = torch.randn((R, 384), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((R, 2, 2, 16, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    q8, sc = DL.quantize_heads(kv)
+    for cache in ({"kv": kv}, {"kv8": q8, "ksc": sc}):
+        ck = {k: v.clone() for k, v in cache.items()}
+        cp = {k: v.clone() for k, v in cache.items()}
+        got = DL.self_attn_kernel(qkv, ck, 9, 2, 2)
+        want = DL.self_attn_plain(qkv, cp, 9, 2, 2)
+        assert _bf16_close(got, want)
+        for k in ck:
+            assert torch.equal(ck[k], cp[k])
+    xa = torch.randn((R, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    assert _bf16_close(
+        DL.cross_attn_kernel(x, cross["kv8"][0], cross["sc"][0], 2),
+        DL.cross_attn_plain(x, cross["kv8"][0], cross["sc"][0], 2))
+
+
+@pytest.mark.parametrize("self_int8", [False, True])
+def test_decoder_layers_stack(small, self_int8):
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    R = 4
+    xa = torch.randn((R, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    kv = torch.zeros((2, R, 2, 2, 16, 64), dtype=torch.bfloat16, device=dev)
+    kv[..., :3, :] = torch.randn((2, R, 2, 2, 3, 64), generator=g,
+                                 device=dev).to(torch.bfloat16)
+    if self_int8:
+        q8, sc = DL.quantize_heads(kv)
+        cache = {"kv8": q8, "ksc": sc}
+    else:
+        cache = {"kv": kv}
+    ck = {k: v.clone() for k, v in cache.items()}
+    cp = {k: v.clone() for k, v in cache.items()}
+    n = DL.fused_decoder_layers.launches
+    for pos in (3, 4, 5):
+        x = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+        got = DL.fused_decoder_layers(x, wpack, ck, cross, 1, pos, 2)
+        want = DL.fused_decoder_layers_plain(x, wpack, cp, cross, 1, pos, 2)
+        # one-step bf16 flips at rounding midpoints cascade through the
+        # layers: a step or two at the largest |x|, on average far under
+        # the layers' update
+        assert _rel(got, want) < 3e-2
+        assert _mean_rel(got, want, x) < 1e-2
+    assert DL.fused_decoder_layers.launches == n + 3
+    key = "kv8" if self_int8 else "kv"
+    a, b = ck[key][..., 3:6, :], cp[key][..., 3:6, :]
+    assert float((a != b).float().mean()) < 5e-3
+    if self_int8:
+        assert int((a.int() - b.int()).abs().max()) <= 1
+    else:
+        assert _rel(a, b) < 8e-3
+
+
+def test_engine_runs_the_kernels(dev, tmp_path):
+    """A tiny engine on the card goes through all three kernels."""
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import mel as M
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    dims = W.WhisperDims(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    eng = AriesTranscriber("tiny-card", _params=W.init_params(dims, seed=0),
+                           _dims=dims)
+    assert eng.fused and eng.self_kv_int8
+    t = np.arange(16000 * 40) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 200 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    path = str(tmp_path / "a.wav")
+    write_wav(path, x.astype(np.float32))
+    counters = (M.mel_power_kernel, W.encoder_attention_kernel,
+                DL.fused_decoder_layers)
+    before = [c.launches for c in counters]
+    res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=8)
+    assert res["num_windows"] >= 1
+    assert all(c.launches > b for c, b in zip(counters, before))

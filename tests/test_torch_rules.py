@@ -1,0 +1,122 @@
+"""Rules of the PyTorch port (whisper_aries_tpu_torch):
+
+  * no module of the port, and not chip_smoke.py, imports jax, jaxlib or
+    anything of the JAX package (whisper_aries_tpu) — checked on the AST;
+  * the engine runs on CUDA unless the caller asks for the CPU: with no
+    card and no explicit device it raises, never carrying on quietly;
+  * every kernel wrapper takes its plain version only for CPU tensors.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "whisper_aries_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "whisper_aries_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", "")
+              in ("__import__", "import_module") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_rule_itself():
+    assert _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert _forbidden("whisper_aries_tpu.models.whisper")
+    assert not _forbidden("whisper_aries_tpu_torch.models.whisper")
+
+
+def test_engine_raises_without_a_card(monkeypatch):
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AriesTranscriber(allow_random=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AriesTranscriber(device="cuda", allow_random=True)
+
+
+def test_engine_refuses_unported_options():
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    cfg = load_config(overrides={"decode.audio_ctx": "bucket"})
+    with pytest.raises(ValueError, match="not ported"):
+        AriesTranscriber(device="cpu", config=cfg, allow_random=True,
+                         model_size="tiny")
+
+
+def test_cuda_wrappers_reject_cpu_operands_for_kernels():
+    """The kernel entry points themselves never accept CPU tensors (the
+    plain-version dispatch lives only in the public wrappers)."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import mel as M
+
+    x = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        W.encoder_attention_kernel(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        M.mel_power_kernel(torch.zeros((1, 480000)), 80)
+    with pytest.raises(ValueError, match="CUDA"):
+        DL.layer_norm_kernel(torch.zeros((2, 64), dtype=torch.bfloat16),
+                             torch.ones(64), torch.zeros(64))
+
+
+def test_config_is_a_copy_of_the_jax_config():
+    """Same fields and defaults, so config files work for both."""
+    from whisper_aries_tpu import config as jc
+    from whisper_aries_tpu_torch import config as tc
+
+    assert jc.AriesConfig().to_dict() == tc.AriesConfig().to_dict()
+    env = {"ARIES_BEAM_SIZE": "3", "ARIES_MODEL": "tiny"}
+    assert (jc.load_config(env=env).to_dict()
+            == tc.load_config(env=env).to_dict())
+
+
+def test_wav_decode_matches_jax(tmp_path):
+    from whisper_aries_tpu.audio import decode as jd
+    from whisper_aries_tpu_torch.audio import decode as td
+    from whisper_aries_tpu_torch.errors import AudioError
+
+    rng = np.random.default_rng(0)
+    x = (0.3 * rng.standard_normal(16000)).astype(np.float32)
+    path = str(tmp_path / "a.wav")
+    jd.write_wav(path, x, 16000)
+    np.testing.assert_array_equal(td.load_audio(path), jd.load_audio(path))
+    pre = td.AudioPreloader(path)
+    assert abs(pre.duration - 1.0) < 1e-3
+    # resampling: the port has the JAX package's numpy path (the native
+    # polyphase codec is not ported yet)
+    np.testing.assert_array_equal(td._resample_numpy(x, 22050, 16000),
+                                  jd._resample_numpy(x, 22050, 16000))
+    mp3 = tmp_path / "a.mp3"
+    mp3.write_bytes(b"\xff\xfb")
+    with pytest.raises(AudioError, match="WAV only"):
+        td.load_audio(str(mp3))

@@ -1,0 +1,534 @@
+"""Whisper encoder-decoder in PyTorch (the port of models/whisper.py).
+
+Parameters are plain nested dicts of tensors with the JAX package's tree
+and layouts: every per-layer weight is stacked into one (L, ...) tensor,
+dense weights are (in, out), conv stems keep torch's (out, in, k).
+``params_from_jax`` therefore only converts leaves, and both packages
+compute the same function from the same numbers.
+
+Caches (port layouts, dh-minor; updated IN PLACE, unlike JAX's functional
+updates, so a decode step allocates nothing per layer):
+  * self cache, bf16/f32: {"kv": (L, B, 2, H, T, dh)} — [.., 0] = K, 1 = V;
+    int8 (``decoder_step`` only): {"k8", "v8": (L, B, H, T, dh) int8,
+    "ks", "vs": (L, B, H, T) f32}, ks folding 1/sqrt(dh) as in JAX.
+  * cross K/V, bf16/f32: {"k", "v": (L, B, H, Ta, dh)}; int8:
+    {"kv8": (L, B, 2, H, Ta, dh) int8, "sc": (L, B, 2, H, Ta) f32}, the
+    K scales folding 1/sqrt(dh) — the layout the decoder-layer kernels read.
+
+The encoder's attention goes through the hand-written encoder-attention
+kernel (csrc/encoder_attn.cu) for CUDA tensors and through the plain
+version for CPU tensors. Dense layers and the conv stem stay torch
+products, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from whisper_aries_tpu_torch.models.layers import (
+    attn_scale,
+    dense,
+    gelu,
+    layer_norm,
+)
+from whisper_aries_tpu_torch.ops import cuda_build as cb
+from whisper_aries_tpu_torch.ops.cross_attn import (
+    cross_attention_q8_reference,
+    quantize_kv_per_position,
+)
+
+NEG = float(np.finfo(np.float32).min)
+
+
+@dataclass(frozen=True)
+class WhisperDims:
+    """Model hyperparameters (openai/whisper ModelDimensions field order)."""
+
+    n_mels: int
+    n_audio_ctx: int
+    n_audio_state: int
+    n_audio_head: int
+    n_audio_layer: int
+    n_vocab: int
+    n_text_ctx: int
+    n_text_state: int
+    n_text_head: int
+    n_text_layer: int
+
+
+#: published checkpoint families (openai/whisper + HF mirrors)
+PRESETS: Dict[str, WhisperDims] = {
+    "tiny": WhisperDims(80, 1500, 384, 6, 4, 51865, 448, 384, 6, 4),
+    "tiny.en": WhisperDims(80, 1500, 384, 6, 4, 51864, 448, 384, 6, 4),
+    "base": WhisperDims(80, 1500, 512, 8, 6, 51865, 448, 512, 8, 6),
+    "base.en": WhisperDims(80, 1500, 512, 8, 6, 51864, 448, 512, 8, 6),
+    "small": WhisperDims(80, 1500, 768, 12, 12, 51865, 448, 768, 12, 12),
+    "small.en": WhisperDims(80, 1500, 768, 12, 12, 51864, 448, 768, 12, 12),
+    "medium": WhisperDims(80, 1500, 1024, 16, 24, 51865, 448, 1024, 16, 24),
+    "medium.en": WhisperDims(80, 1500, 1024, 16, 24, 51864, 448, 1024, 16, 24),
+    "large": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
+    "large-v1": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
+    "large-v2": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
+    "large-v3": WhisperDims(128, 1500, 1280, 20, 32, 51866, 448, 1280, 20, 32),
+    "large-v3-turbo": WhisperDims(128, 1500, 1280, 20, 32, 51866, 448, 1280,
+                                  20, 4),
+    "turbo": WhisperDims(128, 1500, 1280, 20, 32, 51866, 448, 1280, 20, 4),
+}
+
+
+def sinusoids(length: int, channels: int, max_timescale: float = 10_000.0
+              ) -> np.ndarray:
+    """openai/whisper's fixed sinusoidal positional table (length, channels)."""
+    assert channels % 2 == 0
+    log_inc = np.log(max_timescale) / (channels // 2 - 1)
+    inv = np.exp(-log_inc * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(dims: WhisperDims, seed: int = 0, device="cpu",
+                dtype=torch.float32) -> Dict[str, Any]:
+    """Seeded random parameter tree (random-weight runs and tests): N(0,
+    0.02) weights, zero biases, unit LayerNorms, sinusoidal encoder
+    positions. Drawn with a torch.Generator on ``device`` so a full-size
+    model is made on the card without a host round trip."""
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def normal(shape, std):
+        return (std * torch.randn(shape, generator=g, device=device,
+                                  dtype=torch.float32)).to(dtype)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def ones(shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    def dense_p(k_in, n_out, layers, bias=True):
+        p = {"w": normal((layers, k_in, n_out), 0.02)}
+        if bias:
+            p["b"] = zeros((layers, n_out))
+        return p
+
+    def ln_p(layers, d):
+        return {"scale": ones((layers, d)), "bias": zeros((layers, d))}
+
+    def blocks(layers, d, cross):
+        b = {
+            "ln1": ln_p(layers, d),
+            "attn": {"q": dense_p(d, d, layers),
+                     "k": dense_p(d, d, layers, bias=False),
+                     "v": dense_p(d, d, layers),
+                     "o": dense_p(d, d, layers)},
+            "ln2": ln_p(layers, d),
+            "mlp": {"fc1": dense_p(d, 4 * d, layers),
+                    "fc2": dense_p(4 * d, d, layers)},
+        }
+        if cross:
+            b["ln_cross"] = ln_p(layers, d)
+            b["cross"] = {"q": dense_p(d, d, layers),
+                          "k": dense_p(d, d, layers, bias=False),
+                          "v": dense_p(d, d, layers),
+                          "o": dense_p(d, d, layers)}
+        return b
+
+    da, dt = dims.n_audio_state, dims.n_text_state
+    return {
+        "encoder": {
+            "conv1": {"w": normal((da, dims.n_mels, 3), 0.02),
+                      "b": zeros((da,))},
+            "conv2": {"w": normal((da, da, 3), 0.02), "b": zeros((da,))},
+            "pos_emb": torch.as_tensor(sinusoids(dims.n_audio_ctx, da),
+                                       device=device).to(dtype),
+            "blocks": blocks(dims.n_audio_layer, da, cross=False),
+            "ln_post": {"scale": ones((da,)), "bias": zeros((da,))},
+        },
+        "decoder": {
+            "tok_emb": normal((dims.n_vocab, dt), 0.02),
+            "pos_emb": normal((dims.n_text_ctx, dt), 0.01),
+            "blocks": blocks(dims.n_text_layer, dt, cross=True),
+            "ln": {"scale": ones((dt,)), "bias": zeros((dt,))},
+        },
+    }
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch view
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def params_from_jax(tree: Any, device="cpu") -> Any:
+    """The JAX package's parameter tree, leaves as numpy arrays
+    (``jax.tree.map(np.asarray, params)``: stacked (L, ...) leaves, dense
+    {"w","b"} or quantized {"q","s","b"} dicts), as the port's tree. The
+    layouts are shared, so leaves convert one to one."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    if tree is None:
+        return None
+    return _to_torch(tree, device)
+
+
+def layer_slice(tree: Any, l: int) -> Any:
+    """Layer ``l`` of a stacked (L, ...) subtree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def fuse_decoder_qkv(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Concatenate the DECODER self-attention q/k/v projections into one
+    (d, 3d) layer "qkv" (bit-exact: each output column's product is
+    unchanged). Works on {"w","b"} and {"q","s","b"} layers; the k
+    projection has no bias, so zeros fill its slot."""
+    params = dict(params)
+    params["decoder"] = dict(params["decoder"])
+    blocks = dict(params["decoder"]["blocks"])
+    attn = dict(blocks["attn"])
+    if "qkv" in attn:
+        return params
+    q, k, v = attn.pop("q"), attn.pop("k"), attn.pop("v")
+    wkey = "q" if "q" in q else "w"
+    fused = {wkey: torch.cat([q[wkey], k[wkey], v[wkey]], dim=-1)}
+    if "s" in q:
+        fused["s"] = torch.cat([q["s"], k["s"], v["s"]], dim=-1)
+    kb = k.get("b")
+    if kb is None:
+        kb = torch.zeros_like(q["b"])
+    fused["b"] = torch.cat([q["b"], kb, v["b"]], dim=-1)
+    attn["qkv"] = fused
+    blocks["attn"] = attn
+    params["decoder"]["blocks"] = blocks
+    return params
+
+
+def _self_qkv(attn: Dict[str, Any], h: torch.Tensor
+              ) -> Tuple[torch.Tensor, ...]:
+    if "qkv" in attn:
+        qkv = dense(attn["qkv"], h)
+        d = qkv.shape[-1] // 3
+        return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    return (dense(attn["q"], h), dense(attn["k"], h), dense(attn["v"], h))
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    B, T, d = x.shape
+    return x.reshape(B, T, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, dh = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * dh)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _conv1d_shifted(p: Dict[str, Any], x: torch.Tensor, stride: int
+                    ) -> torch.Tensor:
+    """K=3, pad=1 conv1d as K shifted products: x (B, T, Cin), weights
+    (Cout, Cin, K) -> (B, T // stride, Cout)."""
+    w, b = p["w"], p["b"]
+    K = w.shape[2]
+    pad = (K - 1) // 2
+    t_out = x.shape[1] // stride
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad))
+    y = None
+    for k in range(K):
+        xk = xp[:, k:k + stride * (t_out - 1) + 1:stride]
+        yk = torch.matmul(xk, w[:, :, k].T.to(x.dtype))
+        y = yk if y is None else y + yk
+    return y + b.to(y.dtype)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, H, T, dh) full attention; logits and softmax in f32, probs cast
+    to V's dtype (the JAX package's ``_attention_xla``)."""
+    dh = q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", (q * attn_scale(dh)).float(),
+                          k.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_fn():
+    fn = cb.library("encoder_attn").aries_encoder_attn
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def encoder_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """The encoder-attention kernel (csrc/encoder_attn.cu): q, k, v
+    (B, H, T, 64) bf16 contiguous CUDA -> (B, H, T, 64) bf16."""
+    B, H, T, dh = q.shape
+    if dh != 64:
+        raise ValueError(f"encoder attention kernel needs dh 64, got {dh}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cb.require(t, name, torch.bfloat16, (B, H, T, dh), q.device)
+    out = torch.empty_like(q)
+    cb.check(_attn_fn()(cb.ptr(q), cb.ptr(k), cb.ptr(v), cb.ptr(out),
+                        B, H, T, cb.stream()), "encoder attention kernel")
+    encoder_attention_kernel.launches += 1
+    return out
+
+
+encoder_attention_kernel.launches = 0
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> torch.Tensor:
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v)
+    return encoder_attention_kernel(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+
+
+def encode(params: Dict[str, Any], mel: torch.Tensor, dims: WhisperDims
+           ) -> torch.Tensor:
+    """mel (B, n_mels, 2*n_audio_ctx) -> encoded audio (B, n_audio_ctx, D):
+    conv stem, sinusoidal positions, pre-LN blocks, final LayerNorm."""
+    enc = params["encoder"]
+    if mel.ndim == 2:
+        mel = mel[None]
+    x = mel.transpose(1, 2)
+    x = gelu(_conv1d_shifted(enc["conv1"], x, stride=1))
+    x = gelu(_conv1d_shifted(enc["conv2"], x, stride=2))
+    x = x + enc["pos_emb"][: x.shape[1]].to(x.dtype)
+    H = dims.n_audio_head
+    for l in range(dims.n_audio_layer):
+        p = layer_slice(enc["blocks"], l)
+        h = layer_norm(p["ln1"], x)
+        q = _split_heads(dense(p["attn"]["q"], h), H)
+        k = _split_heads(dense(p["attn"]["k"], h), H)
+        v = _split_heads(dense(p["attn"]["v"], h), H)
+        att = encoder_attention(q, k, v)
+        x = x + dense(p["attn"]["o"], _merge_heads(att).to(x.dtype))
+        h = layer_norm(p["ln2"], x)
+        x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
+    return layer_norm(enc["ln_post"], x)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def vocab_logits(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm + tied-embedding product -> f32 logits (bf16 values
+    multiply exactly in f32, so this is the bf16 product with f32
+    accumulation)."""
+    x = layer_norm(dec["ln"], x)
+    return torch.matmul(x.float(), dec["tok_emb"].float().T)
+
+
+def decoder_forward(params: Dict[str, Any], tokens: torch.Tensor,
+                    xa: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
+    """Teacher-forced decoder: tokens (B, S) -> logits (B, S, n_vocab) f32.
+    Cross-attention reads ``xa`` directly (no cached K/V)."""
+    dec = params["decoder"]
+    B, S = tokens.shape
+    H = dims.n_text_head
+    dh = dims.n_text_state // H
+    x = (dec["tok_emb"][tokens.clamp(min=0)] + dec["pos_emb"][:S]).to(xa.dtype)
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=tokens.device))
+    for l in range(dims.n_text_layer):
+        p = layer_slice(dec["blocks"], l)
+        h = layer_norm(p["ln1"], x)
+        qp, kp, vp = _self_qkv(p["attn"], h)
+        q, k, v = (_split_heads(t, H) for t in (qp, kp, vp))
+        logits = torch.einsum("bhqd,bhkd->bhqk", (q * attn_scale(dh)).float(),
+                              k.float())
+        logits = torch.where(causal, logits, NEG)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        att = torch.matmul(probs, v)
+        x = x + dense(p["attn"]["o"], _merge_heads(att).to(x.dtype))
+
+        h = layer_norm(p["ln_cross"], x)
+        q = _split_heads(dense(p["cross"]["q"], h), H)
+        ck = _split_heads(dense(p["cross"]["k"], xa), H)
+        cv = _split_heads(dense(p["cross"]["v"], xa), H)
+        cqk = torch.einsum("bhqd,bhkd->bhqk", (q * attn_scale(dh)).float(),
+                           ck.float())
+        probs = torch.softmax(cqk, dim=-1).to(cv.dtype)
+        att = torch.matmul(probs, cv)
+        x = x + dense(p["cross"]["o"], _merge_heads(att).to(x.dtype))
+
+        h = layer_norm(p["ln2"], x)
+        x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
+    return vocab_logits(dec, x)
+
+
+def init_kv_cache(dims: WhisperDims, batch: int, dtype=torch.float32,
+                  max_len: Optional[int] = None, int8: bool = False,
+                  device="cpu") -> Dict[str, torch.Tensor]:
+    """Self-attention cache for ``decoder_step`` (module docstring)."""
+    T = max_len if max_len is not None else dims.n_text_ctx
+    H = dims.n_text_head
+    dh = dims.n_text_state // H
+    L = dims.n_text_layer
+    if int8:
+        z8 = lambda: torch.zeros((L, batch, H, T, dh), dtype=torch.int8,
+                                 device=device)
+        zs = lambda: torch.zeros((L, batch, H, T), dtype=torch.float32,
+                                 device=device)
+        return {"k8": z8(), "ks": zs(), "v8": z8(), "vs": zs()}
+    return {"kv": torch.zeros((L, batch, 2, H, T, dh), dtype=dtype,
+                              device=device)}
+
+
+def _quant_slab(x: torch.Tensor, fold: float = 1.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, dh) -> int8 (B, H, S, dh) + scales (B, H, S) f32
+    (multiplied by ``fold``, e.g. 1/sqrt(dh) for K)."""
+    q, scale = quantize_kv_per_position(x)           # (B,S,H,dh), (B,S,H)
+    return q.transpose(1, 2), (scale * fold).transpose(1, 2)
+
+
+def precompute_cross_kv(params: Dict[str, Any], xa: torch.Tensor,
+                        dims: WhisperDims) -> Dict[str, torch.Tensor]:
+    """Cross-attention K/V for every layer, (L, B, H, Ta, dh)."""
+    H = dims.n_text_head
+    cross = params["decoder"]["blocks"]["cross"]
+    ks, vs = [], []
+    for l in range(dims.n_text_layer):
+        cp = layer_slice(cross, l)
+        ks.append(_split_heads(dense(cp["k"], xa), H))
+        vs.append(_split_heads(dense(cp["v"], xa), H))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def precompute_cross_kv_int8(params: Dict[str, Any], xa: torch.Tensor,
+                             dims: WhisperDims) -> Dict[str, torch.Tensor]:
+    """int8 cross K/V with per-position scales, in the layout the
+    decoder-layer kernels read: kv8 (L, B, 2, H, Ta, dh) int8, sc
+    (L, B, 2, H, Ta) f32, K scales folding 1/sqrt(dh). Filled layer by
+    layer, so only one layer's float K/V exists at a time."""
+    H = dims.n_text_head
+    dh = dims.n_text_state // H
+    L = dims.n_text_layer
+    B, T, _ = xa.shape
+    rsq = attn_scale(dh)
+    kv8 = torch.empty((L, B, 2, H, T, dh), dtype=torch.int8, device=xa.device)
+    sc = torch.empty((L, B, 2, H, T), dtype=torch.float32, device=xa.device)
+    cross = params["decoder"]["blocks"]["cross"]
+    for l in range(L):
+        cp = layer_slice(cross, l)
+        k8, ks = quantize_kv_per_position(_split_heads(dense(cp["k"], xa), H))
+        v8, vs = quantize_kv_per_position(_split_heads(dense(cp["v"], xa), H))
+        kv8[l, :, 0], kv8[l, :, 1] = k8, v8
+        sc[l, :, 0], sc[l, :, 1] = ks * rsq, vs
+    return {"kv8": kv8, "sc": sc}
+
+
+def _cross_attention_step(cp: Dict[str, Any], h: torch.Tensor,
+                          kv: Dict[str, torch.Tensor], n_head: int
+                          ) -> torch.Tensor:
+    """Cross-attention for one decode step or the prefill: h (B, S, D), the
+    S positions folded into the query group axis."""
+    B, S, D = h.shape
+    dh = D // n_head
+    q4 = dense(cp["q"], h).reshape(B, S, n_head, dh).transpose(1, 2)
+    if "kv8" in kv:
+        att = cross_attention_q8_reference(
+            q4, kv["kv8"][:, 0], kv["sc"][:, 0], kv["kv8"][:, 1],
+            kv["sc"][:, 1])
+    else:
+        logits = torch.einsum("bhgd,bhtd->bhgt", (q4 * attn_scale(dh)).float(),
+                              kv["k"].float())
+        probs = torch.softmax(logits, dim=-1).to(kv["v"].dtype)
+        att = torch.matmul(probs, kv["v"])
+    out = att.transpose(1, 2).reshape(B, S, D).to(h.dtype)
+    return dense(cp["o"], out)
+
+
+def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
+                 cache: Dict[str, torch.Tensor],
+                 cross_kv: Dict[str, torch.Tensor], dims: WhisperDims,
+                 valid_start: Optional[int] = None) -> torch.Tensor:
+    """One KV-cached decoder call (prefill S>1 or step S=1) on B rows.
+
+    tokens (B, S), -1 = left padding; ``pos`` is the cache index of
+    tokens[:, 0]. ``valid_start``: index of the first real token of a
+    left-padded prompt — cache positions before it are masked and the
+    positional embeddings shift by it. Writes the S new K/V into ``cache``
+    in place and returns logits (B, S, n_vocab) f32."""
+    dec = params["decoder"]
+    B, S = tokens.shape
+    H = dims.n_text_head
+    dh = dims.n_text_state // H
+    dev = tokens.device
+    int8_cache = "k8" in cache
+    Tmax = cache["k8"].shape[3] if int8_cache else cache["kv"].shape[4]
+    vs = int(valid_start or 0)
+    steps = torch.arange(S, device=dev)
+    pos_idx = torch.clamp(pos + steps - vs, 0, dims.n_text_ctx - 1)
+    x = dec["tok_emb"][tokens.clamp(min=0)] + dec["pos_emb"][pos_idx]
+    key_idx = torch.arange(Tmax, device=dev)
+    mask = (key_idx[None, :] <= (pos + steps)[:, None]) & (key_idx[None, :] >= vs)
+    maskf = torch.where(mask, 0.0, NEG).float()
+    rsq = attn_scale(dh)
+    blocks = dec["blocks"]
+    for l in range(dims.n_text_layer):
+        p = layer_slice(blocks, l)
+        kv_l = layer_slice(cross_kv, l)
+        h = layer_norm(p["ln1"], x)
+        qp, kp, vp = _self_qkv(p["attn"], h)
+        q = _split_heads(qp, H)                                # (B,H,S,dh)
+        k = kp.reshape(B, S, H, dh)
+        v = vp.reshape(B, S, H, dh)
+        if int8_cache:
+            k8s, kss = _quant_slab(k, fold=rsq)
+            v8s, vss = _quant_slab(v)
+            for key, slab in (("k8", k8s), ("ks", kss), ("v8", v8s),
+                              ("vs", vss)):
+                cache[key][l, :, :, pos:pos + S] = slab
+            logits = torch.einsum("bhsd,bhtd->bhst", q.float(),
+                                  cache["k8"][l].float())
+            logits = logits * cache["ks"][l][:, :, None, :] + maskf
+            pr = torch.softmax(logits, dim=-1) * cache["vs"][l][:, :, None, :]
+            att = torch.einsum("bhst,bhtd->bhsd", pr, cache["v8"][l].float())
+        else:
+            kvc = cache["kv"]
+            kvc[l, :, 0, :, pos:pos + S] = k.transpose(1, 2)
+            kvc[l, :, 1, :, pos:pos + S] = v.transpose(1, 2)
+            logits = torch.einsum("bhsd,bhtd->bhst",
+                                  (q * attn_scale(dh)).float(),
+                                  kvc[l, :, 0].float()) + maskf
+            probs = torch.softmax(logits, dim=-1).to(kvc.dtype)
+            att = torch.matmul(probs, kvc[l, :, 1])
+        x = x + dense(p["attn"]["o"], _merge_heads(att).to(x.dtype))
+
+        h = layer_norm(p["ln_cross"], x)
+        x = x + _cross_attention_step(p["cross"], h, kv_l, H)
+
+        h = layer_norm(p["ln2"], x)
+        x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
+    return vocab_logits(dec, x)

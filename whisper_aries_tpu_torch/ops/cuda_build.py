@@ -1,0 +1,136 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by nvcc into its own shared library with
+a plain C interface and loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
+
+The libraries go to ``whisper_aries_tpu_torch/_build/`` (listed in
+.gitignore) at first use and are rebuilt when a source is newer. The build
+reads only the sources in this package. ``build()`` starts one nvcc per
+source, all at once, so the kernels build in parallel; ptxas' register and
+spill report for each source is kept beside its library as ``<name>.log``.
+
+Nothing here runs at import: the CPU tests import every module, and the
+CPU has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("mel", "encoder_attn", "decode_layers")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _so(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    so = _so(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in
+                 [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return so.stat().st_mtime < newest
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every stale source, one nvcc process each, all started
+    together. Returns {name: seconds} for the sources built; raises with
+    nvcc's output when one fails."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.time()
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so"
+        log = open(BUILD_DIR / f"{n}.log", "w")
+        procs[n] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    done: Dict[str, float] = {}
+    failed = []
+    for n, (p, tmp, log) in procs.items():
+        rc = p.wait()
+        log.close()
+        done[n] = time.time() - t0
+        if rc != 0:
+            failed.append(n)
+            continue
+        os.replace(tmp, _so(n))  # atomic: concurrent builders never see
+        # a half-written library
+    if failed:
+        msgs = "\n".join(
+            f"--- {n} ---\n" + (BUILD_DIR / f"{n}.log").read_text()[-4000:]
+            for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
+    return done
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_so(name)))
+            _libs[name] = lib
+        return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+            device: torch.device = None) -> None:
+    """Validate a CUDA kernel operand before its pointer goes to C."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,88 @@
+"""Window planning: turning a long file into a batch of 30 s decode windows.
+
+This replaces the reference's two-level time-domain chunking (N-minute chunks
+with overlap fed to a worker pool, final_optimized_transcriber.py:422-459;
+faster-whisper's internal sequential 30 s seek loop; SURVEY §5 "long-context")
+with a TPU-first plan: windows are fixed 30 s spans laid out **up front** from
+VAD speech segments, so the whole file becomes one batch over the device
+mesh — no sequential seek dependency, no worker queue.
+
+``plan_windows`` is VAD-aware: it packs speech segments into <=30 s
+windows, bridging small gaps and skipping long silence entirely. (The JAX
+package's fixed-chunk planner comes with the fixed chunking mode.)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+WINDOW_S = 30.0
+
+
+@dataclass(frozen=True)
+class Window:
+    """One decode window: ``[start, end)`` seconds within the source file."""
+
+    start: float
+    end: float
+    chunk_id: int = 0  # which coarse chunk this window belongs to
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+
+def plan_windows(
+    speech_segments: Sequence[Tuple[float, float]],
+    total_duration: float,
+    window_s: float = WINDOW_S,
+    max_gap_bridge_s: float = 3.0,
+) -> List[Window]:
+    """Pack VAD speech segments into fixed-size decode windows.
+
+    Consecutive speech segments are packed into the same window while they
+    fit within ``window_s`` of the window start and the silence gap between
+    them is <= ``max_gap_bridge_s`` (bridging keeps sentence context intact);
+    larger gaps start a new window (skipping silence entirely). A speech
+    segment longer than ``window_s`` is tiled into full windows.
+    """
+    windows: List[Window] = []
+    if not speech_segments:
+        return windows
+
+    cur_start: Optional[float] = None
+    cur_end = 0.0
+    for s, e in speech_segments:
+        s, e = max(0.0, s), min(e, total_duration)
+        if e <= s:
+            continue
+        while True:
+            if cur_start is None:
+                cur_start, cur_end = s, min(e, s + window_s)
+            elif (s - cur_end) <= max_gap_bridge_s and (e - cur_start) <= window_s:
+                cur_end = e
+            elif (s - cur_end) <= max_gap_bridge_s and (s - cur_start) < window_s:
+                # segment starts inside the window but overflows it: fill the
+                # window, then continue with the remainder.
+                cur_end = cur_start + window_s
+                windows.append(Window(cur_start, cur_end))
+                s = cur_end
+                cur_start = None
+                if e - s > 1e-6:
+                    continue
+            else:
+                windows.append(Window(cur_start, cur_end))
+                cur_start, cur_end = s, min(e, s + window_s)
+            # tile over-long single segments
+            while cur_end - cur_start >= window_s and cur_end < e:
+                windows.append(Window(cur_start, cur_start + window_s))
+                cur_start = cur_start + window_s
+                cur_end = min(e, cur_start + window_s)
+            break
+    if cur_start is not None and cur_end - cur_start > 1e-6:
+        windows.append(Window(cur_start, cur_end))
+    # With no coarse-chunk structure, each window is its own "chunk" for
+    # downstream reporting/reconciliation (chunk_id mirrors the reference's
+    # per-chunk segment annotation, final_optimized_transcriber.py:331-340).
+    return [Window(w.start, w.end, chunk_id=i) for i, w in enumerate(windows)]
