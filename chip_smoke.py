@@ -13,19 +13,32 @@ caught; a kernel check that fails is printed at once and fails the run
   2. build: compile every kernel from the sources in the checkout, one nvcc
      per source, all in parallel.
   3. kernels: hold each kernel against its plain PyTorch version on the card
-     at the main path's large-v3 shapes (mel at B=8, encoder attention at
+     at the main paths' large-v3 shapes (mel at B=8, encoder attention at
      (8, 20, 1500, 64) bf16, the decoder-layer kernels at R=8 for both
-     self-cache dtypes over several positions), and time kernel, plain
-     version and, where one exists, the one-call PyTorch yardstick; the
-     decode step is also timed at R=30. Errors are taken over max |want|,
-     and where a check names a mistake (keys past T scored, a dropped tail,
-     a missing key), the same error of a plain version making that mistake
-     must exceed the limit.
-  4. slice: transcribe a synthetic ~2-minute WAV (made from a seed) at
-     large-v3 width with seeded random weights through
+     self-cache dtypes over several positions, the grouped int8
+     cross-attention at (8 windows, 20 heads, 5 queries, 1500 keys) and at
+     the prefill's (6 windows, 3 and 15 queries), the beam tail at 8
+     windows x 5 beams x 51866, the beam-cache reorder on the int8
+     self-cache leaves at R=40), and time kernel, plain version and, where
+     one exists, the one-call PyTorch yardstick; the decode step is also
+     held, timed and profiled at the slices' shapes, R=6 (6 windows, greedy)
+     and R=30 (6 windows x 5, beam and best_of), and at R=40 (8 windows x
+     5 beams), each window's rows sharing its cross K/V, and one whole beam
+     step (layers, vocab, tail, reorder) is profiled
+     at R=30 and R=40. Errors are taken over max |want|, and where a check
+     names a mistake (keys past T scored, a dropped tail, a missing key,
+     every window reading window 0's K/V, ties to the highest index), the
+     same error of a plain version making that mistake must exceed the
+     limit.
+  4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
+     at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
      temperature ladder, txt/json/srt), with every launch count set to 0
-     just before and read just after; every kernel must have launched.
+     just before and read just after; every kernel of the path (mel,
+     encoder attention, decoder layers, grouped cross-attention) must have
+     launched.
+  5. beam slice: the same file and weights with config decode.beam_size=5;
+     all six kernels must have launched, counted from 0 again.
 The second-to-last lines are the card line and the kernels JSON; the last
 line is {"ok": true, "device": {...}}. Outputs go to chip_smoke_out/.
 
@@ -257,13 +270,15 @@ def kernel_encoder_attn(dev, entries):
         shape=f"q, k, v ({B}, {H}, {T}, {dh}) bf16; one call per layer"))
 
 
-def decode_inputs(dev, R, P, self_int8, seed=0):
-    """Large-v3 decoder-layer operands at R rows: int8-packed random
-    weights (LayerNorm and bias segments perturbed so they matter), int8
-    cross K/V from random encoder output, a self cache holding P random
-    positions. Cross-attention's output scale is raised 30x: at random
-    init its update to x is ~0.01, under one bf16 step of x, and no check
-    of x could see it; raised, it is about as large as the MLP's."""
+def decode_inputs(dev, R, P, self_int8, seed=0, windows=None):
+    """Large-v3 decoder-layer operands at R rows over ``windows`` windows
+    (R by default; R / windows beams per window share its cross K/V):
+    int8-packed random weights (LayerNorm and bias segments perturbed so
+    they matter), int8 cross K/V from random encoder output, a self cache
+    holding P random positions. Cross-attention's output scale is raised
+    30x: at random init its update to x is ~0.01, under one bf16 step of
+    x, and no check of x could see it; raised, it is about as large as the
+    MLP's."""
     import torch
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
@@ -279,7 +294,7 @@ def decode_inputs(dev, R, P, self_int8, seed=0):
     vec[:, :int(offs[12])] += 0.02 * torch.randn(
         vec[:, :int(offs[12])].shape, generator=g, device=dev)
     vec[:, int(offs[15]):int(offs[16])] *= 30.0
-    xa = torch.randn((R, dims.n_audio_ctx, d), generator=g,
+    xa = torch.randn((windows or R, dims.n_audio_ctx, d), generator=g,
                      device=dev).to(torch.bfloat16)
     cross = W.precompute_cross_kv_int8(params, xa, dims)
     L, H, T = dims.n_text_layer, dims.n_text_head, 448
@@ -306,16 +321,17 @@ def tail_dropped(cross, keep: int = 1472):
     return dict(cross, kv8=kv8)
 
 
-def step_bound(dims, R, pos, self_int8):
-    """Least time of one decode step (all layers): int8 weights, int8 cross
-    K/V with scales, the live self cache, x in and out, each moved once;
-    or the products at the bf16 peak, whichever is longer."""
+def step_bound(dims, R, pos, self_int8, windows=None):
+    """Least time of one decode step (all layers): int8 weights, the
+    windows' int8 cross K/V with scales, the live self cache, x in and out,
+    each moved once; or the products at the bf16 peak, whichever is
+    longer."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     ff, Ta = 4 * d, dims.n_audio_ctx
     w_bytes = L * (d * 6 * d + 2 * d * ff + DL.vec_offsets(d, ff)[1] * 4)
-    cross_bytes = L * R * 2 * H * Ta * (64 + 4)
+    cross_bytes = L * (windows or R) * 2 * H * Ta * (64 + 4)
     elt = 1 if self_int8 else 2
     live = pos + 1
     self_bytes = L * R * 2 * H * live * (64 * elt + (4 if self_int8 else 0))
@@ -440,31 +456,68 @@ def kernel_decode_layers(dev, entries, parts):
             profile_step(f"R {R}", lambda: DL.fused_decoder_layers(
                 x, wpack, ck, cross, 0, pos, H))
             del params, cross, cache, ck, cp, cm, cross_m
-            entry.update(step_at_rows(dev, 30, P, pos))
+            # the slices' 6 windows: greedy (1 row each), the ladder's
+            # best_of 5 and beam 5 (5 rows each); beam 5 over a full batch
+            # of 8 windows
+            for rows, windows in ((6, 6), (30, 6), (40, 8)):
+                entry.update(step_at_rows(dev, rows, P, pos, windows, parts))
             entries.append(entry)
         else:
             parts.append(dict(entry, name="decode_layers[bf16 self cache]"))
 
 
-def step_at_rows(dev, R, P, pos):
-    """The int8-self-cache step at R rows (the fallback ladder's best_of 5
-    runs up to ~30 rows), timed and profiled: the GEMMs read each weight
-    byte once whatever R is."""
+def step_at_rows(dev, R, P, pos, windows, parts):
+    """The int8-self-cache step at R rows over ``windows`` windows (their
+    rows sharing the windows' cross K/V): held against its plain version
+    teacher-forced per layer, as at R = 8, then timed and profiled. The
+    launcher picks its cross-attention instantiation from the rows per
+    window and the block count (windows x 20 heads against the SMs), so
+    each slice's shape is held at its own. The named mistake: every row
+    reading window 0's K/V (at one window per row, window 0's rows then
+    agree, so it is measured over the other windows' rows)."""
     import torch
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
-    dims, _, wpack, cross, cache, g = decode_inputs(dev, R, P, True, seed=1)
-    H = dims.n_text_head
+    dims, _, wpack, cross, cache, g = decode_inputs(dev, R, P, True, seed=1,
+                                                    windows=windows)
+    H, L = dims.n_text_head, dims.n_text_layer
+    sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+    wrong_cross = {k: v[:, :1].expand_as(v).contiguous()
+                   for k, v in cross.items()}
+    later = slice(R // windows, None)  # the rows of windows 1..
+    ck, cp, cm = clone(cache), clone(cache), clone(cache)
+    errs = {"max_rel": 0.0, "mean_rel": 0.0}
+    mistake = {"mean_rel": math.inf}
+    for l in range(L):
+        xin = (0.25 * torch.randn((R, dims.n_text_state), generator=g,
+                                  device=dev)).to(torch.bfloat16)
+        got = DL.fused_decoder_layers(xin, sl(wpack, l), sl(ck, l),
+                                      sl(cross, l), 0, P, H)
+        want = DL.fused_decoder_layers_plain(xin, sl(wpack, l), sl(cp, l),
+                                             sl(cross, l), 0, P, H)
+        wrong = DL.fused_decoder_layers_plain(xin, sl(wpack, l), sl(cm, l),
+                                              sl(wrong_cross, l), 0, P, H)
+        errs["max_rel"] = max(errs["max_rel"], max_rel(got, want))
+        errs["mean_rel"] = max(errs["mean_rel"], mean_rel(got, want, xin))
+        mistake["mean_rel"] = min(mistake["mean_rel"], mean_rel(
+            wrong[later], want[later], xin[later]))
+    del ck, cp, cm, wrong_cross
+    tols = {"max_rel": 3e-2, "mean_rel": 1e-2}
+    label = f"R {R} = {windows} windows x {R // windows}"
+    out = held(f"decode_layers[int8 self cache, {label}] x, {L} layers",
+               errs, tols, mistake)
+    parts.append(dict(name=f"decode_layers[{label}]", **out))
     x = torch.randn((R, dims.n_text_state), generator=g,
                     device=dev).to(torch.bfloat16)
     step = lambda: DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos, H)
     ms = time_ms(step, 20)
-    profile_step(f"R {R}", step)
-    b_ms, _ = step_bound(dims, R, pos, True)
+    profile_step(label, step)
+    b_ms, _ = step_bound(dims, R, pos, True, windows)
     return {f"ms_at_r{R}": ms, f"bound_ms_at_r{R}": b_ms}
 
 
-def profile_step(label: str, step, n: int = 5) -> None:
+def profile_step(label: str, step, n: int = 5,
+                 what: str = "decode step") -> None:
     """Device time by kernel over n decode steps (torch.profiler), and the
     device's busy share of the wall time of those steps."""
     import torch
@@ -489,12 +542,12 @@ def profile_step(label: str, step, n: int = 5) -> None:
         rows.append((ev.key, dev_us / 1e3 / n, ev.count // n))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile decode step {label} " + json.dumps({
+    print(f"profile {what} {label} " + json.dumps({
         "wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
         "device_busy_share": busy / wall_ms if wall_ms else None,
         "kernels": [{"name": k.replace("(anonymous namespace)::", "")
                      .split("(")[0], "ms_per_step": ms,
-                     "launches_per_step": c} for k, ms, c in rows[:8]]}),
+                     "launches_per_step": c} for k, ms, c in rows[:12]]}),
         flush=True)
 
 
@@ -591,11 +644,318 @@ def decode_parts(dev, wpack, cross, cache, H, g, parts):
             lambda: DL.self_attn_kernel(qkv, ck, pos, 0, H),
             lambda: DL.self_attn_plain(qkv, cp, pos, 0, H), wrong)
     kv8, sc = cross["kv8"][0], cross["sc"][0]
-    rec("cross_attn_q8", DL.cross_attn_kernel(x, kv8, sc, H),
-        DL.cross_attn_plain(x, kv8, sc, H),
-        lambda: DL.cross_attn_kernel(x, kv8, sc, H),
+    rec("cross_attn_q8[bf16 out, step layout]",
+        step_cross_kernel(x, kv8, sc, H), DL.cross_attn_plain(x, kv8, sc, H),
+        lambda: step_cross_kernel(x, kv8, sc, H),
         lambda: DL.cross_attn_plain(x, kv8, sc, H),
         DL.cross_attn_plain(x, tail_dropped(cross)["kv8"][0], sc, H))
+
+
+def step_cross_kernel(cq, kv8_l, sc_l, H):
+    """The decode step's cross-attention through the kernel's one entry:
+    cq (R, d) rows window-major over the Bw windows of one layer's packed
+    cross K/V (Bw, 2, H, Ta, 64), bf16 out in the same (R, d) layout."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    R, d = cq.shape
+    Bw = kv8_l.shape[0]
+    heads = lambda t: t.view(Bw, R // Bw, H, d // H).transpose(1, 2)
+    att = torch.empty_like(cq)
+    XA.cross_attention_q8_kernel(heads(cq), kv8_l[:, 0], sc_l[:, 0],
+                                 kv8_l[:, 1], sc_l[:, 1], out=heads(att))
+    return att
+
+
+def cross_case(dev, Bw, G, seed):
+    """Grouped cross-attention operands at (Bw windows, 20 heads, G queries,
+    1500 keys): K/V as views of the packed (Bw, 2, H, Ta, 64) cross layout,
+    K scales folding 1/sqrt(dh); distinct peaked queries (x 4) per query
+    slot, bf16, in the strided layout the model hands over ((Bw, G, H, 64)
+    rows transposed to (Bw, H, G, 64))."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    H, T, dh = 20, 1500, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randn((Bw, 2, H, T, dh), generator=g, device=dev).to(
+        torch.bfloat16)
+    kv8, sc = XA.quantize_kv_per_position(kv)
+    sc[:, 0] /= 8.0
+    del kv
+    q = (4 * torch.randn((Bw, G, H, dh), generator=g, device=dev)).to(
+        torch.bfloat16).transpose(1, 2)
+    return q, (kv8[:, 0], sc[:, 0], kv8[:, 1], sc[:, 1])
+
+
+def hold_cross(label, q, args):
+    """The kernel (f32 out) against its plain version; each named mistake
+    (the last 28 keys dropped, every window reading window 0's K/V) must
+    exceed the limits. Returns the largest |error|."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    got = XA.cross_attention_q8_kernel(q, *args)
+    want = XA.cross_attention_q8_reference(q, *args)
+    cut = XA.cross_attention_q8_reference(q, *(a[:, :, :1472] for a in args))
+    win0 = XA.cross_attention_q8_reference(
+        q, *(a[:1].expand_as(a) for a in args))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"cross-attention kernel output is not finite ({label})")
+    # f32 out from the same f32 products summed in another order: ~1e-7
+    tols = {"max_rel": 1e-4, "mean_rel": 1e-5}
+    errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
+    for name, wrong in (("last 28 keys dropped", cut),
+                        ("every window reads window 0", win0)):
+        held(f"cross_attn_q8[{label}, {name}]", errs, tols,
+             {"max_rel": max_rel(wrong, want),
+              "mean_rel": mean_rel(wrong, want)})
+    return float((got - want).abs().max()), tols
+
+
+def kernel_cross_attn(dev, entries):
+    """The grouped int8 cross-attention kernel, f32 out (its standalone
+    entry; the step runs the same device code with a bf16 out, held in the
+    step checks): at the beam step's shape, 8 windows x 20 heads x 5
+    queries over 1500 keys, and at the slices' prefill shapes over their 6
+    windows, G = P = 3 (greedy and beam, once per window) and G = best_of
+    x P = 15 (the fallback ladder). Each shape takes its own instantiation
+    (queries per chunk, blocks per SM)."""
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    Bw, H, G, T, dh = 8, 20, 5, 1500, 64
+    q, args = cross_case(dev, Bw, G, 4)
+    err, tols = hold_cross(f"{Bw} windows x {G}", q, args)
+    ms = time_ms(lambda: XA.cross_attention_q8_kernel(q, *args), 20)
+    plain_ms = time_ms(lambda: XA.cross_attention_q8_reference(q, *args), 5)
+
+    def cross_bound(Bw, G):
+        nbytes = Bw * H * T * 2 * (dh + 4) + Bw * H * G * dh * (2 + 4)
+        return bound(nbytes, 4 * Bw * H * G * T * dh, PEAK_F32)
+
+    b_ms, b_by = cross_bound(Bw, G)
+    extra = {}
+    for Gp in (3, 15):
+        qp, ap = cross_case(dev, 6, Gp, 40 + Gp)
+        e, _ = hold_cross(f"prefill, 6 windows x {Gp}", qp, ap)
+        err = max(err, e)
+        extra[f"ms_at_g{Gp}_6_windows"] = time_ms(
+            lambda: XA.cross_attention_q8_kernel(qp, *ap), 20)
+        extra[f"bound_ms_at_g{Gp}_6_windows"] = cross_bound(6, Gp)[0]
+        del qp, ap
+    entries.append(dict(
+        name="cross_attn_q8", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/cross_attn.cu",
+        replaces="whisper_aries_tpu/ops/pallas_cross_attn.py:50",
+        also_replaces="whisper_aries_tpu/ops/pallas_cross_attn.py:115",
+        max_abs_err=err, tolerance=tols, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="none: no one PyTorch call attends over int8 K/V "
+                     "with per-position scales",
+        shape=f"q ({Bw}, {H}, {G}, {dh}) bf16, K/V ({Bw}, {H}, {T}, {dh}) "
+              "int8 + f32 scales; also inside every decode step",
+        **extra))
+
+
+def large_v3_ids():
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.pipeline.engine import DummyTokenizer
+
+    return G.DecodeSpecialIds.from_tokenizer(DummyTokenizer(51866))
+
+
+def tail_inputs(dev, B, K, V, ids, seed):
+    """Logits and a beam state that reaches every branch of the grammar:
+    fresh rows, open pairs, closed pairs, a monotonic floor, dead beams;
+    1% of the vocabulary suppressed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    neg = float(np.finfo(np.float32).min)
+    tsb = ids.timestamp_begin
+    logits = 3 * torch.randn((B * K, V), generator=g, device=dev)
+    sum_lp = 2 * torch.randn((B, K), generator=g, device=dev)
+    sum_lp[torch.rand((B, K), generator=g, device=dev) < 0.2] = neg
+    sum_lp[:, 0] = torch.randn((B,), generator=g, device=dev)  # one live
+    pick = lambda vals: torch.as_tensor(vals, device=dev)[torch.randint(
+        0, len(vals), (B, K), generator=g, device=dev)]
+    last = pick([100, 221, tsb + 3, tsb + 40])
+    pen = pick([-1, 50, tsb + 2, tsb + 39])
+    mts = pick([-1, tsb + 5, tsb + 90])
+    sup = torch.where(torch.rand((V,), generator=g, device=dev) < 0.01,
+                      neg, 0.0)
+    return logits, sum_lp, last, pen, mts, sup
+
+
+def kernel_beam_tail(dev, entries):
+    """The beam-tail kernel at 8 windows x 5 beams x 51866, with and
+    without timestamps, at the first and a later position; a tie planted
+    across beams 1 and 3 of window 0 must go to beam 1."""
+    import torch
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+
+    B, K = 8, 5
+    ids = large_v3_ids()
+    V = ids.n_vocab
+    kw = dict(tsb=ids.timestamp_begin, eot=ids.eot, blank=ids.blank,
+              no_ts=ids.no_timestamps,
+              init_cap=ids.timestamp_begin + ids.max_initial_timestamp_index)
+    logits, sum_lp, last, pen, mts, sup = tail_inputs(dev, B, K, V, ids, 5)
+    logits[3] = logits[1]
+    sum_lp[0, 1] = sum_lp[0, 3] = 20.0  # the tie leads every case
+    for st, fresh in ((last, 100), (pen, -1), (mts, -1)):
+        st[0, 1] = st[0, 3] = fresh  # the same (text) state on both
+    rev = lambda t: t.reshape(B, K, -1).flip(1).reshape(t.shape)
+    worst = {"score_rel": 0.0, "idx_mismatch": 0.0}
+    worst_abs = 0.0
+    tie_ok = True
+    for with_ts, is_first in ((True, False), (True, True), (False, False)):
+        args = (logits, sum_lp, last, pen, mts, sup, is_first, K)
+        got = BT.beam_tail_kernel(*args, with_timestamps=with_ts, **kw)
+        want = BT.beam_tail_plain(*args, with_timestamps=with_ts, **kw)
+        torch.cuda.synchronize()
+        worst["idx_mismatch"] = max(worst["idx_mismatch"], float(
+            (got[1] != want[1]).float().mean()))
+        for a, b in ((got[0], want[0]), (got[2], want[2])):
+            fin = b.abs() < 1e30
+            if not torch.equal(a[~fin], b[~fin]):
+                worst["score_rel"] = math.inf
+            if bool(fin.any()):
+                d = float((a - b)[fin].abs().max())
+                worst_abs = max(worst_abs, d)
+                worst["score_rel"] = max(worst["score_rel"],
+                                         d / float(b[fin].abs().max()))
+        # the mistake: ties to the highest flat index (the plain version on
+        # the beams in reverse order, its indices mapped back)
+        r = BT.beam_tail_plain(rev(logits), rev(sum_lp), rev(last), rev(pen),
+                               rev(mts), sup, is_first, K,
+                               with_timestamps=with_ts, **kw)[1]
+        wrong = (K - 1 - r // V) * V + r % V
+        tie_ok &= bool((got[1][0, :2] // V).tolist() == [1, 3])
+        tie_ok &= not torch.equal(wrong, want[1])
+    held("beam_tail[8 x 5 x 51866]", worst,
+         {"score_rel": 1e-5, "idx_mismatch": 1e-9})
+    check("beam_tail[planted tie to the lowest flat index]", tie_ok,
+          "beam 1 before beam 3; ties to the highest index give other "
+          "top_idx")
+    args = (logits, sum_lp, last, pen, mts, sup, False, K)
+    ms = time_ms(lambda: BT.beam_tail_kernel(*args, **kw), 20)
+    plain_ms = time_ms(lambda: BT.beam_tail_plain(*args, **kw), 5)
+    nbytes = B * K * V * 4 + V * 4 + B * K * (4 + 3 * 8) + B * K * 16
+    b_ms, b_by = bound(nbytes, 12 * B * K * V, PEAK_F32)
+    entries.append(dict(
+        name="beam_tail", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/beam_tail.cu",
+        replaces="whisper_aries_tpu/ops/pallas_beam_tail.py:174",
+        max_abs_err=worst_abs, tolerance="top_idx identical; "
+        "scores within 1e-5 of max |want|", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="none: no one PyTorch call filters, normalises and "
+                     "takes the top-K with first-index ties",
+        shape=f"logits ({B * K}, {V}) f32, state ({B}, {K})"))
+
+
+def kernel_reorder(dev, entries):
+    """The reorder kernel on the int8 self-cache leaves of the beam slice
+    (R = 40 rows = 8 windows x 5 beams, T = 3 + 224): bit for bit the plain
+    gather, in place."""
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+
+    dims = W.PRESETS["large-v3"]
+    B, K, T = 8, 5, 3 + 224
+    L, H = dims.n_text_layer, dims.n_text_head
+    g = torch.Generator(device=dev).manual_seed(6)
+    cache = {"kv8": torch.randint(-127, 128, (L, B * K, 2, H, T, 64),
+                                  generator=g, device=dev,
+                                  dtype=torch.int8),
+             "ksc": torch.rand((L, B * K, 2, H, T), generator=g,
+                               device=dev)}
+    src = torch.randint(0, K, (B, K), generator=g, device=dev,
+                        dtype=torch.int32)
+    src[0] = torch.arange(K, device=dev)  # a window that keeps its beams
+    want = {k: BR.permute_rows_plain(v.clone(), src) for k, v in
+            cache.items()}
+    got = BR.permute_cache_rows(clone(cache), src)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k], want[k]) for k in cache)
+    check("beam_reorder[int8 self cache, R 40]", same,
+          "kv8 and ksc identical to the plain gather")
+    # timed where every row moves (each beam takes its left neighbour's
+    # history: the kernel's most work); the random map above, with its
+    # kept rows, timed beside with the bytes that map needs
+    roll = torch.roll(torch.arange(K, device=dev, dtype=torch.int32), 1)
+    roll = roll[None].expand(B, K).contiguous()
+    work = clone(cache)
+    ms = time_ms(lambda: BR.permute_cache_rows(work, roll), 20)
+    ms_random = time_ms(lambda: BR.permute_cache_rows(work, src), 20)
+    plain_ms = time_ms(lambda: {k: BR.permute_rows_plain(v, roll)
+                                for k, v in work.items()}, 5)
+    flat = (torch.arange(B, device=dev)[:, None] * K + roll.long()).reshape(-1)
+    lib_ms = time_ms(lambda: [torch.index_select(v, 1, flat)
+                              for v in work.values()], 20)
+    row_bytes = sum(v[0, 0].numel() * v.element_size() for v in cache.values())
+    # every row moves: each read once and written once
+    b_ms, b_by = bound(2 * L * B * K * row_bytes, 0, PEAK_F32)
+    # the random map: the moved rows written, their distinct sources read
+    moved = src != torch.arange(K, device=dev)[None]
+    reads = sum(len(set(src[b][moved[b]].tolist())) for b in range(B))
+    b_random, _ = bound(L * row_bytes * (int(moved.sum()) + reads), 0,
+                        PEAK_F32)
+    entries.append(dict(
+        name="beam_reorder", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/beam_reorder.cu",
+        replaces="whisper_aries_tpu/ops/pallas_beam_reorder.py:37",
+        max_abs_err=0.0 if same else math.inf, tolerance="bitwise",
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms,
+        library_note="torch.index_select along the row axis, out of place",
+        ms_random_map=ms_random, bound_ms_random_map=b_random,
+        rows_moved_random_map=int(moved.sum()),
+        shape=f"kv8 ({L}, {B * K}, 2, {H}, {T}, 64) int8 + ksc f32, "
+              "one launch per leaf, every row moving"))
+
+
+def profile_beam_step(dev, parts, B):
+    """One whole beam step at R = B x 5 rows (B windows x 5 beams),
+    position 116: the decoder-layer kernels (grouped cross-attention
+    inside), the vocab product, the beam tail and the reorder of both cache
+    leaves."""
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    K, P, pos = 5, 4, 116
+    R = B * K
+    dims, params, wpack, cross, cache, g = decode_inputs(dev, R, P, True,
+                                                         seed=7, windows=B)
+    ids = large_v3_ids()
+    V = ids.n_vocab
+    kw = dict(tsb=ids.timestamp_begin, eot=ids.eot, blank=ids.blank,
+              no_ts=ids.no_timestamps,
+              init_cap=ids.timestamp_begin + ids.max_initial_timestamp_index)
+    _, sum_lp, last, pen, mts, sup = tail_inputs(dev, B, K, V, ids, 8)
+    src = torch.roll(torch.arange(K, device=dev, dtype=torch.int32), 1)
+    src = src[None].expand(B, K).contiguous()
+    dec = params["decoder"]
+    x = torch.randn((R, dims.n_text_state), generator=g,
+                    device=dev).to(torch.bfloat16)
+
+    def step():
+        y = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
+                                    dims.n_text_head)
+        logits = W.vocab_logits(dec, y)
+        BT.beam_tail(logits, sum_lp, last, pen, mts, sup, False, K, **kw)
+        BR.permute_cache_rows(cache, src)
+
+    ms = time_ms(step, 10)
+    profile_step(f"R {R} ({B} windows x {K} beams), position {pos}", step,
+                 what="beam step")
+    parts.append(dict(name=f"beam step R {R}", ms=ms))
 
 
 # ---------------------------------------------------------------------------
@@ -605,24 +965,47 @@ def decode_parts(dev, wpack, cross, cache, H, g, parts):
 
 def counters():
     from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
     from whisper_aries_tpu_torch.ops import decode_layers as DL
     from whisper_aries_tpu_torch.ops import mel as M
 
     return {"mel": M.mel_power_kernel,
             "encoder_attn": W.encoder_attention_kernel,
-            "decode_layers": DL.fused_decoder_layers}
+            "decode_layers": DL.fused_decoder_layers,
+            "cross_attn_q8": XA.cross_attention_q8_kernel,
+            "beam_tail": BT.beam_tail_kernel,
+            "beam_reorder": BR.permute_rows_kernel}
 
 
-def slice_phase(dev):
+# the kernels each slice's path must launch
+PATH_KERNELS = {
+    "greedy": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8"),
+    "beam": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+             "beam_tail", "beam_reorder"),
+}
+
+
+def slice_phase(dev, path: str):
+    """transcribe_file on the synthetic WAV at large-v3 width, seeded
+    random weights; ``path`` "greedy" (config defaults) or "beam"
+    (decode.beam_size 5). Launch counts are set to 0 just before and read
+    just after."""
     import torch
     from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.config import load_config
     from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
 
     OUT.mkdir(parents=True, exist_ok=True)
     wav = OUT / "synthetic_2min.wav"
-    write_wav(str(wav), synth_audio(125.0, seed=7))
+    if not wav.exists():
+        write_wav(str(wav), synth_audio(125.0, seed=7))
+    out_dir = OUT / path
+    over = {"decode.beam_size": 5} if path == "beam" else {}
     t0 = time.time()
-    eng = AriesTranscriber("large-v3", allow_random=True)  # seed 0
+    eng = AriesTranscriber("large-v3", allow_random=True,  # seed 0
+                           config=load_config(overrides=over))
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     if not (eng.fused and eng.kv_int8 and eng.self_kv_int8):
@@ -632,40 +1015,49 @@ def slice_phase(dev):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = eng.transcribe_file(str(wav), output_formats=("txt", "json", "srt"),
-                              output_dir=str(OUT))
+                              output_dir=str(out_dir))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: fn.launches for k, fn in counters().items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decodes = res["performance"].get("decodes", [])
     if res["num_windows"] < 1 or not decodes:
-        fail("no window was decoded")
-    for k, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+        fail(f"{path}: no window was decoded")
+    for k in PATH_KERNELS[path]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the {path} path")
     for s in res["segments"]:
         if not (math.isfinite(s["avg_logprob"])
                 and math.isfinite(s["no_speech_prob"])
                 and 0.0 <= s["start"] < s["end"] <= res["duration"] + 1e-6):
-            fail(f"malformed segment {s}")
-    for fmt, path in res["output_files"].items():
-        if not Path(path).exists():
-            fail(f"{fmt} output missing")
+            fail(f"{path}: malformed segment {s}")
+    for fmt, p in res["output_files"].items():
+        if not Path(p).exists():
+            fail(f"{path}: {fmt} output missing")
+    main_pass = [d for d in decodes if d["temperature"] == 0.0]
+    if path == "beam" and not all(d["beam_size"] == 5 for d in main_pass):
+        fail("the beam slice did not decode by beam search")
     steps = sum(d["steps"] for d in decodes)
     rows_steps = sum(d["steps"] * d["rows"] for d in decodes)
     dec_s = sum(d["seconds"] for d in decodes)
-    first = decodes[0]
     summary = dict(
         audio_s=res["duration"], windows=res["num_windows"],
         segments=len(res["segments"]), wall_s=wall, setup_s=setup_s,
         decode_calls=len(decodes), decode_steps=steps,
-        tokens_per_step=rows_steps / max(1, steps),
+        rows_per_step=rows_steps / max(1, steps),
         decode_s=dec_s, ms_per_step=1e3 * dec_s / max(1, steps),
-        first_decode=first, launches=launches, peak_mem_gb=peak_gb,
+        main_pass=[{k: d[k] for k in ("rows", "windows", "steps", "seconds")
+                    + (("permuted",) if "permuted" in d else ())}
+                   for d in main_pass],
+        permuting_steps=sum(d.get("permuted", 0) for d in decodes),
+        launches=launches, peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
-    print("slice " + json.dumps(summary), flush=True)
-    (OUT / "slice.json").write_text(json.dumps(
+    tag = "slice" if path == "greedy" else "slice_beam"
+    print(f"{tag} " + json.dumps(summary), flush=True)
+    (OUT / f"{tag}.json").write_text(json.dumps(
         dict(summary, decodes=decodes), indent=2))
+    del eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -699,12 +1091,21 @@ def main() -> None:
     kernel_mel(dev, entries)
     kernel_encoder_attn(dev, entries)
     kernel_decode_layers(dev, entries, parts)
+    kernel_cross_attn(dev, entries)
+    kernel_beam_tail(dev, entries)
+    kernel_reorder(dev, entries)
+    for B in (6, 8):  # the slice's 6 windows; a full batch of 8
+        profile_beam_step(dev, parts, B)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
-    launches = slice_phase(dev)
+    launches = {path: slice_phase(dev, path) for path in PATH_KERNELS}
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        # the launches of the slice that first needs the kernel; both
+        # paths' counts beside
+        path = "greedy" if e["name"] in PATH_KERNELS["greedy"] else "beam"
+        e["launches"] = launches[path][e["name"]]
+        e["launches_by_path"] = {p: n[e["name"]] for p, n in launches.items()}
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "kernels.json").write_text(json.dumps(entries, indent=2))
     print(json.dumps({"kernels": entries}), flush=True)

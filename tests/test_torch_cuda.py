@@ -149,8 +149,23 @@ def test_decoder_layer_parts(small, R):
     xa = torch.randn((R, 96, 128), generator=g, device=dev).to(torch.bfloat16)
     cross = W.precompute_cross_kv_int8(params, xa, dims)
     assert _bf16_close(
-        DL.cross_attn_kernel(x, cross["kv8"][0], cross["sc"][0], 2),
+        _step_cross_kernel(x, cross["kv8"][0], cross["sc"][0], 2),
         DL.cross_attn_plain(x, cross["kv8"][0], cross["sc"][0], 2))
+
+
+def _step_cross_kernel(cq, kv8_l, sc_l, H):
+    """The decode step's cross-attention (bf16 out, rows window-major over
+    one layer's packed (Bw, 2, H, Ta, 64) cross K/V) through the grouped
+    kernel's entry."""
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    R, d = cq.shape
+    Bw = kv8_l.shape[0]
+    heads = lambda t: t.view(Bw, R // Bw, H, d // H).transpose(1, 2)
+    att = torch.empty_like(cq)
+    XA.cross_attention_q8_kernel(heads(cq), kv8_l[:, 0], sc_l[:, 0],
+                                 kv8_l[:, 1], sc_l[:, 1], out=heads(att))
+    return att
 
 
 @pytest.mark.parametrize("self_int8", [False, True])
@@ -215,3 +230,194 @@ def test_engine_runs_the_kernels(dev, tmp_path):
     res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=8)
     assert res["num_windows"] >= 1
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+# ---------------------------------------------------------------------------
+# the beam path's kernels: grouped int8 cross-attention, beam tail, reorder
+# ---------------------------------------------------------------------------
+
+
+def _hold_grouped_cross(dev, B, H, G, T, qdtype):
+    """G queries per window over shared int8 K/V, as views of the packed
+    (B, 2, H, T, 64) cross layout. f32 output, sums in another order than
+    the plain version's: within 1e-5 of max |want|; the last 28 keys
+    dropped move it by far more."""
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    g = torch.Generator(device=dev).manual_seed(G)
+    kv = torch.randn((B, 2, H, T, 64), generator=g, device=dev)
+    kv8, sc = XA.quantize_kv_per_position(kv)
+    sc[:, 0] /= 8.0
+    q = (4 * torch.randn((B, G, H, 64), generator=g, device=dev)).to(
+        qdtype).transpose(1, 2)  # strided, as the model hands it over
+    args = (kv8[:, 0], sc[:, 0], kv8[:, 1], sc[:, 1])
+    n = XA.cross_attention_q8_kernel.launches
+    got = XA.cross_attention_q8(q, *args)
+    assert XA.cross_attention_q8_kernel.launches == n + 1
+    want = XA.cross_attention_q8_reference(q, *args)
+    assert _rel(got, want) < 1e-5
+    if T > 28:
+        cut = [a[:, :, :T - 28] for a in args]
+        wrong = XA.cross_attention_q8_reference(q, *cut)
+        assert _rel(wrong, want) > 1e-3
+
+
+@pytest.mark.parametrize("G,T,qdtype", [(1, 40, torch.float32),
+                                        (5, 1500, torch.float32),
+                                        (5, 1500, torch.bfloat16),
+                                        (12, 97, torch.float32),
+                                        (20, 300, torch.bfloat16),
+                                        (3, 1500, torch.bfloat16)])
+def test_grouped_cross_attention_kernel(dev, G, T, qdtype):
+    """3 windows x 2 heads (one block per SM): G = 1, 3, 5 take query
+    chunks of 1, 4 and 8; G = 12 and 20 run in chunks of 16."""
+    _hold_grouped_cross(dev, 3, 2, G, T, qdtype)
+
+
+@pytest.mark.parametrize("G", [1, 3, 5])
+def test_grouped_cross_attention_two_blocks_per_sm(dev, G):
+    """More blocks than the card has SMs (70 windows x 2 heads = 140 > 132
+    on an H100) takes the two-blocks-per-SM instantiation of each query
+    chunk up to 8."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = sms // 2 + 4
+    _hold_grouped_cross(dev, B, 2, G, 1500, torch.bfloat16)
+
+
+def test_grouped_cross_attention_in_the_step(small):
+    """The decode step's cross-attention (bf16 out) at G = 5 rows per
+    window over Bw = 2 windows, and the whole step against its plain
+    version on grouped rows."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    Bw, G = 2, 5
+    R = Bw * G
+    xa = torch.randn((Bw, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    cq = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+    assert _bf16_close(
+        _step_cross_kernel(cq, cross["kv8"][0], cross["sc"][0], 2),
+        DL.cross_attn_plain(cq, cross["kv8"][0], cross["sc"][0], 2))
+    kv = torch.zeros((2, R, 2, 2, 16, 64), dtype=torch.bfloat16, device=dev)
+    kv[..., :3, :] = torch.randn((2, R, 2, 2, 3, 64), generator=g,
+                                 device=dev).to(torch.bfloat16)
+    q8, sc = DL.quantize_heads(kv)
+    ck = {"kv8": q8.clone(), "ksc": sc.clone()}
+    cp = {"kv8": q8.clone(), "ksc": sc.clone()}
+    x = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+    got = DL.fused_decoder_layers(x, wpack, ck, cross, 0, 3, 2)
+    want = DL.fused_decoder_layers_plain(x, wpack, cp, cross, 0, 3, 2)
+    assert _rel(got, want) < 3e-2 and _mean_rel(got, want, x) < 1e-2
+
+
+F32_MIN = float(np.finfo(np.float32).min)  # the masked logit
+
+
+def _tail_inputs(dev, B, K, V, tsb, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = 3 * torch.randn((B * K, V), generator=g, device=dev)
+    sum_lp = 2 * torch.randn((B, K), generator=g, device=dev)
+    sum_lp[torch.rand((B, K), generator=g, device=dev) < 0.2] = F32_MIN
+    pick = lambda vals: torch.as_tensor(vals, device=dev)[
+        torch.randint(0, len(vals), (B, K), generator=g, device=dev)]
+    last = pick([100, 221, tsb + 3, tsb + 40])
+    pen = pick([-1, 50, tsb + 2, tsb + 39])
+    mts = pick([-1, tsb + 5, tsb + 90])
+    sup = torch.where(torch.rand((V,), generator=g, device=dev) < 0.01,
+                      F32_MIN, 0.0)
+    return logits, sum_lp, last, pen, mts, sup
+
+
+@pytest.mark.parametrize("V,with_ts,is_first", [(1000, True, False),
+                                                (1000, True, True),
+                                                (1000, False, False),
+                                                (51866, True, False),
+                                                (51866, False, True)])
+def test_beam_tail_kernel(dev, V, with_ts, is_first):
+    """The tail kernel against its plain version on the card over the
+    grammar state mix: identical top-K indices, scores within 1e-5 of max
+    |want|; a planted tie across two beams goes to the lower index."""
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+
+    B, K = 3, 5
+    tsb = V - 1501 if V > 2000 else 808
+    ids = dict(tsb=tsb, eot=tsb - 8, blank=220, no_ts=tsb - 1,
+               init_cap=tsb + 50)
+    logits, sum_lp, last, pen, mts, sup = _tail_inputs(dev, B, K, V, tsb, V)
+    logits[3] = logits[1]  # window 0: beams 1 and 3 tie exactly
+    sum_lp[0, 1] = sum_lp[0, 3] = 5.0
+    for state, fresh in ((last, 100), (pen, -1), (mts, -1)):
+        state[0, 1] = state[0, 3] = fresh  # the same (text) state
+    args = (logits, sum_lp, last, pen, mts, sup, is_first, K)
+    n = BT.beam_tail_kernel.launches
+    got = BT.beam_tail(*args, with_timestamps=with_ts, **ids)
+    assert BT.beam_tail_kernel.launches == n + 1
+    want = BT.beam_tail_plain(*args, with_timestamps=with_ts, **ids)
+    assert torch.equal(got[1], want[1])
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        fin = b.abs() < 1e30  # masked scores are f32 min or -inf
+        assert torch.equal(a[~fin], b[~fin])
+        if bool(fin.any()):
+            scale = float(b[fin].abs().max())
+            assert float((a - b)[fin].abs().max()) <= 1e-5 * scale
+    beams = (got[1][0] // V).tolist()
+    assert beams[:2] == [1, 3]
+
+
+@pytest.mark.parametrize("dtype,tail", [(torch.int8, (2, 3, 7, 64)),
+                                        (torch.float32, (2, 3, 7)),
+                                        (torch.bfloat16, (2, 3, 7, 64)),
+                                        (torch.int8, (3, 5)),
+                                        (torch.bfloat16, (1, 3))])
+def test_reorder_kernel_bitwise(dev, dtype, tail):
+    """In place, every leaf type and row length (16-, 4- and 1-byte
+    moves): bit for bit the plain gather."""
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+
+    B, K = 3, 5
+    g = torch.Generator(device=dev).manual_seed(0)
+    src = torch.randint(0, K, (B, K), generator=g, device=dev)
+    src[1] = torch.arange(K, device=dev)  # one window keeps its order
+    x = torch.randn((4, B * K) + tail, generator=g, device=dev)
+    x = (x * 50).to(dtype) if dtype == torch.int8 else x.to(dtype)
+    want = BR.permute_rows_plain(x.cpu(), src.cpu())
+    n = BR.permute_rows_kernel.launches
+    ptr = x.data_ptr()
+    BR.permute_cache_rows({"a": x}, src)
+    torch.cuda.synchronize()
+    assert BR.permute_rows_kernel.launches == n + 1 and x.data_ptr() == ptr
+    assert torch.equal(x.cpu(), want)
+
+
+def test_engine_beam_runs_the_kernels(dev, tmp_path):
+    """A tiny engine with beam 5 on the card goes through the grouped
+    cross-attention, beam-tail and reorder kernels."""
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    dims = W.WhisperDims(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    eng = AriesTranscriber(
+        "tiny-card", _params=W.init_params(dims, seed=0), _dims=dims,
+        config=load_config(overrides={"decode.beam_size": 5}))
+    assert eng.fused and eng.self_kv_int8
+    t = np.arange(16000 * 40) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 200 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    path = str(tmp_path / "a.wav")
+    write_wav(path, x.astype(np.float32))
+    counters = (XA.cross_attention_q8_kernel, BT.beam_tail_kernel,
+                BR.permute_rows_kernel, DL.fused_decoder_layers)
+    before = [c.launches for c in counters]
+    res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=12)
+    assert res["num_windows"] >= 1
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert all(d["beam_size"] == 5 for d in res["performance"]["decodes"])
+

@@ -133,7 +133,7 @@ def test_filters_match_jax():
                 jnp.asarray(logits), JG.DecodeSpecialIds(**IDS),
                 jnp.asarray(mask), jnp.asarray(first), jnp.asarray(last),
                 jnp.asarray(penult), jnp.asarray(maxts), with_ts))
-            got = TG._apply_filters(
+            got = TG.apply_filters(
                 torch.from_numpy(logits), TG.DecodeSpecialIds(**IDS),
                 torch.from_numpy(mask), first, torch.from_numpy(last).long(),
                 torch.from_numpy(penult).long(),

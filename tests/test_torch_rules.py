@@ -89,6 +89,27 @@ def test_cuda_wrappers_reject_cpu_operands_for_kernels():
                              torch.ones(64), torch.zeros(64))
 
 
+def test_beam_kernel_wrappers_reject_cpu_operands():
+    """The grouped cross-attention, beam-tail and reorder kernel entry
+    points refuse CPU tensors too."""
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    q = torch.zeros((1, 2, 5, 64))
+    k8 = torch.zeros((1, 2, 8, 64), dtype=torch.int8)
+    s = torch.ones((1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        XA.cross_attention_q8_kernel(q, k8, s, k8, s)
+    st = torch.zeros((1, 5), dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA"):
+        BT.beam_tail_kernel(torch.zeros((5, 16)), torch.zeros((1, 5)), st, st,
+                            st, torch.zeros(16), False, 5, 10, 9, 1, 8, 12)
+    with pytest.raises(ValueError, match="CUDA"):
+        BR.permute_rows_kernel(torch.zeros((2, 5, 3)),
+                               torch.zeros((1, 5), dtype=torch.int32))
+
+
 def test_config_is_a_copy_of_the_jax_config():
     """Same fields and defaults, so config files work for both."""
     from whisper_aries_tpu import config as jc

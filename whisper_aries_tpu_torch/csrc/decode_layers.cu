@@ -5,7 +5,8 @@
 // runs every decoder layer of one decode step; its golden model is
 // fused_decoder_layers_reference).
 //
-// What one step computes, per layer l, on R rows (one per window):
+// What one step computes, per layer l, on R rows (window-major: G rows,
+// the beams, per window; G = 1 for greedy):
 //   h   = LN1(x)                                   f32 stats, eps 1e-5
 //   qkv = bf16((bf16(h) . W8_qkv) * s + b)           f32 accumulate
 //   append k, v at `pos` to the self cache (int8 cache: quantize per
@@ -14,8 +15,9 @@
 //         [* vs_t], probabilities rounded to bf16, then . v_t
 //   x   = x + bf16(att . W8_o * s + b)
 //   h   = LN_cross(x);  cq = bf16(h . W8_cq * s + b)
-//   atx = softmax_t(cq . k8_t * ks_t) * vs_t . v8_t over the window's
-//         int8 cross K/V (ks folds 1/sqrt(dh))
+//   atx = softmax_t(cq . k8_t * ks_t) * vs_t . v8_t over the row's
+//         window's int8 cross K/V (ks folds 1/sqrt(dh)); the G = R / Bw
+//         rows of a window (its beams) share that window's K/V
 //   x   = x + bf16(atx . W8_co * s + b)
 //   h   = LN2(x);  h1 = bf16(gelu_AS(h . W8_fc1 * s + b))
 //   x   = x + bf16(h1 . W8_fc2 * s + b)
@@ -25,8 +27,9 @@
 // plain version does.
 //
 // Bound on the H100: bytes. At large-v3 (d 1280, ff 5120, L 32) a step
-// streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales at
-// R = 8 and the self cache up to `pos`; the products are ~1.5 GFLOP.
+// streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales for
+// 8 windows (whatever the beams per window) and the self cache up to
+// `pos`; the products are ~1.5 GFLOP at R = 8.
 //
 // Design: the layer loop runs in C (aries_decode_layers), so one call from
 // Python launches the whole step on the caller's stream:
@@ -45,12 +48,14 @@
 //     (quantizing when the cache is int8), then attends over the valid
 //     prefix: warps own positions, lanes own pairs of dims, logits and
 //     probabilities live in shared memory.
-//   * Cross-attention: one block per (row, head) over the 1500 int8 keys;
-//     half-warps own positions and read one 64-byte key row each.
+//   * Cross-attention: the grouped kernel of cross_attn.cuh, one block per
+//     (head, window) over the 1500 int8 keys, each key and value row read
+//     once for all the window's rows.
 // The self and cross caches are dh-minor: (L, R, 2, H, T, 64) with scales
 // (L, R, 2, H, T). Fusing the launches (CUDA graphs, one persistent kernel)
 // and wgmma/TMA come in later changes.
 #include "common.cuh"
+#include "cross_attn.cuh"
 
 namespace {
 
@@ -399,86 +404,36 @@ int run_self_attn(const bf16* qkv, int R, int d, int H, void* cache,
 
 // ------------------------------------------- (d) int8 cross-attention
 
-constexpr int CA_THREADS = 256;
-constexpr int CA_GROUPS = CA_THREADS / 16;  // half-warps
-constexpr int CA_TMAX = 1536;
-
-__global__ void __launch_bounds__(CA_THREADS)
-cross_attn_kernel(const bf16* __restrict__ cq, int d,
-                  const int8_t* __restrict__ kv8,
-                  const float* __restrict__ sc, int H, int Ta,
-                  bf16* __restrict__ att) {
-  __shared__ float lg[CA_TMAX];
-  __shared__ float qs[DH];
-  __shared__ float red[32];
-  __shared__ float pv[CA_GROUPS][DH];
-  const int r = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, hw = tid >> 4, hl = tid & 15;
-  const size_t kb = (((size_t)r * 2 + 0) * H + h) * Ta;
-  const size_t vb = (((size_t)r * 2 + 1) * H + h) * Ta;
-  if (tid < DH) qs[tid] = bf2f(cq[(size_t)r * d + h * DH + tid]);
-  __syncthreads();
-
-  // logits: each half-warp scores one key row (64 int8 = 16 x 4 bytes);
-  // the trip count is uniform per warp so the shuffles see all lanes
-  for (int t0 = 0; t0 < Ta; t0 += CA_GROUPS) {
-    const int t = t0 + hw;
-    float part = 0.f;
-    if (t < Ta) {
-      const char4 kv =
-          *reinterpret_cast<const char4*>(kv8 + (kb + t) * DH + 4 * hl);
-      part = qs[4 * hl] * (float)kv.x;
-      part = fmaf(qs[4 * hl + 1], (float)kv.y, part);
-      part = fmaf(qs[4 * hl + 2], (float)kv.z, part);
-      part = fmaf(qs[4 * hl + 3], (float)kv.w, part);
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (t < Ta && hl == 0) lg[t] = part * sc[kb + t];
-  }
-  __syncthreads();
-
-  float mx = -INFINITY;
-  for (int t = tid; t < Ta; t += CA_THREADS) mx = fmaxf(mx, lg[t]);
-  mx = block_max(mx, red);
-  float sum = 0.f;
-  for (int t = tid; t < Ta; t += CA_THREADS) {
-    const float e = expf(lg[t] - mx);
-    lg[t] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);
-  for (int t = tid; t < Ta; t += CA_THREADS) lg[t] = lg[t] / sum * sc[vb + t];
-  __syncthreads();
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = hw; t < Ta; t += CA_GROUPS) {
-    const char4 vv =
-        *reinterpret_cast<const char4*>(kv8 + (vb + t) * DH + 4 * hl);
-    const float p = lg[t];
-    acc[0] = fmaf(p, (float)vv.x, acc[0]);
-    acc[1] = fmaf(p, (float)vv.y, acc[1]);
-    acc[2] = fmaf(p, (float)vv.z, acc[2]);
-    acc[3] = fmaf(p, (float)vv.w, acc[3]);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) pv[hw][4 * hl + j] = acc[j];
-  __syncthreads();
-  if (tid < DH) {
-    float o = 0.f;
-#pragma unroll
-    for (int g = 0; g < CA_GROUPS; ++g) o += pv[g][tid];
-    att[(size_t)r * d + h * DH + tid] = f2bf(o);
-  }
-}
-
+// The grouped int8 cross-attention of cross_attn.cuh with a bf16 output:
+// cq (R, d) with R = Bw * G rows, window-major (the G beams of a window
+// contiguous), over the Bw windows' K/V (Bw, 2, H, Ta, 64) and scales
+// (Bw, 2, H, Ta). Greedy decode is G = 1.
 int run_cross_attn(const bf16* cq, int R, int d, int H, const int8_t* kv8,
-                   const float* sc, int Ta, bf16* att, cudaStream_t st) {
-  if (Ta > CA_TMAX) return (int)cudaErrorInvalidValue;
-  cross_attn_kernel<<<dim3(R, H), CA_THREADS, 0, st>>>(cq, d, kv8, sc, H, Ta,
-                                                      att);
-  return launch_status();
+                   const float* sc, int Ta, int Bw, bf16* att,
+                   cudaStream_t st) {
+  if (Bw <= 0 || R % Bw) return (int)cudaErrorInvalidValue;
+  const int G = R / Bw;
+  xattn::Args a;
+  a.q = cq;
+  a.q_sw = (long long)G * d;
+  a.q_sh = DH;
+  a.q_sg = d;
+  a.k8 = kv8;
+  a.v8 = kv8 + (size_t)H * Ta * DH;
+  a.kv_sw = 2LL * H * Ta * DH;
+  a.kv_sh = (long long)Ta * DH;
+  a.ks = sc;
+  a.vs = sc + (size_t)H * Ta;
+  a.s_sw = 2LL * H * Ta;
+  a.s_sh = Ta;
+  a.out = att;
+  a.o_sw = (long long)G * d;
+  a.o_sh = DH;
+  a.o_sg = d;
+  a.H = H;
+  a.G = G;
+  a.Ta = Ta;
+  return xattn::launch<bf16, bf16>(a, Bw, st);
 }
 
 int run_layer_norm(const bf16* x, int R, int d, const float* s,
@@ -531,12 +486,6 @@ int aries_self_attn(const void* qkv, int R, int d, int H, void* cache,
                        (cudaStream_t)stream);
 }
 
-int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
-                     const float* sc, int Ta, void* att, void* stream) {
-  return run_cross_attn(static_cast<const bf16*>(cq), R, d, H, kv8, sc, Ta,
-                        static_cast<bf16*>(att), (cudaStream_t)stream);
-}
-
 // f32 scratch the step needs for the split-K partial sums
 long long aries_decode_scratch_floats(int R, int d, int ff) {
   const int shapes[4][2] = {{d, 3 * d}, {d, d}, {d, ff}, {ff, d}};
@@ -550,14 +499,17 @@ long long aries_decode_scratch_floats(int R, int d, int ff) {
 
 // All L decoder layers of one step. x (R, d) bf16 is updated in place; the
 // self cache (L, R, 2, H, Tmax, 64) [bf16, or int8 with scales csc
-// (L, R, 2, H, Tmax)] gets this step's K/V at `pos`. h (R, d), qkv (R, 3d),
+// (L, R, 2, H, Tmax)] gets this step's K/V at `pos`. The cross K/V
+// (L, Bw, 2, H, Ta, 64) and scales (L, Bw, 2, H, Ta) hold Bw windows, each
+// shared by its R / Bw rows (window-major). h (R, d), qkv (R, 3d),
 // att (R, d), h1 (R, ff) bf16 and part (aries_decode_scratch_floats) are
 // scratch the caller owns.
 int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
                         const int8_t* wq8, const int8_t* wf1,
                         const int8_t* wf2, const float* vecs, int vec_len,
                         void* cache, float* csc, int self_int8, int Tmax,
-                        const int8_t* xkv, const float* xsc, int Ta, int pos,
+                        const int8_t* xkv, const float* xsc, int Ta, int Bw,
+                        int pos,
                         int vs, void* h_, void* qkv_, void* att_, void* h1_,
                         float* part, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -570,8 +522,8 @@ int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
   vec_offsets(d, ff, off);
   const size_t self_stride = (size_t)R * 2 * H * Tmax * DH;
   const size_t self_sc_stride = (size_t)R * 2 * H * Tmax;
-  const size_t cross_stride = (size_t)R * 2 * H * Ta * DH;
-  const size_t cross_sc_stride = (size_t)R * 2 * H * Ta;
+  const size_t cross_stride = (size_t)Bw * 2 * H * Ta * DH;
+  const size_t cross_sc_stride = (size_t)Bw * 2 * H * Ta;
   const int ldq = 6 * d;
   for (int l = 0; l < L; ++l) {
     const float* v = vecs + (size_t)l * vec_len;
@@ -593,7 +545,7 @@ int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
     RETURN_IF(run_gemm(h, d, d, wq + 4 * d, ldq, d, R, v + off[14],
                        v + off[6], EPI_STORE, h, d, part, st));
     RETURN_IF(run_cross_attn(h, R, d, H, xkv + l * cross_stride,
-                             xsc + l * cross_sc_stride, Ta, att, st));
+                             xsc + l * cross_sc_stride, Ta, Bw, att, st));
     RETURN_IF(run_gemm(att, d, d, wq + 5 * d, ldq, d, R, v + off[15],
                        v + off[7], EPI_RESIDUAL, x, d, part, st));
     // MLP block

@@ -1,1 +1,2 @@
-"""Greedy decoding, tokenizer and segment parsing."""
+"""Greedy and beam decoding, Whisper's logit rules, tokenizer and segment
+parsing."""

@@ -1,22 +1,28 @@
-"""Autoregressive decoding: greedy / temperature-sampled, plus language ID.
+"""Autoregressive decoding: greedy / temperature-sampled and beam search,
+plus language ID.
 
-The port of the JAX package's decoding/generate.py greedy path. The decode
-loop runs on the host in Python (PyTorch is eager); each step is one
-decoder call and a few vectorised filter ops on the device, and the loop
-stops once every row has emitted end-of-text.
+The port of the JAX package's decoding/generate.py greedy and beam paths.
+The decode loop runs on the host in Python (PyTorch is eager); each step is
+one decoder call and a few vectorised ops on the device, and the loop stops
+once every row has emitted end-of-text (greedy) or every window's finished
+buffer is full (beam).
 
-Whisper's logit rules are those of the JAX package (openai/whisper's
-SuppressBlank / SuppressTokens / ApplyTimestampRules): blank suppression at
-the first sampled position, a static suppress mask, and the timestamp
-grammar tracked with O(1) per-row state (last / penultimate / max
-timestamp).
+Whisper's logit rules are those of the JAX package
+(decoding/logit_filters.py).
 
-``greedy_decode(..., fused=True)`` runs the steps through the decoder-layer
-kernels (ops/decode_layers.py) with the decoder weights packed to int8;
-the prompt prefill stays on ``decoder_step`` with the loaded weights, as on
-the TPU. Sampling draws Gumbel noise from an explicit ``torch.Generator``,
-so sampled rungs are reproducible from their seed but do not reproduce
-JAX's random bits.
+``fused=True`` runs the steps through the decoder-layer kernels
+(ops/decode_layers.py) with the decoder weights packed to int8; the prompt
+prefill stays on ``decoder_step`` with the loaded weights, as on the TPU.
+Rows are window-major over the encoded windows ``xa``: several rows of a
+window (best_of samples, beams) share its cross K/V through the grouped
+cross-attention. Sampling draws Gumbel noise from an explicit
+``torch.Generator``, so sampled rungs are reproducible from their seed but
+do not reproduce JAX's random bits.
+
+Beam search (``beam_search_decode``) has one path: its tail (filters,
+log_softmax, scores, top-K) is the beam-tail kernel (ops/beam_tail.py) and
+its cache reorder the reorder kernel (ops/beam_reorder.py) on the card,
+their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -29,8 +35,12 @@ import torch
 
 from whisper_aries_tpu_torch.models import whisper as W
 from whisper_aries_tpu_torch.ops import decode_layers as DL
-
-NEG_INF = float(np.finfo(np.float32).min)
+from whisper_aries_tpu_torch.decoding.logit_filters import (
+    NEG_INF,
+    apply_filters,
+)
+from whisper_aries_tpu_torch.ops.beam_reorder import permute_cache_rows
+from whisper_aries_tpu_torch.ops.beam_tail import beam_tail
 
 
 @dataclass(frozen=True)
@@ -96,50 +106,6 @@ def ngram_banned_mask(tokens: torch.Tensor, pos: int, n: int,
     return counts > 0
 
 
-def _apply_filters(logits: torch.Tensor, ids: DecodeSpecialIds,
-                   suppress_mask: torch.Tensor, is_first: bool,
-                   last_tok: torch.Tensor, penult_tok: torch.Tensor,
-                   max_ts_tok: torch.Tensor, with_timestamps: bool
-                   ) -> torch.Tensor:
-    V = logits.shape[-1]
-    vocab_idx = torch.arange(V, device=logits.device)[None, :]
-    logits = logits + suppress_mask[None, :]
-    logits = torch.where(vocab_idx == ids.no_timestamps, NEG_INF, logits)
-    if is_first:  # SuppressBlank: no " " or eot as the first token
-        blank = (vocab_idx == ids.blank) | (vocab_idx == ids.eot)
-        logits = torch.where(blank, NEG_INF, logits)
-    if not with_timestamps:
-        return torch.where(vocab_idx >= ids.timestamp_begin, NEG_INF, logits)
-
-    tsb = ids.timestamp_begin
-    last_was_ts = last_tok >= tsb
-    penult_was_ts = penult_tok >= tsb
-    ts_region = vocab_idx >= tsb
-    text_region = vocab_idx < ids.eot
-    # after a timestamp pair -> text required; after a single timestamp ->
-    # text forbidden (close the pair or end)
-    suppress_ts = (last_was_ts & penult_was_ts)[:, None]
-    suppress_text = (last_was_ts & ~penult_was_ts)[:, None]
-    logits = torch.where(suppress_ts & ts_region, NEG_INF, logits)
-    logits = torch.where(suppress_text & text_region, NEG_INF, logits)
-    # monotonic timestamps: forbid < max so far (<= max once the pair closed)
-    has_ts = (max_ts_tok >= tsb)[:, None]
-    floor = torch.where(last_was_ts & ~penult_was_ts, max_ts_tok,
-                        max_ts_tok + 1)[:, None]
-    logits = torch.where(ts_region & (vocab_idx < floor) & has_ts, NEG_INF,
-                         logits)
-    if is_first:  # must open with a timestamp, capped at the initial max
-        init_cap = tsb + ids.max_initial_timestamp_index
-        logits = torch.where((vocab_idx < tsb) | (vocab_idx > init_cap),
-                             NEG_INF, logits)
-    # force a timestamp when the total timestamp probability beats every
-    # text token (shift-invariant, so compared on raw logits)
-    ts_lp = torch.logsumexp(torch.where(ts_region, logits, NEG_INF), dim=-1)
-    max_text = torch.where(ts_region, NEG_INF, logits).amax(dim=-1)
-    force = (ts_lp > max_text)[:, None]
-    return torch.where(force & ~ts_region, NEG_INF, logits)
-
-
 def _pack_fused_cache(cache: Dict[str, torch.Tensor], int8: bool
                       ) -> Dict[str, torch.Tensor]:
     """decoder_step's bf16 prefill cache -> the decoder-layer kernels'
@@ -149,6 +115,44 @@ def _pack_fused_cache(cache: Dict[str, torch.Tensor], int8: bool
         return cache
     q8, sc = DL.quantize_heads(cache["kv"])
     return {"kv8": q8, "ksc": sc}
+
+
+def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
+             wpack, max_len):
+    """Cross K/V for the windows of ``xa``, the self cache of the prompt's
+    rows and the prompt's logits. With ``fused`` the cache is repacked for
+    the decoder-layer kernels and the weights are packed (when not given)."""
+    if fused and not kv_int8:
+        raise ValueError("fused decode steps read the int8 cross K/V")
+    cross = (W.precompute_cross_kv_int8(params, xa, dims) if kv_int8
+             else W.precompute_cross_kv(params, xa, dims))
+    cache = W.init_kv_cache(dims, prompt.shape[0], dtype=xa.dtype,
+                            max_len=max_len, int8=self_kv_int8 and not fused,
+                            device=xa.device)
+    logits_p = W.decoder_step(params, prompt, 0, cache, cross, dims)
+    if fused:
+        cache = _pack_fused_cache(cache, self_kv_int8)
+        if wpack is None:
+            wpack = DL.pack_layer_weights(
+                W.fuse_decoder_qkv(params)["decoder"]["blocks"])
+    return cross, cache, logits_p, wpack
+
+
+def _step_logits(params, dims, tok, pos, cache, cross, fused, wpack):
+    """(R, V) f32 logits of one decode step on tokens ``tok`` (R,) written
+    at cache position ``pos``."""
+    if not fused:
+        return W.decoder_step(params, tok[:, None], pos, cache, cross,
+                              dims)[:, 0]
+    dec = params["decoder"]
+    x = dec["tok_emb"][tok] + dec["pos_emb"][min(pos, dims.n_text_ctx - 1)]
+    x = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
+                                dims.n_text_head)
+    return W.vocab_logits(dec, x)
+
+
+def _no_speech_prob(logits_p, sot_index, ids):
+    return torch.softmax(logits_p[:, sot_index], dim=-1)[:, ids.no_speech]
 
 
 def greedy_decode(
@@ -172,36 +176,28 @@ def greedy_decode(
 ) -> Dict[str, torch.Tensor]:
     """Batched greedy / sampled decode with a KV cache.
 
-    xa (B, Ta, D) encoded audio, prompt (B, P) int (the sot sequence; the
+    xa (Bw, Ta, D) encoded audio, prompt (B, P) int with B = Bw * G rows,
+    window-major: the G rows of a window (the fallback ladder's best_of
+    samples) share its cross K/V. The prompt is the sot sequence (the
     left-padded prompts of conditioned decoding come with that slice).
-    ``kv_int8`` stores the cross
-    K/V as int8 with per-position scales. ``fused=True`` (needs ``kv_int8``)
-    runs the steps through the decoder-layer kernels with int8-packed
-    weights (``wpack``, from ``DL.pack_layer_weights``; packed here when not
-    given); ``self_kv_int8`` then makes the kernels quantize appended K/V.
-    Without ``fused``, ``self_kv_int8`` selects decoder_step's int8 cache.
+    ``kv_int8`` stores the cross K/V as int8 with per-position scales.
+    ``fused=True`` (needs ``kv_int8``) runs the steps through the
+    decoder-layer kernels with int8-packed weights (``wpack``, from
+    ``DL.pack_layer_weights``; packed here when not given); ``self_kv_int8``
+    then makes the kernels quantize appended K/V. Without ``fused``,
+    ``self_kv_int8`` selects decoder_step's int8 cache.
 
     Returns tokens (B, P+sample_len), n_sampled, sum_logprob, avg_logprob,
     no_speech_prob (B,), and steps (the number of tokens sampled per row,
     including the one from the prefill).
     """
-    if fused and not kv_int8:
-        raise ValueError("fused decode steps read the int8 cross K/V")
     B, P = prompt.shape
     L = P + sample_len
     dev = xa.device
-    cross = (W.precompute_cross_kv_int8(params, xa, dims) if kv_int8
-             else W.precompute_cross_kv(params, xa, dims))
-    cache = W.init_kv_cache(dims, B, dtype=xa.dtype, max_len=L,
-                            int8=self_kv_int8 and not fused, device=dev)
-    logits_p = W.decoder_step(params, prompt, 0, cache, cross, dims)
-    if fused:
-        cache = _pack_fused_cache(cache, self_kv_int8)
-        if wpack is None:
-            wpack = DL.pack_layer_weights(
-                W.fuse_decoder_qkv(params)["decoder"]["blocks"])
-    # no-speech probability at the sot position's output
-    no_speech_prob = torch.softmax(logits_p[:, sot_index], dim=-1)[:, ids.no_speech]
+    cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
+                                             kv_int8, self_kv_int8, fused,
+                                             wpack, L)
+    no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
 
     tokens = torch.full((B, L), ids.eot, dtype=torch.long, device=dev)
     tokens[:, :P] = prompt
@@ -213,7 +209,6 @@ def greedy_decode(
     present = (torch.zeros((B, ids.n_vocab), dtype=torch.bool, device=dev)
                if repetition_penalty is not None else None)
     rows = torch.arange(B, device=dev)
-    dec = params["decoder"]
 
     logits = logits_p[:, -1]  # predicts the first sampled token
     pos = P
@@ -225,8 +220,8 @@ def greedy_decode(
             banned = ngram_banned_mask(tokens, pos, no_repeat_ngram_size,
                                        ids.n_vocab)
             logits = torch.where(banned, NEG_INF, logits)
-        f = _apply_filters(logits, ids, suppress_mask, pos == P, last_tok,
-                           penult_tok, max_ts_tok, with_timestamps)
+        f = apply_filters(logits, ids, suppress_mask, pos == P, last_tok,
+                          penult_tok, max_ts_tok, with_timestamps)
         logprobs = torch.log_softmax(f, dim=-1)
         if temperature > 0:
             u = torch.rand(f.shape, generator=generator, device=dev)
@@ -248,16 +243,8 @@ def greedy_decode(
         pos += 1
         if pos >= L or bool(finished.all()):
             break
-        tok_in = tokens[:, pos - 1:pos]
-        if fused:
-            x = (dec["tok_emb"][tok_in[:, 0]]
-                 + dec["pos_emb"][min(pos - 1, dims.n_text_ctx - 1)])
-            x = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos - 1,
-                                        dims.n_text_head)
-            logits = W.vocab_logits(dec, x)
-        else:
-            logits = W.decoder_step(params, tok_in, pos - 1, cache, cross,
-                                    dims)[:, 0]
+        logits = _step_logits(params, dims, tokens[:, pos - 1], pos - 1,
+                              cache, cross, fused, wpack)
 
     n_sampled = (tokens[:, P:] != ids.eot).sum(dim=1)
     avg_logprob = sum_logprob / (n_sampled.float() + 1.0)
@@ -268,6 +255,166 @@ def greedy_decode(
         "avg_logprob": avg_logprob,
         "no_speech_prob": no_speech_prob,
         "steps": torch.tensor(pos - P),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Beam search
+# ---------------------------------------------------------------------------
+
+
+def beam_search_decode(
+    params: Dict[str, Any],
+    xa: torch.Tensor,
+    prompt: torch.Tensor,
+    dims: W.WhisperDims,
+    ids: DecodeSpecialIds,
+    suppress_mask: torch.Tensor,
+    sot_index: int,
+    beam_size: int = 5,
+    sample_len: int = 224,
+    with_timestamps: bool = True,
+    length_penalty: float = 1.0,
+    suppress_blank: bool = True,
+    kv_int8: bool = False,
+    self_kv_int8: bool = False,
+    patience: float = 1.0,
+    repetition_penalty: Optional[float] = None,
+    no_repeat_ngram_size: int = 0,
+    fused: bool = False,
+    wpack: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Batched beam search, the K beams of each window flattened into the
+    rows (window-major, R = B·K).
+
+    openai-whisper / CTranslate2 semantics, as the JAX package's
+    ``beam_search_decode``: each step expands the K live beams; eot
+    candidates go to a finished-hypothesis buffer of capacity
+    C = round(K·patience) when they outrank the K-th live candidate, and
+    the K best non-eot candidates stay live, so finished hypotheses never
+    hold a beam slot. The final choice maximises
+    sum_logprob / length**length_penalty over the finished buffer (plus the
+    live beams of windows whose buffer did not fill). Repetition penalty
+    and n-gram bans apply per beam before the tail.
+
+    The prompt is prefilled once per window (xa (B, Ta, D), prompt (B, P))
+    and its cache copied to the window's K rows: every beam shares the
+    prompt, so these are the values of a prefill on the K repeated prompts.
+    The beams share their window's cross K/V. On steps where a beam takes
+    another beam's history the self cache is permuted in place; steps
+    where every beam keeps its own are skipped.
+
+    Returns tokens (B, P+sample_len), n_sampled, sum_logprob, avg_logprob,
+    no_speech_prob (B,), all_tokens (B, C+K, L), all_scores (B, C+K),
+    steps (expansions, the first from the prefill's logits) and permuted
+    (steps that reordered the cache).
+    """
+    B, P = prompt.shape
+    K = beam_size
+    L = P + sample_len
+    V = ids.n_vocab
+    C = max(1, int(round(K * patience)))
+    dev = xa.device
+    cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
+                                             kv_int8, self_kv_int8, fused,
+                                             wpack, L)
+    cache = {k: v.repeat_interleave(K, dim=1) for k, v in cache.items()}
+    no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
+    logits = logits_p[:, -1].repeat_interleave(K, dim=0)  # (B*K, V)
+    del logits_p
+
+    tokens = torch.full((B, K, L), ids.eot, dtype=torch.long, device=dev)
+    tokens[:, :, :P] = prompt[:, None, :]
+    # only beam 0 is live at first (no K duplicates)
+    sum_logprob = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    sum_logprob[:, 0] = 0.0
+    last_tok = prompt[:, -1:].long().expand(B, K).clone()
+    penult_tok = torch.full((B, K), -1, dtype=torch.long, device=dev)
+    max_ts_tok = torch.full((B, K), -1, dtype=torch.long, device=dev)
+    # slot C takes the writes that do not fit (dropped at the end)
+    fin_tokens = torch.full((B, C + 1, L), ids.eot, dtype=torch.long,
+                            device=dev)
+    fin_scores = torch.full((B, C + 1), NEG_INF, dtype=torch.float32,
+                            device=dev)
+    fin_count = torch.zeros((B,), dtype=torch.long, device=dev)
+    present = (torch.zeros((B, K, V), dtype=torch.bool, device=dev)
+               if repetition_penalty is not None else None)
+    b_rows = torch.arange(B, device=dev)[:, None]
+    k_rows = torch.arange(K, device=dev)[None, :]
+    tsb = ids.timestamp_begin
+    init_cap = tsb + ids.max_initial_timestamp_index
+
+    pos, steps, permuted = P, 0, 0
+    while True:
+        if present is not None:
+            logits = apply_repetition_penalty(
+                logits, present.reshape(B * K, V), repetition_penalty)
+        if no_repeat_ngram_size >= 2:
+            banned = ngram_banned_mask(tokens.reshape(B * K, L), pos,
+                                       no_repeat_ngram_size, V)
+            logits = torch.where(banned, NEG_INF, logits)
+        live_score, top_idx, eot_scores = beam_tail(
+            logits, sum_logprob, last_tok, penult_tok, max_ts_tok,
+            suppress_mask, pos == P, K, tsb, ids.eot, ids.blank,
+            ids.no_timestamps, init_cap, with_timestamps, suppress_blank)
+        live_src = top_idx // V
+        next_tok = top_idx % V
+
+        # eot candidates enter the finished buffer iff they outrank the
+        # K-th live candidate (descending order, ties to the lower beam)
+        eot_sorted, eot_order = torch.sort(eot_scores, dim=1,
+                                           descending=True, stable=True)
+        is_fin = ((eot_sorted > live_score[:, -1:])
+                  & (eot_sorted > NEG_INF / 2)).long()
+        slot = fin_count[:, None] + torch.cumsum(is_fin, dim=1) - is_fin
+        write = (is_fin > 0) & (slot < C)
+        slot_w = torch.where(write, slot, C)
+        fin_tokens[b_rows, slot_w] = tokens[b_rows, eot_order]
+        fin_scores[b_rows, slot_w] = eot_sorted
+        fin_count = fin_count + write.sum(dim=1)
+
+        tokens = tokens[b_rows, live_src]
+        tokens[:, :, pos] = next_tok
+        penult_tok = last_tok[b_rows, live_src]
+        max_ts = max_ts_tok[b_rows, live_src]
+        max_ts_tok = torch.where(next_tok >= tsb,
+                                 torch.maximum(max_ts, next_tok), max_ts)
+        if present is not None:
+            present = present[b_rows, live_src]
+            present[b_rows, k_rows, next_tok] = True
+        last_tok, sum_logprob = next_tok, live_score
+        pos += 1
+        steps += 1
+        full, identity = torch.stack([
+            (fin_count >= C).all(), (live_src == k_rows).all()]).tolist()
+        if full or pos >= L:
+            break
+        if not identity:
+            permute_cache_rows(cache, live_src)
+            permuted += 1
+        logits = _step_logits(params, dims, tokens[:, :, pos - 1].reshape(-1),
+                              pos - 1, cache, cross, fused, wpack)
+
+    live_ok = (fin_count < C)[:, None]
+    all_tokens = torch.cat([fin_tokens[:, :C], tokens], dim=1)
+    all_sum = torch.cat([fin_scores[:, :C],
+                         torch.where(live_ok, sum_logprob, NEG_INF)], dim=1)
+    n_sampled = (all_tokens[:, :, P:] != ids.eot).sum(dim=2)
+    final_score = all_sum / (n_sampled.float() + 1.0) ** length_penalty
+    best = torch.argmax(final_score, dim=1)
+    rows = torch.arange(B, device=dev)
+    best_sum = all_sum[rows, best]
+    best_n = n_sampled[rows, best]
+    return {
+        "tokens": all_tokens[rows, best],
+        "n_sampled": best_n,
+        "sum_logprob": best_sum,
+        "avg_logprob": best_sum / (best_n.float() + 1.0),
+        "no_speech_prob": no_speech_prob,
+        "all_tokens": all_tokens,
+        "all_scores": final_score,
+        "steps": torch.tensor(steps),
+        "permuted": torch.tensor(permuted),
     }
 
 

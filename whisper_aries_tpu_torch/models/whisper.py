@@ -14,10 +14,13 @@ updates, so a decode step allocates nothing per layer):
   * cross K/V, bf16/f32: {"k", "v": (L, B, H, Ta, dh)}; int8:
     {"kv8": (L, B, 2, H, Ta, dh) int8, "sc": (L, B, 2, H, Ta) f32}, the
     K scales folding 1/sqrt(dh) — the layout the decoder-layer kernels read.
+    B counts windows; decoder rows may be a multiple of it (beams), and the
+    rows of a window share its cross K/V (grouped cross-attention).
 
 The encoder's attention goes through the hand-written encoder-attention
-kernel (csrc/encoder_attn.cu) for CUDA tensors and through the plain
-version for CPU tensors. Dense layers and the conv stem stay torch
+kernel (csrc/encoder_attn.cu), and the int8 cross-attention of a prefill
+through the grouped cross-attention kernel (csrc/cross_attn.cu), for CUDA
+tensors; CPU tensors take the plain versions. Dense layers and the conv stem stay torch
 products, as the JAX package leaves them to XLA.
 """
 
@@ -40,7 +43,7 @@ from whisper_aries_tpu_torch.models.layers import (
 )
 from whisper_aries_tpu_torch.ops import cuda_build as cb
 from whisper_aries_tpu_torch.ops.cross_attn import (
-    cross_attention_q8_reference,
+    cross_attention_q8,
     quantize_kv_per_position,
 )
 
@@ -451,21 +454,29 @@ def precompute_cross_kv_int8(params: Dict[str, Any], xa: torch.Tensor,
 def _cross_attention_step(cp: Dict[str, Any], h: torch.Tensor,
                           kv: Dict[str, torch.Tensor], n_head: int
                           ) -> torch.Tensor:
-    """Cross-attention for one decode step or the prefill: h (B, S, D), the
-    S positions folded into the query group axis."""
-    B, S, D = h.shape
+    """Grouped cross-attention for one decode step or the prefill.
+
+    h (rows, S, D) with rows = Bw * G_beams window-major (the beams of a
+    window contiguous) over the Bw windows' cross K/V; the beams and the S
+    positions (cross-attention has no causal structure) fold into the
+    query group axis, so each window's K/V is read once. int8 K/V go
+    through the grouped cross-attention kernel on CUDA tensors."""
+    rows, S, D = h.shape
     dh = D // n_head
-    q4 = dense(cp["q"], h).reshape(B, S, n_head, dh).transpose(1, 2)
+    Bw = (kv["kv8"] if "kv8" in kv else kv["k"]).shape[0]
+    if rows % Bw:
+        raise ValueError(f"{rows} rows do not split over {Bw} windows")
+    G = (rows // Bw) * S
+    q4 = dense(cp["q"], h).reshape(Bw, G, n_head, dh).transpose(1, 2)
     if "kv8" in kv:
-        att = cross_attention_q8_reference(
-            q4, kv["kv8"][:, 0], kv["sc"][:, 0], kv["kv8"][:, 1],
-            kv["sc"][:, 1])
+        att = cross_attention_q8(q4, kv["kv8"][:, 0], kv["sc"][:, 0],
+                                 kv["kv8"][:, 1], kv["sc"][:, 1])
     else:
         logits = torch.einsum("bhgd,bhtd->bhgt", (q4 * attn_scale(dh)).float(),
                               kv["k"].float())
         probs = torch.softmax(logits, dim=-1).to(kv["v"].dtype)
         att = torch.matmul(probs, kv["v"])
-    out = att.transpose(1, 2).reshape(B, S, D).to(h.dtype)
+    out = att.transpose(1, 2).reshape(rows, S, D).to(h.dtype)
     return dense(cp["o"], out)
 
 
@@ -474,6 +485,11 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
                  cross_kv: Dict[str, torch.Tensor], dims: WhisperDims,
                  valid_start: Optional[int] = None) -> torch.Tensor:
     """One KV-cached decoder call (prefill S>1 or step S=1) on B rows.
+
+    The rows are window-major over the cross K/V's windows: B may be a
+    multiple of them (B·K beam rows over B windows), and each window's rows
+    share its cross K/V. The cache holds one slot per row
+    (``init_kv_cache(dims, B, ...)``).
 
     tokens (B, S), -1 = left padding; ``pos`` is the cache index of
     tokens[:, 0]. ``valid_start``: index of the first real token of a

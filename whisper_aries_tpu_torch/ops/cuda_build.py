@@ -32,7 +32,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mel", "encoder_attn", "decode_layers")
+SOURCES = ("mel", "encoder_attn", "decode_layers", "cross_attn",
+           "beam_tail", "beam_reorder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,24 +4,30 @@ Replaces the JAX package's Pallas decode megakernel
 (ops/pallas_decode_layers.py, ``fused_decoder_layers``; its golden model is
 ``fused_decoder_layers_reference``). The TPU layout work does not come
 over: no KP=8 row padding, no x128 fetch buckets, no one-hot placement
-append. The port decodes one row per window (R = B), one self-cache slot
-per row, with dh-minor caches:
+append. The port decodes R rows, window-major: G = R / Bw rows per window
+(its beams; G = 1 for greedy), one self-cache slot per row, the window's
+cross K/V shared by its G rows, with dh-minor caches:
 
     self cache, bf16:  {"kv":  (L, R, 2, H, T, dh) bf16}
     self cache, int8:  {"kv8": (L, R, 2, H, T, dh) int8,
                         "ksc": (L, R, 2, H, T) f32}  (scales NOT folding
                                                       1/sqrt(dh); q is
                                                       pre-scaled)
-    cross K/V:         {"kv8": (L, R, 2, H, Ta, dh) int8,
-                        "sc":  (L, R, 2, H, Ta) f32}  (K scales fold
-                                                       1/sqrt(dh))
+    cross K/V:         {"kv8": (L, Bw, 2, H, Ta, dh) int8,
+                        "sc":  (L, Bw, 2, H, Ta) f32}  (K scales fold
+                                                        1/sqrt(dh))
+
+The step's cross-attention is the grouped int8 cross-attention kernel's
+device code (csrc/cross_attn.cuh) with a bf16 output; on its own it is
+reached through ops/cross_attn.py (``cross_attention_q8_kernel`` with a bf16
+``out``), and ``cross_attn_plain`` is its plain counterpart here.
 
 ``fused_decoder_layers`` launches the kernels for CUDA tensors (one C call
 runs all L layers) and takes the plain version,
-``fused_decoder_layers_plain``, only for CPU tensors. The kernel parts are
-also bound one by one (``layer_norm_kernel``, ``w8a16_gemm_kernel``,
-``self_attn_kernel``, ``cross_attn_kernel``) so each can be held against its
-plain counterpart on the card.
+``fused_decoder_layers_plain``, only for CPU tensors. The other kernel parts
+are also bound one by one (``layer_norm_kernel``, ``w8a16_gemm_kernel``,
+``self_attn_kernel``) so each can be held against its plain counterpart on
+the card.
 """
 
 from __future__ import annotations
@@ -186,13 +192,16 @@ def self_attn_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
 
 def cross_attn_plain(cq: torch.Tensor, kv8_l: torch.Tensor,
                      sc_l: torch.Tensor, n_head: int) -> torch.Tensor:
-    """cq (R, d) over the row's int8 cross K/V -> att (R, d)."""
+    """cq (R, d), R = Bw * G rows window-major, over the Bw windows' int8
+    cross K/V (Bw, 2, H, Ta, dh) -> att (R, d)."""
     R, d = cq.shape
+    Bw = kv8_l.shape[0]
     H, dh = n_head, d // n_head
-    qx = cq.float().reshape(R, H, dh)
-    lg = torch.einsum("rhd,rhtd->rht", qx, kv8_l[:, 0].float()) * sc_l[:, 0]
-    px = torch.softmax(lg, dim=-1) * sc_l[:, 1]
-    att = torch.einsum("rht,rhtd->rhd", px, kv8_l[:, 1].float())
+    qx = cq.float().reshape(Bw, R // Bw, H, dh)
+    lg = (torch.einsum("wghd,whtd->wght", qx, kv8_l[:, 0].float())
+          * sc_l[:, 0][:, None])
+    px = torch.softmax(lg, dim=-1) * sc_l[:, 1][:, None]
+    att = torch.einsum("wght,whtd->wghd", px, kv8_l[:, 1].float())
     return att.reshape(R, d).to(cq.dtype)
 
 
@@ -202,8 +211,9 @@ def fused_decoder_layers_plain(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
                                valid_start: int, pos: int,
                                n_head: int) -> torch.Tensor:
     """All L decoder layers of one step in plain torch (the math of the
-    JAX package's ``fused_decoder_layers_reference`` with one row per
-    window). x (R, d) -> x (R, d); the self cache gets this step's K/V."""
+    JAX package's ``fused_decoder_layers_reference``). x (R, d) -> x (R, d),
+    R = Bw * G rows window-major over the Bw windows of ``cross``; the self
+    cache gets this step's K/V."""
     L = wpack["wq8"].shape[0]
     R, d = x.shape
     ff = wpack["wf18"].shape[-1]
@@ -250,11 +260,10 @@ def _lib():
         "aries_w8a16_gemm": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                              _P, _P],
         "aries_self_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-        "aries_cross_attn": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
         "aries_decode_scratch_floats": [_I, _I, _I],
         "aries_decode_layers": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                                _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P,
-                                _P, _P, _P, _P],
+                                _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                                _P, _P, _P, _P, _P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -339,25 +348,14 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     return att
 
 
-def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
-                      sc_l: torch.Tensor, n_head: int) -> torch.Tensor:
-    R, d = cq.shape
-    cb.require(cq, "cq", torch.bfloat16)
-    Ta = kv8_l.shape[3]
-    cb.require(kv8_l, "cross kv8", torch.int8, (R, 2, n_head, Ta, d // n_head),
-               cq.device)
-    cb.require(sc_l, "cross scales", torch.float32, (R, 2, n_head, Ta),
-               cq.device)
-    att = torch.empty_like(cq)
-    cb.check(_lib().aries_cross_attn(cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l),
-                                     cb.ptr(sc_l), Ta, cb.ptr(att),
-                                     cb.stream()), "cross attention")
-    cross_attn_kernel.launches += 1
-    return att
+def _cross_windows(R: int, kv8: torch.Tensor) -> int:
+    Bw = kv8.shape[-5]
+    if Bw < 1 or R % Bw:
+        raise ValueError(f"{R} rows do not split over {Bw} cross windows")
+    return Bw
 
 
-for _f in (layer_norm_kernel, w8a16_gemm_kernel, self_attn_kernel,
-           cross_attn_kernel):
+for _f in (layer_norm_kernel, w8a16_gemm_kernel, self_attn_kernel):
     _f.launches = 0
 
 
@@ -378,8 +376,10 @@ def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
     cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
                (L, R, 2, H, T, dh), dev)
     Ta = cross["kv8"].shape[4]
-    cb.require(cross["kv8"], "cross kv8", torch.int8, (L, R, 2, H, Ta, dh), dev)
-    cb.require(cross["sc"], "cross scales", torch.float32, (L, R, 2, H, Ta),
+    Bw = _cross_windows(R, cross["kv8"])
+    cb.require(cross["kv8"], "cross kv8", torch.int8, (L, Bw, 2, H, Ta, dh),
+               dev)
+    cb.require(cross["sc"], "cross scales", torch.float32, (L, Bw, 2, H, Ta),
                dev)
     if dh != 64 or d % 64 or ff % 64:
         raise ValueError("decoder-layer kernels need dh 64 and d, ff % 64")
@@ -398,7 +398,7 @@ def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
         cb.ptr(x), R, d, ff, H, L, cb.ptr(wpack["wq8"]), cb.ptr(wpack["wf18"]),
         cb.ptr(wpack["wf28"]), cb.ptr(wpack["vecs"]), VEC, cb.ptr(ckv),
         cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(cross["kv8"]),
-        cb.ptr(cross["sc"]), Ta, pos, valid_start, cb.ptr(h), cb.ptr(qkv),
+        cb.ptr(cross["sc"]), Ta, Bw, pos, valid_start, cb.ptr(h), cb.ptr(qkv),
         cb.ptr(att), cb.ptr(h1), cb.ptr(part), cb.stream()),
         "decoder-layer kernels")
     fused_decoder_layers.launches += 1
@@ -410,8 +410,9 @@ def fused_decoder_layers(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
                          cross: Dict[str, torch.Tensor], valid_start: int,
                          pos: int, n_head: int) -> torch.Tensor:
     """All L decoder layers of one decode step: x (R, d) -> x (R, d), with
-    this step's K/V appended to ``self_cache`` at ``pos`` in place. The
-    kernels for CUDA tensors; the plain version for CPU tensors."""
+    this step's K/V appended to ``self_cache`` at ``pos`` in place. The rows
+    are window-major over the Bw windows of ``cross`` (R / Bw beams each).
+    The kernels for CUDA tensors; the plain version for CPU tensors."""
     if not x.is_cuda:
         return fused_decoder_layers_plain(x, wpack, self_cache, cross,
                                           valid_start, pos, n_head)

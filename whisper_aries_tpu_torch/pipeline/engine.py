@@ -4,13 +4,15 @@ The port of the JAX package's pipeline/engine.py main path:
 
     WAV -> learned VAD -> window plan -> [batch of 30 s windows]
         -> log-mel (mel kernel) -> encoder (encoder-attention kernel)
-        -> int8 cross K/V -> greedy decode (decoder-layer kernels)
-        -> temperature-fallback ladder -> parse -> TXT/JSON/SRT
+        -> int8 cross K/V -> greedy or beam decode (decoder-layer kernels,
+           grouped cross-attention kernel; beam: beam-tail and reorder
+           kernels) -> temperature-fallback ladder -> parse -> TXT/JSON/SRT
 
 The whole file is uploaded to the card once as int16 and windows are
-gathered on the device. Windows decode ungrouped: one row and one
-self-cache slot per window (the TPU's grouped-window layout is a TPU
-workaround; its tokens equal the ungrouped decode's).
+gathered on the device. Each decode row has its own self-cache slot; the
+rows of one window (its beams, or the fallback ladder's best_of samples)
+share the window's cross K/V. The TPU's grouped-window layouts are a TPU
+workaround and are not ported; their tokens equal this decode's.
 
 Device: CUDA unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU the constructor raises. Activations are bf16 on CUDA and
@@ -19,11 +21,13 @@ cross K/V, decode steps through the decoder-layer kernels with in-kernel
 int8 self-cache quantization. On the CPU the plain versions run. The
 decode options the JAX engine takes per call (suppress tokens, timestamps
 off, initial-timestamp cap, n-gram bans, repetition penalty) come from
-``config.decode`` here.
+``config.decode`` here. A batch decodes by beam search when the beam size
+is above 1 and the temperature is 0; the fallback ladder's rungs sample
+with ``best_of``.
 
-Not ported yet (ROADMAP.md): beam search, word timestamps, conditioned /
-sequential decode and the resume journal, fixed chunking, prefix /
-initial prompt / hotwords, multilingual, the short audio_ctx bucket.
+Not ported yet (ROADMAP.md): word timestamps, conditioned / sequential
+decode and the resume journal, fixed chunking, prefix / initial prompt /
+hotwords, multilingual, the short audio_ctx bucket.
 """
 
 from __future__ import annotations
@@ -257,31 +261,47 @@ class AriesTranscriber:
         return W.encode(self.params, mel.to(self.activation_dtype), self.dims)
 
     def _decode_batch(self, xa: torch.Tensor, prompt: np.ndarray,
-                      temperature: float, sample_len: int, seed: int = 0
-                      ) -> Dict[str, Any]:
+                      temperature: float, sample_len: int, seed: int = 0,
+                      beam_size: int = 1, patience: float = 1.0,
+                      length_penalty: float = 1.0) -> Dict[str, Any]:
+        """Decode the windows of ``xa``: beam search when ``beam_size`` > 1
+        at temperature 0, else greedy / sampled over the prompt's rows
+        (a multiple of the windows, window-major)."""
         dc = self.config.decode
-        gen = None
-        if temperature > 0:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-        t0 = time.time()
-        out = G.greedy_decode(
-            self.params, xa, torch.as_tensor(prompt, device=self.device),
-            self.dims, self.ids, self.suppress_mask, 0, float(temperature),
-            gen, sample_len=sample_len,
+        common = dict(
             with_timestamps=not dc.without_timestamps,
             kv_int8=self.kv_int8, self_kv_int8=self.self_kv_int8,
             repetition_penalty=(dc.repetition_penalty
                                 if dc.repetition_penalty != 1.0 else None),
             no_repeat_ngram_size=dc.no_repeat_ngram_size,
-            fused=self.fused, wpack=self.wpack,
-        )
+            fused=self.fused, wpack=self.wpack)
+        prompt_t = torch.as_tensor(prompt, device=self.device)
+        t0 = time.time()
+        if beam_size > 1 and temperature == 0:
+            out = G.beam_search_decode(
+                self.params, xa, prompt_t, self.dims, self.ids,
+                self.suppress_mask, 0, beam_size=beam_size,
+                sample_len=sample_len, length_penalty=length_penalty,
+                patience=patience, **common)
+            rows = int(xa.shape[0]) * beam_size
+        else:
+            gen = None
+            if temperature > 0:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+            out = G.greedy_decode(
+                self.params, xa, prompt_t, self.dims, self.ids,
+                self.suppress_mask, 0, float(temperature), gen,
+                sample_len=sample_len, **common)
+            rows = int(prompt_t.shape[0])
         res = {k: v.cpu().numpy() for k, v in out.items()}
-        self.last_stats.setdefault("decodes", []).append({
-            "rows": int(xa.shape[0]), "steps": int(res["steps"]),
-            "temperature": float(temperature),
-            "seconds": time.time() - t0,
-        })
+        stats = {"rows": rows, "windows": int(xa.shape[0]),
+                 "steps": int(res["steps"]),
+                 "temperature": float(temperature), "beam_size": beam_size,
+                 "seconds": time.time() - t0}
+        if "permuted" in res:
+            stats["permuted"] = int(res["permuted"])
+        self.last_stats.setdefault("decodes", []).append(stats)
         return res
 
     def detect_language(self, mel: torch.Tensor) -> Tuple[str, float]:
@@ -305,20 +325,30 @@ class AriesTranscriber:
         output_formats: Sequence[str] = ("txt",),
         output_dir: Optional[str] = None,
         task: str = "transcribe",
+        beam_size: Optional[int] = None,
         best_of: int = 5,
+        patience: Optional[float] = None,
+        length_penalty: Optional[float] = None,
         temperature: Optional[Sequence[float]] = None,
         compression_ratio_threshold: float = 2.4,
         log_prob_threshold: float = -1.0,
         no_speech_threshold: float = 0.6,
         max_new_tokens: int = 224,
     ) -> Dict[str, Any]:
-        """Transcribe one file end to end (VAD, greedy, fallback ladder);
-        returns the result dict and writes the requested output formats
-        (txt, json, srt)."""
+        """Transcribe one file end to end (VAD, greedy or beam search,
+        fallback ladder); returns the result dict and writes the requested
+        output formats (txt, json, srt). ``beam_size``, ``patience`` and
+        ``length_penalty`` default to ``config.decode``'s."""
         t0 = time.time()
         self.last_stats = {}
-        if self.config.decode.beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
+        dc = self.config.decode
+        beam = dict(
+            beam_size=max(1, int(beam_size if beam_size is not None
+                                 else dc.beam_size)),
+            patience=float(patience if patience is not None
+                           else dc.patience),
+            length_penalty=float(length_penalty if length_penalty is not None
+                                 else dc.length_penalty))
         pre = AudioPreloader(audio_path)
         duration = pre.duration
         windows = self._plan(pre, duration)
@@ -342,7 +372,7 @@ class AriesTranscriber:
             prompt_ids = self.tokenizer.specials.sot_sequence(language, task)
             segments = self._transcribe_windows(
                 audio16, windows, prompt_ids, temps, max_new_tokens,
-                thresholds, best_of)
+                thresholds, best_of, beam)
 
         wall = time.time() - t0
         result: Dict[str, Any] = {
@@ -371,7 +401,7 @@ class AriesTranscriber:
     # ------------------------------------------------------------------
 
     def _transcribe_windows(self, audio16, windows, prompt_ids, temps,
-                            sample_len, thresholds, best_of
+                            sample_len, thresholds, best_of, beam
                             ) -> List[Dict[str, Any]]:
         parse_skip = len(prompt_ids)
         N = len(windows)
@@ -387,7 +417,8 @@ class AriesTranscriber:
             try:
                 xa = self._encode_batch(
                     self._mel(self._gather(audio16, windows, batch_idx)))
-                out = self._decode_batch(xa, prompt, temps[0], sample_len)
+                out = self._decode_batch(xa, prompt, temps[0], sample_len,
+                                         **beam)
             except torch.cuda.OutOfMemoryError:
                 # halve the window batch and retry this batch
                 if B == 1:
@@ -449,8 +480,9 @@ class AriesTranscriber:
                           ) -> Dict[int, Tuple[List[Dict[str, Any]], float]]:
         """Temperature-fallback ladder for a batch's failing windows: at
         each rung, ``best_of`` samples of every still-failing window decode
-        as one batch and the best by sum logprob is kept. Returns
-        {window id: (segments, accepted temperature)}."""
+        as one batch (the samples of a window share its cross K/V) and the
+        best by sum logprob is kept. Returns {window id: (segments,
+        accepted temperature)}."""
         K = max(1, best_of)
         results: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
         last_t = float(temps[-1])
@@ -458,7 +490,6 @@ class AriesTranscriber:
             group = fails[g0:g0 + self.FALLBACK_GROUP]
             xa = self._encode_batch(self._mel(self._gather(
                 audio16, windows, [f[0] for f in group])))
-            xa = torch.repeat_interleave(xa, K, dim=0)
             prompt = np.repeat(np.stack([np.asarray(f[2]) for f in group]),
                                K, axis=0)
             best = {f[0]: (f[3], last_t) for f in group}
