@@ -25,11 +25,17 @@ caught; a kernel check that fails is printed at once and fails the run
      and R=30 (6 windows x 5, beam and best_of), and at R=40 (8 windows x
      5 beams), each window's rows sharing its cross K/V, and one whole beam
      step (layers, vocab, tail, reorder) is profiled
-     at R=30 and R=40. Errors are taken over max |want|, and where a check
-     names a mistake (keys past T scored, a dropped tail, a missing key,
-     every window reading window 0's K/V, ties to the highest index), the
-     same error of a plain version making that mistake must exceed the
-     limit.
+     at R=30 and R=40. The W8A16 GEMM is held at the int8 slices' shapes
+     (M 9000 = 6 windows x 1500 with K, N in {1280, 5120}, an odd M, and
+     the six dense layers of a decoder layer at M 6), the int8
+     self-attention step at 6 rows x 20 heads over 227 positions, and one
+     unfused int8-self-cache decode step is profiled. Errors are taken
+     over max |want|, and where a check names a mistake (keys past T
+     scored, a dropped tail, a missing key, every window reading window
+     0's K/V, ties to the highest index, the outscale product, a dropped K
+     slab, unwritten M-tail rows, an ignored mask, a dropped last
+     position), the same error of a plain version making that mistake must
+     exceed the limit.
   4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
@@ -39,8 +45,18 @@ caught; a kernel check that fails is printed at once and fails the run
      launched.
   5. beam slice: the same file and weights with config decode.beam_size=5;
      all six kernels must have launched, counted from 0 again.
-The second-to-last lines are the card line and the kernels JSON; the last
-line is {"ok": true, "device": {...}}. Outputs go to chip_smoke_out/.
+  6. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
+     word_timestamps=True with 10 fixed alignment heads: seven kernels
+     (the W8A16 GEMM beside the beam slice's six) must have launched, and
+     every segment must carry words with finite, ordered times inside the
+     file; prints the word pass's seconds beside the wall time.
+  7. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
+     decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
+     greedy at temperature 0: unfused steps, which must launch the int8
+     self-attention kernel and the W8A16 GEMM; prints ms per step.
+The second-to-last lines are the kernels JSON (all eight kernels) and the
+card line; the last line is {"ok": true, "device": {...}}. Outputs go to
+chip_smoke_out/.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -95,6 +111,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device milliseconds per call (torch.profiler: the kernels' own time,
+    summed over the calls' device events). Where a call's host work (the
+    wrapper's checks, ctypes) takes longer than its kernels, back-to-back
+    calls timed with events measure the host; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", 0)
+             for ev in prof.key_averages()
+             if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / n
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -958,6 +995,206 @@ def profile_beam_step(dev, parts, B):
     parts.append(dict(name=f"beam step R {R}", ms=ms))
 
 
+def kernel_quant_matmul(dev, entries):
+    """The W8A16 GEMM (the int8 dense layers under ARIES_QUANT_IMPL=pallas)
+    at the int8 slices' shapes, bf16 out as the path writes it: the
+    encoder and cross K/V over 6 windows (M 9000 = 6 x 1500; K = N = 1280,
+    fc1 N 5120, fc2 K 5120), an odd M, and the six dense layers of one
+    unfused decoder layer at M 6. Each held in bf16 steps against its plain
+    version; each named mistake must flip more elements than the limit:
+    the outscale product (weights not rounded to bf16), the last K slab
+    left out, and (over the last M tile's rows) those rows left
+    unwritten."""
+    import torch
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    d, ff = 1280, 5120
+    shapes = [("encoder q/k/v/o, cross k/v", 9000, d, d),
+              ("encoder fc1", 9000, d, ff), ("encoder fc2", 9000, ff, d),
+              ("odd M", 1517, d, d),
+              ("step qkv", 6, d, 3 * d), ("step o, cross q, cross o", 6, d, d),
+              ("step fc1", 6, d, ff), ("step fc2", 6, ff, d)]
+    # bf16 outputs rounded from f32 sums taken in another order: one step
+    # apart where the sum sits at a rounding midpoint (in 1e-4..3e-3 of
+    # them, more at K 5120); held as a share of elements and, since a sum
+    # that cancels to near 0 is many of its own steps off, in steps of the
+    # largest |want| (2^-7 is one step of it at most)
+    tol = {"max_rel": 2 ** -7, "flipped": 1e-2}
+
+    def errors(got, want):
+        return {"max_rel": max_rel(got, want),
+                "flipped": bf16_steps(got, want)["flipped"]}
+
+    rows, worst = [], 0.0
+    g = torch.Generator(device=dev).manual_seed(11)
+    for what, M, K, N in shapes:
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
+                                                   device=dev))
+        got = Q.quant_matmul_dequant_kernel(x, q8, s)
+        want = Q.quant_matmul_dequant_plain(x, q8, s, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"W8A16 GEMM output is not finite ({what})")
+        label = f"quant_matmul[{what}: M {M}, K {K}, N {N}]"
+        errs = errors(got, want)
+        outscale = Q._quant_matmul_outscale(x, q8, s).to(torch.bfloat16)
+        xcut = x.clone()
+        xcut[:, -32:] = 0
+        slab = Q.quant_matmul_dequant_plain(xcut, q8, s, torch.bfloat16)
+        # the outscale product is one step off where the unrounded weights
+        # move a sum across a midpoint: it shows in the share, not the size
+        held(f"{label} outscale", errs, tol,
+             {"flipped": errors(outscale, want)["flipped"]})
+        held(f"{label} last K slab dropped", errs, tol, errors(slab, want))
+        t0 = M - M % 128 if M % 128 else M - 128
+        held(f"{label} last M tile's rows unwritten",
+             errors(got[t0:], want[t0:]), tol,
+             errors(torch.zeros_like(want[t0:]), want[t0:]))
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        w16 = Q.dequantize_bf16(q8, s)
+        b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
+                           2 * M * N * K, PEAK_BF16)
+        iters = 50 if M < 100 else 20
+        kern = lambda: Q.quant_matmul_dequant_kernel(x, q8, s)
+        rows.append(dict(
+            what=what, M=M, K=K, N=N, errors=errs,
+            ms=time_ms(kern, iters), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: Q.quant_matmul_dequant_plain(
+                x, q8, s, torch.bfloat16), 5),
+            library_ms=time_ms(lambda: torch.matmul(x, w16), iters),
+            bound_ms=b_ms, bound_by=b_by,
+            splits=Q._lib().aries_quant_matmul_splits(M, N, K)))
+        del x, q8, s, got, want, outscale, xcut, slab, w16
+    print("quant_matmul shapes " + json.dumps(rows), flush=True)
+    step = [r for r in rows if r["M"] == 6]
+    per_layer = {k: sum(r[k] * (3 if r["what"].startswith("step o") else 1)
+                        for r in step)
+                 for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+    head = rows[0]
+    entries.append(dict(
+        name="quant_matmul", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/quant_matmul.cu",
+        replaces="whisper_aries_tpu/ops/quant.py:59",
+        max_abs_err=worst, tolerance=tol, ms=head["ms"],
+        device_ms=head["device_ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library_note="torch.matmul of bf16 x with the dequantized bf16 "
+                     "weight, made before timing (cuBLAS, the same FLOPs)",
+        shape=f"x ({head['M']}, {head['K']}) bf16 @ int8 ({head['K']}, "
+              f"{head['N']}) + f32 scales -> bf16",
+        decoder_layer_at_m6=per_layer, shapes=rows))
+
+
+def kernel_self_attn(dev, entries):
+    """The int8 self-attention step at the self_int8 slice's shape (6 rows
+    x 20 heads over its 227-position cache, K scales folding 1/8), at
+    several positions, stale values past each: held against its plain
+    version in f32; ignoring the mask, or dropping the last written
+    position, must move it past the limits."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    B, H, T, dh = 6, 20, 227, 64
+    g = torch.Generator(device=dev).manual_seed(12)
+    kv = torch.randn((2, B, H, T, dh), generator=g, device=dev).to(
+        torch.bfloat16)
+    kv8, sc = XA.quantize_kv_per_position(kv)
+    k8, v8 = kv8[0].contiguous(), kv8[1].contiguous()
+    ks, vs = (sc[0] / 8.0).contiguous(), sc[1].contiguous()
+    del kv, kv8, sc
+    q = torch.randn((B, 1, H, dh), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)  # as decoder_step hands it over
+    t = torch.arange(T, device=dev)
+    neg = float(np.finfo(np.float32).min)
+    # f32 out from the same f32 products summed in another order: ~1e-7
+    tols = {"max_rel": 1e-4, "mean_rel": 1e-5}
+    worst = 0.0
+    for pos in (3, 50, 116, 200):
+        mask = torch.where(t <= pos, 0.0, neg).float()[None]
+        got = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+        want = SA.self_attention_q8_plain(q, k8, ks, v8, vs, mask)
+        cut = mask.clone()
+        cut[..., pos] = neg
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"self-attention kernel output is not finite (pos {pos})")
+        errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
+        for name, wrong in (
+                ("mask ignored", SA.self_attention_q8_plain(
+                    q, k8, ks, v8, vs, torch.zeros_like(mask))),
+                ("last written position dropped",
+                 SA.self_attention_q8_plain(q, k8, ks, v8, vs, cut))):
+            held(f"self_attn_q8[R {B} x {H} heads, T {T}, pos {pos}, {name}]",
+                 errs, tols, {"max_rel": max_rel(wrong, want),
+                              "mean_rel": mean_rel(wrong, want)})
+        worst = max(worst, float((got - want).abs().max()))
+    pos = 116
+    mask = torch.where(t <= pos, 0.0, neg).float()[None]
+    kern = lambda: SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+    ms, dev_ms = time_ms(kern, 50), device_ms(kern)
+    plain_ms = time_ms(lambda: SA.self_attention_q8_plain(
+        q, k8, ks, v8, vs, mask), 10)
+    # the function reads every cache position (the mask is data)
+    nbytes = B * H * T * 2 * (dh + 4) + T * 4 + B * H * dh * (2 + 4)
+    b_ms, b_by = bound(nbytes, 4 * B * H * T * dh, PEAK_F32)
+    entries.append(dict(
+        name="self_attn_q8", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/self_attn.cu",
+        replaces="whisper_aries_tpu/ops/pallas_self_attn.py:50",
+        max_abs_err=worst, tolerance=tols, ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library_note="none: no one PyTorch call attends over int8 K/V "
+                     "with per-position scales",
+        shape=f"q ({B}, {H}, 1, {dh}) bf16, K/V ({B}, {H}, {T}, {dh}) int8 "
+              f"+ f32 scales, mask ({T},), position {pos}"))
+
+
+def profile_unfused_step(dev, parts):
+    """One unfused decode step as the self_int8 slice runs it (large-v3 at
+    int8 compute under ARIES_QUANT_IMPL=pallas, 6 rows over 6 windows'
+    bf16 cross K/V, an int8 self cache of 227 positions, position 116):
+    decoder_step, whose dense layers run the W8A16 GEMM and whose
+    self-attention runs the int8 self-attention kernel, timed and
+    profiled (device time by kernel, the device's busy share)."""
+    import os
+
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops.quant import quantize_model_params
+
+    dims = W.PRESETS["large-v3"]
+    full = W.init_params(dims, seed=3, device=dev, dtype=torch.bfloat16)
+    params = W.fuse_decoder_qkv(quantize_model_params(
+        {"decoder": full["decoder"]}))
+    del full
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, pos = 6, 116
+    old_impl = os.environ.get("ARIES_QUANT_IMPL")
+    os.environ["ARIES_QUANT_IMPL"] = "pallas"
+    try:
+        xa = torch.randn((B, dims.n_audio_ctx, dims.n_text_state),
+                         generator=g, device=dev).to(torch.bfloat16)
+        cross = W.precompute_cross_kv(params, xa, dims)
+        cache = W.init_kv_cache(dims, B, max_len=3 + 224, int8=True,
+                                device=dev)
+        tok = torch.randint(0, 50000, (B, 1), generator=g, device=dev)
+        step = lambda: W.decoder_step(params, tok, pos, cache, cross, dims)
+        ms = time_ms(step, 10)
+        profile_step(f"R {B} ({B} windows), position {pos}, int8 self "
+                     "cache, bf16 cross K/V", step, what="unfused step")
+    finally:
+        if old_impl is None:
+            os.environ.pop("ARIES_QUANT_IMPL", None)
+        else:
+            os.environ["ARIES_QUANT_IMPL"] = old_impl
+    parts.append(dict(name=f"unfused step R {B}", ms=ms))
+    del params, cross, cache, xa
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -970,28 +1207,65 @@ def counters():
     from whisper_aries_tpu_torch.ops import cross_attn as XA
     from whisper_aries_tpu_torch.ops import decode_layers as DL
     from whisper_aries_tpu_torch.ops import mel as M
+    from whisper_aries_tpu_torch.ops import quant as Q
+    from whisper_aries_tpu_torch.ops import self_attn as SA
 
     return {"mel": M.mel_power_kernel,
             "encoder_attn": W.encoder_attention_kernel,
             "decode_layers": DL.fused_decoder_layers,
             "cross_attn_q8": XA.cross_attention_q8_kernel,
             "beam_tail": BT.beam_tail_kernel,
-            "beam_reorder": BR.permute_rows_kernel}
+            "beam_reorder": BR.permute_rows_kernel,
+            "quant_matmul": Q.quant_matmul_dequant_kernel,
+            "self_attn_q8": SA.self_attention_q8_kernel}
 
 
-# the kernels each slice's path must launch
+# the kernels each slice's path must launch, in the order the slices run
 PATH_KERNELS = {
     "greedy": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8"),
     "beam": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
              "beam_tail", "beam_reorder"),
+    "words": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
+              "cross_attn_q8", "beam_tail", "beam_reorder"),
+    "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
 }
+# each slice's config overrides; words and self_int8 run compute int8
+# under ARIES_QUANT_IMPL=pallas
+SLICE_CONFIG = {
+    "greedy": {},
+    "beam": {"decode.beam_size": 5},
+    "words": {"decode.beam_size": 5},
+    "self_int8": {"decode.kv_cache_dtype": "bf16",
+                  "decode.self_kv_cache_dtype": "int8"},
+}
+# the words slice's alignment heads: 10 (layer, head) pairs in the top
+# half of large-v3's 32 decoder layers (the size of a checkpoint's list)
+ALIGNMENT_HEADS = [(16, 3), (18, 11), (19, 0), (21, 7), (23, 14), (25, 5),
+                   (27, 19), (28, 2), (30, 9), (31, 16)]
+
+
+def word_tokenizer():
+    """The engine's stand-in tokenizer with every token decoding to its
+    own space-led word, so the word pass forms one word per token."""
+    from whisper_aries_tpu_torch.pipeline.engine import DummyTokenizer
+
+    class WordTokenizer(DummyTokenizer):
+        def decode(self, ids, skip_special=True):
+            return "".join(f" <{int(i)}>" for i in ids)
+
+    return WordTokenizer(51866)
 
 
 def slice_phase(dev, path: str):
     """transcribe_file on the synthetic WAV at large-v3 width, seeded
-    random weights; ``path`` "greedy" (config defaults) or "beam"
-    (decode.beam_size 5). Launch counts are set to 0 just before and read
-    just after."""
+    random weights: "greedy" (config defaults), "beam" (decode.beam_size
+    5), "words" (compute int8, beam 5, word timestamps with 10 alignment
+    heads) or "self_int8" (compute int8, bf16 cross K/V with an int8 self
+    cache: unfused steps, greedy at temperature 0). The int8 slices run
+    under ARIES_QUANT_IMPL=pallas, restored after. Launch counts are set to
+    0 just before and read just after."""
+    import os
+
     import torch
     from whisper_aries_tpu_torch.audio.decode import write_wav
     from whisper_aries_tpu_torch.config import load_config
@@ -1002,23 +1276,44 @@ def slice_phase(dev, path: str):
     if not wav.exists():
         write_wav(str(wav), synth_audio(125.0, seed=7))
     out_dir = OUT / path
-    over = {"decode.beam_size": 5} if path == "beam" else {}
+    int8 = path in ("words", "self_int8")
     t0 = time.time()
-    eng = AriesTranscriber("large-v3", allow_random=True,  # seed 0
-                           config=load_config(overrides=over))
+    eng = AriesTranscriber(  # seed 0
+        "large-v3", allow_random=True, compute_type="int8" if int8 else "bf16",
+        config=load_config(overrides=SLICE_CONFIG[path]),
+        _tokenizer=word_tokenizer() if path == "words" else None)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    if not (eng.fused and eng.kv_int8 and eng.self_kv_int8):
+    if path == "self_int8":
+        if eng.fused or eng.kv_int8 or not eng.self_kv_int8:
+            fail("self_int8: the engine did not resolve to unfused steps "
+                 "with an int8 self cache")
+    elif not (eng.fused and eng.kv_int8 and eng.self_kv_int8):
         fail("the engine did not resolve 'auto' to the card's path")
-    for fn in counters().values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    res = eng.transcribe_file(str(wav), output_formats=("txt", "json", "srt"),
-                              output_dir=str(out_dir))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
+    call = dict(output_formats=("txt", "json", "srt"), output_dir=str(out_dir))
+    if path == "words":
+        eng.alignment_heads = list(ALIGNMENT_HEADS)
+        print(f"words: alignment heads {ALIGNMENT_HEADS}", flush=True)
+        call["word_timestamps"] = True
+    if path == "self_int8":
+        call["temperature"] = (0.0,)
+    old_impl = os.environ.get("ARIES_QUANT_IMPL")
+    if int8:
+        os.environ["ARIES_QUANT_IMPL"] = "pallas"
+    try:
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = eng.transcribe_file(str(wav), **call)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+    finally:
+        if old_impl is None:
+            os.environ.pop("ARIES_QUANT_IMPL", None)
+        else:
+            os.environ["ARIES_QUANT_IMPL"] = old_impl
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decodes = res["performance"].get("decodes", [])
     if res["num_windows"] < 1 or not decodes:
@@ -1026,17 +1321,32 @@ def slice_phase(dev, path: str):
     for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {path} path")
+    # the word pass widens a segment to its words, which may end one
+    # 20 ms frame past the window (and so the file)
+    end_limit = res["duration"] + (0.02 if path == "words" else 1e-6)
     for s in res["segments"]:
         if not (math.isfinite(s["avg_logprob"])
                 and math.isfinite(s["no_speech_prob"])
-                and 0.0 <= s["start"] < s["end"] <= res["duration"] + 1e-6):
+                and 0.0 <= s["start"] < s["end"] <= end_limit):
             fail(f"{path}: malformed segment {s}")
+    if path == "words":
+        n_words = 0
+        for s in res["segments"]:
+            if not s.get("words"):
+                fail(f"words: a segment without words: {s}")
+            for w in s["words"]:
+                n_words += 1
+                if not (math.isfinite(w["start"]) and math.isfinite(w["end"])
+                        and math.isfinite(w["probability"])
+                        and 0.0 <= w["start"] < w["end"] <= end_limit):
+                    fail(f"words: malformed word {w} in segment {s['text']}")
     for fmt, p in res["output_files"].items():
         if not Path(p).exists():
             fail(f"{path}: {fmt} output missing")
     main_pass = [d for d in decodes if d["temperature"] == 0.0]
-    if path == "beam" and not all(d["beam_size"] == 5 for d in main_pass):
-        fail("the beam slice did not decode by beam search")
+    if path in ("beam", "words") and not all(d["beam_size"] == 5
+                                             for d in main_pass):
+        fail(f"the {path} slice did not decode by beam search")
     steps = sum(d["steps"] for d in decodes)
     rows_steps = sum(d["steps"] * d["rows"] for d in decodes)
     dec_s = sum(d["seconds"] for d in decodes)
@@ -1052,7 +1362,10 @@ def slice_phase(dev, path: str):
         permuting_steps=sum(d.get("permuted", 0) for d in decodes),
         launches=launches, peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
-    tag = "slice" if path == "greedy" else "slice_beam"
+    if path == "words":
+        summary["word_pass"] = res["performance"]["words"]
+        summary["words"] = n_words
+    tag = {"greedy": "slice", "beam": "slice_beam"}.get(path, f"slice_{path}")
     print(f"{tag} " + json.dumps(summary), flush=True)
     (OUT / f"{tag}.json").write_text(json.dumps(
         dict(summary, decodes=decodes), indent=2))
@@ -1094,16 +1407,19 @@ def main() -> None:
     kernel_cross_attn(dev, entries)
     kernel_beam_tail(dev, entries)
     kernel_reorder(dev, entries)
+    kernel_quant_matmul(dev, entries)
+    kernel_self_attn(dev, entries)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8
         profile_beam_step(dev, parts, B)
+    profile_unfused_step(dev, parts)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
     launches = {path: slice_phase(dev, path) for path in PATH_KERNELS}
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:
-        # the launches of the slice that first needs the kernel; both
-        # paths' counts beside
-        path = "greedy" if e["name"] in PATH_KERNELS["greedy"] else "beam"
+        # the launches of the first slice that needs the kernel; every
+        # path's count beside
+        path = next(p for p, ks in PATH_KERNELS.items() if e["name"] in ks)
         e["launches"] = launches[path][e["name"]]
         e["launches_by_path"] = {p: n[e["name"]] for p, n in launches.items()}
     OUT.mkdir(parents=True, exist_ok=True)

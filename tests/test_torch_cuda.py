@@ -421,3 +421,148 @@ def test_engine_beam_runs_the_kernels(dev, tmp_path):
     assert all(c.launches > b for c, b in zip(counters, before))
     assert all(d["beam_size"] == 5 for d in res["performance"]["decodes"])
 
+
+
+# ---------------------------------------------------------------------------
+# the int8 paths' kernels: W8A16 GEMM (weight-side dequant), int8 self-attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(6, 256, 384), (1, 128, 48),
+                                   (37, 128, 160), (300, 512, 256),
+                                   (1000, 256, 1024)])
+def test_quant_matmul_kernel(dev, M, K, N):
+    """The kernel against its plain version: f32 out within 1e-5 of
+    max |want| (the same bf16 products summed in another order); bf16 out
+    within one bf16 step of max |want| and one step off in under 1% of the
+    elements; the outscale product (weights not rounded to bf16) is far
+    outside the f32 limit. Covers split K (M 1, 6), an N tail (160, 48),
+    M tails (37, 300, 1000) and several M tiles."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(M + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q8, s = Q.quantize_int8(0.05 * torch.randn((K, N), generator=g,
+                                                device=dev))
+    n = Q.quant_matmul_dequant_kernel.launches
+    got = Q.quant_matmul_dequant_kernel(x, q8, s, torch.float32)
+    got16 = Q.quant_matmul_dequant(x, q8, s)
+    assert Q.quant_matmul_dequant_kernel.launches == n + 2
+    want = Q.quant_matmul_dequant_plain(x, q8, s)
+    assert _rel(got, want) <= 1e-5
+    want16 = want.to(torch.bfloat16)
+    assert got16.dtype == torch.bfloat16 and _rel(got16, want16) <= 2 ** -7
+    assert float((got16 != want16).float().mean()) < 1e-2
+    assert _rel(Q._quant_matmul_outscale(x, q8, s), want) > 1e-4
+
+
+def test_quant_matmul_kernel_rejects_shapes_it_does_not_take(dev):
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    x = torch.zeros((4, 40), dtype=torch.bfloat16, device=dev)
+    q8 = torch.zeros((40, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="K % 32"):
+        Q.quant_matmul_dequant_kernel(x, q8, torch.ones(32, device=dev))
+
+
+@pytest.mark.parametrize("B,H,T,pos,qdtype", [(2, 3, 16, 0, torch.float32),
+                                              (6, 20, 227, 100, torch.bfloat16),
+                                              (3, 2, 40, 39, torch.float32),
+                                              (140, 2, 227, 5, torch.bfloat16)])
+def test_self_attention_q8_kernel(dev, B, H, T, pos, qdtype):
+    """The int8 self-attention step against its plain version: within 1e-5
+    of max |want|; stale values past ``pos`` stay masked (the unmasked
+    version differs), and the last written position counts. 140 rows x 2
+    heads takes the two-blocks-per-SM instantiation."""
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    g = torch.Generator(device=dev).manual_seed(T + pos)
+    q = torch.randn((B, 1, H, 64), generator=g, device=dev).to(
+        qdtype).transpose(1, 2)  # strided, as decoder_step hands it over
+    k8, v8 = (torch.randint(-127, 128, (B, H, T, 64), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks = torch.rand((B, H, T), generator=g, device=dev) / 127 / 8
+    vs = torch.rand((B, H, T), generator=g, device=dev) / 127
+    t = torch.arange(T, device=dev)
+    mask = torch.where(t <= pos, 0.0, F32_MIN).float()[None]
+    n = SA.self_attention_q8_kernel.launches
+    got = SA.self_attention_q8(q, k8, ks, v8, vs, mask)
+    assert SA.self_attention_q8_kernel.launches == n + 1
+    want = SA.self_attention_q8_plain(q, k8, ks, v8, vs, mask)
+    assert _rel(got, want) <= 1e-5
+    if pos < T - 1:
+        assert _rel(SA.self_attention_q8_plain(q, k8, ks, v8, vs,
+                                               torch.zeros_like(mask)),
+                    want) > 1e-3
+    if pos > 0:
+        cut = mask.clone()
+        cut[..., pos] = F32_MIN
+        assert _rel(SA.self_attention_q8_plain(q, k8, ks, v8, vs, cut),
+                    want) > 1e-4
+
+
+def _int8_engine(dev, tmp_path, overrides):
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    dims = W.WhisperDims(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    eng = AriesTranscriber("tiny-card", _params=W.init_params(dims, seed=0),
+                           _dims=dims, compute_type="int8",
+                           config=load_config(overrides=overrides))
+    t = np.arange(16000 * 40) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 200 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    path = str(tmp_path / "a.wav")
+    write_wav(path, x.astype(np.float32))
+    return eng, path
+
+
+def test_engine_words_runs_the_kernels(dev, tmp_path, monkeypatch):
+    """compute int8 under ARIES_QUANT_IMPL=pallas, beam 5, word timestamps:
+    the W8A16 GEMM runs beside the beam path's kernels, and every segment
+    carries words."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import mel as M
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    monkeypatch.setenv("ARIES_QUANT_IMPL", "pallas")
+    eng, path = _int8_engine(dev, tmp_path, {"decode.beam_size": 5})
+    assert eng.fused and eng.self_kv_int8
+    eng.alignment_heads = [(1, 0), (1, 1)]
+    counters = (M.mel_power_kernel, W.encoder_attention_kernel,
+                Q.quant_matmul_dequant_kernel, DL.fused_decoder_layers,
+                XA.cross_attention_q8_kernel, BT.beam_tail_kernel,
+                BR.permute_rows_kernel)
+    before = [c.launches for c in counters]
+    res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=12,
+                              word_timestamps=True)
+    assert res["num_windows"] >= 1 and res["segments"]
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert all(s["words"] for s in res["segments"])
+
+
+def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
+    """kv_cache_dtype bf16 with self_kv_cache_dtype int8: unfused steps,
+    their self-attention through the int8 self-attention kernel and their
+    dense layers through the W8A16 GEMM."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import quant as Q
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    monkeypatch.setenv("ARIES_QUANT_IMPL", "pallas")
+    eng, path = _int8_engine(dev, tmp_path, {
+        "decode.kv_cache_dtype": "bf16",
+        "decode.self_kv_cache_dtype": "int8"})
+    assert not eng.fused and not eng.kv_int8 and eng.self_kv_int8
+    counters = (SA.self_attention_q8_kernel, Q.quant_matmul_dequant_kernel)
+    before = [c.launches for c in counters]
+    fused = DL.fused_decoder_layers.launches
+    res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=12)
+    assert res["num_windows"] >= 1
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert DL.fused_decoder_layers.launches == fused

@@ -110,6 +110,23 @@ def test_beam_kernel_wrappers_reject_cpu_operands():
                                torch.zeros((1, 5), dtype=torch.int32))
 
 
+def test_int8_gemm_and_self_attn_wrappers_reject_cpu_operands():
+    """The W8A16 GEMM and int8 self-attention kernel entry points refuse
+    CPU tensors too."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.quant_matmul_dequant_kernel(torch.zeros((6, 64), dtype=torch.bfloat16),
+                                      torch.zeros((64, 32), dtype=torch.int8),
+                                      torch.ones(32))
+    q = torch.zeros((1, 2, 1, 64))
+    k8 = torch.zeros((1, 2, 8, 64), dtype=torch.int8)
+    s = torch.ones((1, 2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        SA.self_attention_q8_kernel(q, k8, s, k8, s, torch.zeros(8))
+
+
 def test_config_is_a_copy_of_the_jax_config():
     """Same fields and defaults, so config files work for both."""
     from whisper_aries_tpu import config as jc

@@ -30,6 +30,10 @@
 // up). More than GMAX queries run in chunks of GMAX inside the block, each
 // chunk reading the K/V again (mostly from L2).
 //
+// An optional additive mask row over t (the same for every window and
+// head) is added to the scaled logits: the self-attention step
+// (csrc/self_attn.cu) runs this code with each row as a window, G = 1.
+//
 // Operand layout: element strides per window (w) and head (h); within a
 // (window, head) the keys are rows of 64 int8 (t-stride 64), the scales
 // contiguous in t, the query and output dims contiguous.
@@ -59,6 +63,8 @@ struct Args {
   void* out;                      // OT, (w, h, g, 64)
   long long o_sw, o_sh, o_sg;
   int H, G, Ta;
+  const float* mask = nullptr;    // (t) additive logit row shared by every
+                                  // window and head (self_attn.cu), or none
 };
 
 template <typename T> __device__ __forceinline__ float load_f(const T* p);
@@ -157,9 +163,15 @@ cross_attn_q8_kernel(Args a) {
           }
         }
         const float s = ks[t];
+        const float m = a.mask ? a.mask[t] : 0.f;
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < gc) lg[(size_t)g * Ta + t] = acc[g] * s;
+        for (int g = 0; g < GMAX; ++g) {
+          if (g < gc) {
+            // the mask added after the scale, never fused into it
+            const float l = __fmul_rn(acc[g], s);
+            lg[(size_t)g * Ta + t] = a.mask ? __fadd_rn(l, m) : l;
+          }
+        }
       }
     }
     __syncthreads();

@@ -18,9 +18,13 @@ updates, so a decode step allocates nothing per layer):
     rows of a window share its cross K/V (grouped cross-attention).
 
 The encoder's attention goes through the hand-written encoder-attention
-kernel (csrc/encoder_attn.cu), and the int8 cross-attention of a prefill
-through the grouped cross-attention kernel (csrc/cross_attn.cu), for CUDA
-tensors; CPU tensors take the plain versions. Dense layers and the conv stem stay torch
+kernel (csrc/encoder_attn.cu), the int8 cross-attention of a prefill
+through the grouped cross-attention kernel (csrc/cross_attn.cu), and a
+decode step's self-attention over an int8 self cache through the int8
+self-attention kernel (csrc/self_attn.cu), for CUDA tensors; CPU tensors
+take the plain versions. Dense layers go through ops/quant.py when int8
+(the W8A16 GEMM kernel under ARIES_QUANT_IMPL=pallas); float dense layers,
+the conv stem and the attention of the teacher-forced passes stay torch
 products, as the JAX package leaves them to XLA.
 """
 
@@ -45,6 +49,10 @@ from whisper_aries_tpu_torch.ops import cuda_build as cb
 from whisper_aries_tpu_torch.ops.cross_attn import (
     cross_attention_q8,
     quantize_kv_per_position,
+)
+from whisper_aries_tpu_torch.ops.self_attn import (
+    self_attention_q8,
+    self_attention_q8_plain,
 )
 
 NEG = float(np.finfo(np.float32).min)
@@ -351,10 +359,13 @@ def vocab_logits(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), dec["tok_emb"].float().T)
 
 
-def decoder_forward(params: Dict[str, Any], tokens: torch.Tensor,
-                    xa: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
-    """Teacher-forced decoder: tokens (B, S) -> logits (B, S, n_vocab) f32.
-    Cross-attention reads ``xa`` directly (no cached K/V)."""
+def _teacher_forced(params: Dict[str, Any], tokens: torch.Tensor,
+                    xa: torch.Tensor, dims: WhisperDims, on_cross_qk=None
+                    ) -> torch.Tensor:
+    """The decoder blocks over tokens (B, S) with cross-attention reading
+    ``xa`` directly (no cached K/V) -> the last block's x (B, S, D).
+    ``on_cross_qk(l, cqk)`` sees each layer's scaled cross-attention logits
+    (B, H, S, Ta) f32."""
     dec = params["decoder"]
     B, S = tokens.shape
     H = dims.n_text_head
@@ -380,13 +391,57 @@ def decoder_forward(params: Dict[str, Any], tokens: torch.Tensor,
         cv = _split_heads(dense(p["cross"]["v"], xa), H)
         cqk = torch.einsum("bhqd,bhkd->bhqk", (q * attn_scale(dh)).float(),
                            ck.float())
+        if on_cross_qk is not None:
+            on_cross_qk(l, cqk)
         probs = torch.softmax(cqk, dim=-1).to(cv.dtype)
         att = torch.matmul(probs, cv)
         x = x + dense(p["cross"]["o"], _merge_heads(att).to(x.dtype))
 
         h = layer_norm(p["ln2"], x)
         x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
-    return vocab_logits(dec, x)
+    return x
+
+
+def decoder_forward(params: Dict[str, Any], tokens: torch.Tensor,
+                    xa: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
+    """Teacher-forced decoder: tokens (B, S) -> logits (B, S, n_vocab) f32.
+    Cross-attention reads ``xa`` directly (no cached K/V)."""
+    return vocab_logits(params["decoder"],
+                        _teacher_forced(params, tokens, xa, dims))
+
+
+def alignment_forward(params: Dict[str, Any], tokens: torch.Tensor,
+                      xa: torch.Tensor, head_onehot, dims: WhisperDims
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced pass returning only the alignment heads' cross-
+    attention logits and per-position token probabilities (the word-
+    timestamp pass, align/word_align.py).
+
+    tokens (B, S) eot-padded past each window; head_onehot (L, N_sel, H)
+    one-hot head selectors (numpy or tensor). Returns sel_qk
+    (N_sel, B, S, Ta) f32, each selected (layer, head)'s scaled cross-
+    attention logits, and token_probs (B, S) f32, p(token_i | tokens_<i)
+    with position 0 at 1.0. Layers with no selected head add nothing and
+    are skipped; only the (N_sel, B, S, Ta) accumulator outlives a layer."""
+    sel = torch.as_tensor(head_onehot, dtype=torch.float32)
+    used = (sel.abs().sum(dim=(1, 2)) > 0).tolist()
+    sel = sel.to(xa.device)
+    B, S = tokens.shape
+    acc = torch.zeros((sel.shape[1], B, S, xa.shape[1]), dtype=torch.float32,
+                      device=xa.device)
+
+    def take(l, cqk):
+        if used[l]:
+            acc.add_(torch.einsum("nh,bhqk->nbqk", sel[l], cqk))
+
+    x = _teacher_forced(params, tokens, xa, dims, take)
+    logits = vocab_logits(params["decoder"], x)
+    lp = torch.log_softmax(logits, dim=-1)
+    nxt = lp[:, :-1].gather(2, tokens[:, 1:, None].long())[..., 0]
+    token_probs = torch.cat([torch.ones((B, 1), dtype=torch.float32,
+                                        device=xa.device), torch.exp(nxt)],
+                            dim=1)
+    return acc, token_probs
 
 
 def init_kv_cache(dims: WhisperDims, batch: int, dtype=torch.float32,
@@ -526,11 +581,12 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
             for key, slab in (("k8", k8s), ("ks", kss), ("v8", v8s),
                               ("vs", vss)):
                 cache[key][l, :, :, pos:pos + S] = slab
-            logits = torch.einsum("bhsd,bhtd->bhst", q.float(),
-                                  cache["k8"][l].float())
-            logits = logits * cache["ks"][l][:, :, None, :] + maskf
-            pr = torch.softmax(logits, dim=-1) * cache["vs"][l][:, :, None, :]
-            att = torch.einsum("bhst,bhtd->bhsd", pr, cache["v8"][l].float())
+            args = (q, cache["k8"][l], cache["ks"][l], cache["v8"][l],
+                    cache["vs"][l], maskf)
+            # a step goes through the int8 self-attention kernel on the
+            # card; the prefill (S > 1) stays plain, as in the JAX package
+            att = (self_attention_q8(*args) if S == 1
+                   else self_attention_q8_plain(*args))
         else:
             kvc = cache["kv"]
             kvc[l, :, 0, :, pos:pos + S] = k.transpose(1, 2)

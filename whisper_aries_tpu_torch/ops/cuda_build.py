@@ -33,7 +33,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mel", "encoder_attn", "decode_layers", "cross_attn",
-           "beam_tail", "beam_reorder")
+           "beam_tail", "beam_reorder", "quant_matmul", "self_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,17 +5,34 @@ symmetric absmax scales, values rounded half to even and clipped to
 [-127, 127]. A quantized dense layer is {"q": int8 (K, N), "s": f32 (N,),
 "b": optional bias}; ``models.layers.dense`` dispatches on "q".
 
-``quant_matmul`` is the plain "outscale" product the JAX package uses by
-default (``_quant_matmul_outscale``): bf16 activations times the int8
-values (exact in bf16), f32 accumulation, the per-channel scale applied to
-the f32 result, then a cast to the activation dtype.
+``quant_matmul`` reads ``ARIES_QUANT_IMPL`` at every call, as the JAX
+package reads it when it traces:
+
+  * "outscale" (default): bf16 activations times the int8 values (exact in
+    bf16), f32 accumulation, the per-channel scale applied to the f32
+    result. A plain torch product, as JAX computes it outside any kernel.
+  * "pallas": the weight-side dequant product of the JAX package's Pallas
+    kernel (``_quant_matmul_pallas``): each weight rounded to bf16 after an
+    f32 multiply by its scale, then bf16 x bf16 with f32 sums. The W8A16
+    GEMM kernel (csrc/quant_matmul.cu) for CUDA tensors,
+    ``quant_matmul_dequant_plain`` for CPU tensors. (On the CPU the JAX
+    package maps "pallas" to "xla"; the port runs what the TPU kernel
+    computes.)
+  * "xla" (and any other value, as in JAX): weights dequantized in the
+    activation dtype, then the product.
+  * "native" (JAX's s8 x s8 -> s32 scheme) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import os
 from typing import Any, Dict, Tuple
 
 import torch
+
+from whisper_aries_tpu_torch.ops import cuda_build as cb
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -28,15 +45,124 @@ def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def dequantize_bf16(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8 (K, N) x f32 scales (N,) -> bf16 weights: an f32 multiply, then
+    round to nearest even (the TPU kernel's per-tile dequant)."""
+    return (q.float() * s.float()).to(torch.bfloat16)
+
+
+def quant_matmul_dequant_plain(x: torch.Tensor, q: torch.Tensor,
+                               s: torch.Tensor,
+                               out_dtype: torch.dtype = torch.float32
+                               ) -> torch.Tensor:
+    """x (M, K) @ bf16-dequantized q (K, N) -> (M, N) in ``out_dtype``:
+    bf16(x) times the bf16 weights, products exact in f32, f32 sums."""
+    w = dequantize_bf16(q, s)
+    y = torch.matmul(x.to(torch.bfloat16).float(), w.float())
+    return y.to(out_dtype)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = cb.library("quant_matmul")
+    lib.aries_quant_matmul_splits.argtypes = [_I, _I, _I]
+    lib.aries_quant_matmul_splits.restype = _I
+    lib.aries_quant_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P, _P]
+    lib.aries_quant_matmul.restype = _I
+    return lib
+
+
+def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
+                                s: torch.Tensor,
+                                out_dtype: torch.dtype = torch.bfloat16
+                                ) -> torch.Tensor:
+    """The W8A16 GEMM kernel (csrc/quant_matmul.cu): x (M, K) bf16,
+    q (K, N) int8, s (N,) f32, contiguous CUDA tensors with K % 32 == 0 and
+    N % 16 == 0 -> (M, N) bf16 or f32. Other shapes raise."""
+    cb.require(x, "x", torch.bfloat16)
+    M, K = x.shape
+    if q.dim() != 2 or q.shape[0] != K:
+        raise ValueError(f"q must be ({K}, N), got {tuple(q.shape)}")
+    N = q.shape[1]
+    cb.require(q, "q", torch.int8, (K, N), x.device)
+    cb.require(s, "s", torch.float32, (N,), x.device)
+    if K % 32 or N % 16 or M < 1:
+        raise ValueError(f"the W8A16 GEMM kernel needs K % 32 == 0 and "
+                         f"N % 16 == 0, got M {M}, K {K}, N {N}")
+    for name, t in (("x", x), ("q", q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the kernel writes bf16 or f32")
+    lib = _lib()
+    splits = lib.aries_quant_matmul_splits(M, N, K)
+    if splits < 1:
+        cb.check(-splits, "W8A16 GEMM (SM count)")
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    cb.check(lib.aries_quant_matmul(
+        cb.ptr(x), cb.ptr(q), cb.ptr(s), cb.ptr(out),
+        int(out_dtype == torch.bfloat16), M, N, K, splits,
+        cb.ptr(part) if part is not None else None, cb.stream()),
+        "W8A16 GEMM")
+    quant_matmul_dequant_kernel.launches += 1
+    return out
+
+
+quant_matmul_dequant_kernel.launches = 0
+
+
+def quant_matmul_dequant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
+                         ) -> torch.Tensor:
+    """x (M, K) -> (M, N) in x.dtype by the weight-side dequant product:
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not x.is_cuda:
+        return quant_matmul_dequant_plain(x, q, s, x.dtype)
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    y = quant_matmul_dequant_kernel(x.to(torch.bfloat16).contiguous(), q, s,
+                                    out_dtype)
+    return y.to(x.dtype)
+
+
+def _quant_matmul_outscale(x: torch.Tensor, q: torch.Tensor,
+                           s: torch.Tensor) -> torch.Tensor:
+    """bf16 x int8 products are exact in f32, so the f32 product of the
+    bf16-rounded activations and the int8 values is the bf16 GEMM with f32
+    accumulation; the scale goes on the f32 result."""
+    y = torch.matmul(x.to(torch.bfloat16).float(), q.float())
+    return y * s.float()
+
+
+def _quant_matmul_xla(x: torch.Tensor, q: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """Weights dequantized in x's dtype (a bf16 product rounds), then the
+    product with f32 sums."""
+    w = q.to(x.dtype) * s.to(x.dtype)[None, :]
+    return torch.matmul(x.float(), w.float())
+
+
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
                  ) -> torch.Tensor:
-    """(..., K) @ int8 (K, N) with per-N scales -> (..., N) in x.dtype.
-
-    bf16 x int8 products are exact in f32, so the f32 product of the
-    bf16-rounded activations and the int8 values is the bf16 GEMM with f32
-    accumulation."""
-    y = torch.matmul(x.to(torch.bfloat16).float(), q.float())
-    return (y * s.float()).to(x.dtype)
+    """(..., K) @ int8 (K, N) with per-N scales -> (..., N) in x.dtype, by
+    the implementation ``ARIES_QUANT_IMPL`` names (module docstring)."""
+    impl = os.environ.get("ARIES_QUANT_IMPL", "outscale")
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if impl == "native":
+        raise NotImplementedError(
+            "ARIES_QUANT_IMPL=native (s8 x s8 -> s32) is not ported yet")
+    if impl == "outscale":
+        y = _quant_matmul_outscale(x2, q, s)
+    elif impl == "pallas":
+        y = quant_matmul_dequant(x2, q, s)
+    else:
+        y = _quant_matmul_xla(x2, q, s)
+    return y.reshape(*lead, q.shape[1]).to(x.dtype)
 
 
 _DENSE_KEYS = ("q", "k", "v", "o", "fc1", "fc2")

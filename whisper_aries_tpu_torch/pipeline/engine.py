@@ -6,7 +6,9 @@ The port of the JAX package's pipeline/engine.py main path:
         -> log-mel (mel kernel) -> encoder (encoder-attention kernel)
         -> int8 cross K/V -> greedy or beam decode (decoder-layer kernels,
            grouped cross-attention kernel; beam: beam-tail and reorder
-           kernels) -> temperature-fallback ladder -> parse -> TXT/JSON/SRT
+           kernels) -> temperature-fallback ladder -> parse
+        -> [word timestamps: re-encode, alignment_forward, host DTW]
+        -> TXT/JSON/SRT
 
 The whole file is uploaded to the card once as int16 and windows are
 gathered on the device. Each decode row has its own self-cache slot; the
@@ -25,7 +27,17 @@ off, initial-timestamp cap, n-gram bans, repetition penalty) come from
 is above 1 and the temperature is 0; the fallback ladder's rungs sample
 with ``best_of``.
 
-Not ported yet (ROADMAP.md): word timestamps, conditioned / sequential
+``compute_type="int8"`` quantizes every transformer dense layer; with
+``ARIES_QUANT_IMPL=pallas`` their products go through the W8A16 GEMM
+kernel on the card. ``decode.kv_cache_dtype="bf16"`` with
+``decode.self_kv_cache_dtype="int8"`` decodes by unfused steps with an
+int8 self cache (the int8 self-attention kernel on the card).
+``word_timestamps=True`` attaches DTW word times to every segment
+(align/word_align.py); a failure there fails the call. With no checkpoint
+loading there are no published alignment heads: ``alignment_heads`` is
+None (the top-half fallback) unless the caller sets it.
+
+Not ported yet (ROADMAP.md): checkpoint loading, conditioned / sequential
 decode and the resume journal, fixed chunking, prefix / initial prompt /
 hotwords, multilingual, the short audio_ctx bucket.
 """
@@ -183,6 +195,9 @@ class AriesTranscriber:
         self.self_kv_int8 = self.fused if skvd == "auto" else skvd == "int8"
         self.wpack = (pack_layer_weights(self.params["decoder"]["blocks"])
                       if self.fused else None)
+        # per-checkpoint DTW alignment heads [(layer, head), ...]; None
+        # falls back to the top half of the decoder layers
+        self.alignment_heads: Optional[List[Tuple[int, int]]] = None
         self._speech_scorer = self._make_speech_scorer()
         self.last_stats: Dict[str, Any] = {}
 
@@ -334,11 +349,15 @@ class AriesTranscriber:
         log_prob_threshold: float = -1.0,
         no_speech_threshold: float = 0.6,
         max_new_tokens: int = 224,
+        word_timestamps: bool = False,
+        prepend_punctuations: Optional[str] = None,
+        append_punctuations: Optional[str] = None,
     ) -> Dict[str, Any]:
         """Transcribe one file end to end (VAD, greedy or beam search,
-        fallback ladder); returns the result dict and writes the requested
-        output formats (txt, json, srt). ``beam_size``, ``patience`` and
-        ``length_penalty`` default to ``config.decode``'s."""
+        fallback ladder, optional word timestamps); returns the result dict
+        and writes the requested output formats (txt, json, srt).
+        ``beam_size``, ``patience``, ``length_penalty`` and the punctuation
+        sets default to ``config.decode``'s."""
         t0 = time.time()
         self.last_stats = {}
         dc = self.config.decode
@@ -373,6 +392,24 @@ class AriesTranscriber:
             segments = self._transcribe_windows(
                 audio16, windows, prompt_ids, temps, max_new_tokens,
                 thresholds, best_of, beam)
+
+        if word_timestamps and segments:
+            from whisper_aries_tpu_torch.align.word_align import (
+                add_word_timestamps,
+            )
+
+            # no catch-all here: a kernel error in the word pass fails the
+            # call (the JAX engine logs a warning instead)
+            t_w = time.time()
+            self.last_stats["words"] = add_word_timestamps(
+                self, segments, pre.audio, windows,
+                prepend_punctuations=(
+                    prepend_punctuations if prepend_punctuations is not None
+                    else dc.prepend_punctuations),
+                append_punctuations=(
+                    append_punctuations if append_punctuations is not None
+                    else dc.append_punctuations))
+            self.last_stats["words"]["seconds"] = time.time() - t_w
 
         wall = time.time() - t0
         result: Dict[str, Any] = {

@@ -10,12 +10,16 @@ mesh — no sequential seek dependency, no worker queue.
 ``plan_windows`` is VAD-aware: it packs speech segments into <=30 s
 windows, bridging small gaps and skipping long silence entirely. (The JAX
 package's fixed-chunk planner comes with the fixed chunking mode.)
+``windows_to_batch`` slices the float audio into the word-timestamp pass's
+batch, as the JAX package's word pass does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 WINDOW_S = 30.0
 
@@ -86,3 +90,20 @@ def plan_windows(
     # downstream reporting/reconciliation (chunk_id mirrors the reference's
     # per-chunk segment annotation, final_optimized_transcriber.py:331-340).
     return [Window(w.start, w.end, chunk_id=i) for i, w in enumerate(windows)]
+
+
+def windows_to_batch(
+    audio: np.ndarray,
+    windows: Sequence[Window],
+    sample_rate: int = 16_000,
+    window_s: float = WINDOW_S,
+) -> np.ndarray:
+    """Slice + zero-pad windows into a dense (N, window_samples) batch."""
+    n_samples = int(window_s * sample_rate)
+    batch = np.zeros((len(windows), n_samples), np.float32)
+    for i, w in enumerate(windows):
+        i0 = int(round(w.start * sample_rate))
+        i1 = min(len(audio), int(round(w.end * sample_rate)), i0 + n_samples)
+        seg = audio[i0:i1]
+        batch[i, : len(seg)] = seg
+    return batch
