@@ -27,15 +27,22 @@ caught; a kernel check that fails is printed at once and fails the run
      step (layers, vocab, tail, reorder) is profiled
      at R=30 and R=40. The W8A16 GEMM is held at the int8 slices' shapes
      (M 9000 = 6 windows x 1500 with K, N in {1280, 5120}, an odd M, and
-     the six dense layers of a decoder layer at M 6), the int8
+     the six dense layers of a decoder layer at M 6), each on the path
+     ops/quant.py::gemm_plan gives it (TMA + wgmma for large M, split-K
+     mma.sync for M 6; the "quant_matmul shapes" line names each row's
+     path, and the wgmma path's dequant scratch is held bit for bit
+     against dequantize_bf16); both paths are timed, forced, over M 64-768
+     at N 1280 / 3840 / 5120 ("quant_matmul crossover" line, the
+     measurement the plan's cut-over is set from); the int8
      self-attention step at 6 rows x 20 heads over 227 positions, and one
      unfused int8-self-cache decode step is profiled. Errors are taken
      over max |want|, and where a check names a mistake (keys past T
-     scored, a dropped tail, a missing key, every window reading window
-     0's K/V, ties to the highest index, the outscale product, a dropped K
-     slab, unwritten M-tail rows, an ignored mask, a dropped last
-     position), the same error of a plain version making that mistake must
-     exceed the limit.
+     scored, a dropped tail, the next head's keys scored in the last tile,
+     a missing key, every window reading window 0's K/V, ties to the
+     highest index, the outscale product, a dropped K slab, unwritten
+     M-tail rows, an ignored mask, a dropped last position), the same
+     error of a plain version making that mistake must exceed the
+     limit.
   4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
@@ -49,7 +56,11 @@ caught; a kernel check that fails is printed at once and fails the run
      word_timestamps=True with 10 fixed alignment heads: seven kernels
      (the W8A16 GEMM beside the beam slice's six) must have launched, and
      every segment must carry words with finite, ordered times inside the
-     file; prints the word pass's seconds beside the wall time.
+     file; prints the word pass's seconds beside the wall time, the GEMM's
+     launches by path (gemm_paths) and, for the products at M = windows x
+     1500 (the encoder's and the cross K/V's), their count by M and path
+     (gemm_windowed): every one must have taken the wgmma path, M 9000
+     among them.
   7. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
@@ -69,6 +80,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -132,6 +144,22 @@ def device_ms(fn, n: int = 20) -> float:
              for ev in prof.key_averages()
              if getattr(ev, "device_type", None) == DeviceType.CUDA)
     return us / 1e3 / n
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Host milliseconds per call: the wall time of `n` calls enqueued
+    back to back on an idle card, before any of them is waited for (the
+    wrapper's checks, ctypes and the launches; the card runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -293,7 +321,30 @@ def kernel_encoder_attn(dev, entries):
                    "mean_rel": mean_rel(wrong, want)})
         err = max(err, float((got.float() - want.float()).abs().max()))
         del want, wrong
-    ms = time_ms(lambda: W.encoder_attention_kernel(q, k, v), 20)
+    # T 1500 is no multiple of the 128-key tile: the last tile's 36 rows
+    # past T lie in the next head's memory. With each head's first 36 keys
+    # made large, scoring them there (the next head's keys and values, as
+    # a 2D (B H T, 64) map would read them) must move the output past the
+    # limit.
+    pad = -T % 128
+    kb = k.clone()
+    kb[:, :, :pad] *= 4
+    got = W.encoder_attention_kernel(q, kb, v)
+    want = W.attention_plain(q, kb, v)
+    nxt = lambda t: torch.cat([t, torch.roll(t.reshape(B * H, T, dh), -1, 0)
+                               [:, :pad].reshape(B, H, pad, dh)], 2)
+    wrong = W.attention_plain(q, nxt(kb), nxt(v))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        fail("encoder attention output is not finite")
+    held("encoder_attn[next head's keys scored]",
+         {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)},
+         tol, {"max_rel": max_rel(wrong, want),
+               "mean_rel": mean_rel(wrong, want)})
+    err = max(err, float((got.float() - want.float()).abs().max()))
+    del kb, got, want, wrong
+    kern = lambda: W.encoder_attention_kernel(q, k, v)
+    ms, dev_ms, wrapper_ms = time_ms(kern, 20), device_ms(kern), host_ms(kern)
     plain_ms = time_ms(lambda: W.attention_plain(q, k, v), 5)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
     b_ms, b_by = bound(4 * B * H * T * dh * 2, 4 * B * H * T * T * dh,
@@ -302,7 +353,8 @@ def kernel_encoder_attn(dev, entries):
         name="encoder_attn", route="cuda",
         source="whisper_aries_tpu_torch/csrc/encoder_attn.cu",
         replaces="whisper_aries_tpu/models/whisper.py:337",
-        max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, tolerance=tol, ms=ms, device_ms=dev_ms,
+        host_ms=wrapper_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         shape=f"q, k, v ({B}, {H}, {T}, {dh}) bf16; one call per layer"))
 
@@ -1027,6 +1079,7 @@ def kernel_quant_matmul(dev, entries):
 
     rows, worst = [], 0.0
     g = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, M, K, N in shapes:
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
@@ -1053,6 +1106,12 @@ def kernel_quant_matmul(dev, entries):
              errors(torch.zeros_like(want[t0:]), want[t0:]))
         worst = max(worst, float((got.float() - want.float()).abs().max()))
         w16 = Q.dequantize_bf16(q8, s)
+        path, splits = Q.gemm_plan(M, N, K, sms)
+        if path == "wgmma":  # the first pass's scratch, bit for bit
+            same = torch.equal(Q.dequantize_bf16_kernel(q8, s).view(
+                torch.int16), w16.view(torch.int16))
+            check(f"{label} dequant scratch bitwise", same,
+                  "equal" if same else "differs")
         b_ms, b_by = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
                            2 * M * N * K, PEAK_BF16)
         iters = 50 if M < 100 else 20
@@ -1060,17 +1119,20 @@ def kernel_quant_matmul(dev, entries):
         rows.append(dict(
             what=what, M=M, K=K, N=N, errors=errs,
             ms=time_ms(kern, iters), device_ms=device_ms(kern),
+            host_ms=host_ms(kern),
             plain_ms=time_ms(lambda: Q.quant_matmul_dequant_plain(
                 x, q8, s, torch.bfloat16), 5),
             library_ms=time_ms(lambda: torch.matmul(x, w16), iters),
-            bound_ms=b_ms, bound_by=b_by,
-            splits=Q._lib().aries_quant_matmul_splits(M, N, K)))
+            bound_ms=b_ms, bound_by=b_by, path=path, splits=splits))
         del x, q8, s, got, want, outscale, xcut, slab, w16
     print("quant_matmul shapes " + json.dumps(rows), flush=True)
+    crossover = quant_matmul_crossover(dev, g)
+    print("quant_matmul crossover " + json.dumps(crossover), flush=True)
     step = [r for r in rows if r["M"] == 6]
     per_layer = {k: sum(r[k] * (3 if r["what"].startswith("step o") else 1)
                         for r in step)
-                 for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+                 for k in ("ms", "device_ms", "host_ms", "bound_ms",
+                           "library_ms")}
     head = rows[0]
     entries.append(dict(
         name="quant_matmul", route="cuda",
@@ -1078,13 +1140,36 @@ def kernel_quant_matmul(dev, entries):
         replaces="whisper_aries_tpu/ops/quant.py:59",
         max_abs_err=worst, tolerance=tol, ms=head["ms"],
         device_ms=head["device_ms"],
+        host_ms=head["host_ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         library_note="torch.matmul of bf16 x with the dequantized bf16 "
                      "weight, made before timing (cuBLAS, the same FLOPs)",
         shape=f"x ({head['M']}, {head['K']}) bf16 @ int8 ({head['K']}, "
               f"{head['N']}) + f32 scales -> bf16",
-        decoder_layer_at_m6=per_layer, shapes=rows))
+        decoder_layer_at_m6=per_layer, shapes=rows, crossover=crossover))
+
+
+def quant_matmul_crossover(dev, g):
+    """Device ms of each GEMM path forced, at the M where the plan's
+    cut-over (Q.WGMMA_MIN_MN output elements) lies, K 1280 with N 1280,
+    3840 and 5120: the measurement the cut-over is set from."""
+    import torch
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    rows = []
+    for N in (1280, 3840, 5120):
+        for M in (64, 128, 192, 256, 384, 512, 768):
+            x = torch.randn((M, 1280), generator=g, device=dev).to(
+                torch.bfloat16)
+            q8, s = Q.quantize_int8(0.02 * torch.randn(
+                (1280, N), generator=g, device=dev))
+            row = dict(M=M, K=1280, N=N)
+            for path in Q.GEMM_PATHS:
+                row[path] = device_ms(lambda: Q.quant_matmul_dequant_kernel(
+                    x, q8, s, path=path), 10)
+            rows.append(row)
+    return rows
 
 
 def kernel_self_attn(dev, entries):
@@ -1269,6 +1354,7 @@ def slice_phase(dev, path: str):
     import torch
     from whisper_aries_tpu_torch.audio.decode import write_wav
     from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.ops import quant as Q
     from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -1300,16 +1386,30 @@ def slice_phase(dev, path: str):
     old_impl = os.environ.get("ARIES_QUANT_IMPL")
     if int8:
         os.environ["ARIES_QUANT_IMPL"] = "pallas"
+    # every W8A16 GEMM call's (M, N, K, path) as the plan gave it; the
+    # plan itself is unchanged
+    plan, planned = Q.gemm_plan, []
+
+    def recording_plan(M, N, K, sms):
+        out = plan(M, N, K, sms)
+        planned.append((M, N, K, out[0]))
+        return out
+
+    Q.gemm_plan = recording_plan
     try:
         for fn in counters().values():
             fn.launches = 0
+        gemm = Q.quant_matmul_dequant_kernel
+        gemm.launches_by_path = dict.fromkeys(Q.GEMM_PATHS, 0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         res = eng.transcribe_file(str(wav), **call)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: fn.launches for k, fn in counters().items()}
+        gemm_paths = dict(gemm.launches_by_path)
     finally:
+        Q.gemm_plan = plan
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
@@ -1321,6 +1421,18 @@ def slice_phase(dev, path: str):
     for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {path} path")
+    if sum(gemm_paths.values()) != launches["quant_matmul"]:
+        fail(f"{path}: W8A16 GEMM launches by path {gemm_paths} do not add "
+             f"up to {launches['quant_matmul']}")
+    # the encoder's and cross K/V's products: M = windows x 1500
+    windowed = [c for c in planned if c[0] % 1500 == 0]
+    by_m = dict(Counter(f"M {c[0]} {c[3]}" for c in windowed))
+    if path == "words":
+        if not windowed or any(c[3] != "wgmma" for c in windowed):
+            fail(f"words: not every encoder / cross K/V product took the "
+                 f"wgmma path: {by_m}")
+        if not any(c[0] == 9000 for c in windowed):
+            fail(f"words: no encoder product at M 9000 (6 windows): {by_m}")
     # the word pass widens a segment to its words, which may end one
     # 20 ms frame past the window (and so the file)
     end_limit = res["duration"] + (0.02 if path == "words" else 1e-6)
@@ -1360,7 +1472,8 @@ def slice_phase(dev, path: str):
                     + (("permuted",) if "permuted" in d else ())}
                    for d in main_pass],
         permuting_steps=sum(d.get("permuted", 0) for d in decodes),
-        launches=launches, peak_mem_gb=peak_gb,
+        launches=launches, gemm_paths=gemm_paths, gemm_windowed=by_m,
+        peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":
         summary["word_pass"] = res["performance"]["words"]
@@ -1371,7 +1484,7 @@ def slice_phase(dev, path: str):
         dict(summary, decodes=decodes), indent=2))
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, gemm_paths
 
 
 def main() -> None:
@@ -1413,7 +1526,8 @@ def main() -> None:
         profile_beam_step(dev, parts, B)
     profile_unfused_step(dev, parts)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
-    launches = {path: slice_phase(dev, path) for path in PATH_KERNELS}
+    runs = {path: slice_phase(dev, path) for path in PATH_KERNELS}
+    launches = {path: run[0] for path, run in runs.items()}
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:
@@ -1422,6 +1536,9 @@ def main() -> None:
         path = next(p for p, ks in PATH_KERNELS.items() if e["name"] in ks)
         e["launches"] = launches[path][e["name"]]
         e["launches_by_path"] = {p: n[e["name"]] for p, n in launches.items()}
+        if e["name"] == "quant_matmul":  # by GEMM path, in each int8 slice
+            e["gemm_paths"] = {p: run[1] for p, run in runs.items()
+                               if launches[p]["quant_matmul"]}
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "kernels.json").write_text(json.dumps(entries, indent=2))
     print(json.dumps({"kernels": entries}), flush=True)

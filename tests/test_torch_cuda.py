@@ -87,6 +87,41 @@ def test_encoder_attention_kernel(dev, shape):
         assert _rel(got, want) < 1e-2 and _mean_rel(got, want) < 5e-3
 
 
+def _next_head_keys(t, pad):
+    """(B, H, T, dh) -> (B, H, T + pad, dh): each head followed by the next
+    head's first ``pad`` rows (flattened over B H, wrapping at the end) --
+    what a 2D (B H T, 64) map would read past a head's last key."""
+    B, H, T, dh = t.shape
+    flat = t.reshape(B * H, T, dh)
+    nxt = torch.roll(flat, -1, 0)[:, :pad]
+    return torch.cat([flat, nxt], 1).reshape(B, H, T + pad, dh)
+
+
+def test_encoder_attention_kernel_head_boundary(dev):
+    """T 200 is no multiple of the 128-key tile: the last tile's 56 rows
+    past T belong to the next head in memory. With each head's first 56
+    keys made large, scoring them there (the next head's keys) moves the
+    output far past the limit; the kernel stays within it. Three fresh
+    inputs."""
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    B, H, T, dh = 2, 3, 200, 64
+    pad = -T % 128
+    for rep in range(3):
+        g = torch.Generator(device=dev).manual_seed(100 + rep)
+        q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        k[:, :, :pad] *= 4
+        n = W.encoder_attention_kernel.launches
+        got = W.encoder_attention(q, k, v)
+        assert W.encoder_attention_kernel.launches == n + 1
+        want = W.attention_plain(q, k, v)
+        wrong = W.attention_plain(q, _next_head_keys(k, pad),
+                                  _next_head_keys(v, pad))
+        assert _rel(got, want) < 1e-2 and _mean_rel(got, want) < 5e-3
+        assert _rel(wrong, want) > 1e-2 and _mean_rel(wrong, want) > 5e-3
+
+
 @pytest.fixture(scope="module")
 def small(dev):
     """d 128 (2 heads x dh 64), ff 512, 2 layers, Ta 96, T 16."""
@@ -454,6 +489,83 @@ def test_quant_matmul_kernel(dev, M, K, N):
     assert got16.dtype == torch.bfloat16 and _rel(got16, want16) <= 2 ** -7
     assert float((got16 != want16).float().mean()) < 1e-2
     assert _rel(Q._quant_matmul_outscale(x, q8, s), want) > 1e-4
+
+
+def _wgmma_cases():
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    cut = Q.WGMMA_MIN_MN // 1280
+    return [(4500, 1280, 1280), (9000, 1280, 1280), (4500, 5120, 1280),
+            (9000, 1280, 5120), (4500, 1280, 1296), (cut - 1, 1280, 1280),
+            (cut, 1280, 1280), (cut + 37, 1280, 1296)]
+
+
+@pytest.mark.parametrize("M,K,N", _wgmma_cases())
+def test_quant_matmul_paths_at_encoder_shapes(dev, M, K, N):
+    """The encoder's and word pass's M (6 and 3 windows x 1500) at K 1280 /
+    5120, an N tail (1296), and M on either side of the plan's cut-over:
+    the call takes the path ``gemm_plan`` names (``launches_by_path``
+    moves there), f32 out within 1e-5 of max |want|, bf16 out one step off
+    in under 1% of the elements. Three fresh inputs each."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    path, _ = Q.gemm_plan(M, N, K, sms)
+    assert path == ("wgmma" if M * N >= Q.WGMMA_MIN_MN else "splitk")
+    for rep in range(3):
+        g = torch.Generator(device=dev).manual_seed(M + K + N + rep)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
+                                                   device=dev))
+        by_path = dict(Q.quant_matmul_dequant_kernel.launches_by_path)
+        got = Q.quant_matmul_dequant_kernel(x, q8, s, torch.float32)
+        got16 = Q.quant_matmul_dequant_kernel(x, q8, s)
+        after = Q.quant_matmul_dequant_kernel.launches_by_path
+        assert after[path] == by_path[path] + 2
+        assert sum(after.values()) == sum(by_path.values()) + 2
+        want = Q.quant_matmul_dequant_plain(x, q8, s)
+        assert _rel(got, want) <= 1e-5
+        want16 = want.to(torch.bfloat16)
+        assert _rel(got16, want16) <= 2 ** -7
+        assert float((got16 != want16).float().mean()) < 1e-2
+        del x, q8, s, got, got16, want, want16
+
+
+@pytest.mark.parametrize("K,N", [(1280, 1280), (5120, 1296), (64, 16)])
+def test_dequant_scratch_bitwise(dev, K, N):
+    """The wgmma path's first pass equals ``dequantize_bf16`` (an f32
+    multiply, then round to nearest even) bit for bit. Three fresh
+    inputs."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    for rep in range(3):
+        g = torch.Generator(device=dev).manual_seed(K + N + rep)
+        q8, s = Q.quantize_int8(torch.randn((K, N), generator=g, device=dev))
+        got = Q.dequantize_bf16_kernel(q8, s)
+        want = Q.dequantize_bf16(q8, s)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_quant_matmul_forced_paths_agree(dev):
+    """Either path on the same operands (the crossover measurement's
+    calls): f32 outputs within 1e-5 of max |want| of each other. Three
+    fresh inputs."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    for rep in range(3):
+        g = torch.Generator(device=dev).manual_seed(5 + rep)
+        x = torch.randn((200, 1280), generator=g, device=dev).to(
+            torch.bfloat16)
+        q8, s = Q.quantize_int8(0.02 * torch.randn((1280, 1280), generator=g,
+                                                   device=dev))
+        a = Q.quant_matmul_dequant_kernel(x, q8, s, torch.float32,
+                                          path="wgmma")
+        b = Q.quant_matmul_dequant_kernel(x, q8, s, torch.float32,
+                                          path="splitk")
+        assert _rel(a, b) <= 1e-5
+    with pytest.raises(ValueError, match="K % 64"):
+        Q.quant_matmul_dequant_kernel(x[:, :96].contiguous(),
+                                      q8[:96].contiguous(), s, path="wgmma")
 
 
 def test_quant_matmul_kernel_rejects_shapes_it_does_not_take(dev):

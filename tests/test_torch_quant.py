@@ -148,3 +148,52 @@ def test_dense_pallas_matches_jax(monkeypatch):
                    _t(x).reshape(5, 9, 256)).numpy()
     assert _rel(got, want) <= 1e-5
     jax.clear_caches()
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    (9000, 1280, 1280, ("wgmma", 1)), (9000, 5120, 1280, ("wgmma", 1)),
+    (9000, 1280, 5120, ("wgmma", 1)), (4500, 1280, 1280, ("wgmma", 1)),
+    (4500, 5120, 1280, ("wgmma", 1)), (4500, 1280, 5120, ("wgmma", 1)),
+    (6, 1280, 1280, ("splitk", 10)), (6, 3840, 1280, ("splitk", 8)),
+    (6, 5120, 1280, ("splitk", 5)), (6, 1280, 5120, ("splitk", 20))])
+def test_gemm_plan_on_the_slices_shapes(M, N, K, want):
+    """The encoder's and cross K/V's M (6 or 3 windows x 1500) take the TMA
+    + wgmma path; a decode step's M 6 keeps the split-K path with the
+    splits the previous C rule gave on 132 SMs (about two blocks per SM,
+    each split a whole number of >= 4 32-deep slabs)."""
+    assert TQ.gemm_plan(M, N, K, 132) == want
+
+
+@pytest.mark.parametrize("M", [9000, 4500, 1000])
+def test_gemm_plan_sends_k_not_a_multiple_of_64_to_splitk(M):
+    """K % 64 != 0 (here K 1312 = 41 x 32) goes to the split-K path by the
+    plan, never by an error."""
+    path, splits = TQ.gemm_plan(M, 1280, 1312, 132)
+    assert path == "splitk" and (1312 // 32) % splits == 0
+
+
+@pytest.mark.parametrize("N", [1280, 3840, 5120])
+def test_gemm_plan_cutover(N):
+    """The cut-over is in output elements: fewer rows go to wgmma as N
+    grows."""
+    cut = -(-TQ.WGMMA_MIN_MN // N)
+    assert TQ.gemm_plan(cut - 1, N, 1280, 132)[0] == "splitk"
+    assert TQ.gemm_plan(cut, N, 1280, 132)[0] == "wgmma"
+    assert 24 <= cut <= 768  # prefill / alignment_forward sizes either way
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+@pytest.mark.parametrize("M,N,K", [(1, 48, 128), (6, 384, 256),
+                                   (37, 160, 128), (200, 1280, 1312),
+                                   (6, 1280, 5120), (24, 3840, 1280)])
+def test_splitk_splits_divide_the_k_slabs(sms, M, N, K):
+    """Every split is a whole number of 32-deep slabs, at least 4 of them
+    when K is split; one split once the 128 x 128 tiles fill the card."""
+    path, splits = TQ.gemm_plan(M, N, K, sms)
+    assert path == "splitk"
+    slabs = K // 32
+    assert slabs % splits == 0
+    assert splits == 1 or slabs // splits >= 4
+    tiles = -(-M // 128) * -(-N // 128)
+    if tiles >= sms:
+        assert splits == 1

@@ -4,7 +4,9 @@
     anything of the JAX package (whisper_aries_tpu) — checked on the AST;
   * the engine runs on CUDA unless the caller asks for the CPU: with no
     card and no explicit device it raises, never carrying on quietly;
-  * every kernel wrapper takes its plain version only for CPU tensors.
+  * every kernel wrapper takes its plain version only for CPU tensors;
+  * every file of the repo that reaches ``pl.pallas_call`` is named in
+    PERF.md's kernel table.
 """
 
 import ast
@@ -158,3 +160,30 @@ def test_wav_decode_matches_jax(tmp_path):
     mp3.write_bytes(b"\xff\xfb")
     with pytest.raises(AudioError, match="WAV only"):
         td.load_audio(str(mp3))
+
+
+def _kernel_table() -> str:
+    text = (ROOT / "PERF.md").read_text(encoding="utf-8")
+    section = text.split("### Kernel table", 1)[1].split("\n### ", 1)[0]
+    return "\n".join(l for l in section.splitlines() if l.startswith("|"))
+
+
+def _pallas_files():
+    """The repo's code outside the tests: the root scripts and every
+    package and script directory."""
+    paths = list(ROOT.glob("*.py"))
+    for top in ("whisper_aries_tpu", "whisper_aries_tpu_torch", "scripts",
+                "native", "examples"):
+        paths += (ROOT / top).rglob("*.py")
+    for path in sorted(paths):
+        if "pl.pallas_call" in path.read_text(encoding="utf-8",
+                                               errors="replace"):
+            yield path.relative_to(ROOT).as_posix()
+
+
+def test_every_pallas_kernel_file_is_in_the_kernel_table():
+    table = _kernel_table()
+    files = list(_pallas_files())
+    assert len(files) >= 16  # 8 in the JAX package, 8 TPU probes in scripts/
+    missing = [f for f in files if f"`{f}:" not in table]
+    assert not missing, f"PERF.md's kernel table does not name {missing}"

@@ -1,0 +1,315 @@
+// Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
+// (quant_matmul.cu's large-M GEMM, encoder_attn.cu):
+//
+//   * mbarriers: init, arrive, arrive with an expected transaction count,
+//     and a parity wait; a ring stage's "full" barrier is completed by the
+//     TMA engine's byte count, its "empty" barrier by the consumers;
+//   * TMA: 2D / 3D tile loads into shared memory, completing on an
+//     mbarrier, and a 3D tile store from shared memory (a bulk group);
+//   * wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled
+//     tile, fence / commit / wait, m64n128k16 with A and B from shared
+//     memory and m64n64k16 with A from registers (bf16 in, f32 sums);
+//   * fence.proxy.async (ordinary stores -> TMA or wgmma reads), named
+//     barriers, setmaxnreg;
+//   * on the host, encode_map(): a CUtensorMap for a bf16 tensor, through
+//     cuTensorMapEncodeTiled found with cudaGetDriverEntryPoint, so the
+//     libraries need no -lcuda link. Maps go to kernels by value as
+//     `const __grid_constant__ CUtensorMap` parameters.
+//
+// The 128-byte swizzle, shared by the TMA maps and the descriptors: a tile
+// is stored as rows of 128 bytes (64 bf16); within each 1024-byte group of
+// 8 rows, the 16-byte chunk c of row r sits at chunk c ^ (r % 8). Tiles
+// start on 1024-byte boundaries, so the descriptors' base offset is 0.
+//   K-major operand (the reduction dim contiguous: x in the GEMM, Q and K in
+//   attention): 8-row groups 1024 bytes apart (SBO); the k16 step s of a
+//   64-wide row starts 32 s bytes in.
+//   MN-major operand (the output dim contiguous: the weights (K, N) in the
+//   GEMM, V in attention; wgmma's transpose bit): rows are K, 64 output
+//   columns per 128-byte row; 8-row (K) groups 1024 bytes apart (SBO),
+//   blocks of 64 columns LBO bytes apart; the k16 step s starts 2048 s bytes
+//   in (16 rows).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: nothing to link
+
+#include "common.cuh"
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the inits, before any other thread (or the TMA engine) uses them
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (a barrier starts
+// in phase 0; its n-th completion ends phase n - 1). A wait that never ends
+// (a lost arrival: a bug) traps after ~2^28 polls, seconds, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared -> global; elements outside the map's dims are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// commit this thread's TMA stores and wait until their shared-memory
+// source has been read (the block may then exit or reuse it)
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ordinary shared-memory stores made visible to the async proxy (a TMA
+// store or wgmma reading what threads wrote)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `n` threads
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// registers per thread of a warpgroup (a producer gives, consumers take);
+// must sit in one branch per role that never rejoins the others
+// ---------------------------------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// descriptor of a 128-byte-swizzled tile at `smem` (1024-byte aligned, or
+// a k16 step into one); lbo / sbo in bytes (see the note at the top)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (smem_u32(smem) & 0x3FFFF) >> 4;
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;  // layout: 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// tie accumulator registers to this point, so the compiler neither reads
+// them before a wgmma_wait nor moves their updates past a wgmma's start
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a . b: m64n128k16, A K-major and B (TRANS_B 0: K-major, 1:
+// MN-major) from shared memory; scale_d 0 overwrites d. The accumulator
+// layout (warp w of the warpgroup, lane l, g = l / 4, t = l % 4): for each
+// n8 block j, d[4j], d[4j+1] are row 16w + g, columns 8j + 2t, 8j + 2t + 1;
+// d[4j+2], d[4j+3] the same columns of row 16w + g + 8.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (+)= a . b: m64n64k16, A from registers (per warp the m16n8k16 A
+// fragment of rows 16w..16w+15: a[0] row g, k 2t..2t+1; a[1] row g + 8;
+// a[2] row g, k 2t+8..; a[3] row g + 8, k 2t+8..), B from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Error codes the entry points return beside cudaError_t values:
+// cuTensorMapEncodeTiled not found, or refusing a map (+ its CUresult).
+constexpr int ERR_NO_TENSOR_MAP = 8999;
+constexpr int ERR_TENSOR_MAP = 9000;
+
+// A bf16 tensor map of `rank` dims (innermost first: dims[0] contiguous),
+// byte strides of dims 1.. in `strides`, a `box` tile, 128-byte swizzle;
+// reads outside the dims fill zeros, stores outside are dropped. Returns 0,
+// or one of the codes above.
+static int encode_map(CUtensorMap* map, const void* base, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return ERR_NO_TENSOR_MAP;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
+}
+
+// the first 1024-byte boundary at or after p (dynamic shared memory is
+// only 16-byte aligned; swizzled tiles need 1024)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}

@@ -295,13 +295,16 @@ def _attn_fn():
 
 def encoder_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
-    """The encoder-attention kernel (csrc/encoder_attn.cu): q, k, v
-    (B, H, T, 64) bf16 contiguous CUDA -> (B, H, T, 64) bf16."""
+    """The encoder-attention kernel (csrc/encoder_attn.cu, TMA + wgmma):
+    q, k, v (B, H, T, 64) bf16 contiguous 16-byte-aligned CUDA ->
+    (B, H, T, 64) bf16."""
     B, H, T, dh = q.shape
     if dh != 64:
         raise ValueError(f"encoder attention kernel needs dh 64, got {dh}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         cb.require(t, name, torch.bfloat16, (B, H, T, dh), q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
     cb.check(_attn_fn()(cb.ptr(q), cb.ptr(k), cb.ptr(v), cb.ptr(out),
                         B, H, T, cb.stream()), "encoder attention kernel")

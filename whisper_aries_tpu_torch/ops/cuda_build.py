@@ -116,7 +116,16 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+# csrc/hopper.cuh's codes beside cudaError_t values
+ERR_NO_TENSOR_MAP, ERR_TENSOR_MAP = 8999, 9000
+
+
 def check(err: int, what: str) -> None:
+    if err == ERR_NO_TENSOR_MAP:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled was not found")
+    if err >= ERR_TENSOR_MAP:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a tensor "
+                           f"map (CUresult {err - ERR_TENSOR_MAP})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 

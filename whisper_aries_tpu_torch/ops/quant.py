@@ -14,7 +14,8 @@ package reads it when it traces:
   * "pallas": the weight-side dequant product of the JAX package's Pallas
     kernel (``_quant_matmul_pallas``): each weight rounded to bf16 after an
     f32 multiply by its scale, then bf16 x bf16 with f32 sums. The W8A16
-    GEMM kernel (csrc/quant_matmul.cu) for CUDA tensors,
+    GEMM kernel (csrc/quant_matmul.cu; TMA + wgmma for large M, split-K
+    mma.sync for small M, by ``gemm_plan``) for CUDA tensors,
     ``quant_matmul_dequant_plain`` for CPU tensors. (On the CPU the JAX
     package maps "pallas" to "xla"; the port runs what the TPU kernel
     computes.)
@@ -28,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -68,21 +69,82 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cb.library("quant_matmul")
-    lib.aries_quant_matmul_splits.argtypes = [_I, _I, _I]
-    lib.aries_quant_matmul_splits.restype = _I
-    lib.aries_quant_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    lib.aries_quant_matmul.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _P, _P]
     lib.aries_quant_matmul.restype = _I
+    lib.aries_dequant_bf16.argtypes = [_P, _P, _P, _I, _I, _P]
+    lib.aries_dequant_bf16.restype = _I
     return lib
+
+
+# The kernel's two paths (csrc/quant_matmul.cu), by their C codes.
+GEMM_PATHS = {"splitk": 0, "wgmma": 1}
+# The smallest M x N sent to the TMA + wgmma path. Measured on the H100
+# (chip_smoke.py's "quant_matmul crossover" line, PERF.md), the two paths
+# cross where the output has about this many elements: M ~420 at N 1280,
+# ~150 at N 3840, ~128 at N 5120 (K 1280).
+WGMMA_MIN_MN = 512 * 1280
+_SPLITK_BK, _SPLITK_MIN_TRIPS = 32, 4
+
+
+def _splitk_splits(M: int, N: int, K: int, sms: int) -> int:
+    """The split-K path's K splits: 1 when its 128 x 128 output tiles alone
+    fill the card, else about two blocks per SM, each split a whole number
+    (at least 4) of 32-deep K slabs."""
+    blocks = -(-N // 128) * -(-M // 128)
+    if blocks >= sms:
+        return 1
+    slabs = K // _SPLITK_BK
+    want = -(-2 * sms // blocks)
+    best = 1
+    for c in range(2, want + 1):
+        if c * _SPLITK_MIN_TRIPS > slabs:
+            break
+        if slabs % c == 0:
+            best = c
+    return best
+
+
+@functools.lru_cache(maxsize=None)  # a few shapes, called per layer
+def gemm_plan(M: int, N: int, K: int, sms: int) -> Tuple[str, int]:
+    """(path, K splits) for an (M, K) x (K, N) product on a card with
+    ``sms`` SMs: "wgmma" (TMA + wgmma, one split) from WGMMA_MIN_MN output
+    elements up when K % 64 == 0, else "splitk" (mma.sync, split K when the
+    tiles do not fill the card)."""
+    if M * N >= WGMMA_MIN_MN and K % 64 == 0:
+        return "wgmma", 1
+    return "splitk", _splitk_splits(M, N, K, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dequantize_bf16_kernel(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The "wgmma" path's first pass on its own: int8 (K, N) x f32 (N,) CUDA
+    tensors, N % 16 == 0 -> bf16 (K, N), bit for bit ``dequantize_bf16``."""
+    cb.require(q, "q", torch.int8)
+    K, N = q.shape
+    cb.require(s, "s", torch.float32, (N,), q.device)
+    if N % 16 or q.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("the dequant kernel needs N % 16 == 0 and 16-byte "
+                         "aligned q and s")
+    w = torch.empty((K, N), dtype=torch.bfloat16, device=q.device)
+    cb.check(_lib().aries_dequant_bf16(cb.ptr(q), cb.ptr(s), cb.ptr(w), K, N,
+                                       cb.stream()), "W8A16 dequant")
+    return w
 
 
 def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
                                 s: torch.Tensor,
-                                out_dtype: torch.dtype = torch.bfloat16
-                                ) -> torch.Tensor:
+                                out_dtype: torch.dtype = torch.bfloat16,
+                                path: Optional[str] = None) -> torch.Tensor:
     """The W8A16 GEMM kernel (csrc/quant_matmul.cu): x (M, K) bf16,
     q (K, N) int8, s (N,) f32, contiguous CUDA tensors with K % 32 == 0 and
-    N % 16 == 0 -> (M, N) bf16 or f32. Other shapes raise."""
+    N % 16 == 0 -> (M, N) bf16 or f32, by the path ``gemm_plan`` picks
+    (``path`` names one instead: the crossover measurement). Other shapes
+    raise. Counts ``launches`` and ``launches_by_path``."""
     cb.require(x, "x", torch.bfloat16)
     M, K = x.shape
     if q.dim() != 2 or q.shape[0] != K:
@@ -93,28 +155,39 @@ def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
     if K % 32 or N % 16 or M < 1:
         raise ValueError(f"the W8A16 GEMM kernel needs K % 32 == 0 and "
                          f"N % 16 == 0, got M {M}, K {K}, N {N}")
-    for name, t in (("x", x), ("q", q)):
+    for name, t in (("x", x), ("q", q), ("s", s)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the kernel writes bf16 or f32")
-    lib = _lib()
-    splits = lib.aries_quant_matmul_splits(M, N, K)
-    if splits < 1:
-        cb.check(-splits, "W8A16 GEMM (SM count)")
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    sms = _sm_count(x.device.index)
+    if path is None:
+        path, splits = gemm_plan(M, N, K, sms)
+    elif path not in GEMM_PATHS or (path == "wgmma" and K % 64):
+        raise ValueError(f"no path {path!r} for K {K} (one of "
+                         f"{list(GEMM_PATHS)}; wgmma needs K % 64 == 0)")
+    else:
+        splits = 1 if path == "wgmma" else _splitk_splits(M, N, K, sms)
+    if path == "wgmma":
+        scratch = torch.empty((K, N), dtype=torch.bfloat16, device=x.device)
+    elif splits > 1:
+        scratch = torch.empty((splits, M, N), dtype=torch.float32,
+                              device=x.device)
+    else:
+        scratch = None
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    cb.check(lib.aries_quant_matmul(
+    cb.check(_lib().aries_quant_matmul(
         cb.ptr(x), cb.ptr(q), cb.ptr(s), cb.ptr(out),
-        int(out_dtype == torch.bfloat16), M, N, K, splits,
-        cb.ptr(part) if part is not None else None, cb.stream()),
+        int(out_dtype == torch.bfloat16), M, N, K, GEMM_PATHS[path], splits,
+        cb.ptr(scratch) if scratch is not None else None, cb.stream()),
         "W8A16 GEMM")
     quant_matmul_dequant_kernel.launches += 1
+    quant_matmul_dequant_kernel.launches_by_path[path] += 1
     return out
 
 
 quant_matmul_dequant_kernel.launches = 0
+quant_matmul_dequant_kernel.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 def quant_matmul_dequant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
