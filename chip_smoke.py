@@ -25,7 +25,15 @@ caught; a kernel check that fails is printed at once and fails the run
      and R=30 (6 windows x 5, beam and best_of), and at R=40 (8 windows x
      5 beams), each window's rows sharing its cross K/V, and one whole beam
      step (layers, vocab, tail, reorder) is profiled
-     at R=30 and R=40. The W8A16 GEMM is held at the int8 slices' shapes
+     at R=30 and R=40. At each R two runs of the step give the same bits,
+     and a CUDA graph replay (DecodeStepGraph) gives the bits of a direct
+     launch over four positions, with an in-place beam reorder between;
+     the step is timed as a replay and as direct launches, and profiled as
+     a replay with and without programmatic dependent launch (launches per
+     step, the share of the wall some kernel is resident, each kernel's own
+     device time). The split-KV self-attention is held at valid_start 200,
+     pos 300 (whole splits empty), and the step's split cross-attention
+     on its own. The W8A16 GEMM is held at the int8 slices' shapes
      (M 9000 = 6 windows x 1500 with K, N in {1280, 5120}, an odd M, and
      the six dense layers of a decoder layer at M 6), each on the path
      ops/quant.py::gemm_plan gives it (TMA + wgmma for large M, split-K
@@ -40,16 +48,18 @@ caught; a kernel check that fails is printed at once and fails the run
      scored, a dropped tail, the next head's keys scored in the last tile,
      a missing key, every window reading window 0's K/V, ties to the
      highest index, the outscale product, a dropped K slab, unwritten
-     M-tail rows, an ignored mask, a dropped last position), the same
-     error of a plain version making that mistake must exceed the
-     limit.
+     M-tail rows, an ignored mask, a dropped last position, the appended
+     position left unscored), the same error of a plain version making
+     that mistake must exceed the limit.
   4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
      temperature ladder, txt/json/srt), with every launch count set to 0
      just before and read just after; every kernel of the path (mel,
      encoder attention, decoder layers, grouped cross-attention) must have
-     launched.
+     launched, and every decode step after a prefill must have been a
+     replay of the decode call's graph (graph_replays, layer_steps; also in
+     the beam and words slices).
   5. beam slice: the same file and weights with config decode.beam_size=5;
      all six kernels must have launched, counted from 0 again.
   6. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
@@ -410,6 +420,75 @@ def tail_dropped(cross, keep: int = 1472):
     return dict(cross, kv8=kv8)
 
 
+def pos_unscored_layers(x, wpack, cache, cross, vs, pos, H):
+    """A mistake the split-KV self-attention's limits must catch: the plain
+    layers with a self-attention that appends this step's K/V but scores
+    [vs, pos) only (the appended position left out)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    def self_attn(qkv, cache_l, pos, vs, n_head):
+        qw, ckv, ksc = DL._append_self(qkv, cache_l, pos, n_head)
+        t = torch.arange(ckv.shape[3], device=qkv.device)
+        lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
+        if ksc is not None:
+            lg = lg * ksc[:, 0]
+        pr = torch.softmax(torch.where((t >= vs) & (t < pos), lg,
+                                       float("-inf")), dim=-1)
+        if ksc is not None:
+            pr = pr * ksc[:, 1]
+        att = torch.einsum("rht,rhtd->rhd", pr.to(qkv.dtype).float(),
+                           ckv[:, 1].float())
+        return att.reshape(qkv.shape[0], -1).to(qkv.dtype)
+
+    right = DL.self_attn_plain
+    DL.self_attn_plain = self_attn
+    try:
+        return DL.fused_decoder_layers_plain(x, wpack, cache, cross, vs, pos,
+                                             H)
+    finally:
+        DL.self_attn_plain = right
+
+
+def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
+    """(a) Two direct runs of the step on the same inputs give the same
+    bits; (b) a graph replay (DecodeStepGraph) gives the same bits as a
+    direct launch over 4 positions, the cache permuted in place by the beam
+    reorder between the second and third (each window's rows rotated)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    d = wpack["wq8"].shape[1]
+    x = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
+    c1, c2 = clone(cache), clone(cache)
+    a = DL.fused_decoder_layers(x, wpack, c1, cross, 0, P, H)
+    b = DL.fused_decoder_layers(x, wpack, c2, cross, 0, P, H)
+    same = torch.equal(a, b) and all(torch.equal(c1[k], c2[k]) for k in c1)
+    check(f"decode_layers[{label}] two runs bitwise", same,
+          "x and the appended cache identical" if same else "differ")
+    del c1, c2
+    cg_, cd = clone(cache), clone(cache)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H)
+    K = R // windows
+    src = torch.roll(torch.arange(K, device=dev, dtype=torch.int32), 1)
+    src = src[None].expand(windows, K).contiguous()
+    same = True
+    for i, pos in enumerate(range(P, P + 4)):
+        x = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
+        same &= torch.equal(graph.run(x, pos),
+                            DL.fused_decoder_layers(x, wpack, cd, cross, 0,
+                                                    pos, H))
+        same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
+        if i == 1 and K > 1:
+            BR.permute_cache_rows(cg_, src)
+            BR.permute_cache_rows(cd, src)
+    check(f"decode_layers[{label}] graph replay = direct launch, bitwise",
+          same, "4 positions, an in-place reorder between" if same
+          else "differ")
+    del graph, cg_, cd
+
+
 def step_bound(dims, R, pos, self_int8, windows=None):
     """Least time of one decode step (all layers): int8 weights, the
     windows' int8 cross K/V with scales, the live self cache, x in and out,
@@ -429,9 +508,33 @@ def step_bound(dims, R, pos, self_int8, windows=None):
     return bound(nbytes, ops, PEAK_BF16)
 
 
+def check_decode_plans(dev) -> None:
+    """The C plans (K slices of each step product, self- and
+    cross-attention splits) equal their Python mirrors, which the CPU tests
+    hold, at large-v3's shapes on this card."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d, ff = 1280, 5120
+    same = all(DL.kernel_gemm_plan(K, N, sms) == DL.gemm_plan(K, N, sms)[0]
+               for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d)))
+    same &= all(DL.kernel_attn_split(T) == DL.attn_split(T)
+                for T in (227, 448))
+    same &= all(DL.kernel_cross_split(1500, w * 20, sms)
+                == DL.cross_split(1500, w * 20, sms) for w in (1, 6, 8))
+    check("decode plans: C = Python mirrors", same,
+          f"{sms} SMs, GEMM K slices "
+          f"{[DL.gemm_plan(K, N, sms) for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d))]}, "
+          f"self splits {DL.attn_split(227)}, cross splits at 6 / 8 windows "
+          f"{DL.cross_split(1500, 120, sms)} / {DL.cross_split(1500, 160, sms)}")
+
+
 def kernel_decode_layers(dev, entries, parts):
     import torch
     from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    check_decode_plans(dev)
 
     R, P = 8, 4
     for self_int8 in (False, True):
@@ -464,9 +567,11 @@ def kernel_decode_layers(dev, entries, parts):
         # held against that update, and the same metric for a plain layer
         # whose cross-attention drops its last 28 keys must exceed the limit
         ck, cp, cm = clone(cache), clone(cache), clone(cache)
+        cu = clone(cache)
         cross_m = tail_dropped(cross)
         errs = {"max_rel": 0.0, "mean_rel": 0.0}
         mistake = {"mean_rel": math.inf}  # the limit must catch it
+        unscored = {"mean_rel": math.inf}
         worst_abs = 0.0
         cache_errs = {}
         for pos in range(P, P + 4):  # several positions, valid_start 0
@@ -479,6 +584,10 @@ def kernel_decode_layers(dev, entries, parts):
                     xin, sl(wpack, l), sl(cp, l), sl(cross, l), 0, pos, H)
                 wrong = DL.fused_decoder_layers_plain(
                     xin, sl(wpack, l), sl(cm, l), sl(cross_m, l), 0, pos, H)
+                no_pos = pos_unscored_layers(xin, sl(wpack, l), sl(cu, l),
+                                             sl(cross, l), 0, pos, H)
+                unscored["mean_rel"] = min(unscored["mean_rel"],
+                                           mean_rel(no_pos, want, xin))
                 worst_abs = max(worst_abs, float(
                     (got.float() - want.float()).abs().max()))
                 errs["max_rel"] = max(errs["max_rel"], max_rel(got, want))
@@ -509,6 +618,11 @@ def kernel_decode_layers(dev, entries, parts):
         tols = {"max_rel": 3e-2, "mean_rel": 1e-2}
         held(f"decode_layers[{tag} self cache] x, {L} layers x 4 positions",
              errs, tols, mistake)
+        held(f"decode_layers[{tag} self cache] x, appended position "
+             "unscored", errs, tols, unscored)
+        del cu
+        hold_step_bits(f"{tag} self cache, R {R}", dev, wpack, cache, cross,
+                       H, R, R, P + 8, g)
         if self_int8:
             # one int8 step at most, in ~1e-4 of the entries; a scale off
             # by at most one bf16 step of its absmax (< 2^-7)
@@ -524,8 +638,12 @@ def kernel_decode_layers(dev, entries, parts):
         pos = P + 112
         x = torch.randn((R, dims.n_text_state), generator=g,
                         device=dev).to(torch.bfloat16)
-        ms = time_ms(lambda: DL.fused_decoder_layers(x, wpack, ck, cross, 0,
-                                                     pos, H), 20)
+        graph = DL.DecodeStepGraph(wpack, ck, cross, R, H)
+        step = lambda: graph.run(x, pos)
+        ms = time_ms(step, 20)
+        direct = lambda: DL.fused_decoder_layers(x, wpack, ck, cross, 0, pos,
+                                                 H)
+        ms_direct = time_ms(direct, 20)
         plain_ms = time_ms(lambda: DL.fused_decoder_layers_plain(
             x, wpack, cp, cross, 0, pos, H), 3, warmup=1)
         b_ms, b_by = step_bound(dims, R, pos, self_int8)
@@ -535,15 +653,17 @@ def kernel_decode_layers(dev, entries, parts):
             replaces="whisper_aries_tpu/ops/pallas_decode_layers.py:775",
             max_abs_err=worst_abs,
             tolerance=dict(x=tols, appended=cache_tols),
-            stack_max_rel=growth, ms=ms, plain_ms=plain_ms,
+            stack_max_rel=growth, ms=ms, ms_direct=ms_direct,
+            plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             shape=(f"one step, all 32 layers, R {R}, position {pos}, "
-                   f"{tag} self cache"))
+                   f"{tag} self cache; ms a CUDA graph replay, ms_direct "
+                   "the same launches made one by one"))
         # the main path runs the int8 self cache; the bf16 one is reported
         # with the parts
         if self_int8:
-            profile_step(f"R {R}", lambda: DL.fused_decoder_layers(
-                x, wpack, ck, cross, 0, pos, H))
+            del graph
+            profile_graph_step(f"R {R}", wpack, ck, cross, H, R, x, pos)
             del params, cross, cache, ck, cp, cm, cross_m
             # the slices' 6 windows: greedy (1 row each), the ladder's
             # best_of 5 and beam 5 (5 rows each); beam 5 over a full batch
@@ -552,6 +672,7 @@ def kernel_decode_layers(dev, entries, parts):
                 entry.update(step_at_rows(dev, rows, P, pos, windows, parts))
             entries.append(entry)
         else:
+            del graph
             parts.append(dict(entry, name="decode_layers[bf16 self cache]"))
 
 
@@ -596,13 +717,20 @@ def step_at_rows(dev, R, P, pos, windows, parts):
     out = held(f"decode_layers[int8 self cache, {label}] x, {L} layers",
                errs, tols, mistake)
     parts.append(dict(name=f"decode_layers[{label}]", **out))
+    hold_step_bits(f"int8 self cache, {label}", dev, wpack, cache, cross, H,
+                   R, windows, P + 8, g)
     x = torch.randn((R, dims.n_text_state), generator=g,
                     device=dev).to(torch.bfloat16)
-    step = lambda: DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos, H)
+    graph = DL.DecodeStepGraph(wpack, cache, cross, R, H)
+    step = lambda: graph.run(x, pos)
     ms = time_ms(step, 20)
-    profile_step(label, step)
+    ms_direct = time_ms(lambda: DL.fused_decoder_layers(
+        x, wpack, cache, cross, 0, pos, H), 20)
+    del graph
+    profile_graph_step(label, wpack, cache, cross, H, R, x, pos)
     b_ms, _ = step_bound(dims, R, pos, True, windows)
-    return {f"ms_at_r{R}": ms, f"bound_ms_at_r{R}": b_ms}
+    return {f"ms_at_r{R}": ms, f"ms_direct_at_r{R}": ms_direct,
+            f"bound_ms_at_r{R}": b_ms}
 
 
 def profile_step(label: str, step, n: int = 5,
@@ -622,6 +750,21 @@ def profile_step(label: str, step, n: int = 5,
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     from torch.autograd import DeviceType
 
+    # the share of the wall during which some kernel is resident: the union
+    # of the device events' intervals (with programmatic dependent launch a
+    # kernel starts while its predecessor drains, so the kernels' summed
+    # times can exceed the wall)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    covered, end = 0.0, -math.inf
+    for a, b in spans:
+        if a > end:
+            covered += b - a
+            end = b
+        elif b > end:
+            covered += b - end
+            end = b
     rows = []  # the device-side events only (CPU ops would count twice)
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -631,13 +774,34 @@ def profile_step(label: str, step, n: int = 5,
         rows.append((ev.key, dev_us / 1e3 / n, ev.count // n))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    busy_ms = covered / 1e3 / n
     print(f"profile {what} {label} " + json.dumps({
-        "wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
-        "device_busy_share": busy / wall_ms if wall_ms else None,
+        "wall_ms_per_step": wall_ms, "kernel_ms_sum_per_step": busy,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+        "launches_per_step": sum(r[2] for r in rows),
         "kernels": [{"name": k.replace("(anonymous namespace)::", "")
                      .split("(")[0], "ms_per_step": ms,
                      "launches_per_step": c} for k, ms, c in rows[:12]]}),
         flush=True)
+
+
+def profile_graph_step(label, wpack, cache, cross, H, R, x, pos):
+    """The step replayed from one graph, profiled as the slices run it
+    (each kernel a programmatic dependent of the one before), then from a
+    graph captured without PDL: there each kernel's device time is its own,
+    not stretched by waiting for its predecessor."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    for pdl in (True, False):
+        DL.PDL = pdl
+        try:
+            graph = DL.DecodeStepGraph(wpack, cache, cross, R, H)
+            profile_step(label + ("" if pdl else ", no PDL"),
+                         lambda: graph.run(x, pos))
+            del graph
+        finally:
+            DL.PDL = True
 
 
 def decode_parts(dev, wpack, cross, cache, H, g, parts):
@@ -732,7 +896,35 @@ def decode_parts(dev, wpack, cross, cache, H, g, parts):
         rec(f"self_attn[{'int8' if int8 else 'bf16'}]", got, want,
             lambda: DL.self_attn_kernel(qkv, ck, pos, 0, H),
             lambda: DL.self_attn_plain(qkv, cp, pos, 0, H), wrong)
+    # valid_start 200, pos 300 over a full 448-position cache: splits of
+    # 64 keys, 0-2 and 5-6 without a live key; the mistake drops the first
+    # valid key
+    full = (0.5 * torch.randn(base.shape, generator=g, device=dev)).to(
+        torch.bfloat16)
+    S, C = DL.attn_split(full.shape[3])
+    vs, pos = 200, 300
+    for int8 in (False, True):
+        q8f, scf = DL.quantize_heads(full)
+        c = {"kv8": q8f, "ksc": scf} if int8 else {"kv": full}
+        ck, cp, cm = clone(c), clone(c), clone(c)
+        tag = f"{'int8' if int8 else 'bf16'}, valid_start {vs}, pos {pos}"
+        got = DL.self_attn_kernel(qkv, ck, pos, vs, H)
+        want = DL.self_attn_plain(qkv, cp, pos, vs, H)
+        wrong = DL.self_attn_plain(qkv, cm, pos, vs + 1, H)
+        check(f"decode part self_attn[{tag}] append",
+              all(torch.equal(ck[k], cp[k]) for k in ck),
+              "appended cache identical to the plain version's")
+        empty = [s_ for s_ in range(S) if (s_ + 1) * C <= vs or s_ * C > pos]
+        rec(f"self_attn[{tag}, splits {empty} of {S} empty]", got, want,
+            lambda: DL.self_attn_kernel(qkv, ck, pos, vs, H),
+            lambda: DL.self_attn_plain(qkv, cp, pos, vs, H), wrong)
+    del full, ck, cp, cm
     kv8, sc = cross["kv8"][0], cross["sc"][0]
+    rec("cross_attn_split[bf16 out, 8 windows]",
+        DL.cross_attn_kernel(x, kv8, sc, H), DL.cross_attn_plain(x, kv8, sc, H),
+        lambda: DL.cross_attn_kernel(x, kv8, sc, H),
+        lambda: DL.cross_attn_plain(x, kv8, sc, H),
+        DL.cross_attn_plain(x, tail_dropped(cross)["kv8"][0], sc, H))
     rec("cross_attn_q8[bf16 out, step layout]",
         step_cross_kernel(x, kv8, sc, H), DL.cross_attn_plain(x, kv8, sc, H),
         lambda: step_cross_kernel(x, kv8, sc, H),
@@ -1033,10 +1225,10 @@ def profile_beam_step(dev, parts, B):
     dec = params["decoder"]
     x = torch.randn((R, dims.n_text_state), generator=g,
                     device=dev).to(torch.bfloat16)
+    graph = DL.DecodeStepGraph(wpack, cache, cross, R, dims.n_text_head)
 
-    def step():
-        y = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
-                                    dims.n_text_head)
+    def step():  # the layers replayed from one graph, as the slices run
+        y = graph.run(x, pos)
         logits = W.vocab_logits(dec, y)
         BT.beam_tail(logits, sum_lp, last, pen, mts, sup, False, K, **kw)
         BR.permute_cache_rows(cache, src)
@@ -1044,6 +1236,7 @@ def profile_beam_step(dev, parts, B):
     ms = time_ms(step, 10)
     profile_step(f"R {R} ({B} windows x {K} beams), position {pos}", step,
                  what="beam step")
+    del graph
     parts.append(dict(name=f"beam step R {R}", ms=ms))
 
 
@@ -1396,9 +1589,12 @@ def slice_phase(dev, path: str):
         return out
 
     Q.gemm_plan = recording_plan
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
     try:
         for fn in counters().values():
             fn.launches = 0
+        DL.fused_decoder_layers.graph_replays = 0
         gemm = Q.quant_matmul_dequant_kernel
         gemm.launches_by_path = dict.fromkeys(Q.GEMM_PATHS, 0)
         torch.cuda.reset_peak_memory_stats()
@@ -1407,6 +1603,7 @@ def slice_phase(dev, path: str):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: fn.launches for k, fn in counters().items()}
+        graph_replays = DL.fused_decoder_layers.graph_replays
         gemm_paths = dict(gemm.launches_by_path)
     finally:
         Q.gemm_plan = plan
@@ -1460,6 +1657,14 @@ def slice_phase(dev, path: str):
                                              for d in main_pass):
         fail(f"the {path} slice did not decode by beam search")
     steps = sum(d["steps"] for d in decodes)
+    # every decode call takes its first token from the prefill's logits,
+    # then one layer step per token: on the fused path each a graph replay
+    layer_steps = steps - len(decodes)
+    if eng.fused and not (graph_replays == layer_steps
+                          == launches["decode_layers"]):
+        fail(f"{path}: {graph_replays} graph replays, "
+             f"{launches['decode_layers']} decoder-layer launches, "
+             f"{layer_steps} layer steps: not every step was a replay")
     rows_steps = sum(d["steps"] * d["rows"] for d in decodes)
     dec_s = sum(d["seconds"] for d in decodes)
     summary = dict(
@@ -1472,7 +1677,8 @@ def slice_phase(dev, path: str):
                     + (("permuted",) if "permuted" in d else ())}
                    for d in main_pass],
         permuting_steps=sum(d.get("permuted", 0) for d in decodes),
-        launches=launches, gemm_paths=gemm_paths, gemm_windowed=by_m,
+        launches=launches, graph_replays=graph_replays,
+        layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
         peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":

@@ -348,6 +348,187 @@ def test_grouped_cross_attention_in_the_step(small):
     assert _rel(got, want) < 3e-2 and _mean_rel(got, want, x) < 1e-2
 
 
+# ---------------------------------------------------------------------------
+# the decode step's rebuilt parts: the one-launch cluster split-K GEMM, the
+# split-KV attention, the step replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,N", [(128, 384), (1280, 1280), (512, 128)])
+@pytest.mark.parametrize("R", [1, 6, 17, 40, 64, 70])
+def test_step_gemm_every_epilogue(dev, K, N, R):
+    """The W8A16 GEMM at each epilogue against its plain version (cuBLAS
+    sums in another order): bf16 outputs a step apart in under 2% of the
+    elements and within 2^-7 of max |want| (a residual sum that cancels to
+    near 0 is many of its own steps off, so not held in steps);
+    (1280, 1280) runs 5 K slices of 4 ring stages as one cluster,
+    (512, 128) 8 slices of one stage; 70 rows take two passes. One launch
+    each, and two calls give the same bits."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops.quant import quantize_int8
+
+    g = torch.Generator(device=dev).manual_seed(R + K)
+    x = torch.randn((R, K), generator=g, device=dev).to(torch.bfloat16)
+    w8, s = quantize_int8(0.05 * torch.randn((K, N), generator=g, device=dev))
+    b = 0.1 * torch.randn((N,), generator=g, device=dev)
+    y = DL.w8a16_gemm_plain(x, w8, s, b)
+    res = (0.01 * torch.randn((R, N), generator=g, device=dev)).to(
+        torch.bfloat16)
+    cases = {DL.EPI_STORE: (None, y.to(torch.bfloat16)),
+             DL.EPI_GELU: (None, DL.gelu_as(y).to(torch.bfloat16)),
+             DL.EPI_RESIDUAL: (res, res + y.to(torch.bfloat16))}
+    for mode, (out, want) in cases.items():
+        n = DL.w8a16_gemm_kernel.launches
+        got = DL.w8a16_gemm_kernel(x, w8, s, b, mode,
+                                   None if out is None else out.clone())
+        again = DL.w8a16_gemm_kernel(x, w8, s, b, mode,
+                                     None if out is None else out.clone())
+        assert DL.w8a16_gemm_kernel.launches == n + 2
+        share = _steps(got, want)[1]
+        assert share < 2e-2 and _rel(got, want) < 2 ** -7, (mode, share)
+        assert torch.equal(got, again)
+
+
+def test_step_plans_equal_their_python_mirrors(dev):
+    """The C grid plans are the ones the CPU tests hold in Python."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    for sms in (132, 114, 16):
+        for K, N in ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280),
+                     (128, 384), (512, 128)):
+            assert DL.kernel_gemm_plan(K, N, sms) == DL.gemm_plan(K, N, sms)[0]
+        for pairs in (2, 120, 160, 640):
+            for Ta in (40, 97, 1500):
+                assert (DL.kernel_cross_split(Ta, pairs, sms)
+                        == DL.cross_split(Ta, pairs, sms))
+    for T in (1, 16, 33, 200, 227, 448, 2048):
+        assert DL.kernel_attn_split(T) == DL.attn_split(T)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("T,vs,pos", [(16, 2, 9), (200, 0, 150),
+                                      (200, 100, 150), (227, 0, 226),
+                                      (97, 64, 64)])
+def test_split_self_attention(dev, int8, T, vs, pos):
+    """Split-KV self-attention with append against its plain version:
+    T 200 runs 7 splits of 32 (valid_start 100 leaves splits 0-2 and 5-6
+    without a live key), T 227 8 with a ragged last one holding pos, T 97
+    a lone live key; the appended cache is the plain version's bit for
+    bit."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    g = torch.Generator(device=dev).manual_seed(T + pos)
+    R, H = 5, 3
+    qkv = torch.randn((R, 3 * 64 * H), generator=g, device=dev).to(
+        torch.bfloat16)
+    kv = torch.zeros((R, 2, H, T, 64), dtype=torch.bfloat16, device=dev)
+    kv[..., :pos, :] = torch.randn((R, 2, H, pos, 64), generator=g,
+                                   device=dev).to(torch.bfloat16)
+    if int8:
+        q8, sc = DL.quantize_heads(kv)
+        cache = {"kv8": q8, "ksc": sc}
+    else:
+        cache = {"kv": kv}
+    ck = {k: v.clone() for k, v in cache.items()}
+    cp = {k: v.clone() for k, v in cache.items()}
+    got = DL.self_attn_kernel(qkv, ck, pos, vs, H)
+    want = DL.self_attn_plain(qkv, cp, pos, vs, H)
+    assert torch.isfinite(got.float()).all()
+    assert _bf16_close(got, want)
+    for k in ck:
+        assert torch.equal(ck[k], cp[k])
+
+
+@pytest.mark.parametrize("Bw,G,Ta", [(3, 1, 1500), (2, 5, 1500), (2, 3, 97),
+                                     (1, 12, 300)])
+def test_split_cross_attention(dev, Bw, G, Ta):
+    """Split-KV int8 cross-attention (bf16 out) against its plain version:
+    1500 keys in 8 splits of 192 (ragged last), 97 in 4 of 32, G 12 in two
+    chunks of 8 queries; the last 28 keys dropped must move it further."""
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    g = torch.Generator(device=dev).manual_seed(Ta + G)
+    H = 2
+    kv = torch.randn((Bw, 2, H, Ta, 64), generator=g, device=dev)
+    kv8, sc = XA.quantize_kv_per_position(kv)
+    sc[:, 0] /= 8.0
+    cq = (2 * torch.randn((Bw * G, 64 * H), generator=g, device=dev)).to(
+        torch.bfloat16)
+    n = DL.cross_attn_kernel.launches
+    got = DL.cross_attn_kernel(cq, kv8, sc, H)
+    assert DL.cross_attn_kernel.launches == n + 1
+    want = DL.cross_attn_plain(cq, kv8, sc, H)
+    assert _bf16_close(got, want)
+    cut = kv8.clone()
+    cut[..., Ta - 28:, :] = 0
+    wrong = DL.cross_attn_plain(cq, cut, sc, H)
+    assert _steps(wrong, want)[1] > 2e-2
+
+
+def test_step_graph_replay_equals_direct_launch(small):
+    """The step replayed from one CUDA graph equals direct launches bit for
+    bit over several positions, including after an in-place beam reorder
+    of the cache; two direct runs are bitwise equal too."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    Bw, K = 2, 3
+    R = Bw * K
+    xa = torch.randn((Bw, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    kv = torch.zeros((2, R, 2, 2, 40, 64), dtype=torch.bfloat16, device=dev)
+    kv[..., :3, :] = torch.randn((2, R, 2, 2, 3, 64), generator=g,
+                                 device=dev).to(torch.bfloat16)
+    q8, sc = DL.quantize_heads(kv)
+    graph_cache = {"kv8": q8.clone(), "ksc": sc.clone()}
+    direct_cache = {"kv8": q8.clone(), "ksc": sc.clone()}
+    graph = DL.DecodeStepGraph(wpack, graph_cache, cross, R, 2)
+    replays = DL.fused_decoder_layers.graph_replays
+    src = torch.tensor([[1, 0, 2], [0, 0, 1]], dtype=torch.int32, device=dev)
+    for pos in range(3, 9):
+        x = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+        a = graph.run(x, pos).clone()
+        b = DL.fused_decoder_layers(x, wpack, direct_cache, cross, 0, pos, 2)
+        assert torch.equal(a, b), pos
+        for k in graph_cache:
+            assert torch.equal(graph_cache[k], direct_cache[k])
+        if pos == 5:
+            BR.permute_cache_rows(graph_cache, src)
+            BR.permute_cache_rows(direct_cache, src)
+    assert DL.fused_decoder_layers.graph_replays == replays + 6
+    c1 = {k: v.clone() for k, v in direct_cache.items()}
+    c2 = {k: v.clone() for k, v in direct_cache.items()}
+    x = torch.randn((R, 128), generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(DL.fused_decoder_layers(x, wpack, c1, cross, 0, 9, 2),
+                       DL.fused_decoder_layers(x, wpack, c2, cross, 0, 9, 2))
+
+
+def test_greedy_decode_replays_every_step(small):
+    """A fused greedy decode on the card replays its graph on every step
+    after the prefill's."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    ids = G.DecodeSpecialIds(eot=511, sot=500, no_speech=510,
+                             no_timestamps=509, timestamp_begin=512, blank=1,
+                             n_vocab=512)
+    prompt = torch.full((2, 1), 500, dtype=torch.long, device=dev)
+    n = DL.fused_decoder_layers.graph_replays
+    out = G.greedy_decode(params, xa, prompt, dims, ids,
+                          torch.zeros(512, device=dev), 0, 0.0,
+                          sample_len=8, with_timestamps=False, kv_int8=True,
+                          self_kv_int8=True, fused=True, wpack=wpack)
+    assert DL.fused_decoder_layers.graph_replays - n == int(out["steps"]) - 1
+
+
 F32_MIN = float(np.finfo(np.float32).min)  # the masked logit
 
 

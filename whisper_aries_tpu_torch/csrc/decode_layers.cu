@@ -1,4 +1,4 @@
-// Decoder-layer kernels for one greedy decode step (all L layers).
+// Decoder-layer kernels for one decode step (all L layers).
 //
 // Replaces: whisper_aries_tpu/ops/pallas_decode_layers.py,
 // fused_decoder_layers (the Pallas TPU megakernel whose body, _make_kernel,
@@ -29,37 +29,47 @@
 // Bound on the H100: bytes. At large-v3 (d 1280, ff 5120, L 32) a step
 // streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales for
 // 8 windows (whatever the beams per window) and the self cache up to
-// `pos`; the products are ~1.5 GFLOP at R = 8.
+// `pos`; the products are ~1.5 GFLOP at R = 8. Each kernel moves a few MB
+// at most, so its launch and its first load's latency weigh as much as its
+// bytes: the design keeps every kernel one launch, fills the card, and
+// overlaps the kernels' starts.
 //
-// Design: the layer loop runs in C (aries_decode_layers), so one call from
-// Python launches the whole step on the caller's stream:
-//   * LayerNorm: one block per row, two-pass f32 statistics.
-//   * W8A16 GEMM: a weight stream, so every int8 weight byte is read once
-//     per step, whatever the number of rows. Each block owns 32 output
-//     columns and one K slice (64-256 rows); it loads its int8 weight
-//     fragment into registers with all loads in flight, converts it to
-//     bf16 (exact) and multiplies every row of x against it on the tensor
-//     cores (mma.sync m16n8k16, f32 accumulate; up to 64 rows in one pass).
-//     K is split over blocks (deterministic: partial sums go to scratch and
-//     a second small kernel adds them in a fixed order, then applies scale,
-//     bias and the epilogue), so even the narrow d-wide outputs run ~800
-//     blocks with their loads in flight together.
-//   * Self-attention: one block per (row, head). It appends the new K/V
-//     (quantizing when the cache is int8), then attends over the valid
-//     prefix: warps own positions, lanes own pairs of dims, logits and
-//     probabilities live in shared memory.
-//   * Cross-attention: the grouped kernel of cross_attn.cuh, one block per
-//     (head, window) over the 1500 int8 keys, each key and value row read
-//     once for all the window's rows.
+// Design: the layer loop runs in C (aries_decode_layers), 11 launches a
+// layer on the caller's stream, each a programmatic dependent launch (PDL)
+// of the one before, so the next kernel's blocks are resident while the
+// previous one drains; the GEMMs prefetch their weights (which no kernel
+// writes) before waiting for their input. The whole loop is captured once
+// per decode call as a CUDA graph (ops/decode_layers.py, DecodeStepGraph):
+// `pos` and `valid_start` are read from device memory, so one graph
+// serves every step.
+//   * LayerNorm: one warp per row, 16-byte loads, two-pass f32 statistics.
+//   * W8A16 GEMM: one launch per product. A block owns 64 output columns
+//     and one K slice; the K slices of a column tile are one thread-block
+//     cluster (at most 8). The block streams its int8 weight rows and the
+//     matching x columns through a 6-stage ring of 16-byte cp.async
+//     copies, converts the weights to bf16 (exact) and multiplies on the
+//     tensor cores (ldmatrix + mma.sync m16n8k16, f32 sums; 64 rows of x
+//     per pass). The cluster's partial sums meet in distributed shared
+//     memory, each output summed over the slices in rank order
+//     (deterministic, no atomics, no f32 scratch in device memory), and
+//     the epilogue (scale, bias, store / GELU / residual add) writes bf16.
+//     gemm_plan picks the slices; ops/decode_layers.py mirrors it.
+//   * Self- and cross-attention: split-KV clusters (attn_split.cuh).
 // The self and cross caches are dh-minor: (L, R, 2, H, T, 64) with scales
-// (L, R, 2, H, T). Fusing the launches (CUDA graphs, one persistent kernel)
-// and wgmma/TMA come in later changes.
+// (L, R, 2, H, T).
+#include "attn_split.cuh"
 #include "common.cuh"
-#include "cross_attn.cuh"
 
 namespace {
 
 constexpr int DH = 64;
+using splitkv::cp16;
+using splitkv::cp_commit;
+using splitkv::cp_wait;
+using splitkv::launch;
+using splitkv::pdl_trigger;
+using splitkv::pdl_wait;
+using splitkv::smem_u32addr;
 
 // ---------------------------------------------------------------- helpers
 
@@ -82,364 +92,322 @@ __device__ __forceinline__ float gelu_as(float y) {
   return __fmul_rn(__fmul_rn(0.5f, y), __fadd_rn(1.f, e));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32addr(p)));
+}
+
 // ------------------------------------------------------------ (a) LayerNorm
 
-constexpr int LN_THREADS = 256;
-
-__global__ void __launch_bounds__(LN_THREADS)
+// one warp per row; d % 8 == 0, rows 16-byte aligned
+__global__ void __launch_bounds__(32)
 layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
                   const float* __restrict__ b, bf16* __restrict__ y, int d) {
-  __shared__ float red[32];
+  pdl_wait();
+  pdl_trigger();
+  const int lane = threadIdx.x;
   const bf16* xr = x + (size_t)blockIdx.x * d;
   bf16* yr = y + (size_t)blockIdx.x * d;
   float acc = 0.f;
-  for (int i = threadIdx.x; i < d; i += LN_THREADS) acc += bf2f(xr[i]);
-  const float mu = block_sum(acc, red) / (float)d;
-  float sq = 0.f;
-  for (int i = threadIdx.x; i < d; i += LN_THREADS) {
-    const float dx = bf2f(xr[i]) - mu;
-    sq = fmaf(dx, dx, sq);
+  for (int i = 8 * lane; i < d; i += 256) {
+    const int4 raw = *reinterpret_cast<const int4*>(xr + i);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc += bf2f(v[j]);
   }
-  const float var = block_sum(sq, red) / (float)d;
+  const float mu = warp_sum(acc) / (float)d;
+  float sq = 0.f;
+  for (int i = 8 * lane; i < d; i += 256) {
+    const int4 raw = *reinterpret_cast<const int4*>(xr + i);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float dx = bf2f(v[j]) - mu;
+      sq = fmaf(dx, dx, sq);
+    }
+  }
+  const float var = warp_sum(sq) / (float)d;
   const float rstd = 1.f / sqrtf(var + 1e-5f);
-  for (int i = threadIdx.x; i < d; i += LN_THREADS) {
-    const float n = __fmul_rn(__fsub_rn(bf2f(xr[i]), mu), rstd);
-    yr[i] = f2bf(__fadd_rn(__fmul_rn(n, s[i]), b[i]));
+  for (int i = 8 * lane; i < d; i += 256) {
+    const int4 raw = *reinterpret_cast<const int4*>(xr + i);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    int4 outw;
+    bf16* o = reinterpret_cast<bf16*>(&outw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float n = __fmul_rn(__fsub_rn(bf2f(v[j]), mu), rstd);
+      o[j] = f2bf(__fadd_rn(__fmul_rn(n, s[i + j]), b[i + j]));
+    }
+    *reinterpret_cast<int4*>(yr + i) = outw;
   }
 }
 
 // --------------------------------------------------------- (b) W8A16 GEMM
 
-constexpr int G_COLS = 32;   // output columns per block: 4 n8 tiles
-constexpr int G_WARPS = 4;   // the block's K slice is split over its warps
-constexpr int G_KSTEP = 16 * G_WARPS;  // K rows per block trip (k16/warp)
-constexpr int G_TRIPS = 4;   // most trips per block (K slice <= 256 rows)
-constexpr int G_MT = 4;      // most m16 row tiles per pass (64 rows)
-
-__device__ __forceinline__ uint32_t pack_i8(int8_t lo, int8_t hi) {
-  // int8 values are exact in bf16
-  return pack_bf2((float)lo, (float)hi);
-}
-
-// part[ks, r, n] = sum_{k in slice ks} bf16(x[r, k]) * w[k, n], on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
-// The block owns 32 columns and one K slice; in each trip warp w takes the
-// k16 chunk w. A thread loads, for each of its k rows (2t, 2t+1, 2t+8,
-// 2t+9 of the chunk), the 4 consecutive bytes at columns 4g..4g+3: byte j
-// of them is the B fragment of n8 tile j at fragment column g, so tile j
-// covers physical columns 4c + j (c = 0..7), and the 8 lanes of one k row
-// read one 32-byte sector. All the block's weight loads are issued before
-// any product, and every row of x (MT m16 tiles per pass, all rows in one
-// pass when R <= 64) is multiplied against that fragment: each weight byte
-// is read once per call.
-template <int MT>
-__global__ void __launch_bounds__(32 * G_WARPS)
-gemm_w8_kernel(const bf16* __restrict__ x, int ldx,
-               const int8_t* __restrict__ w, int ldw, int N, int R,
-               int kslice, float* __restrict__ part) {
-  __shared__ float red[G_WARPS][MT * 16][G_COLS + 1];  // +1: no bank clash
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * G_COLS;
-  const int ks = blockIdx.y;
-  const int trips = kslice / G_KSTEP;
-  const int kw = ks * kslice + warp * 16 + 2 * t;  // this thread's k, trip 0
-
-  const int8_t* wc = w + n0 + 4 * g;
-  char4 wr[G_TRIPS][4];
-#pragma unroll
-  for (int j = 0; j < G_TRIPS; ++j) {
-    if (j < trips) {
-      const int k = kw + j * G_KSTEP;
-      wr[j][0] = *reinterpret_cast<const char4*>(wc + (size_t)k * ldw);
-      wr[j][1] = *reinterpret_cast<const char4*>(wc + (size_t)(k + 1) * ldw);
-      wr[j][2] = *reinterpret_cast<const char4*>(wc + (size_t)(k + 8) * ldw);
-      wr[j][3] = *reinterpret_cast<const char4*>(wc + (size_t)(k + 9) * ldw);
-    }
-  }
-
-  for (int r0 = 0; r0 < R; r0 += MT * 16) {
-    float acc[MT][4][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < G_TRIPS; ++j) {
-      if (j < trips) {
-        const int k = kw + j * G_KSTEP;
-        const uint32_t b0[4] = {pack_i8(wr[j][0].x, wr[j][1].x),
-                                pack_i8(wr[j][0].y, wr[j][1].y),
-                                pack_i8(wr[j][0].z, wr[j][1].z),
-                                pack_i8(wr[j][0].w, wr[j][1].w)};
-        const uint32_t b1[4] = {pack_i8(wr[j][2].x, wr[j][3].x),
-                                pack_i8(wr[j][2].y, wr[j][3].y),
-                                pack_i8(wr[j][2].z, wr[j][3].z),
-                                pack_i8(wr[j][2].w, wr[j][3].w)};
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int ra = r0 + m * 16 + g, rb = ra + 8;
-          const uint32_t* xa = reinterpret_cast<const uint32_t*>(
-              x + (size_t)ra * ldx + k);
-          const uint32_t* xb = reinterpret_cast<const uint32_t*>(
-              x + (size_t)rb * ldx + k);
-          const uint32_t a[4] = {ra < R ? xa[0] : 0u, rb < R ? xb[0] : 0u,
-                                 ra < R ? xa[4] : 0u, rb < R ? xb[4] : 0u};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[m][nt], a, b0[nt], b1[nt]);
-        }
-      }
-    }
-    // fragment (row g [+8], fragment column 2t [+1]) of tile nt is
-    // physical column 4 * (2t [+1]) + nt
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          red[warp][m * 16 + g + (i >= 2 ? 8 : 0)][4 * (2 * t + (i & 1)) + nt] =
-              acc[m][nt][i];
-    __syncthreads();
-    const int nr = min(MT * 16, R - r0);
-    for (int idx = threadIdx.x; idx < nr * G_COLS; idx += 32 * G_WARPS) {
-      const int r = idx / G_COLS, c = idx - r * G_COLS;
-      float v = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < G_WARPS; ++wi) v += red[wi][r][c];
-      part[((size_t)ks * R + r0 + r) * N + n0 + c] = v;
-    }
-    __syncthreads();  // red is rewritten by the next pass
-  }
-}
+constexpr int G_COLS = 64;      // output columns per block (16 per warp)
+constexpr int G_THREADS = 128;  // 4 warps
+constexpr int G_KC = 64;        // K rows per ring stage
+constexpr int G_NST = 6;        // ring stages
+constexpr int G_WLD = 80;       // bytes per staged weight row (64 + pad)
+constexpr int G_XLD = 72;       // bf16 per staged x row (64 + pad)
+constexpr int G_RLD = 68;       // floats per partial-sum row (64 + pad)
+constexpr int G_MAX_CLUSTER = 8;
+constexpr int G_TARGET_WAVES = 2;  // blocks per SM the plan aims at
 
 enum { EPI_STORE = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
 
-// y = (sum_ks part) * s + b, then: store bf16(y) | bf16(gelu_AS(y)) |
-// out = bf16(out + bf16(y)) (the residual add; out holds x)
-__global__ void gemm_epilogue_kernel(const float* __restrict__ part, int nks,
-                                     int R, int N,
-                                     const float* __restrict__ scale,
-                                     const float* __restrict__ bias, int mode,
-                                     bf16* out, int ldo) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * N) return;
-  const int r = idx / N, n = idx - r * N;
-  float acc = 0.f;
-  for (int s = 0; s < nks; ++s) acc += part[((size_t)s * R + r) * N + n];
-  const float y = __fadd_rn(__fmul_rn(acc, scale[n]), bias[n]);
-  bf16* o = out + (size_t)r * ldo + n;
-  if (mode == EPI_GELU) {
-    *o = f2bf(gelu_as(y));
-  } else if (mode == EPI_RESIDUAL) {
-    *o = f2bf(__fadd_rn(bf2f(*o), round_bf(y)));
-  } else {
-    *o = f2bf(y);
-  }
+__host__ __device__ constexpr int gemm_stage_bytes(int MT) {
+  return G_KC * G_WLD + MT * 16 * G_XLD * 2;
+}
+__host__ __device__ constexpr int gemm_smem_bytes(int MT) {
+  return G_NST * gemm_stage_bytes(MT) + MT * 16 * G_RLD * 4 + 2 * G_COLS * 4;
 }
 
-// K splits for a (K, N) weight (K a multiple of G_KSTEP): ~10 blocks per
-// SM (132 SMs) so enough weight loads are in flight to approach the memory
-// rate; each slice a whole number of trips, at most G_TRIPS (the register
-// fragment)
-int gemm_splits(int K, int N) {
-  const int col_blocks = N / G_COLS > 0 ? N / G_COLS : 1;
-  const int units = K / G_KSTEP;  // slices must divide K into whole trips
-  const int lo = (units + G_TRIPS - 1) / G_TRIPS;
-  int ks = (1320 + col_blocks - 1) / col_blocks;
-  if (ks > units) ks = units;
-  if (ks < lo) ks = lo;
-  for (int c = ks; c >= lo; --c)
-    if (c > 0 && units % c == 0) return c;
-  for (int c = ks + 1; c <= units; ++c)
-    if (units % c == 0) return c;
-  return units;
+// K slices for a (K, N) weight on `sms` SMs (K % 64 == 0, N % 64 == 0):
+// the least divisor s <= 8 of K / 64 giving N / 64 x s >= 2 x sms blocks,
+// else the largest such divisor; each slice K / s rows (a whole number of
+// 64-row stages), the slices of a column tile one cluster of s blocks.
+// Whatever R is: the weights are read once per call.
+// ops/decode_layers.py::gemm_plan mirrors it.
+int gemm_plan(int K, int N, int sms) {
+  const int cols = N / G_COLS, units = K / G_KC;
+  int best = 1;
+  for (int s = 1; s <= G_MAX_CLUSTER; ++s) {
+    if (units % s) continue;
+    best = s;
+    if (cols * s >= G_TARGET_WAVES * sms) break;
+  }
+  return best;
+}
+
+struct GemmArgs {
+  const bf16* x;       // (R, K), row stride ldx
+  int ldx;
+  const int8_t* w;     // (K, N), row stride ldw bytes
+  int ldw;
+  int K, N, R;
+  const float* scale;  // (N,)
+  const float* bias;   // (N,)
+  int mode;
+  bf16* out;           // (R, N), row stride ldo
+  int ldo;
+};
+
+// grid (s, N / 64), cluster (s, 1, 1): block (ks, ct) owns columns
+// [64 ct, 64 ct + 64) and K rows [ks K/s, (ks + 1) K/s). Warp w owns 16
+// columns (two n8 tiles): a thread's 16-bit weight load at column
+// 16 w + 2 g holds fragment column g of both tiles (tile j's column g is
+// physical column 16 w + 2 g + j). MT m16 row tiles (16 MT rows) a pass.
+template <int MT>
+__global__ void __launch_bounds__(G_THREADS)
+gemm_w8_kernel(GemmArgs a) {
+  extern __shared__ __align__(128) uint8_t sm[];
+  constexpr int RT = MT * 16;
+  constexpr int SB = gemm_stage_bytes(MT);
+  float* red = reinterpret_cast<float*>(sm + G_NST * SB);
+  float* ssm = red + RT * G_RLD;  // the tile's scales, then its biases
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ks = blockIdx.x, S = gridDim.x;
+  const int n0 = blockIdx.y * G_COLS;
+  const int kslice = a.K / S, kbase = ks * kslice, nch = kslice / G_KC;
+
+  auto load_w = [&](int c) {
+    uint8_t* dst = sm + (c % G_NST) * SB;
+    const int8_t* src = a.w + (size_t)(kbase + c * G_KC) * a.ldw + n0;
+#pragma unroll
+    for (int i = tid; i < G_KC * 4; i += G_THREADS) {
+      const int r = i >> 2, q = i & 3;
+      cp16(dst + r * G_WLD + q * 16, src + (size_t)r * a.ldw + q * 16,
+                 16);
+    }
+  };
+  auto load_x = [&](int c, int r0) {
+    bf16* dst = reinterpret_cast<bf16*>(sm + (c % G_NST) * SB + G_KC * G_WLD);
+    const int k = kbase + c * G_KC;
+#pragma unroll
+    for (int i = tid; i < RT * 8; i += G_THREADS) {
+      const int r = i >> 3, q = i & 7;
+      const int row = r0 + r;
+      const bool ok = row < a.R;
+      const bf16* src = a.x + (size_t)(ok ? row : 0) * a.ldx + k + q * 8;
+      cp16(dst + r * G_XLD + q * 8, src, ok ? 16 : 0);
+    }
+  };
+
+  for (int r0 = 0; r0 < a.R; r0 += RT) {
+    // the weights, scales and biases depend on no kernel: the first
+    // stages go out before the wait for the previous kernel (x's producer)
+    for (int c = 0; c < G_NST - 1; ++c)
+      if (c < nch) load_w(c);
+    if (r0 == 0 && tid < 2 * G_COLS / 4)
+      cp16(ssm + 4 * tid,
+                 (tid < G_COLS / 4 ? a.scale + n0 : a.bias + n0 - G_COLS) +
+                     4 * tid,
+                 16);
+    cp_commit();
+    if (r0 == 0) {
+      pdl_wait();
+      pdl_trigger();
+    }
+    for (int c = 0; c < G_NST - 1; ++c) {
+      if (c < nch) load_x(c, r0);
+      cp_commit();
+    }
+
+    float acc[MT][2][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+
+    for (int c = 0; c < nch; ++c) {
+      cp_wait<G_NST - 2>();
+      __syncthreads();  // stage c landed; stage c - 1 is free
+      const int cn = c + G_NST - 1;
+      if (cn < nch) {
+        load_w(cn);
+        load_x(cn, r0);
+      }
+      cp_commit();
+      const uint8_t* sw = sm + (c % G_NST) * SB;
+      const uint16_t* w16 = reinterpret_cast<const uint16_t*>(sw);
+      const bf16* sx = reinterpret_cast<const bf16*>(sw + G_KC * G_WLD);
+#pragma unroll
+      for (int kk = 0; kk < G_KC / 16; ++kk) {
+        const int kr = kk * 16 + 2 * t;
+        const int col = warp * 8 + g;  // in 16-bit words of a weight row
+        const uint32_t w0 = w16[kr * (G_WLD / 2) + col];
+        const uint32_t w1 = w16[(kr + 1) * (G_WLD / 2) + col];
+        const uint32_t w8 = w16[(kr + 8) * (G_WLD / 2) + col];
+        const uint32_t w9 = w16[(kr + 9) * (G_WLD / 2) + col];
+        // bytes: [k 2t | k 2t+1] x [tile 0, tile 1], as exact f32
+        float lo[4], hi[4];
+        splitkv::i8x4_to_f32((int)(w0 | (w1 << 16)), lo);
+        splitkv::i8x4_to_f32((int)(w8 | (w9 << 16)), hi);
+        const uint32_t b0[2] = {pack_bf2(lo[0], lo[2]), pack_bf2(lo[1], lo[3])};
+        const uint32_t b1[2] = {pack_bf2(hi[0], hi[2]), pack_bf2(hi[1], hi[3])};
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint32_t af[4];
+          ldmatrix_x4(af, sx + (m * 16 + (lane & 15)) * G_XLD + kk * 16 +
+                              (lane >> 4) * 8);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma_bf16(acc[m][j], af, b0[j], b1[j]);
+        }
+      }
+    }
+    cp_wait<0>();
+
+    // fragment (row g [+8], fragment column 2t [+1]) of tile j is physical
+    // column 16 warp + 2 (2t [+1]) + j
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          red[(m * 16 + g + (i >= 2 ? 8 : 0)) * G_RLD + warp * 16 +
+              2 * (2 * t + (i & 1)) + j] = acc[m][j][i];
+    cl.sync();
+
+    // the cluster's K slices summed in rank order, four columns a thread
+    // (one 16-byte load from each block); each block finishes an
+    // interleaved share of the tile's outputs
+    const int nr = min(RT, a.R - r0);
+    for (int i = ks * G_THREADS + tid; i < nr * (G_COLS / 4);
+         i += S * G_THREADS) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      bf16* o = a.out + (size_t)(r0 + r) * a.ldo + n0 + c;
+      uint2 res = make_uint2(0u, 0u);
+      if (a.mode == EPI_RESIDUAL) res = *reinterpret_cast<const uint2*>(o);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < S; ++q) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            cl.map_shared_rank(&red[r * G_RLD + c], q));
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+      const bf16* rv = reinterpret_cast<const bf16*>(&res);
+      uint2 outw;
+      bf16* ob = reinterpret_cast<bf16*>(&outw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float y =
+            __fadd_rn(__fmul_rn(vv[j], ssm[c + j]), ssm[G_COLS + c + j]);
+        if (a.mode == EPI_GELU)
+          ob[j] = f2bf(gelu_as(y));
+        else if (a.mode == EPI_RESIDUAL)
+          ob[j] = f2bf(__fadd_rn(bf2f(rv[j]), round_bf(y)));
+        else
+          ob[j] = f2bf(y);
+      }
+      *reinterpret_cast<uint2*>(o) = outw;
+    }
+    cl.sync();  // red stays alive until every block has read it
+  }
 }
 
 int run_gemm(const bf16* x, int ldx, int K, const int8_t* w, int ldw, int N,
              int R, const float* scale, const float* bias, int mode,
-             bf16* out, int ldo, float* part, cudaStream_t st) {
-  const int nks = gemm_splits(K, N);
-  const dim3 grid(N / G_COLS, nks), block(32 * G_WARPS);
+             bf16* out, int ldo, int sms, int pdl, cudaStream_t st) {
+  if (K % G_KC || N % G_COLS || R <= 0 || ldx % 8 || ldw % 16 || ldo % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int s = gemm_plan(K, N, sms);
+  const dim3 grid(s, N / G_COLS);
+  GemmArgs a{x, ldx, w, ldw, K, N, R, scale, bias, mode, out, ldo};
   const int tiles = (R + 15) / 16;
   if (tiles <= 1)
-    gemm_w8_kernel<1><<<grid, block, 0, st>>>(x, ldx, w, ldw, N, R, K / nks, part);
-  else if (tiles == 2)
-    gemm_w8_kernel<2><<<grid, block, 0, st>>>(x, ldx, w, ldw, N, R, K / nks, part);
-  else if (tiles == 3)
-    gemm_w8_kernel<3><<<grid, block, 0, st>>>(x, ldx, w, ldw, N, R, K / nks, part);
-  else
-    gemm_w8_kernel<G_MT><<<grid, block, 0, st>>>(x, ldx, w, ldw, N, R, K / nks,
-                                                 part);
-  int err = launch_status();
-  if (err) return err;
-  const int total = R * N;
-  gemm_epilogue_kernel<<<(total + 255) / 256, 256, 0, st>>>(
-      part, nks, R, N, scale, bias, mode, out, ldo);
-  return launch_status();
+    return launch(gemm_w8_kernel<1>, grid, G_THREADS, gemm_smem_bytes(1),
+                     s, pdl, st, a);
+  if (tiles == 2)
+    return launch(gemm_w8_kernel<2>, grid, G_THREADS, gemm_smem_bytes(2),
+                     s, pdl, st, a);
+  if (tiles == 3)
+    return launch(gemm_w8_kernel<3>, grid, G_THREADS, gemm_smem_bytes(3),
+                     s, pdl, st, a);
+  return launch(gemm_w8_kernel<4>, grid, G_THREADS, gemm_smem_bytes(4), s,
+                   pdl, st, a);
 }
 
-// --------------------------------------- (c) self-attention with append
-
-constexpr int SA_THREADS = 128;
-constexpr int SA_WARPS = SA_THREADS / 32;
-
-template <bool INT8>
-__global__ void __launch_bounds__(SA_THREADS)
-self_attn_kernel(const bf16* __restrict__ qkv, int d, void* cache,
-                 float* __restrict__ csc, int H, int Tmax, int pos, int vs,
-                 bf16* __restrict__ att) {
-  extern __shared__ float lg[];  // Tmax floats
-  __shared__ float qs[DH];
-  __shared__ float red[32];
-  __shared__ float pv[SA_WARPS][DH];
-  const int r = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bf16* row = qkv + (size_t)r * 3 * d;
-  // cache rows (of DH values) for this (row, head): k at kb + t, v at vb + t
-  const size_t kb = (((size_t)r * 2 + 0) * H + h) * Tmax;
-  const size_t vb = (((size_t)r * 2 + 1) * H + h) * Tmax;
-  int8_t* c8 = static_cast<int8_t*>(cache);
-  bf16* c16 = static_cast<bf16*>(cache);
-
-  // 1) append this step's k (warp 0) and v (warp 1); q (warp 2)
-  if (warp < 2) {
-    const bf16* src = row + (warp + 1) * d + h * DH + 2 * lane;
-    const size_t dst = (warp == 0 ? kb : vb) + pos;
-    if (INT8) {
-      const float f0 = bf2f(src[0]), f1 = bf2f(src[1]);
-      const float am = warp_max(fmaxf(fabsf(f0), fabsf(f1)));
-      const float sc = am > 0.f ? am / 127.f : 1.f;
-      const int q0 = max(-127, min(127, __float2int_rn(f0 / sc)));
-      const int q1 = max(-127, min(127, __float2int_rn(f1 / sc)));
-      c8[dst * DH + 2 * lane] = (int8_t)q0;
-      c8[dst * DH + 2 * lane + 1] = (int8_t)q1;
-      if (lane == 0) csc[dst] = sc;
-    } else {
-      c16[dst * DH + 2 * lane] = src[0];
-      c16[dst * DH + 2 * lane + 1] = src[1];
-    }
-  } else if (warp == 2) {
-    const bf16* src = row + h * DH + 2 * lane;
-    qs[2 * lane] = round_bf(__fmul_rn(bf2f(src[0]), 0.125f));
-    qs[2 * lane + 1] = round_bf(__fmul_rn(bf2f(src[1]), 0.125f));
-  }
-  __syncthreads();
-
-  // 2) logits over the valid prefix [vs, pos]
-  for (int t = vs + warp; t <= pos; t += SA_WARPS) {
-    float k0, k1;
-    if (INT8) {
-      k0 = (float)c8[(kb + t) * DH + 2 * lane];
-      k1 = (float)c8[(kb + t) * DH + 2 * lane + 1];
-    } else {
-      k0 = bf2f(c16[(kb + t) * DH + 2 * lane]);
-      k1 = bf2f(c16[(kb + t) * DH + 2 * lane + 1]);
-    }
-    float part = fmaf(qs[2 * lane + 1], k1, qs[2 * lane] * k0);
-    part = warp_sum(part);
-    if (lane == 0) lg[t] = INT8 ? part * csc[kb + t] : part;
-  }
-  __syncthreads();
-
-  // 3) softmax (f32), v scale folded into the probabilities, bf16 rounding
-  float mx = -INFINITY;
-  for (int t = vs + tid; t <= pos; t += SA_THREADS) mx = fmaxf(mx, lg[t]);
-  mx = block_max(mx, red);
-  float sum = 0.f;
-  for (int t = vs + tid; t <= pos; t += SA_THREADS) {
-    const float e = expf(lg[t] - mx);
-    lg[t] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);
-  for (int t = vs + tid; t <= pos; t += SA_THREADS) {
-    float p = lg[t] / sum;
-    if (INT8) p = p * csc[vb + t];
-    lg[t] = round_bf(p);
-  }
-  __syncthreads();
-
-  // 4) P . V
-  float a0 = 0.f, a1 = 0.f;
-  for (int t = vs + warp; t <= pos; t += SA_WARPS) {
-    const float p = lg[t];
-    float v0, v1;
-    if (INT8) {
-      v0 = (float)c8[(vb + t) * DH + 2 * lane];
-      v1 = (float)c8[(vb + t) * DH + 2 * lane + 1];
-    } else {
-      v0 = bf2f(c16[(vb + t) * DH + 2 * lane]);
-      v1 = bf2f(c16[(vb + t) * DH + 2 * lane + 1]);
-    }
-    a0 = fmaf(p, v0, a0);
-    a1 = fmaf(p, v1, a1);
-  }
-  pv[warp][2 * lane] = a0;
-  pv[warp][2 * lane + 1] = a1;
-  __syncthreads();
-  if (tid < DH) {
-    float o = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < SA_WARPS; ++wi) o += pv[wi][tid];
-    att[(size_t)r * d + h * DH + tid] = f2bf(o);
-  }
-}
+// --------------------------------------------- (c), (d) attention parts
 
 int run_self_attn(const bf16* qkv, int R, int d, int H, void* cache,
-                  float* csc, int self_int8, int Tmax, int pos, int vs,
-                  bf16* att, cudaStream_t st) {
-  dim3 grid(R, H);
-  const size_t smem = (size_t)Tmax * sizeof(float);
-  if (self_int8)
-    self_attn_kernel<true><<<grid, SA_THREADS, smem, st>>>(
-        qkv, d, cache, csc, H, Tmax, pos, vs, att);
-  else
-    self_attn_kernel<false><<<grid, SA_THREADS, smem, st>>>(
-        qkv, d, cache, csc, H, Tmax, pos, vs, att);
-  return launch_status();
+                  float* csc, int self_int8, int Tmax, const int* step,
+                  bf16* att, int pdl, cudaStream_t st) {
+  splitkv::SelfArgs a{qkv, d, cache, csc, H, Tmax, 0, 0, step, att};
+  return splitkv::launch_self(a, R, self_int8, pdl, st);
 }
 
-// ------------------------------------------- (d) int8 cross-attention
-
-// The grouped int8 cross-attention of cross_attn.cuh with a bf16 output:
 // cq (R, d) with R = Bw * G rows, window-major (the G beams of a window
 // contiguous), over the Bw windows' K/V (Bw, 2, H, Ta, 64) and scales
 // (Bw, 2, H, Ta). Greedy decode is G = 1.
 int run_cross_attn(const bf16* cq, int R, int d, int H, const int8_t* kv8,
-                   const float* sc, int Ta, int Bw, bf16* att,
-                   cudaStream_t st) {
+                   const float* sc, int Ta, int Bw, bf16* att, int sms,
+                   int pdl, cudaStream_t st) {
   if (Bw <= 0 || R % Bw) return (int)cudaErrorInvalidValue;
-  const int G = R / Bw;
-  xattn::Args a;
-  a.q = cq;
-  a.q_sw = (long long)G * d;
-  a.q_sh = DH;
-  a.q_sg = d;
-  a.k8 = kv8;
-  a.v8 = kv8 + (size_t)H * Ta * DH;
-  a.kv_sw = 2LL * H * Ta * DH;
-  a.kv_sh = (long long)Ta * DH;
-  a.ks = sc;
-  a.vs = sc + (size_t)H * Ta;
-  a.s_sw = 2LL * H * Ta;
-  a.s_sh = Ta;
-  a.out = att;
-  a.o_sw = (long long)G * d;
-  a.o_sh = DH;
-  a.o_sg = d;
-  a.H = H;
-  a.G = G;
-  a.Ta = Ta;
-  return xattn::launch<bf16, bf16>(a, Bw, st);
+  splitkv::CrossArgs a{cq, d, kv8, sc, H, Ta, 0, R / Bw, att};
+  return splitkv::launch_cross(a, Bw, sms, pdl, st);
 }
 
 int run_layer_norm(const bf16* x, int R, int d, const float* s,
-                   const float* b, bf16* y, cudaStream_t st) {
-  layer_norm_kernel<<<R, LN_THREADS, 0, st>>>(x, s, b, y, d);
-  return launch_status();
+                   const float* b, bf16* y, int pdl, cudaStream_t st) {
+  if (d % 8) return (int)cudaErrorInvalidValue;
+  return launch(layer_norm_kernel, dim3(R), 32, 0, 0, pdl, st, x, s, b, y,
+                   d);
 }
 
 // offsets of the packed per-layer vector (pack_layer_weights):
@@ -462,56 +430,116 @@ void vec_offsets(int d, int ff, int* offs) {
 
 extern "C" {
 
-int aries_gemm_splits(int K, int N) { return gemm_splits(K, N); }
+// Once per process, before any launch or capture: every kernel of the
+// step loaded (a module loaded lazily at its first launch would otherwise
+// load inside a graph capture) and allowed its dynamic shared memory.
+int aries_decode_init() {
+  cudaFuncAttributes fa;
+  RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel));
+  const int xmax = splitkv::cross_smem_bytes(splitkv::CROSS_GM_MAX,
+                                             splitkv::CROSS_MAX_KEYS);
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::self_split_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::self_split_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<5>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<6>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      splitkv::cross_split_kernel<8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      gemm_w8_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_smem_bytes(1)));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      gemm_w8_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_smem_bytes(2)));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      gemm_w8_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_smem_bytes(3)));
+  RETURN_IF((int)cudaFuncSetAttribute(
+      gemm_w8_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_smem_bytes(4)));
+  return 0;
+}
+
+// the plans, for the Python mirrors' checks
+int aries_gemm_plan(int K, int N, int sms) { return gemm_plan(K, N, sms); }
+
+int aries_attn_split(int T, int* out) {
+  splitkv::split_plan(T, &out[0], &out[1]);
+  return 0;
+}
+
+int aries_cross_split(int Ta, int pairs, int sms, int* out) {
+  splitkv::cross_plan(Ta, pairs, sms, &out[0], &out[1]);
+  return 0;
+}
 
 int aries_layer_norm(const void* x, int R, int d, const float* s,
                      const float* b, void* y, void* stream) {
   return run_layer_norm(static_cast<const bf16*>(x), R, d, s, b,
-                        static_cast<bf16*>(y), (cudaStream_t)stream);
+                        static_cast<bf16*>(y), 0, (cudaStream_t)stream);
 }
 
 int aries_w8a16_gemm(const void* x, int ldx, int R, int K, const int8_t* w,
                      int ldw, int N, const float* scale, const float* bias,
-                     int mode, void* out, int ldo, float* part, void* stream) {
+                     int mode, void* out, int ldo, int sms, void* stream) {
   return run_gemm(static_cast<const bf16*>(x), ldx, K, w, ldw, N, R, scale,
-                  bias, mode, static_cast<bf16*>(out), ldo, part,
+                  bias, mode, static_cast<bf16*>(out), ldo, sms, 0,
                   (cudaStream_t)stream);
 }
 
 int aries_self_attn(const void* qkv, int R, int d, int H, void* cache,
-                    float* csc, int self_int8, int Tmax, int pos, int vs,
+                    float* csc, int self_int8, int Tmax, const int* step,
                     void* att, void* stream) {
   return run_self_attn(static_cast<const bf16*>(qkv), R, d, H, cache, csc,
-                       self_int8, Tmax, pos, vs, static_cast<bf16*>(att),
+                       self_int8, Tmax, step, static_cast<bf16*>(att), 0,
                        (cudaStream_t)stream);
 }
 
-// f32 scratch the step needs for the split-K partial sums
-long long aries_decode_scratch_floats(int R, int d, int ff) {
-  const int shapes[4][2] = {{d, 3 * d}, {d, d}, {d, ff}, {ff, d}};
-  long long most = 0;
-  for (auto& s : shapes) {
-    const long long n = (long long)gemm_splits(s[0], s[1]) * R * s[1];
-    if (n > most) most = n;
-  }
-  return most;
+int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
+                     const float* sc, int Ta, int Bw, void* att, int sms,
+                     void* stream) {
+  return run_cross_attn(static_cast<const bf16*>(cq), R, d, H, kv8, sc, Ta,
+                        Bw, static_cast<bf16*>(att), sms, 0,
+                        (cudaStream_t)stream);
 }
 
 // All L decoder layers of one step. x (R, d) bf16 is updated in place; the
 // self cache (L, R, 2, H, Tmax, 64) [bf16, or int8 with scales csc
-// (L, R, 2, H, Tmax)] gets this step's K/V at `pos`. The cross K/V
+// (L, R, 2, H, Tmax)] gets this step's K/V at position step[0], attending
+// over [step[1], step[0]] (step: two device int32). The cross K/V
 // (L, Bw, 2, H, Ta, 64) and scales (L, Bw, 2, H, Ta) hold Bw windows, each
 // shared by its R / Bw rows (window-major). h (R, d), qkv (R, 3d),
-// att (R, d), h1 (R, ff) bf16 and part (aries_decode_scratch_floats) are
-// scratch the caller owns.
+// att (R, d), h1 (R, ff) bf16 are scratch the caller owns. `sms` is the
+// card's SM count (the GEMM plan); `pdl` launches each kernel as a
+// programmatic dependent of the one before. Nothing here queries or sets
+// the device, so the call can be captured in a CUDA graph.
 int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
                         const int8_t* wq8, const int8_t* wf1,
                         const int8_t* wf2, const float* vecs, int vec_len,
                         void* cache, float* csc, int self_int8, int Tmax,
                         const int8_t* xkv, const float* xsc, int Ta, int Bw,
-                        int pos,
-                        int vs, void* h_, void* qkv_, void* att_, void* h1_,
-                        float* part, void* stream) {
+                        const int* step, void* h_, void* qkv_, void* att_,
+                        void* h1_, int sms, int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   bf16* x = static_cast<bf16*>(x_);
   bf16* h = static_cast<bf16*>(h_);
@@ -533,27 +561,29 @@ int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
         : (void*)(static_cast<bf16*>(cache) + l * self_stride);
     float* csc_l = self_int8 ? csc + l * self_sc_stride : nullptr;
     // self-attention block
-    RETURN_IF(run_layer_norm(x, R, d, v + off[0], v + off[1], h, st));
+    RETURN_IF(run_layer_norm(x, R, d, v + off[0], v + off[1], h, pdl, st));
     RETURN_IF(run_gemm(h, d, d, wq, ldq, 3 * d, R, v + off[12], v + off[2],
-                       EPI_STORE, qkv, 3 * d, part, st));
+                       EPI_STORE, qkv, 3 * d, sms, pdl, st));
     RETURN_IF(run_self_attn(qkv, R, d, H, cache_l, csc_l, self_int8, Tmax,
-                            pos, vs, att, st));
+                            step, att, pdl, st));
     RETURN_IF(run_gemm(att, d, d, wq + 3 * d, ldq, d, R, v + off[13],
-                       v + off[3], EPI_RESIDUAL, x, d, part, st));
+                       v + off[3], EPI_RESIDUAL, x, d, sms, pdl, st));
     // cross-attention block (cq overwrites h once its GEMM has read it)
-    RETURN_IF(run_layer_norm(x, R, d, v + off[4], v + off[5], h, st));
+    RETURN_IF(run_layer_norm(x, R, d, v + off[4], v + off[5], h, pdl, st));
     RETURN_IF(run_gemm(h, d, d, wq + 4 * d, ldq, d, R, v + off[14],
-                       v + off[6], EPI_STORE, h, d, part, st));
-    RETURN_IF(run_cross_attn(h, R, d, H, xkv + l * cross_stride,
-                             xsc + l * cross_sc_stride, Ta, Bw, att, st));
-    RETURN_IF(run_gemm(att, d, d, wq + 5 * d, ldq, d, R, v + off[15],
-                       v + off[7], EPI_RESIDUAL, x, d, part, st));
+                       v + off[6], EPI_STORE, att, d, sms, pdl, st));
+    RETURN_IF(run_cross_attn(att, R, d, H, xkv + l * cross_stride,
+                             xsc + l * cross_sc_stride, Ta, Bw, h, sms, pdl,
+                             st));
+    RETURN_IF(run_gemm(h, d, d, wq + 5 * d, ldq, d, R, v + off[15],
+                       v + off[7], EPI_RESIDUAL, x, d, sms, pdl, st));
     // MLP block
-    RETURN_IF(run_layer_norm(x, R, d, v + off[8], v + off[9], h, st));
+    RETURN_IF(run_layer_norm(x, R, d, v + off[8], v + off[9], h, pdl, st));
     RETURN_IF(run_gemm(h, d, d, wf1 + (size_t)l * d * ff, ff, ff, R,
-                       v + off[16], v + off[10], EPI_GELU, h1, ff, part, st));
+                       v + off[16], v + off[10], EPI_GELU, h1, ff, sms, pdl,
+                       st));
     RETURN_IF(run_gemm(h1, ff, ff, wf2 + (size_t)l * ff * d, d, d, R,
-                       v + off[17], v + off[11], EPI_RESIDUAL, x, d, part,
+                       v + off[17], v + off[11], EPI_RESIDUAL, x, d, sms, pdl,
                        st));
   }
   return 0;

@@ -13,6 +13,9 @@ Whisper's logit rules are those of the JAX package
 ``fused=True`` runs the steps through the decoder-layer kernels
 (ops/decode_layers.py) with the decoder weights packed to int8; the prompt
 prefill stays on ``decoder_step`` with the loaded weights, as on the TPU.
+On the card each decode call captures its fused step once as a CUDA graph
+(``DL.DecodeStepGraph``) and replays it every step; the graph dies with
+the call.
 Rows are window-major over the encoded windows ``xa``: several rows of a
 window (best_of samples, beams) share its cross K/V through the grouped
 cross-attention. Sampling draws Gumbel noise from an explicit
@@ -138,16 +141,29 @@ def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
     return cross, cache, logits_p, wpack
 
 
-def _step_logits(params, dims, tok, pos, cache, cross, fused, wpack):
+def _step_graph(fused, wpack, cache, cross, dims, rows):
+    """The fused step captured as one CUDA graph for this decode call (the
+    cache final: later updates are in place), or None off the card or
+    unfused. The caller drops it with the call."""
+    if not fused or not wpack["wq8"].is_cuda:
+        return None
+    return DL.DecodeStepGraph(wpack, cache, cross, rows, dims.n_text_head)
+
+
+def _step_logits(params, dims, tok, pos, cache, cross, fused, wpack,
+                 graph=None):
     """(R, V) f32 logits of one decode step on tokens ``tok`` (R,) written
-    at cache position ``pos``."""
+    at cache position ``pos``; the fused step replays ``graph`` when given."""
     if not fused:
         return W.decoder_step(params, tok[:, None], pos, cache, cross,
                               dims)[:, 0]
     dec = params["decoder"]
     x = dec["tok_emb"][tok] + dec["pos_emb"][min(pos, dims.n_text_ctx - 1)]
-    x = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
-                                dims.n_text_head)
+    if graph is not None:
+        x = graph.run(x, pos)
+    else:
+        x = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
+                                    dims.n_text_head)
     return W.vocab_logits(dec, x)
 
 
@@ -198,6 +214,7 @@ def greedy_decode(
                                              kv_int8, self_kv_int8, fused,
                                              wpack, L)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
+    graph = _step_graph(fused, wpack, cache, cross, dims, B)
 
     tokens = torch.full((B, L), ids.eot, dtype=torch.long, device=dev)
     tokens[:, :P] = prompt
@@ -244,7 +261,7 @@ def greedy_decode(
         if pos >= L or bool(finished.all()):
             break
         logits = _step_logits(params, dims, tokens[:, pos - 1], pos - 1,
-                              cache, cross, fused, wpack)
+                              cache, cross, fused, wpack, graph)
 
     n_sampled = (tokens[:, P:] != ids.eot).sum(dim=1)
     avg_logprob = sum_logprob / (n_sampled.float() + 1.0)
@@ -319,6 +336,7 @@ def beam_search_decode(
                                              kv_int8, self_kv_int8, fused,
                                              wpack, L)
     cache = {k: v.repeat_interleave(K, dim=1) for k, v in cache.items()}
+    graph = _step_graph(fused, wpack, cache, cross, dims, B * K)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
     logits = logits_p[:, -1].repeat_interleave(K, dim=0)  # (B*K, V)
     del logits_p
@@ -393,7 +411,7 @@ def beam_search_decode(
             permute_cache_rows(cache, live_src)
             permuted += 1
         logits = _step_logits(params, dims, tokens[:, :, pos - 1].reshape(-1),
-                              pos - 1, cache, cross, fused, wpack)
+                              pos - 1, cache, cross, fused, wpack, graph)
 
     live_ok = (fin_count < C)[:, None]
     all_tokens = torch.cat([fin_tokens[:, :C], tokens], dim=1)

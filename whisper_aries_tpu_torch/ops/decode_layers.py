@@ -17,24 +17,24 @@ cross K/V shared by its G rows, with dh-minor caches:
                         "sc":  (L, Bw, 2, H, Ta) f32}  (K scales fold
                                                         1/sqrt(dh))
 
-The step's cross-attention is the grouped int8 cross-attention kernel's
-device code (csrc/cross_attn.cuh) with a bf16 output; on its own it is
-reached through ops/cross_attn.py (``cross_attention_q8_kernel`` with a bf16
-``out``), and ``cross_attn_plain`` is its plain counterpart here.
-
 ``fused_decoder_layers`` launches the kernels for CUDA tensors (one C call
-runs all L layers) and takes the plain version,
-``fused_decoder_layers_plain``, only for CPU tensors. The other kernel parts
-are also bound one by one (``layer_norm_kernel``, ``w8a16_gemm_kernel``,
-``self_attn_kernel``) so each can be held against its plain counterpart on
-the card.
+runs all L layers: LayerNorm, a one-launch cluster split-K W8A16 GEMM per
+product, split-KV self- and cross-attention) and takes the plain version,
+``fused_decoder_layers_plain``, only for CPU tensors. ``DecodeStepGraph``
+captures the step once per decode call as a CUDA graph and replays it each
+step. The kernel parts are also bound one by one (``layer_norm_kernel``,
+``w8a16_gemm_kernel``, ``self_attn_kernel``, ``cross_attn_kernel``) so each
+can be held against its plain counterpart on the card. ``gemm_plan`` and
+``attn_split`` mirror the kernels' grid plans, and ``self_attn_split_plain``
+/ ``cross_attn_split_plain`` their split-softmax combine, for the CPU
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,17 +156,18 @@ def w8a16_gemm_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     return y * scale + bias
 
 
-def self_attn_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
-                    pos: int, vs: int, n_head: int) -> torch.Tensor:
-    """Append this step's K/V at ``pos`` to one layer's self cache (in
-    place), then attend over [vs, pos]. qkv (R, 3d) -> att (R, d)."""
+def _append_self(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
+                 pos: int, n_head: int):
+    """Write this step's K/V at ``pos`` into one layer's self cache (in
+    place; quantized when the cache is int8). Returns the scaled queries
+    (R, H, dh), the cache values and the int8 cache's scales (or None)."""
     R, d3 = qkv.shape
     d = d3 // 3
-    H, dh = n_head, d3 // 3 // n_head
+    H, dh = n_head, d // n_head
     q, k, v = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
     new_kv = torch.stack([k.reshape(R, H, dh), v.reshape(R, H, dh)], dim=1)
-    self_int8 = "kv8" in cache_l
-    if self_int8:
+    ksc = None
+    if "kv8" in cache_l:
         ckv, ksc = cache_l["kv8"], cache_l["ksc"]
         q8, sc = quantize_heads(new_kv)
         ckv[:, :, :, pos] = q8
@@ -174,16 +175,26 @@ def self_attn_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     else:
         ckv = cache_l["kv"]
         ckv[:, :, :, pos] = new_kv.to(ckv.dtype)
+    qw = (q.float() * attn_scale(dh)).to(q.dtype).reshape(R, H, dh)
+    return qw, ckv, ksc
+
+
+def self_attn_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
+                    pos: int, vs: int, n_head: int) -> torch.Tensor:
+    """Append this step's K/V at ``pos`` to one layer's self cache (in
+    place), then attend over [vs, pos]. qkv (R, 3d) -> att (R, d)."""
+    R, d3 = qkv.shape
+    d = d3 // 3
+    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head)
     T = ckv.shape[3]
     t = torch.arange(T, device=qkv.device)
     live = (t >= vs) & (t <= pos)
-    qw = (q.float() * attn_scale(dh)).to(q.dtype).reshape(R, H, dh)
     lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
-    if self_int8:
+    if ksc is not None:
         lg = lg * ksc[:, 0]
     lg = torch.where(live, lg, float("-inf"))
     pr = torch.softmax(lg, dim=-1)
-    if self_int8:
+    if ksc is not None:
         pr = pr * ksc[:, 1]
     pr = pr.to(qkv.dtype)
     att = torch.einsum("rht,rhtd->rhd", pr.float(), ckv[:, 1].float())
@@ -202,6 +213,142 @@ def cross_attn_plain(cq: torch.Tensor, kv8_l: torch.Tensor,
           * sc_l[:, 0][:, None])
     px = torch.softmax(lg, dim=-1) * sc_l[:, 1][:, None]
     att = torch.einsum("wght,whtd->wghd", px, kv8_l[:, 1].float())
+    return att.reshape(R, d).to(cq.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' plans and the split-KV combine, in plain torch
+# ---------------------------------------------------------------------------
+
+# csrc/decode_layers.cu: output columns per GEMM block, K rows per ring
+# stage, the largest cluster, blocks per SM the plan aims at
+GEMM_COLS, GEMM_KC, GEMM_MAX_CLUSTER, GEMM_TARGET_WAVES = 64, 64, 8, 2
+# csrc/attn_split.cuh: splits per (row, head) / (head, window), keys a
+# self-attention split, cross-attention blocks per SM the cross plan fills,
+# keys the cross-attention takes
+ATTN_MAX_SPLITS, ATTN_MAX_KEYS = 8, 256
+CROSS_BLOCKS_PER_SM, CROSS_MAX_KEYS = 3, 2048
+
+
+def gemm_plan(K: int, N: int, sms: int) -> Tuple[int, int]:
+    """(K slices s, rows per slice) of the step's W8A16 GEMM for a (K, N)
+    weight on a card of ``sms`` SMs, as csrc/decode_layers.cu's gemm_plan:
+    the least divisor s <= 8 of K / 64 with N / 64 x s >= 2 x sms blocks,
+    else the largest such divisor. The s blocks of a column tile are one
+    cluster; the plan does not depend on the rows."""
+    if K % GEMM_KC or N % GEMM_COLS:
+        raise ValueError(f"GEMM shape ({K}, {N}) must be multiples of "
+                         f"({GEMM_KC}, {GEMM_COLS})")
+    cols, units = N // GEMM_COLS, K // GEMM_KC
+    best = 1
+    for s in range(1, GEMM_MAX_CLUSTER + 1):
+        if units % s:
+            continue
+        best = s
+        if cols * s >= GEMM_TARGET_WAVES * sms:
+            break
+    return best, K // best
+
+
+def attn_split(T: int) -> Tuple[int, int]:
+    """(splits S, keys per split C) of the split-KV self-attention over a
+    cache of T positions, as csrc/attn_split.cuh's split_plan: C the least
+    multiple of 32 giving at most 8 splits, S = ceil(T / C) (the last split
+    may be ragged). It depends on T alone, never on the decode position."""
+    c = -(-T // ATTN_MAX_SPLITS)
+    c = max(32, -(-c // 32) * 32)
+    return -(-T // c), c
+
+
+def cross_split(Ta: int, pairs: int, sms: int) -> Tuple[int, int]:
+    """(splits S, keys per split C) of the split-KV cross-attention over Ta
+    keys for ``pairs`` = windows x heads on ``sms`` SMs, as
+    csrc/attn_split.cuh's cross_plan: as many splits (at most 8) as keep
+    the grid one wave of 3 blocks per SM, C a multiple of 32, the last
+    split ragged. Fixed for a decode call: never the decode position."""
+    s = min(ATTN_MAX_SPLITS, max(1, CROSS_BLOCKS_PER_SM * sms // max(pairs, 1)))
+    c = -(-Ta // s)
+    c = max(32, -(-c // 32) * 32)
+    return -(-Ta // c), c
+
+
+def _split_ranges(T: int, splits: Optional[int]) -> List[Tuple[int, int]]:
+    """Key ranges of the splits: attn_split's for ``splits`` None, else
+    ``splits`` ranges of ceil(T / splits) keys (trailing ones may be
+    empty)."""
+    if splits is None:
+        S, C = attn_split(T)
+    else:
+        S, C = splits, -(-T // splits)
+    return [(min(T, s * C), min(T, (s + 1) * C)) for s in range(S)]
+
+
+def _split_softmax(lg: torch.Tensor, ranges) -> torch.Tensor:
+    """exp(lg - M) / sum over the key axis (last) as the split-KV kernels
+    form it: each split's max (-inf when it holds no live key), M the max
+    of those, each split's sum of exp(lg - M), the total the sum of the
+    splits' sums in split order."""
+    neg = torch.full(lg.shape[:-1], float("-inf"), dtype=lg.dtype,
+                     device=lg.device)
+    maxes = [lg[..., a:b].amax(-1) if b > a else neg for a, b in ranges]
+    M = torch.stack(maxes).amax(0)
+    e = torch.exp(lg - M[..., None])
+    total = torch.zeros_like(M)
+    for a, b in ranges:
+        total = total + e[..., a:b].sum(-1)
+    return e / total[..., None]
+
+
+def _split_pv(p: torch.Tensor, v: torch.Tensor, ranges) -> torch.Tensor:
+    """sum_t p_t v_t as the sum, in split order, of each split's partial."""
+    out = torch.zeros(p.shape[:-1] + v.shape[-1:], dtype=torch.float32,
+                      device=p.device)
+    for a, b in ranges:
+        out = out + torch.einsum("...t,...td->...d", p[..., a:b].float(),
+                                 v[..., a:b, :].float())
+    return out
+
+
+def self_attn_split_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
+                          pos: int, vs: int, n_head: int,
+                          splits: Optional[int] = None) -> torch.Tensor:
+    """``self_attn_plain`` computed the way the split-KV kernel combines
+    its splits (the keys of each (row, head) cut as ``_split_ranges``):
+    the same function, its sums in another order."""
+    R = qkv.shape[0]
+    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head)
+    T = ckv.shape[3]
+    t = torch.arange(T, device=qkv.device)
+    live = (t >= vs) & (t <= pos)
+    lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
+    if ksc is not None:
+        lg = lg * ksc[:, 0]
+    lg = torch.where(live, lg, float("-inf"))
+    ranges = _split_ranges(T, splits)
+    pr = _split_softmax(lg, ranges)
+    if ksc is not None:
+        pr = pr * ksc[:, 1]
+    pr = pr.to(qkv.dtype)
+    att = _split_pv(pr, ckv[:, 1], ranges)
+    return att.reshape(R, -1).to(qkv.dtype)
+
+
+def cross_attn_split_plain(cq: torch.Tensor, kv8_l: torch.Tensor,
+                           sc_l: torch.Tensor, n_head: int,
+                           splits: Optional[int] = None) -> torch.Tensor:
+    """``cross_attn_plain`` computed the way the split-KV kernel combines
+    the splits of each (head, window)'s Ta keys (``splits`` None cuts them
+    as ``attn_split``; the kernel's own cut is ``cross_split``'s)."""
+    R, d = cq.shape
+    Bw, Ta = kv8_l.shape[0], kv8_l.shape[3]
+    H, dh = n_head, d // n_head
+    qx = cq.float().reshape(Bw, R // Bw, H, dh)
+    lg = (torch.einsum("wghd,whtd->wght", qx, kv8_l[:, 0].float())
+          * sc_l[:, 0][:, None])
+    ranges = _split_ranges(Ta, splits)
+    px = _split_softmax(lg, ranges) * sc_l[:, 1][:, None]
+    v = kv8_l[:, 1][:, None].expand(Bw, R // Bw, H, Ta, dh)
+    att = _split_pv(px, v, ranges)
     return att.reshape(R, d).to(cq.dtype)
 
 
@@ -249,28 +396,64 @@ def fused_decoder_layers_plain(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# launch each kernel of the step as a programmatic dependent of the one
+# before (csrc/decode_layers.cu); a measurement may turn it off
+PDL = True
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cb.library("decode_layers")
     sigs = {
-        "aries_gemm_splits": [_I, _I],
+        "aries_decode_init": [],
+        "aries_gemm_plan": [_I, _I, _I],
+        "aries_attn_split": [_I, _P],
+        "aries_cross_split": [_I, _I, _I, _P],
         "aries_layer_norm": [_P, _I, _I, _P, _P, _P, _P],
         "aries_w8a16_gemm": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I,
-                             _P, _P],
-        "aries_self_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-        "aries_decode_scratch_floats": [_I, _I, _I],
+                             _I, _P],
+        "aries_self_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+        "aries_cross_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P],
         "aries_decode_layers": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                                _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P,
-                                _P, _P, _P, _P, _P],
+                                _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                                _P, _P, _I, _I, _P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = (ctypes.c_longlong if name == "aries_decode_scratch_floats"
-                      else ctypes.c_int)
+        fn.restype = ctypes.c_int
+    cb.check(lib.aries_decode_init(), "decoder-layer kernels' set-up")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(t: torch.Tensor) -> int:
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
+
+
+def kernel_gemm_plan(K: int, N: int, sms: int) -> int:
+    """The C plan's K slices (the card check of ``gemm_plan``)."""
+    return _lib().aries_gemm_plan(K, N, sms)
+
+
+def kernel_attn_split(T: int) -> Tuple[int, int]:
+    """The C self-attention split plan (the card check of ``attn_split``)."""
+    out = (ctypes.c_int * 2)()
+    _lib().aries_attn_split(T, out)
+    return out[0], out[1]
+
+
+def kernel_cross_split(Ta: int, pairs: int, sms: int) -> Tuple[int, int]:
+    """The C cross-attention split plan (the card check of
+    ``cross_split``)."""
+    out = (ctypes.c_int * 2)()
+    _lib().aries_cross_split(Ta, pairs, sms, out)
+    return out[0], out[1]
 
 
 def _self_operands(self_cache: Dict[str, torch.Tensor]):
@@ -281,12 +464,19 @@ def _self_operands(self_cache: Dict[str, torch.Tensor]):
     return self_cache["kv"], None, 0
 
 
+def _step_scalars(pos: int, vs: int, dev: torch.device) -> torch.Tensor:
+    """The device {pos, valid_start} the self-attention kernel reads."""
+    return torch.tensor([pos, vs], dtype=torch.int32, device=dev)
+
+
 def layer_norm_kernel(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor
                       ) -> torch.Tensor:
     R, d = x.shape
     cb.require(x, "x", torch.bfloat16)
     cb.require(s, "scale", torch.float32, (d,), x.device)
     cb.require(b, "bias", torch.float32, (d,), x.device)
+    if d % 8:
+        raise ValueError(f"LayerNorm kernel needs d % 8 == 0, got {d}")
     y = torch.empty_like(x)
     cb.check(_lib().aries_layer_norm(cb.ptr(x), R, d, cb.ptr(s), cb.ptr(b),
                                      cb.ptr(y), cb.stream()), "layer norm")
@@ -298,16 +488,18 @@ def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, mode: int = EPI_STORE,
                       out: torch.Tensor = None) -> torch.Tensor:
     """x (R, K) bf16 . w8 (K, N) int8 (a column block of a wider matrix is
-    fine: rows may be strided) with the chosen epilogue -> (R, N) bf16.
+    fine: rows may be strided) with the chosen epilogue -> (R, N) bf16, one
+    launch (``gemm_plan``'s K slices as one cluster per column tile).
     EPI_RESIDUAL adds into ``out`` in place."""
     R, K = x.shape
     N = w8.shape[1]
     cb.require(x, "x", torch.bfloat16)
     if w8.dtype != torch.int8 or w8.stride(1) != 1 or not w8.is_cuda:
         raise ValueError("w8 must be a row-major int8 CUDA matrix")
-    if K % 64 or N % 32 or w8.stride(0) % 4 or w8.shape[0] != K:
+    if (K % GEMM_KC or N % GEMM_COLS or w8.shape[0] != K or w8.stride(0) % 16
+            or any(t.data_ptr() % 16 for t in (w8, x, scale, bias))):
         raise ValueError(f"GEMM shape ({K}, {N}) must be multiples of "
-                         "(64, 32)")
+                         f"({GEMM_KC}, {GEMM_COLS}) with 16-byte aligned rows")
     cb.require(scale, "scale", torch.float32, (N,), x.device)
     cb.require(bias, "bias", torch.float32, (N,), x.device)
     if out is None:
@@ -315,21 +507,33 @@ def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
             raise ValueError("the residual epilogue needs `out`")
         out = torch.empty((R, N), dtype=torch.bfloat16, device=x.device)
     cb.require(out, "out", torch.bfloat16, (R, N), x.device)
-    lib = _lib()
-    part = torch.empty(lib.aries_gemm_splits(K, N) * R * N,
-                       dtype=torch.float32, device=x.device)
-    cb.check(lib.aries_w8a16_gemm(cb.ptr(x), K, R, K, cb.ptr(w8), w8.stride(0),
-                                  N, cb.ptr(scale), cb.ptr(bias), mode,
-                                  cb.ptr(out), N, cb.ptr(part), cb.stream()),
-             "w8a16 gemm")
+    if out.data_ptr() % 8:
+        raise ValueError("out must be 8-byte aligned")
+    cb.check(_lib().aries_w8a16_gemm(
+        cb.ptr(x), K, R, K, cb.ptr(w8), w8.stride(0), N, cb.ptr(scale),
+        cb.ptr(bias), mode, cb.ptr(out), N, _sms(x), cb.stream()),
+        "w8a16 gemm")
     w8a16_gemm_kernel.launches += 1
     return out
 
 
+def _check_splits(T: int, what: str) -> None:
+    S, C = attn_split(T)
+    if S > ATTN_MAX_SPLITS or C > ATTN_MAX_KEYS:
+        raise ValueError(f"{what}: {T} keys exceed {ATTN_MAX_SPLITS} splits "
+                         f"of {ATTN_MAX_KEYS}")
+
+
+def _check_cross(Ta: int) -> None:
+    if not 1 <= Ta <= CROSS_MAX_KEYS:
+        raise ValueError(f"cross K/V: the kernels take 1..{CROSS_MAX_KEYS} "
+                         f"keys, got {Ta}")
+
+
 def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
                      pos: int, vs: int, n_head: int) -> torch.Tensor:
-    """One layer's self-attention with append; cache_l holds that layer's
-    (R, 2, H, T, dh) cache [and (R, 2, H, T) scales]."""
+    """One layer's split-KV self-attention with append; cache_l holds that
+    layer's (R, 2, H, T, dh) cache [and (R, 2, H, T) scales]."""
     R, d3 = qkv.shape
     d = d3 // 3
     cb.require(qkv, "qkv", torch.bfloat16)
@@ -339,12 +543,36 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
                (R, 2, n_head, T, d // n_head), qkv.device)
     if not 0 <= vs <= pos < T:
         raise ValueError(f"need 0 <= valid_start <= pos < {T}")
+    _check_splits(T, "self cache")
     att = torch.empty((R, d), dtype=torch.bfloat16, device=qkv.device)
+    step = _step_scalars(pos, vs, qkv.device)
     cb.check(_lib().aries_self_attn(
         cb.ptr(qkv), R, d, n_head, cb.ptr(ckv),
-        cb.ptr(ksc) if int8 else None, int8, T, pos, vs, cb.ptr(att),
+        cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step), cb.ptr(att),
         cb.stream()), "self attention")
     self_attn_kernel.launches += 1
+    return att
+
+
+def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
+                      sc_l: torch.Tensor, n_head: int) -> torch.Tensor:
+    """One layer's split-KV int8 cross-attention: cq (R, d) bf16, rows
+    window-major over the Bw windows of kv8_l (Bw, 2, H, Ta, dh) int8 and
+    sc_l (Bw, 2, H, Ta) f32 -> att (R, d) bf16."""
+    R, d = cq.shape
+    cb.require(cq, "cq", torch.bfloat16)
+    Bw, _, H, Ta, dh = kv8_l.shape
+    cb.require(kv8_l, "cross kv8", torch.int8, (Bw, 2, n_head, Ta, d // n_head),
+               cq.device)
+    cb.require(sc_l, "cross scales", torch.float32, (Bw, 2, n_head, Ta),
+               cq.device)
+    _cross_windows(R, kv8_l)
+    _check_cross(Ta)
+    att = torch.empty_like(cq)
+    cb.check(_lib().aries_cross_attn(
+        cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l), cb.ptr(sc_l), Ta, Bw,
+        cb.ptr(att), _sms(cq), cb.stream()), "cross attention")
+    cross_attn_kernel.launches += 1
     return att
 
 
@@ -355,52 +583,68 @@ def _cross_windows(R: int, kv8: torch.Tensor) -> int:
     return Bw
 
 
-for _f in (layer_norm_kernel, w8a16_gemm_kernel, self_attn_kernel):
+for _f in (layer_norm_kernel, w8a16_gemm_kernel, self_attn_kernel,
+           cross_attn_kernel):
     _f.launches = 0
+
+
+class _StepOperands:
+    """The validated operands of one fused step and its scratch (owned
+    here, so a captured graph's pointers stay alive with it)."""
+
+    def __init__(self, wpack, self_cache, cross, R, n_head, dev):
+        L, d, _ = wpack["wq8"].shape
+        ff = wpack["wf18"].shape[-1]
+        H, dh = n_head, d // n_head
+        _, VEC = vec_offsets(d, ff)
+        cb.require(wpack["wq8"], "wq8", torch.int8, (L, d, 6 * d), dev)
+        cb.require(wpack["wf18"], "wf18", torch.int8, (L, d, ff), dev)
+        cb.require(wpack["wf28"], "wf28", torch.int8, (L, ff, d), dev)
+        cb.require(wpack["vecs"], "vecs", torch.float32, (L, VEC), dev)
+        ckv, ksc, int8 = _self_operands(self_cache)
+        T = ckv.shape[4]
+        cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
+                   (L, R, 2, H, T, dh), dev)
+        Ta = cross["kv8"].shape[4]
+        Bw = _cross_windows(R, cross["kv8"])
+        cb.require(cross["kv8"], "cross kv8", torch.int8,
+                   (L, Bw, 2, H, Ta, dh), dev)
+        cb.require(cross["sc"], "cross scales", torch.float32,
+                   (L, Bw, 2, H, Ta), dev)
+        if dh != 64 or d % GEMM_COLS or ff % GEMM_COLS:
+            raise ValueError("decoder-layer kernels need dh 64 and d, ff % 64")
+        _check_splits(T, "self cache")
+        _check_cross(Ta)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        self.h = torch.empty((R, d), **bf)
+        self.qkv = torch.empty((R, 3 * d), **bf)
+        self.att = torch.empty((R, d), **bf)
+        self.h1 = torch.empty((R, ff), **bf)
+        self.keep = (wpack, self_cache, cross)
+        self.args = (R, d, ff, H, L, cb.ptr(wpack["wq8"]),
+                     cb.ptr(wpack["wf18"]), cb.ptr(wpack["wf28"]),
+                     cb.ptr(wpack["vecs"]), VEC, cb.ptr(ckv),
+                     cb.ptr(ksc) if int8 else None, int8, T,
+                     cb.ptr(cross["kv8"]), cb.ptr(cross["sc"]), Ta, Bw)
+        self.T = T
+        self.sms = _sm_count(dev.index if dev.index is not None
+                             else torch.cuda.current_device())
+
+    def launch(self, x: torch.Tensor, step: torch.Tensor) -> None:
+        cb.check(_lib().aries_decode_layers(
+            cb.ptr(x), *self.args, cb.ptr(step), cb.ptr(self.h),
+            cb.ptr(self.qkv), cb.ptr(self.att), cb.ptr(self.h1), self.sms,
+            int(PDL), cb.stream()), "decoder-layer kernels")
 
 
 def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
     R, d = x.shape
-    L, _, d6 = wpack["wq8"].shape
-    ff = wpack["wf18"].shape[-1]
-    H, dh = n_head, d // n_head
-    dev = x.device
-    _, VEC = vec_offsets(d, ff)
     cb.require(x, "x", torch.bfloat16, (R, d))
-    cb.require(wpack["wq8"], "wq8", torch.int8, (L, d, 6 * d), dev)
-    cb.require(wpack["wf18"], "wf18", torch.int8, (L, d, ff), dev)
-    cb.require(wpack["wf28"], "wf28", torch.int8, (L, ff, d), dev)
-    cb.require(wpack["vecs"], "vecs", torch.float32, (L, VEC), dev)
-    ckv, ksc, int8 = _self_operands(self_cache)
-    T = ckv.shape[4]
-    cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
-               (L, R, 2, H, T, dh), dev)
-    Ta = cross["kv8"].shape[4]
-    Bw = _cross_windows(R, cross["kv8"])
-    cb.require(cross["kv8"], "cross kv8", torch.int8, (L, Bw, 2, H, Ta, dh),
-               dev)
-    cb.require(cross["sc"], "cross scales", torch.float32, (L, Bw, 2, H, Ta),
-               dev)
-    if dh != 64 or d % 64 or ff % 64:
-        raise ValueError("decoder-layer kernels need dh 64 and d, ff % 64")
-    if not 0 <= valid_start <= pos < T:
-        raise ValueError(f"need 0 <= valid_start <= pos < {T}")
-    lib = _lib()
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    h = torch.empty((R, d), **bf)
-    qkv = torch.empty((R, 3 * d), **bf)
-    att = torch.empty((R, d), **bf)
-    h1 = torch.empty((R, ff), **bf)
-    part = torch.empty(lib.aries_decode_scratch_floats(R, d, ff),
-                       dtype=torch.float32, device=dev)
+    ops = _StepOperands(wpack, self_cache, cross, R, n_head, x.device)
+    if not 0 <= valid_start <= pos < ops.T:
+        raise ValueError(f"need 0 <= valid_start <= pos < {ops.T}")
     x = x.clone()
-    cb.check(lib.aries_decode_layers(
-        cb.ptr(x), R, d, ff, H, L, cb.ptr(wpack["wq8"]), cb.ptr(wpack["wf18"]),
-        cb.ptr(wpack["wf28"]), cb.ptr(wpack["vecs"]), VEC, cb.ptr(ckv),
-        cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(cross["kv8"]),
-        cb.ptr(cross["sc"]), Ta, Bw, pos, valid_start, cb.ptr(h), cb.ptr(qkv),
-        cb.ptr(att), cb.ptr(h1), cb.ptr(part), cb.stream()),
-        "decoder-layer kernels")
+    ops.launch(x, _step_scalars(pos, valid_start, x.device))
     fused_decoder_layers.launches += 1
     return x
 
@@ -412,7 +656,8 @@ def fused_decoder_layers(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
     """All L decoder layers of one decode step: x (R, d) -> x (R, d), with
     this step's K/V appended to ``self_cache`` at ``pos`` in place. The rows
     are window-major over the Bw windows of ``cross`` (R / Bw beams each).
-    The kernels for CUDA tensors; the plain version for CPU tensors."""
+    The kernels for CUDA tensors (launched directly; ``DecodeStepGraph``
+    replays them as one graph); the plain version for CPU tensors."""
     if not x.is_cuda:
         return fused_decoder_layers_plain(x, wpack, self_cache, cross,
                                           valid_start, pos, n_head)
@@ -420,3 +665,46 @@ def fused_decoder_layers(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
 
 
 fused_decoder_layers.launches = 0
+fused_decoder_layers.graph_replays = 0
+
+
+class DecodeStepGraph:
+    """One decode step (all L layers, 11 launches a layer) captured once as
+    a CUDA graph over fixed operands: the weight pack, the self cache (which
+    must be updated only in place, as the beam reorder does), the cross K/V
+    and ``valid_start``; ``pos`` is a device scalar written before each
+    replay. Make one per decode call and drop it with the call: the graph
+    holds references to its operands, never replays on freed memory, and
+    raises if capture or replay fails (it never falls back to launching the
+    kernels directly or to the plain version)."""
+
+    def __init__(self, wpack: Dict[str, torch.Tensor],
+                 self_cache: Dict[str, torch.Tensor],
+                 cross: Dict[str, torch.Tensor], rows: int, n_head: int,
+                 valid_start: int = 0):
+        dev = wpack["wq8"].device
+        if dev.type != "cuda":
+            raise ValueError("DecodeStepGraph needs CUDA operands")
+        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev)
+        if not 0 <= valid_start < self.ops.T:
+            raise ValueError(f"need 0 <= valid_start < {self.ops.T}")
+        d = wpack["wq8"].shape[1]
+        self.valid_start = valid_start
+        self.x = torch.zeros((rows, d), dtype=torch.bfloat16, device=dev)
+        self.step = _step_scalars(valid_start, valid_start, dev)
+        _lib()  # built, loaded and set up before the capture
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.ops.launch(self.x, self.step)
+
+    def run(self, x: torch.Tensor, pos: int) -> torch.Tensor:
+        """Replay the step on x (R, d) at ``pos``; returns the graph's
+        output buffer (valid until the next replay)."""
+        if not self.valid_start <= pos < self.ops.T:
+            raise ValueError(f"need {self.valid_start} <= pos < {self.ops.T}")
+        self.x.copy_(x)
+        self.step[0].fill_(pos)
+        self.graph.replay()
+        fused_decoder_layers.launches += 1
+        fused_decoder_layers.graph_replays += 1
+        return self.x
