@@ -49,8 +49,15 @@ caught; a kernel check that fails is printed at once and fails the run
      a missing key, every window reading window 0's K/V, ties to the
      highest index, the outscale product, a dropped K slab, unwritten
      M-tail rows, an ignored mask, a dropped last position, the appended
-     position left unscored), the same error of a plain version making
-     that mistake must exceed the limit.
+     position left unscored, one split's P . V dropped from the int8
+     self-attention's cluster sum, one chunk's candidates dropped from the
+     beam tail's merge), the same error of a plain version making that
+     mistake must exceed the limit. The int8 self-attention (split-KV
+     clusters) and the beam tail (several blocks a beam row) are also
+     held at two runs giving the same bits, and their C plans equal their
+     Python mirrors. The unfused step is replayed from one CUDA graph
+     (UnfusedStepGraph), which must give the bits of direct launches; both
+     are timed and profiled.
   4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
@@ -74,7 +81,9 @@ caught; a kernel check that fails is printed at once and fails the run
   7. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
-     self-attention kernel and the W8A16 GEMM; prints ms per step.
+     self-attention kernel and the W8A16 GEMM, every step after a prefill
+     a replay of the decode call's decoder_step graph (graph_replays =
+     layer_steps); prints ms per step.
 The second-to-last lines are the kernels JSON (all eight kernels) and the
 card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
@@ -1069,16 +1078,55 @@ def tail_inputs(dev, B, K, V, ids, seed):
     return logits, sum_lp, last, pen, mts, sup
 
 
+def tail_chunk_dropped(args, kw, K, with_ts, W, best):
+    """The plain beam tail with one chunk's candidates dropped: for each
+    window, the W columns of the chunk holding the window's best flat index
+    ``best`` (B,) leave the top-K (a merge that loses one block's
+    candidates). Returns top_idx."""
+    import types
+
+    import torch
+    from whisper_aries_tpu_torch.decoding.logit_filters import apply_filters
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+
+    logits, sum_lp, last, pen, mts, sup, is_first = args
+    BK, V = logits.shape
+    B = BK // K
+    ids = types.SimpleNamespace(
+        no_timestamps=kw["no_ts"], blank=kw["blank"], eot=kw["eot"],
+        timestamp_begin=kw["tsb"],
+        max_initial_timestamp_index=kw["init_cap"] - kw["tsb"])
+    f = apply_filters(logits, ids, sup, is_first, last.reshape(-1),
+                      pen.reshape(-1), mts.reshape(-1), with_ts)
+    total = sum_lp[:, :, None] + torch.log_softmax(f, dim=-1).reshape(B, K, V)
+    total[:, :, kw["eot"]] = float(np.finfo(np.float32).min)
+    for b, i in enumerate(best.tolist()):
+        k, v = divmod(i, V)
+        total[b, k, v // W * W:(v // W + 1) * W] = -math.inf
+    return BT._top_k_unrolled(total.reshape(B, K * V), K)[1]
+
+
 def kernel_beam_tail(dev, entries):
     """The beam-tail kernel at 8 windows x 5 beams x 51866, with and
     without timestamps, at the first and a later position; a tie planted
-    across beams 1 and 3 of window 0 must go to beam 1."""
+    across beams 1 and 3 of window 0 must go to beam 1; two runs give the
+    same bits; dropping the candidates of the chunk (one block of a row)
+    that holds each window's best must move top_idx past the limit. The C
+    chunk plan equals its mirror."""
     import torch
     from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
 
     B, K = 8, 5
     ids = large_v3_ids()
     V = ids.n_vocab
+    sms = cb.sm_count(dev)
+    C, W = BT.chunk_plan(V, B * K, sms)
+    cases = [(V_, rows) for V_ in (1000, 51866) for rows in (5, 30, 40, 64)]
+    check("beam_tail plan: C = Python mirror",
+          all(BT.kernel_chunk_plan(V_, rows, sms)
+              == BT.chunk_plan(V_, rows, sms) for V_, rows in cases),
+          f"{sms} SMs, {C} chunks of {W} columns at {B} x {K} x {V}")
     kw = dict(tsb=ids.timestamp_begin, eot=ids.eot, blank=ids.blank,
               no_ts=ids.no_timestamps,
               init_cap=ids.timestamp_begin + ids.max_initial_timestamp_index)
@@ -1089,13 +1137,16 @@ def kernel_beam_tail(dev, entries):
         st[0, 1] = st[0, 3] = fresh  # the same (text) state on both
     rev = lambda t: t.reshape(B, K, -1).flip(1).reshape(t.shape)
     worst = {"score_rel": 0.0, "idx_mismatch": 0.0}
+    dropped = math.inf
     worst_abs = 0.0
-    tie_ok = True
+    tie_ok = same = True
     for with_ts, is_first in ((True, False), (True, True), (False, False)):
         args = (logits, sum_lp, last, pen, mts, sup, is_first, K)
         got = BT.beam_tail_kernel(*args, with_timestamps=with_ts, **kw)
+        again = BT.beam_tail_kernel(*args, with_timestamps=with_ts, **kw)
         want = BT.beam_tail_plain(*args, with_timestamps=with_ts, **kw)
         torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(got, again))
         worst["idx_mismatch"] = max(worst["idx_mismatch"], float(
             (got[1] != want[1]).float().mean()))
         for a, b in ((got[0], want[0]), (got[2], want[2])):
@@ -1107,21 +1158,28 @@ def kernel_beam_tail(dev, entries):
                 worst_abs = max(worst_abs, d)
                 worst["score_rel"] = max(worst["score_rel"],
                                          d / float(b[fin].abs().max()))
-        # the mistake: ties to the highest flat index (the plain version on
-        # the beams in reverse order, its indices mapped back)
+        # the mistakes: ties to the highest flat index (the plain version
+        # on the beams in reverse order, its indices mapped back); one
+        # chunk's candidates lost in the merge
         r = BT.beam_tail_plain(rev(logits), rev(sum_lp), rev(last), rev(pen),
                                rev(mts), sup, is_first, K,
                                with_timestamps=with_ts, **kw)[1]
         wrong = (K - 1 - r // V) * V + r % V
         tie_ok &= bool((got[1][0, :2] // V).tolist() == [1, 3])
         tie_ok &= not torch.equal(wrong, want[1])
+        lost = tail_chunk_dropped(args[:7], kw, K, with_ts, W, want[1][:, 0])
+        dropped = min(dropped, float((lost != want[1]).float().mean()))
     held("beam_tail[8 x 5 x 51866]", worst,
-         {"score_rel": 1e-5, "idx_mismatch": 1e-9})
+         {"score_rel": 1e-5, "idx_mismatch": 1e-9},
+         {"idx_mismatch": dropped})
     check("beam_tail[planted tie to the lowest flat index]", tie_ok,
           "beam 1 before beam 3; ties to the highest index give other "
           "top_idx")
+    check("beam_tail[two runs bitwise]", same,
+          "live_score, top_idx and eot_scores, every case")
     args = (logits, sum_lp, last, pen, mts, sup, False, K)
-    ms = time_ms(lambda: BT.beam_tail_kernel(*args, **kw), 20)
+    kern = lambda: BT.beam_tail_kernel(*args, **kw)
+    ms, dev_ms = time_ms(kern, 20), device_ms(kern)
     plain_ms = time_ms(lambda: BT.beam_tail_plain(*args, **kw), 5)
     nbytes = B * K * V * 4 + V * 4 + B * K * (4 + 3 * 8) + B * K * 16
     b_ms, b_by = bound(nbytes, 12 * B * K * V, PEAK_F32)
@@ -1130,10 +1188,11 @@ def kernel_beam_tail(dev, entries):
         source="whisper_aries_tpu_torch/csrc/beam_tail.cu",
         replaces="whisper_aries_tpu/ops/pallas_beam_tail.py:174",
         max_abs_err=worst_abs, tolerance="top_idx identical; "
-        "scores within 1e-5 of max |want|", ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        "scores within 1e-5 of max |want|", ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="none: no one PyTorch call filters, normalises and "
                      "takes the top-K with first-index ties",
+        chunks=[C, W],
         shape=f"logits ({B * K}, {V}) f32, state ({B}, {K})"))
 
 
@@ -1365,17 +1424,41 @@ def quant_matmul_crossover(dev, g):
     return rows
 
 
+def self_split_dropped(q, k8, ks, v8, vs, mask, lo, hi):
+    """The plain int8 self-attention with keys lo .. hi - 1 (one split)
+    left out of P . V, still in the softmax: a cluster sum that drops one
+    block's partial output."""
+    import torch
+
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k8.float())
+    p = torch.softmax(logits * ks[:, :, None, :] + mask, dim=-1)
+    p = p * vs[:, :, None, :]
+    p[..., lo:hi] = 0
+    return torch.einsum("bhst,bhtd->bhsd", p, v8.float())
+
+
 def kernel_self_attn(dev, entries):
     """The int8 self-attention step at the self_int8 slice's shape (6 rows
     x 20 heads over its 227-position cache, K scales folding 1/8), at
-    several positions, stale values past each: held against its plain
-    version in f32; ignoring the mask, or dropping the last written
-    position, must move it past the limits."""
+    positions on both sides of a split boundary and with valid_start 100,
+    stale values past each: held against its plain version in f32;
+    ignoring the mask, dropping the last written position, or dropping
+    the P . V of the split holding the position must move it past the
+    limits. The C split plan equals its mirror; two runs give the same
+    bits."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
     from whisper_aries_tpu_torch.ops import self_attn as SA
 
     B, H, T, dh = 6, 20, 227, 64
+    sms = cb.sm_count(dev)
+    S, C = SA.split_plan(T, B * H, sms)
+    cases = [(T_, pairs) for T_ in (16, 227, 448) for pairs in (20, 120, 800)]
+    check("self_attn_q8 plan: C = Python mirror",
+          all(SA.kernel_split_plan(T_, pairs, sms)
+              == SA.split_plan(T_, pairs, sms) for T_, pairs in cases),
+          f"{sms} SMs, {S} splits of {C} keys at {B} x {H}, T {T}")
     g = torch.Generator(device=dev).manual_seed(12)
     kv = torch.randn((2, B, H, T, dh), generator=g, device=dev).to(
         torch.bfloat16)
@@ -1390,25 +1473,34 @@ def kernel_self_attn(dev, entries):
     # f32 out from the same f32 products summed in another order: ~1e-7
     tols = {"max_rel": 1e-4, "mean_rel": 1e-5}
     worst = 0.0
-    for pos in (3, 50, 116, 200):
-        mask = torch.where(t <= pos, 0.0, neg).float()[None]
+    same = True
+    for v0, pos in ((0, 3), (0, C - 1), (0, C), (0, 116), (0, 200),
+                    (100, 150)):
+        mask = torch.where((t <= pos) & (t >= v0), 0.0, neg).float()[None]
         got = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+        again = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
         want = SA.self_attention_q8_plain(q, k8, ks, v8, vs, mask)
         cut = mask.clone()
         cut[..., pos] = neg
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             fail(f"self-attention kernel output is not finite (pos {pos})")
+        same &= torch.equal(got, again)
         errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
+        lo = pos // C * C
         for name, wrong in (
                 ("mask ignored", SA.self_attention_q8_plain(
                     q, k8, ks, v8, vs, torch.zeros_like(mask))),
                 ("last written position dropped",
-                 SA.self_attention_q8_plain(q, k8, ks, v8, vs, cut))):
-            held(f"self_attn_q8[R {B} x {H} heads, T {T}, pos {pos}, {name}]",
-                 errs, tols, {"max_rel": max_rel(wrong, want),
-                              "mean_rel": mean_rel(wrong, want)})
+                 SA.self_attention_q8_plain(q, k8, ks, v8, vs, cut)),
+                (f"split {lo // C}'s P.V dropped",
+                 self_split_dropped(q, k8, ks, v8, vs, mask, lo, lo + C))):
+            held(f"self_attn_q8[R {B} x {H} heads, T {T}, valid_start {v0}, "
+                 f"pos {pos}, {name}]", errs, tols,
+                 {"max_rel": max_rel(wrong, want),
+                  "mean_rel": mean_rel(wrong, want)})
         worst = max(worst, float((got - want).abs().max()))
+    check("self_attn_q8[two runs bitwise]", same, "every position")
     pos = 116
     mask = torch.where(t <= pos, 0.0, neg).float()[None]
     kern = lambda: SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
@@ -1426,6 +1518,7 @@ def kernel_self_attn(dev, entries):
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="none: no one PyTorch call attends over int8 K/V "
                      "with per-position scales",
+        splits=[S, C],
         shape=f"q ({B}, {H}, 1, {dh}) bf16, K/V ({B}, {H}, {T}, {dh}) int8 "
               f"+ f32 scales, mask ({T},), position {pos}"))
 
@@ -1435,8 +1528,10 @@ def profile_unfused_step(dev, parts):
     int8 compute under ARIES_QUANT_IMPL=pallas, 6 rows over 6 windows'
     bf16 cross K/V, an int8 self cache of 227 positions, position 116):
     decoder_step, whose dense layers run the W8A16 GEMM and whose
-    self-attention runs the int8 self-attention kernel, timed and
-    profiled (device time by kernel, the device's busy share)."""
+    self-attention runs the int8 self-attention kernel. The step replayed
+    from one CUDA graph (UnfusedStepGraph, as the slice runs it) must give
+    the bits of direct launches; both are timed and profiled (device time
+    by kernel, the device's busy share)."""
     import os
 
     import torch
@@ -1459,16 +1554,31 @@ def profile_unfused_step(dev, parts):
         cache = W.init_kv_cache(dims, B, max_len=3 + 224, int8=True,
                                 device=dev)
         tok = torch.randint(0, 50000, (B, 1), generator=g, device=dev)
-        step = lambda: W.decoder_step(params, tok, pos, cache, cross, dims)
-        ms = time_ms(step, 10)
-        profile_step(f"R {B} ({B} windows), position {pos}, int8 self "
-                     "cache, bf16 cross K/V", step, what="unfused step")
+        direct = lambda: W.decoder_step(params, tok, pos, cache, cross, dims)
+        graph = W.UnfusedStepGraph(params, cache, cross, dims, B)
+        replay = lambda: graph.run(tok[:, 0], pos)
+        a = replay().clone()
+        cache_a = {k: v.clone() for k, v in cache.items()}
+        b = direct()[:, 0]
+        torch.cuda.synchronize()
+        check("unfused step: graph replay = direct launches",
+              torch.equal(a, b) and all(torch.equal(cache_a[k], cache[k])
+                                        for k in cache),
+              f"R {B}, position {pos}: logits and the int8 self cache bit "
+              "for bit")
+        ms, direct_ms = time_ms(replay, 20), time_ms(direct, 10)
+        label = (f"R {B} ({B} windows), position {pos}, int8 self cache, "
+                 "bf16 cross K/V")
+        profile_step(label, replay, what="unfused step")
+        profile_step(label + ", direct launches", direct, what="unfused step")
+        del graph
     finally:
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
             os.environ["ARIES_QUANT_IMPL"] = old_impl
-    parts.append(dict(name=f"unfused step R {B}", ms=ms))
+    parts.append(dict(name=f"unfused step R {B}", ms=ms,
+                      direct_ms=direct_ms))
     del params, cross, cache, xa
     torch.cuda.empty_cache()
 
@@ -1589,12 +1699,14 @@ def slice_phase(dev, path: str):
         return out
 
     Q.gemm_plan = recording_plan
+    from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     try:
         for fn in counters().values():
             fn.launches = 0
         DL.fused_decoder_layers.graph_replays = 0
+        W.decoder_step.graph_replays = 0
         gemm = Q.quant_matmul_dequant_kernel
         gemm.launches_by_path = dict.fromkeys(Q.GEMM_PATHS, 0)
         torch.cuda.reset_peak_memory_stats()
@@ -1603,7 +1715,9 @@ def slice_phase(dev, path: str):
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: fn.launches for k, fn in counters().items()}
-        graph_replays = DL.fused_decoder_layers.graph_replays
+        # the fused step's replays, or the unfused decoder_step's
+        graph_replays = (DL.fused_decoder_layers.graph_replays if eng.fused
+                         else W.decoder_step.graph_replays)
         gemm_paths = dict(gemm.launches_by_path)
     finally:
         Q.gemm_plan = plan
@@ -1658,10 +1772,11 @@ def slice_phase(dev, path: str):
         fail(f"the {path} slice did not decode by beam search")
     steps = sum(d["steps"] for d in decodes)
     # every decode call takes its first token from the prefill's logits,
-    # then one layer step per token: on the fused path each a graph replay
+    # then one layer step per token, each a replay of the decode call's
+    # graph (the fused layers', or the unfused decoder_step's)
     layer_steps = steps - len(decodes)
-    if eng.fused and not (graph_replays == layer_steps
-                          == launches["decode_layers"]):
+    if graph_replays != layer_steps or (
+            eng.fused and graph_replays != launches["decode_layers"]):
         fail(f"{path}: {graph_replays} graph replays, "
              f"{launches['decode_layers']} decoder-layer launches, "
              f"{layer_steps} layer steps: not every step was a replay")

@@ -547,30 +547,34 @@ def _tail_inputs(dev, B, K, V, tsb, seed):
     return logits, sum_lp, last, pen, mts, sup
 
 
-@pytest.mark.parametrize("V,with_ts,is_first", [(1000, True, False),
-                                                (1000, True, True),
-                                                (1000, False, False),
-                                                (51866, True, False),
-                                                (51866, False, True)])
-def test_beam_tail_kernel(dev, V, with_ts, is_first):
-    """The tail kernel against its plain version on the card over the
-    grammar state mix: identical top-K indices, scores within 1e-5 of max
-    |want|; a planted tie across two beams goes to the lower index."""
+@pytest.mark.parametrize("V,with_ts,is_first,K", [
+    (1000, True, False, 5), (1000, True, True, 5), (1000, False, False, 5),
+    (51866, True, False, 5), (51866, False, True, 5), (1000, True, False, 1),
+    (1000, False, True, 8), (51866, True, True, 1), (51866, True, False, 8),
+    (51866, False, False, 8)])
+def test_beam_tail_kernel(dev, V, with_ts, is_first, K):
+    """The multi-block tail kernel against its plain version on the card
+    over the grammar state mix, K 1 / 5 / 8: identical top-K indices,
+    scores within 1e-5 of max |want|; a planted tie across two beams goes
+    to the lower index; two runs give the same bits."""
     from whisper_aries_tpu_torch.ops import beam_tail as BT
 
-    B, K = 3, 5
+    B = 3
     tsb = V - 1501 if V > 2000 else 808
     ids = dict(tsb=tsb, eot=tsb - 8, blank=220, no_ts=tsb - 1,
                init_cap=tsb + 50)
     logits, sum_lp, last, pen, mts, sup = _tail_inputs(dev, B, K, V, tsb, V)
-    logits[3] = logits[1]  # window 0: beams 1 and 3 tie exactly
-    sum_lp[0, 1] = sum_lp[0, 3] = 5.0
-    for state, fresh in ((last, 100), (pen, -1), (mts, -1)):
-        state[0, 1] = state[0, 3] = fresh  # the same (text) state
+    if K >= 4:
+        logits[3] = logits[1]  # window 0: beams 1 and 3 tie exactly
+        sum_lp[0, 1] = sum_lp[0, 3] = 5.0
+        for state, fresh in ((last, 100), (pen, -1), (mts, -1)):
+            state[0, 1] = state[0, 3] = fresh  # the same (text) state
     args = (logits, sum_lp, last, pen, mts, sup, is_first, K)
     n = BT.beam_tail_kernel.launches
     got = BT.beam_tail(*args, with_timestamps=with_ts, **ids)
     assert BT.beam_tail_kernel.launches == n + 1
+    again = BT.beam_tail(*args, with_timestamps=with_ts, **ids)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = BT.beam_tail_plain(*args, with_timestamps=with_ts, **ids)
     assert torch.equal(got[1], want[1])
     for a, b in ((got[0], want[0]), (got[2], want[2])):
@@ -579,8 +583,26 @@ def test_beam_tail_kernel(dev, V, with_ts, is_first):
         if bool(fin.any()):
             scale = float(b[fin].abs().max())
             assert float((a - b)[fin].abs().max()) <= 1e-5 * scale
-    beams = (got[1][0] // V).tolist()
-    assert beams[:2] == [1, 3]
+    if K >= 4:
+        beams = (got[1][0] // V).tolist()
+        assert beams[:2] == [1, 3]
+
+
+def test_tail_and_self_attention_plans_equal_their_python_mirrors(dev):
+    """The C plans of the multi-block beam tail and of the split-KV int8
+    self-attention are the ones the CPU tests hold in Python."""
+    from whisper_aries_tpu_torch.ops import beam_tail as BT
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    for sms in (132, 114, 16):
+        for V in (7, 1000, 51866, 65536):
+            for rows in (1, 5, 30, 40, 400):
+                assert (BT.kernel_chunk_plan(V, rows, sms)
+                        == BT.chunk_plan(V, rows, sms))
+        for T in (1, 16, 33, 227, 448, 1000):
+            for pairs in (1, 20, 120, 800):
+                assert (SA.kernel_split_plan(T, pairs, sms)
+                        == SA.split_plan(T, pairs, sms))
 
 
 @pytest.mark.parametrize("dtype,tail", [(torch.int8, (2, 3, 7, 64)),
@@ -794,6 +816,118 @@ def test_self_attention_q8_kernel(dev, B, H, T, pos, qdtype):
                     want) > 1e-4
 
 
+@pytest.mark.parametrize("T,vs,pos", [(16, 0, 5), (16, 3, 15),
+                                      (227, 0, 127), (227, 0, 128),
+                                      (227, 150, 200), (448, 0, 255),
+                                      (448, 0, 256), (448, 300, 447)])
+def test_self_attention_q8_split_kernel(dev, T, vs, pos):
+    """The split-KV kernel at the slice's 6 rows x 20 heads (2 splits of
+    128 keys at T 227, 4 at T 448 on 132 SMs), with the position on both
+    sides of a split boundary and valid_start > 0 (whole splits masked):
+    within 1e-4 max and 1e-5 mean of max |want|, two runs bitwise equal;
+    the split holding ``pos`` dropped from P . V moves it past both
+    limits."""
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    B, H = 6, 20
+    S, C = SA.split_plan(T, B * H, cb.sm_count(dev))
+    g = torch.Generator(device=dev).manual_seed(T + pos + vs)
+    q = torch.randn((B, 1, H, 64), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    k8, v8 = (torch.randint(-127, 128, (B, H, T, 64), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks = torch.rand((B, H, T), generator=g, device=dev) / 127 / 8
+    vs_ = torch.rand((B, H, T), generator=g, device=dev) / 127
+    t = torch.arange(T, device=dev)
+    mask = torch.where((t <= pos) & (t >= vs), 0.0, F32_MIN).float()[None]
+    got = SA.self_attention_q8_kernel(q, k8, ks, v8, vs_, mask)
+    assert torch.equal(got, SA.self_attention_q8_kernel(q, k8, ks, v8, vs_,
+                                                         mask))
+    want = SA.self_attention_q8_plain(q, k8, ks, v8, vs_, mask)
+    assert _rel(got, want) <= 1e-4 and _mean_rel(got, want) <= 1e-5
+    lo = pos // C * C
+    p = torch.softmax(torch.einsum("bhsd,bhtd->bhst", q.float(), k8.float())
+                      * ks[:, :, None] + mask, dim=-1) * vs_[:, :, None]
+    p[..., lo:lo + C] = 0
+    wrong = torch.einsum("bhst,bhtd->bhsd", p, v8.float())
+    assert _rel(wrong, want) > 1e-4 and _mean_rel(wrong, want) > 1e-5
+
+
+def _unfused_rows(small, R, Bw, self_int8, T=16):
+    """The small model's bf16 cross K/V for Bw windows and a self cache of
+    R rows (int8 or bf16) prefilled with a 3-token prompt."""
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    xa = torch.randn((Bw, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv(params, xa, dims)
+    cache = W.init_kv_cache(dims, R, dtype=torch.bfloat16, max_len=T,
+                            int8=self_int8, device=dev)
+    prompt = torch.randint(0, 500, (R, 3), generator=g, device=dev)
+    W.decoder_step(params, prompt, 0, cache, cross, dims)
+    return dims, params, cross, cache, g
+
+
+@pytest.mark.parametrize("self_int8", [False, True])
+def test_unfused_step_graph_replay_equals_direct_steps(small, self_int8):
+    """decoder_step replayed from one CUDA graph (UnfusedStepGraph) gives
+    the logits and the self cache of direct calls bit for bit over six
+    positions, on 2 windows x 3 beam rows with an in-place beam reorder
+    between steps; every replay counts."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+
+    R = 6
+    dims, params, cross, cache, g = _unfused_rows(small, R, 2, self_int8)
+    dev = cross["k"].device
+    graph = W.UnfusedStepGraph(params, cache, cross, dims, R)
+    direct = {k: v.clone() for k, v in cache.items()}
+    n = W.decoder_step.graph_replays
+    src = torch.tensor([[1, 0, 2], [0, 0, 1]], dtype=torch.int32, device=dev)
+    for pos in range(3, 9):
+        tok = torch.randint(0, 500, (R,), generator=g, device=dev)
+        a = graph.run(tok, pos).clone()
+        b = W.decoder_step(params, tok[:, None], pos, direct, cross,
+                           dims)[:, 0]
+        assert torch.equal(a, b), pos
+        for k in cache:
+            assert torch.equal(cache[k], direct[k]), (pos, k)
+        if pos == 5:
+            BR.permute_cache_rows(cache, src)
+            BR.permute_cache_rows(direct, src)
+    assert W.decoder_step.graph_replays == n + 6
+
+
+def test_greedy_decode_unfused_replays_every_step(small, monkeypatch):
+    """An unfused greedy decode on the card (int8 self cache, bf16 cross
+    K/V) replays its decoder_step graph on every step after the prefill's,
+    and its tokens and scores are those of the same steps called
+    directly."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    ids = G.DecodeSpecialIds(eot=511, sot=500, no_speech=510,
+                             no_timestamps=509, timestamp_begin=512, blank=1,
+                             n_vocab=512)
+    prompt = torch.full((2, 1), 500, dtype=torch.long, device=dev)
+    kw = dict(sample_len=8, with_timestamps=False, kv_int8=False,
+              self_kv_int8=True, fused=False)
+    n = W.decoder_step.graph_replays
+    out = G.greedy_decode(params, xa, prompt, dims, ids,
+                          torch.zeros(512, device=dev), 0, 0.0, **kw)
+    assert W.decoder_step.graph_replays - n == int(out["steps"]) - 1 > 0
+    monkeypatch.setattr(G, "_step_graph", lambda *a, **k: None)
+    eager = G.greedy_decode(params, xa, prompt, dims, ids,
+                            torch.zeros(512, device=dev), 0, 0.0, **kw)
+    for k in ("tokens", "sum_logprob"):
+        assert torch.equal(out[k], eager[k])
+
+
 def _int8_engine(dev, tmp_path, overrides):
     from whisper_aries_tpu_torch.audio.decode import write_wav
     from whisper_aries_tpu_torch.config import load_config
@@ -842,7 +976,9 @@ def test_engine_words_runs_the_kernels(dev, tmp_path, monkeypatch):
 def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
     """kv_cache_dtype bf16 with self_kv_cache_dtype int8: unfused steps,
     their self-attention through the int8 self-attention kernel and their
-    dense layers through the W8A16 GEMM."""
+    dense layers through the W8A16 GEMM, every step after a prefill a
+    replay of its decode call's graph."""
+    from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
     from whisper_aries_tpu_torch.ops import quant as Q
     from whisper_aries_tpu_torch.ops import self_attn as SA
@@ -855,7 +991,41 @@ def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
     counters = (SA.self_attention_q8_kernel, Q.quant_matmul_dequant_kernel)
     before = [c.launches for c in counters]
     fused = DL.fused_decoder_layers.launches
+    replays = W.decoder_step.graph_replays
     res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=12)
     assert res["num_windows"] >= 1
     assert all(c.launches > b for c, b in zip(counters, before))
     assert DL.fused_decoder_layers.launches == fused
+    decodes = res["performance"]["decodes"]
+    assert W.decoder_step.graph_replays - replays == sum(
+        d["steps"] - 1 for d in decodes)
+
+
+def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    decode raises, and no step runs eagerly in its place. (Last in the
+    file: the failed capture is the final use of the card here.)"""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    logits = W.vocab_logits
+    monkeypatch.setattr(W, "vocab_logits",
+                        lambda dec, x: logits(dec, x) + float(x.sum() * 0))
+    xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    ids = G.DecodeSpecialIds(eot=511, sot=500, no_speech=510,
+                             no_timestamps=509, timestamp_begin=512, blank=1,
+                             n_vocab=512)
+    prompt = torch.full((2, 1), 500, dtype=torch.long, device=dev)
+    calls = []
+    step = W.decoder_step
+    monkeypatch.setattr(W, "decoder_step",
+                        lambda *a, **k: calls.append(a[2]) or step(*a, **k))
+    with pytest.raises(RuntimeError):
+        G.greedy_decode(params, xa, prompt, dims, ids,
+                        torch.zeros(512, device=dev), 0, 0.0, sample_len=8,
+                        with_timestamps=False, kv_int8=False,
+                        self_kv_int8=True, fused=False)
+    # the prefill, the warm-up and the capture; no eager step after it
+    assert len(calls) == 3 and isinstance(calls[2], torch.Tensor)

@@ -5,6 +5,8 @@
   * the engine runs on CUDA unless the caller asks for the CPU: with no
     card and no explicit device it raises, never carrying on quietly;
   * every kernel wrapper takes its plain version only for CPU tensors;
+  * every kernel launches on the stream of its operands' card, never on
+    the current device's (no ``cb.stream()`` without a device);
   * every file of the repo that reaches ``pl.pallas_call`` is named in
     PERF.md's kernel table.
 """
@@ -46,6 +48,43 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_nothing_of_jax(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _streams_without_a_device(path: Path):
+    """Calls of ``cb.stream()`` (ops/cuda_build.py's) or of
+    ``torch.cuda.current_stream()`` that name no tensor or device: the
+    current device's stream, which need not be the operands' card."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and not node.args
+                and not node.keywords
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        f = node.func
+        if f.attr == "stream" and getattr(f.value, "id", "") in (
+                "cb", "cuda_build"):
+            yield f"line {node.lineno}: cb.stream()"
+        if f.attr == "current_stream":
+            yield f"line {node.lineno}: current_stream()"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernels_launch_on_their_operands_card(path):
+    """Every stream a kernel launches on is named by its operand's device
+    (``cb.stream(t)``), never taken from whichever card is current."""
+    bad = list(_streams_without_a_device(path))
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def test_stream_rule_itself(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("cb.stream()\ncb.stream(x)\n"
+                   "torch.cuda.current_stream()\n"
+                   "torch.cuda.current_stream(t.device)\n")
+    assert [b.split(":")[0] for b in _streams_without_a_device(src)] == [
+        "line 1", "line 3"]
 
 
 def test_forbidden_rule_itself():

@@ -38,6 +38,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// f32 bits made monotone as unsigned (every value but NaN), and back; a
+// float max over a warp is then one redux.sync (sm_80 and later)
+__device__ __forceinline__ unsigned f32_ord(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float f32_unord(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+__device__ __forceinline__ float warp_max_redux(float v) {
+  return f32_unord(__reduce_max_sync(0xffffffffu, f32_ord(v)));
+}
+
 // Block-wide reductions over blockDim.x threads (a multiple of 32, at most
 // 1024); `scratch` holds >= 32 floats. Every thread gets the result.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {

@@ -1,8 +1,7 @@
 // Grouped int8 cross-attention, the standalone entry (ops/cross_attn.py,
 // cross_attention_q8_kernel): the prefill's cross-attention and any other
 // int8 cross call outside the decode step. The device code, its design and
-// its bound are in cross_attn.cuh, which the decode step's layer loop
-// (decode_layers.cu) runs too.
+// its bound are in cross_attn.cuh.
 //
 // Replaces: whisper_aries_tpu/ops/pallas_cross_attn.py, cross_attention_q8
 // and cross_attention_q8_blocked.

@@ -1,6 +1,5 @@
-// Grouped int8 cross-attention: device code shared by the standalone entry
-// (csrc/cross_attn.cu) and the decode step's layer loop
-// (csrc/decode_layers.cu).
+// Grouped int8 cross-attention: the device code of the standalone entry
+// (csrc/cross_attn.cu).
 //
 // Replaces: whisper_aries_tpu/ops/pallas_cross_attn.py, cross_attention_q8
 // and its row-blocked form cross_attention_q8_blocked. The G queries of one
@@ -29,10 +28,6 @@
 // Ta needs no tiling (a thread loop over the keys, so 1500 is not rounded
 // up). More than GMAX queries run in chunks of GMAX inside the block, each
 // chunk reading the K/V again (mostly from L2).
-//
-// An optional additive mask row over t (the same for every window and
-// head) is added to the scaled logits: the self-attention step
-// (csrc/self_attn.cu) runs this code with each row as a window, G = 1.
 //
 // Operand layout: element strides per window (w) and head (h); within a
 // (window, head) the keys are rows of 64 int8 (t-stride 64), the scales
@@ -63,8 +58,6 @@ struct Args {
   void* out;                      // OT, (w, h, g, 64)
   long long o_sw, o_sh, o_sg;
   int H, G, Ta;
-  const float* mask = nullptr;    // (t) additive logit row shared by every
-                                  // window and head (self_attn.cu), or none
 };
 
 template <typename T> __device__ __forceinline__ float load_f(const T* p);
@@ -163,15 +156,9 @@ cross_attn_q8_kernel(Args a) {
           }
         }
         const float s = ks[t];
-        const float m = a.mask ? a.mask[t] : 0.f;
 #pragma unroll
-        for (int g = 0; g < GMAX; ++g) {
-          if (g < gc) {
-            // the mask added after the scale, never fused into it
-            const float l = __fmul_rn(acc[g], s);
-            lg[(size_t)g * Ta + t] = a.mask ? __fadd_rn(l, m) : l;
-          }
-        }
+        for (int g = 0; g < GMAX; ++g)
+          if (g < gc) lg[(size_t)g * Ta + t] = acc[g] * s;
       }
     }
     __syncthreads();

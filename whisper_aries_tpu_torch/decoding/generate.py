@@ -13,9 +13,10 @@ Whisper's logit rules are those of the JAX package
 ``fused=True`` runs the steps through the decoder-layer kernels
 (ops/decode_layers.py) with the decoder weights packed to int8; the prompt
 prefill stays on ``decoder_step`` with the loaded weights, as on the TPU.
-On the card each decode call captures its fused step once as a CUDA graph
-(``DL.DecodeStepGraph``) and replays it every step; the graph dies with
-the call.
+On the card each decode call captures its step once as a CUDA graph and
+replays it every step: the fused layers (``DL.DecodeStepGraph``) or the
+whole unfused ``decoder_step`` (``W.UnfusedStepGraph``); the graph dies
+with the call.
 Rows are window-major over the encoded windows ``xa``: several rows of a
 window (best_of samples, beams) share its cross K/V through the grouped
 cross-attention. Sampling draws Gumbel noise from an explicit
@@ -141,28 +142,41 @@ def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
     return cross, cache, logits_p, wpack
 
 
-def _step_graph(fused, wpack, cache, cross, dims, rows):
-    """The fused step captured as one CUDA graph for this decode call (the
-    cache final: later updates are in place), or None off the card or
-    unfused. The caller drops it with the call."""
-    if not fused or not wpack["wq8"].is_cuda:
+def _step_graph(fused, wpack, cache, cross, dims, rows, params=None,
+                valid_start=0):
+    """The decode step captured as one CUDA graph for this decode call (the
+    cache final: later updates are in place): the fused layers
+    (``DL.DecodeStepGraph``) or the whole unfused ``decoder_step`` on
+    ``params`` (``W.UnfusedStepGraph``); None off the card. The caller
+    drops it with the call."""
+    if fused:
+        if not wpack["wq8"].is_cuda:
+            return None
+        return DL.DecodeStepGraph(wpack, cache, cross, rows, dims.n_text_head,
+                                  valid_start)
+    if not any(v.is_cuda for v in cache.values()):
         return None
-    return DL.DecodeStepGraph(wpack, cache, cross, rows, dims.n_text_head)
+    return W.UnfusedStepGraph(params, cache, cross, dims, rows, valid_start)
 
 
 def _step_logits(params, dims, tok, pos, cache, cross, fused, wpack,
-                 graph=None):
+                 graph=None, valid_start=0):
     """(R, V) f32 logits of one decode step on tokens ``tok`` (R,) written
-    at cache position ``pos``; the fused step replays ``graph`` when given."""
+    at cache position ``pos``, the positional embedding shifted by
+    ``valid_start`` (the first real token of a left-padded prompt); the
+    step replays ``graph`` when given."""
     if not fused:
-        return W.decoder_step(params, tok[:, None], pos, cache, cross,
-                              dims)[:, 0]
+        if graph is not None:
+            return graph.run(tok, pos, valid_start)
+        return W.decoder_step(params, tok[:, None], pos, cache, cross, dims,
+                              valid_start)[:, 0]
     dec = params["decoder"]
-    x = dec["tok_emb"][tok] + dec["pos_emb"][min(pos, dims.n_text_ctx - 1)]
+    x = (dec["tok_emb"][tok]
+         + dec["pos_emb"][min(max(pos - valid_start, 0), dims.n_text_ctx - 1)])
     if graph is not None:
-        x = graph.run(x, pos)
+        x = graph.run(x, pos, valid_start)
     else:
-        x = DL.fused_decoder_layers(x, wpack, cache, cross, 0, pos,
+        x = DL.fused_decoder_layers(x, wpack, cache, cross, valid_start, pos,
                                     dims.n_text_head)
     return W.vocab_logits(dec, x)
 
@@ -214,7 +228,7 @@ def greedy_decode(
                                              kv_int8, self_kv_int8, fused,
                                              wpack, L)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
-    graph = _step_graph(fused, wpack, cache, cross, dims, B)
+    graph = _step_graph(fused, wpack, cache, cross, dims, B, params)
 
     tokens = torch.full((B, L), ids.eot, dtype=torch.long, device=dev)
     tokens[:, :P] = prompt
@@ -336,7 +350,7 @@ def beam_search_decode(
                                              kv_int8, self_kv_int8, fused,
                                              wpack, L)
     cache = {k: v.repeat_interleave(K, dim=1) for k, v in cache.items()}
-    graph = _step_graph(fused, wpack, cache, cross, dims, B * K)
+    graph = _step_graph(fused, wpack, cache, cross, dims, B * K, params)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
     logits = logits_p[:, -1].repeat_interleave(K, dim=0)  # (B*K, V)
     del logits_p

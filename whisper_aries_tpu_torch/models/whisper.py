@@ -22,7 +22,9 @@ kernel (csrc/encoder_attn.cu), the int8 cross-attention of a prefill
 through the grouped cross-attention kernel (csrc/cross_attn.cu), and a
 decode step's self-attention over an int8 self cache through the int8
 self-attention kernel (csrc/self_attn.cu), for CUDA tensors; CPU tensors
-take the plain versions. Dense layers go through ops/quant.py when int8
+take the plain versions. ``decoder_step`` takes its positions as ints or as
+device tensors, so ``UnfusedStepGraph`` replays one captured step at every
+position. Dense layers go through ops/quant.py when int8
 (the W8A16 GEMM kernel under ARIES_QUANT_IMPL=pallas); float dense layers,
 the conv stem and the attention of the teacher-forced passes stay torch
 products, as the JAX package leaves them to XLA.
@@ -34,7 +36,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,10 +50,13 @@ from whisper_aries_tpu_torch.models.layers import (
 from whisper_aries_tpu_torch.ops import cuda_build as cb
 from whisper_aries_tpu_torch.ops.cross_attn import (
     cross_attention_q8,
+    cross_attention_q8_kernel,
     quantize_kv_per_position,
 )
+from whisper_aries_tpu_torch.ops.quant import quant_matmul_dequant_kernel
 from whisper_aries_tpu_torch.ops.self_attn import (
     self_attention_q8,
+    self_attention_q8_kernel,
     self_attention_q8_plain,
 )
 
@@ -306,8 +311,8 @@ def encoder_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
-    cb.check(_attn_fn()(cb.ptr(q), cb.ptr(k), cb.ptr(v), cb.ptr(out),
-                        B, H, T, cb.stream()), "encoder attention kernel")
+    cb.launch(_attn_fn(), q, "encoder attention kernel", cb.ptr(q), cb.ptr(k),
+              cb.ptr(v), cb.ptr(out), B, H, T)
     encoder_attention_kernel.launches += 1
     return out
 
@@ -538,10 +543,12 @@ def _cross_attention_step(cp: Dict[str, Any], h: torch.Tensor,
     return dense(cp["o"], out)
 
 
-def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
+def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
+                 pos: Union[int, torch.Tensor],
                  cache: Dict[str, torch.Tensor],
                  cross_kv: Dict[str, torch.Tensor], dims: WhisperDims,
-                 valid_start: Optional[int] = None) -> torch.Tensor:
+                 valid_start: Union[int, torch.Tensor, None] = None
+                 ) -> torch.Tensor:
     """One KV-cached decoder call (prefill S>1 or step S=1) on B rows.
 
     The rows are window-major over the cross K/V's windows: B may be a
@@ -552,8 +559,12 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
     tokens (B, S), -1 = left padding; ``pos`` is the cache index of
     tokens[:, 0]. ``valid_start``: index of the first real token of a
     left-padded prompt — cache positions before it are masked and the
-    positional embeddings shift by it. Writes the S new K/V into ``cache``
-    in place and returns logits (B, S, n_vocab) f32."""
+    positional embeddings shift by it. Each is an int or a 0-d integer
+    tensor on the tokens' device; with tensors the call reads nothing back
+    to the host (positions, mask and cache writes are built on the device),
+    so it can be captured as a CUDA graph (``UnfusedStepGraph``) and
+    replayed at any position. Writes the S new K/V into ``cache`` in place
+    and returns logits (B, S, n_vocab) f32."""
     dec = params["decoder"]
     B, S = tokens.shape
     H = dims.n_text_head
@@ -561,12 +572,12 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
     dev = tokens.device
     int8_cache = "k8" in cache
     Tmax = cache["k8"].shape[3] if int8_cache else cache["kv"].shape[4]
-    vs = int(valid_start or 0)
-    steps = torch.arange(S, device=dev)
-    pos_idx = torch.clamp(pos + steps - vs, 0, dims.n_text_ctx - 1)
+    vs = 0 if valid_start is None else valid_start
+    at = pos + torch.arange(S, device=dev)       # cache index of each token
+    pos_idx = torch.clamp(at - vs, 0, dims.n_text_ctx - 1)
     x = dec["tok_emb"][tokens.clamp(min=0)] + dec["pos_emb"][pos_idx]
     key_idx = torch.arange(Tmax, device=dev)
-    mask = (key_idx[None, :] <= (pos + steps)[:, None]) & (key_idx[None, :] >= vs)
+    mask = (key_idx[None, :] <= at[:, None]) & (key_idx[None, :] >= vs)
     maskf = torch.where(mask, 0.0, NEG).float()
     rsq = attn_scale(dh)
     blocks = dec["blocks"]
@@ -583,7 +594,7 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
             v8s, vss = _quant_slab(v)
             for key, slab in (("k8", k8s), ("ks", kss), ("v8", v8s),
                               ("vs", vss)):
-                cache[key][l, :, :, pos:pos + S] = slab
+                cache[key][l].index_copy_(2, at, slab)
             args = (q, cache["k8"][l], cache["ks"][l], cache["v8"][l],
                     cache["vs"][l], maskf)
             # a step goes through the int8 self-attention kernel on the
@@ -592,8 +603,8 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
                    else self_attention_q8_plain(*args))
         else:
             kvc = cache["kv"]
-            kvc[l, :, 0, :, pos:pos + S] = k.transpose(1, 2)
-            kvc[l, :, 1, :, pos:pos + S] = v.transpose(1, 2)
+            kvc[l, :, 0].index_copy_(2, at, k.transpose(1, 2).to(kvc.dtype))
+            kvc[l, :, 1].index_copy_(2, at, v.transpose(1, 2).to(kvc.dtype))
             logits = torch.einsum("bhsd,bhtd->bhst",
                                   (q * attn_scale(dh)).float(),
                                   kvc[l, :, 0].float()) + maskf
@@ -607,3 +618,91 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor, pos: int,
         h = layer_norm(p["ln2"], x)
         x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
     return vocab_logits(dec, x)
+
+
+decoder_step.graph_replays = 0
+
+
+def _launch_counts() -> Dict[Tuple[Any, Optional[str]], int]:
+    """The launch counts of the kernels ``decoder_step`` reaches, keyed by
+    (wrapper, GEMM path or None)."""
+    gemm = quant_matmul_dequant_kernel
+    counts = {(f, None): f.launches for f in (
+        self_attention_q8_kernel, cross_attention_q8_kernel, gemm)}
+    counts.update({(gemm, p): n for p, n in gemm.launches_by_path.items()})
+    return counts
+
+
+def _add_launches(counts: Dict[Tuple[Any, Optional[str]], int]) -> None:
+    for (f, path), n in counts.items():
+        if path is None:
+            f.launches += n
+        else:
+            f.launches_by_path[path] += n
+
+
+class UnfusedStepGraph:
+    """One unfused decode step, ``decoder_step`` at S = 1 with its vocab
+    product, captured once as a CUDA graph over fixed operands: the
+    parameters, the self cache (updated only in place afterwards, as the
+    beam reorder does), the cross K/V and ``valid_start``. The tokens and
+    the device int32 pair {pos, valid_start} are static buffers written
+    before each replay, so no step reads a position on the host.
+
+    A warm-up call runs first, outside the capture (library loads, SM-count
+    queries, plans, kernel attributes), at the cache's last position, which
+    no decode step reads before writing it. Make one per decode call and
+    drop it with the call. A failed capture or replay raises; nothing falls
+    back to eager launches or to the plain versions. The kernels the graph
+    records count their launches at each replay (the capture itself runs
+    nothing), and ``decoder_step.graph_replays`` counts the replays."""
+
+    def __init__(self, params: Dict[str, Any], cache: Dict[str, torch.Tensor],
+                 cross_kv: Dict[str, torch.Tensor], dims: WhisperDims,
+                 rows: int, valid_start: int = 0):
+        int8_cache = "k8" in cache
+        leaf = cache["k8"] if int8_cache else cache["kv"]
+        dev = leaf.device
+        if dev.type != "cuda":
+            raise ValueError("UnfusedStepGraph needs CUDA operands")
+        self.T = leaf.shape[3] if int8_cache else leaf.shape[4]
+        if not 0 <= valid_start < self.T:
+            raise ValueError(f"need 0 <= valid_start < {self.T}")
+        self.dev, self.valid_start = dev, valid_start
+        self.keep = (params, cache, cross_kv)  # the graph reads their memory
+        self.tok = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+        self.step = torch.tensor([self.T - 1, valid_start], dtype=torch.int32,
+                                 device=dev)
+
+        def step():
+            self.logits = decoder_step(params, self.tok, self.step[0], cache,
+                                       cross_kv, dims,
+                                       valid_start=self.step[1])[:, 0]
+
+        with torch.cuda.device(dev):
+            step()  # the warm-up
+            torch.cuda.synchronize()
+        before = _launch_counts()
+        self.graph = cb.capture(dev, step)
+        self.launches = {k: n - before[k]
+                         for k, n in _launch_counts().items()}
+        _add_launches({k: -n for k, n in self.launches.items()})
+
+    def run(self, tok: torch.Tensor, pos: int,
+            valid_start: Optional[int] = None) -> torch.Tensor:
+        """Replay the step on tokens (R,) at ``pos``; returns the graph's
+        (R, n_vocab) f32 logits buffer (valid until the next replay).
+        ``valid_start`` must be the one the graph was made with (None: that
+        one)."""
+        if valid_start is not None and valid_start != self.valid_start:
+            raise ValueError(f"graph made for valid_start {self.valid_start},"
+                             f" got {valid_start}")
+        if not self.valid_start <= pos < self.T:
+            raise ValueError(f"need {self.valid_start} <= pos < {self.T}")
+        self.tok.copy_(tok.reshape(-1, 1))
+        self.step[0].fill_(pos)
+        with torch.cuda.device(self.dev):
+            self.graph.replay()
+        _add_launches(self.launches)
+        decoder_step.graph_replays += 1
+        return self.logits

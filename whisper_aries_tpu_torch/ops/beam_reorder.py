@@ -58,8 +58,8 @@ def permute_rows_kernel(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     cb.require(src, "src", torch.int32, (B, K), x.device)
     L = x.shape[0]
     row_bytes = x[0, 0].numel() * x.element_size()
-    cb.check(_fn()(cb.ptr(x), cb.ptr(src), L, B, K, row_bytes, cb.stream()),
-             "beam reorder kernel")
+    cb.launch(_fn(), x, "beam reorder kernel", cb.ptr(x), cb.ptr(src), L, B,
+              K, row_bytes)
     permute_rows_kernel.launches += 1
     return x
 

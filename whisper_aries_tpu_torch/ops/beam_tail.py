@@ -27,6 +27,7 @@ from whisper_aries_tpu_torch.decoding.logit_filters import (
 )
 from whisper_aries_tpu_torch.ops import cuda_build as cb
 
+
 def _top_k_unrolled(flat: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descending top-k over the last axis as k argmax-and-mask passes:
@@ -66,15 +67,40 @@ def beam_tail_plain(logits_flat, sum_logprob, last_tok, penult_tok,
     return live_score, top_idx, eot_scores
 
 
+# csrc/beam_tail.cu's chunk plan
+BLOCKS_PER_SM, MAX_CHUNKS, MAX_CHUNK = 2, 8, 8192
+
+
+def chunk_plan(V: int, rows: int, sms: int) -> Tuple[int, int]:
+    """(C, W): the kernel's C chunks of W columns over a row of V logits
+    for ``rows`` = B*K beam rows on ``sms`` SMs, the mirror of the C
+    ``plan`` (about BLOCKS_PER_SM blocks per SM, at least V / MAX_CHUNK and
+    at most MAX_CHUNKS chunks, W a multiple of 4)."""
+    c = -(-BLOCKS_PER_SM * sms // max(rows, 1))
+    c = min(max(c, -(-V // MAX_CHUNK), 1), MAX_CHUNKS)
+    cols = -(-V // c)
+    w = -(-cols // 4) * 4
+    return -(-V // w), w
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = cb.library("beam_tail").aries_beam_tail
-    fn.argtypes = [_P] * 6 + [_I] * 11 + [_P] * 4
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = cb.library("beam_tail")
+    lib.aries_beam_tail.argtypes = [_P] * 6 + [_I] * 12 + [_P] * 5
+    lib.aries_beam_tail_plan.argtypes = [_I, _I, _I, _P]
+    for fn in (lib.aries_beam_tail, lib.aries_beam_tail_plan):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernel_chunk_plan(V: int, rows: int, sms: int) -> Tuple[int, int]:
+    """The C chunk plan (the card check of ``chunk_plan``)."""
+    out = (ctypes.c_int * 2)()
+    _lib().aries_beam_tail_plan(V, rows, sms, out)
+    return out[0], out[1]
 
 
 def beam_tail_kernel(logits_flat, sum_logprob, last_tok, penult_tok,
@@ -82,8 +108,10 @@ def beam_tail_kernel(logits_flat, sum_logprob, last_tok, penult_tok,
                      no_ts, init_cap, with_timestamps=True,
                      suppress_blank=True):
     """The beam-tail kernel: logits (B*K, V) f32 contiguous CUDA, state
-    (B, K) (scores f32, tokens any integer type), suppress mask (V,) f32.
-    One block per window."""
+    (B, K) (scores f32, tokens any integer type; int64 is read as it is),
+    suppress mask (V,) f32. ``chunk_plan``'s C blocks a beam row (one
+    cluster each), then one warp a window merging the K x C x K
+    candidates: two launches, counted as one call."""
     if not logits_flat.is_cuda:
         raise ValueError("logits_flat must be a CUDA tensor")
     BK, V = logits_flat.shape
@@ -100,16 +128,22 @@ def beam_tail_kernel(logits_flat, sum_logprob, last_tok, penult_tok,
                     ("max_ts_tok", max_ts_tok)):
         if tuple(t.shape) != (B, K) or t.device != dev:
             raise ValueError(f"{name} must be ({B}, {K}) on {dev}")
-        toks.append(t.to(torch.int32).contiguous())
+        toks.append(t.to(torch.int64).contiguous())
+    sms = cb.sm_count(dev)
+    C, W = chunk_plan(V, BK, sms)
+    if W > MAX_CHUNK:
+        raise ValueError(f"beam tail kernel: V {V} exceeds {MAX_CHUNKS} "
+                         f"chunks of {MAX_CHUNK}")
+    cand = torch.empty((B, K * C * K), dtype=torch.int64, device=dev)
     live = torch.empty((B, K), dtype=torch.float32, device=dev)
     idx = torch.empty((B, K), dtype=torch.int64, device=dev)
     eots = torch.empty((B, K), dtype=torch.float32, device=dev)
-    cb.check(_fn()(cb.ptr(logits_flat), cb.ptr(sum_logprob),
-                   *(cb.ptr(t) for t in toks), cb.ptr(suppress_mask), B, K,
-                   V, tsb, eot, blank, no_ts, init_cap, int(with_timestamps),
-                   int(suppress_blank), int(bool(is_first)), cb.ptr(live),
-                   cb.ptr(idx), cb.ptr(eots), cb.stream()),
-             "beam tail kernel")
+    cb.launch(_lib().aries_beam_tail, logits_flat, "beam tail kernel",
+              cb.ptr(logits_flat), cb.ptr(sum_logprob),
+              *(cb.ptr(t) for t in toks), cb.ptr(suppress_mask), B, K, V, tsb,
+              eot, blank, no_ts, init_cap, int(with_timestamps),
+              int(suppress_blank), int(bool(is_first)), sms, cb.ptr(cand),
+              cb.ptr(live), cb.ptr(idx), cb.ptr(eots))
     beam_tail_kernel.launches += 1
     return live, idx, eots
 

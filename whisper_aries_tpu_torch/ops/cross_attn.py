@@ -113,12 +113,12 @@ def cross_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
         raise ValueError(f"out must be ({B}, {H}, {G}, {dh}) f32, or bf16 "
                          f"for a bf16 q, on {q.device} with dh contiguous")
     qs, os_ = q.stride(), out.stride()
-    cb.check(_fn()(cb.ptr(q), int(q.dtype == torch.bfloat16), qs[0], qs[1],
-                   qs[2], cb.ptr(k8), cb.ptr(v8), k8.stride(0), k8.stride(1),
-                   cb.ptr(ks), cb.ptr(vs), ks.stride(0), ks.stride(1),
-                   cb.ptr(out), int(out.dtype == torch.bfloat16), os_[0],
-                   os_[1], os_[2], B, H, G, T, cb.stream()),
-             "cross-attention kernel")
+    cb.launch(_fn(), q, "cross-attention kernel", cb.ptr(q),
+              int(q.dtype == torch.bfloat16), qs[0], qs[1], qs[2], cb.ptr(k8),
+              cb.ptr(v8), k8.stride(0), k8.stride(1), cb.ptr(ks), cb.ptr(vs),
+              ks.stride(0), ks.stride(1), cb.ptr(out),
+              int(out.dtype == torch.bfloat16), os_[0], os_[1], os_[2], B, H,
+              G, T)
     cross_attention_q8_kernel.launches += 1
     return out
 

@@ -19,6 +19,7 @@ CPU has no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -112,8 +113,47 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _device(t) -> torch.device:
+    return t.device if isinstance(t, torch.Tensor) else torch.device(t)
+
+
+def stream(t) -> ctypes.c_void_p:
+    """The current stream of the card that holds ``t`` (a tensor or a
+    device), not of the current device: a kernel runs where its operands
+    are."""
+    return ctypes.c_void_p(torch.cuda.current_stream(_device(t)).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t) -> int:
+    """The SM count of the card that holds ``t`` (a tensor or a device)."""
+    dev = _device(t)
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+
+
+def launch(fn, t, what: str, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` on the card that holds ``t``:
+    that card is the current device during the call (so a
+    ``cudaGetDevice`` in C answers for it) and ``stream`` is its current
+    stream. Raises on the returned error code."""
+    with torch.cuda.device(_device(t)):
+        check(fn(*args, stream(t)), what)
+
+
+def capture(dev: torch.device, fn) -> torch.cuda.CUDAGraph:
+    """``fn``'s launches captured as one CUDA graph on card ``dev``, on a
+    capture stream of that card, whatever the current device is. Replay it
+    under ``torch.cuda.device(dev)``. Raises if the capture fails."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev):
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+            fn()
+    return graph
 
 
 # csrc/hopper.cuh's codes beside cudaError_t values

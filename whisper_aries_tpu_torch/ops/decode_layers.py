@@ -422,18 +422,22 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    cb.check(lib.aries_decode_init(), "decoder-layer kernels' set-up")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _set_up(index: int) -> None:
+    with torch.cuda.device(index):
+        cb.check(_lib().aries_decode_init(), "decoder-layer kernels' set-up")
 
 
-def _sms(t: torch.Tensor) -> int:
-    return _sm_count(t.device.index if t.device.index is not None
-                     else torch.cuda.current_device())
+def _kernels(t) -> ctypes.CDLL:
+    """The library, with its kernels' attributes set on the card that
+    holds ``t`` (a tensor or a device): they are set per card."""
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    _set_up(dev.index if dev.index is not None
+            else torch.cuda.current_device())
+    return _lib()
 
 
 def kernel_gemm_plan(K: int, N: int, sms: int) -> int:
@@ -478,8 +482,8 @@ def layer_norm_kernel(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor
     if d % 8:
         raise ValueError(f"LayerNorm kernel needs d % 8 == 0, got {d}")
     y = torch.empty_like(x)
-    cb.check(_lib().aries_layer_norm(cb.ptr(x), R, d, cb.ptr(s), cb.ptr(b),
-                                     cb.ptr(y), cb.stream()), "layer norm")
+    cb.launch(_kernels(x).aries_layer_norm, x, "layer norm", cb.ptr(x), R,
+              d, cb.ptr(s), cb.ptr(b), cb.ptr(y))
     layer_norm_kernel.launches += 1
     return y
 
@@ -509,10 +513,9 @@ def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     cb.require(out, "out", torch.bfloat16, (R, N), x.device)
     if out.data_ptr() % 8:
         raise ValueError("out must be 8-byte aligned")
-    cb.check(_lib().aries_w8a16_gemm(
-        cb.ptr(x), K, R, K, cb.ptr(w8), w8.stride(0), N, cb.ptr(scale),
-        cb.ptr(bias), mode, cb.ptr(out), N, _sms(x), cb.stream()),
-        "w8a16 gemm")
+    cb.launch(_kernels(x).aries_w8a16_gemm, x, "w8a16 gemm", cb.ptr(x), K,
+              R, K, cb.ptr(w8), w8.stride(0), N, cb.ptr(scale), cb.ptr(bias),
+              mode, cb.ptr(out), N, cb.sm_count(x))
     w8a16_gemm_kernel.launches += 1
     return out
 
@@ -546,10 +549,10 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     _check_splits(T, "self cache")
     att = torch.empty((R, d), dtype=torch.bfloat16, device=qkv.device)
     step = _step_scalars(pos, vs, qkv.device)
-    cb.check(_lib().aries_self_attn(
-        cb.ptr(qkv), R, d, n_head, cb.ptr(ckv),
-        cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step), cb.ptr(att),
-        cb.stream()), "self attention")
+    cb.launch(_kernels(qkv).aries_self_attn, qkv, "self attention",
+              cb.ptr(qkv), R, d, n_head, cb.ptr(ckv),
+              cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step),
+              cb.ptr(att))
     self_attn_kernel.launches += 1
     return att
 
@@ -569,9 +572,9 @@ def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
     _cross_windows(R, kv8_l)
     _check_cross(Ta)
     att = torch.empty_like(cq)
-    cb.check(_lib().aries_cross_attn(
-        cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l), cb.ptr(sc_l), Ta, Bw,
-        cb.ptr(att), _sms(cq), cb.stream()), "cross attention")
+    cb.launch(_kernels(cq).aries_cross_attn, cq, "cross attention",
+              cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l), cb.ptr(sc_l), Ta, Bw,
+              cb.ptr(att), cb.sm_count(cq))
     cross_attn_kernel.launches += 1
     return att
 
@@ -627,14 +630,13 @@ class _StepOperands:
                      cb.ptr(ksc) if int8 else None, int8, T,
                      cb.ptr(cross["kv8"]), cb.ptr(cross["sc"]), Ta, Bw)
         self.T = T
-        self.sms = _sm_count(dev.index if dev.index is not None
-                             else torch.cuda.current_device())
+        self.sms = cb.sm_count(dev)
 
     def launch(self, x: torch.Tensor, step: torch.Tensor) -> None:
-        cb.check(_lib().aries_decode_layers(
-            cb.ptr(x), *self.args, cb.ptr(step), cb.ptr(self.h),
-            cb.ptr(self.qkv), cb.ptr(self.att), cb.ptr(self.h1), self.sms,
-            int(PDL), cb.stream()), "decoder-layer kernels")
+        cb.launch(_kernels(x).aries_decode_layers, x, "decoder-layer kernels",
+                  cb.ptr(x), *self.args, cb.ptr(step), cb.ptr(self.h),
+                  cb.ptr(self.qkv), cb.ptr(self.att), cb.ptr(self.h1),
+                  self.sms, int(PDL))
 
 
 def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
@@ -689,22 +691,28 @@ class DecodeStepGraph:
         if not 0 <= valid_start < self.ops.T:
             raise ValueError(f"need 0 <= valid_start < {self.ops.T}")
         d = wpack["wq8"].shape[1]
+        self.dev = dev
         self.valid_start = valid_start
         self.x = torch.zeros((rows, d), dtype=torch.bfloat16, device=dev)
         self.step = _step_scalars(valid_start, valid_start, dev)
-        _lib()  # built, loaded and set up before the capture
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.ops.launch(self.x, self.step)
+        _kernels(dev)  # built, loaded and set up before the capture
+        self.graph = cb.capture(dev, lambda: self.ops.launch(self.x,
+                                                              self.step))
 
-    def run(self, x: torch.Tensor, pos: int) -> torch.Tensor:
+    def run(self, x: torch.Tensor, pos: int,
+            valid_start: Optional[int] = None) -> torch.Tensor:
         """Replay the step on x (R, d) at ``pos``; returns the graph's
-        output buffer (valid until the next replay)."""
+        output buffer (valid until the next replay). ``valid_start`` must
+        be the one the graph was made with (None: that one)."""
+        if valid_start is not None and valid_start != self.valid_start:
+            raise ValueError(f"graph made for valid_start {self.valid_start},"
+                             f" got {valid_start}")
         if not self.valid_start <= pos < self.ops.T:
             raise ValueError(f"need {self.valid_start} <= pos < {self.ops.T}")
         self.x.copy_(x)
         self.step[0].fill_(pos)
-        self.graph.replay()
+        with torch.cuda.device(self.dev):
+            self.graph.replay()
         fused_decoder_layers.launches += 1
         fused_decoder_layers.graph_replays += 1
         return self.x

@@ -75,9 +75,8 @@ def mel_power_kernel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     dft, melw = _device_tables(n_mels, audio.device)
     out = torch.empty((B, n_frames, n_mels), dtype=torch.float32,
                       device=audio.device)
-    err = _kernel()(cb.ptr(x), B, x.shape[1], cb.ptr(dft), cb.ptr(melw),
-                    cb.ptr(out), n_frames, n_mels, cb.stream())
-    cb.check(err, "mel kernel")
+    cb.launch(_kernel(), x, "mel kernel", cb.ptr(x), B, x.shape[1],
+              cb.ptr(dft), cb.ptr(melw), cb.ptr(out), n_frames, n_mels)
     mel_power_kernel.launches += 1
     return out
 

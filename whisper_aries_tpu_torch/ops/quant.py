@@ -116,11 +116,6 @@ def gemm_plan(M: int, N: int, K: int, sms: int) -> Tuple[str, int]:
     return "splitk", _splitk_splits(M, N, K, sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def dequantize_bf16_kernel(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The "wgmma" path's first pass on its own: int8 (K, N) x f32 (N,) CUDA
     tensors, N % 16 == 0 -> bf16 (K, N), bit for bit ``dequantize_bf16``."""
@@ -131,8 +126,8 @@ def dequantize_bf16_kernel(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         raise ValueError("the dequant kernel needs N % 16 == 0 and 16-byte "
                          "aligned q and s")
     w = torch.empty((K, N), dtype=torch.bfloat16, device=q.device)
-    cb.check(_lib().aries_dequant_bf16(cb.ptr(q), cb.ptr(s), cb.ptr(w), K, N,
-                                       cb.stream()), "W8A16 dequant")
+    cb.launch(_lib().aries_dequant_bf16, q, "W8A16 dequant", cb.ptr(q),
+              cb.ptr(s), cb.ptr(w), K, N)
     return w
 
 
@@ -160,7 +155,7 @@ def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the kernel writes bf16 or f32")
-    sms = _sm_count(x.device.index)
+    sms = cb.sm_count(x)
     if path is None:
         path, splits = gemm_plan(M, N, K, sms)
     elif path not in GEMM_PATHS or (path == "wgmma" and K % 64):
@@ -176,11 +171,10 @@ def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
     else:
         scratch = None
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    cb.check(_lib().aries_quant_matmul(
-        cb.ptr(x), cb.ptr(q), cb.ptr(s), cb.ptr(out),
-        int(out_dtype == torch.bfloat16), M, N, K, GEMM_PATHS[path], splits,
-        cb.ptr(scratch) if scratch is not None else None, cb.stream()),
-        "W8A16 GEMM")
+    cb.launch(_lib().aries_quant_matmul, x, "W8A16 GEMM", cb.ptr(x),
+              cb.ptr(q), cb.ptr(s), cb.ptr(out),
+              int(out_dtype == torch.bfloat16), M, N, K, GEMM_PATHS[path],
+              splits, cb.ptr(scratch) if scratch is not None else None)
     quant_matmul_dequant_kernel.launches += 1
     quant_matmul_dequant_kernel.launches_by_path[path] += 1
     return out
