@@ -75,6 +75,17 @@ __device__ __forceinline__ void pdl_trigger() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
+// a cluster barrier split in two: every block arrives at its start
+// (relaxed: no memory ordering) and waits just before its first write into
+// another block's shared memory, which needs every block of the cluster
+// running
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t smem_u32addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

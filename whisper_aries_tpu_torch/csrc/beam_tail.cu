@@ -30,8 +30,11 @@
 //      filters it in place with the rules that need only the row's
 //      scalars, keeping the chunk's timestamp and text maxima and each
 //      region's sum of exp(f - its max);                     cluster sync
-//   2. one exchange through distributed shared memory (lane r reads rank
-//      r, sums in rank order, each rank's sum rescaled to the row's max):
+//   2. one exchange: each block writes its statistics into every block's
+//      shared memory before the barrier (distributed shared memory; a
+//      relaxed arrive at the start, waited before the writes, makes sure
+//      every block runs) and reads them from its own after it, summing in
+//      rank order, each rank's sum rescaled to the row's max:
 //      the row's timestamp max and logsumexp and its text max decide the
 //      forced-timestamp rule, and with it the row's max and log-sum-exp;
 //   3. each block forms total = lp + sum_logprob over its chunk (the block
@@ -83,12 +86,6 @@ struct Ids {
   int V, tsb, eot, blank, no_ts, init_cap;
   int with_ts, suppress_blank, is_first;
 };
-
-// a candidate's key: larger for a higher score, then for a lower index;
-// 0 is below every key
-__device__ __forceinline__ u64 make_key(float s, unsigned i) {
-  return ((u64)f32_ord(s) << 32) | (FULL - i);
-}
 
 // the largest key over a warp's lanes: two redux.sync maxima
 __device__ __forceinline__ u64 warp_max_key(u64 k) {
@@ -192,8 +189,9 @@ tail_chunk_kernel(const float* logits, const float* sum_lp,
   extern __shared__ __align__(16) float buf[];  // 2 x (W + 4) floats
   __shared__ float red[2 * WARPS];
   __shared__ u64 wk[WARPS][K];
-  __shared__ Stats st;
+  __shared__ Stats st[MAX_CHUNKS];  // rank r's, written by rank r
   cg::cluster_group cl = cg::this_cluster();
+  splitkv::cluster_arrive_relaxed();
   const int ch = blockIdx.x, k = blockIdx.y, b = blockIdx.z, C = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int V = c.V;
@@ -242,14 +240,17 @@ tail_chunk_kernel(const float* logits, const float* sum_lp,
     else s_text += expf(__fsub_rn(f[i], m_text));
   }
   block_sum2(s_ts, s_text, red);
-  if (tid == 0) st = Stats{m_ts, s_ts, m_text, s_text};
+  splitkv::cluster_wait();  // every block of the cluster is running
+  // this chunk's statistics into every rank's slot ch
+  if (tid < C)
+    *cl.map_shared_rank(&st[ch], tid) = Stats{m_ts, s_ts, m_text, s_text};
   cl.sync();
 
-  // 2) the one exchange (lane r reads rank r): the row's timestamp and
+  // 2) the one exchange (lane r takes rank r's): the row's timestamp and
   // text maxima and sums of exp(f - max), each rank's sum rescaled to the
   // row's max and summed in rank order
   Stats o = {NEG, 0.f, NEG, 0.f};
-  if (lane < C) o = *cl.map_shared_rank(&st, lane);
+  if (lane < C) o = st[lane];
   const float M_ts = warp_max_redux(o.m_ts);
   const float M_text = warp_max_redux(o.m_text);
   const float S_ts = ordered_sum(o.s_ts * expf(__fsub_rn(o.m_ts, M_ts)), C);
@@ -272,7 +273,9 @@ tail_chunk_kernel(const float* logits, const float* sum_lp,
              : S_text * expf(__fsub_rn(M_text, m2)));
   const float lse = logf(s_row);
 
-  // 3) scores and this thread's K largest keys (local column indices)
+  // 3) scores and this thread's K largest keys: a key is larger for a
+  // higher score, then for a lower column (monotone score bits, then the
+  // column's complement); 0 is below every key
   u64 keys[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) keys[j] = 0;
@@ -281,7 +284,9 @@ tail_chunk_kernel(const float* logits, const float* sum_lp,
     const float x = (force && v0 + i < c.tsb) ? NEG : f[i];
     const float total = __fadd_rn(__fsub_rn(__fsub_rn(x, m2), lse), base);
     if (i == ieot) eot_scores[row] = total;
-    const u64 key = make_key(i == ieot ? NEG : total, (unsigned)i);
+    const unsigned o = f32_ord(i == ieot ? NEG : total);
+    if (o < (unsigned)(keys[K - 1] >> 32)) continue;  // below the K-th
+    const u64 key = ((u64)o << 32) | (FULL - (unsigned)i);
     if (key > keys[K - 1]) {
       keys[K - 1] = key;
 #pragma unroll
@@ -310,7 +315,6 @@ tail_chunk_kernel(const float* logits, const float* sum_lp,
           key ? (key & 0xffffffff00000000ull) | (FULL - flat) : 0;
     }
   }
-  cl.sync();  // every block's statistics stay alive until read
 }
 
 // grid B, one warp: the K largest of window b's n = K x C x K candidate

@@ -34,15 +34,19 @@
 //      before any is used;
 //   2. logits: 16 products, two shuffles, then times ks and plus the mask
 //      (two roundings, as the plain version); the split's max m_s and sum
-//      of exp(l - m_s) go to shared memory;                  cluster sync
-//   3. one exchange of the statistics (lane r reads rank r through
-//      distributed shared memory): M = max_r m_r, and the sum over the
-//      ranks, in rank order, of l_r exp(m_r - M); each block then forms
-//      p = exp(l - M) / sum * vs as one block over all keys would, and its
-//      P . V from the V slices in registers (shuffles over the warp's
-//      keys, then the warps in order);                       cluster sync
-//   4. the S blocks share the 64 output dims, each the sum of the splits'
-//      partials in rank order (the same bits every run).    cluster sync
+//      of exp(l - m_s) are written into every block's shared memory
+//      (distributed shared memory);                          cluster sync
+//   3. each block reads the S statistics from its own shared memory:
+//      M = max_r m_r, and the sum over the ranks, in rank order, of
+//      l_r exp(m_r - M); it forms p = exp(l - M) / sum * vs as one block
+//      over all keys would, and its P . V from the V slices in registers
+//      (shuffles over the warp's keys, then the warps in order), which it
+//      writes into rank 0's shared memory;                   cluster sync
+//   4. rank 0 sums the splits' partials in rank order (the same bits
+//      every run).
+// Every remote access is a write before a barrier, so no block waits for
+// another to finish reading it; a relaxed arrive at the start (waited
+// before the first write) makes sure every block of the cluster runs.
 // A split whose keys are all masked has logits near f32 min: each
 // exp(l - M) is exactly 0, so it adds exactly 0 to the sum and to P . V.
 // The dh-minor (B, H, T, 64) cache makes a key row 64 contiguous bytes; the
@@ -120,10 +124,11 @@ template <typename QT>
 __global__ void __launch_bounds__(THREADS)
 self_q8_kernel(Args a) {
   __shared__ float red[WARPS][DH];
-  __shared__ float os[DH];
   __shared__ float wm[WARPS], wl[WARPS];
-  __shared__ Stat stat;
+  __shared__ Stat stats[MAX_SPLITS];        // rank r's, written by rank r
+  __shared__ float parts[MAX_SPLITS][DH];   // rank r's P . V (rank 0's used)
   cg::cluster_group cl = cg::this_cluster();
+  splitkv::cluster_arrive_relaxed();
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z, S = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c4 = tid & 3, kq = tid >> 2;
@@ -182,18 +187,18 @@ self_q8_kernel(Args a) {
   sl = warp_sum(sl);
   if (lane == 0) wl[warp] = sl;
   __syncthreads();
-  if (tid == 0) {
+  splitkv::cluster_wait();  // every block of the cluster is running
+  if (tid < S) {  // this split's statistics into every rank's slot s
     float v = 0.f;
     for (int w = 0; w < WARPS; ++w) v += wl[w];
-    stat.m = m_s;
-    stat.l = v;
+    *cl.map_shared_rank(&stats[s], tid) = Stat{m_s, v};
   }
   cl.sync();
 
-  // 3) M = the max over the ranks (lane r reads rank r), the sum over the
-  // ranks in rank order; probabilities; P . V
+  // 3) M = the max over the ranks (lane r takes rank r's), the sum over
+  // the ranks in rank order; probabilities; P . V
   Stat o = {-INFINITY, 0.f};
-  if (lane < S) o = *cl.map_shared_rank(&stat, lane);
+  if (lane < S) o = stats[lane];
   const float M = warp_max_redux(o.m);
   const float term = lane < S ? o.l * expf(o.m - M) : 0.f;
   float sum = 0.f;
@@ -230,24 +235,21 @@ self_q8_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) red[warp][16 * lane + i] = acc[i];
   __syncthreads();
-  if (tid < DH) {
+  if (tid < DH) {  // this split's partial output into rank 0's slot s
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) o += red[w][tid];
-    os[tid] = o;
+    *cl.map_shared_rank(&parts[s][tid], 0) = o;
   }
   cl.sync();
 
-  // 4) block s writes dims d with d % S == s, each the sum of the splits'
-  // partials in rank order
-  if (tid < DH && tid % S == s) {
+  // 4) rank 0 sums the splits' partials in rank order; no block reads
+  // another's shared memory after the last barrier
+  if (s == 0 && tid < DH) {
     float o = 0.f;
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < S) o += *cl.map_shared_rank(&os[tid], r);
+    for (int r = 0; r < S; ++r) o += parts[r][tid];
     a.out[((size_t)b * a.H + h) * DH + tid] = o;
   }
-  cl.sync();  // every block's shared memory stays alive until read
 }
 
 template <typename QT>
