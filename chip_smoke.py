@@ -13,11 +13,12 @@ caught; a kernel check that fails is printed at once and fails the run
   2. build: compile every kernel from the sources in the checkout, one nvcc
      per source, all in parallel.
   3. kernels: hold each kernel against its plain PyTorch version on the card
-     at the main paths' large-v3 shapes (mel at B=8, encoder attention at
-     (8, 20, 1500, 64) bf16, the decoder-layer kernels at R=8 for both
-     self-cache dtypes over several positions, the grouped int8
-     cross-attention at (8 windows, 20 heads, 5 queries, 1500 keys) and at
-     the prefill's (6 windows, 3 and 15 queries), the beam tail at 8
+     at the main paths' large-v3 shapes (mel at B=8 with 128 and 80 mels,
+     encoder attention at (8, 20, 1500, 64) bf16, the decoder-layer kernels
+     at R=8 for both self-cache dtypes over several positions, the grouped
+     int8 cross-attention at (8 windows, 20 heads, 5 queries, 1500 keys) and
+     at the prefill's (6 windows, 3, 15 and 20 queries, bf16 and f32), the
+     beam tail at 8
      windows x 5 beams x 51866, the beam-cache reorder on the int8
      self-cache leaves at R=40), and time kernel, plain version and, where
      one exists, the one-call PyTorch yardstick; the decode step is also
@@ -50,8 +51,9 @@ caught; a kernel check that fails is printed at once and fails the run
      highest index, the outscale product, a dropped K slab, unwritten
      M-tail rows, an ignored mask, a dropped last position, the appended
      position left unscored, one split's P . V dropped from the int8
-     self-attention's cluster sum, one chunk's candidates dropped from the
-     beam tail's merge), the same error of a plain version making that
+     self-attention's or the grouped cross-attention's cluster sum, one
+     chunk's candidates dropped from the beam tail's merge, one mel band's
+     last bin dropped), the same error of a plain version making that
      mistake must exceed the limit. The int8 self-attention (split-KV
      clusters) and the beam tail (several blocks a beam row) are also
      held at two runs giving the same bits, and their C plans equal their
@@ -264,45 +266,86 @@ def synth_audio(seconds: float, seed: int) -> np.ndarray:
     return (x * gate + 0.001 * rng.standard_normal(n)).astype(np.float32)
 
 
+def mel_band_cut(audio, n_mels: int, m: int):
+    """The plain version with band m's last bin dropped from the
+    filterbank (a mistake the mel check must catch)."""
+    import torch
+    from whisper_aries_tpu_torch.audio import mel as AM
+
+    x = AM.reflect_pad(audio.float())
+    frames = x.unfold(1, AM.N_FFT, AM.HOP_LENGTH)[:, :audio.shape[1] // 160]
+    spec = torch.fft.rfft(frames * AM.hann_window(x.device), dim=-1)
+    melw = AM.mel_filterbank(n_mels).copy()
+    melw[m, np.flatnonzero(melw[m])[-1]] = 0.0
+    mels = torch.einsum("mf,btf->bmt", torch.as_tensor(melw, device=x.device),
+                        spec.real ** 2 + spec.imag ** 2)
+    return AM.finish_log_mel(torch.log10(torch.clamp(mels, min=1e-10)))
+
+
 def kernel_mel(dev, entries):
+    """The mel kernel at B 8 over the synthetic audio, 128 mels (large-v3)
+    and 80, against the plain version (cuFFT and the dense mel product);
+    each named mistake (every frame off by one sample, the middle band's
+    last bin dropped) must exceed the limits. Timed by events (log_mel,
+    the torch floor after the kernel included, and the plain version) and
+    by device time (the kernel alone)."""
     import torch
     from whisper_aries_tpu_torch.audio.mel import log_mel_spectrogram
     from whisper_aries_tpu_torch.ops import mel as M
 
-    B, n_mels = 8, 128
+    B = 8
     audio = torch.as_tensor(np.stack([synth_audio(30.0, 100 + i)
                                       for i in range(B)]), device=dev)
-    got = M.log_mel(audio, n_mels)
-    want = log_mel_spectrogram(audio, n_mels)
-    # a mistake the limit must catch: every frame off by one sample
-    shifted = log_mel_spectrogram(torch.roll(audio, 1, dims=-1), n_mels)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        fail("mel kernel output is not finite")
-    err = float((got - want).abs().max())
-    held("mel", {"max_abs": err, "mean_abs": float((got - want).abs().mean())},
-         {"max_abs": 5e-4, "mean_abs": 2e-6},
-         {"mean_abs": float((shifted - want).abs().mean())})
-    ms = time_ms(lambda: M.log_mel(audio, n_mels), 20)
-    plain_ms = time_ms(lambda: log_mel_spectrogram(audio, n_mels), 20)
+    tols = {"max_abs": 5e-4, "mean_abs": 2e-6}
     n_frames = 3000
-    # the function's least work per frame: a 400-point real FFT
-    # (2.5 N log2 N operations), the Hann product, power over 201 bins, the
-    # 201 x n_mels mel product and the log; the kernel's own design does a
-    # DFT as a product (2 x 400 x 402 per frame), reported beside it
-    fft_ops = 2.5 * 400 * math.log2(400)
-    ops = B * n_frames * (fft_ops + 400 + 3 * 201 + 2 * 201 * n_mels + n_mels)
-    dft_ops = B * n_frames * (2 * 400 * 402 + 3 * 201 + 2 * 201 * n_mels)
-    nbytes = audio.numel() * 4 + B * n_frames * n_mels * 4
-    b_ms, b_by = bound(nbytes, ops, PEAK_F32)
-    entries.append(dict(
-        name="mel", route="cuda",
-        source="whisper_aries_tpu_torch/csrc/mel.cu",
-        replaces="whisper_aries_tpu/ops/pallas_mel.py:62",
-        max_abs_err=err, tolerance="max |d| < 5e-4, mean |d| < 2e-6",
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        dft_design_bound_ms=bound(nbytes, dft_ops, PEAK_F32)[0],
-        library_ms=None, shape=f"audio ({B}, 480000) f32, n_mels {n_mels}"))
+    entry = None
+    for n_mels in (128, 80):
+        got = M.log_mel(audio, n_mels)
+        want = log_mel_spectrogram(audio, n_mels)
+        mistakes = {
+            "frames off by one sample":
+                log_mel_spectrogram(torch.roll(audio, 1, dims=-1), n_mels),
+            f"band {n_mels // 2}'s last bin dropped":
+                mel_band_cut(audio, n_mels, n_mels // 2)}
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            fail("mel kernel output is not finite")
+        err = lambda a: {"max_abs": float((a - want).abs().max()),
+                         "mean_abs": float((a - want).abs().mean())}
+        errs = err(got)
+        for name, wrong in mistakes.items():
+            held(f"mel[{n_mels} mels, {name}]", errs, tols, err(wrong))
+        kern = lambda: M.mel_power_kernel(audio, n_mels)
+        times = dict(ms=time_ms(lambda: M.log_mel(audio, n_mels), 20),
+                     device_ms=device_ms(kern),
+                     plain_ms=time_ms(
+                         lambda: log_mel_spectrogram(audio, n_mels), 20))
+        # the function's least work per frame: a 400-point real FFT
+        # (2.5 N log2 N operations), the Hann product, power over 201
+        # bins, the filterbank's nonzeros (394 at 128 mels, 391 at 80)
+        # and the log; the first design's own work, a DFT as a product
+        # (2 x 400 x 402) and a dense mel product, is reported beside it
+        nnz = len(M.mel_bands(n_mels)[1])
+        fft_ops = 2.5 * 400 * math.log2(400)
+        ops = B * n_frames * (fft_ops + 400 + 3 * 201 + 2 * nnz + n_mels)
+        dft_ops = B * n_frames * (2 * 400 * 402 + 3 * 201 + 2 * 201 * n_mels)
+        nbytes = audio.numel() * 4 + B * n_frames * n_mels * 4
+        b_ms, b_by = bound(nbytes, ops, PEAK_F32)
+        if entry is None:
+            entry = dict(
+                name="mel", route="cuda",
+                source="whisper_aries_tpu_torch/csrc/mel.cu",
+                replaces="whisper_aries_tpu/ops/pallas_mel.py:62",
+                max_abs_err=errs["max_abs"],
+                tolerance="max |d| < 5e-4, mean |d| < 2e-6", **times,
+                bound_ms=b_ms, bound_by=b_by,
+                dft_design_bound_ms=bound(nbytes, dft_ops, PEAK_F32)[0],
+                library_ms=None,
+                shape=f"audio ({B}, 480000) f32, n_mels {n_mels}")
+        else:
+            entry[f"at_{n_mels}_mels"] = dict(
+                max_abs_err=errs["max_abs"], bound_ms=b_ms, **times)
+    entries.append(entry)
 
 
 def kernel_encoder_attn(dev, entries):
@@ -530,13 +573,16 @@ def check_decode_plans(dev) -> None:
                for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d)))
     same &= all(DL.kernel_attn_split(T) == DL.attn_split(T)
                 for T in (227, 448))
-    same &= all(DL.kernel_cross_split(1500, w * 20, sms)
-                == DL.cross_split(1500, w * 20, sms) for w in (1, 6, 8))
+    same &= all(DL.kernel_cross_split(1500, w * 20, G, sms)
+                == DL.cross_split(1500, w * 20, G, sms) for w in (1, 6, 8)
+                for G in (1, 5, 15))
     check("decode plans: C = Python mirrors", same,
           f"{sms} SMs, GEMM K slices "
           f"{[DL.gemm_plan(K, N, sms) for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d))]}, "
           f"self splits {DL.attn_split(227)}, cross splits at 6 / 8 windows "
-          f"{DL.cross_split(1500, 120, sms)} / {DL.cross_split(1500, 160, sms)}")
+          f"{DL.cross_split(1500, 120, 1, sms)} / "
+          f"{DL.cross_split(1500, 160, 1, sms)}, G 15 at 6 windows "
+          f"{DL.cross_split(1500, 120, 15, sms)}")
 
 
 def kernel_decode_layers(dev, entries, parts):
@@ -980,24 +1026,32 @@ def cross_case(dev, Bw, G, seed):
 
 def hold_cross(label, q, args):
     """The kernel (f32 out) against its plain version; each named mistake
-    (the last 28 keys dropped, every window reading window 0's K/V) must
-    exceed the limits. Returns the largest |error|."""
+    (the last 28 keys dropped, every window reading window 0's K/V, the
+    last split's P . V dropped from the rank-order sum) must exceed the
+    limits. Returns the largest |error|."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
 
+    Bw, H, G, _ = q.shape
+    S, C = DL.cross_split(args[0].shape[2], Bw * H, G, cb.sm_count(q))
     got = XA.cross_attention_q8_kernel(q, *args)
     want = XA.cross_attention_q8_reference(q, *args)
-    cut = XA.cross_attention_q8_reference(q, *(a[:, :, :1472] for a in args))
-    win0 = XA.cross_attention_q8_reference(
-        q, *(a[:1].expand_as(a) for a in args))
+    mistakes = {
+        "last 28 keys dropped": XA.cross_attention_q8_reference(
+            q, *(a[:, :, :1472] for a in args)),
+        "every window reads window 0": XA.cross_attention_q8_reference(
+            q, *(a[:1].expand_as(a) for a in args)),
+        f"split {S - 1} of {S}'s P.V dropped":
+            XA.cross_attention_q8_split_plain(q, *args, S, C, drop=S - 1)}
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         fail(f"cross-attention kernel output is not finite ({label})")
-    # f32 out from the same f32 products summed in another order: ~1e-7
+    # f32 out from the same f32 products summed in another order: ~1e-6
     tols = {"max_rel": 1e-4, "mean_rel": 1e-5}
     errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
-    for name, wrong in (("last 28 keys dropped", cut),
-                        ("every window reads window 0", win0)):
+    for name, wrong in mistakes.items():
         held(f"cross_attn_q8[{label}, {name}]", errs, tols,
              {"max_rel": max_rel(wrong, want),
               "mean_rel": mean_rel(wrong, want)})
@@ -1006,18 +1060,27 @@ def hold_cross(label, q, args):
 
 def kernel_cross_attn(dev, entries):
     """The grouped int8 cross-attention kernel, f32 out (its standalone
-    entry; the step runs the same device code with a bf16 out, held in the
-    step checks): at the beam step's shape, 8 windows x 20 heads x 5
-    queries over 1500 keys, and at the slices' prefill shapes over their 6
-    windows, G = P = 3 (greedy and beam, once per window) and G = best_of
-    x P = 15 (the fallback ladder). Each shape takes its own instantiation
-    (queries per chunk, blocks per SM)."""
+    entry, which the prefills launch once per decoder layer; the step runs
+    the same device code with a bf16 out, held in the step checks), on the
+    step's split plan (held against its mirror in check_decode_plans):
+    held at the beam step's shape, 8 windows x 20 heads x 5 queries over
+    1500 keys, and at the slices' prefill shapes over their 6 windows,
+    G = P = 3 (greedy and beam, once per window; the block-wide kernel)
+    and G = best_of x P = 15 (the fallback ladder; the per-warp kernel),
+    and at G 20 (chunks of 16 and 4), with bf16 queries and with f32
+    queries; timed by events and by device time at 8 x 5, 6 x 3 and
+    6 x 15."""
+    import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     Bw, H, G, T, dh = 8, 20, 5, 1500, 64
+    sms = cb.sm_count(dev)
     q, args = cross_case(dev, Bw, G, 4)
     err, tols = hold_cross(f"{Bw} windows x {G}", q, args)
-    ms = time_ms(lambda: XA.cross_attention_q8_kernel(q, *args), 20)
+    kern = lambda: XA.cross_attention_q8_kernel(q, *args)
+    ms, dev_ms = time_ms(kern, 20), device_ms(kern)
     plain_ms = time_ms(lambda: XA.cross_attention_q8_reference(q, *args), 5)
 
     def cross_bound(Bw, G):
@@ -1026,23 +1089,30 @@ def kernel_cross_attn(dev, entries):
 
     b_ms, b_by = cross_bound(Bw, G)
     extra = {}
-    for Gp in (3, 15):
+    for Gp in (3, 15, 20):
         qp, ap = cross_case(dev, 6, Gp, 40 + Gp)
-        e, _ = hold_cross(f"prefill, 6 windows x {Gp}", qp, ap)
-        err = max(err, e)
-        extra[f"ms_at_g{Gp}_6_windows"] = time_ms(
-            lambda: XA.cross_attention_q8_kernel(qp, *ap), 20)
-        extra[f"bound_ms_at_g{Gp}_6_windows"] = cross_bound(6, Gp)[0]
+        for qdtype in (torch.bfloat16, torch.float32):
+            qd = qp.to(qdtype)
+            e, _ = hold_cross(f"prefill, 6 windows x {Gp}, q {qdtype}", qd, ap)
+            err = max(err, e)
+        if Gp != 20:
+            kp = lambda: XA.cross_attention_q8_kernel(qp, *ap)
+            extra[f"ms_at_g{Gp}_6_windows"] = time_ms(kp, 20)
+            extra[f"device_ms_at_g{Gp}_6_windows"] = device_ms(kp)
+            extra[f"bound_ms_at_g{Gp}_6_windows"] = cross_bound(6, Gp)[0]
         del qp, ap
     entries.append(dict(
         name="cross_attn_q8", route="cuda",
         source="whisper_aries_tpu_torch/csrc/cross_attn.cu",
         replaces="whisper_aries_tpu/ops/pallas_cross_attn.py:50",
         also_replaces="whisper_aries_tpu/ops/pallas_cross_attn.py:115",
-        max_abs_err=err, tolerance=tols, ms=ms,
+        max_abs_err=err, tolerance=tols, ms=ms, device_ms=dev_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         library_note="none: no one PyTorch call attends over int8 K/V "
                      "with per-position scales",
+        splits={"6x20, G 3": DL.cross_split(T, 120, 3, sms),
+                "6x20, G 15": DL.cross_split(T, 120, 15, sms),
+                "8x20, G 5": DL.cross_split(T, 160, 5, sms)},
         shape=f"q ({Bw}, {H}, {G}, {dh}) bf16, K/V ({Bw}, {H}, {T}, {dh}) "
               "int8 + f32 scales; also inside every decode step",
         **extra))

@@ -68,6 +68,22 @@ def test_mel_kernel(dev):
     assert float(diff.max()) < 5e-4 and float(diff.mean()) < 5e-6
 
 
+def test_mel_kernel_ragged_clip_at_128_mels(dev):
+    """128 mels over clips of 48123 samples: 300 frames (the last tile of
+    8 holds 4), both padded edges read by reflected indices, the spans
+    between them copied as 16-byte words."""
+    from whisper_aries_tpu_torch.audio.mel import log_mel_spectrogram
+    from whisper_aries_tpu_torch.ops import mel as M
+
+    rng = np.random.default_rng(1)
+    audio = rng.standard_normal((3, 48123)) * np.linspace(0.01, 1, 48123)
+    a = torch.as_tensor(audio, dtype=torch.float32, device=dev)
+    got, want = M.log_mel(a, 128), log_mel_spectrogram(a, 128)
+    assert got.shape == want.shape == (3, 128, 300)
+    diff = (got - want).abs()
+    assert float(diff.max()) < 5e-4 and float(diff.mean()) < 5e-6
+
+
 @pytest.mark.parametrize("shape", [(1, 2, 200, 64), (2, 3, 1500, 64)])
 def test_encoder_attention_kernel(dev, shape):
     from whisper_aries_tpu_torch.models import whisper as W
@@ -302,21 +318,49 @@ def _hold_grouped_cross(dev, B, H, G, T, qdtype):
                                         (5, 1500, torch.bfloat16),
                                         (12, 97, torch.float32),
                                         (20, 300, torch.bfloat16),
-                                        (3, 1500, torch.bfloat16)])
+                                        (3, 1500, torch.bfloat16),
+                                        (15, 1500, torch.bfloat16),
+                                        (15, 1500, torch.float32),
+                                        (20, 1500, torch.float32)])
 def test_grouped_cross_attention_kernel(dev, G, T, qdtype):
-    """3 windows x 2 heads (one block per SM): G = 1, 3, 5 take query
-    chunks of 1, 4 and 8; G = 12 and 20 run in chunks of 16."""
+    """3 windows x 2 heads: G up to 8 runs the block-wide kernel (one
+    chunk of G queries; bf16 q: tensor-core logits, f32 q: f32 FMAs), 12
+    and 15 the per-warp kernel in one chunk of 16, 20 in chunks of 16 and
+    4 (f32 q: three exact bf16 parts); the keys are cut into the plan's
+    splits (8 of 192 at T 1500 on an H100, 4 of 32 at T 97, 2 of 32 at
+    T 40)."""
     _hold_grouped_cross(dev, 3, 2, G, T, qdtype)
 
 
-@pytest.mark.parametrize("G", [1, 3, 5])
-def test_grouped_cross_attention_two_blocks_per_sm(dev, G):
-    """More blocks than the card has SMs (70 windows x 2 heads = 140 > 132
-    on an H100) takes the two-blocks-per-SM instantiation of each query
-    chunk up to 8."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    B = sms // 2 + 4
-    _hold_grouped_cross(dev, B, 2, G, 1500, torch.bfloat16)
+@pytest.mark.parametrize("Bw,G", [(6, 3), (6, 15), (8, 5)])
+def test_grouped_cross_attention_split_plan(dev, Bw, G):
+    """The kernel runs the decode step's split plan (its C plan equals the
+    Python mirror ``cross_split``): at the prefills' shapes over large-v3's
+    1500 keys (6 windows x 20 heads: 3 splits of 512 on an H100, 2 of 768
+    at G 15; 8 x 20: 2 of 768) it equals the plain version within 1e-5 of
+    max |want|,
+    twice with the same bits, while dropping the last split's P . V moves
+    it by far more."""
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    sms = cb.sm_count(dev)
+    S, C = DL.cross_split(1500, Bw * 20, G, sms)
+    assert DL.kernel_cross_split(1500, Bw * 20, G, sms) == (S, C)
+    g = torch.Generator(device=dev).manual_seed(Bw * G)
+    kv = torch.randn((Bw, 2, 20, 1500, 64), generator=g, device=dev)
+    kv8, sc = XA.quantize_kv_per_position(kv)
+    sc[:, 0] /= 8.0
+    q = (4 * torch.randn((Bw, G, 20, 64), generator=g, device=dev)).to(
+        torch.bfloat16).transpose(1, 2)
+    args = (kv8[:, 0], sc[:, 0], kv8[:, 1], sc[:, 1])
+    got = XA.cross_attention_q8_kernel(q, *args)
+    again = XA.cross_attention_q8_kernel(q, *args)
+    want = XA.cross_attention_q8_reference(q, *args)
+    wrong = XA.cross_attention_q8_split_plain(q, *args, S, C, drop=S - 1)
+    assert S > 1 and _rel(got, want) < 1e-5 and _rel(wrong, want) > 1e-3
+    assert torch.equal(got, again)
 
 
 def test_grouped_cross_attention_in_the_step(small):
@@ -399,8 +443,9 @@ def test_step_plans_equal_their_python_mirrors(dev):
             assert DL.kernel_gemm_plan(K, N, sms) == DL.gemm_plan(K, N, sms)[0]
         for pairs in (2, 120, 160, 640):
             for Ta in (40, 97, 1500):
-                assert (DL.kernel_cross_split(Ta, pairs, sms)
-                        == DL.cross_split(Ta, pairs, sms))
+                for G in (1, 5, 15):
+                    assert (DL.kernel_cross_split(Ta, pairs, G, sms)
+                            == DL.cross_split(Ta, pairs, G, sms))
     for T in (1, 16, 33, 200, 227, 448, 2048):
         assert DL.kernel_attn_split(T) == DL.attn_split(T)
 

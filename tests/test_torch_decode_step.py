@@ -96,7 +96,7 @@ def test_cross_split_covers_every_key_once(Ta, pairs):
     """The cross-attention plan: every key in exactly one split, at most 8
     splits, only the last ragged, and as many splits as keep the grid one
     wave of 3 blocks per SM (132 SMs)."""
-    S, C = DL.cross_split(Ta, pairs, 132)
+    S, C = DL.cross_split(Ta, pairs, 1, 132)
     assert 1 <= S <= DL.ATTN_MAX_SPLITS and C % 32 == 0
     assert (S - 1) * C < Ta <= S * C
     want = min(DL.ATTN_MAX_SPLITS, max(1, 3 * 132 // pairs))
@@ -105,12 +105,14 @@ def test_cross_split_covers_every_key_once(Ta, pairs):
 
 def test_cross_split_at_the_slices_shapes():
     """8 windows x 20 heads (beam 5 over a full batch) take 2 splits of
-    768 keys, the slices' 6 windows 3 of 512: more than one block per
-    (head, window), one wave."""
-    assert DL.cross_split(1500, 8 * 20, 132) == (2, 768)
-    assert DL.cross_split(1500, 6 * 20, 132) == (3, 512)
+    768 keys, the slices' 6 windows 3 of 512 (2 of 768 for the per-warp
+    kernel's 15 queries a window): more than one block per (head, window),
+    one wave. The plan reads shapes, never the position."""
+    assert DL.cross_split(1500, 8 * 20, 5, 132) == (2, 768)
+    assert DL.cross_split(1500, 6 * 20, 1, 132) == (3, 512)
+    assert DL.cross_split(1500, 6 * 20, 15, 132) == (2, 768)
     params = inspect.signature(DL.cross_split).parameters
-    assert list(params) == ["Ta", "pairs", "sms"]
+    assert list(params) == ["Ta", "pairs", "G", "sms"]
 
 
 def test_attn_split_does_not_depend_on_the_position():

@@ -76,14 +76,19 @@ def test_wrapper_takes_plain_version_on_cpu(speechy):
     assert tops.mel_power_kernel.launches == before
 
 
-def test_kernel_dft_table_is_the_pallas_table():
-    """The mel kernel's (400, 402) Hann*cos | Hann*-sin table equals the
-    Pallas kernel's, row for row (the Pallas one splits it into 3 hops)."""
+def test_kernel_tables_are_the_pallas_tables():
+    """The mel kernel's Hann table is the Pallas kernel's k = 0 column
+    (window x cos 0), and its band table rebuilds the Pallas kernel's
+    (201, n_mels) filterbank bit for bit."""
     from whisper_aries_tpu.ops.pallas_mel import _filters
 
     dft3, melw = _filters(128)
-    dft, melw_t = tops.dft_table(128)
     for k in range(3):
         lo, hi = k * 160, min((k + 1) * 160, 400)
-        np.testing.assert_array_equal(dft[lo:hi], dft3[k * 256:k * 256 + hi - lo])
-    np.testing.assert_array_equal(melw_t, melw)
+        np.testing.assert_array_equal(tmel.hann_window().numpy()[lo:hi],
+                                      dft3[k * 256:k * 256 + hi - lo, 0])
+    rows, weights = tops.mel_bands(128)
+    dense = np.zeros_like(melw)
+    for m, (first, count, offset) in enumerate(rows):
+        dense[first:first + count, m] = weights[offset:offset + count]
+    np.testing.assert_array_equal(dense, melw)

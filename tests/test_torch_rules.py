@@ -1,7 +1,8 @@
 """Rules of the PyTorch port (whisper_aries_tpu_torch):
 
-  * no module of the port, and not chip_smoke.py, imports jax, jaxlib or
-    anything of the JAX package (whisper_aries_tpu) — checked on the AST;
+  * no module of the port, and not chip_smoke.py or chip_device_ms.py,
+    imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
+    — checked on the AST;
   * the engine runs on CUDA unless the caller asks for the CPU: with no
     card and no explicit device it raises, never carrying on quietly;
   * every kernel wrapper takes its plain version only for CPU tensors;
@@ -43,7 +44,8 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "chip_device_ms.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
@@ -69,7 +71,8 @@ def _streams_without_a_device(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "chip_device_ms.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernels_launch_on_their_operands_card(path):
     """Every stream a kernel launches on is named by its operand's device

@@ -399,8 +399,29 @@ int run_cross_attn(const bf16* cq, int R, int d, int H, const int8_t* kv8,
                    const float* sc, int Ta, int Bw, bf16* att, int sms,
                    int pdl, cudaStream_t st) {
   if (Bw <= 0 || R % Bw) return (int)cudaErrorInvalidValue;
-  splitkv::CrossArgs a{cq, d, kv8, sc, H, Ta, 0, R / Bw, att};
-  return splitkv::launch_cross(a, Bw, sms, pdl, st);
+  const int G = R / Bw;
+  const size_t v_off = (size_t)H * Ta;  // V after K: rows, scales
+  splitkv::CrossArgs a{};
+  a.q = cq;
+  a.q_sw = (long long)G * d;  // the G rows of a window
+  a.q_sh = DH;
+  a.q_sg = d;
+  a.k8 = kv8;
+  a.v8 = kv8 + v_off * DH;
+  a.kv_sw = 2LL * H * Ta * DH;
+  a.kv_sh = (long long)Ta * DH;
+  a.ks = sc;
+  a.vs = sc + v_off;
+  a.s_sw = 2LL * H * Ta;
+  a.s_sh = Ta;
+  a.out = att;
+  a.o_sw = a.q_sw;
+  a.o_sh = DH;
+  a.o_sg = d;
+  a.H = H;
+  a.Ta = Ta;
+  a.G = G;
+  return splitkv::launch_cross_split<bf16, bf16>(a, Bw, sms, pdl, st);
 }
 
 int run_layer_norm(const bf16* x, int R, int d, const float* s,
@@ -436,35 +457,13 @@ extern "C" {
 int aries_decode_init() {
   cudaFuncAttributes fa;
   RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel));
-  const int xmax = splitkv::cross_smem_bytes(splitkv::CROSS_GM_MAX,
-                                             splitkv::CROSS_MAX_KEYS);
   RETURN_IF((int)cudaFuncSetAttribute(
       splitkv::self_split_kernel<true>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
   RETURN_IF((int)cudaFuncSetAttribute(
       splitkv::self_split_kernel<false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<1>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<2>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<3>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<5>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<6>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::cross_split_kernel<8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, xmax));
+  RETURN_IF((splitkv::cross_allow_smem<bf16, bf16>()));
   RETURN_IF((int)cudaFuncSetAttribute(
       gemm_w8_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gemm_smem_bytes(1)));
@@ -488,8 +487,8 @@ int aries_attn_split(int T, int* out) {
   return 0;
 }
 
-int aries_cross_split(int Ta, int pairs, int sms, int* out) {
-  splitkv::cross_plan(Ta, pairs, sms, &out[0], &out[1]);
+int aries_cross_split(int Ta, int pairs, int G, int sms, int* out) {
+  splitkv::cross_plan(Ta, pairs, G, sms, &out[0], &out[1]);
   return 0;
 }
 

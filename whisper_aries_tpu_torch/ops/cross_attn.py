@@ -10,19 +10,27 @@ in a prefill), which all read that window's K/V.
 (csrc/cross_attn.cu, the port of the JAX package's Pallas
 ``cross_attention_q8`` / ``cross_attention_q8_blocked``) for CUDA tensors
 and takes the plain version, ``cross_attention_q8_reference``, only for CPU
-tensors. The decode steps run the same device code inside the
-decoder-layer kernels (ops/decode_layers.py).
+tensors. The kernel is the decode step's split-KV cross-attention
+(csrc/attn_split.cuh) with the step's split plan
+(``decode_layers.cross_split``); ``cross_attention_q8_split_plain``
+computes the function the way its splits combine.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from whisper_aries_tpu_torch.ops import cuda_build as cb
+from whisper_aries_tpu_torch.ops.decode_layers import (
+    ATTN_MAX_SPLITS,
+    CROSS_MAX_KEYS,
+    cross_split,
+    split_attend,
+)
 
 
 def quantize_kv_per_position(k: torch.Tensor
@@ -47,16 +55,35 @@ def cross_attention_q8_reference(q: torch.Tensor, k8: torch.Tensor,
     return torch.einsum("bhgt,bhtd->bhgd", p, v8.float())
 
 
+def cross_attention_q8_split_plain(q: torch.Tensor, k8: torch.Tensor,
+                                   ks: torch.Tensor, v8: torch.Tensor,
+                                   vs: torch.Tensor, S: int, C: int,
+                                   drop: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """``cross_attention_q8_reference`` computed the way the kernel combines
+    S splits of C keys (decode_layers.split_attend: each split's max,
+    sum and partial, rescaled to the global max and summed in rank order).
+    ``drop`` leaves that split's partial out (a mistake the card checks
+    must catch)."""
+    T = k8.shape[2]
+    logits = torch.einsum("bhgd,bhtd->bhgt", q.float(), k8.float())
+    logits = logits * ks[:, :, None, :]
+    ranges = [(min(T, s * C), min(T, (s + 1) * C)) for s in range(S)]
+    v = v8[:, :, None].expand(logits.shape[:3] + v8.shape[2:])
+    return split_attend(logits, vs[:, :, None, :], v, ranges, drop)
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = cb.library("cross_attn").aries_cross_attn_q8
-    fn.argtypes = [_P, _I, _L, _L, _L, _P, _P, _L, _L, _P, _P, _L, _L, _P,
-                   _I, _L, _L, _L, _I, _I, _I, _I, _P]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = cb.library("cross_attn")
+    lib.aries_cross_attn_q8.argtypes = [
+        _P, _I, _L, _L, _L, _P, _P, _L, _L, _P, _P, _L, _L, _P, _I, _L, _L,
+        _L, _I, _I, _I, _I, _I, _P]
+    lib.aries_cross_attn_q8.restype = ctypes.c_int
+    return lib
 
 
 def _require_rows(t: torch.Tensor, name: str, dtype, shape, device,
@@ -82,7 +109,9 @@ def cross_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
     """The grouped int8 cross-attention kernel: q (B, H, G, 64) bf16 or f32
     (any strides with dh contiguous), k8/v8 (B, H, T, 64) int8 and ks/vs
     (B, H, T) f32 (each window's (H, T, ...) block contiguous, k/v alike)
-    -> (B, H, G, 64) f32. One launch for all windows.
+    -> (B, H, G, 64) f32. One launch for all windows: the decode step's
+    split plan (``decode_layers.cross_split``), S blocks a (head, window),
+    one cluster each.
 
     ``out``, when given, takes the result in place of a new f32 tensor:
     (B, H, G, 64) f32, or bf16 for a bf16 q, any strides with dh
@@ -99,8 +128,8 @@ def cross_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
     for name, t in (("k8", k8), ("v8", v8)):
         _require_rows(t, name, torch.int8, (B, H, T, dh), q.device,
                       (T * dh, dh, 1))
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % 16 or t.stride(0) % 16:
+            raise ValueError(f"{name} must be 16-byte aligned, windows too")
     for name, t in (("ks", ks), ("vs", vs)):
         _require_rows(t, name, torch.float32, (B, H, T), q.device, (T, 1))
     if k8.stride(0) != v8.stride(0) or ks.stride(0) != vs.stride(0):
@@ -112,13 +141,17 @@ def cross_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
           or out.dtype not in (torch.float32, q.dtype) or out.stride(3) != 1):
         raise ValueError(f"out must be ({B}, {H}, {G}, {dh}) f32, or bf16 "
                          f"for a bf16 q, on {q.device} with dh contiguous")
+    sms = cb.sm_count(q)
+    if cross_split(T, B * H, G, sms)[1] > CROSS_MAX_KEYS:
+        raise ValueError(f"cross-attention kernel: {T} keys exceed "
+                         f"{ATTN_MAX_SPLITS} splits of {CROSS_MAX_KEYS}")
     qs, os_ = q.stride(), out.stride()
-    cb.launch(_fn(), q, "cross-attention kernel", cb.ptr(q),
-              int(q.dtype == torch.bfloat16), qs[0], qs[1], qs[2], cb.ptr(k8),
-              cb.ptr(v8), k8.stride(0), k8.stride(1), cb.ptr(ks), cb.ptr(vs),
-              ks.stride(0), ks.stride(1), cb.ptr(out),
+    cb.launch(_lib().aries_cross_attn_q8, q, "cross-attention kernel",
+              cb.ptr(q), int(q.dtype == torch.bfloat16), qs[0], qs[1], qs[2],
+              cb.ptr(k8), cb.ptr(v8), k8.stride(0), k8.stride(1), cb.ptr(ks),
+              cb.ptr(vs), ks.stride(0), ks.stride(1), cb.ptr(out),
               int(out.dtype == torch.bfloat16), os_[0], os_[1], os_[2], B, H,
-              G, T)
+              G, T, sms)
     cross_attention_q8_kernel.launches += 1
     return out
 

@@ -224,10 +224,11 @@ def cross_attn_plain(cq: torch.Tensor, kv8_l: torch.Tensor,
 # stage, the largest cluster, blocks per SM the plan aims at
 GEMM_COLS, GEMM_KC, GEMM_MAX_CLUSTER, GEMM_TARGET_WAVES = 64, 64, 8, 2
 # csrc/attn_split.cuh: splits per (row, head) / (head, window), keys a
-# self-attention split, cross-attention blocks per SM the cross plan fills,
-# keys the cross-attention takes
+# self-attention split, blocks per SM the cross plan fills (the block-wide
+# cross kernel's, up to 8 queries a window; the per-warp one's), keys the
+# cross-attention takes
 ATTN_MAX_SPLITS, ATTN_MAX_KEYS = 8, 256
-CROSS_BLOCKS_PER_SM, CROSS_MAX_KEYS = 3, 2048
+CROSS_BLOCKS_PER_SM, FLASH_BLOCKS_PER_SM, CROSS_MAX_KEYS = 3, 2, 2048
 
 
 def gemm_plan(K: int, N: int, sms: int) -> Tuple[int, int]:
@@ -260,13 +261,15 @@ def attn_split(T: int) -> Tuple[int, int]:
     return -(-T // c), c
 
 
-def cross_split(Ta: int, pairs: int, sms: int) -> Tuple[int, int]:
+def cross_split(Ta: int, pairs: int, G: int, sms: int) -> Tuple[int, int]:
     """(splits S, keys per split C) of the split-KV cross-attention over Ta
-    keys for ``pairs`` = windows x heads on ``sms`` SMs, as
-    csrc/attn_split.cuh's cross_plan: as many splits (at most 8) as keep
-    the grid one wave of 3 blocks per SM, C a multiple of 32, the last
-    split ragged. Fixed for a decode call: never the decode position."""
-    s = min(ATTN_MAX_SPLITS, max(1, CROSS_BLOCKS_PER_SM * sms // max(pairs, 1)))
+    keys for ``pairs`` = windows x heads with G queries a window on ``sms``
+    SMs, as csrc/attn_split.cuh's cross_plan: as many splits (at most 8) as
+    keep the grid one wave of 3 blocks per SM (the block-wide kernel, G up
+    to 8) or 2 (the per-warp kernel), C a multiple of 32, the last split
+    ragged. Fixed for a decode call: never the decode position."""
+    per_sm = FLASH_BLOCKS_PER_SM if G > 8 else CROSS_BLOCKS_PER_SM
+    s = min(ATTN_MAX_SPLITS, max(1, per_sm * sms // max(pairs, 1)))
     c = -(-Ta // s)
     c = max(32, -(-c // 32) * 32)
     return -(-Ta // c), c
@@ -333,22 +336,52 @@ def self_attn_split_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     return att.reshape(R, -1).to(qkv.dtype)
 
 
+def split_attend(lg: torch.Tensor, vsc: torch.Tensor, v: torch.Tensor,
+                 ranges, drop: Optional[int] = None) -> torch.Tensor:
+    """sum_t softmax(lg)_t vsc_t v_t over the key axis (lg's last, v's
+    second to last) as the split-KV cross-attention combines its splits:
+    each split's max m_r, its sum l_r of exp(lg - m_r) and its partial
+    o_r = sum of exp(lg - m_r) vsc v; with M the max of the m_r, the output
+    is sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r, in split order.
+    ``drop`` leaves that split's partial out of the output (a mistake the
+    card checks must catch)."""
+    ms, ls, outs = [], [], []
+    for a, b in ranges:
+        if b <= a:
+            continue
+        m = lg[..., a:b].amax(-1)
+        e = torch.exp(lg[..., a:b] - m[..., None])
+        ms.append(m)
+        ls.append(e.sum(-1))
+        outs.append(torch.einsum("...t,...td->...d", e * vsc[..., a:b],
+                                 v[..., a:b, :].float()))
+    M = torch.stack(ms).amax(0)
+    f = [torch.exp(m - M) for m in ms]
+    den = torch.zeros_like(M)
+    for fr, lr in zip(f, ls):
+        den = den + fr * lr
+    out = torch.zeros_like(outs[0])
+    for r, (fr, o) in enumerate(zip(f, outs)):
+        if r != drop:
+            out = out + (fr / den)[..., None] * o
+    return out
+
+
 def cross_attn_split_plain(cq: torch.Tensor, kv8_l: torch.Tensor,
                            sc_l: torch.Tensor, n_head: int,
                            splits: Optional[int] = None) -> torch.Tensor:
     """``cross_attn_plain`` computed the way the split-KV kernel combines
-    the splits of each (head, window)'s Ta keys (``splits`` None cuts them
-    as ``attn_split``; the kernel's own cut is ``cross_split``'s)."""
+    the splits of each (head, window)'s Ta keys (``split_attend``;
+    ``splits`` None cuts them as ``attn_split``; the kernel's own cut is
+    ``cross_split``'s)."""
     R, d = cq.shape
     Bw, Ta = kv8_l.shape[0], kv8_l.shape[3]
     H, dh = n_head, d // n_head
     qx = cq.float().reshape(Bw, R // Bw, H, dh)
     lg = (torch.einsum("wghd,whtd->wght", qx, kv8_l[:, 0].float())
           * sc_l[:, 0][:, None])
-    ranges = _split_ranges(Ta, splits)
-    px = _split_softmax(lg, ranges) * sc_l[:, 1][:, None]
     v = kv8_l[:, 1][:, None].expand(Bw, R // Bw, H, Ta, dh)
-    att = _split_pv(px, v, ranges)
+    att = split_attend(lg, sc_l[:, 1][:, None], v, _split_ranges(Ta, splits))
     return att.reshape(R, d).to(cq.dtype)
 
 
@@ -408,7 +441,7 @@ def _lib():
         "aries_decode_init": [],
         "aries_gemm_plan": [_I, _I, _I],
         "aries_attn_split": [_I, _P],
-        "aries_cross_split": [_I, _I, _I, _P],
+        "aries_cross_split": [_I, _I, _I, _I, _P],
         "aries_layer_norm": [_P, _I, _I, _P, _P, _P, _P],
         "aries_w8a16_gemm": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                              _I, _P],
@@ -452,11 +485,12 @@ def kernel_attn_split(T: int) -> Tuple[int, int]:
     return out[0], out[1]
 
 
-def kernel_cross_split(Ta: int, pairs: int, sms: int) -> Tuple[int, int]:
+def kernel_cross_split(Ta: int, pairs: int, G: int,
+                       sms: int) -> Tuple[int, int]:
     """The C cross-attention split plan (the card check of
     ``cross_split``)."""
     out = (ctypes.c_int * 2)()
-    _lib().aries_cross_split(Ta, pairs, sms, out)
+    _lib().aries_cross_split(Ta, pairs, G, sms, out)
     return out[0], out[1]
 
 
