@@ -60,7 +60,26 @@ caught; a kernel check that fails is printed at once and fails the run
      Python mirrors. The unfused step is replayed from one CUDA graph
      (UnfusedStepGraph), which must give the bits of direct launches; both
      are timed and profiled.
-  4. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
+  4. probes: the six counterparts of the TPU hardware probes in scripts/
+     (whisper_aries_tpu_torch/scripts/: probe_dma's probe and probe_multi,
+     probe_vmem's try_size, probe_mxu's probe, probe_int8_mxu's
+     make_kernel, probe_batched_transpose's make) run through their
+     modules' main() at a reduced target (~6 ms of device time a rate
+     line), with every launch count set to 0 just before and read just
+     after; each must have launched its kernel. Every line is held against
+     the kernel's plain version on the card inside the probe (checksums,
+     products, transposes, each limit below a named mistake). The
+     shared-memory probe must find the launch at the card's opt-in limit
+     run and one byte above it refused by cudaFuncSetAttribute with
+     cudaErrorInvalidValue, and a cluster launch must run exactly where
+     cudaOccupancyMaxActiveClusters finds room. Each probe kernel's entry
+     in the kernels line comes from a configuration timed after the
+     counted run (the 4 MB ring and the 4 MB two-stream copy reading a
+     1 GiB source once, beside one torch.sum reading it once; the 227 KB
+     one-slot copy; the bf16 product loop and the s8 fold at one block
+     per SM, beside one torch.matmul / torch._int_mm of the same operation
+     count, B in its faster layout; the batched transpose).
+  5. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
      temperature ladder, txt/json/srt), with every launch count set to 0
@@ -69,9 +88,9 @@ caught; a kernel check that fails is printed at once and fails the run
      launched, and every decode step after a prefill must have been a
      replay of the decode call's graph (graph_replays, layer_steps; also in
      the beam and words slices).
-  5. beam slice: the same file and weights with config decode.beam_size=5;
+  6. beam slice: the same file and weights with config decode.beam_size=5;
      all six kernels must have launched, counted from 0 again.
-  6. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
+  7. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
      word_timestamps=True with 10 fixed alignment heads: seven kernels
      (the W8A16 GEMM beside the beam slice's six) must have launched, and
      every segment must carry words with finite, ordered times inside the
@@ -80,14 +99,14 @@ caught; a kernel check that fails is printed at once and fails the run
      1500 (the encoder's and the cross K/V's), their count by M and path
      (gemm_windowed): every one must have taken the wgmma path, M 9000
      among them.
-  7. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
+  8. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
      self-attention kernel and the W8A16 GEMM, every step after a prefill
      a replay of the decode call's decoder_step graph (graph_replays =
      layer_steps); prints ms per step.
-The second-to-last lines are the kernels JSON (all eight kernels) and the
-card line; the last line is {"ok": true, "device": {...}}. Outputs go to
+The second-to-last lines are the kernels JSON (all fourteen kernels) and
+the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
@@ -113,6 +132,7 @@ OUT = ROOT / "chip_smoke_out"
 PEAK_BYTES = 3.35e12          # HBM3, bytes/s
 PEAK_BF16 = 989e12            # tensor-core bf16 FLOP/s
 PEAK_F32 = 67e12              # f32 FLOP/s outside the tensor cores
+PEAK_S8 = 1979e12             # tensor-core int8 OP/s
 
 
 def fail(msg: str) -> None:
@@ -1654,6 +1674,204 @@ def profile_unfused_step(dev, parts):
 
 
 # ---------------------------------------------------------------------------
+# probe phase
+# ---------------------------------------------------------------------------
+
+PROBE_MS = 6.0   # device time of one rate line in this run
+CUDA_INVALID_VALUE = 1   # cudaErrorInvalidValue
+
+
+def held_probe(name: str, r: dict) -> None:
+    """A probe line's own hold (its kernel against the plain version; a
+    copy line's reads of its short run beside its checksum)."""
+    from whisper_aries_tpu_torch.scripts.common import held_detail
+
+    reads = "; reads " + held_detail(r["reads"]) if "reads" in r else ""
+    check(name, r["ok"], held_detail(r) + reads)
+
+
+def check_smem_probe(res: dict) -> None:
+    """The shared-memory probe's answers: launches up to the opt-in limit
+    run (128 a block), above it cudaFuncSetAttribute refuses the size with
+    cudaErrorInvalidValue (from one byte above on), and a cluster at the
+    limit runs exactly where the card reports room for one."""
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    def refused(r):
+        return (not r["ok"] and r.get("code") == CUDA_INVALID_VALUE
+                and r.get("stage") == "attribute")
+
+    optin = res["limits"]["optin"]
+    for kb, r in zip(PV.SIZES_KB, res["sizes"]):
+        fits = kb * 1024 <= optin
+        ok = r["sums"] == [128.0] if fits else refused(r)
+        check(f"probe_vmem[{kb} KB]", r["ok"] == fits and ok,
+              f"{'runs' if r['ok'] else r['error']}, opt-in {optin} B")
+    at, above = res["edge"]
+    check("probe_vmem[refusal starts just above the opt-in limit]",
+          at["ok"] and at["sums"] == [128.0] and refused(above),
+          f"{optin} B runs, {optin + 1} B: "
+          f"{above.get('error', 'ran')}")
+    for r in res["clusters"]:
+        ran_right = not r["ok"] or set(r["sums"]) == {128.0}
+        check(f"probe_vmem[cluster {r['cluster']}]",
+              r["ok"] == (r["max_active"] >= 1) and ran_right,
+              f"{'runs' if r['ok'] else r['error']}, at most "
+              f"{r['max_active']} such clusters at once")
+
+
+def probe_entries(dev, res: dict, entries) -> None:
+    """The kernels-line entries of the six probe kernels. The copy rings
+    are timed reading a 1 GiB source once (beside one torch.sum reading
+    it once), the one-slot copy at the opt-in limit (beside a sum of the
+    same bytes); the products and the transpose take their probe lines'
+    own numbers, the products beside one PyTorch product of the same
+    operation count."""
+    import torch
+    from whisper_aries_tpu_torch.scripts import common
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    src = PD.source(torch.bfloat16, 1, PD.SOURCE_BYTES // 2, 1, dev)
+    sum_ms = common.best_ms(lambda: torch.sum(src, dtype=torch.float32))
+    dst = torch.empty_like(src)
+    copy_ms = common.best_ms(lambda: dst.copy_(src))
+    del src, dst
+    for name, streams, fn, tpu in (
+            ("probe_dma.probe", 1, "probe",
+             dict(replaces="scripts/probe_dma.py:38")),
+            ("probe_dma.probe_multi", 2, "probe_multi",
+             dict(replaces="scripts/probe_dma.py:114"))):
+        C = PD.SOURCE_BYTES // (256 * 8192 * 2)
+        r = PD.run(f"entry: bf16 4MB {fn}", 256, 8192, torch.bfloat16,
+                   n_streams=streams, multi=streams > 1, n_iter=C // streams,
+                   chunks=C, device=dev)
+        held_probe(f"{name}[entry]", r)
+        b_ms, b_by = bound(r["bytes"] + 4 * r["blocks"], 0, PEAK_BF16)
+        entries.append(dict(
+            name=name, route="cuda",
+            source="whisper_aries_tpu_torch/csrc/probe_copy.cu", **tpu,
+            max_abs_err=r["abs_err"], tolerance=r["limit"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=sum_ms,
+            library_note="torch.sum of the 1 GiB source in f32 (reads it "
+                         "once)",
+            library_copy_ms=copy_ms,
+            gbs=r["gbs"], share_of_peak=r["share"],
+            shape=f"4 MB chunks of a 1 GiB bf16 source, each read once: "
+                  f"{r['blocks']} blocks x {r['streams']} rings x "
+                  f"{r['copy_bytes']} B copies, {r['slots']} slots"))
+    optin = PD.smem_limits(dev)["optin"]
+    ones = torch.ones((1, PV.copy_lanes(optin)), dtype=torch.bfloat16,
+                      device=dev)
+    got = PV.smem_copy_kernel(ones, optin)
+    err = float((got - PV.smem_copy_plain(ones)).abs().max())
+    check("probe_vmem.try_size[entry]", err == 0.0, f"err {err}")
+    nbytes = ones.numel() * 2
+    b_ms, b_by = bound(nbytes + 4, 0, PEAK_BF16)
+    entries.append(dict(
+        name="probe_vmem.try_size", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/probe_copy.cu",
+        replaces="scripts/probe_vmem.py:21",
+        max_abs_err=err, tolerance=0.0,
+        ms=common.mean_ms(lambda: PV.smem_copy_kernel(ones, optin), 20),
+        plain_ms=common.mean_ms(lambda: PV.smem_copy_plain(ones), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=common.mean_ms(
+            lambda: torch.sum(ones, dtype=torch.float32), 20),
+        library_note="torch.sum of the same bytes in f32",
+        shape=f"one block, one copy of {nbytes} B into {optin} B of "
+              "dynamic shared memory, then the sum of 128 elements"))
+    for name, r, tpu in (
+            ("probe_mxu.probe", res["mxu"][0],
+             dict(replaces="scripts/probe_mxu.py:25")),
+            ("probe_int8_mxu.make_kernel", res["int8_mxu"][1],
+             dict(replaces="scripts/probe_int8_mxu.py:29"))):
+        peak = PEAK_S8 if r["kind"] == "s8" else PEAK_BF16
+        b_ms, b_by = bound(0, r["ops"], peak)
+        lib = PM.library_at_ops(r["kind"], r["ops"], dev)
+        entries.append(dict(
+            name=name, route="cuda",
+            source="whisper_aries_tpu_torch/csrc/probe_mma.cu", **tpu,
+            max_abs_err=r["abs_err"],
+            tolerance=r["limit"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib["ms"],
+            library_note=(("torch._int_mm" if r["kind"] == "s8"
+                           else "torch.matmul")
+                          + " at {} x {} x {}, {}: {:.0f} operations".format(
+                              *lib["shape"], lib["layout"], lib["ops"])),
+            library_by_layout=lib["by_layout"],
+            library_tile_ms=r["library_tile_ms"],
+            tflops=r["tflops"], share_of_peak=r["share"],
+            library_tflops_8192=r["library_tflops"],
+            by_label={x["label"]: dict(ms=x["ms"], tflops=x["tflops"],
+                                       share=x["share"])
+                      for x in res["mxu" if name == "probe_mxu.probe"
+                                   else "int8_mxu"]},
+            shape=f"{r['label']}: {r['blocks']} blocks x "
+                  f"{PM.TM}x{r['shape'][1]}x{PM.TN}, {r['n_iter']} "
+                  f"iterations ({'fold' if r['fold'] else 'loop'})"))
+    r = res["transpose"]["batched"]
+    from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
+    elems = PT.Bw * PT.KP * PT.D
+    b_ms, b_by = bound(elems * 2 + PT.D * PT.KP * 4, 2 * elems * PT.REPS,
+                       PEAK_F32)
+    entries.append(dict(
+        name="probe_batched_transpose.make", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/probe_transpose.cu",
+        replaces="scripts/probe_batched_transpose.py:30",
+        max_abs_err=r["abs_err"], tolerance="one bf16 step of the window "
+        "sum a repetition", ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        perwin_ms=res["transpose"]["perwin"]["ms"],
+        us_per_sweep=r["us_per_sweep"],
+        shape=f"x ({PT.Bw * PT.KP}, {PT.D}) bf16, {PT.REPS} repetitions, "
+              "batched (perwin_ms beside)"))
+
+
+def probes_phase(dev, entries) -> dict:
+    """The six probe functions through their modules' main() at a reduced
+    target, every launch count set to 0 just before and read just after;
+    returns the counts. Then each line's own hold, the shared-memory
+    answers, and the probe kernels' entries (timed after the counts are
+    read)."""
+    import torch
+    from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+    from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    target = ["--target-ms", str(PROBE_MS)]
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.time()
+    res = dict(dma=PD.main(target), vmem=PV.main([]), mxu=PM.main(target),
+               int8_mxu=PI.main(target), transpose=PT.main([]))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    print(f"probes: {time.time() - t0:.1f}s, launches "
+          + json.dumps({k: launches[k] for k in PROBE_KERNELS}), flush=True)
+    for k in PROBE_KERNELS:
+        if not launches[k]:
+            FAILED.append(f"the probes did not launch {k}")
+    for r in res["dma"]:
+        held_probe(f"probe_dma[{r['name']}]", r)
+    check_smem_probe(res["vmem"])
+    for key in ("mxu", "int8_mxu"):
+        for r in res[key]:
+            held_probe(f"probe_{key}[{r['label']}]", r)
+    for v, r in res["transpose"].items():
+        held_probe(f"probe_batched_transpose[{v}]", r)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "probes.json").write_text(json.dumps(res, indent=2, default=str))
+    probe_entries(dev, res, entries)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
 
@@ -1675,7 +1893,23 @@ def counters():
             "beam_tail": BT.beam_tail_kernel,
             "beam_reorder": BR.permute_rows_kernel,
             "quant_matmul": Q.quant_matmul_dequant_kernel,
-            "self_attn_q8": SA.self_attention_q8_kernel}
+            "self_attn_q8": SA.self_attention_q8_kernel,
+            **probe_counters()}
+
+
+def probe_counters():
+    from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+    from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    return {"probe_dma.probe": PD.copy_ring_kernel,
+            "probe_dma.probe_multi": PD.copy_streams_kernel,
+            "probe_vmem.try_size": PV.smem_copy_kernel,
+            "probe_mxu.probe": PM.mma_loop_kernel,
+            "probe_int8_mxu.make_kernel": PI.mma_fold_kernel,
+            "probe_batched_transpose.make": PT.transpose_sum_kernel}
 
 
 # the kernels each slice's path must launch, in the order the slices run
@@ -1687,6 +1921,10 @@ PATH_KERNELS = {
               "cross_attn_q8", "beam_tail", "beam_reorder"),
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
 }
+# the probe phase's path: every probe kernel, through the probes' entries
+PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
+                 "probe_vmem.try_size", "probe_mxu.probe",
+                 "probe_int8_mxu.make_kernel", "probe_batched_transpose.make")
 # each slice's config overrides; words and self_int8 run compute int8
 # under ARIES_QUANT_IMPL=pallas
 SLICE_CONFIG = {
@@ -1917,14 +2155,17 @@ def main() -> None:
         profile_beam_step(dev, parts, B)
     profile_unfused_step(dev, parts)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
+    probe_launches = probes_phase(dev, entries)
     runs = {path: slice_phase(dev, path) for path in PATH_KERNELS}
     launches = {path: run[0] for path, run in runs.items()}
+    launches["probes"] = probe_launches
+    paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:
-        # the launches of the first slice that needs the kernel; every
+        # the launches of the first path that needs the kernel; every
         # path's count beside
-        path = next(p for p, ks in PATH_KERNELS.items() if e["name"] in ks)
+        path = next(p for p, ks in paths.items() if e["name"] in ks)
         e["launches"] = launches[path][e["name"]]
         e["launches_by_path"] = {p: n[e["name"]] for p, n in launches.items()}
         if e["name"] == "quant_matmul":  # by GEMM path, in each int8 slice

@@ -1046,6 +1046,144 @@ def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
         d["steps"] - 1 for d in decodes)
 
 
+# ---------------------------------------------------------------------------
+# the hardware probes (whisper_aries_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,rows,lanes,full,slots,streams,blocks", [
+    (torch.bfloat16, 8, 4096, 4096, 2, 1, 1),    # the TPU's 64 KB chunk
+    (torch.bfloat16, 16, 8192, 8192, 4, 1, 8),   # banded, 4 slots
+    (torch.int8, 1280, 512, 1536, 2, 1, 8),      # strided: two boxes a row
+    (torch.int8, 1280, 512, 512, 1, 1, 16),      # one slot
+    (torch.bfloat16, 64, 8192, 8192, 2, 4, 64),  # four rings a block
+])
+def test_probe_copy_kernel(dev, dtype, rows, lanes, full, slots, streams,
+                           blocks):
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+
+    src = PD.source(dtype, 8, rows, full, dev)
+    band = rows // blocks
+    slots = 2 if streams > 1 else slots
+    for n in (1, 37):
+        reads = torch.empty((blocks, streams, n), device=dev)
+        if streams == 1:
+            got = PD.copy_ring_kernel(src, band, lanes, n, slots, blocks,
+                                      reads)
+        else:
+            got = PD.copy_streams_kernel(src, band, lanes, n, streams, blocks,
+                                         reads)
+        torch.cuda.synchronize()
+        held = PD.hold_checksum(got, src, band, n, streams, blocks)
+        assert held["ok"], held
+        assert float((reads - PD.trace_plain(src, band, n, streams, blocks)
+                      ).abs().max()) == 0.0
+
+
+def test_probe_smem_limit_and_clusters(dev):
+    """One-slot copies at the opt-in limit run (sum 128 a block) and one
+    byte above it is refused by cudaFuncSetAttribute with
+    cudaErrorInvalidValue (1); a cluster of 2 at the limit runs."""
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    optin = PD.smem_limits(dev)["optin"]
+    n = PV.smem_copy_kernel.launches
+    at = PV.try_bytes(optin, device=dev)
+    above = PV.try_bytes(optin + 1, device=dev)
+    assert at["ok"] and at["sums"] == [128.0]
+    assert not above["ok"]
+    assert (above["code"], above["stage"]) == (1, "attribute"), above
+    assert PV.smem_copy_kernel.launches == n + 1  # the refusal is no launch
+    pair = PV.try_bytes(optin, 2, device=dev)
+    assert pair["ok"] and pair["sums"] == [128.0, 128.0]
+    assert PV.max_clusters(dev, 2, optin) >= 1
+
+
+def test_probe_copy_refuses_its_own_arguments_apart(dev):
+    """A launch asking for less shared memory than its ring needs is
+    refused by the C entry itself, as a ValueError, not as the card's
+    refusal (which the shared-memory probe records)."""
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+
+    src = PD.source(torch.bfloat16, 2, 4, 1024, dev)
+    need = PD.ring_smem(4 * 1024 * 2, 2, 1, False)
+    with pytest.raises(ValueError, match="refused its arguments"):
+        PD.launch_copy(src, 4, 1024, 4, 2, 1, 1, smem=need - 16)
+    assert PD.launch_copy(src, 4, 1024, 4, 2, 1, 1, smem=need).shape == (1,)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "s8", "f32"])
+def test_probe_mma_kernel(dev, kind, fold):
+    from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+
+    a, b = PM.operands(kind, PM.tile_k(kind), dev)
+    kernel = PI.mma_fold_kernel if fold else PM.mma_loop_kernel
+    for n in (1, 11):
+        got = kernel(a, b, n, kind, blocks=3)
+        torch.cuda.synchronize()
+        held = PM.hold_mma(got, a, b, n, kind, fold)
+        assert held["ok"], held
+
+
+def test_probe_mma_s32_wraps(dev):
+    """400 folds of 127 x 127 x 256 products pass 2^31: the kernel's s32
+    sums wrap exactly as the plain version's."""
+    from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+
+    a = torch.full((PM.TM, 256), 127, dtype=torch.int8, device=dev)
+    b = torch.full((256, PM.TN), 127, dtype=torch.int8, device=dev)
+    got = PI.mma_fold_kernel(a, b, 400, "s8", blocks=1)[0]
+    want = PM.mma_plain(a, b, 400, "s8", fold=True)
+    assert torch.equal(got, want)
+    assert int(want[0, 0]) != 127 * 127 * 256 * PM.fold_weight(400, True)
+
+
+@pytest.mark.parametrize("variant", ["batched", "perwin"])
+def test_probe_transpose_kernel(dev, variant):
+    from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
+
+    x = PT.inputs(dev)
+    for reps in (1, PT.REPS):
+        got = PT.transpose_sum_kernel(x, variant, reps)
+        torch.cuda.synchronize()
+        held = PT.hold_transpose(got, x, variant, reps)
+        assert held["ok"], held
+
+
+def test_probe_entries_launch_their_kernels(dev):
+    """Each TPU probe's function, called on the card, launches its kernel
+    once."""
+    from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
+    from whisper_aries_tpu_torch.scripts import probe_dma as PD
+    from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
+    from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_vmem as PV
+
+    src = PD.source(torch.bfloat16, 8, 8, 128, dev)
+    a, b = PM.operands("s8", 256, dev)
+    calls = [
+        (PD.copy_ring_kernel, lambda: PD.probe(src, 8, 128, 20, 2, 128)),
+        (PD.copy_streams_kernel, lambda: PD.probe_multi(src, 8, 128, 5, 2)),
+        (PV.smem_copy_kernel, lambda: PV.try_size(48)),
+        (PM.mma_loop_kernel, lambda: PM.probe(a, b, 3, "s8")),
+        (PI.mma_fold_kernel,
+         lambda: PI.make_kernel(torch.int8, torch.int32, reps=5)(a, b)),
+        (PT.transpose_sum_kernel, lambda: PT.make("perwin")(PT.inputs(dev))),
+    ]
+    for kernel, call in calls:
+        n = kernel.launches
+        call()
+        assert kernel.launches == n + 1, kernel.__name__
+    want = float(src[torch.arange(20) % 8, 0, 0].double().sum())
+    assert abs(float(PD.probe(src, 8, 128, 20, 2, 128)) - want) < 1e-4
+    assert float(PM.probe(a, b, 3, "s8")) == 3 * float(
+        a[0].double() @ b[:, 0].double())
+
+
 def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
     """A step that reads a value back to the host cannot be captured: the
     decode raises, and no step runs eagerly in its place. (Last in the

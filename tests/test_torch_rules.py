@@ -229,3 +229,43 @@ def test_every_pallas_kernel_file_is_in_the_kernel_table():
     assert len(files) >= 16  # 8 in the JAX package, 8 TPU probes in scripts/
     missing = [f for f in files if f"`{f}:" not in table]
     assert not missing, f"PERF.md's kernel table does not name {missing}"
+
+
+def _table_rows():
+    """(TPU functions as path:line, status, route cell) of each kernel-table
+    row; a ``:line`` with no path continues the path before it."""
+    import re
+
+    for line in _kernel_table().splitlines()[2:]:
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if len(cells) < 4:
+            continue
+        funcs, path = [], None
+        for item in re.findall(r"`([^`]+)`", cells[1]):
+            ref = item.split()[0]
+            if ref.startswith(":") and path:
+                ref = path + ref
+            if re.fullmatch(r"[\w/.]+\.py:\d+", ref):
+                path = ref.split(":")[0]
+                funcs.append(ref)
+        yield funcs, cells[2], cells[3]
+
+
+def test_ported_kernel_rows_name_built_sources_and_card_checks():
+    """Every kernel-table row whose status says "ported" names a csrc/
+    source that ops/cuda_build.py builds, and chip_smoke.py holds a kernel
+    entry with ``replaces=`` for each of its TPU functions."""
+    import re
+
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+
+    smoke = (ROOT / "chip_smoke.py").read_text(encoding="utf-8")
+    replaced = set(re.findall(r'replaces="([^"]+)"', smoke))
+    ported = [r for r in _table_rows() if "ported" in r[1]]
+    assert len(ported) >= 14  # 8 of the JAX package, 6 of scripts/
+    for funcs, status, route in ported:
+        sources = re.findall(r"(\w+)\.cu\b", route)
+        assert funcs and sources, f"row {funcs} {route}"
+        assert set(sources) <= set(cb.SOURCES), f"{route} not built"
+        missing = [f for f in funcs if f not in replaced]
+        assert not missing, f"chip_smoke.py has no replaces= for {missing}"

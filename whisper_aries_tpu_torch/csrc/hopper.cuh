@@ -283,10 +283,14 @@ static EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Error codes the entry points return beside cudaError_t values:
-// cuTensorMapEncodeTiled not found, or refusing a map (+ its CUresult).
+// Error codes the entry points return beside cudaError_t values: the
+// entry refused its own arguments, cuTensorMapEncodeTiled not found, or
+// refusing a map (+ its CUresult), or cudaFuncSetAttribute refusing a
+// kernel attribute (+ its cudaError_t).
+constexpr int ERR_BAD_ARGS = 8998;
 constexpr int ERR_NO_TENSOR_MAP = 8999;
 constexpr int ERR_TENSOR_MAP = 9000;
+constexpr int ERR_ATTRIBUTE = 10000;
 
 // A bf16 tensor map of `rank` dims (innermost first: dims[0] contiguous),
 // byte strides of dims 1.. in `strides`, a `box` tile, 128-byte swizzle;

@@ -1,0 +1,321 @@
+// Copy-rate and shared-memory probes: device memory -> shared memory by
+// TMA, the Hopper counterparts of three TPU probes.
+//
+// Replaces:
+//   scripts/probe_dma.py, probe        (a ring of n_slots async copies)
+//   scripts/probe_dma.py, probe_multi  (n_streams independent rings)
+//   scripts/probe_vmem.py, try_size    (one copy into the largest scratch)
+// Python: whisper_aries_tpu_torch/scripts/probe_dma.py (copy_ring_kernel,
+// copy_streams_kernel) and probe_vmem.py (smem_copy_kernel).
+//
+// What it computes. The source is (C, rows, full_lanes) elements (bf16 or
+// int8). Block b takes the band of rows [b * band, (b + 1) * band) of each
+// chunk, `lanes` wide; ring s of a block, at its iteration i < n_iter,
+// copies that band of chunk c = (i * n_streams + s) mod C into the next
+// slot of its ring and, once the copy has landed, adds the first `head`
+// elements of the slot (its element [0, 0] for the rate probes) to an f32
+// sum. out[b] = the rings' sums added in ring order; where `trace` is
+// given, every read is also written there (trace[b][s][i]), so a check
+// can hold each copy's landing in place, not only their sum. With one
+// block, one
+// ring and the whole chunk as the band, this is the TPU probe's function:
+// sum over i < n_iter of src[i mod C][0, 0].
+//
+// Bound on the H100: bytes (every copy reads its band from device memory;
+// the source is made larger than the 50 MB L2 so that it does). The probe
+// measures how close a ring of copies comes to it, by bytes in flight.
+//
+// Design. Lane 0 of warp s drives ring s alone, as the TPU's DMA engine
+// needs no vector work: it issues each copy with one instruction, a bulk
+// copy (cp.async.bulk) for a contiguous band or 2-D tensor-map boxes of at
+// most 256 elements x band rows for a strided one, completing on the slot's
+// mbarrier with the copy's whole byte count (expect_tx). The loop is the
+// TPU probe's: before waiting on slot i mod n_slots it issues the copy of
+// iteration i + n_slots - 1 into the slot freed by iteration i - 1; a slot
+// is read only after its barrier's phase completed, i.e. after every byte
+// of its copy arrived, and fence.proxy.async orders that read before the
+// next copy into the slot. The shared memory is all dynamic (barriers and
+// the rings' sums first, then the slots), so the shared-memory probe's
+// request is exactly what the launch asks for.
+#include "hopper.cuh"
+
+namespace {
+
+struct CopyArgs {
+  const uint8_t* src;
+  float* out;             // (blocks,)
+  float* trace;           // (blocks, n_streams, n_iter) or null
+  long long n_iter;
+  int C, rows, full_lanes, band, lanes, elem;
+  int n_slots, n_streams, head;
+  int tma2d, boxes, box_lanes;
+  unsigned copy_bytes;    // band x lanes x elem
+  unsigned slot_stride;   // bytes between slots
+  unsigned data_off;      // bytes from the dynamic base to the first slot
+};
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+
+template <typename T>
+__global__ void copy_ring_kernel(const CopyArgs a,
+                                 const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int nbars = a.n_slots * a.n_streams;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* partial = reinterpret_cast<float*>(bars + nbars);
+  uint8_t* data = smem + a.data_off;
+  if (a.tma2d)  // tensor-map boxes land on 128-byte boundaries
+    data += (128 - (smem_u32(data) & 127)) & 127;
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const long long b = blockIdx.x;
+  if (lane == 0) {
+    uint64_t* bar = bars + s * a.n_slots;
+    uint8_t* ring = data + (size_t)s * a.n_slots * a.slot_stride;
+    for (int k = 0; k < a.n_slots; ++k) mbar_init(bar + k, 1);
+    mbar_fence_init();
+    const unsigned box_bytes = (unsigned)a.box_lanes * a.band * a.elem;
+    // the next copy to issue: its number, slot and chunk, kept by
+    // increments (no 64-bit division in the loop, whose cost a small copy
+    // would otherwise measure)
+    long long issued = 0, chunk = s % a.C;
+    int issue_slot = 0;
+    auto issue = [&]() {
+      const long long row0 = chunk * a.rows + b * a.band;
+      uint8_t* dst = ring + (size_t)issue_slot * a.slot_stride;
+      uint64_t* full = bar + issue_slot;
+      mbar_arrive_expect_tx(full, a.copy_bytes);
+      if (!a.tma2d) {
+        bulk_load(dst, a.src + row0 * a.full_lanes * a.elem, a.copy_bytes,
+                  full);
+      } else {
+        for (int j = 0; j < a.boxes; ++j)
+          tma_load_2d(dst + (size_t)j * box_bytes, &map, full,
+                      j * a.box_lanes, (int)row0);
+      }
+      ++issued;
+      issue_slot = issue_slot + 1 == a.n_slots ? 0 : issue_slot + 1;
+      chunk += a.n_streams;
+      while (chunk >= a.C) chunk -= a.C;
+    };
+    while (issued < a.n_slots - 1 && issued < a.n_iter) issue();
+    float acc = 0.f;
+    int slot = 0;
+    uint32_t parity = 0;
+    for (long long i = 0; i < a.n_iter; ++i) {
+      // the copy of iteration i + n_slots - 1, into the slot freed by i - 1
+      if (issued < a.n_iter) issue();
+      mbar_wait(bar + slot, parity);
+      const T* v = reinterpret_cast<const T*>(ring + (size_t)slot * a.slot_stride);
+      float r = 0.f;
+      for (int e = 0; e < a.head; ++e) r += to_f32(v[e]);
+      fence_proxy_async();  // the read above, before the next copy here
+      acc += r;
+      if (a.trace) a.trace[(b * a.n_streams + s) * a.n_iter + i] = r;
+      if (++slot == a.n_slots) slot = 0, parity ^= 1;
+    }
+    partial[s] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int r = 0; r < a.n_streams; ++r) t += partial[r];
+    a.out[b] = t;
+  }
+}
+
+// the kernel's attributes for a launch: 0, or ERR_ATTRIBUTE + the
+// cudaError_t with which the card refused one
+template <typename T>
+int configure(int smem, int cluster) {
+  cudaError_t e = cudaFuncSetAttribute(
+      copy_ring_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(copy_ring_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) return 0;
+  cudaGetLastError();  // not left for the next launch
+  return ERR_ATTRIBUTE + (int)e;
+}
+
+cudaLaunchConfig_t launch_config(int blocks, int threads, int smem,
+                                 int cluster, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  if (cluster > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// dynamic shared memory of a launch: barriers and the rings' sums, 16-byte
+// aligned, then the slots (with 128 bytes of slack to align tensor-map
+// boxes)
+unsigned data_offset(int n_slots, int n_streams) {
+  return (unsigned)((8 * n_slots * n_streams + 4 * n_streams + 15) / 16 * 16);
+}
+
+CUtensorMapDataType map_type(int elem) {
+  return elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                   : CU_TENSOR_MAP_DATA_TYPE_UINT16;
+}
+
+}  // namespace
+
+extern "C" {
+
+// src (C, rows, full_lanes) of elem bytes (2: bf16, 1: int8), contiguous,
+// 16-byte aligned; out (blocks,) f32. Block b copies rows [b * band,
+// (b + 1) * band) of each chunk, lanes wide (lanes == full_lanes: one bulk
+// copy, band x lanes x elem a multiple of 16; else tensor-map boxes of
+// box_lanes = min(lanes, 256) elements, lanes % box_lanes == 0, band <=
+// 256). smem: the dynamic shared memory to ask for (at least what the
+// rings need; the shared-memory probe asks for exactly its limit). cluster
+// > 1 launches clusters of that many blocks (blocks % cluster == 0).
+// trace: null, or (blocks, n_streams, n_iter) f32 for every read.
+// Returns 0, the launch's cudaError_t, or one of hopper.cuh's codes:
+// ERR_BAD_ARGS where these rules are broken, ERR_ATTRIBUTE + the error
+// where the card refuses the shared memory or cluster size asked for.
+int aries_probe_copy(const void* src, int elem, int C, int rows,
+                     int full_lanes, int band, int lanes, long long n_iter,
+                     int n_slots, int n_streams, int head, int blocks,
+                     int cluster, int smem, float* out, float* trace,
+                     void* stream) {
+  if ((elem != 1 && elem != 2) || C <= 0 || rows <= 0 || band <= 0 ||
+      lanes <= 0 || lanes > full_lanes || n_iter <= 0 || n_slots <= 0 ||
+      n_streams <= 0 || n_streams > 32 || head <= 0 || head > lanes ||
+      blocks <= 0 || (long long)blocks * band > rows || cluster <= 0 ||
+      blocks % cluster || (reinterpret_cast<uintptr_t>(src) & 15))
+    return ERR_BAD_ARGS;
+  CopyArgs a = {};
+  a.src = static_cast<const uint8_t*>(src);
+  a.out = out;
+  a.trace = trace;
+  a.n_iter = n_iter;
+  a.C = C, a.rows = rows, a.full_lanes = full_lanes, a.band = band;
+  a.lanes = lanes, a.elem = elem;
+  a.n_slots = n_slots, a.n_streams = n_streams, a.head = head;
+  const long long copy = (long long)band * lanes * elem;
+  if (copy % 16 || copy >= (1 << 20)) return ERR_BAD_ARGS;
+  a.copy_bytes = (unsigned)copy;
+  a.tma2d = lanes != full_lanes;
+  a.data_off = data_offset(n_slots, n_streams);
+  CUtensorMap map = {};
+  if (a.tma2d) {
+    a.box_lanes = lanes < 256 ? lanes : 256;
+    if (lanes % a.box_lanes || (a.box_lanes * elem) % 16 || band > 256 ||
+        ((long long)full_lanes * elem) % 16)
+      return ERR_BAD_ARGS;
+    a.boxes = lanes / a.box_lanes;
+    a.slot_stride = (unsigned)((copy + 127) / 128 * 128);
+    EncodeTiledFn fn = encode_tiled_fn();
+    if (fn == nullptr) return ERR_NO_TENSOR_MAP;
+    const cuuint64_t dims[2] = {(cuuint64_t)full_lanes,
+                                (cuuint64_t)C * rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)full_lanes * elem};
+    const cuuint32_t box[2] = {(cuuint32_t)a.box_lanes, (cuuint32_t)band};
+    const cuuint32_t estr[2] = {1, 1};
+    const CUresult r = fn(&map, map_type(elem), 2, const_cast<void*>(src),
+                          dims, strides, box, estr,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_TENSOR_MAP + (int)r;
+  } else {
+    a.slot_stride = a.copy_bytes;
+  }
+  const long long need = (long long)a.data_off + (a.tma2d ? 128 : 0) +
+                         (long long)a.slot_stride * n_slots * n_streams;
+  if (smem < need) return ERR_BAD_ARGS;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  const int threads = 32 * n_streams;
+  cudaError_t e;
+  int c;
+  if (elem == 2) {
+    if ((c = configure<bf16>(smem, cluster)) != 0) return c;
+    cudaLaunchConfig_t cfg =
+        launch_config(blocks, threads, smem, cluster, st, attr);
+    e = cudaLaunchKernelEx(&cfg, copy_ring_kernel<bf16>, a, map);
+  } else {
+    if ((c = configure<int8_t>(smem, cluster)) != 0) return c;
+    cudaLaunchConfig_t cfg =
+        launch_config(blocks, threads, smem, cluster, st, attr);
+    e = cudaLaunchKernelEx(&cfg, copy_ring_kernel<int8_t>, a, map);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// the current card's shared-memory attributes, in bytes
+int aries_probe_smem_limits(int* optin, int* per_sm, int* per_block,
+                            int* reserved) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(per_block, cudaDevAttrMaxSharedMemoryPerBlock,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return (int)e;
+}
+
+// blocks of the copy kernel (elem bytes, threads, smem) that fit one SM
+int aries_probe_copy_occupancy(int elem, int threads, int smem, int* n) {
+  cudaError_t e;
+  int c;
+  if (elem == 2) {
+    if ((c = configure<bf16>(smem, 1)) != 0) return c;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, copy_ring_kernel<bf16>, threads, smem);
+  } else {
+    if ((c = configure<int8_t>(smem, 1)) != 0) return c;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, copy_ring_kernel<int8_t>, threads, smem);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+// clusters of `cluster` blocks (bf16 copy kernel, threads, smem each) that
+// the card can hold at once (cudaOccupancyMaxActiveClusters)
+int aries_probe_copy_max_clusters(int cluster, int threads, int smem,
+                                  int* n) {
+  const int c = configure<bf16>(smem, cluster);
+  if (c != 0) return c;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      launch_config(cluster, threads, smem, cluster, 0, attr);
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(n, copy_ring_kernel<bf16>, &cfg);
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+}  // extern "C"

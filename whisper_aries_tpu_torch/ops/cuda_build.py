@@ -34,7 +34,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mel", "encoder_attn", "decode_layers", "cross_attn",
-           "beam_tail", "beam_reorder", "quant_matmul", "self_attn")
+           "beam_tail", "beam_reorder", "quant_matmul", "self_attn",
+           "probe_copy", "probe_mma", "probe_transpose")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -157,17 +158,46 @@ def capture(dev: torch.device, fn) -> torch.cuda.CUDAGraph:
 
 
 # csrc/hopper.cuh's codes beside cudaError_t values
-ERR_NO_TENSOR_MAP, ERR_TENSOR_MAP = 8999, 9000
+ERR_BAD_ARGS, ERR_NO_TENSOR_MAP, ERR_TENSOR_MAP = 8998, 8999, 9000
+ERR_ATTRIBUTE = 10000
+
+
+class CudaError(RuntimeError):
+    """A CUDA call in a C entry failed: ``code`` is its cudaError_t,
+    ``stage`` "attribute" where cudaFuncSetAttribute refused the kernel's
+    shared memory or cluster size, else "launch"."""
+
+    def __init__(self, what: str, code: int, stage: str):
+        super().__init__(f"{what}: CUDA {stage} failed with "
+                         f"{error_text(code)}")
+        self.code, self.stage = code, stage
+
+
+def error_text(code: int) -> str:
+    """A cudaError_t by the runtime's own text and its number (the number
+    alone where there is no CUDA runtime to ask)."""
+    if not torch.cuda.is_available():
+        return f"error {code}"
+    try:
+        rt = torch.cuda.cudart()
+        return f"{rt.cudaGetErrorString(rt.cudaError(code))} (error {code})"
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        return f"error {code}"
 
 
 def check(err: int, what: str) -> None:
+    if err == 0:
+        return
+    if err == ERR_BAD_ARGS:
+        raise ValueError(f"{what}: the C entry refused its arguments")
     if err == ERR_NO_TENSOR_MAP:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled was not found")
-    if err >= ERR_TENSOR_MAP:
+    if ERR_TENSOR_MAP <= err < ERR_ATTRIBUTE:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a tensor "
                            f"map (CUresult {err - ERR_TENSOR_MAP})")
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+    if err >= ERR_ATTRIBUTE:
+        raise CudaError(what, err - ERR_ATTRIBUTE, "attribute")
+    raise CudaError(what, err, "launch")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
