@@ -60,13 +60,22 @@ caught; a kernel check that fails is printed at once and fails the run
      Python mirrors. The unfused step is replayed from one CUDA graph
      (UnfusedStepGraph), which must give the bits of direct launches; both
      are timed and profiled.
-  4. probes: the six counterparts of the TPU hardware probes in scripts/
+  4. probes: the nine counterparts of the TPU probes in scripts/
      (whisper_aries_tpu_torch/scripts/: probe_dma's probe and probe_multi,
      probe_vmem's try_size, probe_mxu's probe, probe_int8_mxu's
-     make_kernel, probe_batched_transpose's make) run through their
-     modules' main() at a reduced target (~6 ms of device time a rate
-     line), with every launch count set to 0 just before and read just
-     after; each must have launched its kernel. Every line is held against
+     make_kernel, probe_batched_transpose's make, and the attention-micro
+     trio probe_qa_micro, probe_qa_opt and probe_qa_bisect, each `build`
+     in all its variants) run through their modules' main() at a reduced
+     target (~6 ms of device time a rate line, QA_REPS iterations a
+     micro), with every launch count set to 0 just before and read just
+     after; each must have launched its kernel. Every attention-micro
+     variant is held against its plain version (the (8, 128) answer
+     within 1e-3 of max |want|, 2^-8 for the softmax only, below the
+     padded keys scored, the normalisation moved across P.V and a head's
+     P.V dropped; the checksum of everything the micro computes below a
+     checksum of what the answer reads), every block (one an SM) must
+     give the same bits, and a launch of 2 x QA_REPS must take 1.8-2.2x
+     one of QA_REPS. Every line is held against
      the kernel's plain version on the card inside the probe (checksums,
      products, transposes, each limit below a named mistake). The
      shared-memory probe must find the launch at the card's opt-in limit
@@ -78,7 +87,10 @@ caught; a kernel check that fails is printed at once and fails the run
      1 GiB source once, beside one torch.sum reading it once; the 227 KB
      one-slot copy; the bf16 product loop and the s8 fold at one block
      per SM, beside one torch.matmul / torch._int_mm of the same operation
-     count, B in its faster layout; the batched transpose).
+     count, B in its faster layout; the batched transpose; each
+     attention-micro probe's first variant, beside a two-call yardstick of
+     the same work: scaled_dot_product_attention with the key mask and the
+     O-projection's torch.matmul).
   5. greedy slice: transcribe a synthetic ~2-minute WAV (made from a seed)
      at large-v3 width with seeded random weights through
      AriesTranscriber.transcribe_file on the config defaults (VAD, greedy,
@@ -105,7 +117,7 @@ caught; a kernel check that fails is printed at once and fails the run
      self-attention kernel and the W8A16 GEMM, every step after a prefill
      a replay of the decode call's decoder_step graph (graph_replays =
      layer_steps); prints ms per step.
-The second-to-last lines are the kernels JSON (all fourteen kernels) and
+The second-to-last lines are the kernels JSON (all seventeen kernels) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -1678,6 +1690,7 @@ def profile_unfused_step(dev, parts):
 # ---------------------------------------------------------------------------
 
 PROBE_MS = 6.0   # device time of one rate line in this run
+QA_REPS = 20     # iterations of an attention micro in one probe launch
 CUDA_INVALID_VALUE = 1   # cudaErrorInvalidValue
 
 
@@ -1830,8 +1843,73 @@ def probe_entries(dev, res: dict, entries) -> None:
               "batched (perwin_ms beside)"))
 
 
+QA_PROBES = (
+    ("qa_micro", "probe_qa_micro",
+     dict(replaces="scripts/probe_qa_micro.py:36")),
+    ("qa_opt", "probe_qa_opt", dict(replaces="scripts/probe_qa_opt.py:39")),
+    ("qa_bisect", "probe_qa_bisect",
+     dict(replaces="scripts/probe_qa_bisect.py:36")))
+
+
+def held_qa(name: str, r: dict) -> None:
+    """An attention-micro variant's checks: its answer and checksum against
+    the plain version, every block's bits equal, 2 x reps in 1.8-2.2x."""
+    from whisper_aries_tpu_torch.scripts.common import held_detail
+
+    check(f"{name}[answer, checksum]", r["err"] <= r["limit"] and
+          r["checksum"]["ok"] and all(m > r["limit"]
+                                      for m in r["mistakes"].values()),
+          held_detail(r) + "; checksum " + held_detail(r["checksum"]))
+    check(f"{name}[blocks]", r["blocks_equal"],
+          f"{r['blocks']} blocks {'equal' if r['blocks_equal'] else 'differ'}")
+    check(f"{name}[2 x reps]", 1.8 <= r["scaling"] <= 2.2,
+          f"{r['ms_2x']:.3f} / {r['ms']:.3f} ms = {r['scaling']:.3f}x")
+
+
+def qa_entries(dev, res: dict, entries) -> None:
+    """The kernels-line entries of the three attention-micro kernels, from
+    each probe's first variant (full, base, base), every variant's numbers
+    beside, and the two-call yardstick of one iteration's work (a micro on
+    each of the blocks) and of one micro."""
+    from whisper_aries_tpu_torch.scripts import qa_micro as QA
+
+    ops = QA.inputs(dev, "rmask")
+    blocks = res["qa_micro"][0]["blocks"]
+    yard = {b: QA.yardstick_ms(dev, ops, b) for b in (1, blocks)}
+    for key, module, tpu in QA_PROBES:
+        r = res[key][0]
+        entries.append(dict(
+            name=f"{module}.build", route="cuda",
+            source="whisper_aries_tpu_torch/csrc/probe_qa.cu", **tpu,
+            max_abs_err=r["abs_err"],
+            tolerance=f"{r['limit']} of max |want|", ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            library_note="no one PyTorch call computes the micro; "
+                         "yardstick_ms: scaled_dot_product_attention "
+                         "(masked, scale 1) + torch.matmul of the "
+                         "O-projection, the same work as this launch",
+            yardstick_ms=yard[blocks]["ms"] * r["reps"],
+            yardstick=yard, us_per_iter=r["us_per_iter"],
+            exp_ms=r["exp_ms"], ops=r["ops"], ops_done=r["ops_done"],
+            exps=r["exps"], exps_done=r["exps_done"],
+            by_variant={x["variant"]: dict(
+                us_per_iter=x["us_per_iter"], ms=x["ms"],
+                plain_ms=x["plain_ms"], bound_ms=x["bound_ms"],
+                exp_ms=x["exp_ms"], ops_done=x["ops_done"],
+                exps_done=x["exps_done"], scaling=x["scaling"],
+                err=x["err"], checksum_err=x["checksum"]["err"],
+                **({"twin": x["twin"]} if "twin" in x else {}),
+                **({"rel_vs_base": x["rel_vs_base"]}
+                   if "rel_vs_base" in x else {}))
+                for x in res[key]},
+            shape=f"{r['blocks']} blocks x {r['reps']} iterations of the "
+                  f"micro (H 20, dh 64, bq 128, Tp 1536, T 1500, d 1280), "
+                  f"variant {r['variant']}"))
+
+
 def probes_phase(dev, entries) -> dict:
-    """The six probe functions through their modules' main() at a reduced
+    """The nine probe functions through their modules' main() at a reduced
     target, every launch count set to 0 just before and read just after;
     returns the counts. Then each line's own hold, the shared-memory
     answers, and the probe kernels' entries (timed after the counts are
@@ -1841,14 +1919,20 @@ def probes_phase(dev, entries) -> dict:
     from whisper_aries_tpu_torch.scripts import probe_dma as PD
     from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
     from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_qa_bisect as PQB
+    from whisper_aries_tpu_torch.scripts import probe_qa_micro as PQM
+    from whisper_aries_tpu_torch.scripts import probe_qa_opt as PQO
     from whisper_aries_tpu_torch.scripts import probe_vmem as PV
 
     target = ["--target-ms", str(PROBE_MS)]
+    qa = ["--reps", str(QA_REPS)]
     for fn in counters().values():
         fn.launches = 0
     t0 = time.time()
     res = dict(dma=PD.main(target), vmem=PV.main([]), mxu=PM.main(target),
-               int8_mxu=PI.main(target), transpose=PT.main([]))
+               int8_mxu=PI.main(target), transpose=PT.main([]),
+               qa_micro=PQM.main(qa), qa_opt=PQO.main(qa),
+               qa_bisect=PQB.main(qa))
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
     print(f"probes: {time.time() - t0:.1f}s, launches "
@@ -1864,9 +1948,13 @@ def probes_phase(dev, entries) -> dict:
             held_probe(f"probe_{key}[{r['label']}]", r)
     for v, r in res["transpose"].items():
         held_probe(f"probe_batched_transpose[{v}]", r)
+    for key, module, _ in QA_PROBES:
+        for r in res[key]:
+            held_qa(f"{module}[{r['variant']}]", r)
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "probes.json").write_text(json.dumps(res, indent=2, default=str))
     probe_entries(dev, res, entries)
+    qa_entries(dev, res, entries)
     torch.cuda.empty_cache()
     return launches
 
@@ -1902,6 +1990,9 @@ def probe_counters():
     from whisper_aries_tpu_torch.scripts import probe_dma as PD
     from whisper_aries_tpu_torch.scripts import probe_int8_mxu as PI
     from whisper_aries_tpu_torch.scripts import probe_mxu as PM
+    from whisper_aries_tpu_torch.scripts import probe_qa_bisect as PQB
+    from whisper_aries_tpu_torch.scripts import probe_qa_micro as PQM
+    from whisper_aries_tpu_torch.scripts import probe_qa_opt as PQO
     from whisper_aries_tpu_torch.scripts import probe_vmem as PV
 
     return {"probe_dma.probe": PD.copy_ring_kernel,
@@ -1909,7 +2000,10 @@ def probe_counters():
             "probe_vmem.try_size": PV.smem_copy_kernel,
             "probe_mxu.probe": PM.mma_loop_kernel,
             "probe_int8_mxu.make_kernel": PI.mma_fold_kernel,
-            "probe_batched_transpose.make": PT.transpose_sum_kernel}
+            "probe_batched_transpose.make": PT.transpose_sum_kernel,
+            "probe_qa_micro.build": PQM.micro_kernel,
+            "probe_qa_opt.build": PQO.opt_kernel,
+            "probe_qa_bisect.build": PQB.bisect_kernel}
 
 
 # the kernels each slice's path must launch, in the order the slices run
@@ -1924,7 +2018,9 @@ PATH_KERNELS = {
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
                  "probe_vmem.try_size", "probe_mxu.probe",
-                 "probe_int8_mxu.make_kernel", "probe_batched_transpose.make")
+                 "probe_int8_mxu.make_kernel", "probe_batched_transpose.make",
+                 "probe_qa_micro.build", "probe_qa_opt.build",
+                 "probe_qa_bisect.build")
 # each slice's config overrides; words and self_int8 run compute int8
 # under ARIES_QUANT_IMPL=pallas
 SLICE_CONFIG = {

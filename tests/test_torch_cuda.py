@@ -1184,6 +1184,93 @@ def test_probe_entries_launch_their_kernels(dev):
         a[0].double() @ b[:, 0].double())
 
 
+# the attention-micro probes (probe_qa_micro, probe_qa_opt, probe_qa_bisect)
+def _qa_module(name):
+    import importlib
+
+    mod = importlib.import_module(f"whisper_aries_tpu_torch.scripts.{name}")
+    kernel = {"probe_qa_micro": "micro_kernel", "probe_qa_opt": "opt_kernel",
+              "probe_qa_bisect": "bisect_kernel"}[name]
+    return mod, getattr(mod, kernel), "lgb" if name == "probe_qa_micro" \
+        else "rmask"
+
+
+QA_CASES = [(n, v) for n in ("probe_qa_micro", "probe_qa_opt",
+                              "probe_qa_bisect")
+            for v in _qa_module(n)[0].VARIANTS]
+
+
+@pytest.mark.parametrize("name,variant", QA_CASES,
+                         ids=[f"{n}-{v}" for n, v in QA_CASES])
+def test_probe_qa_kernel(dev, name, variant):
+    """Every variant's kernel on 3 blocks at 1 and 4 iterations against
+    its plain version: the (8, 128) answer and the checksum of all the
+    micro computes, every block equal, one launch counted a call."""
+    from whisper_aries_tpu_torch.scripts import qa_micro as QA
+
+    mod, kernel, extra = _qa_module(name)
+    ops = QA.inputs(dev, extra)
+    spec = mod.VARIANTS[variant]
+    for reps in (1, 4):
+        n = kernel.launches
+        out, cs = kernel(variant, ops, reps, blocks=3)
+        torch.cuda.synchronize()
+        assert kernel.launches == n + 1
+        assert out.shape == (3, 8, 128) and cs.shape == (3,)
+        assert bool((out == out[0]).all()) and bool((cs == cs[0]).all())
+        held = QA.hold_variant(spec, ops, reps, extra, out[0], float(cs[0]))
+        assert held["ok"], held
+
+
+def test_probe_qa_build_runs_the_kernel(dev):
+    """build(variant, reps) on the card launches the kernel once a call on
+    every SM and gives block 0's answer."""
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.scripts import qa_micro as QA
+
+    for name in ("probe_qa_micro", "probe_qa_opt", "probe_qa_bisect"):
+        mod, kernel, extra = _qa_module(name)
+        ops = QA.inputs(dev, extra)
+        variant = next(iter(mod.VARIANTS))
+        n = kernel.launches
+        got = mod.build(variant, 2)(*(ops[k] for k in
+                                      ("q", "k", "v", "wo", extra)))
+        assert kernel.launches == n + 1
+        out, _ = kernel(variant, ops, 2, blocks=cb.sm_count(dev))
+        assert torch.equal(got, out[0])
+
+
+def test_probe_qa_refusals_raise(dev):
+    """A flag tuple the source does not instantiate, or a launch without
+    its buffer, is refused by the C entry (ValueError), never run."""
+    from whisper_aries_tpu_torch.scripts import qa_micro as QA
+
+    ops = QA.inputs(dev, "rmask")
+    with pytest.raises(ValueError, match="refused its arguments"):
+        QA.launch(QA.Spec(norm="rcp", layout="vmajor"), ops, "rmask", 1, 1)
+    with pytest.raises(ValueError, match="refused its arguments"):
+        QA.launch(QA.Spec(phase="sm"), ops, "rmask", 1, 1)
+    with pytest.raises(ValueError, match="refused its arguments"):
+        QA.launch(QA.Spec(), ops, "rmask", 1, 0)
+
+
+def test_probe_qa_build_failure_raises(dev, tmp_path, monkeypatch):
+    """A source nvcc refuses raises with nvcc's output; nothing runs in
+    its place."""
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in cb.CSRC.glob("*.cuh"):
+        (csrc / p.name).write_text(p.read_text())
+    (csrc / "probe_qa.cu").write_text(
+        (cb.CSRC / "probe_qa.cu").read_text() + "\nnot C++;\n")
+    monkeypatch.setattr(cb, "CSRC", csrc)
+    monkeypatch.setattr(cb, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cb.build(["probe_qa"])
+
+
 def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
     """A step that reads a value back to the host cannot be captured: the
     decode raises, and no step runs eagerly in its place. (Last in the

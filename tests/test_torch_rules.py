@@ -262,10 +262,34 @@ def test_ported_kernel_rows_name_built_sources_and_card_checks():
     smoke = (ROOT / "chip_smoke.py").read_text(encoding="utf-8")
     replaced = set(re.findall(r'replaces="([^"]+)"', smoke))
     ported = [r for r in _table_rows() if "ported" in r[1]]
-    assert len(ported) >= 14  # 8 of the JAX package, 6 of scripts/
+    assert len(ported) >= 15  # 8 of the JAX package, 7 rows of scripts/
     for funcs, status, route in ported:
         sources = re.findall(r"(\w+)\.cu\b", route)
         assert funcs and sources, f"row {funcs} {route}"
         assert set(sources) <= set(cb.SOURCES), f"{route} not built"
         missing = [f for f in funcs if f not in replaced]
         assert not missing, f"chip_smoke.py has no replaces= for {missing}"
+
+
+def test_no_kernel_row_is_left_to_port():
+    """Every row of the kernel table has a Hopper counterpart: none still
+    says "still to port"."""
+    rows = list(_table_rows())
+    assert len(rows) >= 15
+    left = [funcs for funcs, status, _ in rows if "still to port" in status
+            or "ported" not in status]
+    assert not left, f"kernel-table rows not ported: {left}"
+
+
+def test_attention_micro_row_names_the_build_functions():
+    """Row 15 names the three attention-micro probes by their ``build``
+    lines (the functions whose kernels reach ``pl.pallas_call``)."""
+    want = ["scripts/probe_qa_micro.py:36", "scripts/probe_qa_opt.py:39",
+            "scripts/probe_qa_bisect.py:36"]
+    rows = [funcs for funcs, _, _ in _table_rows()
+            if any("probe_qa" in f for f in funcs)]
+    assert rows == [want]
+    for ref in want:
+        path, line = ref.split(":")
+        text = (ROOT / path).read_text(encoding="utf-8").splitlines()
+        assert text[int(line) - 1].startswith("def build(")
