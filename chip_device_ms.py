@@ -8,12 +8,16 @@ older chip_smoke.py reports event times only.
 
 CHECKOUT is the root of a checkout of this repository; its chip_smoke.py
 and its package are imported from there. PHASE names kernel-phase
-functions of that chip_smoke.py (default: kernel_mel kernel_cross_attn).
+functions of that chip_smoke.py (default: kernel_mel kernel_cross_attn),
+or NAME:ARG for one called with a string in place of the list
+(slice_phase:self_int8 runs that slice).
 Each phase runs as chip_smoke.py runs it, its checks included, with its
 time_ms also profiling every call it times: one line per timed call,
 "device_ms " and a JSON object with the phase, the event milliseconds per
 call and the device milliseconds per call of each CUDA kernel the call
-launched. The card line comes first. Needs one CUDA card.
+launched; after each phase, "phase_out " and what it appended to its list
+(a kernel's entry, a profiled step's times). The card line comes first.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -66,7 +70,12 @@ def main() -> None:
     dev = torch.device("cuda")
     for name in phases:
         phase["name"] = name
-        getattr(smoke, name)(dev, [])
+        fn, _, arg = name.partition(":")
+        out = []
+        getattr(smoke, fn)(dev, arg if arg else out)
+        if out:  # the phase's entries / parts (a profile's step times)
+            print("phase_out " + json.dumps(
+                {"phase": name, "out": out}, default=str), flush=True)
     if smoke.FAILED:
         smoke.fail("; ".join(smoke.FAILED))
 

@@ -35,21 +35,24 @@ caught; a kernel check that fails is printed at once and fails the run
      device time). The split-KV self-attention is held at valid_start 200,
      pos 300 (whole splits empty), and the step's split cross-attention
      on its own. The W8A16 GEMM is held at the int8 slices' shapes
-     (M 9000 = 6 windows x 1500 with K, N in {1280, 5120}, an odd M, and
-     the six dense layers of a decoder layer at M 6), each on the path
-     ops/quant.py::gemm_plan gives it (TMA + wgmma for large M, split-K
-     mma.sync for M 6; the "quant_matmul shapes" line names each row's
-     path, and the wgmma path's dequant scratch is held bit for bit
-     against dequantize_bf16); both paths are timed, forced, over M 64-768
-     at N 1280 / 3840 / 5120 ("quant_matmul crossover" line, the
+     (M 9000 = 6 windows x 1500 with K, N in {1280, 5120}, an odd M, the
+     words slice's prefill at M 18, and the six dense layers of a decoder
+     layer at M 6 and at M 1), each on the path ops/quant.py::gemm_plan
+     gives it (TMA + wgmma for large M, the split-K cluster weight stream
+     for small M; the "quant_matmul shapes" line names each row's path,
+     K slices and row tile, with cuBLAS's event and device times beside,
+     and the wgmma path's dequant scratch is held bit for bit against
+     dequantize_bf16); both paths are timed, forced, over M 32-1024 at
+     N 1280 / 3840 / 5120 ("quant_matmul crossover" line, the
      measurement the plan's cut-over is set from); the int8
      self-attention step at 6 rows x 20 heads over 227 positions, and one
      unfused int8-self-cache decode step is profiled. Errors are taken
      over max |want|, and where a check names a mistake (keys past T
      scored, a dropped tail, the next head's keys scored in the last tile,
      a missing key, every window reading window 0's K/V, ties to the
-     highest index, the outscale product, a dropped K slab, unwritten
-     M-tail rows, an ignored mask, a dropped last position, the appended
+     highest index, the scale on the sum, one K slice's partials dropped
+     from the cluster sum, the last row tile's rows unwritten, an ignored
+     mask, a dropped last position, the appended
      position left unscored, one split's P . V dropped from the int8
      self-attention's or the grouped cross-attention's cluster sum, one
      chunk's candidates dropped from the beam tail's merge, one mel band's
@@ -85,7 +88,8 @@ caught; a kernel check that fails is printed at once and fails the run
      in the kernels line comes from a configuration timed after the
      counted run (the 4 MB ring and the 4 MB two-stream copy reading a
      1 GiB source once, beside one torch.sum reading it once; the 227 KB
-     one-slot copy; the bf16 product loop and the s8 fold at one block
+     one-slot copy, by events and by the profiler's device time, beside
+     torch.sum of the same bytes timed both ways; the bf16 product loop and the s8 fold at one block
      per SM, beside one torch.matmul / torch._int_mm of the same operation
      count, B in its faster layout; the batched transpose; each
      attention-micro probe's first variant, beside a two-call yardstick of
@@ -1405,21 +1409,28 @@ def kernel_quant_matmul(dev, entries):
     """The W8A16 GEMM (the int8 dense layers under ARIES_QUANT_IMPL=pallas)
     at the int8 slices' shapes, bf16 out as the path writes it: the
     encoder and cross K/V over 6 windows (M 9000 = 6 x 1500; K = N = 1280,
-    fc1 N 5120, fc2 K 5120), an odd M, and the six dense layers of one
-    unfused decoder layer at M 6. Each held in bf16 steps against its plain
-    version; each named mistake must flip more elements than the limit:
-    the outscale product (weights not rounded to bf16), the last K slab
-    left out, and (over the last M tile's rows) those rows left
-    unwritten."""
+    fc1 N 5120, fc2 K 5120), an odd M, the words slice's prefill (M 18 = 6
+    windows x 3 prompt tokens) and the six dense layers of one unfused
+    decoder layer at M 6 and at M 1. Each held in bf16 steps against its
+    plain version; each named mistake must flip more elements than the
+    limit: the scale on the sum (kernel 3's function, the weights not
+    rounded to bf16), one K slice's partials dropped from the cluster sum
+    (the plan's last slice; the last 32 rows of K on the wgmma path), and
+    the last row tile's rows left unwritten (the last 8-row group of the
+    split-K path, the last 128-row tile of the wgmma path). cuBLAS's
+    device time stands beside the kernel's."""
     import torch
     from whisper_aries_tpu_torch.ops import quant as Q
 
     d, ff = 1280, 5120
     shapes = [("encoder q/k/v/o, cross k/v", 9000, d, d),
               ("encoder fc1", 9000, d, ff), ("encoder fc2", 9000, ff, d),
-              ("odd M", 1517, d, d),
+              ("odd M", 1517, d, d), ("words prefill qkv", 18, d, 3 * d),
+              ("words prefill fc2", 18, ff, d),
               ("step qkv", 6, d, 3 * d), ("step o, cross q, cross o", 6, d, d),
-              ("step fc1", 6, d, ff), ("step fc2", 6, ff, d)]
+              ("step fc1", 6, d, ff), ("step fc2", 6, ff, d),
+              ("M 1 qkv", 1, d, 3 * d), ("M 1 o", 1, d, d),
+              ("M 1 fc1", 1, d, ff), ("M 1 fc2", 1, ff, d)]
     # bf16 outputs rounded from f32 sums taken in another order: one step
     # apart where the sum sits at a rounding midpoint (in 1e-4..3e-3 of
     # them, more at K 5120); held as a share of elements and, since a sum
@@ -1443,24 +1454,28 @@ def kernel_quant_matmul(dev, entries):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got.float()).all()):
             fail(f"W8A16 GEMM output is not finite ({what})")
-        label = f"quant_matmul[{what}: M {M}, K {K}, N {N}]"
+        path, splits, tile = Q.gemm_plan(M, N, K, sms)
+        label = f"quant_matmul[{what}: M {M}, K {K}, N {N}, {path}]"
         errs = errors(got, want)
         outscale = Q._quant_matmul_outscale(x, q8, s).to(torch.bfloat16)
-        xcut = x.clone()
-        xcut[:, -32:] = 0
-        slab = Q.quant_matmul_dequant_plain(xcut, q8, s, torch.bfloat16)
-        # the outscale product is one step off where the unrounded weights
+        # the scale on the sum is one step off where the unrounded weights
         # move a sum across a midpoint: it shows in the share, not the size
-        held(f"{label} outscale", errs, tol,
+        held(f"{label} scale on the sum", errs, tol,
              {"flipped": errors(outscale, want)["flipped"]})
-        held(f"{label} last K slab dropped", errs, tol, errors(slab, want))
-        t0 = M - M % 128 if M % 128 else M - 128
-        held(f"{label} last M tile's rows unwritten",
+        xcut = x.clone()
+        cut = K // splits if path == "splitk" and splits > 1 else 32
+        xcut[:, K - cut:] = 0
+        name = (f"K slice {splits - 1} of {splits}'s partials dropped"
+                if path == "splitk" and splits > 1 else "last K rows dropped")
+        held(f"{label} {name}", errs, tol, errors(
+            Q.quant_matmul_dequant_plain(xcut, q8, s, torch.bfloat16), want))
+        step = 8 if path == "splitk" else tile
+        t0 = (M - 1) // step * step
+        held(f"{label} last {step}-row tile's rows unwritten",
              errors(got[t0:], want[t0:]), tol,
              errors(torch.zeros_like(want[t0:]), want[t0:]))
         worst = max(worst, float((got.float() - want.float()).abs().max()))
         w16 = Q.dequantize_bf16(q8, s)
-        path, splits = Q.gemm_plan(M, N, K, sms)
         if path == "wgmma":  # the first pass's scratch, bit for bit
             same = torch.equal(Q.dequantize_bf16_kernel(q8, s).view(
                 torch.int16), w16.view(torch.int16))
@@ -1470,23 +1485,25 @@ def kernel_quant_matmul(dev, entries):
                            2 * M * N * K, PEAK_BF16)
         iters = 50 if M < 100 else 20
         kern = lambda: Q.quant_matmul_dequant_kernel(x, q8, s)
+        lib = lambda: torch.matmul(x, w16)
         rows.append(dict(
             what=what, M=M, K=K, N=N, errors=errs,
             ms=time_ms(kern, iters), device_ms=device_ms(kern),
             host_ms=host_ms(kern),
             plain_ms=time_ms(lambda: Q.quant_matmul_dequant_plain(
                 x, q8, s, torch.bfloat16), 5),
-            library_ms=time_ms(lambda: torch.matmul(x, w16), iters),
-            bound_ms=b_ms, bound_by=b_by, path=path, splits=splits))
-        del x, q8, s, got, want, outscale, xcut, slab, w16
+            library_ms=time_ms(lib, iters), library_device_ms=device_ms(lib),
+            bound_ms=b_ms, bound_by=b_by, path=path, splits=splits,
+            rows=tile))
+        del x, q8, s, got, want, outscale, xcut, w16
     print("quant_matmul shapes " + json.dumps(rows), flush=True)
     crossover = quant_matmul_crossover(dev, g)
     print("quant_matmul crossover " + json.dumps(crossover), flush=True)
-    step = [r for r in rows if r["M"] == 6]
+    step = [r for r in rows if r["what"].startswith("step")]
     per_layer = {k: sum(r[k] * (3 if r["what"].startswith("step o") else 1)
                         for r in step)
                  for k in ("ms", "device_ms", "host_ms", "bound_ms",
-                           "library_ms")}
+                           "library_ms", "library_device_ms")}
     head = rows[0]
     entries.append(dict(
         name="quant_matmul", route="cuda",
@@ -1497,6 +1514,7 @@ def kernel_quant_matmul(dev, entries):
         host_ms=head["host_ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
+        library_device_ms=head["library_device_ms"],
         library_note="torch.matmul of bf16 x with the dequantized bf16 "
                      "weight, made before timing (cuBLAS, the same FLOPs)",
         shape=f"x ({head['M']}, {head['K']}) bf16 @ int8 ({head['K']}, "
@@ -1513,7 +1531,7 @@ def quant_matmul_crossover(dev, g):
 
     rows = []
     for N in (1280, 3840, 5120):
-        for M in (64, 128, 192, 256, 384, 512, 768):
+        for M in (32, 64, 128, 192, 256, 384, 512, 768, 1024):
             x = torch.randn((M, 1280), generator=g, device=dev).to(
                 torch.bfloat16)
             q8, s = Q.quantize_int8(0.02 * torch.randn(
@@ -1783,17 +1801,20 @@ def probe_entries(dev, res: dict, entries) -> None:
     check("probe_vmem.try_size[entry]", err == 0.0, f"err {err}")
     nbytes = ones.numel() * 2
     b_ms, b_by = bound(nbytes + 4, 0, PEAK_BF16)
+    kern = lambda: PV.smem_copy_kernel(ones, optin)
+    lib = lambda: torch.sum(ones, dtype=torch.float32)
     entries.append(dict(
         name="probe_vmem.try_size", route="cuda",
         source="whisper_aries_tpu_torch/csrc/probe_copy.cu",
         replaces="scripts/probe_vmem.py:21",
         max_abs_err=err, tolerance=0.0,
-        ms=common.mean_ms(lambda: PV.smem_copy_kernel(ones, optin), 20),
+        ms=common.mean_ms(kern, 20), device_ms=device_ms(kern),
         plain_ms=common.mean_ms(lambda: PV.smem_copy_plain(ones), 20),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=common.mean_ms(
-            lambda: torch.sum(ones, dtype=torch.float32), 20),
-        library_note="torch.sum of the same bytes in f32",
+        library_ms=common.mean_ms(lib, 20), library_device_ms=device_ms(lib),
+        library_note="torch.sum of the same bytes in f32 (device_ms and "
+                     "library_device_ms: the profiler's kernel time of "
+                     "each; ms and library_ms: one call by events)",
         shape=f"one block, one copy of {nbytes} B into {optin} B of "
               "dynamic shared memory, then the sum of 128 elements"))
     for name, r, tpu in (
@@ -2142,6 +2163,9 @@ def slice_phase(dev, path: str):
     # the encoder's and cross K/V's products: M = windows x 1500
     windowed = [c for c in planned if c[0] % 1500 == 0]
     by_m = dict(Counter(f"M {c[0]} {c[3]}" for c in windowed))
+    # the other products (prefills, alignment_forward, eager steps) by M
+    by_rows = dict(Counter(f"M {c[0]} {c[3]}" for c in planned
+                           if c[0] % 1500))
     if path == "words":
         if not windowed or any(c[3] != "wgmma" for c in windowed):
             fail(f"words: not every encoder / cross K/V product took the "
@@ -2198,6 +2222,7 @@ def slice_phase(dev, path: str):
         permuting_steps=sum(d.get("permuted", 0) for d in decodes),
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
+        gemm_rows=by_rows,
         peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":

@@ -758,7 +758,7 @@ def test_quant_matmul_paths_at_encoder_shapes(dev, M, K, N):
     from whisper_aries_tpu_torch.ops import quant as Q
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    path, _ = Q.gemm_plan(M, N, K, sms)
+    path = Q.gemm_plan(M, N, K, sms)[0]
     assert path == ("wgmma" if M * N >= Q.WGMMA_MIN_MN else "splitk")
     for rep in range(3):
         g = torch.Generator(device=dev).manual_seed(M + K + N + rep)
@@ -777,6 +777,83 @@ def test_quant_matmul_paths_at_encoder_shapes(dev, M, K, N):
         assert _rel(got16, want16) <= 2 ** -7
         assert float((got16 != want16).float().mean()) < 1e-2
         del x, q8, s, got, got16, want, want16
+
+
+def _splitk_cases():
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    cases = []
+    for K, N in ((1280, 1280), (1280, 3840), (1280, 5120), (5120, 1280),
+                 (1312, 1296)):
+        cut = -(-Q.WGMMA_MIN_MN // N)
+        for M in (1, 6, 8, 9, 30, 64, 65, 200, cut - 1):
+            cases.append((M, K, N))
+    return cases
+
+
+@pytest.mark.parametrize("M,K,N", _splitk_cases())
+def test_quant_matmul_splitk_path(dev, M, K, N):
+    """The small-M path (one launch, the K slices of a column tile one
+    cluster reduced in distributed shared memory), forced, at M 1 .. the
+    cut-over - 1 and the decode step's N / K, with the K 1312 / N 1296
+    tails: f32 out
+    within 1e-5 of max |want|, bf16 out one step off in under 1% of the
+    elements; ``launches_by_path`` counts one "splitk" launch a call."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
+                                               device=dev))
+    before = dict(Q.quant_matmul_dequant_kernel.launches_by_path)
+    got = Q.quant_matmul_dequant_kernel(x, q8, s, torch.float32,
+                                        path="splitk")
+    got16 = Q.quant_matmul_dequant_kernel(x, q8, s, path="splitk")
+    after = Q.quant_matmul_dequant_kernel.launches_by_path
+    assert after["splitk"] == before["splitk"] + 2
+    assert after["wgmma"] == before["wgmma"]
+    want = Q.quant_matmul_dequant_plain(x, q8, s)
+    assert _rel(got, want) <= 1e-5
+    steps, share = _steps(got16, want.to(torch.bfloat16))
+    assert share < 1e-2
+
+
+@pytest.mark.parametrize("M,K,N", [(6, 1280, 3840), (1, 5120, 1280),
+                                   (200, 1312, 1296)])
+def test_quant_matmul_splitk_is_one_kernel(dev, M, K, N):
+    """A small-M product is one kernel on the card (the profiler sees one
+    device kernel a call: no partial-sum pass, no dequant pass)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+    q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), device=dev))
+    Q.quant_matmul_dequant_kernel(x, q8, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        Q.quant_matmul_dequant_kernel(x, q8, s)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA
+               and "splitk" in ev.name]
+    others = [ev.name for ev in prof.events()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA
+              and "splitk" not in ev.name and ev.device_time_total > 0]
+    assert len(kernels) == 1 and not others, others
+
+
+def test_quant_matmul_splitk_plan_is_the_c_plan(dev):
+    """``splitk_plan`` (Python) equals the C plan the launch uses."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    for sms in (66, 114, 132):
+        for M in (1, 6, 9, 64, 65, 300):
+            for N, K in ((1280, 1280), (3840, 1280), (5120, 1280),
+                         (1280, 5120), (1296, 1312), (48, 128)):
+                assert Q.kernel_splitk_plan(M, N, K, sms) == \
+                    Q.splitk_plan(M, N, K, sms), (M, N, K, sms)
 
 
 @pytest.mark.parametrize("K,N", [(1280, 1280), (5120, 1296), (64, 16)])

@@ -287,3 +287,44 @@ def test_unknown_variant_raises():
     with pytest.raises(ValueError, match="not one of"):
         PQ.build("fused", 2, device="cpu")
     assert common.device_of("cpu").type == "cpu"
+
+
+def _f32(x):
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def _fma(a, b, c):
+    """f32 a * b + c with one rounding: the product of two f32 values is
+    exact in f64, and here the sum is too or lands far from a tie."""
+    return _f32(a.astype(np.float64) * b.astype(np.float64) +
+                c.astype(np.float64))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_division_by_a_row_reciprocal_is_ieee_division(seed):
+    """csrc/probe_qa.cu's div_by_row: q = a r (r = 1 / b, rounded to
+    nearest even) corrected twice by fused multiply-adds equals the IEEE
+    quotient a / b bit for bit for a probability's numerator 2^-100 <= a
+    <= 1 (or 0) over a row sum 1 <= b <= 4096; a warp holding a smaller
+    numerator (div_tiny) divides by IEEE division instead."""
+    rng = np.random.default_rng(seed)
+    n = 1_000_000
+    a = _f32(np.exp(-rng.exponential(2.0, n) * rng.choice([1, 10, 60], n)))
+    a[: n // 5] = _f32(rng.uniform(0, 1, n // 5))
+    a[n // 5: n // 4] = _f32(rng.uniform(0.999, 1.0, n // 4 - n // 5))
+    a[-10:] = 0.0
+    b = _f32(np.exp(rng.uniform(0, np.log(4096.0), n)))
+    b[: n // 8] = _f32(rng.uniform(1, 2, n // 8))
+    a = a[(a >= np.float32(2.0 ** -100)) | (a == 0)]
+    b = b[: len(a)]
+    r = _f32(np.float32(1.0) / b)
+    q = _f32(a * r)
+    q = _fma(_fma(-q, b, a), r, q)
+    q = _fma(_fma(-q, b, a), r, q)
+    want = _f32(a / b)
+    assert np.array_equal(q.view(np.int32), want.view(np.int32))
+    src = (CSRC / "probe_qa.cu").read_text(encoding="utf-8")
+    body = src[src.index("float div_by_row("):]
+    body = body[:body.index("\n}\n")]
+    assert body.count("__fmaf_rn(__fmaf_rn(-q, b, a)") == 2
+    assert "return a != 0.f && a < 0x1p-100f;" in src

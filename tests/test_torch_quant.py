@@ -151,25 +151,30 @@ def test_dense_pallas_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("M,N,K,want", [
-    (9000, 1280, 1280, ("wgmma", 1)), (9000, 5120, 1280, ("wgmma", 1)),
-    (9000, 1280, 5120, ("wgmma", 1)), (4500, 1280, 1280, ("wgmma", 1)),
-    (4500, 5120, 1280, ("wgmma", 1)), (4500, 1280, 5120, ("wgmma", 1)),
-    (6, 1280, 1280, ("splitk", 10)), (6, 3840, 1280, ("splitk", 8)),
-    (6, 5120, 1280, ("splitk", 5)), (6, 1280, 5120, ("splitk", 20))])
+    (9000, 1280, 1280, ("wgmma", 1, 128)), (9000, 5120, 1280, ("wgmma", 1, 128)),
+    (9000, 1280, 5120, ("wgmma", 1, 128)), (4500, 1280, 1280, ("wgmma", 1, 128)),
+    (4500, 5120, 1280, ("wgmma", 1, 128)), (4500, 1280, 5120, ("wgmma", 1, 128)),
+    (6, 1280, 1280, ("splitk", 8, 8)), (6, 3840, 1280, ("splitk", 5, 8)),
+    (6, 5120, 1280, ("splitk", 4, 8)), (6, 1280, 5120, ("splitk", 8, 8)),
+    (1, 1280, 1280, ("splitk", 8, 8)), (8, 1280, 1280, ("splitk", 8, 8)),
+    (9, 1280, 1280, ("splitk", 8, 16)), (64, 1280, 1280, ("splitk", 8, 64)),
+    (65, 1280, 1280, ("splitk", 8, 64)), (6, 1296, 1312, ("splitk", 1, 8)),
+    (200, 1296, 1312, ("splitk", 1, 64))])
 def test_gemm_plan_on_the_slices_shapes(M, N, K, want):
     """The encoder's and cross K/V's M (6 or 3 windows x 1500) take the TMA
-    + wgmma path; a decode step's M 6 keeps the split-K path with the
-    splits the previous C rule gave on 132 SMs (about two blocks per SM,
-    each split a whole number of >= 4 32-deep slabs)."""
+    + wgmma path; a decode step's M 6 takes the split-K path as one cluster
+    of K slices a 64-column tile (132 SMs: 8 slices at N 1280, 5 at 3840,
+    4 at 5120) and one 8-row group; 9 rows take two groups, 64 and more
+    64-row passes; K 1312 (41 stages of 32 rows, a prime) one slice."""
     assert TQ.gemm_plan(M, N, K, 132) == want
 
 
 @pytest.mark.parametrize("M", [9000, 4500, 1000])
 def test_gemm_plan_sends_k_not_a_multiple_of_64_to_splitk(M):
     """K % 64 != 0 (here K 1312 = 41 x 32) goes to the split-K path by the
-    plan, never by an error."""
-    path, splits = TQ.gemm_plan(M, 1280, 1312, 132)
-    assert path == "splitk" and (1312 // 32) % splits == 0
+    plan, never by an error, in 64-row passes."""
+    path, splits, rows = TQ.gemm_plan(M, 1280, 1312, 132)
+    assert path == "splitk" and (1312 // 32) % splits == 0 and rows == 64
 
 
 @pytest.mark.parametrize("N", [1280, 3840, 5120])
@@ -187,13 +192,65 @@ def test_gemm_plan_cutover(N):
                                    (37, 160, 128), (200, 1280, 1312),
                                    (6, 1280, 5120), (24, 3840, 1280)])
 def test_splitk_splits_divide_the_k_slabs(sms, M, N, K):
-    """Every split is a whole number of 32-deep slabs, at least 4 of them
-    when K is split; one split once the 128 x 128 tiles fill the card."""
-    path, splits = TQ.gemm_plan(M, N, K, sms)
+    """Every K slice is a whole number of 32-row stages; a cluster holds at
+    most 8 slices; the rows a pass cover M in 8-row groups, at most 64 and
+    never a group that is all past M."""
+    path, splits, rows = TQ.gemm_plan(M, N, K, sms)
     assert path == "splitk"
     slabs = K // 32
-    assert slabs % splits == 0
-    assert splits == 1 or slabs // splits >= 4
-    tiles = -(-M // 128) * -(-N // 128)
-    if tiles >= sms:
-        assert splits == 1
+    assert slabs % splits == 0 and 1 <= splits <= 8
+    assert rows % 8 == 0 and rows == min(64, -(-M // 8) * 8)
+    assert TQ.splitk_smem(rows, K // splits, splits) <= TQ.SPLITK_MAX_SMEM
+
+
+def _splitk_rule(M, N, K, sms):
+    """The split-K plan's rule as its docstring states it, by brute force:
+    the divisors s <= 8 of K / 32, the least with ceil(N / 64) s >= 2 sms
+    blocks, else the largest; rows M rounded up to 8, at most 64, the most
+    (a multiple of 8) whose block fits the shared-memory limit."""
+    divs = [s for s in range(1, 9) if (K // 32) % s == 0]
+    enough = [s for s in divs if -(-N // 64) * s >= 2 * sms]
+    S = enough[0] if enough else divs[-1]
+    fits = [r for r in range(8, min(64, -(-M // 8) * 8) + 1, 8)
+            if TQ.splitk_smem(r, K // S, S) <= TQ.SPLITK_MAX_SMEM]
+    return S, max(fits)
+
+
+@pytest.mark.parametrize("sms", [66, 132])
+@pytest.mark.parametrize("K", [32, 64, 256, 1280, 1312, 2560, 5120, 20480])
+@pytest.mark.parametrize("N", [16, 48, 1280, 1296, 3840, 5120])
+def test_splitk_plan_mirror_follows_its_rule(sms, K, N):
+    """``splitk_plan`` (the mirror of the C plan) against its docstring's
+    rule, for M 1 .. 300."""
+    for M in (1, 6, 8, 9, 17, 64, 65, 300):
+        assert TQ.splitk_plan(M, N, K, sms) == _splitk_rule(M, N, K, sms)
+
+
+def test_splitk_plan_constants_are_the_sources():
+    """The mirror's constants are csrc/quant_matmul.cu's S_* constants."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TQ.__file__).resolve().parent.parent / "csrc" /
+           "quant_matmul.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int S_([A-Z_]+) = (\d+);", src)}
+    assert consts == {
+        "COLS": TQ.SPLITK_COLS, "THREADS": 128, "KC": TQ.SPLITK_KC,
+        "NST": TQ.SPLITK_NST, "WLD": TQ.SPLITK_WLD,
+        "MAX_CLUSTER": TQ.SPLITK_MAX_CLUSTER,
+        "TARGET_WAVES": TQ.SPLITK_TARGET_WAVES,
+        "MAX_ROWS": TQ.SPLITK_MAX_ROWS, "MAX_SMEM": TQ.SPLITK_MAX_SMEM}
+    # 32 KB of int8 weights in flight a block, in at least 6 stages
+    assert TQ.SPLITK_NST >= 6
+    assert TQ.SPLITK_NST * TQ.SPLITK_KC * TQ.SPLITK_COLS >= 32 * 1024
+
+
+@pytest.mark.parametrize("M", [1, 64, 300])
+def test_splitk_plan_refuses_a_slice_of_x_that_cannot_fit(M):
+    """A K slice of x too deep for even 8 staged rows raises (K 102400 in
+    8 slices of 12,800 rows); the deepest slice that fits runs at 8 rows."""
+    with pytest.raises(ValueError, match="too deep"):
+        TQ.splitk_plan(M, 1280, 102400, 132)
+    S, rows = TQ.splitk_plan(M, 1280, 8 * 11520, 132)
+    assert (S, rows) == (8, 8)

@@ -159,16 +159,7 @@ __host__ __device__ inline void cross_plan(int Ta, int pairs, int G, int sms,
   *S = (Ta + c - 1) / c;
 }
 
-// the four signed bytes of a 32-bit word as exact f32 values, without the
-// quarter-rate integer conversion: byte b + 128 becomes the low mantissa
-// byte of 2^23 (one byte permute), then one subtraction
-__device__ __forceinline__ void i8x4_to_f32(int word, float (&f)[4]) {
-  const uint32_t u = (uint32_t)word ^ 0x80808080u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) -
-           8388736.f;
-}
+using ::i8x4_to_f32;  // common.cuh
 
 // two signed bytes (the low 16 bits) as an exact bf16 pair, low byte in
 // the low half

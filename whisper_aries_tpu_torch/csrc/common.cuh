@@ -81,6 +81,17 @@ __device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the four signed bytes of a 32-bit word as exact f32 values, without the
+// quarter-rate integer conversion: byte b + 128 becomes the low mantissa
+// byte of 2^23 (one byte permute), then one subtraction
+__device__ __forceinline__ void i8x4_to_f32(int word, float (&f)[4]) {
+  const uint32_t u = (uint32_t)word ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) -
+           8388736.f;
+}
+
 // c += a . b on the tensor cores: m16n8k16, bf16 in, f32 accumulate, with
 // PTX's fragment layout (g = lane / 4, t = lane % 4):
 //   a[0] (row g, k 2t..2t+1)  a[1] (row g+8, k 2t..)  a[2] (row g, k 2t+8..)

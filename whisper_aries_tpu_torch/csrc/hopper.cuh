@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (quant_matmul.cu's large-M GEMM, encoder_attn.cu):
+// (quant_matmul.cu's large-M GEMM, encoder_attn.cu, probe_qa.cu):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
-//     and a parity wait; a ring stage's "full" barrier is completed by the
-//     TMA engine's byte count, its "empty" barrier by the consumers;
+//     an expected transaction count alone, and a parity wait; a ring
+//     stage's "full" barrier is completed by the TMA engine's byte count,
+//     its "empty" barrier by the consumers;
 //   * TMA: 2D / 3D tile loads into shared memory, completing on an
 //     mbarrier, and a 3D tile store from shared memory (a bulk group);
 //   * wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled
-//     tile, fence / commit / wait, m64n128k16 with A and B from shared
-//     memory and m64n64k16 with A from registers (bf16 in, f32 sums);
+//     tile, fence / commit / wait, m64n128k16 and m64n64k16 with A and B
+//     from shared memory (either K- or MN-major) and m64n64k16 with A from
+//     registers (bf16 in, f32 sums);
 //   * fence.proxy.async (ordinary stores -> TMA or wgmma reads), named
 //     barriers, setmaxnreg;
 //   * on the host, encode_map(): a CUtensorMap for a bf16 tensor, through
@@ -63,6 +65,16 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// expect `bytes` more of TMA transactions in the current phase, without
+// arriving (the arrival comes later, once the arriving thread's own
+// writes into the stage are done)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
                    "r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
@@ -136,6 +148,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ordinary global stores made visible to the async proxy (a TMA load of
+// what threads of the same kernel wrote)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // barrier `id` (1..15; 0 is __syncthreads) over `n` threads
 __device__ __forceinline__ void named_barrier(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -193,12 +211,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= a . b: m64n128k16, A K-major and B (TRANS_B 0: K-major, 1:
-// MN-major) from shared memory; scale_d 0 overwrites d. The accumulator
+// d (+)= a . b: m64n128k16, A (TRANS_A 0: K-major, 1: MN-major) and B
+// (TRANS_B 0: K-major, 1: MN-major) from shared memory; scale_d 0
+// overwrites d. The accumulator
 // layout (warp w of the warpgroup, lane l, g = l / 4, t = l % 4): for each
 // n8 block j, d[4j], d[4j+1] are row 16w + g, columns 8j + 2t, 8j + 2t + 1;
 // d[4j+2], d[4j+3] the same columns of row 16w + g + 8.
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int scale_d) {
   asm volatile(
@@ -211,7 +230,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -225,7 +244,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+// d (+)= a . b: m64n64k16, A (TRANS_A) and B (TRANS_B) from shared memory
+// as in m64n128k16 above; the accumulator layout is that one's first 8 n8
+// blocks
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (+)= a . b: m64n64k16, A from registers (per warp the m16n8k16 A

@@ -34,26 +34,57 @@
 // computed only what X reads would not pass.
 //
 // Design: the TPU ran the micro on one core over VMEM-resident operands;
-// here one block of 8 warps runs it on one SM, REPS times, and the grid is
-// the card's SM count, every block on the same operands (9.8 MB, L2-resident
-// on a 50 MB L2), so the card is full and each block's answer must be the
-// same. A warp owns 16 query rows. Products are mma.sync m16n8k16 (bf16 in,
-// f32 sums) with ldmatrix fragments from shared memory: Q (dh-major) and K
-// (keys minor) through the transposing ldmatrix, V non-transposed. K and V
-// tiles of 64 keys stream through two cp.async stages. The logits of one
-// head's 128 queries (786 KB f32) do not fit an SM, so the normalisation
-// before P.V takes two passes over K: the first takes each row's max and
-// (NORM_BEFORE) its online sum, the second recomputes the logits and forms
-// the probabilities with the final max (a flash-style running max would
-// round bf16(ex) at other points: not this function). NORM_DIV / RCP with
-// MAXSUB take the max in pass 1 and the sum beside P.V in pass 2; without
-// MAXSUB, and for NORM_NONE and PHASE_QK, one pass. P stays in registers
-// in both layouts: its S accumulator is the A fragment of pr.v (PV_IDENT)
-// and the B fragment of v.pr^T (PV_VMAJOR). The identity product stages
-// bf16(att) through shared memory. attr (327 KB) does not fit either: it
-// goes through a per-block scratch in device memory, read back by the
-// O-projection (of^T = attr^T wo, tiles of 64 e x 128 i and 64 e x 128 r,
-// wo converted from int8 to bf16 on its way into shared memory).
+// here one block runs it on one SM, REPS times, and the grid is the card's
+// SM count, every block on the same operands (9.8 MB, L2-resident on a 50
+// MB L2), so the card is full and each block's answer must be the same.
+// The block is three warpgroups: two consumers of 64 queries each and a
+// producer (registers given back with setmaxnreg). Every product runs on
+// wgmma (bf16 in, f32 sums) from 128-byte-swizzled tiles:
+//   * The producer keeps a ring of 4 stages of 32 KB full: a head's Q (two
+//     64 x 64 boxes, one per consumer, double-buffered by head) and each
+//     128-key tile of K (and, in the pass that forms P.V, of V) by TMA,
+//     each stage's "full" mbarrier completed by the byte count and its
+//     "empty" one by both consumers; for the O-projection, a 64-row tile
+//     of attr for each consumer by TMA beside 64 x 128 of wo, which the
+//     producer's 128 threads convert from int8 to bf16 on its way into the
+//     stage.
+//   * QK^T: m64n128k16 from shared memory, Q (dh-major) as the MN-major A
+//     and K (keys minor) as the MN-major B: the transpose bits, no copies.
+//     The logits land in rows g and g + 8 of each warp's 16, keys 2t,
+//     2t + 1 of each 8 (mma.sync's accumulator layout), so the mask, the
+//     max, the sums and the probabilities are per-thread code.
+//     Normalising before P.V divides each numerator by its row's sum: by
+//     div_by_row (the row's reciprocal, a product and two fused
+//     corrections: bit for bit the IEEE quotient, without a division or a
+//     branch a logit; IEEE division took 40% of the full variant's time).
+//   * P.V, PV_IDENT: att (i, c) += P V with P in registers as the A
+//     operand (m64n64k16 RS) and V (keys minor) as the K-major B. The
+//     identity product attT (c, i) = bf16(att)^T I runs as its transpose,
+//     (i', c) = I (i', i) bf16(att) (i, c): the identity's fragments in
+//     registers as A, bf16(att) of both consumers' 128 queries staged in
+//     shared memory as the MN-major B (the same exact sums).
+//   * P.V, PV_VMAJOR: attT (c, i) += V P^T with V as the K-major A, so P^T
+//     is the B operand and must be in shared memory: each consumer writes
+//     its bf16 P tile (64 queries x 128 keys) there every tile, then one
+//     barrier of its warpgroup, then the product.
+//   * A tile's P.V stays in flight while the next tile's QK^T is issued;
+//     that QK^T's wait completes both (one wait a tile, not two), and the
+//     stage is released behind it.
+//   * attr (327 KB) does not fit an SM: it goes through a per-block
+//     scratch in device memory ((bq, d) for PV_IDENT, (d, bq) for
+//     PV_VMAJOR, the layouts the consumers write in rows), fenced for the
+//     async proxy and announced to the producer by an mbarrier, which then
+//     loads it by TMA. The O-projection is of^T (i, r) = attr^T (i, e)
+//     bf16(wo) (e, r): m64n128k16, attr as A (K-major or MN-major by
+//     layout), wo as the MN-major B, one 128-column chunk of r at a time.
+// The logits of one head's 128 queries (786 KB f32) do not fit an SM, so
+// the normalisation before P.V takes two passes over K: the first takes
+// each row's max and (NORM_BEFORE) its online sum, the second recomputes
+// the logits and forms the probabilities with the final max (a
+// flash-style running max would round bf16(ex) at other points: not this
+// function). NORM_DIV / RCP with MAXSUB take the max in pass 1 and the sum
+// beside P.V in pass 2; without MAXSUB, and for NORM_NONE and PHASE_QK,
+// one pass. PHASE_SM (no products) runs on the consumers alone.
 //
 // Bound on the H100: operations. A micro is 2 H bq Tp dh (QK^T, 503 MFLOP)
 // + the same for P.V + 2 H dh bq^2 (identity, 42 MFLOP) + 2 d^2 bq (the
@@ -65,77 +96,42 @@
 namespace {
 
 constexpr int H = 20, DH = 64, BQ = 128, TP = 1536, D = H * DH;
-constexpr int KT = 64;         // keys a tile
-constexpr int NT = TP / KT;    // tiles a head
-constexpr int THREADS = 256;   // 8 warps, 16 query rows each
-constexpr int KP = KT + 8;     // K / V tile row pitch (bf16): 144 B
-constexpr int QP = BQ + 8;     // Q tile and O-projection tile pitch: 272 B
-constexpr int AP = DH + 8;     // bf16(att) staging pitch: 144 B
-constexpr int OE = 64;         // O-projection: e (reduction) a tile
-constexpr int OR = 128;        // O-projection: r a chunk
+constexpr int KT = 128;                   // keys a tile (a ring stage)
+constexpr int NB = 8;                     // n8 key blocks a softmax part
+constexpr int NT = TP / KT;               // tiles a head
+constexpr int NC = 2;                     // consumer warpgroups
+constexpr int CONSUMERS = 128 * NC;       // 8 warps, 16 query rows each
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int STAGES = 4;
+constexpr int BOX = 64 * 64 * 2;  // 8 KB: a 64 x 64 bf16 swizzled tile
+constexpr int STAGE = 4 * BOX;    // K, V (128 keys) | attr x 2, wo
+constexpr int QBUF = 2 * BOX;     // a head's Q, one box per consumer
+constexpr int OE = 64;            // O-projection: e (reduction) a tile
+constexpr int OR = 128;           // O-projection: r a chunk
+constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
 constexpr float NEGF = -3.40282346638528859811704183484516925e+38f;
+
+// named barriers (0 is __syncthreads, used before the roles split only)
+constexpr int BAR_WG = 1;         // + wg: one consumer warpgroup
+constexpr int BAR_CONSUMERS = 3;  // both consumer warpgroups
+constexpr int BAR_PRODUCER = 4;
 
 enum { MASK_NONE, MASK_WHERE, MASK_ROW, MASK_BUF };
 enum { NORM_NONE, NORM_BEFORE, NORM_DIV, NORM_RCP };
 enum { PV_IDENT, PV_VMAJOR };
 enum { PHASE_ALL, PHASE_QK, PHASE_SM };
 
-// shared memory (bytes); the O-projection's two tiles reuse the K / V stages
-constexpr int TILE_B = KT * KP * 2;
-constexpr int OFF_K = 0;
-constexpr int OFF_V = OFF_K + 2 * TILE_B;
-constexpr int OFF_Q = OFF_V + 2 * TILE_B;
-constexpr int OFF_ATT = OFF_Q + DH * QP * 2;
-constexpr int OFF_RM = OFF_ATT + BQ * AP * 2;
+// shared memory (bytes from a 1024-byte boundary)
+constexpr int OFF_Q = STAGES * STAGE;
+constexpr int OFF_T = OFF_Q + 2 * QBUF;  // bf16(att) (128 rows) or P x 2
+constexpr int OFF_RM = OFF_T + 2 * BOX;
 constexpr int OFF_X = OFF_RM + TP * 4;
 constexpr int OFF_SUM = OFF_X + 8 * 128 * 4;
 constexpr int OFF_RED = OFF_SUM + BQ * 4;
-constexpr int SMEM = OFF_RED + 32 * 8;
-static_assert(2 * OE * QP * 2 <= 4 * TILE_B, "O-projection tiles");
-
-__device__ __forceinline__ void cp16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// The A fragment (16 rows m0.., k16 step at k0) of a matrix stored k-major
-// ([k][m], m contiguous, pitch P) through the transposing ldmatrix; also
-// the two n8 B fragments (n0.., n0 + 8..) of a [k][n] matrix.
-template <int P>
-__device__ __forceinline__ void frag_a_kmajor(uint32_t (&a)[4], const bf16* s,
-                                              int k0, int m0, int lane) {
-  ldsm_x4_t(a, s + (k0 + ((lane >> 4) << 3) + (lane & 7)) * P + m0 +
-                   ((lane >> 3) & 1) * 8);
-}
-template <int P>
-__device__ __forceinline__ void frag_b_kmajor(uint32_t (&b)[4], const bf16* s,
-                                              int k0, int n0, int lane) {
-  ldsm_x4_t(b, s + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + n0 +
-                   (lane >> 4) * 8);
-}
+constexpr int OFF_BAR = OFF_RED + 32 * 8;
+// full[STAGES], empty[STAGES], qfull[2], qempty[2], attr_ready
+constexpr int NBAR = 2 * STAGES + 5;
+constexpr int SMEM = 1024 + OFF_BAR + NBAR * 8;
 
 // quad (the 4 threads sharing a fragment row) reductions
 __device__ __forceinline__ float quad_max(float v) {
@@ -152,28 +148,59 @@ __device__ __forceinline__ uint32_t eye2(int k, int n) {
   return (k == n ? 0x3F80u : 0u) | (k + 1 == n ? 0x3F800000u : 0u);
 }
 
+// an [N][4] accumulator (n8 block, element) as wgmma's flat one
+template <int N>
+__device__ __forceinline__ float (&flat(float (&a)[N][4]))[4 * N] {
+  return *reinterpret_cast<float(*)[4 * N]>(&a[0][0]);
+}
+
+// a / b rounded to nearest even, from r = 1 / b (rounded to nearest even,
+// once a row): one product and two corrections by fused multiply-adds
+// (Markstein: the first makes the quotient faithful, the second correctly
+// rounded). For a = 0 or 0x1p-100 <= a <= 1 and b >= 1 (a probability's
+// numerator over its row sum) it is bit for bit a / b, without a division
+// and without a branch; smaller a, where the residuals could underflow,
+// take IEEE division (div_tiny, below).
+__device__ __forceinline__ float div_by_row(float a, float b, float r) {
+  float q = __fmul_rn(a, r);
+  q = __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+__device__ __forceinline__ bool div_tiny(float a) {
+  return a != 0.f && a < 0x1p-100f;
+}
+
+// a thread's 32-bit bf16 pair at (row, byte column) of a 128-byte-swizzled
+// tile of 128-byte rows
+__device__ __forceinline__ uint32_t* swz(uint8_t* tile, int row, int col) {
+  return reinterpret_cast<uint32_t*>(
+      tile + row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15));
+}
+
+struct Bars {
+  uint64_t *full, *empty, *qfull, *qempty, *attr_ready;
+};
+
 template <int MASK, int NORM, int MAXSUB, int LAYOUT, int PHASE, int BRANCH>
 struct Micro {
   static constexpr int PASSES =
       (PHASE == PHASE_QK || NORM == NORM_NONE || !MAXSUB) ? 1 : 2;
   static constexpr bool USE_V = PHASE == PHASE_ALL;
 
-  uint8_t* sm;
-  const bf16 *q, *k, *v;
+  uint8_t* sm;  // 1024-byte aligned
+  Bars bar;
   const int8_t* wo;
   const float* lgb;
-  bf16* attr;  // this block's (d, bq) scratch
-  int T, warp, lane, g, t;
+  bf16* attr;  // this block's scratch: (bq, d) PV_IDENT, (d, bq) PV_VMAJOR
+  int T;
+  // consumers: thread ct (0..255), warpgroup wg, warp (0..7) and its
+  // index w in the warpgroup, fragment coordinates g, t
+  int ct, wg, warp, w, lane, g, t;
+  // uses of the ring, heads loaded, O-projections run (mbarrier phases)
+  unsigned n = 0, hc = 0, itc = 0;
 
-  __device__ bf16* kbuf(int st) const {
-    return reinterpret_cast<bf16*>(sm + OFF_K + st * TILE_B);
-  }
-  __device__ bf16* vbuf(int st) const {
-    return reinterpret_cast<bf16*>(sm + OFF_V + st * TILE_B);
-  }
-  __device__ bf16* qs() const { return reinterpret_cast<bf16*>(sm + OFF_Q); }
-  __device__ bf16* atts() const {
-    return reinterpret_cast<bf16*>(sm + OFF_ATT);
+  __device__ uint8_t* stage(unsigned i) const {
+    return sm + (i % STAGES) * STAGE;
   }
   __device__ float* rms() const {
     return reinterpret_cast<float*>(sm + OFF_RM);
@@ -182,34 +209,21 @@ struct Micro {
   __device__ float* sums() const {
     return reinterpret_cast<float*>(sm + OFF_SUM);
   }
-
-  // start the loads of attention step s (head, pass, tile) into stage s & 1
-  __device__ void load_step(int s) const {
-    const int h = s / (PASSES * NT), r = s - h * PASSES * NT;
-    const int pass = r / NT, tile = r - pass * NT, st = s & 1;
-    const size_t kv0 = (size_t)h * DH * TP + tile * KT;
-    for (int c = threadIdx.x; c < KT * 8; c += THREADS) {
-      const int row = c >> 3, ch = (c & 7) * 8;
-      cp16(kbuf(st) + row * KP + ch, k + kv0 + (size_t)row * TP + ch);
-      if (USE_V && pass == PASSES - 1)
-        cp16(vbuf(st) + row * KP + ch, v + kv0 + (size_t)row * TP + ch);
-    }
-    if (r == 0)
-      for (int c = threadIdx.x; c < DH * 16; c += THREADS) {
-        const int row = c >> 4, ch = (c & 15) * 8;
-        cp16(qs() + row * QP + ch, q + (size_t)h * DH * BQ + row * BQ + ch);
-      }
-    cp_commit();
+  __device__ void wait_full(unsigned i) const {
+    mbar_wait(&bar.full[i % STAGES], (i / STAGES) & 1);
+  }
+  __device__ void release(unsigned i) const {  // one arrival a warpgroup
+    if ((ct & 127) == 0) mbar_arrive(&bar.empty[i % STAGES]);
   }
 
   // keys at or past T to f32-min, as the variant's mask does it
-  __device__ void mask(float (&sc)[8][4], int tile) const {
+  __device__ void mask(float (&sc)[NB][4], int key0) const {
     if (MASK == MASK_NONE) return;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = tile * KT + nb * 8 + 2 * t + e;
+        const int col = key0 + nb * 8 + 2 * t + e;
         if (MASK == MASK_WHERE) {
           sc[nb][e] = col < T ? sc[nb][e] : NEGF;
           sc[nb][e + 2] = col < T ? sc[nb][e + 2] : NEGF;
@@ -223,11 +237,11 @@ struct Micro {
   }
 
   // rows a = 16 warp + g, b = a + 8: running max and (NORM_BEFORE, SM) sum
-  __device__ void stats(const float (&sc)[8][4], float& m_a, float& m_b,
+  __device__ void stats(const float (&sc)[NB][4], float& m_a, float& m_b,
                         float& l_a, float& l_b) const {
     float x_a = NEGF, x_b = NEGF;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       x_a = fmaxf(x_a, fmaxf(sc[nb][0], sc[nb][1]));
       x_b = fmaxf(x_b, fmaxf(sc[nb][2], sc[nb][3]));
     }
@@ -236,7 +250,7 @@ struct Micro {
     if (NORM == NORM_BEFORE || PHASE == PHASE_SM) {
       float s_a = 0.f, s_b = 0.f;
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         s_a += expf(sc[nb][0] - n_a) + expf(sc[nb][1] - n_a);
         s_b += expf(sc[nb][2] - n_b) + expf(sc[nb][3] - n_b);
       }
@@ -247,11 +261,17 @@ struct Micro {
     m_b = n_b;
   }
 
-  // logits -> probabilities (f32, before their bf16 rounding)
-  __device__ void probs(float (&sc)[8][4], float m_a, float m_b, float l_a,
-                        float l_b, float& s_a, float& s_b) const {
+  // logits -> probabilities (f32, before their bf16 rounding); r_a, r_b:
+  // 1 / l_a, 1 / l_b (NORM_BEFORE). The division by the row's sum is
+  // div_by_row; a warp holding a numerator it does not cover divides all
+  // its numerators by IEEE division instead (a branch the warp takes as
+  // one, so the fast path carries no division).
+  __device__ void probs(float (&sc)[NB][4], float m_a, float m_b, float l_a,
+                        float l_b, float r_a, float r_b, float& s_a,
+                        float& s_b) const {
+    bool tiny = false;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (NORM == NORM_NONE) {
@@ -260,39 +280,104 @@ struct Micro {
         }
         const float m = e < 2 ? m_a : m_b;
         const float ex = MAXSUB ? expf(sc[nb][e] - m) : expf(sc[nb][e]);
-        if (NORM == NORM_BEFORE) {
-          sc[nb][e] = ex / (e < 2 ? l_a : l_b);
-        } else {
-          sc[nb][e] = ex;
+        sc[nb][e] = ex;
+        if (NORM == NORM_BEFORE)
+          tiny |= div_tiny(ex);
+        else
           (e < 2 ? s_a : s_b) += ex;
-        }
       }
+    if (NORM != NORM_BEFORE) return;
+    if (__any_sync(0xffffffffu, tiny)) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nb][e] /= e < 2 ? l_a : l_b;
+      return;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[nb][e] = e < 2 ? div_by_row(sc[nb][e], l_a, r_a)
+                          : div_by_row(sc[nb][e], l_b, r_b);
   }
 
   // X's part of the logits / probabilities: head 0, rows 0..7, keys 0..127
-  __device__ void x_from_rows(const float (&sc)[8][4], int h, int tile) const {
-    if (h != 0 || warp != 0 || tile >= 2) return;
+  // (sc holds keys key0 ..)
+  template <int N>
+  __device__ void x_from_rows(const float (&sc)[N][4], int h,
+                              int key0) const {
+    if (h != 0 || warp != 0 || key0 >= 128) return;
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      xs()[g * 128 + tile * KT + nb * 8 + 2 * t] = sc[nb][0];
-      xs()[g * 128 + tile * KT + nb * 8 + 2 * t + 1] = sc[nb][1];
+    for (int nb = 0; nb < N; ++nb) {
+      if (key0 + nb * 8 >= 128) break;
+      xs()[g * 128 + key0 + nb * 8 + 2 * t] = sc[nb][0];
+      xs()[g * 128 + key0 + nb * 8 + 2 * t + 1] = sc[nb][1];
     }
   }
 
-  // attT rows c = 16 mb + g (+ 8), columns i = 16 warp + 8 nb + 2t (+ 1),
-  // as (m = c, n = i) accumulators acc[2 mb + nb], rounded into attr
-  __device__ void store_attr(const float (&acc)[8][4], int h) const {
+  // sc = the logits of this warpgroup's 64 queries against 8 N keys from
+  // kt (N 8: one 64-key box; N 16: the stage's two): Q (c, i) and K (c, j)
+  // both MN-major. The wait also completes a P.V still in flight.
+  template <int N>
+  __device__ void qk(float (&sc)[N][4], const uint8_t* qw,
+                     const uint8_t* kt) const {
+    fence_regs(flat(sc));
+    wgmma_fence();
 #pragma unroll
-    for (int mb = 0; mb < 4; ++mb)
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint64_t da = wgmma_desc(qw + kk * 2048, BOX, 1024);
+      const uint64_t db = wgmma_desc(kt + kk * 2048, BOX, 1024);
+      if constexpr (N == 16)
+        wgmma_m64n128k16_ss<1, 1>(flat(sc), da, db, kk > 0);
+      else
+        wgmma_m64n64k16_ss<1, 1>(flat(sc), da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(flat(sc));
+  }
+
+  // start acc += P.V over the 64 keys of one V box (PV_IDENT: att (i, c);
+  // PV_VMAJOR: attT (c, i)), P the bf16 rounding of sc; committed, not
+  // waited for: the next QK^T's wait completes it. pa (PV_IDENT's
+  // register operand) and acc stay untouched until then.
+  __device__ void pv(float (&acc)[8][4], const float (&sc)[NB][4],
+                     uint32_t (&pa)[4][4], const uint8_t* vb) const {
+    if (LAYOUT == PV_IDENT) {
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const int c = h * DH + mb * 16 + g, i = warp * 16 + nb * 8 + 2 * t;
-        const float* a = acc[2 * mb + nb];
-        *reinterpret_cast<uint32_t*>(attr + (size_t)c * BQ + i) =
-            pack_bf2(a[0], a[1]);
-        *reinterpret_cast<uint32_t*>(attr + (size_t)(c + 8) * BQ + i) =
-            pack_bf2(a[2], a[3]);
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf2(sc[2 * kk][0], sc[2 * kk][1]);
+        pa[kk][1] = pack_bf2(sc[2 * kk][2], sc[2 * kk][3]);
+        pa[kk][2] = pack_bf2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
       }
+      fence_regs(flat(acc));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // V (c, j): the K-major B
+        wgmma_m64n64k16_rs<0>(flat(acc), pa[kk],
+                              wgmma_desc(vb + kk * 32, 16, 1024), 1);
+    } else {
+      // P (this warpgroup's 64 queries x 64 keys) into shared memory, the
+      // K-major B of attT (c, i) += V (c, j) P^T (j, i)
+      uint8_t* pb = sm + OFF_T + wg * BOX;
+      const int ra = 16 * w + g, rb = ra + 8;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        *swz(pb, ra, 16 * nb + 4 * t) = pack_bf2(sc[nb][0], sc[nb][1]);
+        *swz(pb, rb, 16 * nb + 4 * t) = pack_bf2(sc[nb][2], sc[nb][3]);
+      }
+      fence_proxy_async();
+      named_barrier(BAR_WG + wg, 128);
+      fence_regs(flat(acc));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(flat(acc), wgmma_desc(vb + kk * 32, 16, 1024),
+                                 wgmma_desc(pb + kk * 32, 16, 1024), 1);
+    }
+    wgmma_commit();
   }
 
   // the end of head h: the late division, the identity product (PV_IDENT),
@@ -304,27 +389,36 @@ struct Micro {
       s_b = quad_sum(s_b);
     }
     if (LAYOUT == PV_VMAJOR) {
+      // acc (c = 16 w + g [+ 8], i = 64 wg + 8 nb + 2t [+ 1])
+      const int i0 = 64 * wg;
       if (NORM == NORM_DIV) {  // attT[c, i] / sm[i]: i is a column here
         if (t == 0) {
-          sums()[warp * 16 + g] = s_a;
-          sums()[warp * 16 + g + 8] = s_b;
+          sums()[i0 + 16 * w + g] = s_a;
+          sums()[i0 + 16 * w + g + 8] = s_b;
         }
-        __syncwarp();
+        named_barrier(BAR_WG + wg, 128);
 #pragma unroll
-        for (int mb = 0; mb < 4; ++mb)
+        for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[2 * mb + nb][e] /=
-                  sums()[warp * 16 + nb * 8 + 2 * t + (e & 1)];
-        __syncwarp();
+          for (int e = 0; e < 4; ++e)
+            acc[nb][e] /= sums()[i0 + nb * 8 + 2 * t + (e & 1)];
+        named_barrier(BAR_WG + wg, 128);
       }
-      store_attr(acc, h);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int c = h * DH + 16 * w + g, i = i0 + nb * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(attr + (size_t)c * BQ + i) =
+            pack_bf2(acc[nb][0], acc[nb][1]);
+        *reinterpret_cast<uint32_t*>(attr + (size_t)(c + 8) * BQ + i) =
+            pack_bf2(acc[nb][2], acc[nb][3]);
+      }
       return;
     }
+    // acc (i = 64 wg + 16 w + g [+ 8], c = 8 nb + 2t [+ 1]) -> bf16 into
+    // the (128 i, 64 c) tile
     const float r_a = 1.f / s_a, r_b = 1.f / s_b;
-    const int ra = warp * 16 + g;
+    const int ia = 64 * wg + 16 * w + g, ib = ia + 8;
+    uint8_t* tb = sm + OFF_T;
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
       float* a = acc[nb];
@@ -333,127 +427,109 @@ struct Micro {
       } else if (NORM == NORM_RCP) {
         a[0] *= r_a, a[1] *= r_a, a[2] *= r_b, a[3] *= r_b;
       }
-      *reinterpret_cast<uint32_t*>(atts() + ra * AP + nb * 8 + 2 * t) =
-          pack_bf2(a[0], a[1]);
-      *reinterpret_cast<uint32_t*>(atts() + (ra + 8) * AP + nb * 8 + 2 * t) =
-          pack_bf2(a[2], a[3]);
+      *swz(tb, ia, 16 * nb + 4 * t) = pack_bf2(a[0], a[1]);
+      *swz(tb, ib, 16 * nb + 4 * t) = pack_bf2(a[2], a[3]);
     }
-    __syncthreads();
-    // attT[c, i'] = sum_i bf16(att)[i, c] I[i, i'] for this warp's 16 i'
+    fence_proxy_async();
+    named_barrier(BAR_CONSUMERS, CONSUMERS);
+    // (i', c) = sum over all 128 i of I (i', i) bf16(att) (i, c): the
+    // identity's rows i' of this warpgroup as register A fragments
     float o[8][4];
 #pragma unroll
     for (int x = 0; x < 8; ++x) o[x][0] = o[x][1] = o[x][2] = o[x][3] = 0.f;
+    fence_regs(flat(o));
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t b[2][2];
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        const int n = warp * 16 + nb * 8 + g;
-        b[nb][0] = eye2(kk * 16 + 2 * t, n);
-        b[nb][1] = eye2(kk * 16 + 8 + 2 * t, n);
-      }
-#pragma unroll
-      for (int mb = 0; mb < 4; ++mb) {
-        uint32_t a[4];
-        frag_a_kmajor<AP>(a, atts(), kk * 16, mb * 16, lane);
-        mma_bf16(o[2 * mb], a, b[0][0], b[0][1]);
-        mma_bf16(o[2 * mb + 1], a, b[1][0], b[1][1]);
-      }
+      const uint32_t a[4] = {eye2(16 * kk + 2 * t, ia), eye2(16 * kk + 2 * t, ib),
+                             eye2(16 * kk + 8 + 2 * t, ia),
+                             eye2(16 * kk + 8 + 2 * t, ib)};
+      wgmma_m64n64k16_rs<1>(flat(o), a, wgmma_desc(tb + kk * 2048, BOX, 1024),
+                            1);
     }
-    store_attr(o, h);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(flat(o));
+    named_barrier(BAR_CONSUMERS, CONSUMERS);  // tb read by both
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int c = h * DH + nb * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(attr + (size_t)ia * D + c) =
+          pack_bf2(o[nb][0], o[nb][1]);
+      *reinterpret_cast<uint32_t*>(attr + (size_t)ib * D + c) =
+          pack_bf2(o[nb][2], o[nb][3]);
+    }
   }
 
   // the attention of every head into attr (PHASE_ALL), or the logits
-  // (PHASE_QK); returns this thread's sum of the logits (PHASE_QK)
-  __device__ double attention() const {
-    constexpr int STEPS = H * PASSES * NT;
+  // (PHASE_QK); returns this thread's sum of the logits (PHASE_QK). A
+  // stage's 128 keys are taken in one product for the logits alone and in
+  // two 64-key parts where a softmax follows.
+  __device__ double attention() {
+    constexpr int QN = PHASE == PHASE_QK ? 2 * NB : NB;  // n8 blocks a part
+    constexpr int PARTS = KT / (8 * QN);
     double csum = 0.0;
-    uint32_t qa[4][4];
-    float acc[8][4];
-    float m_a = NEGF, m_b = NEGF, l_a = 0.f, l_b = 0.f, s_a = 0.f, s_b = 0.f;
-    load_step(0);
-    for (int s = 0; s < STEPS; ++s) {
-      if (s + 1 < STEPS)
-        load_step(s + 1);
-      else
-        cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      const int h = s / (PASSES * NT), r = s - h * PASSES * NT;
-      const int pass = r / NT, tile = r - pass * NT, st = s & 1;
-      if (r == 0) {
+    float acc[8][4], sc[QN][4];
+    uint32_t pa[4][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          frag_a_kmajor<QP>(qa[kk], qs(), kk * 16, warp * 16, lane);
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-          acc[x][0] = acc[x][1] = acc[x][2] = acc[x][3] = 0.f;
-        m_a = m_b = -INFINITY;
-        l_a = l_b = s_a = s_b = 0.f;
-      }
-      float sc[8][4];
+    for (int x = 0; x < QN; ++x)
+      sc[x][0] = sc[x][1] = sc[x][2] = sc[x][3] = 0.f;
+    for (int h = 0; h < H; ++h, ++hc) {
+      const int qs = hc & 1;
+      mbar_wait(&bar.qfull[qs], (hc >> 1) & 1);
+      const uint8_t* qw = sm + OFF_Q + qs * QBUF + wg * BOX;
 #pragma unroll
       for (int x = 0; x < 8; ++x)
-        sc[x][0] = sc[x][1] = sc[x][2] = sc[x][3] = 0.f;
+        acc[x][0] = acc[x][1] = acc[x][2] = acc[x][3] = 0.f;
+      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+      float r_a = 0.f, r_b = 0.f, s_a = 0.f, s_b = 0.f;
+      for (int pass = 0; pass < PASSES; ++pass) {
+        const bool last = pass == PASSES - 1;
+        for (int tile = 0; tile < NT; ++tile, ++n) {
+          wait_full(n);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+          for (int part = 0; part < PARTS; ++part) {
+            const int key0 = tile * KT + part * 8 * QN;
+            const bool end = tile == NT - 1 && part == PARTS - 1;
+            qk(sc, qw, stage(n) + part * BOX);
+            if (part == 0 && tile > 0 && last && PHASE == PHASE_ALL)
+              release(n - 1);  // the previous tile's P.V read its V
+            if (last && end && (ct & 127) == 0)
+              mbar_arrive(&bar.qempty[qs]);  // the head's last read of Q
+            if (PHASE == PHASE_QK) {
+              if (part == PARTS - 1) release(n);
+              float p = 0.f;
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          frag_b_kmajor<KP>(b, kbuf(st), kk * 16, np * 16, lane);
-          mma_bf16(sc[2 * np], qa[kk], b[0], b[1]);
-          mma_bf16(sc[2 * np + 1], qa[kk], b[2], b[3]);
-        }
-      if (PHASE == PHASE_QK) {
-        float p = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-          p += (sc[nb][0] + sc[nb][1]) + (sc[nb][2] + sc[nb][3]);
-        csum += p;
-        x_from_rows(sc, h, tile);
-      } else {
-        mask(sc, tile);
-        if (PASSES == 2 && pass == 0) {
-          stats(sc, m_a, m_b, l_a, l_b);
-          if (tile == NT - 1 && NORM == NORM_BEFORE) {
-            l_a = quad_sum(l_a);
-            l_b = quad_sum(l_b);
-          }
-        } else {
-          probs(sc, m_a, m_b, l_a, l_b, s_a, s_b);
-          const bf16* vb = vbuf(st);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float(&s0)[4] = sc[2 * kk], (&s1)[4] = sc[2 * kk + 1];
-            const uint32_t p_lo[2] = {pack_bf2(s0[0], s0[1]),
-                                      pack_bf2(s1[0], s1[1])};
-            const uint32_t p_hi[2] = {pack_bf2(s0[2], s0[3]),
-                                      pack_bf2(s1[2], s1[3])};
-            if (LAYOUT == PV_IDENT) {  // att (i, c) += pr (i, j) v (j, c)
-              const uint32_t a[4] = {p_lo[0], p_hi[0], p_lo[1], p_hi[1]};
-#pragma unroll
-              for (int np = 0; np < 4; ++np) {
-                uint32_t b[4];
-                const int row = np * 16 + ((lane >> 4) << 3) + (lane & 7);
-                ldsm_x4(b, vb + row * KP + kk * 16 + ((lane >> 3) & 1) * 8);
-                mma_bf16(acc[2 * np], a, b[0], b[1]);
-                mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+              for (int nb = 0; nb < QN; ++nb)
+                p += (sc[nb][0] + sc[nb][1]) + (sc[nb][2] + sc[nb][3]);
+              csum += p;
+              x_from_rows(sc, h, key0);
+              continue;
+            }
+            float (&s8)[NB][4] = *reinterpret_cast<float(*)[NB][4]>(sc);
+            mask(s8, key0);
+            if (!last) {  // pass 0 of two: the max (and the sum)
+              if (part == PARTS - 1) release(n);
+              stats(s8, m_a, m_b, l_a, l_b);
+              if (end && NORM == NORM_BEFORE) {
+                l_a = quad_sum(l_a);
+                l_b = quad_sum(l_b);
+                r_a = 1.f / l_a;
+                r_b = 1.f / l_b;
               }
-            } else {  // attT (c, i) += v (c, j) pr^T (j, i)
-#pragma unroll
-              for (int mb = 0; mb < 4; ++mb) {
-                uint32_t a[4];
-                const int row = mb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-                ldsm_x4(a, vb + row * KP + kk * 16 + (lane >> 4) * 8);
-                mma_bf16(acc[2 * mb], a, p_lo[0], p_lo[1]);
-                mma_bf16(acc[2 * mb + 1], a, p_hi[0], p_hi[1]);
-              }
+              continue;
+            }
+            probs(s8, m_a, m_b, l_a, l_b, r_a, r_b, s_a, s_b);
+            pv(acc, s8, pa, stage(n) + (2 + part) * BOX);
+            if (end) {
+              wgmma_wait<0>();
+              fence_regs(flat(acc));
+              release(n);
+              head_out(acc, h, s_a, s_b);
             }
           }
-          if (tile == NT - 1) head_out(acc, h, s_a, s_b);
         }
       }
-      __syncthreads();
     }
     return csum;
   }
@@ -464,148 +540,95 @@ struct Micro {
     double csum = 0.0;
     for (int h = 0; h < H; ++h) {
       float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-      float s_a = 0.f, s_b = 0.f;
+      float r_a = 0.f, r_b = 0.f, s_a = 0.f, s_b = 0.f;
       const float* rows = lgb + ((size_t)h * BQ + warp * 16 + g) * TP;
       for (int pass = 0; pass < 2; ++pass) {
-        for (int tile = 0; tile < NT; ++tile) {
-          float sc[8][4];
+        for (int key0 = 0; key0 < TP; key0 += 8 * NB) {
+          float sc[NB][4];
 #pragma unroll
-          for (int nb = 0; nb < 8; ++nb) {
-            const int j = tile * KT + nb * 8 + 2 * t;
+          for (int nb = 0; nb < NB; ++nb) {
+            const int j = key0 + nb * 8 + 2 * t;
             const float2 x = *reinterpret_cast<const float2*>(rows + j);
             const float2 y =
                 *reinterpret_cast<const float2*>(rows + 8 * TP + j);
             sc[nb][0] = x.x, sc[nb][1] = x.y, sc[nb][2] = y.x, sc[nb][3] = y.y;
           }
-          mask(sc, tile);
+          mask(sc, key0);
           if (pass == 0) {
             stats(sc, m_a, m_b, l_a, l_b);
             continue;
           }
-          probs(sc, m_a, m_b, l_a, l_b, s_a, s_b);
+          probs(sc, m_a, m_b, l_a, l_b, r_a, r_b, s_a, s_b);
           float p = 0.f;
 #pragma unroll
-          for (int nb = 0; nb < 8; ++nb)
+          for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               sc[nb][e] = round_bf(sc[nb][e]);
               p += sc[nb][e];
             }
           csum += p;
-          x_from_rows(sc, h, tile);
+          x_from_rows(sc, h, key0);
         }
         if (pass == 0) {
           l_a = quad_sum(l_a);
           l_b = quad_sum(l_b);
+          r_a = 1.f / l_a;
+          r_b = 1.f / l_b;
         }
       }
     }
     return csum;
   }
 
-  // of^T (i, r) = attr^T (i, e) bf16(wo) (e, r): warps 4 (i, 32 each) x 2
-  // (r, 64 each) over chunks of 128 r; returns this thread's sum of `of`
-  __device__ double oproj() const {
-    bf16* at_s = kbuf(0);            // (OE e) x (BQ i), pitch QP
-    bf16* wo_s = at_s + OE * QP;     // (OE e) x (OR r), pitch QP
-    const int wi = warp & 3, wr = warp >> 2;
+  // of^T (i, r) = attr^T (i, e) bf16(wo) (e, r) for this warpgroup's 64 i,
+  // 128 r a chunk; returns this thread's sum of `of`
+  __device__ double oproj() {
+    constexpr int TA = LAYOUT == PV_VMAJOR ? 1 : 0;
     double csum = 0.0;
+    const int ia = 64 * wg + 16 * w + g, ib = ia + 8;
     for (int rc = 0; rc < D / OR; ++rc) {
-      float oc[2][8][4];
+      float oc[64];
 #pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
+      for (int x = 0; x < 64; ++x) oc[x] = 0.f;
+      for (int et = 0; et < D / OE; ++et, ++n) {
+        wait_full(n);
+        const uint8_t* a = stage(n) + wg * BOX;
+        const uint8_t* b = stage(n) + 2 * BOX;
+        fence_regs(oc);
+        wgmma_fence();
 #pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-          oc[mb][nb][0] = oc[mb][nb][1] = oc[mb][nb][2] = oc[mb][nb][3] = 0.f;
-      uint4 ra[4], rw[2];
-      // 16-byte chunk x of a thread: attr rows of 16 chunks (8 bf16), wo
-      // rows of 8 chunks (16 int8)
-      auto load = [&](int et) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int c = threadIdx.x + x * THREADS;
-          ra[x] = *reinterpret_cast<const uint4*>(
-              attr + (size_t)(et * OE + (c >> 4)) * BQ + (c & 15) * 8);
-        }
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int c = threadIdx.x + x * THREADS;
-          rw[x] = *reinterpret_cast<const uint4*>(
-              wo + (size_t)(et * OE + (c >> 3)) * D + rc * OR + (c & 7) * 16);
-        }
-      };
-      auto store = [&]() {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int c = threadIdx.x + x * THREADS;
-          *reinterpret_cast<uint4*>(at_s + (c >> 4) * QP + (c & 15) * 8) =
-              ra[x];
-        }
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int c = threadIdx.x + x * THREADS;
-          const int8_t* b = reinterpret_cast<const int8_t*>(&rw[x]);
-          uint32_t w[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            w[j] = pack_bf2((float)b[2 * j], (float)b[2 * j + 1]);
-          uint4* dst =
-              reinterpret_cast<uint4*>(wo_s + (c >> 3) * QP + (c & 7) * 16);
-          dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-          dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-        }
-      };
-      load(0);
-      store();
-      __syncthreads();
-      for (int et = 0; et < D / OE; ++et) {
-        if (et + 1 < D / OE) load(et + 1);
-#pragma unroll
-        for (int kk = 0; kk < OE / 16; ++kk) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mb = 0; mb < 2; ++mb)
-            frag_a_kmajor<QP>(a[mb], at_s, kk * 16, wi * 32 + mb * 16, lane);
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t b[4];
-            frag_b_kmajor<QP>(b, wo_s, kk * 16, wr * 64 + np * 16, lane);
-#pragma unroll
-            for (int mb = 0; mb < 2; ++mb) {
-              mma_bf16(oc[mb][2 * np], a[mb], b[0], b[1]);
-              mma_bf16(oc[mb][2 * np + 1], a[mb], b[2], b[3]);
-            }
-          }
-        }
-        __syncthreads();
-        if (et + 1 < D / OE) {
-          store();
-          __syncthreads();
-        }
+        for (int kk = 0; kk < OE / 16; ++kk)
+          wgmma_m64n128k16_ss<1, TA>(
+              oc,
+              TA ? wgmma_desc(a + kk * 2048, BOX, 1024)
+                 : wgmma_desc(a + kk * 32, 16, 1024),
+              wgmma_desc(b + kk * 2048, BOX, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous tile's products are done
+        fence_regs(oc);
+        if (et > 0) release(n - 1);
       }
+      wgmma_wait<0>();
+      fence_regs(oc);
+      release(n - 1);
       float p = 0.f;
 #pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb)
-          p += (oc[mb][nb][0] + oc[mb][nb][1]) +
-               (oc[mb][nb][2] + oc[mb][nb][3]);
+      for (int x = 0; x < 64; x += 4) p += (oc[x] + oc[x + 1]) + (oc[x + 2] + oc[x + 3]);
       csum += p;
-      if (rc == 0 && wr == 0)  // X = of[r < 8, i]: the first n8 block
-#pragma unroll
-        for (int mb = 0; mb < 2; ++mb) {
-          const int i = wi * 32 + mb * 16 + g;
-          xs()[(2 * t) * 128 + i] = oc[mb][0][0];
-          xs()[(2 * t + 1) * 128 + i] = oc[mb][0][1];
-          xs()[(2 * t) * 128 + i + 8] = oc[mb][0][2];
-          xs()[(2 * t + 1) * 128 + i + 8] = oc[mb][0][3];
-        }
+      if (rc == 0) {  // X = of[r < 8, i]: the first n8 block
+        xs()[(2 * t) * 128 + ia] = oc[0];
+        xs()[(2 * t + 1) * 128 + ia] = oc[1];
+        xs()[(2 * t) * 128 + ib] = oc[2];
+        xs()[(2 * t + 1) * 128 + ib] = oc[3];
+      }
     }
     return csum;
   }
 
-  // one micro: X into xs; returns this thread's part of the checksum
-  __device__ double run() const {
+  // one micro on the consumers: X into xs; returns this thread's part of
+  // the checksum
+  __device__ double run() {
     double c;
     if (PHASE == PHASE_SM) {
       c = softmax_only();
@@ -613,67 +636,192 @@ struct Micro {
       c = attention();
     } else {
       attention();
-      __syncthreads();  // attr written
+      fence_proxy_async_global();  // attr's stores, for the TMA loads
+      mbar_arrive(bar.attr_ready);
       c = oproj();
     }
-    __syncthreads();  // xs written
+    named_barrier(BAR_CONSUMERS, CONSUMERS);  // xs written
     return c;
+  }
+
+  // the producer's side of one micro: Q, K, V tiles by TMA; attr by TMA
+  // and wo converted to bf16 for the O-projection
+  __device__ void produce(int pt, const CUtensorMap* mq, const CUtensorMap* mk,
+                          const CUtensorMap* mv, const CUtensorMap* ma,
+                          int blk) {
+    if (PHASE == PHASE_SM) return;
+    for (int h = 0; h < H; ++h, ++hc) {
+      if (pt == 0) {
+        const int qs = hc & 1;
+        if (hc >= 2) mbar_wait(&bar.qempty[qs], ((hc >> 1) - 1) & 1);
+        uint8_t* qd = sm + OFF_Q + qs * QBUF;
+        mbar_arrive_expect_tx(&bar.qfull[qs], QBUF);
+        tma_load_2d(qd, mq, &bar.qfull[qs], 0, h * DH);
+        tma_load_2d(qd + BOX, mq, &bar.qfull[qs], 64, h * DH);
+      }
+      for (int pass = 0; pass < PASSES; ++pass)
+        for (int tile = 0; tile < NT; ++tile, ++n) {
+          // every producer thread waits for each use of the ring in turn:
+          // a parity wait is only sound one phase behind
+          if (n >= STAGES)
+            mbar_wait(&bar.empty[n % STAGES], (n / STAGES - 1) & 1);
+          if (pt != 0) continue;
+          const bool v = USE_V && pass == PASSES - 1;
+          uint64_t* f = &bar.full[n % STAGES];
+          mbar_arrive_expect_tx(f, v ? 4 * BOX : 2 * BOX);
+          for (int b = 0; b < 2; ++b) {  // keys 64 b .. of the tile
+            tma_load_2d(stage(n) + b * BOX, mk, f, tile * KT + 64 * b, h * DH);
+            if (v)
+              tma_load_2d(stage(n) + (2 + b) * BOX, mv, f, tile * KT + 64 * b,
+                          h * DH);
+          }
+        }
+    }
+    if (PHASE != PHASE_ALL) return;
+    if (pt == 0) mbar_wait(bar.attr_ready, itc & 1);
+    ++itc;
+    // wo row e = pt / 2 of each tile, 64 columns (half pt % 2 of the 128):
+    // one 128-byte swizzled row of a 64-column block. Each tile's bytes
+    // are loaded a tile ahead, and attr's TMA goes out before the
+    // conversion: the stage's barrier expects attr's bytes first and
+    // takes its arrival once the converted rows are written.
+    const int e = pt >> 1, half = pt & 1;
+    auto wo_row = [&](int i) {  // tile i = rc x (D / OE) + et
+      return reinterpret_cast<const int4*>(
+          wo + (size_t)((i % (D / OE)) * OE + e) * D + (i / (D / OE)) * OR +
+          half * 64);
+    };
+    constexpr int TILES = (D / OR) * (D / OE);
+    int4 raw[4], next[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) next[x] = __ldg(wo_row(0) + x);
+    for (int i = 0; i < TILES; ++i, ++n) {
+      const int rc = i / (D / OE), et = i - rc * (D / OE);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) raw[x] = next[x];
+      if (i + 1 < TILES)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) next[x] = __ldg(wo_row(i + 1) + x);
+      if (n >= STAGES)
+        mbar_wait(&bar.empty[n % STAGES], (n / STAGES - 1) & 1);
+      uint64_t* f = &bar.full[n % STAGES];
+      if (pt == 0) {
+        mbar_expect_tx(f, 2 * BOX);
+        for (int c = 0; c < NC; ++c) {
+          if (LAYOUT == PV_VMAJOR)
+            tma_load_2d(stage(n) + c * BOX, ma, f, 64 * c, blk * D + et * OE);
+          else
+            tma_load_2d(stage(n) + c * BOX, ma, f, et * OE, blk * BQ + 64 * c);
+        }
+      }
+      uint8_t* dst = stage(n) + (2 + half) * BOX + e * 128;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {  // 16 bytes: r 8c .. 8c + 7
+        const int* wds = reinterpret_cast<const int*>(&raw[c >> 1]);
+        float lo[4], hi[4];
+        i8x4_to_f32(wds[2 * (c & 1)], lo);
+        i8x4_to_f32(wds[2 * (c & 1) + 1], hi);
+        *reinterpret_cast<uint4*>(dst + ((c ^ (e & 7)) << 4)) =
+            make_uint4(pack_bf2(lo[0], lo[1]), pack_bf2(lo[2], lo[3]),
+                       pack_bf2(hi[0], hi[1]), pack_bf2(hi[2], hi[3]));
+      }
+      fence_proxy_async();
+      named_barrier(BAR_PRODUCER, 128);
+      if (pt == 0) mbar_arrive(f);
+    }
   }
 };
 
 template <int MASK, int NORM, int MAXSUB, int LAYOUT, int PHASE, int BRANCH>
 __global__ void __launch_bounds__(THREADS, 1)
-qa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const int8_t* __restrict__ wo,
+qa_kernel(const __grid_constant__ CUtensorMap mq,
+          const __grid_constant__ CUtensorMap mk,
+          const __grid_constant__ CUtensorMap mv,
+          const __grid_constant__ CUtensorMap ma, const int8_t* __restrict__ wo,
           const float* __restrict__ lgb, const float* __restrict__ rmask,
           int T, int reps, int gate, bf16* __restrict__ attr_all,
           float* __restrict__ out, double* __restrict__ checksum) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
+  extern __shared__ uint8_t smem_raw[];
   Micro<MASK, NORM, MAXSUB, LAYOUT, PHASE, BRANCH> m;
-  m.sm = smem_raw;
-  m.q = q, m.k = k, m.v = v, m.wo = wo, m.lgb = lgb;
+  m.sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(m.sm + OFF_BAR);
+  m.bar = Bars{bars, bars + STAGES, bars + 2 * STAGES, bars + 2 * STAGES + 2,
+               bars + 2 * STAGES + 4};
+  m.wo = wo, m.lgb = lgb;
   m.attr = attr_all + (size_t)blockIdx.x * D * BQ;
   m.T = T;
-  m.warp = threadIdx.x >> 5, m.lane = threadIdx.x & 31;
+  m.ct = threadIdx.x;
+  m.wg = threadIdx.x >> 7;
+  m.warp = threadIdx.x >> 5, m.w = m.warp & 3, m.lane = threadIdx.x & 31;
   m.g = m.lane >> 2, m.t = m.lane & 3;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&m.bar.full[s], 1);
+      mbar_init(&m.bar.empty[s], NC);  // one arrival a consumer warpgroup
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&m.bar.qfull[s], 1);
+      mbar_init(&m.bar.qempty[s], NC);
+    }
+    mbar_init(m.bar.attr_ready, CONSUMERS);
+    mbar_fence_init();
+  }
   if (MASK == MASK_BUF)
     for (int j = threadIdx.x; j < TP; j += THREADS) m.rms()[j] = rmask[j];
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int pt = threadIdx.x - CONSUMERS;
+    for (int it = 0; it < reps; ++it) {
+      if (BRANCH && it < gate) continue;
+      m.produce(pt, &mq, &mk, &mv, &ma, blockIdx.x);
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
   float* o = out + (size_t)blockIdx.x * 8 * 128;
   float carry[4] = {0.f, 0.f, 0.f, 0.f};
   if (BRANCH)
-    for (int e = 0; e < 4; ++e) o[threadIdx.x + e * THREADS] = 0.f;
-  __syncthreads();
+    for (int e = 0; e < 4; ++e) o[threadIdx.x + e * CONSUMERS] = 0.f;
   double csum = 0.0;
   for (int it = 0; it < reps; ++it) {
     if (BRANCH && it < gate) continue;
-    const float w = (float)(it % 3 + 1);
-    csum += (double)w * m.run();
+    const float wgt = (float)(it % 3 + 1);
+    csum += (double)wgt * m.run();
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int x = threadIdx.x + e * THREADS;
-      const float add = __fmul_rn(m.xs()[x], w);
+      const int x = threadIdx.x + e * CONSUMERS;
+      const float add = __fmul_rn(m.xs()[x], wgt);
       if (BRANCH)
         o[x] = __fadd_rn(o[x], add);
       else
         carry[e] = __fadd_rn(carry[e], add);
     }
-    __syncthreads();  // xs read before the next micro writes it
+    named_barrier(BAR_CONSUMERS, CONSUMERS);  // xs read before it is rewritten
   }
   if (!BRANCH)
-    for (int e = 0; e < 4; ++e) o[threadIdx.x + e * THREADS] = carry[e];
+    for (int e = 0; e < 4; ++e) o[threadIdx.x + e * CONSUMERS] = carry[e];
   // the block's checksum: warp sums, then the 8 warps in order
-  double* red = reinterpret_cast<double*>(smem_raw + OFF_RED);
+  double* red = reinterpret_cast<double*>(m.sm + OFF_RED);
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1)
     csum += __shfl_xor_sync(0xffffffffu, csum, d);
-  __syncthreads();
   if (m.lane == 0) red[m.warp] = csum;
-  __syncthreads();
+  named_barrier(BAR_CONSUMERS, CONSUMERS);
   if (threadIdx.x == 0) {
     double s = 0.0;
-    for (int x = 0; x < THREADS / 32; ++x) s += red[x];
+    for (int x = 0; x < CONSUMERS / 32; ++x) s += red[x];
     checksum[blockIdx.x] = s;
   }
+}
+
+// a bf16 map over `rows` rows of `cols` elements, 64 x 64 boxes
+int map2d(CUtensorMap* m, const void* base, int cols, long long rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return encode_map(m, base, 2, dims, strides, box);
 }
 
 template <int MASK, int NORM, int MAXSUB, int LAYOUT, int PHASE, int BRANCH>
@@ -689,9 +837,15 @@ int launch_qa(const void* q, const void* k, const void* v, const void* wo,
     if (e != cudaSuccess) return ERR_ATTRIBUTE + (int)e;
     configured = true;
   }
+  CUtensorMap mq, mk, mv, ma;
+  int err;
+  if ((err = map2d(&mq, q, BQ, H * DH)) || (err = map2d(&mk, k, TP, H * DH)) ||
+      (err = map2d(&mv, v, TP, H * DH)) ||
+      (err = LAYOUT == PV_VMAJOR ? map2d(&ma, attr, BQ, (long long)blocks * D)
+                                 : map2d(&ma, attr, D, (long long)blocks * BQ)))
+    return err;
   kern<<<blocks, THREADS, SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int8_t*>(wo),
+      mq, mk, mv, ma, static_cast<const int8_t*>(wo),
       static_cast<const float*>(lgb), static_cast<const float*>(rmask), T,
       reps, gate, static_cast<bf16*>(attr), out, checksum);
   return launch_status();
@@ -722,10 +876,11 @@ extern "C" {
 
 // q (20, 64, 128), k and v (20, 64, 1536) bf16; wo (1280, 1280) int8; lgb
 // (20, 128, 1536) f32 (PHASE_SM, else may be null); rmask (>= 1, 1536) f32
-// (MASK_BUF, else may be null); attr (blocks, 1280, 128) bf16 scratch; out
-// (blocks, 8, 128) f32; checksum (blocks,) f64. The flags take the enums'
-// values above. Returns 0, a cudaError_t, ERR_BAD_ARGS for arguments or a
-// flag tuple that is not instantiated, or ERR_ATTRIBUTE + the cudaError_t.
+// (MASK_BUF, else may be null); attr (blocks, 1280 x 128) bf16 scratch;
+// out (blocks, 8, 128) f32; checksum (blocks,) f64; all 16-byte aligned.
+// The flags take the enums' values above. Returns 0, a cudaError_t,
+// ERR_BAD_ARGS for arguments or a flag tuple that is not instantiated,
+// ERR_ATTRIBUTE + the cudaError_t, or hopper.cuh's tensor-map codes.
 int aries_probe_qa(const void* q, const void* k, const void* v, const void* wo,
                    const void* lgb, const void* rmask, int mask, int norm,
                    int max_sub, int layout, int phase, int branch, int T,

@@ -42,194 +42,310 @@
 //       faster; a cluster of two blocks along M sharing each weight tile by
 //       TMA multicast (a third less L2 traffic) was slower.
 //
-// "splitk" (small M: a decode step's 6 rows, prefill, alignment_forward).
-// Bound on the H100: bytes (the int8 weights, read once). A block owns a
-// 128 x 128 output tile and walks K in slabs of 32. cp.async brings the
-// next slab of x (bf16) and of q (int8) into shared memory while the
-// present one is used (two stages); the int8 slab is then dequantized in
-// shared memory, once per block, into a bf16 tile stored k-minor per
-// column, so each B fragment of mma.sync m16n8k16 (bf16 in, f32
-// accumulate) is one 32-bit load. Eight warps, each a 64 x 32 sub-tile
-// (4 x 4 fragments). Rows past M are loaded as zeros and not written, so M
-// needs no padding. When the tiles do not fill the card (M = 6 gives N /
-// 128 blocks), K is split over blockIdx.z: each split writes f32 partial
-// sums and a second kernel adds them in a fixed order, then casts. Its
-// calls are bound by the Python wrapper on the host, not by the device.
+// "splitk" (small M: a decode step's 6 rows, the prefills, alignment_forward;
+// every M below the plan's cut-over). Bound on the H100: bytes (the int8
+// weights, read once; 22.9 MB a decoder layer, 0.0070 ms). At M 6 a call
+// moves 1.6-6.6 MB, so its launch, its first loads' latency and its
+// reduction weigh as much as its bytes. One launch a product:
+//   * grid (S, ceil(N / 64)): block (ks, ct) owns output columns
+//     [64 ct, 64 ct + 64) and the K slice [ks K/S, (ks + 1) K/S); the S
+//     slices of a column tile are one thread-block cluster (S <= 8).
+//   * The weight stream: each block walks its slice in 32-row stages
+//     (2 KB of int8, one 16-byte cp.async a thread, whole 32-byte sectors)
+//     through a ring of 16 stages, so up to 32 KB of weights are in flight
+//     a block from its first instruction; one block barrier a stage.
+//   * x: the block's rows of its K slice are staged once a pass (one
+//     cp.async group with the first weight stage), up to 64 rows; larger M
+//     loops over 64-row passes, the weights streamed again (from L2).
+//   * The products: mma.sync m16n8k16 with the weights as A (16 output
+//     columns a warp) and x's rows as the n8 operand, so a group of 8 rows
+//     costs one mma and no mma runs on a group whose rows are all past M.
+//     One ldmatrix.trans a stage gives a thread its weight bytes (k rows
+//     2t, 2t + 1 at columns 2g, 2g + 1, for 32 rows); each is dequantized
+//     in registers, w = bf16(f32(q) * s[n]) (exact int8 -> f32, __fmul_rn,
+//     round to nearest even), and packed into the A fragment: no
+//     block-wide dequant pass. A fragment row g is column 2g, row g + 8
+//     column 2g + 1.
+//   * The reduction: each block writes its f32 partial of every output
+//     pair into the shared memory of the block that owns the pair (pair p
+//     of the tile: rank p % S), never reading another block's memory; after
+//     one cluster barrier each owner adds the S partials in rank order and
+//     stores the pair cast to bf16 or f32. No scratch in device memory, no
+//     second launch.
+// splitk_plan picks S (the least divisor s <= 8 of K / 32 giving
+// ceil(N / 64) s >= 2 x SMs blocks, else the largest) and the row tile;
+// ops/quant.py::gemm_plan mirrors it.
+#include "attn_split.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N
-constexpr int LDS = BK + 8;      // bf16 per shared row: 80 bytes, so the
-                                 // fragment loads of a warp hit 32 banks
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
-}
 
 // byte b (0..3) of a 32-bit word as a signed int8 value
 __device__ __forceinline__ float i8_byte(int word, int b) {
   return (float)((int)((unsigned)word << (24 - 8 * b)) >> 24);
 }
 
-// OUT_BF16: out (M, N) bf16; else f32 at out + blockIdx.z * M * N (the
-// split's partial sums, or the result when there is one split)
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(THREADS)
-quant_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                    const float* __restrict__ s, void* __restrict__ out,
-                    int M, int N, int K, int trips) {
-  __shared__ __align__(16) bf16 As[2][BM][LDS];   // x slab, k-minor
-  __shared__ __align__(16) int8_t Bq[2][BK][BN];  // q slab, n-minor
-  __shared__ __align__(16) bf16 Bt[BN][LDS];      // dequantized, k-minor
-  __shared__ float ss[BN];
+// ---------------------------------------------------------------------------
+// "splitk" path
+// ---------------------------------------------------------------------------
 
+constexpr int S_COLS = 64;          // output columns a block, 16 a warp
+constexpr int S_THREADS = 128;
+constexpr int S_KC = 32;            // K rows a ring stage
+constexpr int S_NST = 16;           // ring stages (32 KB of weights)
+constexpr int S_WLD = 80;           // bytes a staged weight row (64 + pad)
+constexpr int S_RING = S_NST * S_KC * S_WLD;
+constexpr int S_MAX_CLUSTER = 8;
+constexpr int S_TARGET_WAVES = 2;   // blocks an SM the plan aims at
+constexpr int S_MAX_ROWS = 64;      // rows a pass
+constexpr int S_MAX_SMEM = 232448;  // the opt-in limit of a block
+
+// bytes of one staged x row of a K slice (16 of pad: the ldmatrix rows of
+// a group of 8 hit distinct banks)
+__host__ __device__ inline int splitk_x_pitch(int kslice) {
+  return kslice * 2 + 16;
+}
+
+inline int splitk_smem(int rows, int kslice, int S) {
+  return S_RING + rows * splitk_x_pitch(kslice) +
+         (S > 1 ? (rows * S_COLS + 16) * 4 : 0);
+}
+
+// The cluster size S and the rows a pass for x (M, K) . (K, N) on `sms`
+// SMs: S as in the note at the top; rows = M rounded up to 8, at most 64,
+// less while the block's shared memory would pass the opt-in limit.
+// Returns 0, or ERR_BAD_ARGS when not even 8 rows fit (K / S > ~10,000).
+int splitk_plan(int M, int N, int K, int sms, int* S_out, int* rows_out) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % S_KC || N % 16) return ERR_BAD_ARGS;
+  const int cols = (N + S_COLS - 1) / S_COLS, units = K / S_KC;
+  int S = 1;
+  for (int s = 1; s <= S_MAX_CLUSTER; ++s) {
+    if (units % s) continue;
+    S = s;
+    if (cols * s >= S_TARGET_WAVES * sms) break;
+  }
+  int rows = (M + 7) / 8 * 8;
+  if (rows > S_MAX_ROWS) rows = S_MAX_ROWS;
+  while (rows > 8 && splitk_smem(rows, K / S, S) > S_MAX_SMEM) rows -= 8;
+  if (splitk_smem(rows, K / S, S) > S_MAX_SMEM) return ERR_BAD_ARGS;
+  *S_out = S;
+  *rows_out = rows;
+  return 0;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// barrier.cluster.arrive with its default release semantics: this block's
+// reads of its shared memory come before the other blocks' next writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+// the A fragments (16 columns x k16, two k16 steps) of one stage's word
+// pair w[2h], w[2h + 1] (k rows 2t, 2t+1 and 2t+8, 2t+9 of step h):
+// w = bf16(f32(q) * s), column 2g scaled by s0, 2g + 1 by s1
+__device__ __forceinline__ void dequant_a(uint32_t (&a)[4], uint32_t lo,
+                                          uint32_t hi, float s0, float s1) {
+  float f[4], e[4];
+  splitkv::i8x4_to_f32((int)lo, f);  // (2t, 2g) (2t, 2g+1) (2t+1, 2g) ...
+  splitkv::i8x4_to_f32((int)hi, e);
+  a[0] = pack_bf2(__fmul_rn(f[0], s0), __fmul_rn(f[2], s0));
+  a[1] = pack_bf2(__fmul_rn(f[1], s1), __fmul_rn(f[3], s1));
+  a[2] = pack_bf2(__fmul_rn(e[0], s0), __fmul_rn(e[2], s0));
+  a[3] = pack_bf2(__fmul_rn(e[1], s1), __fmul_rn(e[3], s1));
+}
+
+// G: n8 row groups a pass (rows / 8); OUT_BF16: out (M, N) bf16, else f32
+template <int G, bool OUT_BF16>
+__global__ void __launch_bounds__(S_THREADS)
+splitk_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
+              const float* __restrict__ s, void* __restrict__ out, int M,
+              int N, int K) {
+  extern __shared__ __align__(128) uint8_t sm[];
+  constexpr int RT = G * 8;
+  cg::cluster_group cl = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kt0 = blockIdx.z * trips;
+  const int S = gridDim.x, ks = blockIdx.x;
+  const int n0 = blockIdx.y * S_COLS;
+  const int kslice = K / S, kbase = ks * kslice, nch = kslice / S_KC;
+  const int xp = splitk_x_pitch(kslice);
+  uint8_t* xs = sm + S_RING;
+  float* red = reinterpret_cast<float*>(xs + RT * xp);
+  const int per = (RT * 32 + S - 1) / S;  // pairs a block owns
+  if (S > 1) splitkv::cluster_arrive_relaxed();
 
-  for (int i = tid; i < BN; i += THREADS)
-    ss[i] = n0 + i < N ? s[n0 + i] : 0.f;
+  // this thread's output columns n0 + 16 warp + 2g, + 1; N % 16 == 0, so a
+  // warp's 16 columns are all inside N or all past it
+  const int col = n0 + 16 * warp + 2 * g;
+  const bool live = n0 + 16 * warp < N;
+  float s0 = 0.f, s1 = 0.f;
+  if (live) {
+    const float2 sv = __ldg(reinterpret_cast<const float2*>(s + col));
+    s0 = sv.x;
+    s1 = sv.y;
+  }
 
-  auto load = [&](int st, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // x: 128 rows x 4 chunks of 16 bytes
-      const int c = tid + i * THREADS;
-      const int r = c >> 2, ch = c & 3;
-      const int gm = m0 + r;
-      const bool ok = gm < M;
-      cp_async16(&As[st][r][ch * 8],
-                 x + (size_t)(ok ? gm : 0) * K + k0 + ch * 8, ok);
-    }
-    {  // q: 32 rows x 8 chunks of 16 bytes
-      const int r = tid >> 3, ch = tid & 7;
-      const int gn = n0 + ch * 16;
-      const bool ok = gn < N;
-      cp_async16(&Bq[st][r][ch * 16],
-                 q + (size_t)(k0 + r) * N + (ok ? gn : 0), ok);
+  auto load_w = [&](int c) {  // stage c: 32 rows x 64 columns, 16 B a thread
+    const int r = tid >> 2, ch = tid & 3;
+    const int gn = n0 + 16 * ch;
+    const bool ok = gn < N;
+    splitkv::cp16(sm + (c % S_NST) * S_KC * S_WLD + r * S_WLD + 16 * ch,
+                  q + (size_t)(kbase + c * S_KC + r) * N + (ok ? gn : 0),
+                  ok ? 16 : 0);
+  };
+  auto load_x = [&](int r0) {  // rows r0 .. r0 + RT of the slice; past M: 0
+    const int chunks = kslice / 8;
+    for (int i = tid; i < RT * chunks; i += S_THREADS) {
+      const int r = i / chunks, ch = i - r * chunks;
+      const int row = r0 + r;
+      const bool ok = row < M;
+      splitkv::cp16(xs + r * xp + 16 * ch,
+                    x + (size_t)(ok ? row : 0) * K + kbase + 8 * ch,
+                    ok ? 16 : 0);
     }
   };
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  load(0, kt0);
-  cp_async_commit();
-  for (int it = 0; it < trips; ++it) {
-    const int st = it & 1;
-    if (it + 1 < trips) load(st ^ 1, kt0 + it + 1);
-    cp_async_commit();  // possibly empty: the wait below stays uniform
-    cp_async_wait_prev();
-    __syncthreads();
-
-    // dequantize the slab: a thread takes k rows 2kp, 2kp+1 at 8 columns
-    // and writes each column's pair as one bf16x2 word of Bt
-    {
-      const int kp = tid & 15, ng = tid >> 4;
-      const int2 r0 = *reinterpret_cast<const int2*>(&Bq[st][2 * kp][ng * 8]);
-      const int2 r1 =
-          *reinterpret_cast<const int2*>(&Bq[st][2 * kp + 1][ng * 8]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = ng * 8 + j;
-        const float sc = ss[n];
-        const float a = i8_byte(j < 4 ? r0.x : r0.y, j & 3);
-        const float b = i8_byte(j < 4 ? r1.x : r1.y, j & 3);
-        __nv_bfloat162 w;
-        w.x = __float2bfloat16_rn(__fmul_rn(a, sc));
-        w.y = __float2bfloat16_rn(__fmul_rn(b, sc));
-        *reinterpret_cast<__nv_bfloat162*>(&Bt[n][2 * kp]) = w;
-      }
+  for (int r0 = 0; r0 < M; r0 += RT) {
+    if (r0 > 0) __syncthreads();  // the last pass is done with xs, ring
+    const int ng = min(G, (M - r0 + 7) / 8);  // groups holding a row < M
+    load_x(r0);
+    for (int c = 0; c < S_NST - 1; ++c) {
+      if (c < nch) load_w(c);
+      splitkv::cp_commit();  // x rides in the first group
     }
-    __syncthreads();
+    float acc[G][4];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
+    for (int c = 0; c < nch; ++c) {
+      splitkv::cp_wait<S_NST - 2>();
+      __syncthreads();  // stage c (and x) landed; stage c - 1 is free
+      if (c + S_NST - 1 < nch) load_w(c + S_NST - 1);
+      splitkv::cp_commit();
+      uint32_t w[4], a0[4], a1[4];
+      ldsm_x4_t(w, sm + (c % S_NST) * S_KC * S_WLD + lane * S_WLD +
+                       16 * warp);
+      dequant_a(a0, w[0], w[1], s0, s1);
+      dequant_a(a1, w[2], w[3], s0, s1);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&As[st][r][kk + 2 * t]);
-        a[mt][1] =
-            *reinterpret_cast<const uint32_t*>(&As[st][r + 8][kk + 2 * t]);
-        a[mt][2] =
-            *reinterpret_cast<const uint32_t*>(&As[st][r][kk + 2 * t + 8]);
-        a[mt][3] =
-            *reinterpret_cast<const uint32_t*>(&As[st][r + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + g;
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&Bt[c][kk + 2 * t]);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(&Bt[c][kk + 2 * t + 8]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    __syncthreads();  // Bt and this stage are rewritten next trip
-  }
-
-  // c[0..1]: row g, columns 2t, 2t+1; c[2..3]: row g + 8
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-      if (col >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mt * 16 + g + 8 * half;
-        if (row >= M) continue;
-        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-        if (OUT_BF16) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
-                                             (size_t)row * N + col) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          float* o = static_cast<float*>(out) +
-                     (size_t)blockIdx.z * M * N + (size_t)row * N + col;
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      for (int i = 0; i < G; ++i) {
+        if (i < ng) {
+          uint32_t b[4];  // x rows 8i + g: k 2t.. of steps 0 and 1
+          ldsm_x4(b, xs + (8 * i + (lane & 7)) * xp +
+                         2 * (c * S_KC + 8 * (lane >> 3)));
+          mma_bf16(acc[i], a0, b[0], b[1]);
+          mma_bf16(acc[i], a1, b[2], b[3]);
         }
       }
     }
+    splitkv::cp_wait<0>();
+
+    // acc[i]: (column col, row 8i + 2t), (col, 8i + 2t + 1),
+    //         (col + 1, 8i + 2t), (col + 1, 8i + 2t + 1)
+    if (S == 1) {
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * i + 2 * t + h;
+          if (i >= ng || row >= M || !live) continue;
+          const float v0 = acc[i][h], v1 = acc[i][2 + h];
+          if (OUT_BF16)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                               (size_t)row * N + col) =
+                __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                       (size_t)row * N + col) =
+                make_float2(v0, v1);
+        }
+      continue;
+    }
+    // pair p = (tile row) x 32 + (column - n0) / 2 goes to rank p % S, slot
+    // ks x per + p / S of that rank's red
+    splitkv::cluster_wait();  // every block running / done reading red
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (i >= ng) continue;
+        const int p = (8 * i + 2 * t + h) * 32 + 8 * warp + g;
+        float* dst = red + 2 * (ks * per + p / S);
+        *reinterpret_cast<float2*>(cl.map_shared_rank(dst, p % S)) =
+            make_float2(acc[i][h], acc[i][2 + h]);
+      }
+    cluster_arrive();
+    splitkv::cluster_wait();  // every partial of this block's pairs landed
+    for (int lp = tid; lp < per; lp += S_THREADS) {
+      const int p = lp * S + ks;
+      const int row = r0 + p / 32, cn = n0 + 2 * (p % 32);
+      if (p >= RT * 32 || row >= M || cn >= N) continue;
+      float v0 = 0.f, v1 = 0.f;
+      for (int r = 0; r < S; ++r) {  // rank order
+        const float2 v = *reinterpret_cast<const float2*>(
+            red + 2 * (r * per + lp));
+        v0 += v.x;
+        v1 += v.y;
+      }
+      if (OUT_BF16)
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) +
+                                           (size_t)row * N + cn) =
+            __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(out) +
+                                   (size_t)row * N + cn) = make_float2(v0, v1);
+    }
+    if (r0 + RT < M) cluster_arrive();  // red read: the next pass may write
   }
 }
 
-// out = cast(sum over the splits of part), the splits added in order
-__global__ void splitk_sum_kernel(const float* __restrict__ part, int splits,
-                                  long long MN, void* __restrict__ out,
-                                  int out_bf16) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float acc = 0.f;
-  for (int z = 0; z < splits; ++z) acc += part[z * MN + i];
-  if (out_bf16)
-    static_cast<bf16*>(out)[i] = f2bf(acc);
-  else
-    static_cast<float*>(out)[i] = acc;
+template <int G, bool OUT_BF16>
+int launch_splitk_g(const bf16* x, const int8_t* q, const float* s, void* out,
+                    int M, int N, int K, int S, cudaStream_t st) {
+  auto kern = splitk_kernel<G, OUT_BF16>;
+  static bool configured = false;  // the attribute is set once a process
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S_MAX_SMEM);
+    if (e != cudaSuccess) return ERR_ATTRIBUTE + (int)e;
+    configured = true;
+  }
+  const dim3 grid(S, (N + S_COLS - 1) / S_COLS);
+  return splitkv::launch(kern, grid, S_THREADS, splitk_smem(G * 8, K / S, S),
+                         S, 0, st, x, q, s, out, M, N, K);
+}
+
+template <bool OUT_BF16>
+int launch_splitk(const bf16* x, const int8_t* q, const float* s, void* out,
+                  int M, int N, int K, int sms, cudaStream_t st) {
+  int S, rows;
+  const int err = splitk_plan(M, N, K, sms, &S, &rows);
+  if (err) return err;
+  switch (rows / 8) {
+    case 1: return launch_splitk_g<1, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 2: return launch_splitk_g<2, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 3: return launch_splitk_g<3, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 4: return launch_splitk_g<4, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 5: return launch_splitk_g<5, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 6: return launch_splitk_g<6, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    case 7: return launch_splitk_g<7, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+    default:
+      return launch_splitk_g<8, OUT_BF16>(x, q, s, out, M, N, K, S, st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -412,22 +528,27 @@ int aries_dequant_bf16(const int8_t* q, const float* s, void* w, int K, int N,
   return dequant(q, s, static_cast<bf16*>(w), K, N, (cudaStream_t)stream);
 }
 
+// The "splitk" path's plan for (M, N, K) on `sms` SMs: out[0] the cluster
+// size S (K slices), out[1] the rows a pass. Returns 0 or ERR_BAD_ARGS.
+int aries_quant_matmul_plan(int M, int N, int K, int sms, int* out) {
+  return splitk_plan(M, N, K, sms, &out[0], &out[1]);
+}
+
 // x (M, K) bf16, q (K, N) int8, s (N,) f32, all contiguous and 16-byte
 // aligned; N % 16 == 0. out (M, N) bf16 (out_bf16 = 1) or f32.
-// path 1 ("wgmma"): K % 64 == 0, splits 1, scratch: K x N bf16.
-// path 0 ("splitk"): K % 32 == 0, (K / 32) % splits == 0; splits > 1 needs
-// scratch: splits x M x N f32.
-// Returns 0, a cudaError_t, or hopper.cuh's tensor-map codes.
+// path 1 ("wgmma"): K % 64 == 0, scratch: K x N bf16.
+// path 0 ("splitk"): K % 32 == 0, one launch, its plan from `sms`.
+// Returns 0, a cudaError_t, or hopper.cuh's codes.
 int aries_quant_matmul(const void* x, const int8_t* q, const float* s,
                        void* out, int out_bf16, int M, int N, int K, int path,
-                       int splits, void* scratch, void* stream) {
+                       int sms, void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* xb = static_cast<const bf16*>(x);
-  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || (M + BM - 1) / BM > 65535)
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 || sms <= 0 ||
+      (N + S_COLS - 1) / S_COLS > 65535 || (M + GM - 1) / GM > 65535)
     return (int)cudaErrorInvalidValue;
   if (path == 1) {
-    if (K % GK || splits != 1 || scratch == nullptr)
-      return (int)cudaErrorInvalidValue;
+    if (K % GK || scratch == nullptr) return (int)cudaErrorInvalidValue;
     bf16* w = static_cast<bf16*>(scratch);
     int err = dequant(q, s, w, K, N, st);
     if (err) return err;
@@ -443,29 +564,9 @@ int aries_quant_matmul(const void* x, const int8_t* q, const float* s,
     return out_bf16 ? launch_gemm<true>(mx, mw, out, M, N, K, st)
                     : launch_gemm<false>(mx, mw, out, M, N, K, st);
   }
-  if (path != 0 || K % BK || splits < 1 || (K / BK) % splits ||
-      splits > 65535 || (splits > 1 && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  const int trips = K / BK / splits;
-  if (splits == 1) {
-    if (out_bf16)
-      quant_matmul_kernel<true><<<grid, THREADS, 0, st>>>(xb, q, s, out, M, N,
-                                                          K, trips);
-    else
-      quant_matmul_kernel<false><<<grid, THREADS, 0, st>>>(xb, q, s, out, M,
-                                                           N, K, trips);
-    return launch_status();
-  }
-  float* part = static_cast<float*>(scratch);
-  quant_matmul_kernel<false><<<grid, THREADS, 0, st>>>(xb, q, s, part, M, N,
-                                                       K, trips);
-  const int err = launch_status();
-  if (err) return err;
-  const long long MN = (long long)M * N;
-  splitk_sum_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-      part, splits, MN, out, out_bf16);
-  return launch_status();
+  if (path != 0 || K % S_KC) return (int)cudaErrorInvalidValue;
+  return out_bf16 ? launch_splitk<true>(xb, q, s, out, M, N, K, sms, st)
+                  : launch_splitk<false>(xb, q, s, out, M, N, K, sms, st);
 }
 
 }  // extern "C"

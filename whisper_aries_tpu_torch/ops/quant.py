@@ -14,8 +14,8 @@ package reads it when it traces:
   * "pallas": the weight-side dequant product of the JAX package's Pallas
     kernel (``_quant_matmul_pallas``): each weight rounded to bf16 after an
     f32 multiply by its scale, then bf16 x bf16 with f32 sums. The W8A16
-    GEMM kernel (csrc/quant_matmul.cu; TMA + wgmma for large M, split-K
-    mma.sync for small M, by ``gemm_plan``) for CUDA tensors,
+    GEMM kernel (csrc/quant_matmul.cu; TMA + wgmma for large M, a cluster
+    split-K weight stream for small M, by ``gemm_plan``) for CUDA tensors,
     ``quant_matmul_dequant_plain`` for CPU tensors. (On the CPU the JAX
     package maps "pallas" to "xla"; the port runs what the TPU kernel
     computes.)
@@ -74,46 +74,82 @@ def _lib():
     lib.aries_quant_matmul.restype = _I
     lib.aries_dequant_bf16.argtypes = [_P, _P, _P, _I, _I, _P]
     lib.aries_dequant_bf16.restype = _I
+    lib.aries_quant_matmul_plan.argtypes = [_I, _I, _I, _I, _P]
+    lib.aries_quant_matmul_plan.restype = _I
     return lib
 
 
 # The kernel's two paths (csrc/quant_matmul.cu), by their C codes.
 GEMM_PATHS = {"splitk": 0, "wgmma": 1}
 # The smallest M x N sent to the TMA + wgmma path. Measured on the H100
-# (chip_smoke.py's "quant_matmul crossover" line, PERF.md), the two paths
-# cross where the output has about this many elements: M ~420 at N 1280,
-# ~150 at N 3840, ~128 at N 5120 (K 1280).
-WGMMA_MIN_MN = 512 * 1280
-_SPLITK_BK, _SPLITK_MIN_TRIPS = 32, 4
+# against the split-K cluster path (chip_smoke.py's "quant_matmul
+# crossover" line, PERF.md): split-K is faster up to M 128 at N 1280, the
+# two are within 5% at M 64 for N 3840 and 5120 (K 1280), and wgmma is
+# faster from M 192, 128 and 128.
+WGMMA_MIN_MN = 192 * 1280
+# the "splitk" path's constants (csrc/quant_matmul.cu, S_*): output columns
+# a block, K rows a ring stage, ring stages, bytes a staged weight row, the
+# largest cluster, blocks an SM aimed at, rows a pass, shared-memory limit
+SPLITK_COLS, SPLITK_KC, SPLITK_NST, SPLITK_WLD = 64, 32, 16, 80
+SPLITK_MAX_CLUSTER, SPLITK_TARGET_WAVES = 8, 2
+SPLITK_MAX_ROWS, SPLITK_MAX_SMEM = 64, 232448
+WGMMA_ROWS = 128  # the "wgmma" path's rows an output tile
 
 
-def _splitk_splits(M: int, N: int, K: int, sms: int) -> int:
-    """The split-K path's K splits: 1 when its 128 x 128 output tiles alone
-    fill the card, else about two blocks per SM, each split a whole number
-    (at least 4) of 32-deep K slabs."""
-    blocks = -(-N // 128) * -(-M // 128)
-    if blocks >= sms:
-        return 1
-    slabs = K // _SPLITK_BK
-    want = -(-2 * sms // blocks)
-    best = 1
-    for c in range(2, want + 1):
-        if c * _SPLITK_MIN_TRIPS > slabs:
+def splitk_smem(rows: int, kslice: int, S: int) -> int:
+    """Shared memory of a "splitk" block: the weight ring, ``rows`` staged
+    x rows of a K slice (16 bytes of pad each) and, for a cluster, the
+    partial sums its pairs receive."""
+    ring = SPLITK_NST * SPLITK_KC * SPLITK_WLD
+    red = (rows * SPLITK_COLS + 16) * 4 if S > 1 else 0
+    return ring + rows * (2 * kslice + 16) + red
+
+
+def splitk_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """(cluster size S, rows a pass) of the "splitk" path, as the C plan
+    (csrc/quant_matmul.cu, splitk_plan): S is the least divisor s <= 8 of
+    K / 32 giving ceil(N / 64) x s >= 2 x sms blocks, else the largest such
+    divisor, so each K slice is a whole number of 32-row stages; the rows a
+    pass are M rounded up to 8, at most 64, fewer while a block's shared
+    memory would pass the opt-in limit. Raises where not even 8 rows fit."""
+    if M <= 0 or K % SPLITK_KC or N % 16 or N <= 0:
+        raise ValueError(f"no split-K plan for M {M}, N {N}, K {K}")
+    cols, units = -(-N // SPLITK_COLS), K // SPLITK_KC
+    S = 1
+    for s in range(1, SPLITK_MAX_CLUSTER + 1):
+        if units % s:
+            continue
+        S = s
+        if cols * s >= SPLITK_TARGET_WAVES * sms:
             break
-        if slabs % c == 0:
-            best = c
-    return best
+    rows = min(SPLITK_MAX_ROWS, -(-M // 8) * 8)
+    while rows > 8 and splitk_smem(rows, K // S, S) > SPLITK_MAX_SMEM:
+        rows -= 8
+    if splitk_smem(rows, K // S, S) > SPLITK_MAX_SMEM:
+        raise ValueError(f"K {K} is too deep for the split-K path: a "
+                         f"{K // S}-row slice of x does not fit")
+    return S, rows
 
 
 @functools.lru_cache(maxsize=None)  # a few shapes, called per layer
-def gemm_plan(M: int, N: int, K: int, sms: int) -> Tuple[str, int]:
-    """(path, K splits) for an (M, K) x (K, N) product on a card with
-    ``sms`` SMs: "wgmma" (TMA + wgmma, one split) from WGMMA_MIN_MN output
-    elements up when K % 64 == 0, else "splitk" (mma.sync, split K when the
-    tiles do not fill the card)."""
+def gemm_plan(M: int, N: int, K: int, sms: int) -> Tuple[str, int, int]:
+    """(path, K slices, rows an output tile) for an (M, K) x (K, N) product
+    on a card with ``sms`` SMs: "wgmma" (TMA + wgmma, one slice, 128-row
+    tiles) from WGMMA_MIN_MN output elements up when K % 64 == 0, else
+    "splitk" (one launch: the K slices of a column tile one cluster,
+    ``splitk_plan``)."""
     if M * N >= WGMMA_MIN_MN and K % 64 == 0:
-        return "wgmma", 1
-    return "splitk", _splitk_splits(M, N, K, sms)
+        return "wgmma", 1, WGMMA_ROWS
+    return ("splitk",) + splitk_plan(M, N, K, sms)
+
+
+def kernel_splitk_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int]:
+    """The C plan of the "splitk" path (the card check of
+    ``splitk_plan``)."""
+    out = (ctypes.c_int * 2)()
+    cb.check(_lib().aries_quant_matmul_plan(M, N, K, sms, out),
+             "W8A16 GEMM plan")
+    return out[0], out[1]
 
 
 def dequantize_bf16_kernel(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -157,24 +193,19 @@ def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
         raise ValueError("the kernel writes bf16 or f32")
     sms = cb.sm_count(x)
     if path is None:
-        path, splits = gemm_plan(M, N, K, sms)
+        path = gemm_plan(M, N, K, sms)[0]
     elif path not in GEMM_PATHS or (path == "wgmma" and K % 64):
         raise ValueError(f"no path {path!r} for K {K} (one of "
                          f"{list(GEMM_PATHS)}; wgmma needs K % 64 == 0)")
-    else:
-        splits = 1 if path == "wgmma" else _splitk_splits(M, N, K, sms)
-    if path == "wgmma":
-        scratch = torch.empty((K, N), dtype=torch.bfloat16, device=x.device)
-    elif splits > 1:
-        scratch = torch.empty((splits, M, N), dtype=torch.float32,
-                              device=x.device)
-    else:
-        scratch = None
+    elif path == "splitk":
+        splitk_plan(M, N, K, sms)  # raises where x's slice cannot fit
+    scratch = (torch.empty((K, N), dtype=torch.bfloat16, device=x.device)
+               if path == "wgmma" else None)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     cb.launch(_lib().aries_quant_matmul, x, "W8A16 GEMM", cb.ptr(x),
               cb.ptr(q), cb.ptr(s), cb.ptr(out),
               int(out_dtype == torch.bfloat16), M, N, K, GEMM_PATHS[path],
-              splits, cb.ptr(scratch) if scratch is not None else None)
+              sms, cb.ptr(scratch) if scratch is not None else None)
     quant_matmul_dequant_kernel.launches += 1
     quant_matmul_dequant_kernel.launches_by_path[path] += 1
     return out

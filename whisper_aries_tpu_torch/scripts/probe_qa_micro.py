@@ -15,7 +15,7 @@ Variants, as the TPU probe defines them:
             products)
   qk      - the QK product only
   perhead - full with the products as H unrolled 2-D dots; on the card a
-            head is one loop of mma.sync tiles either way, so it runs
+            head is one loop of wgmma tiles either way, so it runs
             full's code
 
 The micro runs on the card as one block an SM, every SM at once
@@ -47,7 +47,7 @@ VARIANTS = {
     "perhead": QA.Spec(),
 }
 TWINS = {"perhead": "same code as full: batched and per-head dots are the "
-                    "same mma.sync loop on the card"}
+                    "same wgmma loop on the card"}
 REPS = 200   # the TPU script's default
 
 micro_kernel = QA.counted_kernel(VARIANTS, "lgb")

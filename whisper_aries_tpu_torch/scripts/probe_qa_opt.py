@@ -14,10 +14,10 @@ Variants, as the TPU probe's code computes them:
   latediv - rowmask with the normalisation after P.V: attT / sum
   nolng   - latediv without the max subtraction (exp of raw logits)
 
-On the card P stays in registers in both P.V layouts (with mma.sync its
-accumulator is the A fragment of pr v and the B fragment of v pr^T), so
-vmajor measures the identity product it drops, not a move of P through
-shared memory.
+On the card (wgmma) P stays in registers as the A operand of pr v, but
+v pr^T takes P^T as its B operand, which wgmma reads from shared memory
+only: vmajor moves P through shared memory every tile (and a barrier of
+the warpgroup) where base and rowmask run the identity product.
 
     python -m whisper_aries_tpu_torch.scripts.probe_qa_opt
         [--reps 200] [--device cpu]
