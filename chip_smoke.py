@@ -87,11 +87,14 @@ caught; a kernel check that fails is printed at once and fails the run
      cudaOccupancyMaxActiveClusters finds room. Each probe kernel's entry
      in the kernels line comes from a configuration timed after the
      counted run (the 4 MB ring and the 4 MB two-stream copy reading a
-     1 GiB source once, beside one torch.sum reading it once; the 227 KB
+     1 GiB source once, each the best of 3 runs of 3 back-to-back calls,
+     taken twice in the order kernel / torch.sum / torch.sum / kernel,
+     torch.sum reading the same source once; the 227 KB
      one-slot copy, by events and by the profiler's device time, beside
      torch.sum of the same bytes timed both ways; the bf16 product loop and the s8 fold at one block
      per SM, beside one torch.matmul / torch._int_mm of the same operation
-     count, B in its faster layout; the batched transpose; each
+     count, B in its faster layout; the batched transpose, both variants
+     with the profiler's device time beside a one-element kernel's; each
      attention-micro probe's first variant, beside a two-call yardstick of
      the same work: scaled_dot_product_attention with the key mask and the
      O-projection's torch.matmul).
@@ -148,6 +151,7 @@ OUT = ROOT / "chip_smoke_out"
 PEAK_BYTES = 3.35e12          # HBM3, bytes/s
 PEAK_BF16 = 989e12            # tensor-core bf16 FLOP/s
 PEAK_F32 = 67e12              # f32 FLOP/s outside the tensor cores
+PEAK_BF16X2 = 2 * PEAK_F32    # bf16 FLOP/s outside them, packed in pairs
 PEAK_S8 = 1979e12             # tensor-core int8 OP/s
 
 
@@ -1751,13 +1755,42 @@ def check_smem_probe(res: dict) -> None:
               f"{r['max_active']} such clusters at once")
 
 
+def copy_entry_times(dev, PD, r: dict) -> dict:
+    """A copy entry's kernel against torch.sum of the same source in f32
+    (one read of it, the same work), taken twice in the order kernel /
+    sum / sum / kernel, each the best of 3 runs of 3 calls enqueued back
+    to back (the card stays busy, so neither side's host dispatch is
+    timed)."""
+    import torch
+    from whisper_aries_tpu_torch.scripts import common
+
+    src = PD.source(torch.bfloat16, r["chunks"], 256, 8192, dev)
+    if r["streams"] > 1:
+        kern = lambda: PD.copy_streams_kernel(
+            src, r["band"], 8192, r["n_iter"], r["streams"], r["blocks"],
+            bands=r["bands"])
+    else:
+        kern = lambda: PD.copy_ring_kernel(
+            src, r["band"], 8192, r["n_iter"], r["slots"], r["blocks"],
+            bands=r["bands"])
+    lib = lambda: torch.sum(src, dtype=torch.float32)
+    k1, s1, s2, k2 = (min(common.mean_ms(f, 3) for _ in range(3))
+                      for f in (kern, lib, lib, kern))
+    out = dict(ms=min(k1, k2), library_ms=min(s1, s2),
+               pairs_ms=dict(kernel=[k1, k2], sum=[s1, s2]))
+    del src
+    torch.cuda.empty_cache()
+    return out
+
+
 def probe_entries(dev, res: dict, entries) -> None:
     """The kernels-line entries of the six probe kernels. The copy rings
-    are timed reading a 1 GiB source once (beside one torch.sum reading
-    it once), the one-slot copy at the opt-in limit (beside a sum of the
-    same bytes); the products and the transpose take their probe lines'
-    own numbers, the products beside one PyTorch product of the same
-    operation count."""
+    are timed reading a 1 GiB source once (interleaved with one torch.sum
+    reading it once), the one-slot copy at the opt-in limit (beside a sum
+    of the same bytes); the products and the transpose take their probe
+    lines' own numbers, the products beside one PyTorch product of the
+    same operation count, the transpose with the profiler's device time
+    of both variants."""
     import torch
     from whisper_aries_tpu_torch.scripts import common
     from whisper_aries_tpu_torch.scripts import probe_dma as PD
@@ -1765,7 +1798,6 @@ def probe_entries(dev, res: dict, entries) -> None:
     from whisper_aries_tpu_torch.scripts import probe_vmem as PV
 
     src = PD.source(torch.bfloat16, 1, PD.SOURCE_BYTES // 2, 1, dev)
-    sum_ms = common.best_ms(lambda: torch.sum(src, dtype=torch.float32))
     dst = torch.empty_like(src)
     copy_ms = common.best_ms(lambda: dst.copy_(src))
     del src, dst
@@ -1779,20 +1811,29 @@ def probe_entries(dev, res: dict, entries) -> None:
                    n_streams=streams, multi=streams > 1, n_iter=C // streams,
                    chunks=C, device=dev)
         held_probe(f"{name}[entry]", r)
-        b_ms, b_by = bound(r["bytes"] + 4 * r["blocks"], 0, PEAK_BF16)
+        b_ms, b_by = bound(r["bytes"] + 4 * r["blocks"] * r["streams"], 0,
+                           PEAK_BF16)
+        t = copy_entry_times(dev, PD, r)
+        print(f"{name} entry: kernel {t['pairs_ms']['kernel']} ms, "
+              f"torch.sum {t['pairs_ms']['sum']} ms", flush=True)
         entries.append(dict(
             name=name, route="cuda",
             source="whisper_aries_tpu_torch/csrc/probe_copy.cu", **tpu,
             max_abs_err=r["abs_err"], tolerance=r["limit"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
-            bound_by=b_by, library_ms=sum_ms,
+            ms=t["ms"], plain_ms=r["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
             library_note="torch.sum of the 1 GiB source in f32 (reads it "
-                         "once)",
-            library_copy_ms=copy_ms,
-            gbs=r["gbs"], share_of_peak=r["share"],
+                         "once); ms and library_ms: the best of 3 runs of 3 "
+                         "back-to-back calls, taken twice as kernel / sum / "
+                         "sum / kernel (pairs_ms)",
+            pairs_ms=t["pairs_ms"], library_copy_ms=copy_ms,
+            gbs=r["bytes"] / t["ms"] / 1e6,
+            share_of_peak=r["bytes"] / (t["ms"] / 1e3) / PEAK_BYTES,
+            inflight_per_sm=r["inflight_per_sm"],
             shape=f"4 MB chunks of a 1 GiB bf16 source, each read once: "
-                  f"{r['blocks']} blocks x {r['streams']} rings x "
-                  f"{r['copy_bytes']} B copies, {r['slots']} slots"))
+                  f"{r['bands']} bands of {r['copy_bytes']} B a chunk "
+                  f"walked by {r['blocks']} blocks of {r['streams']} rings "
+                  f"(a warp a ring), {r['slots']} slots"))
     optin = PD.smem_limits(dev)["optin"]
     ones = torch.ones((1, PV.copy_lanes(optin)), dtype=torch.bfloat16,
                       device=dev)
@@ -1849,19 +1890,36 @@ def probe_entries(dev, res: dict, entries) -> None:
     r = res["transpose"]["batched"]
     from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
     elems = PT.Bw * PT.KP * PT.D
-    b_ms, b_by = bound(elems * 2 + PT.D * PT.KP * 4, 2 * elems * PT.REPS,
-                       PEAK_F32)
+    # an element a repetition: one bf16 add (x + i), at the packed bf16
+    # rate, and one add of the window sum, which takes bf16 operands and
+    # sums in f32 as the tensor cores do, at their bf16 rate
+    n = elems * PT.REPS
+    b_ms, b_by = bound(elems * 2 + PT.D * PT.KP * 4,
+                       n + n * PEAK_BF16X2 / PEAK_BF16, PEAK_BF16X2)
+    x = PT.inputs(dev)
+    dev_ms = {v: device_ms(lambda: PT.transpose_sum_kernel(x, v))
+              for v in PT.VARIANTS}
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(lambda: one.add_(1.0))  # a one-element kernel
+    print("probe_batched_transpose device ms: " + ", ".join(
+        f"{v} {t:.5f} ({b_ms / t:.1%} of the bound)"
+        for v, t in dev_ms.items()) + f"; a one-element kernel {floor_ms:.5f}",
+        flush=True)
     entries.append(dict(
         name="probe_batched_transpose.make", route="cuda",
         source="whisper_aries_tpu_torch/csrc/probe_transpose.cu",
         replaces="scripts/probe_batched_transpose.py:30",
         max_abs_err=r["abs_err"], tolerance="one bf16 step of the window "
-        "sum a repetition", ms=r["ms"], plain_ms=r["plain_ms"],
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        perwin_ms=res["transpose"]["perwin"]["ms"],
+        "sum a repetition", ms=r["ms"], device_ms=dev_ms["batched"],
+        plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, perwin_ms=res["transpose"]["perwin"]["ms"],
+        perwin_device_ms=dev_ms["perwin"],
+        share_of_bound={v: b_ms / t for v, t in dev_ms.items()},
+        launch_floor_device_ms=floor_ms,
         us_per_sweep=r["us_per_sweep"],
         shape=f"x ({PT.Bw * PT.KP}, {PT.D}) bf16, {PT.REPS} repetitions, "
-              "batched (perwin_ms beside)"))
+              "batched (perwin_ms and perwin_device_ms beside); ms: events "
+              "over back-to-back calls, device_ms: the profiler's"))
 
 
 QA_PROBES = (

@@ -1128,32 +1128,42 @@ def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,rows,lanes,full,slots,streams,blocks", [
-    (torch.bfloat16, 8, 4096, 4096, 2, 1, 1),    # the TPU's 64 KB chunk
-    (torch.bfloat16, 16, 8192, 8192, 4, 1, 8),   # banded, 4 slots
-    (torch.int8, 1280, 512, 1536, 2, 1, 8),      # strided: two boxes a row
-    (torch.int8, 1280, 512, 512, 1, 1, 16),      # one slot
-    (torch.bfloat16, 64, 8192, 8192, 2, 4, 64),  # four rings a block
-])
+@pytest.mark.parametrize(
+    "dtype,rows,lanes,full,slots,streams,blocks,bands", [
+        (torch.bfloat16, 8, 4096, 4096, 2, 1, 1, 1),    # the TPU's 64 KB chunk
+        (torch.bfloat16, 16, 8192, 8192, 4, 1, 8, 8),   # banded, 4 slots
+        (torch.int8, 1280, 512, 1536, 2, 1, 8, 8),      # strided: two boxes
+        (torch.int8, 1280, 512, 512, 1, 1, 16, 16),     # one slot
+        (torch.bfloat16, 64, 8192, 8192, 2, 4, 64, 64),  # four rings a block
+        # one block an SM walking the items: fewer bands than blocks, more,
+        # strided, several rings
+        (torch.bfloat16, 8, 4096, 4096, 2, 1, 132, 1),
+        (torch.bfloat16, 256, 8192, 8192, 2, 1, 132, 64),
+        (torch.int8, 1280, 512, 1536, 2, 1, 132, 8),
+        (torch.bfloat16, 256, 8192, 8192, 2, 2, 132, 128),
+        (torch.bfloat16, 16, 8192, 8192, 4, 1, 3, 8),
+    ])
 def test_probe_copy_kernel(dev, dtype, rows, lanes, full, slots, streams,
-                           blocks):
+                           blocks, bands):
     from whisper_aries_tpu_torch.scripts import probe_dma as PD
 
     src = PD.source(dtype, 8, rows, full, dev)
-    band = rows // blocks
+    band = rows // bands
     slots = 2 if streams > 1 else slots
     for n in (1, 37):
-        reads = torch.empty((blocks, streams, n), device=dev)
+        reads = torch.empty((blocks, streams, PD.steps_of(n, bands, blocks)),
+                            device=dev)
         if streams == 1:
             got = PD.copy_ring_kernel(src, band, lanes, n, slots, blocks,
-                                      reads)
+                                      reads, bands)
         else:
             got = PD.copy_streams_kernel(src, band, lanes, n, streams, blocks,
-                                         reads)
+                                         reads, bands)
         torch.cuda.synchronize()
-        held = PD.hold_checksum(got, src, band, n, streams, blocks)
+        held = PD.hold_checksum(got, src, band, n, streams, blocks, bands)
         assert held["ok"], held
-        assert float((reads - PD.trace_plain(src, band, n, streams, blocks)
+        assert float((reads - PD.trace_plain(src, band, n, streams, blocks,
+                                             bands=bands)
                       ).abs().max()) == 0.0
 
 
@@ -1184,10 +1194,12 @@ def test_probe_copy_refuses_its_own_arguments_apart(dev):
     from whisper_aries_tpu_torch.scripts import probe_dma as PD
 
     src = PD.source(torch.bfloat16, 2, 4, 1024, dev)
-    need = PD.ring_smem(4 * 1024 * 2, 2, 1, False)
+    need = PD.block_smem(4 * 1024 * 2, 2, False)
     with pytest.raises(ValueError, match="refused its arguments"):
         PD.launch_copy(src, 4, 1024, 4, 2, 1, 1, smem=need - 16)
-    assert PD.launch_copy(src, 4, 1024, 4, 2, 1, 1, smem=need).shape == (1,)
+    # one checksum a ring: (blocks, rings)
+    assert PD.launch_copy(src, 4, 1024, 4, 2, 1, 1,
+                          smem=need).shape == (1, 1)
 
 
 @pytest.mark.parametrize("fold", [False, True])
@@ -1224,7 +1236,7 @@ def test_probe_transpose_kernel(dev, variant):
     from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
 
     x = PT.inputs(dev)
-    for reps in (1, PT.REPS):
+    for reps in (1, 2, 7, PT.REPS):  # the kernel splits them into 2 groups
         got = PT.transpose_sum_kernel(x, variant, reps)
         torch.cuda.synchronize()
         held = PT.hold_transpose(got, x, variant, reps)

@@ -163,6 +163,65 @@ def test_checksum_plain_is_the_ring_loop():
     assert torch.equal(got.double(), want)
 
 
+@pytest.mark.parametrize("blocks,bands,S", [(3, 5, 1), (7, 2, 2), (4, 4, 3),
+                                            (10, 1, 1), (5, 3, 2)])
+def test_walk_is_the_persistent_loop(blocks, bands, S):
+    """Blocks walking (iteration, band) items, block b taking items b,
+    b + blocks, ...: the plain checksum and reads equal the kernel's loop
+    written out, with blocks fewer than, equal to and more than the bands;
+    each named mistake is caught."""
+    C, band, n, head = 5, 2, 7, 3
+    src = torch.from_numpy(np.random.default_rng(4).integers(
+        -100, 100, (C, 2 * bands + 1, 32), dtype=np.int8))
+    T = PD.steps_of(n, bands, blocks)
+    want = torch.zeros((blocks, S, T), dtype=torch.float64)
+    for b in range(blocks):
+        for t in range(T):
+            item = b + t * blocks
+            if item >= n * bands:
+                continue
+            i, j = divmod(item, bands)
+            for s in range(S):
+                want[b, s, t] = src[(i * S + s) % C, j * band,
+                                    :head].double().sum()
+    reads = PD.trace_plain(src, band, n, S, blocks, head, bands)
+    assert torch.equal(reads.double(), want)
+    got = PD.checksum_plain(src, band, n, S, blocks, head, bands)
+    assert torch.equal(got.double(), want.sum((1, 2)))
+    ones = PD.trace_plain(src, band, n, S, blocks, 1, bands)
+    held = PD.hold_trace(ones, src, band, n, 2, S, blocks, bands)
+    assert held["ok"] and min(held["mistakes"].values()) > 0, held
+    sums = PD.checksum_plain(src, band, n, S, blocks, bands=bands)
+    assert PD.hold_checksum(sums, src, band, n, S, blocks, bands)["ok"]
+    stale = PD.unwaited_trace_plain(src, band, n, 2, S, blocks, bands)
+    assert not PD.hold_trace(stale, src, band, n, 2, S, blocks, bands)["ok"]
+
+
+@pytest.mark.parametrize("run", PD.TPU_RUNS + tuple(
+    (n, r, l, torch.bfloat16, 2, None) for n, r, l, _ in PD.TPU_MULTI),
+    ids=lambda r: "-".join(r[0].replace("/", " ").replace(",", " ").split()))
+def test_rate_runs_feed_every_sm(run):
+    """Every TPU configuration runs one walker's block, all its rings, on
+    each of the H100's SMs, each keeping at least the bytes in flight the
+    sweep found sufficient; reading the source once (n_iter = chunks /
+    streams), the walkers copy every band of every chunk exactly once."""
+    name, rows, lanes, dtype, slots, full = run
+    streams = next((s for n, _, _, s in PD.TPU_MULTI if n == name), 1)
+    elem = 1 if dtype == torch.int8 else 2
+    strided = full is not None and full != lanes
+    band, bands = PD.band_plan(rows, lanes * elem, slots, strided, streams)
+    assert band * lanes * elem * slots * streams >= PD.INFLIGHT_MIN
+    walkers = PD.SMS_H100
+    C = 12 * streams
+    chunk, j, valid = PD.walk(C, C // streams, streams, walkers, bands,
+                              "cpu")
+    pairs = (chunk * bands + j)[valid.expand_as(chunk)]
+    assert torch.equal(torch.bincount(pairs, minlength=C * bands),
+                       torch.ones(C * bands, dtype=torch.long))
+    steps = valid.sum(-1).flatten()
+    assert int(steps.max() - steps.min()) <= 1
+
+
 @pytest.mark.parametrize("n_slots,n_streams", [(1, 1), (2, 1), (4, 1),
                                                (2, 3)])
 def test_unwaited_slot_is_the_stale_slot(n_slots, n_streams):
@@ -224,19 +283,20 @@ def test_checksum_and_reads_catch_the_named_mistakes():
     ids=lambda r: "-".join(r[0].replace("/", " ").replace(",", " ").split()))
 def test_band_plan_fits_a_block(run):
     """Every TPU configuration's band divides its rows, fits the H100's
-    opt-in shared memory as a ring, is at most one tensor-map box high
-    when strided, and is the largest band that does."""
+    opt-in shared memory as one walker's block of its rings, is at most
+    one tensor-map box high when strided, and is the largest band that
+    does."""
     name, rows, lanes, dtype, slots, full = run
     streams = next((s for n, _, _, s in PD.TPU_MULTI if n == name), 1)
     elem = 1 if dtype == torch.int8 else 2
     strided = full is not None and full != lanes
-    band, blocks = PD.band_plan(rows, lanes * elem, slots, streams, strided)
-    assert band * blocks == rows
-    assert PD.ring_smem(band * lanes * elem, slots, streams,
-                        strided) <= PD.OPTIN_H100
+    band, bands = PD.band_plan(rows, lanes * elem, slots, strided, streams)
+    assert band * bands == rows
+    assert PD.block_smem(band * lanes * elem, slots, strided,
+                         streams) <= PD.OPTIN_H100
     assert not strided or band <= 256
     bigger = [b for b in range(band + 1, rows + 1) if rows % b == 0]
-    assert all(PD.ring_smem(b * lanes * elem, slots, streams, strided)
+    assert all(PD.block_smem(b * lanes * elem, slots, strided, streams)
                > PD.OPTIN_H100 or (strided and b > 256) for b in bigger)
 
 
@@ -244,11 +304,15 @@ def test_ring_layout_mirrors_the_source():
     """data_offset is csrc/probe_copy.cu's; the one-slot copy at the
     opt-in limit moves the limit less the barrier, in 16-byte steps."""
     text = (CSRC / "probe_copy.cu").read_text(encoding="utf-8")
-    assert "(8 * n_slots * n_streams + 4 * n_streams + 15) / 16 * 16" in text
-    assert PD.data_offset(1, 1) == 16 and PD.data_offset(2, 4) == 80
+    assert "(8 * n_slots + 15) / 16 * 16" in text
+    assert PD.data_offset(1) == 16 and PD.data_offset(2) == 16
+    assert PD.data_offset(3) == 32
+    # a walker's block: every ring's barriers, then every ring's slots
+    assert PD.block_smem(32 << 10, 2, False, 2) == 32 + 4 * (32 << 10)
+    assert PD.block_smem(40 << 10, 4, True, 2) == 64 + 128 + 8 * (40 << 10)
     assert PV.copy_lanes(PD.OPTIN_H100) * 2 == PD.OPTIN_H100 - 16
-    assert PD.ring_smem(PV.copy_lanes(PD.OPTIN_H100) * 2, 1, 1,
-                        False) == PD.OPTIN_H100
+    assert PD.block_smem(PV.copy_lanes(PD.OPTIN_H100) * 2, 1,
+                         False) == PD.OPTIN_H100
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +466,31 @@ def test_probe_batched_transpose_matches_jax(interpret, variant):
     assert PT.hold_transpose(got, xt, variant)["err"] == 0.0
 
 
+@pytest.mark.parametrize("reps", [1, 2, 7, 64])
+@pytest.mark.parametrize("variant", ["batched", "perwin"])
+def test_transpose_hold_catches_each_named_mistake(variant, reps):
+    """At the repetition counts the card test runs (dividing the kernel's
+    repetition groups and not), the right answer holds and each named
+    mistake (a window, a repetition, the offsets) reads above the limit."""
+    x = PT.inputs(torch.device("cpu"))
+    held = PT.hold_transpose(PT.transpose_sum_plain(x, variant, reps), x,
+                             variant, reps)
+    assert held["ok"] and held["err"] == 0.0, held
+    assert set(held["mistakes"]) == {"last window dropped",
+                                     "last repetition dropped",
+                                     "offsets one too high"}
+    for name, y in PT.named_mistakes(x, variant, reps).items():
+        res = PT.hold_transpose(y, x, variant, reps)
+        assert not res["ok"] and res["err"] > res["limit"], name
+
+
+def test_transpose_kernel_refuses_offsets_past_bf16():
+    """The kernel adds i in bf16, exact only below 256 repetitions."""
+    x = torch.zeros((PT.Bw * PT.KP, PT.D), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="reps"):
+        PT.transpose_sum_kernel(x, "batched", PT.MAX_REPS + 1)
+
+
 # ---------------------------------------------------------------------------
 # where the probes run
 # ---------------------------------------------------------------------------
@@ -471,6 +560,8 @@ def test_probe_dma_main_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert len(res) == len(PD.TPU_RUNS) + len(PD.TPU_MULTI)
     assert all(r["ok"] and "ms" not in r for r in res)
+    assert all(r["blocks"] == PD.SMS_H100
+               and r["inflight_per_sm"] >= PD.INFLIGHT_MIN for r in res)
     for name, *_ in PD.TPU_RUNS + PD.TPU_MULTI:
         assert name in out
 

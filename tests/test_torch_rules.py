@@ -106,14 +106,32 @@ def test_engine_raises_without_a_card(monkeypatch):
         AriesTranscriber(device="cuda", allow_random=True)
 
 
-def test_engine_refuses_unported_options():
+@pytest.mark.parametrize("key,value", [
+    ("decode.audio_ctx", "bucket"),
+    ("decode.mel_backend", "pallas"),
+    ("decode.multilingual", True),
+])
+def test_engine_refuses_unported_options(key, value):
     from whisper_aries_tpu_torch.config import load_config
     from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
 
-    cfg = load_config(overrides={"decode.audio_ctx": "bucket"})
-    with pytest.raises(ValueError, match="not ported"):
+    cfg = load_config(overrides={key: value})
+    with pytest.raises(ValueError, match=f"{key}={value!r} is not ported"):
         AriesTranscriber(device="cpu", config=cfg, allow_random=True,
                          model_size="tiny")
+
+
+def test_engine_builds_with_multilingual_off():
+    """decode.multilingual=False, given explicitly, is the default: the
+    engine builds and keeps it."""
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    cfg = load_config(overrides={"decode.multilingual": False})
+    eng = AriesTranscriber(device="cpu", config=cfg, allow_random=True,
+                           model_size="tiny")
+    assert eng.config.decode.multilingual is False
+    assert eng.device.type == "cpu"
 
 
 def test_cuda_wrappers_reject_cpu_operands_for_kernels():

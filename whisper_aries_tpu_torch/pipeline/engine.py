@@ -39,7 +39,9 @@ None (the top-half fallback) unless the caller sets it.
 
 Not ported yet (ROADMAP.md): checkpoint loading, conditioned / sequential
 decode and the resume journal, fixed chunking, prefix / initial prompt /
-hotwords, multilingual, the short audio_ctx bucket.
+hotwords, the short audio_ctx bucket; the constructor refuses
+``decode.multilingual=True`` (a language per window), ``decode.audio_ctx``
+other than "full" and ``decode.mel_backend`` other than "auto".
 """
 
 from __future__ import annotations
@@ -150,7 +152,8 @@ class AriesTranscriber:
         on_cuda = self.device.type == "cuda"
         dc = self.config.decode
         for name, val, ok in (("audio_ctx", dc.audio_ctx, ("full",)),
-                              ("mel_backend", dc.mel_backend, ("auto",))):
+                              ("mel_backend", dc.mel_backend, ("auto",)),
+                              ("multilingual", dc.multilingual, (False,))):
             if val not in ok:
                 raise ValueError(f"decode.{name}={val!r} is not ported yet")
         if compute_type in ("f32", "float32"):

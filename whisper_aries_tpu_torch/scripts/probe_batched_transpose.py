@@ -6,12 +6,13 @@ windows, the "perwin" variant by 36 2-D transposes).
 
 The TPU probe asked whether Mosaic lowers a batched minor-dims transpose
 and what it costs against per-window ones. Here (``csrc/probe_transpose.cu``)
-a block owns 32 columns of D; "batched" stages every window's (KP, 32)
-tile through shared memory at once and sums over windows in the
-transposed mapping, "perwin" stages and adds one window at a time. Each
-keeps its variant's rounding: "batched" rounds the window sum once to
-bf16, "perwin" adds each window in f32. Unlike the TPU probe (whose
-accumulator scratch is never zeroed) the accumulator starts at zero.
+a block owns 16 columns of D and reads its slab of x once; each warp
+holds one row k of every window as tensor-core fragments and, for its
+share of the repetitions, adds i with packed bf16 adds and sums 16
+windows at a time in one product by ones (f32 sums). "batched" rounds
+each repetition's window sum once to bf16, "perwin" adds every window in
+f32. Unlike the TPU probe (whose accumulator scratch is never zeroed) the
+accumulator starts at zero.
 
     python -m whisper_aries_tpu_torch.scripts.probe_batched_transpose
         [--device cpu]
@@ -36,20 +37,21 @@ from whisper_aries_tpu_torch.scripts import common
 
 Bw, KP, D = 36, 8, 3840
 REPS = 64   # transposes per call
+MAX_REPS = 256  # the kernel's offsets i are exact in bf16 below this
 VARIANTS = {"batched": 1, "perwin": 0}
 
 
 def transpose_sum_plain(x: torch.Tensor, variant: str, reps: int = REPS,
-                        windows: int = Bw) -> torch.Tensor:
+                        windows: int = Bw, start: int = 0) -> torch.Tensor:
     """x (windows * KP', D) bf16 -> (D, KP') f32 from zero: for each
-    repetition i, h = x + i in bf16; "batched" adds bf16(sum over windows
-    of h_w in f32) transposed, "perwin" adds each h_w transposed in f32,
-    in window order."""
+    repetition i in [start, start + reps), h = x + i in bf16; "batched"
+    adds bf16(sum over windows of h_w in f32) transposed, "perwin" adds
+    each h_w transposed in f32, in window order."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {list(VARIANTS)}")
     kp, d = x.shape[0] // windows, x.shape[1]
     acc = torch.zeros((d, kp), dtype=torch.float32, device=x.device)
-    for i in range(reps):
+    for i in range(start, start + reps):
         h = (x + i).view(windows, kp, d)
         if variant == "batched":
             acc += h.float().sum(0).to(torch.bfloat16).float().T
@@ -74,19 +76,33 @@ def window_sum_steps(x: torch.Tensor, reps: int = REPS,
     return out
 
 
+def named_mistakes(x: torch.Tensor, variant: str,
+                   reps: int = REPS) -> Dict[str, torch.Tensor]:
+    """The plain version with a mistake a kernel could make: a window, a
+    repetition (the kernel splits them into groups) or the offsets
+    (i + 1 for i) wrong."""
+    return {
+        "last window dropped": transpose_sum_plain(x[:-KP], variant, reps,
+                                                   Bw - 1),
+        "last repetition dropped": transpose_sum_plain(x, variant, reps - 1),
+        "offsets one too high": transpose_sum_plain(x, variant, reps,
+                                                    start=1)}
+
+
 def hold_transpose(got: torch.Tensor, x: torch.Tensor, variant: str,
                    reps: int = REPS) -> dict:
     """The kernel against the plain version, elementwise within one bf16
     step of the window sum a repetition (``window_sum_steps``); the limit
-    lies below the error of a sum that drops the last window."""
+    lies below the error of each of ``named_mistakes``."""
     want = transpose_sum_plain(x, variant, reps)
     steps = window_sum_steps(x, reps)
-    short = transpose_sum_plain(x[:-KP], variant, reps, Bw - 1)
 
     def err(y):
         return float(((y - want).abs() / steps).max())
 
-    return common.hold(err(got), 1.0, {"last window dropped": err(short)},
+    return common.hold(err(got), 1.0,
+                       {k: err(y) for k, y in
+                        named_mistakes(x, variant, reps).items()},
                        float((got - want).abs().max()))
 
 
@@ -103,9 +119,12 @@ def _transpose_fn():
 
 def transpose_sum_kernel(x: torch.Tensor, variant: str,
                          reps: int = REPS) -> torch.Tensor:
-    """The kernel on CUDA x (Bw * KP, D) bf16: (D, KP) f32."""
+    """The kernel on CUDA x (Bw * KP, D) bf16: (D, KP) f32; 0 < reps <=
+    256 (every offset exact in bf16)."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} is not one of {list(VARIANTS)}")
+    if not 0 < reps <= MAX_REPS:
+        raise ValueError(f"reps must be in 1..{MAX_REPS}, got {reps}")
     cb.require(x, "x", torch.bfloat16, (Bw * KP, D))
     out = torch.empty((D, KP), dtype=torch.float32, device=x.device)
     cb.launch(_transpose_fn(), x, "probe transpose kernel", cb.ptr(x), Bw,

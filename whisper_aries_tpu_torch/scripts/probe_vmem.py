@@ -38,7 +38,7 @@ CLUSTERS = (2, 4, 8, 16)
 def copy_lanes(smem_bytes: int) -> int:
     """bf16 elements the one-slot copy moves when a launch asks for
     ``smem_bytes``: what is left after the barrier, in 16-byte steps."""
-    return (smem_bytes - PD.data_offset(1, 1)) // 16 * 16 // 2
+    return (smem_bytes - PD.data_offset(1)) // 16 * 16 // 2
 
 
 def smem_copy_plain(src: torch.Tensor) -> torch.Tensor:
@@ -58,7 +58,7 @@ def smem_copy_kernel(src: torch.Tensor, smem_bytes: int,
         raise ValueError(f"src must be (blocks, lanes), got {tuple(src.shape)}")
     blocks, lanes = src.shape
     out = PD.launch_copy(src[None], 1, lanes, 1, 1, 1, blocks,
-                         head=HEAD, cluster=cluster, smem=smem_bytes)
+                         head=HEAD, cluster=cluster, smem=smem_bytes)[:, 0]
     smem_copy_kernel.launches += 1
     return out
 
