@@ -14,7 +14,13 @@ caught; a kernel check that fails is printed at once and fails the run
      per source, all in parallel.
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the main paths' large-v3 shapes (mel at B=8 with 128 and 80 mels,
-     encoder attention at (8, 20, 1500, 64) bf16, the decoder-layer kernels
+     encoder attention at (8, 20, 1500, 64) bf16, and at the 16 s
+     bucket's shapes: mel at 8 x 256,000 samples, encoder attention at
+     (8, 20, 800, 64), the decode step over Ta 800 cross K/V at R 8 and
+     R 40, the grouped cross-attention at 8 windows x G 3 and 5 over 800
+     keys and the W8A16 GEMM at M 6400 = 8 x 800, each with "keys past Ta
+     read from the 30 s pad" or the 30 s shapes' mistakes; each entry's
+     "bucket" holds its times and bound there; the decoder-layer kernels
      at R=8 for both self-cache dtypes over several positions, the grouped
      int8 cross-attention at (8 windows, 20 heads, 5 queries, 1500 keys) and
      at the prefill's (6 windows, 3, 15 and 20 queries, bf16 and f32), the
@@ -124,6 +130,22 @@ caught; a kernel check that fails is printed at once and fails the run
      self-attention kernel and the W8A16 GEMM, every step after a prefill
      a replay of the decode call's decoder_step graph (graph_replays =
      layer_steps); prints ms per step.
+  9. checkpoint path: write a large-v3 HF checkpoint directory (published
+     widths and depth, seeded random weights as f16 model.safetensors in
+     HF key names through the port's writer, large-v3's config.json,
+     generation_config.json with 10 alignment heads, a synthesised v3
+     tokenizer), build AriesTranscriber(model_size=<dir>) at compute int8
+     under ARIES_QUANT_IMPL=pallas with audio_ctx="bucket" (the smoke test
+     in the constructor), run transcribe_file at beam 5 with
+     multilingual=True and word timestamps on a file of speech bursts,
+     then a greedy call on the 125 s WAV with chunk_size 60, overlap
+     merge, suppress_tokens [-1], no_repeat_ngram_size 3,
+     repetition_penalty 1.1, max_initial_timestamp 0.5 and a
+     progress_callback; counts from 0 over both calls. Both encoder
+     contexts (800, 1500) must appear in the main pass, seven kernels
+     must launch, the word pass must read the checkpoint's 10 heads and
+     every segment carry a language; prints the write, load and smoke
+     seconds and the peak host RSS of each (the "checkpoint" line).
 The second-to-last lines are the kernels JSON (all seventeen kernels) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
@@ -334,12 +356,15 @@ def kernel_mel(dev, entries):
     from whisper_aries_tpu_torch.ops import mel as M
 
     B = 8
-    audio = torch.as_tensor(np.stack([synth_audio(30.0, 100 + i)
-                                      for i in range(B)]), device=dev)
     tols = {"max_abs": 5e-4, "mean_abs": 2e-6}
-    n_frames = 3000
     entry = None
-    for n_mels in (128, 80):
+    # 30 s windows at 128 and 80 mels; the 16 s bucket's 256,000 samples
+    for seconds, n_mels in ((30, 128), (30, 80), (16, 128)):
+        audio = torch.as_tensor(np.stack([
+            synth_audio(float(seconds), 100 + i) for i in range(B)]),
+            device=dev)
+        n_frames = audio.shape[1] // 160
+        at = f"{n_mels} mels" + (", 16 s bucket" if seconds == 16 else "")
         got = M.log_mel(audio, n_mels)
         want = log_mel_spectrogram(audio, n_mels)
         mistakes = {
@@ -348,13 +373,13 @@ def kernel_mel(dev, entries):
             f"band {n_mels // 2}'s last bin dropped":
                 mel_band_cut(audio, n_mels, n_mels // 2)}
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            fail("mel kernel output is not finite")
+        if not bool(torch.isfinite(got).all()) or got.shape[-1] != n_frames:
+            fail(f"mel kernel output is not finite or not {n_frames} frames")
         err = lambda a: {"max_abs": float((a - want).abs().max()),
                          "mean_abs": float((a - want).abs().mean())}
         errs = err(got)
         for name, wrong in mistakes.items():
-            held(f"mel[{n_mels} mels, {name}]", errs, tols, err(wrong))
+            held(f"mel[{at}, {name}]", errs, tols, err(wrong))
         kern = lambda: M.mel_power_kernel(audio, n_mels)
         times = dict(ms=time_ms(lambda: M.log_mel(audio, n_mels), 20),
                      device_ms=device_ms(kern),
@@ -371,6 +396,7 @@ def kernel_mel(dev, entries):
         dft_ops = B * n_frames * (2 * 400 * 402 + 3 * 201 + 2 * 201 * n_mels)
         nbytes = audio.numel() * 4 + B * n_frames * n_mels * 4
         b_ms, b_by = bound(nbytes, ops, PEAK_F32)
+        shape = f"audio ({B}, {audio.shape[1]}) f32, n_mels {n_mels}"
         if entry is None:
             entry = dict(
                 name="mel", route="cuda",
@@ -380,20 +406,25 @@ def kernel_mel(dev, entries):
                 tolerance="max |d| < 5e-4, mean |d| < 2e-6", **times,
                 bound_ms=b_ms, bound_by=b_by,
                 dft_design_bound_ms=bound(nbytes, dft_ops, PEAK_F32)[0],
-                library_ms=None,
-                shape=f"audio ({B}, 480000) f32, n_mels {n_mels}")
+                library_ms=None, shape=shape)
         else:
-            entry[f"at_{n_mels}_mels"] = dict(
-                max_abs_err=errs["max_abs"], bound_ms=b_ms, **times)
+            entry["bucket" if seconds == 16 else f"at_{n_mels}_mels"] = dict(
+                max_abs_err=errs["max_abs"], bound_ms=b_ms, bound_by=b_by,
+                shape=shape, **times)
     entries.append(entry)
 
 
-def kernel_encoder_attn(dev, entries):
+def encoder_attn_at(dev, T):
+    """The encoder-attention kernel at (8, 20, T, 64) bf16 against its
+    plain version, with three named mistakes (keys past T scored as zero
+    keys, the last 28 keys dropped, the next head's keys scored in the
+    ragged last tile), then timed beside SDPA. T 1500 is the 30 s window,
+    T 800 (6 x 128 + 32) the 16 s bucket's."""
     import torch
     import torch.nn.functional as F
     from whisper_aries_tpu_torch.models import whisper as W
 
-    B, H, T, dh = 8, 20, 1500, 64
+    B, H, dh = 8, 20, 64
     g = torch.Generator(device=dev).manual_seed(1)
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -401,14 +432,16 @@ def kernel_encoder_attn(dev, entries):
     # step in many elements: mean_rel ~2e-3 (one step is 2^-8..2^-7)
     tol = {"max_rel": 1e-2, "mean_rel": 5e-3}
     err = 0.0
-    pad = torch.zeros((B, H, 36, dh), dtype=k.dtype, device=dev)
-    # unit q gives nearly flat softmax rows over 1500 keys, where keys past
+    pad = -T % 128 or 128
+    zeros = torch.zeros((B, H, pad, dh), dtype=k.dtype, device=dev)
+    at = f"T {T}"
+    # unit q gives nearly flat softmax rows over T keys, where keys past
     # T scored as zero-valued keys show; q x 4 gives peaked rows, where a
     # dropped last tile (or a wrong scale) shows
-    mistakes = {1: lambda qs: W.attention_plain(qs, torch.cat([k, pad], 2),
-                                                torch.cat([v, pad], 2)),
-                4: lambda qs: W.attention_plain(qs, k[:, :, :1472],
-                                                v[:, :, :1472])}
+    mistakes = {1: lambda qs: W.attention_plain(qs, torch.cat([k, zeros], 2),
+                                                torch.cat([v, zeros], 2)),
+                4: lambda qs: W.attention_plain(qs, k[:, :, :T - 28],
+                                                v[:, :, :T - 28])}
     for q_scale, mistake in mistakes.items():
         qs = (q.float() * q_scale).to(torch.bfloat16)
         got = W.encoder_attention_kernel(qs, k, v)
@@ -417,18 +450,16 @@ def kernel_encoder_attn(dev, entries):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got.float()).all()):
             fail("encoder attention output is not finite")
-        held(f"encoder_attn[q x {q_scale}]",
+        held(f"encoder_attn[{at}, q x {q_scale}]",
              {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)},
              tol, {"max_rel": max_rel(wrong, want),
                    "mean_rel": mean_rel(wrong, want)})
         err = max(err, float((got.float() - want.float()).abs().max()))
         del want, wrong
-    # T 1500 is no multiple of the 128-key tile: the last tile's 36 rows
-    # past T lie in the next head's memory. With each head's first 36 keys
-    # made large, scoring them there (the next head's keys and values, as
-    # a 2D (B H T, 64) map would read them) must move the output past the
-    # limit.
-    pad = -T % 128
+    # T is no multiple of the 128-key tile: the last tile's rows past T
+    # lie in the next head's memory. With each head's first keys made
+    # large, scoring them there (the next head's keys and values, as a 2D
+    # (B H T, 64) map would read them) must move the output past the limit.
     kb = k.clone()
     kb[:, :, :pad] *= 4
     got = W.encoder_attention_kernel(q, kb, v)
@@ -439,7 +470,7 @@ def kernel_encoder_attn(dev, entries):
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got.float()).all()):
         fail("encoder attention output is not finite")
-    held("encoder_attn[next head's keys scored]",
+    held(f"encoder_attn[{at}, next head's keys scored]",
          {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)},
          tol, {"max_rel": max_rel(wrong, want),
                "mean_rel": mean_rel(wrong, want)})
@@ -451,19 +482,25 @@ def kernel_encoder_attn(dev, entries):
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
     b_ms, b_by = bound(4 * B * H * T * dh * 2, 4 * B * H * T * T * dh,
                        PEAK_BF16)
+    return dict(max_abs_err=err, tolerance=tol, ms=ms, device_ms=dev_ms,
+                host_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                shape=f"q, k, v ({B}, {H}, {T}, {dh}) bf16; one call per "
+                      "layer")
+
+
+def kernel_encoder_attn(dev, entries):
     entries.append(dict(
         name="encoder_attn", route="cuda",
         source="whisper_aries_tpu_torch/csrc/encoder_attn.cu",
         replaces="whisper_aries_tpu/models/whisper.py:337",
-        max_abs_err=err, tolerance=tol, ms=ms, device_ms=dev_ms,
-        host_ms=wrapper_ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"q, k, v ({B}, {H}, {T}, {dh}) bf16; one call per layer"))
+        **encoder_attn_at(dev, 1500), bucket=encoder_attn_at(dev, 800)))
 
 
 def decode_inputs(dev, R, P, self_int8, seed=0, windows=None):
     """Large-v3 decoder-layer operands at R rows over ``windows`` windows
-    (R by default; R / windows beams per window share its cross K/V):
+    (R by default; R / windows beams per window share its cross K/V) with
+    1500 cross keys:
     int8-packed random weights (LayerNorm and bias segments perturbed so
     they matter), int8 cross K/V from random encoder output, a self cache
     holding P random positions. Cross-attention's output scale is raised
@@ -581,7 +618,7 @@ def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
     del graph, cg_, cd
 
 
-def step_bound(dims, R, pos, self_int8, windows=None):
+def step_bound(dims, R, pos, self_int8, windows=None, ta=None):
     """Least time of one decode step (all layers): int8 weights, the
     windows' int8 cross K/V with scales, the live self cache, x in and out,
     each moved once; or the products at the bf16 peak, whichever is
@@ -589,7 +626,7 @@ def step_bound(dims, R, pos, self_int8, windows=None):
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
-    ff, Ta = 4 * d, dims.n_audio_ctx
+    ff, Ta = 4 * d, ta or dims.n_audio_ctx
     w_bytes = L * (d * 6 * d + 2 * d * ff + DL.vec_offsets(d, ff)[1] * 4)
     cross_bytes = L * (windows or R) * 2 * H * Ta * (64 + 4)
     elt = 1 if self_int8 else 2
@@ -613,16 +650,18 @@ def check_decode_plans(dev) -> None:
                for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d)))
     same &= all(DL.kernel_attn_split(T) == DL.attn_split(T)
                 for T in (227, 448))
-    same &= all(DL.kernel_cross_split(1500, w * 20, G, sms)
-                == DL.cross_split(1500, w * 20, G, sms) for w in (1, 6, 8)
-                for G in (1, 5, 15))
+    same &= all(DL.kernel_cross_split(Ta, w * 20, G, sms)
+                == DL.cross_split(Ta, w * 20, G, sms) for w in (1, 5, 6, 8)
+                for G in (1, 3, 5, 15) for Ta in (1500, 800))
     check("decode plans: C = Python mirrors", same,
           f"{sms} SMs, GEMM K slices "
           f"{[DL.gemm_plan(K, N, sms) for K, N in ((d, 3 * d), (d, d), (d, ff), (ff, d))]}, "
           f"self splits {DL.attn_split(227)}, cross splits at 6 / 8 windows "
           f"{DL.cross_split(1500, 120, 1, sms)} / "
           f"{DL.cross_split(1500, 160, 1, sms)}, G 15 at 6 windows "
-          f"{DL.cross_split(1500, 120, 15, sms)}")
+          f"{DL.cross_split(1500, 120, 15, sms)}; the 16 s bucket's Ta 800 "
+          f"at 8 windows G 1 / 5 {DL.cross_split(800, 160, 1, sms)} / "
+          f"{DL.cross_split(800, 160, 5, sms)}")
 
 
 def kernel_decode_layers(dev, entries, parts):
@@ -765,6 +804,7 @@ def kernel_decode_layers(dev, entries, parts):
             # of 8 windows
             for rows, windows in ((6, 6), (30, 6), (40, 8)):
                 entry.update(step_at_rows(dev, rows, P, pos, windows, parts))
+            entry["bucket"] = step_at_bucket(dev, P, pos)
             entries.append(entry)
         else:
             del graph
@@ -826,6 +866,90 @@ def step_at_rows(dev, R, P, pos, windows, parts):
     b_ms, _ = step_bound(dims, R, pos, True, windows)
     return {f"ms_at_r{R}": ms, f"ms_direct_at_r{R}": ms_direct,
             f"bound_ms_at_r{R}": b_ms}
+
+
+def step_at_bucket(dev, P, pos):
+    """The int8-self-cache step over the 16 s bucket's cross K/V (Ta 800)
+    at R 8 (8 windows, greedy) and R 40 (8 windows x 5 beams): held
+    teacher-forced per layer against its plain version, where the same
+    error of a plain layer with a named mistake must exceed the limit:
+    keys past Ta read from the 30 s pad (the plain layer over 1500 keys
+    whose first 800 are the bucket's), and every window reading window
+    0's K/V; then two runs bitwise and a graph replay against direct
+    launches; timed as a replay and as direct launches, with its bound at
+    Ta 800."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    out = {"shape": "one step, all 32 layers, cross K/V over Ta 800 (8 "
+                    f"windows), int8 self cache, position {pos}"}
+    for R in (8, 40):
+        dims, _, wpack, full, cache, g = decode_inputs(dev, R, P, True,
+                                                       seed=2, windows=8)
+        H, L = dims.n_text_head, dims.n_text_layer
+        cross = {"kv8": full["kv8"][:, :, :, :, :800].contiguous(),
+                 "sc": full["sc"][:, :, :, :, :800].contiguous()}
+        if cross["kv8"].shape[4] != 800:
+            fail("bucket step: cross K/V not cut to Ta 800")
+        window0 = {k: v[:, :1].expand_as(v).contiguous()
+                   for k, v in cross.items()}
+        later = slice(R // 8, None)  # the rows of windows 1..
+        sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+        ck, cp, cm, cw = clone(cache), clone(cache), clone(cache), clone(cache)
+        errs = {"max_rel": 0.0, "mean_rel": 0.0}
+        past = {"mean_rel": math.inf}
+        win0 = {"mean_rel": math.inf}
+        worst_abs = 0.0
+        for l in range(L):
+            xin = (0.25 * torch.randn((R, dims.n_text_state), generator=g,
+                                      device=dev)).to(torch.bfloat16)
+            got = DL.fused_decoder_layers(xin, sl(wpack, l), sl(ck, l),
+                                          sl(cross, l), 0, P, H)
+            want = DL.fused_decoder_layers_plain(xin, sl(wpack, l), sl(cp, l),
+                                                 sl(cross, l), 0, P, H)
+            wrong = DL.fused_decoder_layers_plain(xin, sl(wpack, l),
+                                                  sl(cm, l), sl(full, l), 0,
+                                                  P, H)
+            wrong0 = DL.fused_decoder_layers_plain(xin, sl(wpack, l),
+                                                   sl(cw, l), sl(window0, l),
+                                                   0, P, H)
+            errs["max_rel"] = max(errs["max_rel"], max_rel(got, want))
+            errs["mean_rel"] = max(errs["mean_rel"], mean_rel(got, want, xin))
+            past["mean_rel"] = min(past["mean_rel"],
+                                   mean_rel(wrong, want, xin))
+            win0["mean_rel"] = min(win0["mean_rel"], mean_rel(
+                wrong0[later], want[later], xin[later]))
+            worst_abs = max(worst_abs, float(
+                (got.float() - want.float()).abs().max()))
+        del ck, cp, cm, cw, window0
+        tols = {"max_rel": 3e-2, "mean_rel": 1e-2}
+        label = f"Ta 800, R {R} = 8 windows x {R // 8}"
+        held(f"decode_layers[{label}] keys past Ta read from the 30 s pad",
+             errs, tols, past)
+        held(f"decode_layers[{label}] every window reads window 0", errs,
+             tols, win0)
+        hold_step_bits(label, dev, wpack, cache, cross, H, R, 8, P + 8, g)
+        x = torch.randn((R, dims.n_text_state), generator=g,
+                        device=dev).to(torch.bfloat16)
+        graph = DL.DecodeStepGraph(wpack, cache, cross, R, H)
+        ms = time_ms(lambda: graph.run(x, pos), 20)
+        ms_direct = time_ms(lambda: DL.fused_decoder_layers(
+            x, wpack, cache, cross, 0, pos, H), 20)
+        del graph
+        b_ms, b_by = step_bound(dims, R, pos, True, 8, ta=800)
+        if R == 8:
+            plain_ms = time_ms(lambda: DL.fused_decoder_layers_plain(
+                x, wpack, clone(cache), cross, 0, pos, H), 3, warmup=1)
+            out.update(max_abs_err=worst_abs, tolerance=tols, ms=ms,
+                       ms_direct=ms_direct, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+        else:
+            out.update({"ms_at_r40": ms, "ms_direct_at_r40": ms_direct,
+                        "bound_ms_at_r40": b_ms,
+                        "max_abs_err_at_r40": worst_abs})
+        del wpack, full, cache, cross, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_step(label: str, step, n: int = 5,
@@ -1043,12 +1167,15 @@ def step_cross_kernel(cq, kv8_l, sc_l, H):
     return att
 
 
-def cross_case(dev, Bw, G, seed):
+def cross_case(dev, Bw, G, seed, Ta=1500):
     """Grouped cross-attention operands at (Bw windows, 20 heads, G queries,
-    1500 keys): K/V as views of the packed (Bw, 2, H, Ta, 64) cross layout,
+    Ta keys): K/V as views of the packed (Bw, 2, H, Ta, 64) cross layout,
     K scales folding 1/sqrt(dh); distinct peaked queries (x 4) per query
     slot, bf16, in the strided layout the model hands over ((Bw, G, H, 64)
-    rows transposed to (Bw, H, G, 64))."""
+    rows transposed to (Bw, H, G, 64)). Below 1500 keys (the 16 s
+    bucket's 800) the case also returns, as a named mistake, the same
+    views over 1500 keys whose first Ta are these (keys past Ta read from
+    the 30 s pad); else None there."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
 
@@ -1061,13 +1188,18 @@ def cross_case(dev, Bw, G, seed):
     del kv
     q = (4 * torch.randn((Bw, G, H, dh), generator=g, device=dev)).to(
         torch.bfloat16).transpose(1, 2)
-    return q, (kv8[:, 0], sc[:, 0], kv8[:, 1], sc[:, 1])
+    views = lambda k8, s: (k8[:, 0], s[:, 0], k8[:, 1], s[:, 1])
+    if Ta == T:
+        return q, views(kv8, sc), None
+    return (q, views(kv8[..., :Ta, :].contiguous(), sc[..., :Ta].contiguous()),
+            views(kv8, sc))
 
 
-def hold_cross(label, q, args):
+def hold_cross(label, q, args, past=None):
     """The kernel (f32 out) against its plain version; each named mistake
     (the last 28 keys dropped, every window reading window 0's K/V, the
-    last split's P . V dropped from the rank-order sum) must exceed the
+    last split's P . V dropped from the rank-order sum, and, given
+    ``past``, keys past Ta read from the 30 s pad) must exceed the
     limits. Returns the largest |error|."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
@@ -1075,16 +1207,20 @@ def hold_cross(label, q, args):
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     Bw, H, G, _ = q.shape
-    S, C = DL.cross_split(args[0].shape[2], Bw * H, G, cb.sm_count(q))
+    Ta = args[0].shape[2]
+    S, C = DL.cross_split(Ta, Bw * H, G, cb.sm_count(q))
     got = XA.cross_attention_q8_kernel(q, *args)
     want = XA.cross_attention_q8_reference(q, *args)
     mistakes = {
         "last 28 keys dropped": XA.cross_attention_q8_reference(
-            q, *(a[:, :, :1472] for a in args)),
+            q, *(a[:, :, :Ta - 28] for a in args)),
         "every window reads window 0": XA.cross_attention_q8_reference(
             q, *(a[:1].expand_as(a) for a in args)),
         f"split {S - 1} of {S}'s P.V dropped":
             XA.cross_attention_q8_split_plain(q, *args, S, C, drop=S - 1)}
+    if past is not None:
+        mistakes["keys past Ta read from the 30 s pad"] = \
+            XA.cross_attention_q8_reference(q, *past)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         fail(f"cross-attention kernel output is not finite ({label})")
@@ -1096,6 +1232,46 @@ def hold_cross(label, q, args):
              {"max_rel": max_rel(wrong, want),
               "mean_rel": mean_rel(wrong, want)})
     return float((got - want).abs().max()), tols
+
+
+def cross_bound(Bw, G, T, H=20, dh=64):
+    """Least time of one grouped cross-attention: int8 K/V with f32
+    scales read once, q in and f32 out, or its f32 operations."""
+    nbytes = Bw * H * T * 2 * (dh + 4) + Bw * H * G * dh * (2 + 4)
+    return bound(nbytes, 4 * Bw * H * G * T * dh, PEAK_F32)
+
+
+def cross_bucket(dev):
+    """Kernel 6 at the 16 s bucket's Ta 800: the prefill's shape over a
+    full batch of 8 windows (G 3 queries, bf16 and f32 q) and the beam
+    step's (G 5), each with the mistakes of ``hold_cross`` and keys past
+    Ta read from the 30 s pad; timed at 8 x 3."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    err, out = 0.0, {}
+    for G in (3, 5):
+        q, args, past = cross_case(dev, 8, G, 60 + G, Ta=800)
+        for qdtype in (torch.bfloat16, torch.float32):
+            e, tols = hold_cross(f"Ta 800, 8 windows x {G}, q {qdtype}",
+                                 q.to(qdtype), args, past)
+            err = max(err, e)
+        if G == 3:
+            kern = lambda: XA.cross_attention_q8_kernel(q, *args)
+            b_ms, b_by = cross_bound(8, 3, 800)
+            out.update(
+                ms=time_ms(kern, 20), device_ms=device_ms(kern),
+                plain_ms=time_ms(
+                    lambda: XA.cross_attention_q8_reference(q, *args), 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                splits=DL.cross_split(800, 160, 3, cb.sm_count(dev)),
+                shape="q (8, 20, 3, 64) bf16, K/V (8, 20, 800, 64) int8 + "
+                      "f32 scales (the prefill of a bucket batch)")
+        del q, args, past
+    out.update(max_abs_err=err, tolerance=tols)
+    return out
 
 
 def kernel_cross_attn(dev, entries):
@@ -1117,20 +1293,16 @@ def kernel_cross_attn(dev, entries):
 
     Bw, H, G, T, dh = 8, 20, 5, 1500, 64
     sms = cb.sm_count(dev)
-    q, args = cross_case(dev, Bw, G, 4)
+    q, args, _ = cross_case(dev, Bw, G, 4)
     err, tols = hold_cross(f"{Bw} windows x {G}", q, args)
     kern = lambda: XA.cross_attention_q8_kernel(q, *args)
     ms, dev_ms = time_ms(kern, 20), device_ms(kern)
     plain_ms = time_ms(lambda: XA.cross_attention_q8_reference(q, *args), 5)
 
-    def cross_bound(Bw, G):
-        nbytes = Bw * H * T * 2 * (dh + 4) + Bw * H * G * dh * (2 + 4)
-        return bound(nbytes, 4 * Bw * H * G * T * dh, PEAK_F32)
-
-    b_ms, b_by = cross_bound(Bw, G)
+    b_ms, b_by = cross_bound(Bw, G, T)
     extra = {}
     for Gp in (3, 15, 20):
-        qp, ap = cross_case(dev, 6, Gp, 40 + Gp)
+        qp, ap, _ = cross_case(dev, 6, Gp, 40 + Gp)
         for qdtype in (torch.bfloat16, torch.float32):
             qd = qp.to(qdtype)
             e, _ = hold_cross(f"prefill, 6 windows x {Gp}, q {qdtype}", qd, ap)
@@ -1139,7 +1311,7 @@ def kernel_cross_attn(dev, entries):
             kp = lambda: XA.cross_attention_q8_kernel(qp, *ap)
             extra[f"ms_at_g{Gp}_6_windows"] = time_ms(kp, 20)
             extra[f"device_ms_at_g{Gp}_6_windows"] = device_ms(kp)
-            extra[f"bound_ms_at_g{Gp}_6_windows"] = cross_bound(6, Gp)[0]
+            extra[f"bound_ms_at_g{Gp}_6_windows"] = cross_bound(6, Gp, T)[0]
         del qp, ap
     entries.append(dict(
         name="cross_attn_q8", route="cuda",
@@ -1155,7 +1327,7 @@ def kernel_cross_attn(dev, entries):
                 "8x20, G 5": DL.cross_split(T, 160, 5, sms)},
         shape=f"q ({Bw}, {H}, {G}, {dh}) bf16, K/V ({Bw}, {H}, {T}, {dh}) "
               "int8 + f32 scales; also inside every decode step",
-        **extra))
+        bucket=cross_bucket(dev), **extra))
 
 
 def large_v3_ids():
@@ -1413,7 +1585,8 @@ def kernel_quant_matmul(dev, entries):
     """The W8A16 GEMM (the int8 dense layers under ARIES_QUANT_IMPL=pallas)
     at the int8 slices' shapes, bf16 out as the path writes it: the
     encoder and cross K/V over 6 windows (M 9000 = 6 x 1500; K = N = 1280,
-    fc1 N 5120, fc2 K 5120), an odd M, the words slice's prefill (M 18 = 6
+    fc1 N 5120, fc2 K 5120) and over a 16 s bucket batch of 8 windows (M
+    6400 = 8 x 800), an odd M, the words slice's prefill (M 18 = 6
     windows x 3 prompt tokens) and the six dense layers of one unfused
     decoder layer at M 6 and at M 1. Each held in bf16 steps against its
     plain version; each named mistake must flip more elements than the
@@ -1429,6 +1602,9 @@ def kernel_quant_matmul(dev, entries):
     d, ff = 1280, 5120
     shapes = [("encoder q/k/v/o, cross k/v", 9000, d, d),
               ("encoder fc1", 9000, d, ff), ("encoder fc2", 9000, ff, d),
+              ("bucket encoder q/k/v/o, cross k/v", 6400, d, d),
+              ("bucket encoder fc1", 6400, d, ff),
+              ("bucket encoder fc2", 6400, ff, d),
               ("odd M", 1517, d, d), ("words prefill qkv", 18, d, 3 * d),
               ("words prefill fc2", 18, ff, d),
               ("step qkv", 6, d, 3 * d), ("step o, cross q, cross o", 6, d, d),
@@ -1446,7 +1622,7 @@ def kernel_quant_matmul(dev, entries):
         return {"max_rel": max_rel(got, want),
                 "flipped": bf16_steps(got, want)["flipped"]}
 
-    rows, worst = [], 0.0
+    rows, worst, bucket_worst = [], 0.0, 0.0
     g = torch.Generator(device=dev).manual_seed(11)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, M, K, N in shapes:
@@ -1479,6 +1655,9 @@ def kernel_quant_matmul(dev, entries):
              errors(got[t0:], want[t0:]), tol,
              errors(torch.zeros_like(want[t0:]), want[t0:]))
         worst = max(worst, float((got.float() - want.float()).abs().max()))
+        if what.startswith("bucket"):
+            bucket_worst = max(bucket_worst, float(
+                (got.float() - want.float()).abs().max()))
         w16 = Q.dequantize_bf16(q8, s)
         if path == "wgmma":  # the first pass's scratch, bit for bit
             same = torch.equal(Q.dequantize_bf16_kernel(q8, s).view(
@@ -1509,6 +1688,7 @@ def kernel_quant_matmul(dev, entries):
                  for k in ("ms", "device_ms", "host_ms", "bound_ms",
                            "library_ms", "library_device_ms")}
     head = rows[0]
+    bucket = [r for r in rows if r["what"].startswith("bucket")]
     entries.append(dict(
         name="quant_matmul", route="cuda",
         source="whisper_aries_tpu_torch/csrc/quant_matmul.cu",
@@ -1523,7 +1703,16 @@ def kernel_quant_matmul(dev, entries):
                      "weight, made before timing (cuBLAS, the same FLOPs)",
         shape=f"x ({head['M']}, {head['K']}) bf16 @ int8 ({head['K']}, "
               f"{head['N']}) + f32 scales -> bf16",
-        decoder_layer_at_m6=per_layer, shapes=rows, crossover=crossover))
+        decoder_layer_at_m6=per_layer, shapes=rows, crossover=crossover,
+        bucket=dict(
+            {k: bucket[0][k] for k in ("ms", "device_ms", "host_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "library_device_ms",
+                                       "path")},
+            max_abs_err=bucket_worst, tolerance=tol,
+            shape="x (6400, 1280) bf16 @ int8 (1280, 1280): a bucket "
+                  "batch's encoder and cross K/V products",
+            paths={r["what"]: r["path"] for r in bucket})))
 
 
 def quant_matmul_crossover(dev, g):
@@ -2093,6 +2282,8 @@ PATH_KERNELS = {
     "words": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
               "cross_attn_q8", "beam_tail", "beam_reorder"),
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
+    "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
+                   "cross_attn_q8", "beam_tail", "beam_reorder"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -2295,6 +2486,343 @@ def slice_phase(dev, path: str):
     return launches, gemm_paths
 
 
+# ---------------------------------------------------------------------------
+# checkpoint path
+# ---------------------------------------------------------------------------
+
+#: openai/whisper-large-v3's config.json fields (its published widths,
+#: depth, vocabulary and special ids)
+LARGE_V3_CONFIG = {
+    "architectures": ["WhisperForConditionalGeneration"],
+    "model_type": "whisper", "torch_dtype": "float16",
+    "vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
+    "encoder_layers": 32, "encoder_attention_heads": 20,
+    "encoder_ffn_dim": 5120, "decoder_layers": 32,
+    "decoder_attention_heads": 20, "decoder_ffn_dim": 5120,
+    "max_source_positions": 1500, "max_target_positions": 448,
+    "activation_function": "gelu", "scale_embedding": False,
+    "pad_token_id": 50256, "bos_token_id": 50257, "eos_token_id": 50257,
+    "decoder_start_token_id": 50258, "begin_suppress_tokens": [220, 50257],
+    "use_cache": True,
+}
+
+
+class RssPeak:
+    """The peak resident set size of this process over a stage, in GB,
+    sampled every 5 ms by a thread from /proc/self/statm (the kernel's own
+    peak, VmHWM, cannot be reset on the card's machine)."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.gb = self.read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def read(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 1e9
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            self.gb = max(self.gb, self.read())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.gb = max(self.gb, self.read())
+
+
+def write_checkpoint(dev, d: Path):
+    """A large-v3 HF checkpoint directory at its published widths and
+    depth: seeded random weights (biases and LayerNorms perturbed so that
+    each key's load matters) written as f16 model.safetensors under HF's
+    key names by the port's writer; config.json with large-v3's fields;
+    generation_config.json with ALIGNMENT_HEADS; and a synthesised
+    vocab.json / merges.txt in the v3 layout (the 256 byte symbols, then
+    space-led words to 50,257 entries, <|endoftext|> at 50,257). Returns
+    the written tree (on the card)."""
+    import torch
+    from whisper_aries_tpu_torch.decoding.tokenizer import _bytes_to_unicode
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.utils.params_io import write_safetensors
+
+    dims = W.PRESETS["large-v3"]
+    d.mkdir(parents=True, exist_ok=True)
+    params = W.init_params(dims, seed=12, device=dev, dtype=torch.float16)
+    g = torch.Generator(device=dev).manual_seed(13)
+    sd = W.hf_state_dict(params, dims)
+    for key, t in sd.items():
+        if key.endswith(".bias"):
+            t.add_(0.02 * torch.randn(t.shape, generator=g, device=dev)
+                   .to(t.dtype))
+        elif "layer_norm" in key:
+            t.add_(0.1 * torch.randn(t.shape, generator=g, device=dev)
+                   .to(t.dtype))
+    write_safetensors(d / "model.safetensors", sd, metadata={"format": "pt"})
+    (d / "config.json").write_text(json.dumps(LARGE_V3_CONFIG, indent=2))
+    (d / "generation_config.json").write_text(json.dumps(
+        {"alignment_heads": [list(h) for h in ALIGNMENT_HEADS],
+         "is_multilingual": True}))
+    b2u = _bytes_to_unicode()
+    vocab = [b2u[i] for i in range(256)]
+    vocab += [f"Ġw{i}" for i in range(50257 - len(vocab))]
+    vocab.append("<|endoftext|>")
+    (d / "vocab.json").write_text(json.dumps(
+        {t: i for i, t in enumerate(vocab)}, ensure_ascii=False),
+        encoding="utf-8")
+    (d / "merges.txt").write_text("#version: 0.2\n", encoding="utf-8")
+    return params
+
+
+def burst_audio(seed: int) -> np.ndarray:
+    """Ten speech-like bursts (synth_audio's voice, ungated) of 4.5-11 s
+    and one of 22 s, 5 s of near-silence apart: the VAD plans a window a
+    burst, all of them <= 16 s but the 22 s one."""
+    sr = 16_000
+    rng = np.random.default_rng(seed)
+    lens = [6.0, 9.0, 4.5, 11.0, 7.0, 22.0, 5.0, 8.0, 10.0, 6.5]
+    gap = 5.0
+    n = int((sum(lens) + gap * (len(lens) + 1)) * sr)
+    x = 0.001 * rng.standard_normal(n)
+    pos = gap
+    for i, length in enumerate(lens):
+        t = np.arange(int(length * sr)) / sr
+        f0 = 120 + 15 * i + 40 * np.sin(2 * np.pi * 0.3 * t)
+        voiced = sum(np.sin(2 * np.pi * k * np.cumsum(f0) / sr) / k
+                     for k in range(1, 6))
+        env = 0.5 * (1 + np.sin(2 * np.pi * 3.1 * t)) ** 2
+        a = int(pos * sr)
+        x[a:a + len(t)] += 0.2 * voiced * env + 0.01 * rng.standard_normal(
+            len(t))
+        pos += length + gap
+    return x.astype(np.float32)
+
+
+def checkpoint_phase(dev):
+    """The port's main path from a checkpoint directory: write a large-v3
+    checkpoint (seeded random weights), build AriesTranscriber(model_size=
+    <dir>) on the card at compute int8 under ARIES_QUANT_IMPL=pallas with
+    audio_ctx="bucket" (the smoke test runs in the constructor), then (1)
+    one transcribe_file at beam 5 with multilingual=True and word
+    timestamps on a file of speech bursts (most windows <= 16 s, one
+    longer): both encoder contexts in the main pass, the word pass on the
+    checkpoint's 10 heads, every segment with a language and its words;
+    (2) one greedy temperature-0 call on the 125 s WAV with chunk_size 60,
+    overlap merge, suppress_tokens [-1], no_repeat_ngram_size 3,
+    repetition_penalty 1.1, max_initial_timestamp 0.5 and a
+    progress_callback. Launch counts are set to 0 just before (1) and read
+    just after (2). Prints the write, load and smoke-test seconds and the
+    host RSS at the start and peak of the write and of the constructor;
+    the directory is deleted after."""
+    import os
+    import shutil
+
+    import torch
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.decoding.tokenizer import LANGUAGES
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import quant as Q
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    ckpt = OUT / "checkpoint_large_v3"
+    if ckpt.exists():
+        shutil.rmtree(ckpt)
+    figures = {}
+    with RssPeak() as rss:
+        t0 = time.time()
+        written = write_checkpoint(dev, ckpt)
+        torch.cuda.synchronize()
+        figures["write_s"] = time.time() - t0
+    figures["write_rss_gb"] = {"start": rss.start, "peak": rss.gb}
+    figures["checkpoint_gb"] = (ckpt / "model.safetensors").stat().st_size / 1e9
+
+    old_impl = os.environ.get("ARIES_QUANT_IMPL")
+    os.environ["ARIES_QUANT_IMPL"] = "pallas"
+    smoke = AriesTranscriber.smoke_test
+    smoke_s = []
+
+    def timed_smoke(self):
+        t = time.time()
+        smoke(self)
+        torch.cuda.synchronize()
+        smoke_s.append(time.time() - t)
+
+    try:
+        AriesTranscriber.smoke_test = timed_smoke
+        with RssPeak() as rss:
+            t0 = time.time()
+            eng = AriesTranscriber(model_size=str(ckpt),
+                                   compute_type="int8", audio_ctx="bucket")
+            torch.cuda.synchronize()
+            figures["construct_s"] = time.time() - t0
+        figures["construct_rss_gb"] = {"start": rss.start, "peak": rss.gb}
+        AriesTranscriber.smoke_test = smoke
+        if len(smoke_s) != 1:
+            fail("checkpoint: the constructor did not run the smoke test")
+        figures["smoke_s"] = smoke_s[0]
+        figures["load_s"] = figures["construct_s"] - smoke_s[0]
+        if eng.model_dir != str(ckpt):
+            fail(f"checkpoint: engine loaded {eng.model_dir}, not {ckpt}")
+        if eng.alignment_heads != [tuple(h) for h in ALIGNMENT_HEADS]:
+            fail(f"checkpoint: alignment heads {eng.alignment_heads}")
+        sp = eng.tokenizer.specials
+        if (sp.n_vocab, sp.eot, sp.sot, sp.num_languages,
+                sp.timestamp_begin) != (51866, 50257, 50258, 100, 50365):
+            fail(f"checkpoint: tokenizer layout {sp}")
+        if not (eng.fused and eng.kv_int8 and eng.audio_ctx_bucket):
+            fail("checkpoint: the engine did not resolve to the card's path")
+        # two leaves the engine keeps as loaded (not quantized): the
+        # written f16 values cast to bf16 on the card
+        for path in (("encoder", "conv1", "w"), ("decoder", "tok_emb")):
+            a, b = written, eng.params
+            for p in path:
+                a, b = a[p], b[p]
+            if not torch.equal(a.to(b.dtype), b):
+                fail(f"checkpoint: {'.'.join(path)} differs from the "
+                     "written tensor")
+        del written
+        torch.cuda.empty_cache()
+
+        wav = OUT / "bursts.wav"
+        write_wav(str(wav), burst_audio(21))
+        wav_125 = OUT / "synthetic_2min.wav"
+        if not wav_125.exists():
+            write_wav(str(wav_125), synth_audio(125.0, seed=7))
+        # every W8A16 GEMM call's (M, path) as the plan gave it
+        plan, planned = Q.gemm_plan, []
+
+        def recording_plan(M, N, K, sms):
+            out = plan(M, N, K, sms)
+            planned.append((M, out[0]))
+            return out
+
+        Q.gemm_plan = recording_plan
+        for fn in counters().values():
+            fn.launches = 0
+        DL.fused_decoder_layers.graph_replays = 0
+        gemm = Q.quant_matmul_dequant_kernel
+        gemm.launches_by_path = dict.fromkeys(Q.GEMM_PATHS, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = eng.transcribe_file(
+            str(wav), beam_size=5, multilingual=True, word_timestamps=True,
+            output_formats=("txt", "json", "srt"),
+            output_dir=str(OUT / "checkpoint"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        progress = []
+        t0 = time.time()
+        opt = eng.transcribe_file(
+            str(wav_125), beam_size=1, temperature=(0.0,), chunk_size=60,
+            overlap_strategy="merge", suppress_tokens=[-1],
+            no_repeat_ngram_size=3, repetition_penalty=1.1,
+            max_initial_timestamp=0.5,
+            progress_callback=lambda done, total: progress.append(
+                (done, total)),
+            output_formats=("txt",), output_dir=str(OUT / "checkpoint"))
+        torch.cuda.synchronize()
+        opt_wall = time.time() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+        gemm_paths = dict(gemm.launches_by_path)
+    finally:
+        AriesTranscriber.smoke_test = smoke
+        Q.gemm_plan = plan
+        if old_impl is None:
+            os.environ.pop("ARIES_QUANT_IMPL", None)
+        else:
+            os.environ["ARIES_QUANT_IMPL"] = old_impl
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k in PATH_KERNELS["checkpoint"]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the checkpoint path")
+    # (1): both contexts in the main pass, ten heads, languages, words
+    decodes = res["performance"]["decodes"]
+    main_pass = [d for d in decodes if d["temperature"] == 0.0]
+    contexts = sorted({d["audio_ctx"] for d in main_pass})
+    if contexts != [800, 1500]:
+        fail(f"checkpoint: main-pass contexts {contexts}, not [800, 1500]")
+    if not all(d["beam_size"] == 5 for d in main_pass):
+        fail("checkpoint: the main pass did not decode by beam search")
+    words = res["performance"].get("words", {})
+    if words.get("heads") != len(ALIGNMENT_HEADS):
+        fail(f"checkpoint: the word pass read {words.get('heads')} heads, "
+             f"not the checkpoint's {len(ALIGNMENT_HEADS)}")
+    end_limit = res["duration"] + 0.02
+    n_words = 0
+    if not res["segments"]:
+        fail("checkpoint: no segment")
+    for s in res["segments"]:
+        if s.get("language") not in LANGUAGES:
+            fail(f"checkpoint: a segment without a language: {s}")
+        if not (math.isfinite(s["avg_logprob"])
+                and 0.0 <= s["start"] < s["end"] <= end_limit):
+            fail(f"checkpoint: malformed segment {s}")
+        if s["text"].strip() and not s.get("words"):
+            fail(f"checkpoint: a segment with text but no words: {s}")
+        for w in s.get("words", []):
+            n_words += 1
+            if not (math.isfinite(w["start"]) and math.isfinite(w["end"])
+                    and math.isfinite(w["probability"])
+                    and 0.0 <= w["start"] < w["end"] <= end_limit):
+                fail(f"checkpoint: malformed word {w}")
+    # (2): finite, ordered segments; the callback reached the total
+    ostarts = [s["start"] for s in opt["segments"]]
+    if not opt["segments"] or ostarts != sorted(ostarts) or not all(
+            math.isfinite(s["avg_logprob"])
+            and 0.0 <= s["start"] < s["end"] <= opt["duration"] + 1e-6
+            for s in opt["segments"]):
+        fail("checkpoint: the options call's segments are not finite and "
+             "ordered")
+    if not progress or progress[-1] != (opt["num_windows"],
+                                        opt["num_windows"]):
+        fail(f"checkpoint: progress_callback ended at {progress[-1:]}, "
+             f"not at {opt['num_windows']} windows")
+    # the share of the path at the bucket's shapes, from the engine's
+    # records: windows encoded at T 800 (mel and 32 encoder-attention
+    # launches a batch), decode calls over Ta 800 (32 prefill
+    # cross-attention launches each, a step replay a token after the
+    # first), and the W8A16 GEMM calls at M = windows x 800
+    at800 = [d for d in decodes if d["audio_ctx"] == 800]
+    bucket = dict(
+        encoded_windows=res["performance"]["encodes"].get(800, 0),
+        decode_calls=len(at800),
+        step_replays=sum(d["steps"] - 1 for d in at800),
+        gemm_by_m=dict(Counter(f"M {m} {p}" for m, p in planned
+                               if m % 800 == 0 and m % 1500)))
+    summary = dict(
+        figures, bucket=bucket, audio_s=res["duration"], windows=res["num_windows"],
+        segments=len(res["segments"]), words=n_words, wall_s=wall,
+        real_time_factor=res["real_time_factor"], language=res["language"],
+        languages=dict(Counter(s["language"] for s in res["segments"])),
+        encodes=res["performance"]["encodes"],
+        main_pass=[{k: d[k] for k in ("rows", "windows", "audio_ctx",
+                                      "steps", "seconds")}
+                   for d in main_pass],
+        word_pass=words, diagnostics=res["diagnostics"],
+        options_call=dict(audio_s=opt["duration"],
+                          windows=opt["num_windows"],
+                          segments=len(opt["segments"]), wall_s=opt_wall,
+                          progress_calls=len(progress),
+                          diagnostics=opt["diagnostics"]),
+        launches=launches, gemm_paths=gemm_paths, peak_mem_gb=peak_gb)
+    print("checkpoint " + json.dumps(summary), flush=True)
+    (OUT / "checkpoint.json").write_text(json.dumps(
+        dict(summary, decodes=decodes), indent=2))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, gemm_paths
+
+
 def main() -> None:
     import torch
 
@@ -2335,7 +2863,9 @@ def main() -> None:
     profile_unfused_step(dev, parts)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
     probe_launches = probes_phase(dev, entries)
-    runs = {path: slice_phase(dev, path) for path in PATH_KERNELS}
+    runs = {path: slice_phase(dev, path) for path in PATH_KERNELS
+            if path != "checkpoint"}
+    runs["checkpoint"] = checkpoint_phase(dev)
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches
     paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)

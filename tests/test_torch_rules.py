@@ -2,7 +2,8 @@
 
   * no module of the port, and not chip_smoke.py or chip_device_ms.py,
     imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
-    — checked on the AST;
+    — checked on the AST; nor safetensors, transformers, tokenizers or
+    huggingface_hub, which the card's machine lacks;
   * the engine runs on CUDA unless the caller asks for the CPU: with no
     card and no explicit device it raises, never carrying on quietly;
   * every kernel wrapper takes its plain version only for CPU tensors;
@@ -49,6 +50,22 @@ def _forbidden(name: str) -> bool:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+#: packages the card's machine does not have: the port reads checkpoints
+#: and tokenizer files itself
+CHECKPOINT_PACKAGES = ("safetensors", "transformers", "tokenizers",
+                       "huggingface_hub")
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "chip_device_ms.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_checkpoint_package(path):
+    bad = [n for n in _imports(path)
+           if n.split(".")[0] in CHECKPOINT_PACKAGES]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -106,19 +123,31 @@ def test_engine_raises_without_a_card(monkeypatch):
         AriesTranscriber(device="cuda", allow_random=True)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("decode.audio_ctx", "bucket"),
-    ("decode.mel_backend", "pallas"),
-    ("decode.multilingual", True),
-])
-def test_engine_refuses_unported_options(key, value):
-    from whisper_aries_tpu_torch.config import load_config
+@pytest.fixture(scope="module")
+def tiny_cpu_engine():
+    from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
 
-    cfg = load_config(overrides={key: value})
-    with pytest.raises(ValueError, match=f"{key}={value!r} is not ported"):
-        AriesTranscriber(device="cpu", config=cfg, allow_random=True,
-                         model_size="tiny")
+    dims = W.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
+    return AriesTranscriber(model_size="tiny-rules", device="cpu",
+                            _params=W.init_params(dims), _dims=dims)
+
+
+@pytest.mark.parametrize("option,value", [
+    ("initial_prompt", "hello"),
+    ("prefix", "hello"),
+    ("hotwords", "hello"),
+    ("condition_on_previous_text", True),
+    ("resume_path", "journal.jsonl"),
+    ("prompt_reset_on_temperature", 0.5),
+])
+def test_engine_refuses_unported_options(tiny_cpu_engine, option, value):
+    """The options of conditioned decoding and the resume journal are not
+    ported: each raises naming itself, before any audio is read, and is
+    never ignored."""
+    with pytest.raises(NotImplementedError, match=f"{option}=.*not ported"):
+        tiny_cpu_engine.transcribe_file("no-such-file.wav",
+                                        **{option: value})
 
 
 def test_engine_builds_with_multilingual_off():

@@ -377,7 +377,8 @@ def add_word_timestamps(
     prepend_punctuations/append_punctuations (faster-whisper semantics).
     Returns the pass's seconds: encode (mel and encoder), align
     (``alignment_forward`` and the copy to the host) and host (DTW and
-    words), each ended by a device synchronisation."""
+    words), each ended by a device synchronisation; with the windows
+    aligned and the number of (layer, head) pairs read (``heads``)."""
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops.mel import log_mel
     from whisper_aries_tpu_torch.vad.planner import windows_to_batch
@@ -414,6 +415,7 @@ def add_word_timestamps(
     sel_onehot, n_sel = _alignment_head_onehot(
         dims, getattr(engine, "alignment_heads", None)
     )
+    times["heads"] = n_sel
 
     def sync():
         if dev.type == "cuda":

@@ -7,22 +7,22 @@ Same contract as vad/energy.py: one speech probability per 512-sample
   * ctx — three dilated (1, 2, 4) kernel-3 residual convs at frame rate;
   * head — per-frame logistic regression on the 64-d features.
 
-The weights are the JAX package's trained file, read by path with a small
-safetensors reader (``read_safetensors``). The convolutions run as torch
-ops with TF32 off: TF32 moves probabilities across the threshold and
-changes the window plan.
+The weights are the JAX package's trained file, read by path with the
+port's safetensors reader (utils/params_io.py ``read_safetensors``). The
+convolutions run as torch ops with TF32 off: TF32 moves probabilities
+across the threshold and changes the window plan.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import struct
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from whisper_aries_tpu_torch.utils.params_io import read_safetensors
 
 FRAME = 512  # samples per probability frame
 # Absolute silence gate for the (level-invariant) learned scorer: frames
@@ -31,29 +31,6 @@ SILENCE_RMS_FLOOR = 1.5e-3
 #: the trained weights shipped with the JAX package
 VAD_WEIGHTS = (Path(__file__).resolve().parents[2] / "whisper_aries_tpu"
                / "weights" / "vad.safetensors")
-
-_ST_DTYPES = {"F32": "<f4", "F64": "<f8", "F16": "<f2", "I64": "<i8",
-              "I32": "<i4", "I16": "<i2", "I8": "i1", "U8": "u1"}
-
-
-def read_safetensors(path) -> Dict[str, np.ndarray]:
-    """A safetensors file -> {name: array}: an 8-byte little-endian header
-    length, a JSON header of {name: {dtype, shape, data_offsets}}, then the
-    raw little-endian tensor bytes."""
-    data = Path(path).read_bytes()
-    (n,) = struct.unpack("<Q", data[:8])
-    header = json.loads(data[8:8 + n])
-    body = memoryview(data)[8 + n:]
-    out = {}
-    for name, meta in header.items():
-        if name == "__metadata__":
-            continue
-        if meta["dtype"] not in _ST_DTYPES:
-            raise ValueError(f"{path}: unsupported dtype {meta['dtype']}")
-        lo, hi = meta["data_offsets"]
-        arr = np.frombuffer(body[lo:hi], dtype=_ST_DTYPES[meta["dtype"]])
-        out[name] = arr.reshape(meta["shape"]).copy()
-    return out
 
 
 def load_vad_params(path=VAD_WEIGHTS, device="cpu") -> Dict[str, Any]:

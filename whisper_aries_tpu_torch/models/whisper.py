@@ -204,6 +204,134 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
     return _to_torch(tree, device)
 
 
+def dims_from_hf_config(cfg) -> WhisperDims:
+    """An HF WhisperConfig (object or the dict of config.json) ->
+    WhisperDims."""
+    get = (cfg.get if isinstance(cfg, dict)
+           else lambda k, d=None: getattr(cfg, k, d))
+    return WhisperDims(
+        n_mels=int(get("num_mel_bins")),
+        n_audio_ctx=int(get("max_source_positions")),
+        n_audio_state=int(get("d_model")),
+        n_audio_head=int(get("encoder_attention_heads")),
+        n_audio_layer=int(get("encoder_layers")),
+        n_vocab=int(get("vocab_size")),
+        n_text_ctx=int(get("max_target_positions")),
+        n_text_state=int(get("d_model")),
+        n_text_head=int(get("decoder_attention_heads")),
+        n_text_layer=int(get("decoder_layers")),
+    )
+
+
+_HF_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "out_proj"}
+
+
+def _hf_entries(dims: WhisperDims, enc: str = "model.encoder",
+                dec: str = "model.decoder"):
+    """Every leaf of the parameter tree as (tree path, HF key, layers,
+    transposed): a key with "{i}" is one layer's slice of a stacked (L,
+    ...) leaf (layers = L, else 0); dense weights are stored (out, in) by
+    HF and (in, out) here."""
+    out = []
+    for conv in ("conv1", "conv2"):
+        out += [(("encoder", conv, "w"), f"{enc}.{conv}.weight", 0, False),
+                (("encoder", conv, "b"), f"{enc}.{conv}.bias", 0, False)]
+    out += [(("encoder", "pos_emb"), f"{enc}.embed_positions.weight", 0,
+             False),
+            (("decoder", "tok_emb"), f"{dec}.embed_tokens.weight", 0, False),
+            (("decoder", "pos_emb"), f"{dec}.embed_positions.weight", 0,
+             False)]
+    for side, pre, ln_top in (("encoder", enc, "ln_post"),
+                              ("decoder", dec, "ln")):
+        out += [((side, ln_top, "scale"), f"{pre}.layer_norm.weight", 0,
+                 False),
+                ((side, ln_top, "bias"), f"{pre}.layer_norm.bias", 0, False)]
+    for side, pre, n in (("encoder", enc, dims.n_audio_layer),
+                         ("decoder", dec, dims.n_text_layer)):
+        lp = f"{pre}.layers.{{i}}"
+        norms = [("ln1", "self_attn_layer_norm"), ("ln2", "final_layer_norm")]
+        dense = [(("attn", k), f"self_attn.{h}", k != "k")
+                 for k, h in _HF_PROJ.items()]
+        dense += [(("mlp", "fc1"), "fc1", True), (("mlp", "fc2"), "fc2", True)]
+        if side == "decoder":
+            norms.append(("ln_cross", "encoder_attn_layer_norm"))
+            dense += [(("cross", k), f"encoder_attn.{h}", k != "k")
+                      for k, h in _HF_PROJ.items()]
+        for name, hf in norms:
+            out += [((side, "blocks", name, "scale"), f"{lp}.{hf}.weight", n,
+                     False),
+                    ((side, "blocks", name, "bias"), f"{lp}.{hf}.bias", n,
+                     False)]
+        for path, hf, bias in dense:
+            out.append(((side, "blocks") + path + ("w",), f"{lp}.{hf}.weight",
+                        n, True))
+            if bias:
+                out.append(((side, "blocks") + path + ("b",),
+                            f"{lp}.{hf}.bias", n, False))
+    return out
+
+
+def convert_hf_state_dict(sd: Dict[str, Any], dims: WhisperDims,
+                          device="cpu", dtype=torch.float32
+                          ) -> Dict[str, Any]:
+    """An HF WhisperForConditionalGeneration state dict (or a bare
+    WhisperModel's, keys without "model.") -> the port's layer-stacked
+    tree, the layout of ``init_params`` and ``params_from_jax``. Values are
+    torch tensors or numpy arrays (e.g. ``read_safetensors_torch``'s views
+    of a mapped file); each is put on ``device`` in its stored dtype and
+    cast there, tensor by tensor, into a stacked leaf made on ``device``,
+    so no float32 host copy of the model is made."""
+    device = torch.device(device)
+    enc, dec = "model.encoder", "model.decoder"
+    if f"{enc}.conv1.weight" not in sd and "encoder.conv1.weight" in sd:
+        enc, dec = "encoder", "decoder"
+
+    def leaf(key: str) -> torch.Tensor:
+        v = sd[key]
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
+        moved = t.to(device)
+        # never a view of the caller's (mapped) tensor
+        return moved.to(dtype, copy=moved is t)
+
+    params: Dict[str, Any] = {}
+    for path, key, n, transposed in _hf_entries(dims, enc, dec):
+        if n:
+            first = leaf(key.format(i=0))
+            first = first.T if transposed else first
+            out = torch.empty((n,) + tuple(first.shape), dtype=dtype,
+                              device=device)
+            out[0] = first
+            for i in range(1, n):
+                t = leaf(key.format(i=i))
+                out[i] = t.T if transposed else t
+        else:
+            out = leaf(key)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = out
+    return params
+
+
+def hf_state_dict(params: Dict[str, Any], dims: WhisperDims
+                  ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``convert_hf_state_dict``: an unfused parameter tree
+    -> {WhisperForConditionalGeneration key: tensor}, views of the tree's
+    leaves (dense weights transposed back to (out, in))."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, key, n, transposed in _hf_entries(dims):
+        v = params
+        for p in path:
+            v = v[p]
+        if n:
+            for i in range(n):
+                sd[key.format(i=i)] = v[i].T if transposed else v[i]
+        else:
+            sd[key] = v
+    return sd
+
+
 def layer_slice(tree: Any, l: int) -> Any:
     """Layer ``l`` of a stacked (L, ...) subtree (views, no copies)."""
     if isinstance(tree, dict):

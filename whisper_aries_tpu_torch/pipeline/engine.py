@@ -2,30 +2,39 @@
 
 The port of the JAX package's pipeline/engine.py main path:
 
-    WAV -> learned VAD -> window plan -> [batch of 30 s windows]
+    checkpoint dir -> params, tokenizer, alignment heads, smoke test
+    WAV -> learned VAD (or fixed chunks) -> window plan
+        -> [batch of 30 s windows, or 16 s under audio_ctx="bucket"]
         -> log-mel (mel kernel) -> encoder (encoder-attention kernel)
+        -> [multilingual: a language per window, one batched probe]
         -> int8 cross K/V -> greedy or beam decode (decoder-layer kernels,
            grouped cross-attention kernel; beam: beam-tail and reorder
            kernels) -> temperature-fallback ladder -> parse
+        -> [fixed chunks: overlap drop / merge]
         -> [word timestamps: re-encode, alignment_forward, host DTW]
         -> TXT/JSON/SRT
 
-The whole file is uploaded to the card once as int16 and windows are
-gathered on the device. Each decode row has its own self-cache slot; the
-rows of one window (its beams, or the fallback ladder's best_of samples)
-share the window's cross K/V. The TPU's grouped-window layouts are a TPU
-workaround and are not ported; their tokens equal this decode's.
+Checkpoints are local HF-format directories (models/loader.py): the
+constructor loads ``model_size`` as a path or under ``cache_dir`` and runs
+``smoke_test`` on them (``ARIES_SMOKE_TEST=0`` skips it); with no
+checkpoint it raises unless ``allow_random`` (seeded random weights).
+There is no download path. The whole file is uploaded to the card once as
+int16 and windows are gathered on the device. Each decode row has its own
+self-cache slot; the rows of one window (its beams, or the fallback
+ladder's best_of samples) share the window's cross K/V. The TPU's
+grouped-window layouts are a TPU workaround and are not ported; their
+tokens equal this decode's.
 
 Device: CUDA unless the caller passes ``device="cpu"``; with no card and
 no explicit CPU the constructor raises. Activations are bf16 on CUDA and
 f32 on the CPU. "auto" config values resolve to the card's path: int8
 cross K/V, decode steps through the decoder-layer kernels with in-kernel
 int8 self-cache quantization. On the CPU the plain versions run. The
-decode options the JAX engine takes per call (suppress tokens, timestamps
-off, initial-timestamp cap, n-gram bans, repetition penalty) come from
-``config.decode`` here. A batch decodes by beam search when the beam size
-is above 1 and the temperature is 0; the fallback ladder's rungs sample
-with ``best_of``.
+per-call decode options (suppress tokens, timestamps off, initial-timestamp
+cap, n-gram bans, repetition penalty, a language per window) travel in
+``_CallOpts``; each defaults to ``config.decode``'s. A batch decodes by
+beam search when the beam size is above 1 and the temperature is 0; the
+fallback ladder's rungs sample with ``best_of``.
 
 ``compute_type="int8"`` quantizes every transformer dense layer; with
 ``ARIES_QUANT_IMPL=pallas`` their products go through the W8A16 GEMM
@@ -33,15 +42,15 @@ kernel on the card. ``decode.kv_cache_dtype="bf16"`` with
 ``decode.self_kv_cache_dtype="int8"`` decodes by unfused steps with an
 int8 self cache (the int8 self-attention kernel on the card).
 ``word_timestamps=True`` attaches DTW word times to every segment
-(align/word_align.py); a failure there fails the call. With no checkpoint
-loading there are no published alignment heads: ``alignment_heads`` is
-None (the top-half fallback) unless the caller sets it.
+(align/word_align.py) with the checkpoint's alignment heads
+(generation_config.json; without them the top half of the decoder
+layers); a failure there fails the call.
 
-Not ported yet (ROADMAP.md): checkpoint loading, conditioned / sequential
-decode and the resume journal, fixed chunking, prefix / initial prompt /
-hotwords, the short audio_ctx bucket; the constructor refuses
-``decode.multilingual=True`` (a language per window), ``decode.audio_ctx``
-other than "full" and ``decode.mel_backend`` other than "auto".
+Not ported yet (ROADMAP.md): conditioned / sequential decode and the
+resume journal. ``transcribe_file`` refuses their options
+(``initial_prompt``, ``prefix``, ``hotwords``,
+``condition_on_previous_text=True``, ``resume_path``,
+``prompt_reset_on_temperature``) with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -65,18 +75,28 @@ from whisper_aries_tpu_torch.decoding.segments_parse import (
 )
 from whisper_aries_tpu_torch.decoding.tokenizer import (
     LANGUAGES,
+    WhisperTokenizer,
     build_special_tokens,
 )
-from whisper_aries_tpu_torch.errors import TranscriptionError
 from whisper_aries_tpu_torch.models import whisper as W
+from whisper_aries_tpu_torch.models.loader import (
+    load_alignment_heads,
+    load_model,
+)
 from whisper_aries_tpu_torch.ops.decode_layers import pack_layer_weights
 from whisper_aries_tpu_torch.ops.mel import log_mel
 from whisper_aries_tpu_torch.render.renderers import srt_timestamp
+from whisper_aries_tpu_torch.utils.perf import WorkerDiagnostics
+from whisper_aries_tpu_torch.utils.segments import (
+    merge_overlapping_segments,
+    remove_overlaps_drop,
+)
 from whisper_aries_tpu_torch.vad import (
     VadOptions,
     Window,
     collect_speech_segments,
     get_speech_probs,
+    plan_chunks,
     plan_windows,
 )
 
@@ -126,10 +146,36 @@ def _cast_floats(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
     return tree.to(device)
 
 
+#: transcribe_file options of conditioned / sequential decode and the
+#: resume journal, not ported yet: each raises when set
+_UNPORTED_OPTIONS = ("initial_prompt", "prefix", "hotwords",
+                     "condition_on_previous_text", "resume_path",
+                     "prompt_reset_on_temperature")
+
+
+@dataclasses.dataclass(frozen=True)
+class _CallOpts:
+    """Per-call decode options threaded through the window loops (the JAX
+    engine's ``_CallOpts``): an engine may serve several calls, so they
+    travel as a value, never as engine state. Each comes from the call or,
+    where the call leaves it None, from ``config.decode``."""
+
+    ids: G.DecodeSpecialIds          # carries max_initial_timestamp_index
+    suppress_mask: torch.Tensor      # (vocab,) additive logit mask
+    with_timestamps: bool = True     # False == without_timestamps
+    multilingual: bool = False       # a language per window
+    repetition_penalty: float = 1.0
+    no_repeat_ngram_size: int = 0
+
+
 class AriesTranscriber:
     """Long-form transcription engine on one CUDA card (or the CPU)."""
 
     WINDOW_SAMPLES = 480_000  # 30 s @ 16 kHz
+    # audio_ctx="bucket": a batch made only of windows of <= 16 s is
+    # gathered at 16 s and encoded at T 800 (1,600 mel frames)
+    SHORT_WINDOW_SAMPLES = 256_000
+    SHORT_WINDOW_S = 16.0
     #: max failing windows per fallback dispatch
     FALLBACK_GROUP = 16
 
@@ -138,24 +184,39 @@ class AriesTranscriber:
         model_size: str = "large-v3",
         device: Optional[str] = None,
         compute_type: str = "bf16",
+        chunk_length_minutes: float = 3.0,
+        overlap_seconds: float = 5.0,
+        num_workers: Optional[int] = None,  # maps to windows_per_device
+        cache_dir: str = "./models",
         config: Optional[AriesConfig] = None,
         allow_random: bool = False,
         windows_per_device: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,  # "auto" | "int8" | "bf16"
+        mel_backend: Optional[str] = None,     # "auto" | "pallas" | "xla"
+        audio_ctx: Optional[str] = None,       # "full" | "bucket"
         _params=None,
         _dims: Optional[W.WhisperDims] = None,
         _tokenizer=None,
     ):
         self.config = config or load_config()
         self.model_size = model_size
+        self.chunk_length_minutes = chunk_length_minutes
+        self.overlap_seconds = overlap_seconds
         self.device = _resolve_device(device)
         on_cuda = self.device.type == "cuda"
         dc = self.config.decode
-        for name, val, ok in (("audio_ctx", dc.audio_ctx, ("full",)),
-                              ("mel_backend", dc.mel_backend, ("auto",)),
-                              ("multilingual", dc.multilingual, (False,))):
-            if val not in ok:
-                raise ValueError(f"decode.{name}={val!r} is not ported yet")
+        # one mel: the kernel on the card ("auto" and "pallas"), its plain
+        # version on the CPU, where "xla" (the FFT version) is the same
+        self.mel_backend = mel_backend or dc.mel_backend
+        if self.mel_backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown mel_backend {self.mel_backend!r}")
+        if self.mel_backend == "xla" and on_cuda:
+            raise ValueError("mel_backend='xla' has no CUDA path: the port's "
+                             "mel on the card is the mel kernel")
+        ctx = audio_ctx or dc.audio_ctx
+        if ctx not in ("full", "bucket"):
+            raise ValueError(f"unknown audio_ctx {ctx!r}")
+        self.audio_ctx_bucket = ctx == "bucket"
         if compute_type in ("f32", "float32"):
             if on_cuda:
                 raise ValueError("the CUDA path runs bf16 activations")
@@ -165,29 +226,24 @@ class AriesTranscriber:
         self.activation_dtype = dtype
 
         if _params is not None:
-            self.dims = _dims
+            self.dims, self.model_dir = _dims, None
             params = _cast_floats(_params, self.device, dtype)
-        elif allow_random:
-            self.dims = W.PRESETS[model_size]
-            params = W.init_params(self.dims, seed=0, device=self.device,
-                                   dtype=dtype)
         else:
-            raise TranscriptionError(
-                "checkpoint loading is not ported yet: pass allow_random=True "
-                "(seeded random weights) or _params")
+            params, self.dims, self.model_dir = load_model(
+                model_size, cache_dir=cache_dir, dtype=dtype,
+                allow_random=allow_random, device=self.device)
         if compute_type == "int8":
             from whisper_aries_tpu_torch.ops.quant import quantize_model_params
 
             params = quantize_model_params(params)
         self.params = W.fuse_decoder_qkv(params)
         self.tokenizer = (_tokenizer if _tokenizer is not None
-                          else DummyTokenizer(self.dims.n_vocab))
-        self.ids = dataclasses.replace(
-            G.DecodeSpecialIds.from_tokenizer(self.tokenizer),
-            max_initial_timestamp_index=max(
-                0, int(round(dc.max_initial_timestamp / 0.02))))
+                          else self._load_tokenizer())
+        self.ids = G.DecodeSpecialIds.from_tokenizer(self.tokenizer)
+        # the default mask (config.decode.suppress_tokens); a call's own
+        # suppress_tokens build theirs
         self.suppress_mask = self._make_suppress_mask(dc.suppress_tokens)
-        self.batch_size = max(1, windows_per_device or 8)
+        self.batch_size = max(1, windows_per_device or num_workers or 8)
 
         kvd = kv_cache_dtype or dc.kv_cache_dtype
         self.kv_int8 = kvd == "int8" or (kvd == "auto" and on_cuda)
@@ -198,13 +254,58 @@ class AriesTranscriber:
         self.self_kv_int8 = self.fused if skvd == "auto" else skvd == "int8"
         self.wpack = (pack_layer_weights(self.params["decoder"]["blocks"])
                       if self.fused else None)
-        # per-checkpoint DTW alignment heads [(layer, head), ...]; None
+        # the checkpoint's DTW alignment heads [(layer, head), ...]; None
         # falls back to the top half of the decoder layers
-        self.alignment_heads: Optional[List[Tuple[int, int]]] = None
+        self.alignment_heads: Optional[List[Tuple[int, int]]] = (
+            load_alignment_heads(self.model_dir))
         self._speech_scorer = self._make_speech_scorer()
         self.last_stats: Dict[str, Any] = {}
+        self.last_diagnostics: Optional[WorkerDiagnostics] = None
+        # a corrupt checkpoint fails here, not mid-job (the reference runs
+        # 0.5 s of noise through a loaded model before serving); random
+        # and injected weights skip it
+        if self.model_dir is not None and os.environ.get(
+                "ARIES_SMOKE_TEST", "1") != "0":
+            self.smoke_test()
+
+    def smoke_test(self) -> None:
+        """0.5 s of noise through mel -> encoder -> one teacher-forced
+        decoder call (the transcription's kernels on the card); raises
+        RuntimeError on non-finite logits."""
+        rng = np.random.default_rng(0)
+        buf = np.zeros((1, self.WINDOW_SAMPLES), np.float32)
+        buf[0, :8000] = 0.1 * rng.standard_normal(8000).astype(np.float32)
+        xa = self._encode_batch(self._mel(torch.from_numpy(buf).to(
+            self.device)))
+        sot = self.tokenizer.specials.sot
+        logits = W.decoder_forward(
+            self.params, torch.tensor([[sot]], device=self.device), xa,
+            self.dims)
+        if not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(
+                f"model smoke test failed: non-finite decoder logits "
+                f"(corrupt checkpoint at {self.model_dir}?)")
+        log.info("model smoke test passed (%s)", self.model_size)
 
     # ------------------------------------------------------------------
+
+    def _load_tokenizer(self):
+        """The checkpoint's BPE tokenizer, its special-token layout set
+        from the model's vocabulary (51,864: English-only; else 51,766 +
+        languages); the stand-in tokenizer without one."""
+        if self.model_dir is None or not (
+                Path(self.model_dir) / "vocab.json").exists():
+            return DummyTokenizer(self.dims.n_vocab)
+        tok = WhisperTokenizer.from_pretrained(str(self.model_dir))
+        if tok.specials.n_vocab != self.dims.n_vocab:
+            if self.dims.n_vocab == 51864:
+                tok.specials = build_special_tokens(50257, 99, english=True)
+            else:
+                langs = self.dims.n_vocab - 51766
+                if langs > 0:
+                    tok.specials = build_special_tokens(
+                        self.dims.n_vocab - langs - 1509, langs)
+        return tok
 
     def _make_suppress_mask(self, suppress_tokens) -> torch.Tensor:
         """(vocab,) additive logit mask; -1 expands to the non-speech set
@@ -257,10 +358,11 @@ class AriesTranscriber:
         return buf
 
     def _gather(self, audio16: torch.Tensor, windows: Sequence[Window],
-                idx: Sequence[int]) -> torch.Tensor:
-        """(B, 480000) f32 windows gathered on the device, zeroed past each
-        window's length."""
-        win = self.WINDOW_SAMPLES
+                idx: Sequence[int], win: Optional[int] = None
+                ) -> torch.Tensor:
+        """(B, win) f32 windows gathered on the device, zeroed past each
+        window's length; ``win`` defaults to the 30 s WINDOW_SAMPLES."""
+        win = win or self.WINDOW_SAMPLES
         starts = [int(round(windows[i].start * SR)) for i in idx]
         lens = [min(win, int(round(windows[i].duration * SR))) for i in idx]
         view = audio16.as_strided((audio16.numel() - win + 1, win), (1, 1))
@@ -269,36 +371,96 @@ class AriesTranscriber:
         keep = ar[None, :] < torch.as_tensor(lens, device=self.device)[:, None]
         return torch.where(keep, rows.float() * (1.0 / 32768.0), 0.0)
 
-    def _plan(self, pre: AudioPreloader, duration: float) -> List[Window]:
-        probs = self._speech_scorer(pre.audio)
-        speech = collect_speech_segments(probs, VadOptions(),
-                                         total_samples=len(pre.audio))
-        return plan_windows(speech, duration) if speech else []
+    def _batch_win(self, windows: Sequence[Window], idx: Sequence[int]
+                   ) -> int:
+        """The samples a batch is gathered at: 16 s under the bucket when
+        every window of the batch fits, else 30 s."""
+        if self.audio_ctx_bucket and all(
+                windows[i].duration <= self.SHORT_WINDOW_S for i in idx):
+            return self.SHORT_WINDOW_SAMPLES
+        return self.WINDOW_SAMPLES
+
+    def _plan(self, pre: AudioPreloader, duration: float,
+              vad_filter: bool = True, vad_parameters: Optional[dict] = None,
+              chunking_mode: str = "vad",
+              chunk_length_minutes: Optional[float] = None) -> List[Window]:
+        """The call's windows: fixed chunks (with overlap) tiled into 30 s
+        windows that carry their chunk_id; VAD speech packed into windows;
+        or, without VAD, the whole file tiled."""
+        if chunking_mode == "fixed":
+            windows: List[Window] = []
+            for c in plan_chunks(
+                    duration,
+                    chunk_length_minutes or self.chunk_length_minutes,
+                    self.overlap_seconds):
+                t = c.start
+                while t < c.end - 1e-6:
+                    windows.append(Window(t, min(c.end, t + 30.0),
+                                          chunk_id=c.chunk_id))
+                    t += 30.0
+            return windows
+        if vad_filter:
+            probs = self._speech_scorer(pre.audio)
+            speech = collect_speech_segments(
+                probs, VadOptions(**(vad_parameters or {})),
+                total_samples=len(pre.audio))
+            return plan_windows(speech, duration) if speech else []
+        return plan_windows([(0.0, duration)], duration)
 
     def _encode_batch(self, mel: torch.Tensor) -> torch.Tensor:
-        return W.encode(self.params, mel.to(self.activation_dtype), self.dims)
+        """The encoder over a batch's mel; counts the windows encoded at
+        each context in ``last_stats["encodes"]`` ({T: windows})."""
+        xa = W.encode(self.params, mel.to(self.activation_dtype), self.dims)
+        enc = self.last_stats.setdefault("encodes", {})
+        T = int(xa.shape[1])
+        enc[T] = enc.get(T, 0) + int(xa.shape[0])
+        return xa
+
+    def _call_opts(self, suppress_tokens=None, without_timestamps=None,
+                   max_initial_timestamp=None, multilingual=None,
+                   repetition_penalty=None, no_repeat_ngram_size=None
+                   ) -> _CallOpts:
+        """A call's decode options, each None taken from config.decode."""
+        dc = self.config.decode
+        pick = lambda v, d: d if v is None else v
+        mit = pick(max_initial_timestamp, dc.max_initial_timestamp)
+        return _CallOpts(
+            ids=dataclasses.replace(
+                self.ids,
+                max_initial_timestamp_index=max(0, int(round(mit / 0.02)))),
+            suppress_mask=(self.suppress_mask if suppress_tokens is None
+                           else self._make_suppress_mask(suppress_tokens)),
+            with_timestamps=not pick(without_timestamps,
+                                     dc.without_timestamps),
+            multilingual=bool(pick(multilingual, dc.multilingual)),
+            repetition_penalty=float(pick(repetition_penalty,
+                                          dc.repetition_penalty)),
+            no_repeat_ngram_size=int(pick(no_repeat_ngram_size,
+                                          dc.no_repeat_ngram_size)))
 
     def _decode_batch(self, xa: torch.Tensor, prompt: np.ndarray,
                       temperature: float, sample_len: int, seed: int = 0,
                       beam_size: int = 1, patience: float = 1.0,
-                      length_penalty: float = 1.0) -> Dict[str, Any]:
+                      length_penalty: float = 1.0,
+                      opts: Optional[_CallOpts] = None) -> Dict[str, Any]:
         """Decode the windows of ``xa``: beam search when ``beam_size`` > 1
         at temperature 0, else greedy / sampled over the prompt's rows
-        (a multiple of the windows, window-major)."""
-        dc = self.config.decode
+        (a multiple of the windows, window-major). ``opts`` default to
+        config.decode's."""
+        opts = opts or self._call_opts()
+        rep = opts.repetition_penalty
         common = dict(
-            with_timestamps=not dc.without_timestamps,
+            with_timestamps=opts.with_timestamps,
             kv_int8=self.kv_int8, self_kv_int8=self.self_kv_int8,
-            repetition_penalty=(dc.repetition_penalty
-                                if dc.repetition_penalty != 1.0 else None),
-            no_repeat_ngram_size=dc.no_repeat_ngram_size,
+            repetition_penalty=rep if rep and rep != 1.0 else None,
+            no_repeat_ngram_size=int(opts.no_repeat_ngram_size or 0),
             fused=self.fused, wpack=self.wpack)
         prompt_t = torch.as_tensor(prompt, device=self.device)
         t0 = time.time()
         if beam_size > 1 and temperature == 0:
             out = G.beam_search_decode(
-                self.params, xa, prompt_t, self.dims, self.ids,
-                self.suppress_mask, 0, beam_size=beam_size,
+                self.params, xa, prompt_t, self.dims, opts.ids,
+                opts.suppress_mask, 0, beam_size=beam_size,
                 sample_len=sample_len, length_penalty=length_penalty,
                 patience=patience, **common)
             rows = int(xa.shape[0]) * beam_size
@@ -308,12 +470,13 @@ class AriesTranscriber:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(seed)
             out = G.greedy_decode(
-                self.params, xa, prompt_t, self.dims, self.ids,
-                self.suppress_mask, 0, float(temperature), gen,
+                self.params, xa, prompt_t, self.dims, opts.ids,
+                opts.suppress_mask, 0, float(temperature), gen,
                 sample_len=sample_len, **common)
             rows = int(prompt_t.shape[0])
         res = {k: v.cpu().numpy() for k, v in out.items()}
         stats = {"rows": rows, "windows": int(xa.shape[0]),
+                 "audio_ctx": int(xa.shape[1]),
                  "steps": int(res["steps"]),
                  "temperature": float(temperature), "beam_size": beam_size,
                  "seconds": time.time() - t0}
@@ -321,6 +484,18 @@ class AriesTranscriber:
             stats["permuted"] = int(res["permuted"])
         self.last_stats.setdefault("decodes", []).append(stats)
         return res
+
+    def _probe_languages(self, xa: torch.Tensor
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """(language token id, probability) of every window of ``xa``: one
+        batched single-step probe over the encoded audio."""
+        sp = self.tokenizer.specials
+        lang0 = min(sp.language_tokens.values())
+        probs = G.detect_language_batched(
+            self.params, xa, self.dims, sp.sot, lang0,
+            sp.num_languages).float().cpu().numpy()
+        idx = probs.argmax(axis=1)
+        return lang0 + idx, probs[np.arange(len(idx)), idx]
 
     def detect_language(self, mel: torch.Tensor) -> Tuple[str, float]:
         """Language of the first window (faster-whisper's detection)."""
@@ -346,23 +521,68 @@ class AriesTranscriber:
         beam_size: Optional[int] = None,
         best_of: int = 5,
         patience: Optional[float] = None,
-        length_penalty: Optional[float] = None,
+        repetition_penalty: Optional[float] = None,
+        no_repeat_ngram_size: Optional[int] = None,
         temperature: Optional[Sequence[float]] = None,
+        vad_filter: bool = True,
+        vad_parameters: Optional[dict] = None,
+        initial_prompt: Optional[str] = None,
+        prefix: Optional[str] = None,
+        hotwords: Optional[str] = None,
+        word_timestamps: bool = False,
+        length_penalty: Optional[float] = None,
         compression_ratio_threshold: float = 2.4,
         log_prob_threshold: float = -1.0,
         no_speech_threshold: float = 0.6,
         max_new_tokens: int = 224,
-        word_timestamps: bool = False,
+        progress_callback=None,
+        chunking_mode: str = "vad",
+        chunk_size: Optional[float] = None,
+        overlap_strategy: Optional[str] = None,
+        condition_on_previous_text: bool = False,
+        resume_path: Optional[str] = None,
+        suppress_tokens: Optional[Sequence[int]] = None,
+        without_timestamps: Optional[bool] = None,
+        max_initial_timestamp: Optional[float] = None,
+        prompt_reset_on_temperature: Optional[float] = None,
+        multilingual: Optional[bool] = None,
         prepend_punctuations: Optional[str] = None,
         append_punctuations: Optional[str] = None,
     ) -> Dict[str, Any]:
-        """Transcribe one file end to end (VAD, greedy or beam search,
-        fallback ladder, optional word timestamps); returns the result dict
-        and writes the requested output formats (txt, json, srt).
-        ``beam_size``, ``patience``, ``length_penalty`` and the punctuation
-        sets default to ``config.decode``'s."""
+        """Transcribe one file end to end (VAD or fixed chunks, greedy or
+        beam search, fallback ladder, optional word timestamps); returns
+        the result dict and writes the requested output formats (txt,
+        json, srt). The signature is the JAX engine's.
+
+        ``chunking_mode="fixed"`` plans the reference's coarse chunks with
+        overlap (``chunk_size`` seconds implies it), each tiled into 30 s
+        windows; ``overlap_strategy`` ("drop" | "merge", default
+        ``config.chunking``'s) then reconciles the overlap's duplicates.
+        ``vad_filter=False`` tiles the whole file; ``vad_parameters`` are
+        VadOptions fields. faster-whisper's options: ``suppress_tokens``
+        (-1 expands to the non-speech set), ``without_timestamps`` (each
+        window one untimed segment), ``max_initial_timestamp`` (seconds),
+        ``repetition_penalty``, ``no_repeat_ngram_size``, ``multilingual``
+        (a language per window; every segment carries its window's).
+        ``progress_callback(done, total)`` is called after each batch.
+        ``None`` defers to ``config.decode``. The options of conditioned
+        decoding and the resume journal (``initial_prompt``, ``prefix``,
+        ``hotwords``, ``condition_on_previous_text=True``,
+        ``resume_path``, ``prompt_reset_on_temperature``) are not ported
+        and raise NotImplementedError."""
+        given = dict(initial_prompt=initial_prompt, prefix=prefix,
+                     hotwords=hotwords,
+                     condition_on_previous_text=condition_on_previous_text,
+                     resume_path=resume_path,
+                     prompt_reset_on_temperature=prompt_reset_on_temperature)
+        for name in _UNPORTED_OPTIONS:
+            if given[name] not in (None, False):
+                raise NotImplementedError(
+                    f"transcribe_file({name}=...) is not ported yet")
         t0 = time.time()
         self.last_stats = {}
+        diag = WorkerDiagnostics()
+        self.last_diagnostics = diag
         dc = self.config.decode
         beam = dict(
             beam_size=max(1, int(beam_size if beam_size is not None
@@ -371,13 +591,24 @@ class AriesTranscriber:
                            else dc.patience),
             length_penalty=float(length_penalty if length_penalty is not None
                                  else dc.length_penalty))
+        opts = self._call_opts(
+            suppress_tokens=suppress_tokens,
+            without_timestamps=without_timestamps,
+            max_initial_timestamp=max_initial_timestamp,
+            multilingual=multilingual, repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size)
+
         pre = AudioPreloader(audio_path)
         duration = pre.duration
-        windows = self._plan(pre, duration)
+        if chunk_size is not None:
+            chunking_mode = "fixed"  # a per-call chunk size implies it
+        windows = self._plan(pre, duration, vad_filter, vad_parameters,
+                             chunking_mode=chunking_mode,
+                             chunk_length_minutes=(
+                                 chunk_size / 60.0 if chunk_size else None))
         log.info("planned %d windows for %.1fs audio", len(windows), duration)
 
-        temps = (temperature if temperature is not None
-                 else self.config.decode.temperature)
+        temps = (temperature if temperature is not None else dc.temperature)
         if isinstance(temps, (int, float)):
             temps = (float(temps),)
         temps = tuple(temps)
@@ -385,16 +616,33 @@ class AriesTranscriber:
                       no_speech_threshold)
 
         segments: List[Dict[str, Any]] = []
-        lang_prob = 1.0 if language else None
+        lang = {"code": language, "prob": 1.0 if language else None}
         if windows:
             audio16 = self._upload(pre)
             if language is None and self.tokenizer.specials.language_tokens:
-                mel0 = self._mel(self._gather(audio16, windows, [0]))
-                language, lang_prob = self.detect_language(mel0)
-            prompt_ids = self.tokenizer.specials.sot_sequence(language, task)
+                if opts.multilingual:
+                    # the file's language from its first window at 30 s;
+                    # each window then decodes in its own
+                    mel0 = self._mel(self._gather(audio16, windows, [0]))
+                    lang["code"], lang["prob"] = self.detect_language(mel0)
+                else:
+                    # detected from the first batch's first window, at the
+                    # batch's context, before that batch decodes
+                    lang["defer"] = True
+            # a deferred language's token is a placeholder until then
+            prompt_ids = self.tokenizer.specials.sot_sequence(
+                "en" if lang.get("defer") else lang["code"], task)
             segments = self._transcribe_windows(
                 audio16, windows, prompt_ids, temps, max_new_tokens,
-                thresholds, best_of, beam)
+                thresholds, best_of, beam, opts, diag, lang,
+                progress_callback)
+            if chunking_mode == "fixed":
+                strategy = (overlap_strategy
+                            or self.config.chunking.overlap_strategy)
+                segments = (merge_overlapping_segments(segments)
+                            if strategy == "merge"
+                            else remove_overlaps_drop(segments))
+        language = lang["code"]
 
         if word_timestamps and segments:
             from whisper_aries_tpu_torch.align.word_align import (
@@ -420,12 +668,13 @@ class AriesTranscriber:
             "segments": segments,
             "text": " ".join(s["text"] for s in segments).strip(),
             "language": language,
-            "language_probability": lang_prob,
+            "language_probability": lang["prob"],
             "duration": duration,
             "processing_time": wall,
             "real_time_factor": duration / wall if wall > 0 else 0.0,
             "num_windows": len(windows),
             "performance": self.last_stats,
+            "diagnostics": diag.summary(),
             "metadata": {
                 "audio_file": audio_path,
                 "model": self.model_size,
@@ -441,24 +690,59 @@ class AriesTranscriber:
     # ------------------------------------------------------------------
 
     def _transcribe_windows(self, audio16, windows, prompt_ids, temps,
-                            sample_len, thresholds, best_of, beam
+                            sample_len, thresholds, best_of, beam, opts,
+                            diag, lang, progress_callback=None
                             ) -> List[Dict[str, Any]]:
+        """Every window in batches. Under the bucket, short windows come
+        first so whole batches qualify for the 16 s context. A deferred
+        language (``lang["defer"]``) is detected from the first batch's
+        first window and written into every prompt; under
+        ``opts.multilingual`` each window's own detected language token
+        replaces it in its prompt row (beam rows, and the fallback
+        ladder's, take their window's)."""
         parse_skip = len(prompt_ids)
         N = len(windows)
+        pending = list(range(N))
+        if self.audio_ctx_bucket:
+            pending.sort(key=lambda i: (
+                windows[i].duration > self.SHORT_WINDOW_S, i))
+        for i in pending:
+            diag.log(i, "PLANNED",
+                     f"{windows[i].start:.1f}-{windows[i].end:.1f}s")
+        has_langs = bool(self.tokenizer.specials.language_tokens)
         # size the batches to the file: ceil-divide the windows over the
         # batch count the cap implies, so no batch is mostly padding
         B = min(self.batch_size, -(-N // -(-N // self.batch_size)))
         all_segments: List[Dict[str, Any]] = []
         p = 0
         while p < N:
-            batch_idx = list(range(p, min(N, p + B)))
+            batch_idx = pending[p:p + B]
             prompt = np.tile(np.asarray(prompt_ids, np.int64),
                              (len(batch_idx), 1))
+            win_langs: Optional[List[str]] = None
             try:
-                xa = self._encode_batch(
-                    self._mel(self._gather(audio16, windows, batch_idx)))
+                for i in batch_idx:
+                    diag.log(i, "ENCODING", f"batch@{p} size={len(batch_idx)}")
+                xa = self._encode_batch(self._mel(self._gather(
+                    audio16, windows, batch_idx,
+                    self._batch_win(windows, batch_idx))))
+                if lang.pop("defer", False):
+                    tok, prob = self._probe_languages(xa[:1])
+                    sp = self.tokenizer.specials
+                    lang["code"] = LANGUAGES[int(tok[0]) - min(
+                        sp.language_tokens.values())]
+                    lang["prob"] = float(prob[0])
+                    prompt_ids = list(prompt_ids)
+                    prompt_ids[1] = int(tok[0])
+                    prompt[:, 1] = int(tok[0])
+                if opts.multilingual and has_langs:
+                    tok, _ = self._probe_languages(xa)
+                    lang0 = min(self.tokenizer.specials.language_tokens
+                                .values())
+                    prompt[:, 1] = tok
+                    win_langs = [LANGUAGES[int(t) - lang0] for t in tok]
                 out = self._decode_batch(xa, prompt, temps[0], sample_len,
-                                         **beam)
+                                         opts=opts, **beam)
             except torch.cuda.OutOfMemoryError:
                 # halve the window batch and retry this batch
                 if B == 1:
@@ -469,6 +753,8 @@ class AriesTranscriber:
                 torch.cuda.empty_cache()
                 continue
             del xa
+            for i in batch_idx:
+                diag.log(i, "DECODING", f"batch@{p} size={len(batch_idx)}")
             rows, fails = [], []
             for w_i, win_id in enumerate(batch_idx):
                 window = windows[win_id]
@@ -477,24 +763,34 @@ class AriesTranscriber:
                     float(out["avg_logprob"][w_i]),
                     float(out["no_speech_prob"][w_i]), thresholds)
                 if quality["is_silence"]:
+                    diag.log(win_id, "COMPLETED", "silence")
                     continue
                 if quality["needs_fallback"] and len(temps) > 1:
                     fails.append((win_id, window, prompt[w_i], segs))
-                rows.append((win_id, window, segs))
+                    diag.log(win_id, "FALLBACK",
+                             f"cr={quality['compression_ratio']:.2f} "
+                             f"lp={out['avg_logprob'][w_i]:.2f}")
+                rows.append((w_i, win_id, window, segs))
             fb: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
             if fails:
                 fb = self._fallback_windows(audio16, windows, fails,
                                             temps[1:], sample_len,
-                                            thresholds, best_of, parse_skip)
-            for win_id, window, segs in rows:
+                                            thresholds, best_of, parse_skip,
+                                            opts)
+            for w_i, win_id, window, segs in rows:
                 if win_id in fb:
                     segs = fb[win_id][0]
                 for s in segs:
+                    if win_langs is not None:
+                        s["language"] = win_langs[w_i]
                     s["chunk_id"] = window.chunk_id
                     s["window_id"] = win_id
                     s["worker_id"] = 0
+                diag.log(win_id, "COMPLETED", f"{len(segs)} segment(s)")
                 all_segments.extend(segs)
             p += len(batch_idx)
+            if progress_callback:
+                progress_callback(p, N)
         all_segments.sort(key=lambda s: (s["start"], s["end"]))
         return all_segments
 
@@ -516,13 +812,14 @@ class AriesTranscriber:
         return segs, q
 
     def _fallback_windows(self, audio16, windows, fails, temps, sample_len,
-                          thresholds, best_of, parse_skip
+                          thresholds, best_of, parse_skip, opts
                           ) -> Dict[int, Tuple[List[Dict[str, Any]], float]]:
         """Temperature-fallback ladder for a batch's failing windows: at
         each rung, ``best_of`` samples of every still-failing window decode
-        as one batch (the samples of a window share its cross K/V) and the
-        best by sum logprob is kept. Returns {window id: (segments,
-        accepted temperature)}."""
+        as one batch (the samples of a window share its cross K/V; every
+        window re-encoded at 30 s, each sample's prompt its window's row,
+        language included) and the best by sum logprob is kept. Returns
+        {window id: (segments, accepted temperature)}."""
         K = max(1, best_of)
         results: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
         last_t = float(temps[-1])
@@ -538,7 +835,7 @@ class AriesTranscriber:
                 if not pending:
                     break
                 out = self._decode_batch(xa, prompt, float(t), sample_len,
-                                         seed=1234 + t_i)
+                                         seed=1234 + t_i, opts=opts)
                 for i in list(pending):
                     win_idx, window = pending[i][0], pending[i][1]
                     b = i * K + int(np.argmax(

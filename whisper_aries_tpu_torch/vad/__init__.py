@@ -2,6 +2,7 @@ from whisper_aries_tpu_torch.vad.energy import get_speech_probs
 from whisper_aries_tpu_torch.vad.segments import VadOptions, collect_speech_segments
 from whisper_aries_tpu_torch.vad.planner import (
     Window,
+    plan_chunks,
     plan_windows,
     windows_to_batch,
 )
@@ -11,6 +12,7 @@ __all__ = [
     "VadOptions",
     "collect_speech_segments",
     "Window",
+    "plan_chunks",
     "plan_windows",
     "windows_to_batch",
 ]

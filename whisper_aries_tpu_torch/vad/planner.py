@@ -8,8 +8,9 @@ VAD speech segments, so the whole file becomes one batch over the device
 mesh — no sequential seek dependency, no worker queue.
 
 ``plan_windows`` is VAD-aware: it packs speech segments into <=30 s
-windows, bridging small gaps and skipping long silence entirely. (The JAX
-package's fixed-chunk planner comes with the fixed chunking mode.)
+windows, bridging small gaps and skipping long silence entirely.
+``plan_chunks`` is the fixed chunking mode's plan (coarse chunks with
+overlap, each tiled into 30 s windows by the engine).
 ``windows_to_batch`` slices the float audio into the word-timestamp pass's
 batch, as the JAX package's word pass does.
 """
@@ -90,6 +91,26 @@ def plan_windows(
     # downstream reporting/reconciliation (chunk_id mirrors the reference's
     # per-chunk segment annotation, final_optimized_transcriber.py:331-340).
     return [Window(w.start, w.end, chunk_id=i) for i, w in enumerate(windows)]
+
+
+def plan_chunks(
+    total_duration: float,
+    chunk_length_minutes: float = 3.0,
+    overlap_seconds: float = 5.0,
+) -> List[Window]:
+    """The reference's fixed chunk plan: ceil(duration / chunk length)
+    chunks, each extended by the overlap (final_optimized_transcriber.py:
+    422-426)."""
+    chunk_s = chunk_length_minutes * 60.0
+    if total_duration <= 0:
+        return []
+    n = int(np.ceil(total_duration / chunk_s))
+    out = []
+    for i in range(n):
+        start = i * chunk_s
+        end = min(total_duration, start + chunk_s + overlap_seconds)
+        out.append(Window(start, end, chunk_id=i))
+    return out
 
 
 def windows_to_batch(
