@@ -69,6 +69,17 @@ caught; a kernel check that fails is printed at once and fails the run
      Python mirrors. The unfused step is replayed from one CUDA graph
      (UnfusedStepGraph), which must give the bits of direct launches; both
      are timed and profiled.
+     The conditioned shapes (conditioned_phase): the fused step over a
+     T 451 self cache at R 1 and R 5 (one window's cross K/V),
+     valid_start 0 / 100 / 224, pos 227 and 450, teacher-forced per layer
+     with "keys before valid_start scored", two runs and a graph replay
+     bitwise, and a whole step through generate._step_logits against the
+     plain stack with "positional embedding not offset by valid_start";
+     kernel 6's prefills at 1 window x G 227 and x G 1135 (the ladder's 5
+     rows) with "the last query chunk dropped"; kernel 5 at M 227 and M
+     1135 (K = N = 1280); kernel 7 at R 1 and R 5 over T 451 at
+     valid_start 224; kernel 8 at R 5 over T 451. Each kernel's entry
+     carries a "conditioned" part (times, device times, bounds).
   4. probes: the nine counterparts of the TPU probes in scripts/
      (whisper_aries_tpu_torch/scripts/: probe_dma's probe and probe_multi,
      probe_vmem's try_size, probe_mxu's probe, probe_int8_mxu's
@@ -146,6 +157,21 @@ caught; a kernel check that fails is printed at once and fails the run
      must launch, the word pass must read the checkpoint's 10 heads and
      every segment carry a language; prints the write, load and smoke
      seconds and the peak host RSS of each (the "checkpoint" line).
+ 10. pipeline path: run_pipeline on a ~57 s two-speaker conversation made
+     from seed 1 (tests/test_diarize.py's harmonic-stack voices in turns
+     of 3-8 s) with the beam slice's engine as transcriber= and a
+     DiarizationPipeline() on the card: beam 5, condition_on_previous_text
+     with an initial prompt, html/json/srt, the meeting analysis with no
+     API key (its error recorded, the run a success), strict_diarization,
+     a resume journal; counts from 0. Every kernel of the path must
+     launch, every decode call's graph must run at its prompt's own left
+     pad over a 451-position cache, every step after a prefill must be a
+     replay, the diarizer must find the 2 speakers, the outputs must
+     parse. Then, at temperature 0: a journal run, a rerun from the full
+     journal (no decode launch) and one from the journal cut to its first
+     record (the other windows decoded), both with the same aligned
+     segments. Prints the "pipeline" line (stage seconds, RTF, ms a step
+     at R 5 and T 451, DER against the truth turns, the diarizer's peak).
 The second-to-last lines are the kernels JSON (all seventeen kernels) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
@@ -497,10 +523,10 @@ def kernel_encoder_attn(dev, entries):
         **encoder_attn_at(dev, 1500), bucket=encoder_attn_at(dev, 800)))
 
 
-def decode_inputs(dev, R, P, self_int8, seed=0, windows=None):
+def decode_inputs(dev, R, P, self_int8, seed=0, windows=None, T=448):
     """Large-v3 decoder-layer operands at R rows over ``windows`` windows
     (R by default; R / windows beams per window share its cross K/V) with
-    1500 cross keys:
+    1500 cross keys and a self cache of T positions:
     int8-packed random weights (LayerNorm and bias segments perturbed so
     they matter), int8 cross K/V from random encoder output, a self cache
     holding P random positions. Cross-attention's output scale is raised
@@ -525,7 +551,7 @@ def decode_inputs(dev, R, P, self_int8, seed=0, windows=None):
     xa = torch.randn((windows or R, dims.n_audio_ctx, d), generator=g,
                      device=dev).to(torch.bfloat16)
     cross = W.precompute_cross_kv_int8(params, xa, dims)
-    L, H, T = dims.n_text_layer, dims.n_text_head, 448
+    L, H = dims.n_text_layer, dims.n_text_head
     kv = torch.zeros((L, R, 2, H, T, 64), dtype=torch.bfloat16, device=dev)
     kv[:, :, :, :, :P] = (0.5 * torch.randn((L, R, 2, H, P, 64), generator=g,
                                             device=dev)).to(torch.bfloat16)
@@ -579,11 +605,13 @@ def pos_unscored_layers(x, wpack, cache, cross, vs, pos, H):
         DL.self_attn_plain = right
 
 
-def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
+def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g,
+                   vs=0):
     """(a) Two direct runs of the step on the same inputs give the same
     bits; (b) a graph replay (DecodeStepGraph) gives the same bits as a
     direct launch over 4 positions, the cache permuted in place by the beam
-    reorder between the second and third (each window's rows rotated)."""
+    reorder between the second and third (each window's rows rotated);
+    both at valid_start ``vs``."""
     import torch
     from whisper_aries_tpu_torch.ops import beam_reorder as BR
     from whisper_aries_tpu_torch.ops import decode_layers as DL
@@ -591,14 +619,14 @@ def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
     d = wpack["wq8"].shape[1]
     x = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
     c1, c2 = clone(cache), clone(cache)
-    a = DL.fused_decoder_layers(x, wpack, c1, cross, 0, P, H)
-    b = DL.fused_decoder_layers(x, wpack, c2, cross, 0, P, H)
+    a = DL.fused_decoder_layers(x, wpack, c1, cross, vs, P, H)
+    b = DL.fused_decoder_layers(x, wpack, c2, cross, vs, P, H)
     same = torch.equal(a, b) and all(torch.equal(c1[k], c2[k]) for k in c1)
     check(f"decode_layers[{label}] two runs bitwise", same,
           "x and the appended cache identical" if same else "differ")
     del c1, c2
     cg_, cd = clone(cache), clone(cache)
-    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H, vs)
     K = R // windows
     src = torch.roll(torch.arange(K, device=dev, dtype=torch.int32), 1)
     src = src[None].expand(windows, K).contiguous()
@@ -606,7 +634,7 @@ def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
     for i, pos in enumerate(range(P, P + 4)):
         x = torch.randn((R, d), generator=g, device=dev).to(torch.bfloat16)
         same &= torch.equal(graph.run(x, pos),
-                            DL.fused_decoder_layers(x, wpack, cd, cross, 0,
+                            DL.fused_decoder_layers(x, wpack, cd, cross, vs,
                                                     pos, H))
         same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
         if i == 1 and K > 1:
@@ -618,11 +646,11 @@ def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g):
     del graph, cg_, cd
 
 
-def step_bound(dims, R, pos, self_int8, windows=None, ta=None):
+def step_bound(dims, R, pos, self_int8, windows=None, ta=None, vs=0):
     """Least time of one decode step (all layers): int8 weights, the
-    windows' int8 cross K/V with scales, the live self cache, x in and out,
-    each moved once; or the products at the bf16 peak, whichever is
-    longer."""
+    windows' int8 cross K/V with scales, the live self cache (positions vs
+    .. pos), x in and out, each moved once; or the products at the bf16
+    peak, whichever is longer."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
@@ -630,7 +658,7 @@ def step_bound(dims, R, pos, self_int8, windows=None, ta=None):
     w_bytes = L * (d * 6 * d + 2 * d * ff + DL.vec_offsets(d, ff)[1] * 4)
     cross_bytes = L * (windows or R) * 2 * H * Ta * (64 + 4)
     elt = 1 if self_int8 else 2
-    live = pos + 1
+    live = pos + 1 - vs
     self_bytes = L * R * 2 * H * live * (64 * elt + (4 if self_int8 else 0))
     nbytes = w_bytes + cross_bytes + self_bytes + 2 * R * d * 2
     ops = 2 * R * L * (6 * d * d + 2 * d * ff) + 4 * R * L * H * 64 * (live + Ta)
@@ -1197,8 +1225,9 @@ def cross_case(dev, Bw, G, seed, Ta=1500):
 
 def hold_cross(label, q, args, past=None):
     """The kernel (f32 out) against its plain version; each named mistake
-    (the last 28 keys dropped, every window reading window 0's K/V, the
-    last split's P . V dropped from the rank-order sum, and, given
+    (the last 28 keys dropped, every window reading window 0's K/V over
+    several windows, the last split's P . V dropped from the rank-order
+    sum, above 16 queries the last chunk of 16 left unwritten, and, given
     ``past``, keys past Ta read from the 30 s pad) must exceed the
     limits. Returns the largest |error|."""
     import torch
@@ -1214,10 +1243,16 @@ def hold_cross(label, q, args, past=None):
     mistakes = {
         "last 28 keys dropped": XA.cross_attention_q8_reference(
             q, *(a[:, :, :Ta - 28] for a in args)),
-        "every window reads window 0": XA.cross_attention_q8_reference(
-            q, *(a[:1].expand_as(a) for a in args)),
         f"split {S - 1} of {S}'s P.V dropped":
             XA.cross_attention_q8_split_plain(q, *args, S, C, drop=S - 1)}
+    if Bw > 1:
+        mistakes["every window reads window 0"] = \
+            XA.cross_attention_q8_reference(
+                q, *(a[:1].expand_as(a) for a in args))
+    if G > 16:  # the per-warp kernel's query chunks of 16
+        tail = want.clone()
+        tail[:, :, (G - 1) // 16 * 16:] = 0
+        mistakes["last query chunk dropped"] = tail
     if past is not None:
         mistakes["keys past Ta read from the 30 s pad"] = \
             XA.cross_attention_q8_reference(q, *past)
@@ -1236,9 +1271,12 @@ def hold_cross(label, q, args, past=None):
 
 def cross_bound(Bw, G, T, H=20, dh=64):
     """Least time of one grouped cross-attention: int8 K/V with f32
-    scales read once, q in and f32 out, or its f32 operations."""
+    scales read once, q in and f32 out, or its operations: Q . K^T at the
+    bf16 tensor-core rate (an int8 key is exact in bf16, so bf16 q times
+    it loses nothing there), P . V at the f32 rate."""
     nbytes = Bw * H * T * 2 * (dh + 4) + Bw * H * G * dh * (2 + 4)
-    return bound(nbytes, 4 * Bw * H * G * T * dh, PEAK_F32)
+    n = 2 * Bw * H * G * T * dh
+    return bound(nbytes, n + n * PEAK_F32 / PEAK_BF16, PEAK_F32)
 
 
 def cross_bucket(dev):
@@ -1605,7 +1643,10 @@ def kernel_quant_matmul(dev, entries):
               ("bucket encoder q/k/v/o, cross k/v", 6400, d, d),
               ("bucket encoder fc1", 6400, d, ff),
               ("bucket encoder fc2", 6400, ff, d),
-              ("odd M", 1517, d, d), ("words prefill qkv", 18, d, 3 * d),
+              ("odd M", 1517, d, d),
+              ("conditioned prefill q/k/v/o", 227, d, d),
+              ("conditioned ladder prefill q/k/v/o", 1135, d, d),
+              ("words prefill qkv", 18, d, 3 * d),
               ("words prefill fc2", 18, ff, d),
               ("step qkv", 6, d, 3 * d), ("step o, cross q, cross o", 6, d, d),
               ("step fc1", 6, d, ff), ("step fc2", 6, ff, d),
@@ -1894,6 +1935,322 @@ def profile_unfused_step(dev, parts):
                       direct_ms=direct_ms))
     del params, cross, cache, xa
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# conditioned shapes (condition_on_previous_text, prompts, prefix)
+# ---------------------------------------------------------------------------
+
+#: the sequential mode's prompt width at large-v3 with timestamps: 224
+#: context positions + the sot sequence (3), every prompt left-padded to it
+P_COND = 227
+#: its self cache: the prompt and 224 sampled tokens
+T_COND = P_COND + 224
+#: valid_start: no pad, a part-filled context, the pad of a window with no
+#: context (224 - the 3 tokens of a short initial prompt and <|startofprev|>)
+VS_COND = (0, 100, 224)
+
+
+def cond_step(dev, parts):
+    """Kernel 3 at the conditioned shapes: the int8-self-cache step over a
+    T 451 cache (every position filled, so keys before valid_start hold
+    stale values the mask must hide) at R 1 (greedy) and R 5 (beam 5 and
+    the ladder's best_of 5), one window's cross K/V shared by its rows;
+    valid_start 0 / 100 / 224 at the first position past the prompt (227)
+    and the last (450). Per (R, valid_start, pos): teacher-forced per
+    layer against the plain layers over 8 layers (every 4th), where "keys
+    before valid_start scored" must exceed the limits; two runs bitwise
+    and a graph replay bitwise against direct launches from 227 on (an
+    in-place reorder between at R 5); then one whole step through the
+    decode loop's own ``_step_logits`` (embedding, graph replay, vocab
+    product) against the plain stack, where "positional embedding not
+    offset by valid_start" must exceed the stack's limit. Timed as a
+    replay and as direct launches at pos 227 and 450, valid_start 224; the
+    device time from a graph captured without PDL."""
+    import torch
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    out = {"shape": f"one step, all 32 layers, int8 self cache T {T_COND}, "
+                    "1 window's cross K/V (Ta 1500) shared by R rows"}
+    worst = 0.0
+    sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+    for R in (1, 5):
+        dims, params, wpack, cross, cache, g = decode_inputs(
+            dev, R, T_COND, True, seed=20 + R, windows=1, T=T_COND)
+        H, L, dec = dims.n_text_head, dims.n_text_layer, params["decoder"]
+        if cache["kv8"].shape[4] != T_COND:
+            fail("conditioned step: the self cache is not 451 long")
+        for vs in VS_COND:
+            for pos in (P_COND, T_COND - 1):
+                ck, cp, cm = clone(cache), clone(cache), clone(cache)
+                errs = {"max_rel": 0.0, "mean_rel": 0.0}
+                before = {"mean_rel": math.inf}
+                for l in range(0, L, 4):
+                    xin = (0.25 * torch.randn((R, dims.n_text_state),
+                                              generator=g, device=dev)
+                           ).to(torch.bfloat16)
+                    got = DL.fused_decoder_layers(xin, sl(wpack, l), sl(ck, l),
+                                                  sl(cross, l), vs, pos, H)
+                    want = DL.fused_decoder_layers_plain(
+                        xin, sl(wpack, l), sl(cp, l), sl(cross, l), vs, pos, H)
+                    errs["max_rel"] = max(errs["max_rel"], max_rel(got, want))
+                    errs["mean_rel"] = max(errs["mean_rel"],
+                                           mean_rel(got, want, xin))
+                    worst = max(worst, float(
+                        (got.float() - want.float()).abs().max()))
+                    if vs:
+                        wrong = DL.fused_decoder_layers_plain(
+                            xin, sl(wpack, l), sl(cm, l), sl(cross, l), 0,
+                            pos, H)
+                        before["mean_rel"] = min(before["mean_rel"], mean_rel(
+                            wrong, want, xin))
+                del ck, cp, cm
+                tols = {"max_rel": 3e-2, "mean_rel": 1e-2}
+                label = (f"conditioned, R {R}, T {T_COND}, valid_start {vs}, "
+                         f"pos {pos}")
+                held(f"decode_layers[{label}]"
+                     + (", keys before valid_start scored" if vs else ""),
+                     errs, tols, before if vs else None)
+            hold_step_bits(f"conditioned, R {R}, T {T_COND}, valid_start "
+                           f"{vs}", dev, wpack, cache, cross, H, R, 1,
+                           P_COND, g, vs=vs)
+            if not vs:
+                continue
+            # the whole step as the decode loop runs it
+            pos = T_COND - 1 if vs == 224 else P_COND
+            cg, cp = clone(cache), clone(cache)
+            graph = DL.DecodeStepGraph(wpack, cg, cross, R, H, vs)
+            tok = torch.randint(0, dims.n_vocab, (R,), generator=g,
+                                device=dev)
+            got = G._step_logits(params, dims, tok, pos, cg, cross, True,
+                                 wpack, graph, vs)
+
+            def plain(p_idx):
+                x = dec["tok_emb"][tok] + dec["pos_emb"][p_idx]
+                return W.vocab_logits(dec, DL.fused_decoder_layers_plain(
+                    x, wpack, clone(cp), cross, vs, pos, H))
+
+            want = plain(min(pos - vs, dims.n_text_ctx - 1))
+            wrong = plain(min(pos, dims.n_text_ctx - 1))
+            del graph, cg
+            held(f"decode_layers[conditioned step logits, R {R}, valid_start "
+                 f"{vs}, pos {pos}] positional embedding not offset by "
+                 "valid_start", {"max_rel": max_rel(got, want)},
+                 {"max_rel": 0.1}, {"max_rel": max_rel(wrong, want)})
+        # timed where the sequential mode runs: valid_start 224
+        x = torch.randn((R, dims.n_text_state), generator=g,
+                        device=dev).to(torch.bfloat16)
+        for pos in (P_COND, T_COND - 1):
+            graph = DL.DecodeStepGraph(wpack, cache, cross, R, H, 224)
+            key = f"r{R}_pos{pos}"
+            out[f"ms_{key}"] = time_ms(lambda: graph.run(x, pos), 20)
+            out[f"ms_direct_{key}"] = time_ms(lambda: DL.fused_decoder_layers(
+                x, wpack, cache, cross, 224, pos, H), 20)
+            out[f"bound_ms_{key}"] = step_bound(dims, R, pos, True, 1,
+                                                vs=224)[0]
+            # the kernels' own device time: a graph captured without PDL
+            # (with it each kernel's time includes waiting for the one
+            # before)
+            DL.PDL = False
+            try:
+                graph = DL.DecodeStepGraph(wpack, cache, cross, R, H, 224)
+                out[f"device_ms_{key}"] = device_ms(lambda: graph.run(x, pos))
+            finally:
+                DL.PDL = True
+            del graph
+        if R == 5:
+            out["plain_ms_r5_pos450"] = time_ms(
+                lambda: DL.fused_decoder_layers_plain(
+                    x, wpack, clone(cache), cross, 224, T_COND - 1, H), 3,
+                warmup=1)
+            graph = DL.DecodeStepGraph(wpack, cache, cross, R, H, 224)
+            profile_step(f"conditioned R 5, T {T_COND}",
+                         lambda: graph.run(x, T_COND - 1))
+            del graph
+        del wpack, cross, cache, params
+        torch.cuda.empty_cache()
+    out.update(max_abs_err=worst, library_ms=None,
+               tolerance={"max_rel": 3e-2, "mean_rel": 1e-2,
+                          "stack_logits_max_rel": 0.1})
+    return out
+
+
+def cond_cross(dev):
+    """Kernel 6 at the conditioned prefills over 1500 keys: one window x G
+    227 (greedy and beam prefill a window's 227 prompt positions) and the
+    ladder's 5 rows x 227 = G 1135 over that window, bf16 and f32 q, with
+    ``hold_cross``'s mistakes, "the last query chunk dropped" among them;
+    timed at each."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+
+    err, out = 0.0, {}
+    for rows in (1, 5):
+        G = rows * P_COND
+        q, args, _ = cross_case(dev, 1, G, 70 + rows)
+        for qdtype in (torch.bfloat16, torch.float32):
+            e, tols = hold_cross(f"conditioned prefill, 1 window x {rows} "
+                                 f"rows x {P_COND}, q {qdtype}",
+                                 q.to(qdtype), args)
+            err = max(err, e)
+        kern = lambda: XA.cross_attention_q8_kernel(q, *args)
+        b_ms, b_by = cross_bound(1, G, 1500)
+        out[f"g{G}"] = dict(
+            ms=time_ms(kern, 20), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: XA.cross_attention_q8_reference(
+                q, *args), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"q (1, 20, {G}, 64) bf16, K/V (1, 20, 1500, 64) int8")
+        del q, args
+    out.update(max_abs_err=err, tolerance=tols)
+    return out
+
+
+def cond_self_attn(dev):
+    """Kernel 7 at the conditioned shapes: R 1 and R 5 x 20 heads over a
+    T 451 cache, valid_start 224, at positions 227 and 450, stale values
+    before valid_start; the mistakes "keys before valid_start scored",
+    the last written position dropped and the position's split's P . V
+    dropped must exceed the limits; two runs bitwise; timed at R 5, pos
+    450."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    H, T, dh, v0 = 20, T_COND, 64, 224
+    neg = float(np.finfo(np.float32).min)
+    tols = {"max_rel": 1e-4, "mean_rel": 1e-5}
+    worst, same, out = 0.0, True, {}
+    t = torch.arange(T, device=dev)
+    for B in (1, 5):
+        S, C = SA.split_plan(T, B * H, cb.sm_count(dev))
+        check(f"self_attn_q8 plan at R {B}, T {T}: C = Python mirror",
+              SA.kernel_split_plan(T, B * H, cb.sm_count(dev)) == (S, C),
+              f"{S} splits of {C} keys")
+        g = torch.Generator(device=dev).manual_seed(30 + B)
+        kv = torch.randn((2, B, H, T, dh), generator=g, device=dev).to(
+            torch.bfloat16)
+        kv8, sc = XA.quantize_kv_per_position(kv)
+        k8, v8 = kv8[0].contiguous(), kv8[1].contiguous()
+        ks, vs = (sc[0] / 8.0).contiguous(), sc[1].contiguous()
+        del kv, kv8, sc
+        q = torch.randn((B, 1, H, dh), generator=g, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+        for pos in (P_COND, T - 1):
+            mask = torch.where((t <= pos) & (t >= v0), 0.0, neg).float()[None]
+            got = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+            again = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+            want = SA.self_attention_q8_plain(q, k8, ks, v8, vs, mask)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"self-attention kernel output is not finite (R {B}, "
+                     f"pos {pos})")
+            same &= torch.equal(got, again)
+            errs = {"max_rel": max_rel(got, want),
+                    "mean_rel": mean_rel(got, want)}
+            cut = mask.clone()
+            cut[..., pos] = neg
+            lo = pos // C * C
+            for name, wrong in (
+                    ("keys before valid_start scored",
+                     SA.self_attention_q8_plain(
+                         q, k8, ks, v8, vs,
+                         torch.where(t <= pos, 0.0, neg).float()[None])),
+                    ("last written position dropped",
+                     SA.self_attention_q8_plain(q, k8, ks, v8, vs, cut)),
+                    (f"split {lo // C}'s P.V dropped",
+                     self_split_dropped(q, k8, ks, v8, vs, mask, lo,
+                                        lo + C))):
+                held(f"self_attn_q8[conditioned, R {B} x {H} heads, T {T}, "
+                     f"valid_start {v0}, pos {pos}, {name}]", errs, tols,
+                     {"max_rel": max_rel(wrong, want),
+                      "mean_rel": mean_rel(wrong, want)})
+            worst = max(worst, float((got - want).abs().max()))
+        pos = T - 1
+        mask = torch.where((t <= pos) & (t >= v0), 0.0, neg).float()[None]
+        kern = lambda: SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+        nbytes = B * H * T * 2 * (dh + 4) + T * 4 + B * H * dh * (2 + 4)
+        b_ms, b_by = bound(nbytes, 4 * B * H * T * dh, PEAK_F32)
+        out[f"r{B}"] = dict(
+            ms=time_ms(kern, 50), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: SA.self_attention_q8_plain(
+                q, k8, ks, v8, vs, mask), 10),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, splits=[S, C],
+            shape=f"q ({B}, {H}, 1, {dh}), K/V ({B}, {H}, {T}, {dh}) int8, "
+                  f"valid_start {v0}, position {pos}")
+        del q, k8, v8, ks, vs
+    check("self_attn_q8[conditioned, two runs bitwise]", same,
+          "every position")
+    out.update(max_abs_err=worst, tolerance=tols)
+    return out
+
+
+def cond_reorder(dev):
+    """Kernel 8 at R 5 (one window x 5 beams) over the T 451 int8 self
+    cache: bit for bit the plain gather on a random map and on every row
+    moving; timed (every row moving) beside index_select."""
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+
+    dims = W.PRESETS["large-v3"]
+    B, K, T = 1, 5, T_COND
+    L, H = dims.n_text_layer, dims.n_text_head
+    g = torch.Generator(device=dev).manual_seed(7)
+    cache = {"kv8": torch.randint(-127, 128, (L, B * K, 2, H, T, 64),
+                                  generator=g, device=dev, dtype=torch.int8),
+             "ksc": torch.rand((L, B * K, 2, H, T), generator=g, device=dev)}
+    roll = torch.roll(torch.arange(K, device=dev, dtype=torch.int32),
+                      1)[None].contiguous()
+    same = True
+    for src in (torch.tensor([[1, 1, 0, 4, 2]], device=dev,
+                             dtype=torch.int32), roll):
+        want = {k: BR.permute_rows_plain(v.clone(), src)
+                for k, v in cache.items()}
+        got = BR.permute_cache_rows(clone(cache), src)
+        torch.cuda.synchronize()
+        same &= all(torch.equal(got[k], want[k]) for k in cache)
+    check(f"beam_reorder[conditioned, R 5, T {T}]", same,
+          "kv8 and ksc identical to the plain gather, two maps")
+    work = clone(cache)
+    kern = lambda: BR.permute_cache_rows(work, roll)
+    flat = roll.long().reshape(-1)
+    row_bytes = sum(v[0, 0].numel() * v.element_size()
+                    for v in cache.values())
+    b_ms, b_by = bound(2 * L * B * K * row_bytes, 0, PEAK_F32)
+    return dict(
+        max_abs_err=0.0 if same else math.inf, tolerance="bitwise",
+        ms=time_ms(kern, 20), device_ms=device_ms(kern),
+        plain_ms=time_ms(lambda: {k: BR.permute_rows_plain(v, roll)
+                                  for k, v in work.items()}, 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: [torch.index_select(v, 1, flat)
+                                    for v in work.values()], 20),
+        shape=f"kv8 ({L}, 5, 2, {H}, {T}, 64) int8 + ksc f32, every row "
+              "moving")
+
+
+def conditioned_phase(dev, entries, parts):
+    """Kernels 3, 5, 6, 7 and 8 at the shapes conditioned decoding gives
+    them (T 451, valid_start up to 224, R 1 and R 5, prefills of 227
+    positions a window); each kernel's entry gets a ``conditioned`` part.
+    Kernel 5's rows (M 227 and M 1135 at K = N = 1280, on the path
+    ``gemm_plan`` gives) are held with its other shapes."""
+    by_name = {e["name"]: e for e in entries}
+    by_name["decode_layers"]["conditioned"] = cond_step(dev, parts)
+    by_name["cross_attn_q8"]["conditioned"] = cond_cross(dev)
+    by_name["self_attn_q8"]["conditioned"] = cond_self_attn(dev)
+    by_name["beam_reorder"]["conditioned"] = cond_reorder(dev)
+    gemm = by_name["quant_matmul"]
+    gemm["conditioned"] = {r["what"]: r for r in gemm["shapes"]
+                           if r["what"].startswith("conditioned")}
+    print("conditioned " + json.dumps(
+        {k: by_name[k]["conditioned"] for k in (
+            "decode_layers", "cross_attn_q8", "self_attn_q8", "beam_reorder",
+            "quant_matmul")}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2284,6 +2641,8 @@ PATH_KERNELS = {
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
     "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
                    "cross_attn_q8", "beam_tail", "beam_reorder"),
+    "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+                 "beam_tail", "beam_reorder"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -2318,14 +2677,15 @@ def word_tokenizer():
     return WordTokenizer(51866)
 
 
-def slice_phase(dev, path: str):
+def slice_phase(dev, path: str, keep: bool = False):
     """transcribe_file on the synthetic WAV at large-v3 width, seeded
     random weights: "greedy" (config defaults), "beam" (decode.beam_size
     5), "words" (compute int8, beam 5, word timestamps with 10 alignment
     heads) or "self_int8" (compute int8, bf16 cross K/V with an int8 self
     cache: unfused steps, greedy at temperature 0). The int8 slices run
     under ARIES_QUANT_IMPL=pallas, restored after. Launch counts are set to
-    0 just before and read just after."""
+    0 just before and read just after. Returns the launches, the GEMM's
+    launches by path and, with ``keep``, the engine (else None)."""
     import os
 
     import torch
@@ -2481,9 +2841,11 @@ def slice_phase(dev, path: str):
     print(f"{tag} " + json.dumps(summary), flush=True)
     (OUT / f"{tag}.json").write_text(json.dumps(
         dict(summary, decodes=decodes), indent=2))
+    if keep:
+        return launches, gemm_paths, eng
     del eng
     torch.cuda.empty_cache()
-    return launches, gemm_paths
+    return launches, gemm_paths, None
 
 
 # ---------------------------------------------------------------------------
@@ -2823,6 +3185,317 @@ def checkpoint_phase(dev):
     return launches, gemm_paths
 
 
+# ---------------------------------------------------------------------------
+# pipeline path
+# ---------------------------------------------------------------------------
+
+#: the two voices of the conversation: (f0 Hz, formant Hz, noise seed)
+VOICES = ((110, 500, 1), (280, 2400, 2))
+#: an environment variable no machine sets: the meeting analysis finds no
+#: API key and never reaches the network
+NO_KEY = "ARIES_SMOKE_NO_LLM_KEY"
+
+
+def synth_speaker(f0, formant, spans, total_s, seed):
+    """tests/test_diarize.py's voice: a harmonic stack at f0 with a formant
+    emphasis and a 3.1 Hz envelope over ``spans``, in noise of 0.002."""
+    sr = 16_000
+    rng = np.random.default_rng(seed)
+    n = int(total_s * sr)
+    t = np.arange(n) / sr
+    x = 0.002 * rng.standard_normal(n).astype(np.float32)
+    for s, e in spans:
+        m = (t >= s) & (t < e)
+        tm = t[m]
+        v = sum((1.0 / (1 + abs(k * f0 - formant) / 300.0))
+                * np.sin(2 * np.pi * k * f0 * tm + k) for k in range(1, 12))
+        env = 0.55 + 0.45 * np.sin(2 * np.pi * 3.1 * tm + seed)
+        x[m] += (0.25 * v / 3.0 * env).astype(np.float32)
+    return x
+
+
+def conversation_audio(seed: int = 1, seconds: float = 60.0):
+    """A two-speaker conversation of about ``seconds``: the two VOICES take
+    turns of 3-8 s, 0.3-1.0 s apart, from 0.5 s on; the file ends 0.5 s
+    after the last turn (as tests/test_diarize.py's scene). Returns (audio,
+    the truth turns)."""
+    rng = np.random.default_rng(seed)
+    turns, t, who = [], 0.5, 0
+    while True:
+        d = float(rng.uniform(3.0, 8.0))
+        if t + d > seconds - 0.5:
+            break
+        turns.append({"start": round(t, 3), "end": round(t + d, 3),
+                      "speaker": f"VOICE_{who}"})
+        t += d + float(rng.uniform(0.3, 1.0))
+        who ^= 1
+    total = turns[-1]["end"] + 0.5
+    x = sum(synth_speaker(f0, formant, [(u["start"], u["end"]) for u in turns
+                                        if u["speaker"] == f"VOICE_{i}"],
+                          total, vseed)
+            for i, (f0, formant, vseed) in enumerate(VOICES))
+    return x.astype(np.float32), turns
+
+
+def check_outputs(tag: str, res: dict) -> None:
+    """The html, json and srt files exist and parse; the analysis failed
+    for want of a key (non-fatal) and the run succeeded."""
+    import re
+
+    if not res["success"]:
+        fail(f"pipeline {tag}: run_pipeline failed: {res['error']}")
+    if NO_KEY not in (res.get("llm_analysis_error") or ""):
+        fail(f"pipeline {tag}: llm_analysis_error "
+             f"{res.get('llm_analysis_error')!r} does not name {NO_KEY}")
+    out = res["outputs"]
+    if set(out) != {"html", "json", "srt"}:
+        fail(f"pipeline {tag}: outputs {sorted(out)}")
+    data = json.loads(Path(out["json"]).read_text(encoding="utf-8"))
+    if data["segments"] != res["aligned_segments"]:
+        fail(f"pipeline {tag}: the JSON's segments are not the result's")
+    srt = Path(out["srt"]).read_text(encoding="utf-8").strip()
+    blocks = [b for b in srt.split("\n\n") if b] if srt else []
+    stamp = re.compile(r"^\d\d:\d\d:\d\d,\d\d\d --> \d\d:\d\d:\d\d,\d\d\d$")
+    if len(blocks) != len(res["aligned_segments"]) or not all(
+            b.split("\n")[0] == str(i) and stamp.match(b.split("\n")[1])
+            for i, b in enumerate(blocks, 1)):
+        fail(f"pipeline {tag}: the SRT does not parse")
+    if "<html" not in Path(out["html"]).read_text(encoding="utf-8").lower():
+        fail(f"pipeline {tag}: the HTML does not parse")
+
+
+def hold_turns(label: str, got: list, want: list) -> float:
+    """Hold the card diarizer's turns against its plain run on the host:
+    the same speakers turn by turn, every edge within one 0.02 s
+    segmentation frame. Returns the largest edge difference in seconds."""
+    same = [t["speaker"] for t in got] == [t["speaker"] for t in want]
+    diff = max((abs(g[k] - w[k]) for g, w in zip(got, want)
+                for k in ("start", "end")), default=0.0) if same else \
+        float("inf")
+    check(f"diarizer on the card, {label} turns = the host's", diff <= 0.02
+          + 1e-9, f"{len(got)} turns against {len(want)}, speakers "
+          f"{'the same' if same else 'differ'}, edges within {diff:.4f} s "
+          "(limit 0.02)")
+    return diff
+
+
+def pipeline_phase(dev, eng):
+    """run_pipeline on a ~60 s two-speaker conversation (conversation_audio,
+    seed 1) with the beam slice's large-v3 engine passed as transcriber=
+    and a DiarizationPipeline() on the card (the trained nets): beam 5,
+    condition_on_previous_text with an initial prompt, html/json/srt, the
+    meeting analysis with no key, strict_diarization, a resume journal.
+    Launch counts are set to 0 just before and read just after the run;
+    every kernel of the path (mel, encoder attention, decode layers,
+    cross-attention, beam tail, reorder) must launch, every decode call's
+    graph must run at its prompt's own left pad (valid_start) over a
+    451-position self cache, every step after a prefill must replay its
+    graph, the diarizer must find the scene's 2 speakers with every turn
+    within one 0.02 s frame of its plain run on the host, the outputs must
+    parse. Then, at temperature 0 only: a run writing a new journal, a
+    rerun from the full journal (no decode launch, the same aligned
+    segments) and a rerun from the journal cut to its header and first
+    record (the other windows decoded, the same aligned segments). Prints
+    the ``pipeline`` line: stage seconds, RTF, windows, decode calls, ms a
+    step at R 5 and T 451, DER against the truth turns (collar 0), the
+    diarizer's card peak memory."""
+    import os
+    import shutil
+
+    import torch
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.diarize import DiarizationPipeline
+    from whisper_aries_tpu_torch.eval.der import diarization_error_rate
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.pipeline.run import run_pipeline
+
+    work = OUT / "pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    audio, truth = conversation_audio()
+    wav = work / "conversation.wav"
+    write_wav(str(wav), audio)
+    os.environ.pop(NO_KEY, None)
+    base = {"decode.beam_size": 5, "decode.condition_on_previous_text": True,
+            "decode.initial_prompt": "The quarterly budget meeting.",
+            "analyze.api_key_env": NO_KEY}
+
+    diar = DiarizationPipeline()  # device None: the card
+    if diar.seg_net is None or diar.emb_net is None or not all(
+            p.is_cuda for net in (diar.seg_net, diar.emb_net)
+            for p in net.parameters()):
+        fail("pipeline: the diarizer's nets are not loaded on the card")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    card_turns = diar(str(wav))
+    torch.cuda.synchronize()
+    diar_alone_s = time.time() - t0
+    diar_peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9
+    # the same scene through the plain run on the host: the same speakers
+    # in the same order, every turn edge within one 0.02 s segmentation
+    # frame (as tests/test_torch_diarize.py holds the port against JAX)
+    cpu_turns = DiarizationPipeline(device="cpu")(str(wav))
+    edge_diff = hold_turns("the card's run alone", card_turns, cpu_turns)
+
+    stage, calls, graphs = {}, [], []
+
+    class TimedDiarizer:
+        def __call__(self, path, **kw):
+            t = time.time()
+            turns = diar(path, **kw)
+            torch.cuda.synchronize()
+            stage["diarize_s"] = time.time() - t
+            stage["turns"] = turns
+            return turns
+
+    real_transcribe, real_decode = eng.transcribe_file, eng._decode_batch
+    graph_init = DL.DecodeStepGraph.__init__
+
+    def timed_transcribe(*a, **k):
+        t = time.time()
+        out = real_transcribe(*a, **k)
+        torch.cuda.synchronize()
+        stage["transcribe_s"] = time.time() - t
+        return out
+
+    def spy_decode(xa, prompt, *a, **k):
+        p = np.asarray(prompt)
+        calls.append({"pad": int((p[0] == -1).sum()),
+                      "prompt_start": int(k.get("prompt_start", 0)),
+                      "rows": int(p.shape[0])})
+        return real_decode(xa, prompt, *a, **k)
+
+    def recording_init(self, wpack, self_cache, cross, rows, n_head,
+                       valid_start=0):
+        graph_init(self, wpack, self_cache, cross, rows, n_head, valid_start)
+        graphs.append((rows, valid_start, self.ops.T))
+
+    def run(tag, journal, **over):
+        cfg = load_config(overrides=dict(base, **over))
+        eng.config = cfg
+        stage.clear()
+        calls.clear()
+        graphs.clear()
+        for fn in counters().values():
+            fn.launches = 0
+        DL.fused_decoder_layers.graph_replays = 0
+        t = time.time()
+        res = run_pipeline(str(wav), output_dir=str(work / tag),
+                           formats=["html", "json", "srt"], config=cfg,
+                           transcriber=eng, diarizer=TimedDiarizer(),
+                           strict_diarization=True, run_llm_analysis=True,
+                           resume_path=str(journal))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = {k: fn.launches for k, fn in counters().items()}
+        check_outputs(tag, res)
+        decodes = eng.last_stats.get("decodes", [])
+        return dict(res=res, wall=wall, launches=launches, decodes=decodes,
+                    calls=list(calls), graphs=list(graphs),
+                    replays=DL.fused_decoder_layers.graph_replays,
+                    stage={k: v for k, v in stage.items() if k != "turns"},
+                    turns=stage.get("turns"))
+
+    old_config = eng.config
+    eng.transcribe_file = timed_transcribe
+    eng._decode_batch = spy_decode
+    DL.DecodeStepGraph.__init__ = recording_init
+    try:
+        main = run("main", work / "main.jsonl")
+        journal = work / "resume.jsonl"
+        first = run("resume_first", journal, **{"decode.temperature": (0.0,)})
+        full = run("resume_full_journal", journal,
+                   **{"decode.temperature": (0.0,)})
+        lines = journal.read_text(encoding="utf-8").splitlines()
+        journal.write_text("\n".join(lines[:2]) + "\n", encoding="utf-8")
+        cut = run("resume_cut_journal", journal,
+                  **{"decode.temperature": (0.0,)})
+    finally:
+        del eng.transcribe_file, eng._decode_batch
+        DL.DecodeStepGraph.__init__ = graph_init
+        eng.config = old_config
+
+    # the main run: every kernel of the path, each decode call at its own
+    # left pad over a 451-position cache, every step a replay
+    for k in PATH_KERNELS["pipeline"]:
+        if main["launches"][k] <= 0:
+            fail(f"kernel {k} was not launched on the pipeline path")
+    decodes = main["decodes"]
+    if not decodes or len(main["graphs"]) != len(decodes):
+        fail(f"pipeline: {len(main['graphs'])} step graphs for "
+             f"{len(decodes)} decode calls")
+    for c, d, (rows, vs, T) in zip(main["calls"], decodes, main["graphs"]):
+        if not (c["pad"] == c["prompt_start"] == d["prompt_start"] == vs
+                and T == d["cache_len"] == 451 and rows == d["rows"]):
+            fail(f"pipeline: decode call {d} ran its graph at valid_start "
+                 f"{vs}, T {T}, {rows} rows; its prompt's pad is {c['pad']}")
+    valid_starts = [d["prompt_start"] for d in decodes]
+    if not any(v > 0 for v in valid_starts):
+        fail("pipeline: no decode call ran at a valid_start above 0")
+    steps = sum(d["steps"] for d in decodes)
+    if not (main["replays"] == steps - len(decodes)
+            == main["launches"]["decode_layers"]):
+        fail(f"pipeline: {main['replays']} graph replays, "
+             f"{main['launches']['decode_layers']} decoder-layer launches, "
+             f"{steps - len(decodes)} layer steps")
+    edge_diff = max(edge_diff, hold_turns("run_pipeline's", main["turns"],
+                                          cpu_turns))
+    speakers = sorted({t["speaker"] for t in main["turns"]})
+    if len(speakers) != 2:
+        fail(f"pipeline: the diarizer found {speakers}, not the scene's 2 "
+             "speakers")
+    # the resume reruns
+    windows = len(first["decodes"])
+    if windows < 2 or any(d["temperature"] != 0.0 for d in first["decodes"]):
+        fail(f"pipeline: the journal run decoded {windows} windows")
+    if full["decodes"] or full["launches"]["decode_layers"] or \
+            full["launches"]["cross_attn_q8"]:
+        fail("pipeline: the rerun from the full journal decoded "
+             f"{len(full['decodes'])} windows")
+    if len(cut["decodes"]) != windows - 1:
+        fail(f"pipeline: the rerun from the cut journal decoded "
+             f"{len(cut['decodes'])} windows, not {windows - 1}")
+    for r in (full, cut):
+        if r["res"]["aligned_segments"] != first["res"]["aligned_segments"]:
+            fail("pipeline: a resumed run's aligned segments differ")
+    r5 = [d for d in decodes if d["rows"] == 5 and d["cache_len"] == 451]
+    der = diarization_error_rate(truth, main["turns"], collar_s=0.0)
+    st = main["stage"]
+    summary = dict(
+        audio_s=len(audio) / 16_000, wall_s=main["wall"],
+        transcribe_s=st["transcribe_s"], diarize_s=st["diarize_s"],
+        align_render_s=main["wall"] - st["transcribe_s"] - st["diarize_s"],
+        real_time_factor=len(audio) / 16_000 / main["wall"],
+        windows=windows, decode_calls=len(decodes),
+        decode_rows=sorted({d["rows"] for d in decodes}),
+        valid_starts=valid_starts, cache_lens=sorted(
+            {d["cache_len"] for d in decodes}),
+        ms_per_step_r5_t451=1e3 * sum(d["seconds"] for d in r5)
+        / max(1, sum(d["steps"] for d in r5)),
+        steps=steps, graph_replays=main["replays"],
+        segments=len(main["res"]["aligned_segments"]),
+        speakers=speakers, truth_turns=len(truth),
+        turns=len(main["turns"]), der=der,
+        diarizer_peak_gb=diar_peak_gb, diarizer_alone_s=diar_alone_s,
+        diarizer_cpu_turns=len(cpu_turns), diarizer_max_edge_diff_s=edge_diff,
+        llm_analysis_error=main["res"]["llm_analysis_error"],
+        resume=dict(
+            {tag: dict(wall_s=r["wall"], decode_calls=len(r["decodes"]),
+                       decode_layers=r["launches"]["decode_layers"],
+                       valid_starts=[d["prompt_start"] for d in r["decodes"]])
+             for tag, r in (("first", first), ("full_journal", full),
+                            ("cut_journal", cut))}),
+        launches=main["launches"])
+    print("pipeline " + json.dumps(summary), flush=True)
+    (OUT / "pipeline.json").write_text(json.dumps(
+        dict(summary, decodes=decodes, truth=truth, turns=main["turns"]),
+        indent=2))
+    return main["launches"]
+
+
 def main() -> None:
     import torch
 
@@ -2858,14 +3531,18 @@ def main() -> None:
     kernel_reorder(dev, entries)
     kernel_quant_matmul(dev, entries)
     kernel_self_attn(dev, entries)
+    conditioned_phase(dev, entries, parts)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8
         profile_beam_step(dev, parts, B)
     profile_unfused_step(dev, parts)
     print("decode_layer_parts " + json.dumps(parts), flush=True)
     probe_launches = probes_phase(dev, entries)
-    runs = {path: slice_phase(dev, path) for path in PATH_KERNELS
-            if path != "checkpoint"}
+    runs = {path: slice_phase(dev, path, keep=path == "beam")
+            for path in PATH_KERNELS if path not in ("checkpoint", "pipeline")}
+    beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     runs["checkpoint"] = checkpoint_phase(dev)
+    runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
+    del beam_engine
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches
     paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)

@@ -4,8 +4,10 @@
     imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
     — checked on the AST; nor safetensors, transformers, tokenizers or
     huggingface_hub, which the card's machine lacks;
-  * the engine runs on CUDA unless the caller asks for the CPU: with no
-    card and no explicit device it raises, never carrying on quietly;
+  * the engine, the diarizer and run_pipeline run on CUDA unless the
+    caller asks for the CPU: with no card and no explicit device they
+    raise, never carrying on quietly; the port's entry points take every
+    parameter of their JAX counterparts;
   * every kernel wrapper takes its plain version only for CPU tensors;
   * every kernel launches on the stream of its operands' card, never on
     the current device's (no ``cb.stream()`` without a device);
@@ -123,31 +125,62 @@ def test_engine_raises_without_a_card(monkeypatch):
         AriesTranscriber(device="cuda", allow_random=True)
 
 
-@pytest.fixture(scope="module")
-def tiny_cpu_engine():
-    from whisper_aries_tpu_torch.models import whisper as W
-    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+def _params_of(path: Path, name: str, cls: str = None):
+    """The parameter names of function ``name`` (a method of ``cls``) in
+    the file at ``path``, read from its AST."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    scope = tree.body
+    if cls is not None:
+        scope = next(n for n in tree.body
+                     if isinstance(n, ast.ClassDef) and n.name == cls).body
+    fn = next(n for n in scope
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
 
-    dims = W.WhisperDims(80, 1500, 64, 2, 2, 51865, 448, 64, 2, 2)
-    return AriesTranscriber(model_size="tiny-rules", device="cpu",
-                            _params=W.init_params(dims), _dims=dims)
+
+@pytest.mark.parametrize("jax_file,port_file,name,cls", [
+    ("pipeline/engine.py", "pipeline/engine.py", "transcribe_file",
+     "AriesTranscriber"),
+    ("pipeline/run.py", "pipeline/run.py", "run_pipeline", None),
+    ("pipeline/run.py", "pipeline/run.py", "get_transcriber", None),
+    ("diarize/pipeline.py", "diarize/pipeline.py", "__init__",
+     "DiarizationPipeline"),
+    ("diarize/pipeline.py", "diarize/pipeline.py", "__call__",
+     "DiarizationPipeline"),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_entry_points_take_every_jax_parameter(jax_file, port_file, name,
+                                               cls):
+    """The port's entry points take every parameter of their JAX
+    counterparts, by name (the port adds ``device``)."""
+    want = _params_of(ROOT / "whisper_aries_tpu" / jax_file, name, cls)
+    got = _params_of(PORT / port_file, name, cls)
+    missing = [p for p in want if p not in got]
+    assert not missing, f"{port_file}::{name} lacks {missing}"
+    assert set(got) - set(want) <= {"device"}
 
 
-@pytest.mark.parametrize("option,value", [
-    ("initial_prompt", "hello"),
-    ("prefix", "hello"),
-    ("hotwords", "hello"),
-    ("condition_on_previous_text", True),
-    ("resume_path", "journal.jsonl"),
-    ("prompt_reset_on_temperature", 0.5),
-])
-def test_engine_refuses_unported_options(tiny_cpu_engine, option, value):
-    """The options of conditioned decoding and the resume journal are not
-    ported: each raises naming itself, before any audio is read, and is
-    never ignored."""
-    with pytest.raises(NotImplementedError, match=f"{option}=.*not ported"):
-        tiny_cpu_engine.transcribe_file("no-such-file.wav",
-                                        **{option: value})
+def test_pipeline_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """DiarizationPipeline() and run_pipeline() run on CUDA unless told
+    otherwise: with no card and no device="cpu" they raise before doing
+    anything; get_transcriber() too."""
+    from whisper_aries_tpu_torch.diarize import DiarizationPipeline
+    from whisper_aries_tpu_torch.pipeline.run import (
+        get_transcriber,
+        run_pipeline,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="DiarizationPipeline runs on a CUDA"):
+        DiarizationPipeline()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiarizationPipeline(device="cuda:0")
+    with pytest.raises(RuntimeError, match="run_pipeline runs on a CUDA"):
+        run_pipeline(str(tmp_path / "no-such.wav"),
+                     output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="AriesTranscriber runs on a CUDA"):
+        get_transcriber("tiny", allow_random=True)
+    assert DiarizationPipeline(device="cpu").device.type == "cpu"
 
 
 def test_engine_builds_with_multilingual_off():

@@ -97,3 +97,22 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     melw = torch.as_tensor(mel_filterbank(n_mels), device=x.device)
     mels = torch.einsum("mf,btf->bmt", melw, power)
     return finish_log_mel(torch.log10(torch.clamp(mels, min=1e-10)))
+
+
+def log_mel_spectrogram_np(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
+    """The host (numpy) log-mel of one clip, shape (n_mels, n_frames): the
+    diarizer's front end, which runs on the host as in the JAX package."""
+    audio = np.asarray(audio, dtype=np.float32)
+    pad = N_FFT // 2
+    x = np.pad(audio, (pad, pad), mode="reflect")
+    n_frames = 1 + (len(x) - N_FFT) // HOP_LENGTH
+    idx = np.arange(N_FFT)[None, :] + HOP_LENGTH * np.arange(n_frames)[:, None]
+    frames = x[idx]
+    n = np.arange(N_FFT)
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / N_FFT))
+    spec = np.fft.rfft(frames * window[None, :], axis=1)
+    power = np.abs(spec[:-1]) ** 2  # drop the final frame like Whisper
+    mels = mel_filterbank(n_mels) @ power.T.astype(np.float32)
+    log_spec = np.log10(np.maximum(mels, 1e-10))
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return ((log_spec + 4.0) / 4.0).astype(np.float32)

@@ -122,10 +122,11 @@ def _pack_fused_cache(cache: Dict[str, torch.Tensor], int8: bool
 
 
 def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
-             wpack, max_len):
+             wpack, max_len, prompt_start=0):
     """Cross K/V for the windows of ``xa``, the self cache of the prompt's
-    rows and the prompt's logits. With ``fused`` the cache is repacked for
-    the decoder-layer kernels and the weights are packed (when not given)."""
+    rows and the prompt's logits (a left-padded prompt's first real token
+    at ``prompt_start``). With ``fused`` the cache is repacked for the
+    decoder-layer kernels and the weights are packed (when not given)."""
     if fused and not kv_int8:
         raise ValueError("fused decode steps read the int8 cross K/V")
     cross = (W.precompute_cross_kv_int8(params, xa, dims) if kv_int8
@@ -133,7 +134,8 @@ def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
     cache = W.init_kv_cache(dims, prompt.shape[0], dtype=xa.dtype,
                             max_len=max_len, int8=self_kv_int8 and not fused,
                             device=xa.device)
-    logits_p = W.decoder_step(params, prompt, 0, cache, cross, dims)
+    logits_p = W.decoder_step(params, prompt, 0, cache, cross, dims,
+                              prompt_start)
     if fused:
         cache = _pack_fused_cache(cache, self_kv_int8)
         if wpack is None:
@@ -203,13 +205,17 @@ def greedy_decode(
     no_repeat_ngram_size: int = 0,
     fused: bool = False,
     wpack: Optional[Dict[str, torch.Tensor]] = None,
+    prompt_start: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Batched greedy / sampled decode with a KV cache.
 
     xa (Bw, Ta, D) encoded audio, prompt (B, P) int with B = Bw * G rows,
     window-major: the G rows of a window (the fallback ladder's best_of
-    samples) share its cross K/V. The prompt is the sot sequence (the
-    left-padded prompts of conditioned decoding come with that slice).
+    samples) share its cross K/V. The prompt is the sot sequence, or a
+    conditioned prompt left-padded with -1 to a fixed width whose first
+    real token is at ``prompt_start`` (cache positions before it are
+    masked and the positional embeddings shift by it, in the prefill and
+    in every step).
     ``kv_int8`` stores the cross K/V as int8 with per-position scales.
     ``fused=True`` (needs ``kv_int8``) runs the steps through the
     decoder-layer kernels with int8-packed weights (``wpack``, from
@@ -226,9 +232,10 @@ def greedy_decode(
     dev = xa.device
     cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
                                              kv_int8, self_kv_int8, fused,
-                                             wpack, L)
+                                             wpack, L, prompt_start)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
-    graph = _step_graph(fused, wpack, cache, cross, dims, B, params)
+    graph = _step_graph(fused, wpack, cache, cross, dims, B, params,
+                        prompt_start)
 
     tokens = torch.full((B, L), ids.eot, dtype=torch.long, device=dev)
     tokens[:, :P] = prompt
@@ -275,7 +282,8 @@ def greedy_decode(
         if pos >= L or bool(finished.all()):
             break
         logits = _step_logits(params, dims, tokens[:, pos - 1], pos - 1,
-                              cache, cross, fused, wpack, graph)
+                              cache, cross, fused, wpack, graph,
+                              prompt_start)
 
     n_sampled = (tokens[:, P:] != ids.eot).sum(dim=1)
     avg_logprob = sum_logprob / (n_sampled.float() + 1.0)
@@ -314,6 +322,7 @@ def beam_search_decode(
     no_repeat_ngram_size: int = 0,
     fused: bool = False,
     wpack: Optional[Dict[str, torch.Tensor]] = None,
+    prompt_start: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Batched beam search, the K beams of each window flattened into the
     rows (window-major, R = B·K).
@@ -331,6 +340,8 @@ def beam_search_decode(
     The prompt is prefilled once per window (xa (B, Ta, D), prompt (B, P))
     and its cache copied to the window's K rows: every beam shares the
     prompt, so these are the values of a prefill on the K repeated prompts.
+    A left-padded prompt's first real token is at ``prompt_start``, as in
+    ``greedy_decode``.
     The beams share their window's cross K/V. On steps where a beam takes
     another beam's history the self cache is permuted in place; steps
     where every beam keeps its own are skipped.
@@ -348,9 +359,10 @@ def beam_search_decode(
     dev = xa.device
     cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
                                              kv_int8, self_kv_int8, fused,
-                                             wpack, L)
+                                             wpack, L, prompt_start)
     cache = {k: v.repeat_interleave(K, dim=1) for k, v in cache.items()}
-    graph = _step_graph(fused, wpack, cache, cross, dims, B * K, params)
+    graph = _step_graph(fused, wpack, cache, cross, dims, B * K, params,
+                        prompt_start)
     no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
     logits = logits_p[:, -1].repeat_interleave(K, dim=0)  # (B*K, V)
     del logits_p
@@ -425,7 +437,8 @@ def beam_search_decode(
             permute_cache_rows(cache, live_src)
             permuted += 1
         logits = _step_logits(params, dims, tokens[:, :, pos - 1].reshape(-1),
-                              pos - 1, cache, cross, fused, wpack, graph)
+                              pos - 1, cache, cross, fused, wpack, graph,
+                              prompt_start)
 
     live_ok = (fin_count < C)[:, None]
     all_tokens = torch.cat([fin_tokens[:, :C], tokens], dim=1)

@@ -46,11 +46,15 @@ int8 self cache (the int8 self-attention kernel on the card).
 (generation_config.json; without them the top half of the decoder
 layers); a failure there fails the call.
 
-Not ported yet (ROADMAP.md): conditioned / sequential decode and the
-resume journal. ``transcribe_file`` refuses their options
-(``initial_prompt``, ``prefix``, ``hotwords``,
-``condition_on_previous_text=True``, ``resume_path``,
-``prompt_reset_on_temperature``) with NotImplementedError.
+Conditioned decoding, as the JAX engine's: ``initial_prompt`` (or else
+``hotwords``) goes after <|startofprev|>; ``prefix`` forces the first
+window's transcript; ``condition_on_previous_text=True`` decodes the windows
+one at a time, each prompted with the text before it, every prompt
+left-padded with -1 to one width (the first real token's index is the
+decode's ``prompt_start``, its sot's ``sot_index``), and the fallback ladder
+resets that context when the accepted temperature exceeds
+``prompt_reset_on_temperature``. ``resume_path`` keeps a resume journal
+(pipeline/journal.py) in both modes.
 """
 
 from __future__ import annotations
@@ -85,7 +89,9 @@ from whisper_aries_tpu_torch.models.loader import (
 )
 from whisper_aries_tpu_torch.ops.decode_layers import pack_layer_weights
 from whisper_aries_tpu_torch.ops.mel import log_mel
+from whisper_aries_tpu_torch.pipeline.journal import ResumeJournal, plan_signature
 from whisper_aries_tpu_torch.render.renderers import srt_timestamp
+from whisper_aries_tpu_torch.utils.device import resolve_device
 from whisper_aries_tpu_torch.utils.perf import WorkerDiagnostics
 from whisper_aries_tpu_torch.utils.segments import (
     merge_overlapping_segments,
@@ -128,29 +134,12 @@ class DummyTokenizer:
         return []
 
 
-def _resolve_device(device: Optional[str]) -> torch.device:
-    if device is None or str(device).startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "AriesTranscriber runs on a CUDA card and none is visible; "
-                "pass device='cpu' for the plain CPU path")
-        return torch.device(device or "cuda")
-    return torch.device(device)
-
-
 def _cast_floats(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: _cast_floats(v, device, dtype) for k, v in tree.items()}
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device)
-
-
-#: transcribe_file options of conditioned / sequential decode and the
-#: resume journal, not ported yet: each raises when set
-_UNPORTED_OPTIONS = ("initial_prompt", "prefix", "hotwords",
-                     "condition_on_previous_text", "resume_path",
-                     "prompt_reset_on_temperature")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +155,8 @@ class _CallOpts:
     multilingual: bool = False       # a language per window
     repetition_penalty: float = 1.0
     no_repeat_ngram_size: int = 0
+    #: sequential mode: the context resets above this accepted temperature
+    prompt_reset_on_temperature: float = 0.5
 
 
 class AriesTranscriber:
@@ -202,7 +193,7 @@ class AriesTranscriber:
         self.model_size = model_size
         self.chunk_length_minutes = chunk_length_minutes
         self.overlap_seconds = overlap_seconds
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "AriesTranscriber")
         on_cuda = self.device.type == "cuda"
         dc = self.config.decode
         # one mel: the kernel on the card ("auto" and "pallas"), its plain
@@ -418,8 +409,8 @@ class AriesTranscriber:
 
     def _call_opts(self, suppress_tokens=None, without_timestamps=None,
                    max_initial_timestamp=None, multilingual=None,
-                   repetition_penalty=None, no_repeat_ngram_size=None
-                   ) -> _CallOpts:
+                   repetition_penalty=None, no_repeat_ngram_size=None,
+                   prompt_reset_on_temperature=None) -> _CallOpts:
         """A call's decode options, each None taken from config.decode."""
         dc = self.config.decode
         pick = lambda v, d: d if v is None else v
@@ -436,17 +427,23 @@ class AriesTranscriber:
             repetition_penalty=float(pick(repetition_penalty,
                                           dc.repetition_penalty)),
             no_repeat_ngram_size=int(pick(no_repeat_ngram_size,
-                                          dc.no_repeat_ngram_size)))
+                                          dc.no_repeat_ngram_size)),
+            prompt_reset_on_temperature=float(pick(
+                prompt_reset_on_temperature,
+                dc.prompt_reset_on_temperature)))
 
     def _decode_batch(self, xa: torch.Tensor, prompt: np.ndarray,
                       temperature: float, sample_len: int, seed: int = 0,
                       beam_size: int = 1, patience: float = 1.0,
                       length_penalty: float = 1.0,
-                      opts: Optional[_CallOpts] = None) -> Dict[str, Any]:
+                      opts: Optional[_CallOpts] = None, sot_index: int = 0,
+                      prompt_start: int = 0) -> Dict[str, Any]:
         """Decode the windows of ``xa``: beam search when ``beam_size`` > 1
         at temperature 0, else greedy / sampled over the prompt's rows
-        (a multiple of the windows, window-major). ``opts`` default to
-        config.decode's."""
+        (a multiple of the windows, window-major). ``sot_index`` is the
+        <|sot|> column of the prompt (its no-speech logits), and a
+        left-padded prompt's first real token is at ``prompt_start``.
+        ``opts`` default to config.decode's."""
         opts = opts or self._call_opts()
         rep = opts.repetition_penalty
         common = dict(
@@ -454,13 +451,13 @@ class AriesTranscriber:
             kv_int8=self.kv_int8, self_kv_int8=self.self_kv_int8,
             repetition_penalty=rep if rep and rep != 1.0 else None,
             no_repeat_ngram_size=int(opts.no_repeat_ngram_size or 0),
-            fused=self.fused, wpack=self.wpack)
+            fused=self.fused, wpack=self.wpack, prompt_start=prompt_start)
         prompt_t = torch.as_tensor(prompt, device=self.device)
         t0 = time.time()
         if beam_size > 1 and temperature == 0:
             out = G.beam_search_decode(
                 self.params, xa, prompt_t, self.dims, opts.ids,
-                opts.suppress_mask, 0, beam_size=beam_size,
+                opts.suppress_mask, sot_index, beam_size=beam_size,
                 sample_len=sample_len, length_penalty=length_penalty,
                 patience=patience, **common)
             rows = int(xa.shape[0]) * beam_size
@@ -471,12 +468,14 @@ class AriesTranscriber:
                 gen.manual_seed(seed)
             out = G.greedy_decode(
                 self.params, xa, prompt_t, self.dims, opts.ids,
-                opts.suppress_mask, 0, float(temperature), gen,
+                opts.suppress_mask, sot_index, float(temperature), gen,
                 sample_len=sample_len, **common)
             rows = int(prompt_t.shape[0])
         res = {k: v.cpu().numpy() for k, v in out.items()}
         stats = {"rows": rows, "windows": int(xa.shape[0]),
                  "audio_ctx": int(xa.shape[1]),
+                 "prompt_start": int(prompt_start),
+                 "cache_len": int(prompt_t.shape[1]) + sample_len,
                  "steps": int(res["steps"]),
                  "temperature": float(temperature), "beam_size": beam_size,
                  "seconds": time.time() - t0}
@@ -565,20 +564,16 @@ class AriesTranscriber:
         ``repetition_penalty``, ``no_repeat_ngram_size``, ``multilingual``
         (a language per window; every segment carries its window's).
         ``progress_callback(done, total)`` is called after each batch.
-        ``None`` defers to ``config.decode``. The options of conditioned
-        decoding and the resume journal (``initial_prompt``, ``prefix``,
-        ``hotwords``, ``condition_on_previous_text=True``,
-        ``resume_path``, ``prompt_reset_on_temperature``) are not ported
-        and raise NotImplementedError."""
-        given = dict(initial_prompt=initial_prompt, prefix=prefix,
-                     hotwords=hotwords,
-                     condition_on_previous_text=condition_on_previous_text,
-                     resume_path=resume_path,
-                     prompt_reset_on_temperature=prompt_reset_on_temperature)
-        for name in _UNPORTED_OPTIONS:
-            if given[name] not in (None, False):
-                raise NotImplementedError(
-                    f"transcribe_file({name}=...) is not ported yet")
+        ``None`` defers to ``config.decode``. Conditioned decoding:
+        ``initial_prompt`` (or else ``hotwords``) goes after
+        <|startofprev|>, at most 223 tokens; ``prefix`` forces the first
+        window's transcript (that window decodes alone, the rest batched);
+        ``condition_on_previous_text=True`` decodes window by window, each
+        prompted with the text before it, which resets when a window's
+        accepted temperature exceeds ``prompt_reset_on_temperature``.
+        ``resume_path`` keeps a resume journal (JSONL, the JAX engine's
+        format): a rerun with the same plan and options decodes only the
+        windows it lacks."""
         t0 = time.time()
         self.last_stats = {}
         diag = WorkerDiagnostics()
@@ -596,7 +591,8 @@ class AriesTranscriber:
             without_timestamps=without_timestamps,
             max_initial_timestamp=max_initial_timestamp,
             multilingual=multilingual, repetition_penalty=repetition_penalty,
-            no_repeat_ngram_size=no_repeat_ngram_size)
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            prompt_reset_on_temperature=prompt_reset_on_temperature)
 
         pre = AudioPreloader(audio_path)
         duration = pre.duration
@@ -619,10 +615,11 @@ class AriesTranscriber:
         lang = {"code": language, "prob": 1.0 if language else None}
         if windows:
             audio16 = self._upload(pre)
-            if language is None and self.tokenizer.specials.language_tokens:
-                if opts.multilingual:
-                    # the file's language from its first window at 30 s;
-                    # each window then decodes in its own
+            sp = self.tokenizer.specials
+            if language is None and sp.language_tokens:
+                if (opts.multilingual or condition_on_previous_text
+                        or prefix):
+                    # the file's language from its first window at 30 s
                     mel0 = self._mel(self._gather(audio16, windows, [0]))
                     lang["code"], lang["prob"] = self.detect_language(mel0)
                 else:
@@ -630,12 +627,55 @@ class AriesTranscriber:
                     # batch's context, before that batch decodes
                     lang["defer"] = True
             # a deferred language's token is a placeholder until then
-            prompt_ids = self.tokenizer.specials.sot_sequence(
-                "en" if lang.get("defer") else lang["code"], task)
-            segments = self._transcribe_windows(
-                audio16, windows, prompt_ids, temps, max_new_tokens,
-                thresholds, best_of, beam, opts, diag, lang,
-                progress_callback)
+            prompt_ids = list(sp.sot_sequence(
+                "en" if lang.get("defer") else lang["code"], task))
+            sot_idx = 0
+            prev_text = initial_prompt or hotwords
+            if prev_text:
+                prev = [sp.sot_prev] + list(self.tokenizer.encode(
+                    " " + prev_text.strip()))[-223:]
+                prompt_ids = prev + prompt_ids
+                sot_idx = len(prev)
+            prefix_ids = (list(self.tokenizer.encode(" " + prefix.strip()))
+                          if prefix else [])
+            journal = None
+            if resume_path:
+                # everything that changes the decoded output, as the JAX
+                # engine signs it (prompt_ids carry language, task and
+                # initial prompt)
+                opts_sig = json.dumps([
+                    prompt_ids, prefix_ids, list(temps),
+                    opts.repetition_penalty, opts.no_repeat_ngram_size,
+                    beam["patience"], beam["length_penalty"],
+                    condition_on_previous_text, self.audio_ctx_bucket,
+                    not opts.with_timestamps,
+                    opts.ids.max_initial_timestamp_index, opts.multilingual,
+                    opts.prompt_reset_on_temperature,
+                    list(suppress_tokens) if suppress_tokens is not None
+                    else None])
+                journal = ResumeJournal(resume_path, plan_signature(
+                    windows, self.model_size, beam["beam_size"],
+                    max_new_tokens, opts_sig))
+            run = dict(temps=temps, sample_len=max_new_tokens,
+                       thresholds=thresholds, best_of=best_of, beam=beam,
+                       opts=opts, journal=journal)
+            if condition_on_previous_text:
+                segments = self._transcribe_windows_sequential(
+                    audio16, windows, prompt_ids, sot_idx, prefix_ids,
+                    progress_callback=progress_callback, **run)
+            else:
+                skip = set()
+                if prefix_ids and 0 not in (journal.done if journal else {}):
+                    # the prefix forces the first window only: it decodes
+                    # alone, the rest batched without it
+                    segments += self._transcribe_windows_sequential(
+                        audio16, windows[:1], prompt_ids, sot_idx,
+                        prefix_ids, **run)
+                    skip = {0}
+                segments += self._transcribe_windows(
+                    audio16, windows, prompt_ids, sot_idx, diag, lang,
+                    progress_callback, skip_ids=skip, **run)
+                segments.sort(key=lambda s: (s["start"], s["end"]))
             if chunking_mode == "fixed":
                 strategy = (overlap_strategy
                             or self.config.chunking.overlap_strategy)
@@ -689,20 +729,28 @@ class AriesTranscriber:
 
     # ------------------------------------------------------------------
 
-    def _transcribe_windows(self, audio16, windows, prompt_ids, temps,
+    def _transcribe_windows(self, audio16, windows, prompt_ids, sot_idx,
+                            diag, lang, progress_callback=None, *, temps,
                             sample_len, thresholds, best_of, beam, opts,
-                            diag, lang, progress_callback=None
+                            journal=None, skip_ids=frozenset()
                             ) -> List[Dict[str, Any]]:
-        """Every window in batches. Under the bucket, short windows come
-        first so whole batches qualify for the 16 s context. A deferred
-        language (``lang["defer"]``) is detected from the first batch's
-        first window and written into every prompt; under
-        ``opts.multilingual`` each window's own detected language token
-        replaces it in its prompt row (beam rows, and the fallback
-        ladder's, take their window's)."""
+        """Every window in batches, but those the journal holds (their
+        segments taken from it) and ``skip_ids`` (decoded by the caller).
+        Under the bucket, short windows come first so whole batches
+        qualify for the 16 s context. A deferred language
+        (``lang["defer"]``) is detected from the first batch's first window
+        and written into every prompt; under ``opts.multilingual`` each
+        window's own detected language token replaces it in its prompt row
+        (beam rows, and the fallback ladder's, take their window's). A
+        window whose tokens fail to parse becomes one failed segment and is
+        not journaled (a resume retries it)."""
         parse_skip = len(prompt_ids)
         N = len(windows)
-        pending = list(range(N))
+        done = dict(journal.done) if journal is not None else {}
+        all_segments: List[Dict[str, Any]] = [
+            s for wid, segs in done.items() if wid not in skip_ids
+            for s in segs]
+        pending = [i for i in range(N) if i not in done and i not in skip_ids]
         if self.audio_ctx_bucket:
             pending.sort(key=lambda i: (
                 windows[i].duration > self.SHORT_WINDOW_S, i))
@@ -710,12 +758,13 @@ class AriesTranscriber:
             diag.log(i, "PLANNED",
                      f"{windows[i].start:.1f}-{windows[i].end:.1f}s")
         has_langs = bool(self.tokenizer.specials.language_tokens)
+        n_pend = len(pending)
         # size the batches to the file: ceil-divide the windows over the
         # batch count the cap implies, so no batch is mostly padding
-        B = min(self.batch_size, -(-N // -(-N // self.batch_size)))
-        all_segments: List[Dict[str, Any]] = []
+        B = (min(self.batch_size, -(-n_pend // -(-n_pend // self.batch_size)))
+             if n_pend else 1)
         p = 0
-        while p < N:
+        while p < n_pend:
             batch_idx = pending[p:p + B]
             prompt = np.tile(np.asarray(prompt_ids, np.int64),
                              (len(batch_idx), 1))
@@ -733,16 +782,16 @@ class AriesTranscriber:
                         sp.language_tokens.values())]
                     lang["prob"] = float(prob[0])
                     prompt_ids = list(prompt_ids)
-                    prompt_ids[1] = int(tok[0])
-                    prompt[:, 1] = int(tok[0])
+                    prompt_ids[sot_idx + 1] = int(tok[0])
+                    prompt[:, sot_idx + 1] = int(tok[0])
                 if opts.multilingual and has_langs:
                     tok, _ = self._probe_languages(xa)
                     lang0 = min(self.tokenizer.specials.language_tokens
                                 .values())
-                    prompt[:, 1] = tok
+                    prompt[:, sot_idx + 1] = tok
                     win_langs = [LANGUAGES[int(t) - lang0] for t in tok]
                 out = self._decode_batch(xa, prompt, temps[0], sample_len,
-                                         opts=opts, **beam)
+                                         opts=opts, sot_index=sot_idx, **beam)
             except torch.cuda.OutOfMemoryError:
                 # halve the window batch and retry this batch
                 if B == 1:
@@ -758,11 +807,11 @@ class AriesTranscriber:
             rows, fails = [], []
             for w_i, win_id in enumerate(batch_idx):
                 window = windows[win_id]
-                segs, quality = self._parse_one(
-                    out["tokens"][w_i], window, parse_skip,
-                    float(out["avg_logprob"][w_i]),
-                    float(out["no_speech_prob"][w_i]), thresholds)
+                segs, quality, failed = self._parse_or_fail(
+                    out, w_i, window, parse_skip, thresholds, win_id, diag)
                 if quality["is_silence"]:
+                    if journal is not None:
+                        journal.record(win_id, [])
                     diag.log(win_id, "COMPLETED", "silence")
                     continue
                 if quality["needs_fallback"] and len(temps) > 1:
@@ -770,29 +819,152 @@ class AriesTranscriber:
                     diag.log(win_id, "FALLBACK",
                              f"cr={quality['compression_ratio']:.2f} "
                              f"lp={out['avg_logprob'][w_i]:.2f}")
-                rows.append((w_i, win_id, window, segs))
+                rows.append((w_i, win_id, window, segs, failed))
             fb: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
             if fails:
                 fb = self._fallback_windows(audio16, windows, fails,
                                             temps[1:], sample_len,
                                             thresholds, best_of, parse_skip,
-                                            opts)
-            for w_i, win_id, window, segs in rows:
+                                            opts, sot_index=sot_idx)
+            for w_i, win_id, window, segs, failed in rows:
                 if win_id in fb:
                     segs = fb[win_id][0]
-                for s in segs:
-                    if win_langs is not None:
+                if win_langs is not None and not failed:
+                    for s in segs:
                         s["language"] = win_langs[w_i]
+                for s in segs:
                     s["chunk_id"] = window.chunk_id
                     s["window_id"] = win_id
                     s["worker_id"] = 0
-                diag.log(win_id, "COMPLETED", f"{len(segs)} segment(s)")
+                if not failed:
+                    if journal is not None:
+                        journal.record(win_id, segs)
+                    diag.log(win_id, "COMPLETED", f"{len(segs)} segment(s)")
                 all_segments.extend(segs)
+            if journal is not None:
+                journal.flush()  # one fsync a batch
             p += len(batch_idx)
             if progress_callback:
-                progress_callback(p, N)
+                progress_callback(len(done) + p, N)
         all_segments.sort(key=lambda s: (s["start"], s["end"]))
         return all_segments
+
+    def _transcribe_windows_sequential(self, audio16, windows, prompt_ids,
+                                       sot_idx, prefix_ids=(),
+                                       progress_callback=None, *, temps,
+                                       sample_len, thresholds, best_of, beam,
+                                       opts, journal=None
+                                       ) -> List[Dict[str, Any]]:
+        """Window by window, each prompted with the text before it: the
+        prompt is <|startofprev|> + the previous windows' tokens (the last
+        223 - len(sot sequence)) + the sot sequence, or ``prompt_ids``
+        while there is no context; ``prefix_ids`` follow it in the first
+        window. Every prompt is left-padded with -1 to P_max = 224 + the
+        sot sequence + the prefix, so each decode call runs at its own
+        ``prompt_start`` (the pad) over a cache of P_max + ``sample_len``
+        positions. Silence, a parse failure or a fallback whose accepted
+        temperature exceeds ``opts.prompt_reset_on_temperature`` resets
+        the context; a resume rebuilds it from the journal's tokens and
+        reset marks."""
+        sp = self.tokenizer.specials
+        prefix_ids = list(prefix_ids)
+        sot_seq = list(prompt_ids[sot_idx:])
+        P_max = 224 + len(sot_seq) + len(prefix_ids)
+        has_langs = bool(sp.language_tokens) and len(sot_seq) >= 2
+        context = lambda segs: [t for s in segs for t in s.get("tokens", [])
+                                if t < sp.eot]
+        all_segments: List[Dict[str, Any]] = []
+        prev_tokens: List[int] = []
+        done = dict(journal.done) if journal is not None else {}
+        for wi, window in enumerate(windows):
+            if wi in done:
+                segs = done[wi]
+                all_segments.extend(segs)
+                prev_tokens = ([] if wi in journal.reset_ids
+                               else context(segs))
+                continue
+            pfx = prefix_ids if wi == 0 else []
+            if prev_tokens:
+                keep = max(0, 223 - len(sot_seq))
+                prompt = ([sp.sot_prev] + (prev_tokens[-keep:] if keep else [])
+                          + sot_seq + pfx)
+            else:
+                prompt = list(prompt_ids) + pfx
+            w_sot = P_max - len(sot_seq) - len(pfx)
+            pad = P_max - len(prompt)
+            prompt = [-1] * pad + prompt  # the decoder masks the pad
+            parse_skip = len(prompt) - len(pfx)
+            xa = self._encode_batch(self._mel(self._gather(audio16, windows,
+                                                           [wi])))
+            win_lang = None
+            if opts.multilingual and has_langs:
+                tok, _ = self._probe_languages(xa)
+                prompt[w_sot + 1] = int(tok[0])
+                win_lang = LANGUAGES[int(tok[0])
+                                     - min(sp.language_tokens.values())]
+            prompt = np.asarray(prompt, np.int64)
+            out = self._decode_batch(xa, prompt[None], temps[0], sample_len,
+                                     opts=opts, sot_index=w_sot,
+                                     prompt_start=pad, **beam)
+            del xa
+            segs, quality, failed = self._parse_or_fail(
+                out, 0, window, parse_skip, thresholds, wi)
+            if failed:
+                prev_tokens = []
+            if quality["is_silence"]:
+                prev_tokens = []
+                if journal is not None:
+                    journal.record(wi, [], sync=True)
+                continue
+            was_reset = False
+            if quality["needs_fallback"] and len(temps) > 1:
+                segs, used_t = self._fallback_windows(
+                    audio16, windows, [(wi, window, prompt, segs)],
+                    temps[1:], sample_len, thresholds, best_of, parse_skip,
+                    opts, sot_index=w_sot, prompt_start=pad)[wi]
+                # the context resets only when the ACCEPTED temperature
+                # exceeds the threshold
+                was_reset = used_t > opts.prompt_reset_on_temperature
+            if was_reset:
+                prev_tokens = []
+            elif not failed:
+                prev_tokens = context(segs)
+            for s in segs:
+                if win_lang is not None:
+                    s["language"] = win_lang
+                s["chunk_id"] = window.chunk_id
+                s["window_id"] = wi
+                s["worker_id"] = 0
+            if journal is not None and not failed:
+                # reset=True replays the context reset on resume
+                journal.record(wi, segs, reset=was_reset, sync=True)
+            all_segments.extend(segs)
+            if progress_callback:
+                progress_callback(wi + 1, len(windows))
+        all_segments.sort(key=lambda s: (s["start"], s["end"]))
+        return all_segments
+
+    def _parse_or_fail(self, out, row, window, parse_skip, thresholds,
+                       win_id, diag=None):
+        """(segments, quality, failed) of one decoded row. Tokens that do
+        not parse make one failed segment spanning the window (the file
+        goes on; the window is not journaled). Only the host parse is
+        caught: a decode error fails the call."""
+        try:
+            segs, quality = self._parse_one(
+                out["tokens"][row], window, parse_skip,
+                float(out["avg_logprob"][row]),
+                float(out["no_speech_prob"][row]), thresholds)
+            return segs, quality, False
+        except Exception as e:
+            log.warning("window %d (%.1f-%.1fs) failed: %s", win_id,
+                        window.start, window.end, e)
+            if diag is not None:
+                diag.log(win_id, "ERROR", str(e))
+            return ([{"start": window.start, "end": window.end, "text": "",
+                      "success": False, "error": str(e),
+                      "avg_logprob": 0.0, "no_speech_prob": 0.0}],
+                    {"is_silence": False, "needs_fallback": False}, True)
 
     def _parse_one(self, toks, window, prompt_len, avg_lp, ns_prob,
                    thresholds):
@@ -812,13 +984,14 @@ class AriesTranscriber:
         return segs, q
 
     def _fallback_windows(self, audio16, windows, fails, temps, sample_len,
-                          thresholds, best_of, parse_skip, opts
+                          thresholds, best_of, parse_skip, opts,
+                          sot_index=0, prompt_start=0
                           ) -> Dict[int, Tuple[List[Dict[str, Any]], float]]:
-        """Temperature-fallback ladder for a batch's failing windows: at
-        each rung, ``best_of`` samples of every still-failing window decode
-        as one batch (the samples of a window share its cross K/V; every
-        window re-encoded at 30 s, each sample's prompt its window's row,
-        language included) and the best by sum logprob is kept. Returns
+        """Temperature-fallback ladder for failing windows: at each rung,
+        ``best_of`` samples of every still-failing window decode as one
+        batch (the samples of a window share its cross K/V; every window
+        re-encoded at 30 s, each sample's prompt its window's row, language
+        and left pad included) and the best by sum logprob is kept. Returns
         {window id: (segments, accepted temperature)}."""
         K = max(1, best_of)
         results: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
@@ -835,7 +1008,9 @@ class AriesTranscriber:
                 if not pending:
                     break
                 out = self._decode_batch(xa, prompt, float(t), sample_len,
-                                         seed=1234 + t_i, opts=opts)
+                                         seed=1234 + t_i, opts=opts,
+                                         sot_index=sot_index,
+                                         prompt_start=prompt_start)
                 for i in list(pending):
                     win_idx, window = pending[i][0], pending[i][1]
                     b = i * K + int(np.argmax(

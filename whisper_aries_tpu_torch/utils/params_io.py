@@ -8,6 +8,11 @@ the file (``np.memmap``, copy-on-write) and returns views of it, so a
 read when it is first used. BF16 has no numpy type: its arrays hold the
 bits as int16, and ``read_safetensors_torch`` reinterprets them as
 ``torch.bfloat16``. ``write_safetensors`` writes one tensor at a time.
+
+The diarization nets store their weights as flat files with dotted keys
+("blocks.attn.q.w", "convs.0.w"): ``flatten_params`` / ``unflatten_into``
+map between those and nested parameter trees, ``load_params_into`` fills
+an init-time template from a file (refusing one that lacks a key).
 """
 
 from __future__ import annotations
@@ -117,3 +122,68 @@ def write_safetensors(path, tensors: Mapping[str, Any],
         for value in tensors.values():
             f.write(_bytes(value))
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# flat dotted-key files <-> nested parameter trees (the diarization nets)
+# ---------------------------------------------------------------------------
+
+
+def flatten_params(params: Any, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts / lists / tuples of tensors -> {dotted.key: tensor}
+    (the leaves as they are)."""
+    if isinstance(params, dict):
+        items = params.items()
+    elif isinstance(params, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(params))
+    else:
+        return {prefix.rstrip("."): params}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten_params(v, prefix=f"{prefix}{k}."))
+    return out
+
+
+def unflatten_into(template: Any, flat: Mapping[str, Any], prefix: str = "",
+                   convert=None) -> Any:
+    """Fill a ``template`` tree with the values of a flat dotted-key dict,
+    each through ``convert`` (a torch tensor by default). Missing keys keep
+    the template's value; extra keys are ignored."""
+    convert = convert or torch.as_tensor
+    if isinstance(template, dict):
+        return {k: unflatten_into(v, flat, f"{prefix}{k}.", convert)
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        seq = [unflatten_into(v, flat, f"{prefix}{i}.", convert)
+               for i, v in enumerate(template)]
+        return tuple(seq) if isinstance(template, tuple) else seq
+    key = prefix.rstrip(".")
+    return convert(flat[key]) if key in flat else template
+
+
+def save_params(path, params: Any) -> str:
+    """Write a parameter tree as a flat safetensors file."""
+    return write_safetensors(path, flatten_params(params))
+
+
+def load_params_into(template: Any, path, device="cpu") -> Any:
+    """A flat safetensors file in the structure of ``template``, as f32
+    tensors on ``device``. Raises FileNotFoundError for a missing file and
+    ValueError when its keys do not cover the template (a half-loaded net
+    would run half random)."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(str(p))
+    flat = read_safetensors(p)
+    missing = set(flatten_params(template)) - set(flat)
+    if missing:
+        raise ValueError(f"{path} is missing {len(missing)} parameter(s), "
+                         f"e.g. {sorted(missing)[:3]}")
+    return unflatten_into(template, flat, convert=lambda a: torch.tensor(
+        np.asarray(a), dtype=torch.float32, device=device))
+
+
+def default_weights_dir() -> Path:
+    """The trained diarization and VAD weights that ship with the JAX
+    package (whisper_aries_tpu/weights/), read by path as data."""
+    return Path(__file__).resolve().parents[2] / "whisper_aries_tpu" / "weights"
