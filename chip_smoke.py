@@ -11,7 +11,9 @@ caught; a kernel check that fails is printed at once and fails the run
   1. header: the card's name and power limit (nvidia-smi); TF32 off for
      matmul and cuDNN.
   2. build: compile every kernel from the sources in the checkout, one nvcc
-     per source, all in parallel.
+     per source, all in parallel; then the host library (the port's C++
+     codecs, resampler and DTW in whisper_aries_tpu_torch/native/) with
+     g++, and look for each codec's system library.
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the main paths' large-v3 shapes (mel at B=8 with 128 and 80 mels,
      encoder attention at (8, 20, 1500, 64) bf16, and at the 16 s
@@ -130,11 +132,13 @@ caught; a kernel check that fails is printed at once and fails the run
      word_timestamps=True with 10 fixed alignment heads: seven kernels
      (the W8A16 GEMM beside the beam slice's six) must have launched, and
      every segment must carry words with finite, ordered times inside the
-     file; prints the word pass's seconds beside the wall time, the GEMM's
+     file; prints the word pass's seconds beside the wall time (its host
+     part split into DTW, token times and the rest), the GEMM's
      launches by path (gemm_paths) and, for the products at M = windows x
      1500 (the encoder's and the cross K/V's), their count by M and path
      (gemm_windowed): every one must have taken the wgmma path, M 9000
-     among them.
+     among them. The C++ DTW must give _dtw_path_py's path on every cost
+     matrix the word pass handed it (both timed).
   8. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
@@ -172,6 +176,25 @@ caught; a kernel check that fails is printed at once and fails the run
      record (the other windows decoded), both with the same aligned
      segments. Prints the "pipeline" line (stage seconds, RTF, ms a step
      at R 5 and T 451, DER against the truth turns, the diarizer's peak).
+ 11. serve path: the same conversation at 44.1 kHz stereo as an s16 WAV,
+     a FLAC (tests/flac_encoder.py) and an s24 WAV, and as MP3, Ogg and
+     m4a where this host's system libraries allow (the "codecs" line says
+     which ran and why any was left out; decode and resample ms per
+     format); the FLAC must decode to the s16 WAV's samples bit for bit,
+     and the resampler must keep a 1 kHz sine (noise below 1e-6 of it,
+     under "half a sample late") and remove a stop-band tone (power below
+     1e-6, under "cut-off at the input Nyquist") from 8, 22.05, 44.1 and
+     48 kHz. Then the port's job server (serve/server.py, aiohttp) on
+     127.0.0.1 with its default pipeline, the beam slice's engine through
+     get_transcriber and a card diarizer a job, at temperature 0: each
+     file through run_pipeline serially, then the FLAC and the s24 WAV
+     submitted at once, with counts from 0; every kernel of the path must
+     launch, each job's segments, speakers and texts equal its serial
+     run, its downloaded JSON and SRT the serial files; a .txt upload
+     gets 400, an unknown job 404, /jobs/ and /stats/ count both, DELETE
+     removes a job's outputs. Prints the "serve" line (per job the queue
+     wait, upload to completion and stage seconds, the jobs' overlap, the
+     card's peak memory, over HTTP).
 The second-to-last lines are the kernels JSON (all seventeen kernels) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
@@ -182,12 +205,15 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from collections import Counter
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -2643,6 +2669,8 @@ PATH_KERNELS = {
                    "cross_attn_q8", "beam_tail", "beam_reorder"),
     "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
                  "beam_tail", "beam_reorder"),
+    "serve": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+              "beam_tail", "beam_reorder"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -2675,6 +2703,36 @@ def word_tokenizer():
             return "".join(f" <{int(i)}>" for i in ids)
 
     return WordTokenizer(51866)
+
+
+def word_pass_split(words: dict, costs: list) -> dict:
+    """The word pass's seconds with its host part split into DTW, token
+    times (softmax, normalisation, median filter, first frames) and the
+    rest (words, punctuation, segments); and the C++ DTW held against its
+    plain version, ``_dtw_path_py``, on every cost matrix the pass gave it
+    (the same path, index for index), with both timed on the host."""
+    from whisper_aries_tpu_torch.align import word_align as WA
+
+    if len(costs) != words["windows"]:
+        fail(f"words: {len(costs)} DTW calls for {words['windows']} windows")
+    cpp_s = plain_s = 0.0
+    same = True
+    for cost in costs:
+        t0 = time.perf_counter()
+        got = WA.dtw_path(cost)
+        t1 = time.perf_counter()
+        want = WA._dtw_path_py(cost)
+        t2 = time.perf_counter()
+        cpp_s, plain_s = cpp_s + t1 - t0, plain_s + t2 - t1
+        same = same and all(np.array_equal(g, w) for g, w in zip(got, want))
+    shapes = sorted({tuple(c.shape) for c in costs})
+    check("C++ DTW on the words slice's cost matrices = _dtw_path_py",
+          same, f"{len(costs)} matrices of {shapes}, identical paths")
+    split = dict(words, host_rest_s=words["host_s"] - words["dtw_s"]
+                 - words["token_times_s"])
+    split["dtw_check"] = dict(matrices=len(costs), shapes=shapes,
+                              cpp_s=cpp_s, plain_s=plain_s)
+    return split
 
 
 def slice_phase(dev, path: str, keep: bool = False):
@@ -2733,9 +2791,18 @@ def slice_phase(dev, path: str, keep: bool = False):
         return out
 
     Q.gemm_plan = recording_plan
+    from whisper_aries_tpu_torch.align import word_align as WA
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
+    # the words slice's DTW cost matrices, as the word pass hands them over
+    dtw, costs = WA.dtw_path, []
+
+    def recording_dtw(cost):
+        costs.append(cost)
+        return dtw(cost)
+
+    WA.dtw_path = recording_dtw
     try:
         for fn in counters().values():
             fn.launches = 0
@@ -2755,6 +2822,7 @@ def slice_phase(dev, path: str, keep: bool = False):
         gemm_paths = dict(gemm.launches_by_path)
     finally:
         Q.gemm_plan = plan
+        WA.dtw_path = dtw
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
@@ -2835,7 +2903,8 @@ def slice_phase(dev, path: str, keep: bool = False):
         peak_mem_gb=peak_gb,
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":
-        summary["word_pass"] = res["performance"]["words"]
+        summary["word_pass"] = word_pass_split(res["performance"]["words"],
+                                               costs)
         summary["words"] = n_words
     tag = {"greedy": "slice", "beam": "slice_beam"}.get(path, f"slice_{path}")
     print(f"{tag} " + json.dumps(summary), flush=True)
@@ -3496,6 +3565,583 @@ def pipeline_phase(dev, eng):
     return main["launches"]
 
 
+# ---------------------------------------------------------------------------
+# serve path: the port's codecs and its job server
+# ---------------------------------------------------------------------------
+
+#: the test tones of the resampler check: a 1 kHz sine in the pass band
+#: and, by input rate, a tone above the 8 kHz output Nyquist in the
+#: filter's stop band, which must be removed. The filter (32 input taps a
+#: phase, cut-off 0.945 x 8 kHz) is soft: between 8 and ~12 kHz a tone
+#: aliases at -11 to -60 dB (printed, at 10 kHz, as alias_10k_db)
+PASS_HZ = 1000.0
+STOP_HZ = {22050: 11000.0, 44100: 14000.0, 48000: 14000.0}
+
+
+def pcm_wav(ints: np.ndarray, bits: int, sr: int) -> bytes:
+    """A PCM WAV of integer samples ``ints`` (n, channels) at ``bits``."""
+    import struct
+
+    n, ch = ints.shape
+    if bits == 16:
+        pcm = ints.astype("<i2").tobytes()
+    else:  # 24
+        pcm = np.frombuffer(ints.astype("<i4").tobytes(), np.uint8).reshape(
+            -1, 4)[:, :3].tobytes()
+    align = ch * bits // 8
+    return (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE" + b"fmt "
+            + struct.pack("<IHHIIHH", 16, 1, ch, sr, sr * align, align, bits)
+            + b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
+def load_test_module(name: str):
+    """tests/<name>.py of this checkout (numpy or ctypes only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def system_library(*names: str) -> bool:
+    """Whether ``dlopen`` finds one of ``names`` on this host."""
+    import ctypes
+
+    for n in names:
+        try:
+            ctypes.CDLL(n)
+            return True
+        except OSError:
+            continue
+    return False
+
+
+def resampler_checks() -> dict:
+    """The port's resampler on sines, each limit below a named mistake:
+    the pass-band sine's noise-to-signal power (core of 1 s, away from the
+    edges) against "the output half an input sample late"; at 22.05, 44.1
+    and 48 kHz, a stop-band tone's (STOP_HZ) power after resampling to
+    16 kHz over its power before, against "a filter cut-off at the input
+    Nyquist" (the tone aliases below 8 kHz at full power)."""
+    from whisper_aries_tpu_torch.audio.decode import resample
+
+    out = {}
+    for sr in (8000, 22050, 44100, 48000):
+        t = np.arange(sr) / sr
+        y = resample(np.sin(2 * np.pi * PASS_HZ * t).astype(np.float32), sr)
+        t16 = np.arange(len(y)) / 16_000
+        core = slice(400, len(y) - 400)
+
+        def nsr(want):
+            return float(np.mean((y[core] - want[core]) ** 2)
+                         / np.mean(want[core] ** 2))
+
+        errs = {"passband_nsr": nsr(np.sin(2 * np.pi * PASS_HZ * t16))}
+        tols = {"passband_nsr": 1e-6}  # 60 dB
+        late = np.sin(2 * np.pi * PASS_HZ * (t16 - 0.5 / sr))
+        mistakes = {"passband_nsr": float(
+            np.mean((late[core] - np.sin(2 * np.pi * PASS_HZ * t16[core])) ** 2)
+            / 0.5)}
+        if sr > 16_000:
+            def power(hz):
+                x = np.sin(2 * np.pi * hz * t).astype(np.float32)
+                return float(np.mean(resample(x, sr)[core] ** 2)
+                             / np.mean(x ** 2))
+
+            errs["stopband_power"] = power(STOP_HZ[sr])
+            tols["stopband_power"] = 1e-6
+            aliased = np.sin(2 * np.pi * STOP_HZ[sr] * t16)
+            mistakes["stopband_power"] = float(np.mean(aliased[core] ** 2)
+                                               / 0.5)
+        out[sr] = held(f"resampler {sr} Hz -> 16 kHz", errs, tols, mistakes)
+        if sr > 16_000:
+            out[sr]["alias_10k_db"] = 10 * math.log10(power(10_000.0))
+    return out
+
+
+SCENE_SR = 44_100
+
+
+def scene_blobs():
+    """The pipeline path's conversation (seed 1) at 44.1 kHz stereo as s16
+    WAV, s24 WAV and FLAC bytes (tests/flac_encoder.py, of the s16
+    samples), and the mono downmix. main() runs this in a thread while
+    nvcc builds the kernels: the pure-Python FLAC encoder takes tens of
+    seconds of host time. Returns (blobs, mono, FLAC encode seconds)."""
+    from whisper_aries_tpu_torch.audio import _native as tn
+
+    sr = SCENE_SR
+    x16, _ = conversation_audio()
+    x = tn.resample(x16, 16_000, sr)
+    stereo = np.stack([x, 0.8 * x], axis=1)
+    s16 = np.round(np.clip(stereo, -1, 1) * 32767).astype(np.int64)
+    s24 = np.round(np.clip(stereo, -1, 1) * 8388607).astype(np.int64)
+    mono = stereo.mean(axis=1).astype(np.float32)
+    t0 = time.time()
+    blobs = {"s16.wav": pcm_wav(s16, 16, sr), "s24.wav": pcm_wav(s24, 24, sr),
+             "flac": load_test_module("flac_encoder").encode_flac(
+                 [s16[:, 0], s16[:, 1]], sample_rate=sr, mode="fixed",
+                 order=2, block_size=4096)}
+    return blobs, mono, time.time() - t0
+
+
+def scene_formats(work: Path, scene):
+    """The conversation of ``scene`` (scene_blobs' result) in every format
+    this host can write and the port decode: s16 WAV, FLAC and s24 WAV
+    always; MP3 where libmp3lame and libmpg123 resolve, Ogg where
+    libvorbisenc and libvorbisfile resolve, m4a where the libavformat
+    decoder was built and resolves (those three of the mono downmix). Each
+    is decoded and resampled to 16 kHz by the port, timed; FLAC must decode
+    to the s16 WAV's samples bit for bit. Returns ({format: path}, the
+    report)."""
+    from whisper_aries_tpu_torch.audio import _native as tn
+    from whisper_aries_tpu_torch.audio.decode import resample
+
+    sr = SCENE_SR
+    blobs, mono, encode_s = scene
+    blobs = dict(blobs)
+    left_out = {}
+    mp3_enc = load_test_module("mp3_encoder")
+    if mp3_enc.lame_available() and tn.codec_available("mp3"):
+        blobs["mp3"] = mp3_enc.encode_mp3(mono, sr)
+    else:
+        left_out["mp3"] = "system libmp3lame or libmpg123 absent"
+    if system_library("libvorbisenc.so.2", "libvorbisenc.so") and \
+            tn.codec_available("ogg"):
+        blobs["ogg"] = tn.encode_ogg(mono, sr)
+    else:
+        left_out["ogg"] = "system libvorbisenc or libvorbisfile absent"
+    if tn.codec_available("av"):
+        blobs["m4a"] = tn.encode_m4a(mono, sr)
+    elif not tn.av_built():
+        left_out["m4a"] = "libavformat headers absent at build"
+    else:
+        left_out["m4a"] = "system libavformat absent"
+    decoders = {"s16.wav": tn.decode_wav, "s24.wav": tn.decode_wav,
+                "flac": tn.decode_flac, "mp3": tn.decode_mp3,
+                "ogg": tn.decode_ogg, "m4a": tn.decode_av}
+    files, report, decoded = {}, {}, {}
+    for fmt, blob in blobs.items():
+        path = work / f"conversation_44k.{fmt.split('.')[-1]}"
+        if fmt == "s24.wav":
+            path = work / "conversation_44k_s24.wav"
+        path.write_bytes(blob)
+        files[fmt] = path
+        t0 = time.perf_counter()
+        audio, got_sr = decoders[fmt](blob)
+        t1 = time.perf_counter()
+        y = resample(audio, got_sr)
+        t2 = time.perf_counter()
+        decoded[fmt] = audio
+        secs = len(audio) / got_sr
+        if got_sr != sr or not np.isfinite(y).all() or abs(
+                len(y) / 16_000 - secs) > 0.01:
+            fail(f"serve: {fmt} decoded to {len(audio)} samples at {got_sr}"
+                 f" Hz, {len(y)} at 16 kHz")
+        report[fmt] = dict(bytes=len(blob), audio_s=secs,
+                           decode_ms=1e3 * (t1 - t0),
+                           resample_ms=1e3 * (t2 - t1),
+                           decode_ms_per_audio_s=1e3 * (t1 - t0) / secs,
+                           resample_ms_per_audio_s=1e3 * (t2 - t1) / secs)
+    flac_ok = decoded["flac"].tobytes() == decoded["s16.wav"].tobytes()
+    check("FLAC decode = the s16 WAV of the same samples", flac_ok,
+          f"{len(decoded['flac'])} samples at 44.1 kHz, bit for bit")
+    print("codecs " + json.dumps(dict(
+        ran=sorted(report), left_out=left_out, flac_encode_s=encode_s,
+        formats=report)), flush=True)
+    return files, dict(ran=sorted(report), left_out=left_out,
+                       formats=report)
+
+
+async def serve_over_http(cfg, files: dict) -> dict:
+    """The server of ``create_app(cfg)`` (its default pipeline) on
+    127.0.0.1, spoken to over HTTP: the FLAC and the s24 WAV submitted at
+    once, each polled to "completed" and its json and srt downloaded; a
+    .txt upload (400), an unknown job (404), /jobs/ and /stats/, and
+    DELETE of the first job."""
+    import aiohttp
+    from aiohttp import web
+    from whisper_aries_tpu_torch.serve.server import create_app
+
+    app = create_app(cfg)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:%d" % runner.addresses[0][1]
+    out = {"jobs": {}}
+    try:
+        async with aiohttp.ClientSession() as s:
+            async def submit(fmt):
+                form = aiohttp.FormData()
+                form.add_field("file", files[fmt].read_bytes(),
+                               filename=files[fmt].name)
+                form.add_field("formats", "json,srt")
+                form.add_field("run_llm_analysis", "false")
+                t = time.time()
+                async with s.post(base + "/analyze/", data=form) as r:
+                    body = await r.json()
+                    if r.status != 200 or body["status"] != "queued":
+                        fail(f"serve: upload of {fmt}: {r.status} {body}")
+                return fmt, body["job_id"], t
+
+            async def finish(fmt, job_id, t_up):
+                while True:
+                    async with s.get(f"{base}/status/{job_id}") as r:
+                        st = await r.json()
+                    if st["status"] in ("completed", "failed"):
+                        break
+                    await asyncio.sleep(0.05)
+                t_done = time.time()
+                if st["status"] != "completed":
+                    fail(f"serve: job {fmt} {st['status']}: {st['error']}")
+                got = {}
+                for kind in ("json", "srt"):
+                    async with s.get(f"{base}/download/{job_id}/{kind}") as r:
+                        if r.status != 200:
+                            fail(f"serve: download {kind} of {fmt}: "
+                                 f"{r.status}")
+                        got[kind] = await r.text()
+                return fmt, dict(job_id=job_id, status=st, upload_s=t_up,
+                                 upload_to_done_s=t_done - t_up, **got)
+
+            jobs = await asyncio.gather(submit("flac"), submit("s24.wav"))
+            for fmt, job in await asyncio.gather(
+                    *(finish(*j) for j in jobs)):
+                out["jobs"][fmt] = job
+            form = aiohttp.FormData()
+            form.add_field("file", b"hello", filename="notes.txt")
+            async with s.post(base + "/analyze/", data=form) as r:
+                out["txt_status"] = r.status
+            async with s.get(base + "/status/no-such-job") as r:
+                out["unknown_status"] = r.status
+            async with s.get(base + "/jobs/") as r:
+                out["jobs_listed"] = len((await r.json())["jobs"])
+            async with s.get(base + "/stats/") as r:
+                out["stats"] = await r.json()
+            first = out["jobs"]["flac"]["job_id"]
+            async with s.delete(f"{base}/jobs/{first}") as r:
+                out["delete_status"] = r.status
+            async with s.get(f"{base}/status/{first}") as r:
+                out["deleted_status"] = r.status
+            out["deleted_outputs_left"] = (
+                Path(cfg.server.output_root) / first).exists()
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def card_lock_held(device) -> bool:
+    """Whether some thread holds ``device``'s card lock: another thread
+    tries to take it (and gives it back if it could)."""
+    import threading
+
+    from whisper_aries_tpu_torch.utils.device import card_lock
+
+    lock, took = card_lock(device), []
+
+    def take():
+        took.append(lock.acquire(blocking=False))
+        if took[0]:
+            lock.release()
+
+    t = threading.Thread(target=take)
+    t.start()
+    t.join()
+    return not took[0]
+
+
+def preload_paths(eng, work: Path, minutes: float = 36.0) -> dict:
+    """The preloader's two ways to the card, on a long PCM16 mono WAV at
+    16 kHz (noise, seed 5): its raw int16 samples uploaded as they are
+    (AudioPreloader, engine._upload), against the native decode to f32
+    and the quantization back (load_audio, then _upload's quantization).
+    Each timed best of 3 with the card synchronised, with VAD off (the
+    int16 buffer only) and on (the f32 view the planner reads as well);
+    the two uploaded buffers must be equal bit for bit. Prints the
+    "preload" line."""
+    import torch
+    from whisper_aries_tpu_torch.audio import decode as td
+
+    path = work / "long_pcm16.wav"
+    rng = np.random.default_rng(5)
+    n = int(minutes * 60 * 16_000)
+    td.write_wav(str(path), 0.1 * rng.standard_normal(n, np.float32),
+                 16_000)
+
+    def int16_path(vad):
+        pre = td.AudioPreloader(str(path))
+        buf = eng._upload(pre)
+        if vad:
+            pre.audio
+        torch.cuda.synchronize()
+        return buf
+
+    def f32_path(vad):
+        a = td.load_audio(str(path))
+        a16 = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
+        buf = torch.zeros(len(a16) + eng.WINDOW_SAMPLES, dtype=torch.int16,
+                          device=eng.device)
+        buf[: len(a16)] = torch.from_numpy(a16).to(eng.device)
+        torch.cuda.synchronize()
+        return buf
+
+    out = dict(audio_s=n / 16_000, file_mb=path.stat().st_size / 1e6)
+    for vad in (False, True):
+        for name, fn in (("int16", int16_path), ("f32", f32_path)):
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn(vad)
+                secs.append(time.perf_counter() - t0)
+            out[f"{name}_s_vad_{'on' if vad else 'off'}"] = min(secs)
+    same = bool(torch.equal(int16_path(False), f32_path(False)))
+    check("preload: the int16 upload = the f32 decode quantized", same,
+          f"{n} samples, bit for bit")
+    path.unlink()
+    print("preload " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_phase(dev, eng, scene):
+    """The serve path: the codecs (scene_formats, resampler_checks), then
+    the port's job server, over HTTP on 127.0.0.1, with its default
+    pipeline: run_pipeline with the engine from get_transcriber (the beam
+    slice's large-v3 engine, handed to get_transcriber's cache as the
+    engine it builds) and a DiarizationPipeline() on the card for each
+    job, at beam 5, conditioned with an initial prompt, temperature 0.
+    First each file through run_pipeline serially; then both submitted at
+    once (server.max_concurrent_jobs 2), launch counts set to 0 just
+    before and read just after, every kernel of the path launched; each
+    job's aligned segments (texts, times, speakers) equal its serial run,
+    its downloaded JSON's segments and its SRT the serial files'. Prints
+    the "serve" line: per job the queue wait, upload to completion and
+    stage seconds, the two jobs' overlap, the card's peak memory, and that
+    the run went over HTTP."""
+    import shutil
+    import threading
+
+    import torch
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.diarize import DiarizationPipeline
+    from whisper_aries_tpu_torch.diarize import pipeline as DP
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.pipeline import engine as E
+    from whisper_aries_tpu_torch.pipeline import run as R
+    from whisper_aries_tpu_torch.pipeline.run import run_pipeline
+
+    work = OUT / "serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    files, codecs = scene_formats(work, scene)
+    resampler = resampler_checks()
+    preload = preload_paths(eng, work)
+
+    os.environ.pop(NO_KEY, None)
+    cfg = load_config(overrides={
+        "decode.beam_size": 5, "decode.condition_on_previous_text": True,
+        "decode.initial_prompt": "The quarterly budget meeting.",
+        "decode.temperature": (0.0,), "analyze.api_key_env": NO_KEY,
+        "server.output_root": str(work / "outputs"),
+        "server.job_store_path": str(work / "jobs.json"),
+        "server.max_concurrent_jobs": 2})
+    # each stage's (start, end) by file name, from the job threads
+    stamps: dict = {}
+    lock = threading.Lock()
+    built = []
+
+    def resident(**kw):
+        built.append(kw)
+        return eng
+
+    real_transcribe, diar_call = eng.transcribe_file, \
+        DiarizationPipeline.__call__
+
+    def stamp(path, key, t0):
+        with lock:
+            stamps.setdefault(Path(path).name, {})[key] = (t0, time.time())
+
+    def timed_transcribe(path, **kw):
+        t0 = time.time()
+        res = real_transcribe(path, **kw)
+        stamp(path, "transcribe", t0)
+        stamps[Path(path).name]["card_wait_s"] = res["performance"][
+            "card_wait_s"]
+        return res
+
+    def timed_diarize(self, path, **kw):
+        t0 = time.time()
+        turns = diar_call(self, path, **kw)
+        stamp(path, "diarize", t0)
+        stamps[Path(path).name]["turns"] = turns
+        if not all(p.device.type == dev.type
+                   for p in self.seg_net.parameters()):
+            fail("serve: the job's diarizer is not on the card")
+        return turns
+
+    # every decode call's graph capture: in a job's thread, with the
+    # engine's card that thread's current device and the graph's
+    graph_init, captures = DL.DecodeStepGraph.__init__, []
+
+    def recording_init(self, *a, **k):
+        graph_init(self, *a, **k)
+        captures.append((threading.current_thread() is not
+                         threading.main_thread(),
+                         torch.cuda.current_device(), self.dev.index,
+                         card_lock_held(eng.device)))
+
+    # every weight upload of a job's diarizer: under the card lock
+    net_loads, net_classes = [], (DP.SegmentationNet, DP.EmbeddingNet)
+    own_loads = [cls.__dict__.get("load") for cls in net_classes]
+
+    def recording_load(cls):
+        real = cls.load
+
+        def load(*a, **k):
+            net_loads.append((cls.__name__, card_lock_held(eng.device)))
+            return real(*a, **k)
+        return staticmethod(load)
+
+    old_config = eng.config
+    eng.config = cfg
+    DL.DecodeStepGraph.__init__ = recording_init
+    for cls in net_classes:
+        cls.load = recording_load(cls)
+    E.AriesTranscriber, real_class = resident, E.AriesTranscriber
+    eng.transcribe_file = timed_transcribe
+    DiarizationPipeline.__call__ = timed_diarize
+    try:
+        serial = {}
+        for fmt in ("flac", "s24.wav"):
+            t0 = time.time()
+            res = run_pipeline(str(files[fmt]), output_dir=str(
+                work / "serial"), formats=["json", "srt"],
+                confidence_threshold=0.7, run_llm_analysis=False, config=cfg)
+            if not res["success"]:
+                fail(f"serve: serial run of {fmt}: {res['error']}")
+            serial[fmt] = dict(res=res, wall_s=time.time() - t0)
+        if len(built) != 1 or built[0]["model_size"] != cfg.model.name:
+            fail(f"serve: get_transcriber built {built}")
+        serial_turns = {name: s["turns"] for name, s in stamps.items()}
+        for name in list(stamps):
+            stamps[name] = {}
+        captures.clear()
+        net_loads.clear()
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        http = asyncio.run(serve_over_http(cfg, files))
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        eng.config = old_config
+        DL.DecodeStepGraph.__init__ = graph_init
+        for cls, own in zip(net_classes, own_loads):
+            if own is None:
+                del cls.load
+            else:
+                cls.load = own
+        E.AriesTranscriber = real_class
+        del eng.transcribe_file
+        DiarizationPipeline.__call__ = diar_call
+        for key in [k for k, v in R._ENGINE_CACHE.items() if v is eng]:
+            del R._ENGINE_CACHE[key]
+
+    for k in PATH_KERNELS["serve"]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serve path")
+    card = eng.device.index if eng.device.index is not None else 0
+    if dev.type == "cuda" and not (captures and all(
+            job and cur == card and (g if g is not None else card) == card
+            and held for job, cur, g, held in captures)):
+        fail(f"serve: decode graphs captured as (in a job thread, current "
+             f"device, graph's device, card lock held) {captures}; the "
+             f"engine's card is {card}")
+    check("serve: every diarizer weight upload under the card lock",
+          len(net_loads) == 4 and all(h for _, h in net_loads),
+          f"{len(net_loads)} uploads in the two jobs: {net_loads}")
+    jobs = {}
+    spans = []
+    for fmt, job in http["jobs"].items():
+        want = serial[fmt]["res"]
+        got = job["status"]["result"]
+        same = got["aligned_segments"] == want["aligned_segments"]
+        texts = [s["text"] for s in got["aligned_segments"]]
+        name = files[fmt].name
+        turns = stamps[name]["turns"]
+        speakers = sorted({u["speaker"] for u in turns})
+        same_turns = turns == serial_turns[name]
+        check(f"serve: the {fmt} job = its serial run_pipeline", same
+              and same_turns and bool(texts),
+              f"{len(texts)} segments: texts, times and speakers "
+              f"{'identical' if same else 'differ'}; {len(turns)} speaker "
+              f"turns {'identical' if same_turns else 'differ'}")
+        seg = json.loads(job["json"])["segments"]
+        want_json = json.loads(Path(want["outputs"]["json"]).read_text(
+            encoding="utf-8"))["segments"]
+        srt_same = job["srt"] == Path(want["outputs"]["srt"]).read_text(
+            encoding="utf-8")
+        check(f"serve: the {fmt} job's downloads = its serial files",
+              seg == want_json and srt_same,
+              f"json segments {'equal' if seg == want_json else 'differ'}, "
+              f"srt {'equal' if srt_same else 'differs'}")
+        if len(speakers) != 2:
+            fail(f"serve: the {fmt} job's diarizer found {speakers}, not "
+                 "the scene's 2 speakers")
+        st = job["status"]
+        created, started, done = (
+            datetime.fromisoformat(st[k]).timestamp()
+            for k in ("created_at", "started_at", "completed_at"))
+        spans.append((started, done))
+        stage = {f"{k}_s": stamps[name][k][1] - stamps[name][k][0]
+                 for k in ("transcribe", "diarize")}
+        jobs[fmt] = dict(
+            queue_wait_s=started - created, run_s=done - started,
+            upload_to_done_s=job["upload_to_done_s"],
+            card_wait_s=stamps[name]["card_wait_s"], **stage,
+            rest_s=(done - started) - stage["transcribe_s"]
+            - stage["diarize_s"], segments=len(texts), turns=len(turns),
+            speakers=speakers,
+            serial_wall_s=serial[fmt]["wall_s"])
+    overlap = max(0.0, min(e for _, e in spans) - max(s for s, _ in spans))
+    if overlap <= 0:
+        fail(f"serve: the two jobs did not overlap: {spans}")
+    if http["txt_status"] != 400 or http["unknown_status"] != 404:
+        fail(f"serve: .txt upload {http['txt_status']}, unknown job "
+             f"{http['unknown_status']}")
+    if http["jobs_listed"] != 2 or http["stats"]["total_jobs"] != 2 or \
+            http["stats"]["completed_jobs"] != 2:
+        fail(f"serve: /jobs/ listed {http['jobs_listed']}, /stats/ "
+             f"{http['stats']}")
+    if http["delete_status"] != 200 or http["deleted_status"] != 404 or \
+            http["deleted_outputs_left"]:
+        fail(f"serve: DELETE {http['delete_status']}, then status "
+             f"{http['deleted_status']}, outputs left "
+             f"{http['deleted_outputs_left']}")
+    summary = dict(
+        over_http=True, engine_from_get_transcriber=True, wall_s=wall,
+        graphs_captured_in_job_threads=len(captures),
+        diarizer_uploads_under_lock=len(net_loads),
+        jobs=jobs, overlap_s=overlap, peak_mem_gb=peak_gb,
+        txt_status=http["txt_status"],
+        unknown_status=http["unknown_status"],
+        stats=http["stats"], codecs=codecs["ran"],
+        codecs_left_out=codecs["left_out"],
+        resampler={sr: dict(r["errors"], alias_10k_db=r.get("alias_10k_db"))
+                   for sr, r in resampler.items()},
+        preload=preload, launches=launches)
+    print("serve " + json.dumps(summary), flush=True)
+    (OUT / "serve.json").write_text(json.dumps(
+        dict(summary, codecs=codecs, resampler=resampler), indent=2))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3512,9 +4158,33 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from whisper_aries_tpu_torch.audio import _native
+
+    # the host library (codecs, resampler, DTW): built by g++ from the
+    # port's sources, loaded, and each dlopen'd codec's system library
+    # looked for
     t0 = time.time()
-    built = cuda_build.build()
-    print(f"build: {json.dumps(built)} in {time.time() - t0:.1f}s", flush=True)
+    _native.library()
+    print("native build: " + json.dumps(dict(
+        library=str(_native.LIB_PATH.relative_to(ROOT)),
+        sources=[s.name for s in _native.sources()],
+        seconds=time.time() - t0, libavformat_headers=_native.av_headers(),
+        codecs={k: _native.codec_available(k)
+                for k in _native.CODEC_LIBRARIES})), flush=True)
+    # the serve path's FLAC is encoded while nvcc runs (the main thread
+    # waits on its processes) and is waited for before any timed phase
+    with ThreadPoolExecutor(1) as pool:
+        scene_job = pool.submit(scene_blobs)
+        t0 = time.time()
+        built = cuda_build.build()
+        print(f"build: {json.dumps(built)} in {time.time() - t0:.1f}s",
+              flush=True)
+        t0 = time.time()
+        scene = scene_job.result()
+    print(f"scene encoded beside the build: FLAC {scene[2]:.1f}s, waited "
+          f"{time.time() - t0:.1f}s after the build", flush=True)
     for name in cuda_build.SOURCES:
         log = cuda_build.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -3538,10 +4208,12 @@ def main() -> None:
     print("decode_layer_parts " + json.dumps(parts), flush=True)
     probe_launches = probes_phase(dev, entries)
     runs = {path: slice_phase(dev, path, keep=path == "beam")
-            for path in PATH_KERNELS if path not in ("checkpoint", "pipeline")}
+            for path in PATH_KERNELS
+            if path not in ("checkpoint", "pipeline", "serve")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     runs["checkpoint"] = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
+    runs["serve"] = (serve_phase(dev, beam_engine, scene), {})
     del beam_engine
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches

@@ -4,6 +4,9 @@
     imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
     — checked on the AST; nor safetensors, transformers, tokenizers or
     huggingface_hub, which the card's machine lacks;
+  * the port builds and loads its own native library (its C++ codecs,
+    resampler and DTW) from its own sources into its own _build/, and
+    reads nothing of the repo's native/;
   * the engine, the diarizer and run_pipeline run on CUDA unless the
     caller asks for the CPU: with no card and no explicit device they
     raise, never carrying on quietly; the port's entry points take every
@@ -263,10 +266,16 @@ def test_config_is_a_copy_of_the_jax_config():
 
 
 def test_wav_decode_matches_jax(tmp_path):
+    """WAV, resampling and MP3 load to the JAX package's samples to the
+    bit: both packages decode and resample in their native libraries."""
+    from tests.mp3_encoder import encode_mp3, lame_available
+    from torch_port_util import jax_native_library
     from whisper_aries_tpu.audio import decode as jd
+    from whisper_aries_tpu_torch.audio import _native as tn
     from whisper_aries_tpu_torch.audio import decode as td
     from whisper_aries_tpu_torch.errors import AudioError
 
+    jax_native_library()  # never the JAX package's numpy path
     rng = np.random.default_rng(0)
     x = (0.3 * rng.standard_normal(16000)).astype(np.float32)
     path = str(tmp_path / "a.wav")
@@ -274,14 +283,82 @@ def test_wav_decode_matches_jax(tmp_path):
     np.testing.assert_array_equal(td.load_audio(path), jd.load_audio(path))
     pre = td.AudioPreloader(path)
     assert abs(pre.duration - 1.0) < 1e-3
-    # resampling: the port has the JAX package's numpy path (the native
-    # polyphase codec is not ported yet)
-    np.testing.assert_array_equal(td._resample_numpy(x, 22050, 16000),
-                                  jd._resample_numpy(x, 22050, 16000))
+    # resampling: the port's native polyphase filter is the JAX package's
+    np.testing.assert_array_equal(td.resample(x, 22050, 16000),
+                                  jd.resample(x, 22050, 16000))
+    # MP3 decodes (it raised "WAV only" before the port had its codecs)
     mp3 = tmp_path / "a.mp3"
-    mp3.write_bytes(b"\xff\xfb")
-    with pytest.raises(AudioError, match="WAV only"):
-        td.load_audio(str(mp3))
+    if tn.codec_available("mp3") and lame_available():
+        mp3.write_bytes(encode_mp3(x, 16000))
+        got = td.load_audio(str(mp3))
+        assert got.dtype == np.float32 and abs(len(got) - len(x)) < 16000
+        np.testing.assert_array_equal(got, jd.load_audio(str(mp3)))
+    else:
+        # no libmpg123 or no encoder on this host: .mp3 still reaches the
+        # MP3 decoder, which names what it lacks or rejects the bytes
+        mp3.write_bytes(b"\xff\xfb")
+        with pytest.raises(AudioError, match="^MP3 decode failed|libmpg123"):
+            td.load_audio(str(mp3))
+
+
+#: what the child process below does with the port: load every codec it
+#: can and a DTW, recording each file it opens and each library it loads
+_NATIVE_PROBE = r"""
+import json, sys
+opened, loaded = [], []
+def hook(event, args):
+    if event == "open" and isinstance(args[0], str):
+        opened.append(args[0])
+    elif event == "ctypes.dlopen" and args[0]:
+        loaded.append(str(args[0]))
+sys.addaudithook(hook)
+import numpy as np
+from whisper_aries_tpu_torch.audio import _native, decode
+from whisper_aries_tpu_torch.align import word_align
+from whisper_aries_tpu_torch.serve import server
+wav = sys.argv[1]
+decode.write_wav(wav, np.zeros(8000, np.float32), 16000)
+decode.load_audio(wav, 8000)
+word_align.dtw_path(np.random.rand(4, 9))
+for kind in ("mp3", "ogg", "av"):
+    _native.codec_available(kind)
+print(json.dumps({"opened": opened, "loaded": loaded,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_port_reads_no_native_dir_and_loads_only_its_build(tmp_path):
+    """The port builds and loads its own libariesaudio.so from
+    whisper_aries_tpu_torch/native/ into whisper_aries_tpu_torch/_build/:
+    it opens nothing under the repo's native/ (the JAX package's sources),
+    loads no library of this repo from anywhere else, and importing its
+    server loads nothing of the JAX package."""
+    import json
+    import subprocess
+    import sys
+
+    r = subprocess.run([sys.executable, "-c", _NATIVE_PROBE,
+                        str(tmp_path / "a.wav")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    native = str(ROOT / "native") + "/"
+    assert not [p for p in got["opened"] if p.startswith(native)]
+    ours = [p for p in got["loaded"] if str(ROOT) in p or "aries" in p]
+    assert ours == [str(PORT / "_build" / "libariesaudio.so")]
+    assert not [m for m in got["modules"] if _forbidden(m)]
+
+
+def test_serve_imports_nothing_of_the_jax_package():
+    """serve/ is in the import scan above and names only the port."""
+    files = sorted((PORT / "serve").glob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "jobstore.py",
+                                       "server.py"]
+    for f in files:
+        names = list(_imports(f))
+        assert not [n for n in names if _forbidden(n)], f
+    assert "whisper_aries_tpu_torch.pipeline.run" in _imports(
+        PORT / "serve" / "server.py")
 
 
 def _kernel_table() -> str:

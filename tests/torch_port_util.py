@@ -115,3 +115,20 @@ def speechy_audio(seconds, seed=5, sr=16_000):
     x = (0.25 * np.sin(2 * np.pi * 220 * t)
          * (0.6 + 0.4 * np.sin(2 * np.pi * 2.5 * t))).astype(np.float32)
     return x + 0.02 * rng.standard_normal(len(x)).astype(np.float32)
+
+
+def jax_native_library():
+    """The JAX package's native library, loaded (its loader builds it in
+    place with ``make -C native`` when missing). Several test processes
+    may build it at once, and a load can meet a half-written file: such a
+    failed load is retried for up to a minute before the test fails."""
+    import time
+
+    from whisper_aries_tpu.audio import _native as jn
+
+    for _ in range(60):
+        if jn.native_available():
+            return jn.load_library()
+        jn._load_failed = False  # a load that met another build's file
+        time.sleep(1.0)
+    raise AssertionError("the JAX package's native library did not load")

@@ -12,12 +12,10 @@ Tokens are grouped into words with unicode-aware splitting and each word
 gets {word, start, end, probability}.
 
 The device part (the mel kernel, the encoder, ``alignment_forward``) runs
-on the engine's device, one batched call per group of windows; DTW and
-word grouping are host-side numpy. ``dtw_path`` is an anti-diagonal
-wavefront over the recurrence of the row-by-row reference
-``_dtw_path_py``: the minima are exact, so the cost table and the
-backtrace are identical. Errors are not caught here: a failing kernel fails
-the transcription.
+on the engine's device, one batched call per group of windows; the
+softmax, normalisation and median filter and the word grouping are
+host-side numpy, and the DTW is the port's C++ (``dtw_path``). Errors are
+not caught here: a failing kernel fails the transcription.
 """
 
 from __future__ import annotations
@@ -28,61 +26,28 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from whisper_aries_tpu_torch.audio import _native
+
 FRAME_S = 0.02  # one encoder position = 20 ms
 
 
 def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Monotonic DTW through cost (N_text, N_audio); returns aligned index
-    arrays (text_indices, time_indices) along the optimal path.
+    arrays (text_indices, time_indices, int32) along the optimal path.
 
-    D[i, j] = cost[i-1, j-1] + min(D[i-1, j-1], D[i-1, j], D[i, j-1])
-    depends only on the two anti-diagonals before it, so each anti-diagonal
-    i + j = d is one vectorised numpy step (strided views of the flat
-    tables) instead of a Python loop over every cell: n + m steps, not
-    n x m (336k per 224 x 1500 window)."""
+    The recurrence D[i, j] = cost[i-1, j-1] + min(D[i-1, j-1], D[i-1, j],
+    D[i, j-1]) and its backtrace (ties to the first of diagonal, up, left)
+    run in C++ (``native/ariesdtw.cpp`` through ``audio/_native.py``), the
+    JAX package's native DTW; ``_dtw_path_py`` is its plain version."""
     n, m = cost.shape
     if n == 0 or m == 0:
-        return np.array([], dtype=np.int64), np.array([], dtype=np.int64)
-    w = m + 1
-    D = np.full((n + 1) * w, np.inf, dtype=np.float64)
-    D[0] = 0.0
-    c = np.ascontiguousarray(cost, dtype=np.float64).ravel()
-
-    def run(start: int, step: int, cnt: int) -> slice:
-        return slice(start, start + step * (cnt - 1) + 1, step)
-
-    for d in range(2, n + m + 1):
-        i0, i1 = max(1, d - m), min(n, d - 1)
-        cnt = i1 - i0 + 1
-        # flat D index of cell (i0, d - i0); the diagonal's next cell,
-        # (i0 + 1, d - i0 - 1), is m further on, and so are its diagonal,
-        # up and left neighbours
-        f = i0 * w + d - i0
-        best = np.minimum(np.minimum(D[run(f - w - 1, m, cnt)],
-                                     D[run(f - w, m, cnt)]),
-                          D[run(f - 1, m, cnt)])
-        ci = (i0 - 1) * m + d - i0 - 1  # cost[i0 - 1, d - i0 - 1]
-        D[run(f, m, cnt)] = c[run(ci, max(1, m - 1), cnt)] + best
-    D = D.reshape(n + 1, w)
-    # backtrace, as the reference
-    i, j = n, m
-    ti, tj = [], []
-    while i > 0 and j > 0:
-        ti.append(i - 1)
-        tj.append(j - 1)
-        moves = (D[i - 1, j - 1], D[i - 1, j], D[i, j - 1])
-        k = int(np.argmin(moves))
-        if k == 0:
-            i, j = i - 1, j - 1
-        elif k == 1:
-            i -= 1
-        else:
-            j -= 1
-    return np.array(ti[::-1]), np.array(tj[::-1])
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return _native.dtw(cost)
 
 
 def _dtw_path_py(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Reference pure-numpy DTW, row by row (the parity oracle)."""
+    """Reference pure-numpy DTW, row by row: the plain version of
+    ``dtw_path``, for the tests."""
     n, m = cost.shape
     D = np.full((n + 1, m + 1), np.inf, dtype=np.float64)
     D[0, 0] = 0.0
@@ -133,13 +98,18 @@ def attention_to_token_times(
     n_frames: int,
     alignment_layers: Optional[Sequence[int]] = None,
     alignment_heads: Optional[Sequence[Tuple[int, int]]] = None,
+    timing: Optional[Dict[str, float]] = None,
 ) -> np.ndarray:
     """Token -> time (seconds) via DTW over averaged attention.
 
     ``alignment_heads``: per-checkpoint (layer, head) pairs from
     generation_config.json (openai/whisper's published head masks) —
     preferred when available; falls back to whole top-half layers.
+    ``timing`` (optional) accumulates host seconds: ``dtw_s`` (the DTW)
+    and ``token_times_s`` (the rest of this function: softmax,
+    normalisation, median filter, first frames).
     """
+    t0 = time.perf_counter()
     L = cross_qk.shape[0]
     if alignment_heads:
         w = np.stack([cross_qk[l, h] for l, h in alignment_heads
@@ -163,12 +133,18 @@ def attention_to_token_times(
     w = (w - mean) / std
     w = _median_filter(w, 7)
     matrix = w.mean(axis=(0, 1))  # (T_text, T_audio)
+    t1 = time.perf_counter()
     ti, tj = dtw_path(-matrix)
+    t2 = time.perf_counter()
     # first frame where each token appears on the path
     n_text = matrix.shape[0]
     times = np.zeros(n_text)
     jumps = np.pad(np.diff(ti), (1, 0), constant_values=1).astype(bool)
     times[ti[jumps]] = tj[jumps] * FRAME_S
+    if timing is not None:
+        timing["dtw_s"] = timing.get("dtw_s", 0.0) + t2 - t1
+        timing["token_times_s"] = (timing.get("token_times_s", 0.0) + t1
+                                   - t0 + time.perf_counter() - t2)
     return times
 
 
@@ -277,6 +253,7 @@ def find_word_alignments(
     prepend_punctuations: Optional[str] = None,
     append_punctuations: Optional[str] = None,
     return_groups: bool = False,
+    timing: Optional[Dict[str, float]] = None,
 ):
     """Words with times for one decoded sequence (token list incl specials).
 
@@ -284,9 +261,10 @@ def find_word_alignments(
     strings are given, punctuation-only words merge into their neighbours
     (merge_punctuations). ``return_groups`` additionally returns the
     per-word token-id groups (post-merge) for segment distribution.
+    ``timing`` is ``attention_to_token_times``'s.
     """
     times = attention_to_token_times(cross_qk, n_frames, alignment_layers,
-                                     alignment_heads)
+                                     alignment_heads, timing)
     # carry times forward so every token has a start estimate
     for i in range(1, len(times)):
         if times[i] == 0.0 and i > 0:
@@ -377,13 +355,17 @@ def add_word_timestamps(
     prepend_punctuations/append_punctuations (faster-whisper semantics).
     Returns the pass's seconds: encode (mel and encoder), align
     (``alignment_forward`` and the copy to the host) and host (DTW and
-    words), each ended by a device synchronisation; with the windows
+    words), each ended by a device synchronisation, the host's split into
+    ``dtw_s``, ``token_times_s`` (softmax, normalisation, median filter,
+    first frames) and the rest (words, punctuation, segments); with the
+    windows
     aligned and the number of (layer, head) pairs read (``heads``)."""
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops.mel import log_mel
     from whisper_aries_tpu_torch.vad.planner import windows_to_batch
 
-    times = {"encode_s": 0.0, "align_s": 0.0, "host_s": 0.0, "windows": 0}
+    times = {"encode_s": 0.0, "align_s": 0.0, "host_s": 0.0, "dtw_s": 0.0,
+             "token_times_s": 0.0, "windows": 0}
     by_window: Dict[int, List[Dict[str, Any]]] = {}
     for seg in segments:
         by_window.setdefault(
@@ -466,6 +448,7 @@ def add_word_timestamps(
                     append_punctuations if append_punctuations is not None
                     else APPEND_PUNCTUATIONS),
                 return_groups=True,
+                timing=times,
             )
             # groups hold flat-token POSITIONS (post punctuation merge)
             pos_to_word: Dict[int, int] = {}

@@ -1,38 +1,58 @@
-"""Audio decode + resample front door (WAV path).
+"""Audio decode + resample front door (the port of the JAX package's
+audio/decode.py).
 
-Same contract as the JAX package's audio/decode.py: every public function
-returns mono float32 at the requested rate (16 kHz for the ASR contract).
-This slice of the port decodes RIFF/WAVE with numpy and resamples with
-scipy's polyphase filter (or a windowed-sinc numpy fallback). Compressed
-containers (FLAC, MP3, Ogg, video) need the native codecs, which are not
-ported yet: they raise ``AudioError`` naming the format.
+Every public function returns mono float32 at the requested rate (16 kHz
+for the ASR contract). Decoding and resampling run in the port's native
+library (``audio/_native.py``, its own C++ under ``native/``), as the JAX
+package runs them with its native library built: the same WAV decoder and
+polyphase resampler, so the samples are the JAX package's to the bit.
+``load_audio`` dispatches on the extension as the JAX package does: .wav
+to the WAV decoder, .flac to the FLAC decoder, .mp3 over libmpg123,
+.ogg / .oga over libvorbisfile, and anything else over libavformat. A codec
+whose system library does not resolve raises ``AudioError`` naming it;
+what libavformat cannot decode goes to the ffmpeg binary, as in the JAX
+package, and without one it raises.
 """
 
 from __future__ import annotations
 
-import math
+import os
+import shutil
 import struct
+import subprocess
+import tempfile
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from whisper_aries_tpu_torch.audio import _native
 from whisper_aries_tpu_torch.errors import AudioError
 
 SAMPLE_RATE = 16_000
 
+#: extensions with a decoder of their own; every other non-WAV extension
+#: goes to libavformat
+_CODECS = {".flac": _native.decode_flac, ".mp3": _native.decode_mp3,
+           ".ogg": _native.decode_ogg, ".oga": _native.decode_ogg}
 
-def _decode_wav_numpy(data: bytes) -> Tuple[np.ndarray, int]:
+
+def peek_wav_s16_mono(data: bytes, sample_rate: int = SAMPLE_RATE
+                      ) -> Optional[np.ndarray]:
+    """Raw int16 samples when ``data`` is a plain PCM16 mono WAV already at
+    ``sample_rate``, else None: the engine uploads them to the card as they
+    are (the reference's pcm_s16le ingest contract) instead of decoding to
+    float32 and quantizing back."""
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
-        raise AudioError("not a RIFF/WAVE file")
+        return None
     pos = 12
     fmt = None
     pcm = None
     while pos + 8 <= len(data):
         cid = data[pos : pos + 4]
         size = int.from_bytes(data[pos + 4 : pos + 8], "little")
-        body = data[pos + 8 : pos + 8 + size]
-        if cid == b"fmt " and len(body) >= 16:
+        if cid == b"fmt " and size >= 16:
+            body = data[pos + 8 : pos + 8 + size]
             tag = int.from_bytes(body[0:2], "little")
             channels = int.from_bytes(body[2:4], "little")
             rate = int.from_bytes(body[4:8], "little")
@@ -41,97 +61,67 @@ def _decode_wav_numpy(data: bytes) -> Tuple[np.ndarray, int]:
                 tag = int.from_bytes(body[24:26], "little")
             fmt = (tag, channels, rate, bits)
         elif cid == b"data":
-            pcm = body
+            pcm = (pos + 8, size)
         pos += 8 + size + (size & 1)
-    if fmt is None:
-        raise AudioError("missing fmt chunk")
-    if pcm is None or len(pcm) == 0:
-        raise AudioError("missing data chunk")
-    tag, channels, rate, bits = fmt
-    if tag == 1 and bits == 16:
-        x = np.frombuffer(pcm, dtype="<i2").astype(np.float32) / 32768.0
-    elif tag == 1 and bits == 32:
-        x = np.frombuffer(pcm, dtype="<i4").astype(np.float32) / 2147483648.0
-    elif tag == 1 and bits == 24:
-        raw = np.frombuffer(pcm[: len(pcm) - len(pcm) % 3], dtype=np.uint8)
-        raw = raw.reshape(-1, 3)
-        vals = (
-            raw[:, 0].astype(np.int32)
-            | (raw[:, 1].astype(np.int32) << 8)
-            | (raw[:, 2].astype(np.int32) << 16)
-        )
-        vals = np.where(vals >= 1 << 23, vals - (1 << 24), vals)
-        x = vals.astype(np.float32) / 8388608.0
-    elif tag == 1 and bits == 8:
-        x = (np.frombuffer(pcm, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
-    elif tag == 3 and bits == 32:
-        x = np.frombuffer(pcm, dtype="<f4").astype(np.float32)
-    elif tag == 3 and bits == 64:
-        x = np.frombuffer(pcm, dtype="<f8").astype(np.float32)
-    else:
-        raise AudioError(f"unsupported WAV format tag={tag} bits={bits}")
-    if channels > 1:
-        n = (x.shape[0] // channels) * channels
-        x = x[:n].reshape(-1, channels).mean(axis=1)
-    return np.ascontiguousarray(x, dtype=np.float32), rate
+    if fmt != (1, 1, sample_rate, 16) or pcm is None:
+        return None
+    off, size = pcm
+    size = min(size, len(data) - off) & ~1
+    return np.frombuffer(data, dtype="<i2", count=size // 2, offset=off)
 
 
-def _resample_numpy(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """Rational resample via scipy's polyphase filter when available, else
-    a windowed-sinc numpy filter of the same design."""
+def decode_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """WAV bytes -> (mono float32, sample rate)."""
+    return _native.decode_wav(data)
+
+
+def resample(x: np.ndarray, sr_in: int, sr_out: int = SAMPLE_RATE
+             ) -> np.ndarray:
+    """Mono float32 resample by the native polyphase filter."""
     if sr_in == sr_out:
-        return x.astype(np.float32, copy=False)
-    try:
-        from scipy.signal import resample_poly
+        return np.asarray(x, dtype=np.float32)
+    return _native.resample(np.asarray(x, dtype=np.float32), sr_in, sr_out)
 
-        g = math.gcd(sr_in, sr_out)
-        # scipy's default ('kaiser', 5.0) window only reaches ~50 dB
-        # stopband; beta 12.984 reaches >100 dB
-        y = resample_poly(
-            x.astype(np.float64), sr_out // g, sr_in // g, window=("kaiser", 12.984)
-        )
-        return y.astype(np.float32)
-    except ImportError:
-        pass
-    g = math.gcd(sr_in, sr_out)
-    L, M = sr_out // g, sr_in // g
-    taps = 32  # even, so the L*taps/2 group delay is integral
-    h_len = L * taps + 1  # odd length centers the filter exactly on-grid
-    cutoff = 0.945 / max(L, M)
-    H = (h_len - 1) // 2
-    n = np.arange(h_len, dtype=np.float64)
-    t = (n - H) * cutoff
-    sinc = np.sinc(t)
-    beta = 12.984
-    w = np.i0(beta * np.sqrt(np.maximum(0.0, 1 - (2 * n / (h_len - 1) - 1) ** 2))) / np.i0(beta)
-    h = np.zeros(L * (taps + 1), dtype=np.float64)
-    h[:h_len] = L * cutoff * sinc * w
-    n_out = (len(x) * L + M - 1) // M
-    u = np.arange(n_out, dtype=np.int64) * M + H
-    p = u % L
-    m = u // L
-    k = np.arange(taps + 1, dtype=np.int64)
-    idx = m[:, None] - k[None, :]
-    valid = (idx >= 0) & (idx < len(x))
-    xi = np.where(valid, x[np.clip(idx, 0, len(x) - 1)], 0.0)
-    hk = h[p[:, None] + k[None, :] * L]
-    return (xi * hk).sum(axis=1).astype(np.float32)
+
+def _ffmpeg_wav(path: Path, sample_rate: int, why: AudioError) -> bytes:
+    """The file as a 16-bit mono WAV at ``sample_rate`` by the ffmpeg
+    binary; raises ``AudioError`` (naming ``why``) without one."""
+    if not shutil.which("ffmpeg"):
+        raise AudioError(f"cannot decode {path.suffix} ({why}) and there is "
+                         "no ffmpeg binary; install ffmpeg or provide a WAV "
+                         "file")
+    fd, tmp = tempfile.mkstemp(suffix=".wav")
+    os.close(fd)
+    try:
+        r = subprocess.run(
+            ["ffmpeg", "-y", "-i", str(path), "-vn", "-acodec", "pcm_s16le",
+             "-ar", str(sample_rate), "-ac", "1", tmp], capture_output=True)
+        if r.returncode != 0:
+            raise AudioError(f"ffmpeg could not decode {path}: "
+                             + r.stderr.decode(errors="ignore")[-2000:])
+        return Path(tmp).read_bytes()
+    finally:
+        os.remove(tmp)
 
 
 def load_audio(path: str, sample_rate: int = SAMPLE_RATE) -> np.ndarray:
-    """Load a WAV file as mono float32 at ``sample_rate``."""
+    """Load a media file as mono float32 at ``sample_rate``."""
     p = Path(path)
     if not p.exists():
         raise AudioError(f"audio file not found: {path}")
     ext = p.suffix.lower()
-    if ext != ".wav":
-        raise AudioError(
-            f"cannot decode {ext or 'extension-less'} files: this build "
-            "decodes WAV only (the native codecs are not ported yet)")
-    audio, sr = _decode_wav_numpy(p.read_bytes())
-    if sr != sample_rate:
-        audio = _resample_numpy(audio, sr, sample_rate)
-    return audio
+    data = p.read_bytes()
+    if ext == ".wav":
+        audio, sr = decode_wav_bytes(data)
+    elif ext in _CODECS:
+        audio, sr = _CODECS[ext](data)
+    else:
+        _native.require("av")
+        try:
+            audio, sr = _native.decode_av(data)
+        except AudioError as e:
+            audio, sr = decode_wav_bytes(_ffmpeg_wav(p, sample_rate, e))
+    return resample(audio, sr, sample_rate)
 
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:
@@ -147,10 +137,36 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int = SAMPLE_RATE) -> N
 
 
 class AudioPreloader:
-    """Whole-file in-RAM audio: decoded once to mono float32 16 kHz."""
+    """Whole-file in-RAM audio, decoded once to mono 16 kHz.
+
+    A PCM16 mono WAV at the target rate keeps its raw int16 samples
+    (``audio_i16``), which the engine uploads as they are; its float32
+    view (``audio``, x / 32768) is made only when asked for. Any other
+    file is decoded by ``load_audio``."""
 
     def __init__(self, path: str, sample_rate: int = SAMPLE_RATE):
         self.path = path
         self.sample_rate = sample_rate
-        self.audio: np.ndarray = load_audio(path, sample_rate)
-        self.duration = len(self.audio) / sample_rate
+        self.audio_i16: Optional[np.ndarray] = None
+        self._audio_f32: Optional[np.ndarray] = None
+        if Path(path).suffix.lower() == ".wav" and Path(path).exists():
+            # a bytearray, so the int16 view is writable for torch
+            self.audio_i16 = peek_wav_s16_mono(
+                bytearray(Path(path).read_bytes()), sample_rate)
+        if self.audio_i16 is None:
+            self._audio_f32 = load_audio(path, sample_rate)
+        n = len(self.audio_i16 if self.audio_i16 is not None
+                else self._audio_f32)
+        self.duration = n / sample_rate
+
+    @property
+    def audio(self) -> np.ndarray:
+        """Mono float32 samples."""
+        if self._audio_f32 is None:
+            self._audio_f32 = self.audio_i16.astype(np.float32) / 32768.0
+        return self._audio_f32
+
+    def get_chunk(self, start_sec: float, end_sec: float) -> np.ndarray:
+        i0 = max(0, int(round(start_sec * self.sample_rate)))
+        i1 = min(len(self.audio), int(round(end_sec * self.sample_rate)))
+        return self.audio[i0:i1]

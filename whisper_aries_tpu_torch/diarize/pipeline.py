@@ -18,7 +18,9 @@ Two modes, chosen by what loads:
     same way.
 
 Device: CUDA unless the caller passes ``device="cpu"``; with no card and no
-explicit CPU the constructor raises.
+explicit CPU the constructor raises. The nets' uploads and forward calls
+hold the device's lock (``utils/device.py::on_card``), which the engines hold
+around their card work, so jobs in threads take turns on the card.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from whisper_aries_tpu_torch.models.diarize_nets import (
     melstats_embedding,
     powerset_decode,
 )
-from whisper_aries_tpu_torch.utils.device import resolve_device
+from whisper_aries_tpu_torch.utils.device import on_card, resolve_device
 from whisper_aries_tpu_torch.utils.params_io import default_weights_dir
 from whisper_aries_tpu_torch.vad import (
     VadOptions,
@@ -104,7 +106,8 @@ class DiarizationPipeline:
             if not f.exists():
                 continue
             try:
-                setattr(self, attr, cls.load(f, self.device).eval())
+                with on_card(self.device):  # the upload is card work too
+                    setattr(self, attr, cls.load(f, self.device).eval())
             except (OSError, ValueError, KeyError) as e:
                 log.warning("could not load %s: %s", f, e)
 
@@ -187,7 +190,7 @@ class DiarizationPipeline:
                 break
             t += hop
         batch = np.stack(mels)  # (B, 80, 1000)
-        with torch.no_grad():
+        with on_card(self.device), torch.no_grad():
             logp = torch.cat([
                 self.seg_net(torch.from_numpy(batch[i:i + self.SEG_BATCH])
                              .to(self.device))
@@ -317,7 +320,7 @@ class DiarizationPipeline:
                     seg = np.tile(seg, reps)[:n_crop]
                 crops.append(seg)
             batch = np.stack([log_mel_spectrogram_np(c) for c in crops])
-            with torch.no_grad():
+            with on_card(self.device), torch.no_grad():
                 return self.emb_net(torch.from_numpy(batch).to(
                     self.device)).cpu().numpy()
         # classical fallback: long-term mel statistics

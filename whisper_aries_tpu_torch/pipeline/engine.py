@@ -26,10 +26,18 @@ grouped-window layouts are a TPU workaround and are not ported; their
 tokens equal this decode's.
 
 Device: CUDA unless the caller passes ``device="cpu"``; with no card and
-no explicit CPU the constructor raises. Activations are bf16 on CUDA and
-f32 on the CPU. "auto" config values resolve to the card's path: int8
-cross K/V, decode steps through the decoder-layer kernels with in-kernel
-int8 self-cache quantization. On the CPU the plain versions run. The
+no explicit CPU the constructor raises. Threads: ``transcribe_file`` reads
+and decodes its file first, then holds the device's lock
+(``utils/device.py::on_card``, shared with every engine and diarizer on
+that device) over all its device work, so calls from several threads (the
+server's jobs) take turns on the card: a decode call's CUDA graph capture
+never sees another job's launches, and ``last_stats`` is the call's own
+(``card_wait_s``: the seconds it waited for the lock). The constructor's
+weight upload, ``smoke_test`` and ``detect_language`` hold it too.
+Activations are bf16 on CUDA and f32 on the CPU. "auto" config values
+resolve to the card's path: int8 cross K/V, decode steps through the
+decoder-layer kernels with in-kernel int8 self-cache quantization. On the
+CPU the plain versions run. The
 per-call decode options (suppress tokens, timestamps off, initial-timestamp
 cap, n-gram bans, repetition penalty, a language per window) travel in
 ``_CallOpts``; each defaults to ``config.decode``'s. A batch decodes by
@@ -91,7 +99,7 @@ from whisper_aries_tpu_torch.ops.decode_layers import pack_layer_weights
 from whisper_aries_tpu_torch.ops.mel import log_mel
 from whisper_aries_tpu_torch.pipeline.journal import ResumeJournal, plan_signature
 from whisper_aries_tpu_torch.render.renderers import srt_timestamp
-from whisper_aries_tpu_torch.utils.device import resolve_device
+from whisper_aries_tpu_torch.utils.device import on_card, resolve_device
 from whisper_aries_tpu_torch.utils.perf import WorkerDiagnostics
 from whisper_aries_tpu_torch.utils.segments import (
     merge_overlapping_segments,
@@ -216,48 +224,55 @@ class AriesTranscriber:
             dtype = torch.bfloat16 if on_cuda else torch.float32
         self.activation_dtype = dtype
 
-        if _params is not None:
-            self.dims, self.model_dir = _dims, None
-            params = _cast_floats(_params, self.device, dtype)
-        else:
-            params, self.dims, self.model_dir = load_model(
-                model_size, cache_dir=cache_dir, dtype=dtype,
-                allow_random=allow_random, device=self.device)
-        if compute_type == "int8":
-            from whisper_aries_tpu_torch.ops.quant import quantize_model_params
+        # the weight upload, the packing and the smoke test are card work:
+        # another job on the card may be capturing a graph meanwhile
+        with on_card(self.device):
+            if _params is not None:
+                self.dims, self.model_dir = _dims, None
+                params = _cast_floats(_params, self.device, dtype)
+            else:
+                params, self.dims, self.model_dir = load_model(
+                    model_size, cache_dir=cache_dir, dtype=dtype,
+                    allow_random=allow_random, device=self.device)
+            if compute_type == "int8":
+                from whisper_aries_tpu_torch.ops.quant import (
+                    quantize_model_params)
 
-            params = quantize_model_params(params)
-        self.params = W.fuse_decoder_qkv(params)
-        self.tokenizer = (_tokenizer if _tokenizer is not None
-                          else self._load_tokenizer())
-        self.ids = G.DecodeSpecialIds.from_tokenizer(self.tokenizer)
-        # the default mask (config.decode.suppress_tokens); a call's own
-        # suppress_tokens build theirs
-        self.suppress_mask = self._make_suppress_mask(dc.suppress_tokens)
-        self.batch_size = max(1, windows_per_device or num_workers or 8)
+                params = quantize_model_params(params)
+            self.params = W.fuse_decoder_qkv(params)
+            self.tokenizer = (_tokenizer if _tokenizer is not None
+                              else self._load_tokenizer())
+            self.ids = G.DecodeSpecialIds.from_tokenizer(self.tokenizer)
+            # the default mask (config.decode.suppress_tokens); a call's
+            # own suppress_tokens build theirs
+            self.suppress_mask = self._make_suppress_mask(dc.suppress_tokens)
+            self.batch_size = max(1, windows_per_device or num_workers or 8)
 
-        kvd = kv_cache_dtype or dc.kv_cache_dtype
-        self.kv_int8 = kvd == "int8" or (kvd == "auto" and on_cuda)
-        # decode steps go through the decoder-layer kernels on the card;
-        # they read int8 cross K/V and int8 weights (packed once here)
-        self.fused = on_cuda and self.kv_int8
-        skvd = dc.self_kv_cache_dtype
-        self.self_kv_int8 = self.fused if skvd == "auto" else skvd == "int8"
-        self.wpack = (pack_layer_weights(self.params["decoder"]["blocks"])
-                      if self.fused else None)
-        # the checkpoint's DTW alignment heads [(layer, head), ...]; None
-        # falls back to the top half of the decoder layers
-        self.alignment_heads: Optional[List[Tuple[int, int]]] = (
-            load_alignment_heads(self.model_dir))
-        self._speech_scorer = self._make_speech_scorer()
-        self.last_stats: Dict[str, Any] = {}
-        self.last_diagnostics: Optional[WorkerDiagnostics] = None
-        # a corrupt checkpoint fails here, not mid-job (the reference runs
-        # 0.5 s of noise through a loaded model before serving); random
-        # and injected weights skip it
-        if self.model_dir is not None and os.environ.get(
-                "ARIES_SMOKE_TEST", "1") != "0":
-            self.smoke_test()
+            kvd = kv_cache_dtype or dc.kv_cache_dtype
+            self.kv_int8 = kvd == "int8" or (kvd == "auto" and on_cuda)
+            # decode steps go through the decoder-layer kernels on the
+            # card; they read int8 cross K/V and int8 weights (packed once
+            # here)
+            self.fused = on_cuda and self.kv_int8
+            skvd = dc.self_kv_cache_dtype
+            self.self_kv_int8 = (self.fused if skvd == "auto"
+                                 else skvd == "int8")
+            self.wpack = (
+                pack_layer_weights(self.params["decoder"]["blocks"])
+                if self.fused else None)
+            # the checkpoint's DTW alignment heads [(layer, head), ...];
+            # None falls back to the top half of the decoder layers
+            self.alignment_heads: Optional[List[Tuple[int, int]]] = (
+                load_alignment_heads(self.model_dir))
+            self._speech_scorer = self._make_speech_scorer()
+            self.last_stats: Dict[str, Any] = {}
+            self.last_diagnostics: Optional[WorkerDiagnostics] = None
+            # a corrupt checkpoint fails here, not mid-job (the reference
+            # runs 0.5 s of noise through a loaded model before serving);
+            # random and injected weights skip it
+            if self.model_dir is not None and os.environ.get(
+                    "ARIES_SMOKE_TEST", "1") != "0":
+                self.smoke_test()
 
     def smoke_test(self) -> None:
         """0.5 s of noise through mel -> encoder -> one teacher-forced
@@ -266,13 +281,15 @@ class AriesTranscriber:
         rng = np.random.default_rng(0)
         buf = np.zeros((1, self.WINDOW_SAMPLES), np.float32)
         buf[0, :8000] = 0.1 * rng.standard_normal(8000).astype(np.float32)
-        xa = self._encode_batch(self._mel(torch.from_numpy(buf).to(
-            self.device)))
-        sot = self.tokenizer.specials.sot
-        logits = W.decoder_forward(
-            self.params, torch.tensor([[sot]], device=self.device), xa,
-            self.dims)
-        if not bool(torch.isfinite(logits).all()):
+        with on_card(self.device):
+            xa = self._encode_batch(self._mel(torch.from_numpy(buf).to(
+                self.device)))
+            sot = self.tokenizer.specials.sot
+            logits = W.decoder_forward(
+                self.params, torch.tensor([[sot]], device=self.device), xa,
+                self.dims)
+            finite = bool(torch.isfinite(logits).all())
+        if not finite:
             raise RuntimeError(
                 f"model smoke test failed: non-finite decoder logits "
                 f"(corrupt checkpoint at {self.model_dir}?)")
@@ -341,8 +358,11 @@ class AriesTranscriber:
     def _upload(self, pre: AudioPreloader) -> torch.Tensor:
         """The whole file as int16 on the device, zero-padded by one window
         so every window gathers in bounds (16-bit, the reference's
-        pcm_s16le ingest contract)."""
-        a16 = np.clip(pre.audio * 32768.0, -32768, 32767).astype(np.int16)
+        pcm_s16le ingest contract): a PCM16 file's own samples, else the
+        decoded audio quantized."""
+        a16 = pre.audio_i16
+        if a16 is None:
+            a16 = np.clip(pre.audio * 32768.0, -32768, 32767).astype(np.int16)
         buf = torch.zeros(len(a16) + self.WINDOW_SAMPLES, dtype=torch.int16,
                           device=self.device)
         buf[: len(a16)] = torch.from_numpy(a16).to(self.device)
@@ -500,9 +520,10 @@ class AriesTranscriber:
         """Language of the first window (faster-whisper's detection)."""
         sp = self.tokenizer.specials
         lang0 = min(sp.language_tokens.values())
-        probs = G.detect_language_logits(
-            self.params, self._encode_batch(mel[:1]), self.dims, sp.sot,
-            lang0, sp.num_languages)[0].float().cpu().numpy()
+        with on_card(self.device):
+            probs = G.detect_language_logits(
+                self.params, self._encode_batch(mel[:1]), self.dims, sp.sot,
+                lang0, sp.num_languages)[0].float().cpu().numpy()
         idx = int(np.argmax(probs))
         return LANGUAGES[idx], float(probs[idx])
 
@@ -575,153 +596,165 @@ class AriesTranscriber:
         format): a rerun with the same plan and options decodes only the
         windows it lacks."""
         t0 = time.time()
-        self.last_stats = {}
-        diag = WorkerDiagnostics()
-        self.last_diagnostics = diag
-        dc = self.config.decode
-        beam = dict(
-            beam_size=max(1, int(beam_size if beam_size is not None
-                                 else dc.beam_size)),
-            patience=float(patience if patience is not None
-                           else dc.patience),
-            length_penalty=float(length_penalty if length_penalty is not None
-                                 else dc.length_penalty))
-        opts = self._call_opts(
-            suppress_tokens=suppress_tokens,
-            without_timestamps=without_timestamps,
-            max_initial_timestamp=max_initial_timestamp,
-            multilingual=multilingual, repetition_penalty=repetition_penalty,
-            no_repeat_ngram_size=no_repeat_ngram_size,
-            prompt_reset_on_temperature=prompt_reset_on_temperature)
-
+        # host work outside the card lock: read, decode and resample
         pre = AudioPreloader(audio_path)
-        duration = pre.duration
-        if chunk_size is not None:
-            chunking_mode = "fixed"  # a per-call chunk size implies it
-        windows = self._plan(pre, duration, vad_filter, vad_parameters,
-                             chunking_mode=chunking_mode,
-                             chunk_length_minutes=(
-                                 chunk_size / 60.0 if chunk_size else None))
-        log.info("planned %d windows for %.1fs audio", len(windows), duration)
+        t_wait = time.time()
+        with on_card(self.device):
+            # one job's card work at a time: encode, decode calls with their
+            # graph captures, the word pass (last_stats is this call's)
+            self.last_stats = {"card_wait_s": time.time() - t_wait}
+            diag = WorkerDiagnostics()
+            self.last_diagnostics = diag
+            dc = self.config.decode
+            beam = dict(
+                beam_size=max(1, int(beam_size if beam_size is not None
+                                     else dc.beam_size)),
+                patience=float(patience if patience is not None
+                               else dc.patience),
+                length_penalty=float(
+                    length_penalty if length_penalty is not None
+                    else dc.length_penalty))
+            opts = self._call_opts(
+                suppress_tokens=suppress_tokens,
+                without_timestamps=without_timestamps,
+                max_initial_timestamp=max_initial_timestamp,
+                multilingual=multilingual,
+                repetition_penalty=repetition_penalty,
+                no_repeat_ngram_size=no_repeat_ngram_size,
+                prompt_reset_on_temperature=prompt_reset_on_temperature)
 
-        temps = (temperature if temperature is not None else dc.temperature)
-        if isinstance(temps, (int, float)):
-            temps = (float(temps),)
-        temps = tuple(temps)
-        thresholds = (compression_ratio_threshold, log_prob_threshold,
-                      no_speech_threshold)
+            duration = pre.duration
+            if chunk_size is not None:
+                chunking_mode = "fixed"  # a per-call chunk size implies it
+            windows = self._plan(pre, duration, vad_filter, vad_parameters,
+                                 chunking_mode=chunking_mode,
+                                 chunk_length_minutes=(
+                                     chunk_size / 60.0 if chunk_size
+                                     else None))
+            log.info("planned %d windows for %.1fs audio", len(windows),
+                     duration)
 
-        segments: List[Dict[str, Any]] = []
-        lang = {"code": language, "prob": 1.0 if language else None}
-        if windows:
-            audio16 = self._upload(pre)
-            sp = self.tokenizer.specials
-            if language is None and sp.language_tokens:
-                if (opts.multilingual or condition_on_previous_text
-                        or prefix):
-                    # the file's language from its first window at 30 s
-                    mel0 = self._mel(self._gather(audio16, windows, [0]))
-                    lang["code"], lang["prob"] = self.detect_language(mel0)
+            temps = (temperature if temperature is not None
+                     else dc.temperature)
+            if isinstance(temps, (int, float)):
+                temps = (float(temps),)
+            temps = tuple(temps)
+            thresholds = (compression_ratio_threshold, log_prob_threshold,
+                          no_speech_threshold)
+
+            segments: List[Dict[str, Any]] = []
+            lang = {"code": language, "prob": 1.0 if language else None}
+            if windows:
+                audio16 = self._upload(pre)
+                sp = self.tokenizer.specials
+                if language is None and sp.language_tokens:
+                    if (opts.multilingual or condition_on_previous_text
+                            or prefix):
+                        # the file's language from its first window at 30 s
+                        mel0 = self._mel(self._gather(audio16, windows, [0]))
+                        lang["code"], lang["prob"] = self.detect_language(mel0)
+                    else:
+                        # detected from the first batch's first window, at the
+                        # batch's context, before that batch decodes
+                        lang["defer"] = True
+                # a deferred language's token is a placeholder until then
+                prompt_ids = list(sp.sot_sequence(
+                    "en" if lang.get("defer") else lang["code"], task))
+                sot_idx = 0
+                prev_text = initial_prompt or hotwords
+                if prev_text:
+                    prev = [sp.sot_prev] + list(self.tokenizer.encode(
+                        " " + prev_text.strip()))[-223:]
+                    prompt_ids = prev + prompt_ids
+                    sot_idx = len(prev)
+                prefix_ids = (list(self.tokenizer.encode(" " + prefix.strip()))
+                              if prefix else [])
+                journal = None
+                if resume_path:
+                    # everything that changes the decoded output, as the JAX
+                    # engine signs it (prompt_ids carry language, task and
+                    # initial prompt)
+                    opts_sig = json.dumps([
+                        prompt_ids, prefix_ids, list(temps),
+                        opts.repetition_penalty, opts.no_repeat_ngram_size,
+                        beam["patience"], beam["length_penalty"],
+                        condition_on_previous_text, self.audio_ctx_bucket,
+                        not opts.with_timestamps,
+                        opts.ids.max_initial_timestamp_index,
+                        opts.multilingual,
+                        opts.prompt_reset_on_temperature,
+                        list(suppress_tokens) if suppress_tokens is not None
+                        else None])
+                    journal = ResumeJournal(resume_path, plan_signature(
+                        windows, self.model_size, beam["beam_size"],
+                        max_new_tokens, opts_sig))
+                run = dict(temps=temps, sample_len=max_new_tokens,
+                           thresholds=thresholds, best_of=best_of, beam=beam,
+                           opts=opts, journal=journal)
+                if condition_on_previous_text:
+                    segments = self._transcribe_windows_sequential(
+                        audio16, windows, prompt_ids, sot_idx, prefix_ids,
+                        progress_callback=progress_callback, **run)
                 else:
-                    # detected from the first batch's first window, at the
-                    # batch's context, before that batch decodes
-                    lang["defer"] = True
-            # a deferred language's token is a placeholder until then
-            prompt_ids = list(sp.sot_sequence(
-                "en" if lang.get("defer") else lang["code"], task))
-            sot_idx = 0
-            prev_text = initial_prompt or hotwords
-            if prev_text:
-                prev = [sp.sot_prev] + list(self.tokenizer.encode(
-                    " " + prev_text.strip()))[-223:]
-                prompt_ids = prev + prompt_ids
-                sot_idx = len(prev)
-            prefix_ids = (list(self.tokenizer.encode(" " + prefix.strip()))
-                          if prefix else [])
-            journal = None
-            if resume_path:
-                # everything that changes the decoded output, as the JAX
-                # engine signs it (prompt_ids carry language, task and
-                # initial prompt)
-                opts_sig = json.dumps([
-                    prompt_ids, prefix_ids, list(temps),
-                    opts.repetition_penalty, opts.no_repeat_ngram_size,
-                    beam["patience"], beam["length_penalty"],
-                    condition_on_previous_text, self.audio_ctx_bucket,
-                    not opts.with_timestamps,
-                    opts.ids.max_initial_timestamp_index, opts.multilingual,
-                    opts.prompt_reset_on_temperature,
-                    list(suppress_tokens) if suppress_tokens is not None
-                    else None])
-                journal = ResumeJournal(resume_path, plan_signature(
-                    windows, self.model_size, beam["beam_size"],
-                    max_new_tokens, opts_sig))
-            run = dict(temps=temps, sample_len=max_new_tokens,
-                       thresholds=thresholds, best_of=best_of, beam=beam,
-                       opts=opts, journal=journal)
-            if condition_on_previous_text:
-                segments = self._transcribe_windows_sequential(
-                    audio16, windows, prompt_ids, sot_idx, prefix_ids,
-                    progress_callback=progress_callback, **run)
-            else:
-                skip = set()
-                if prefix_ids and 0 not in (journal.done if journal else {}):
-                    # the prefix forces the first window only: it decodes
-                    # alone, the rest batched without it
-                    segments += self._transcribe_windows_sequential(
-                        audio16, windows[:1], prompt_ids, sot_idx,
-                        prefix_ids, **run)
-                    skip = {0}
-                segments += self._transcribe_windows(
-                    audio16, windows, prompt_ids, sot_idx, diag, lang,
-                    progress_callback, skip_ids=skip, **run)
-                segments.sort(key=lambda s: (s["start"], s["end"]))
-            if chunking_mode == "fixed":
-                strategy = (overlap_strategy
-                            or self.config.chunking.overlap_strategy)
-                segments = (merge_overlapping_segments(segments)
-                            if strategy == "merge"
-                            else remove_overlaps_drop(segments))
-        language = lang["code"]
+                    skip = set()
+                    done = journal.done if journal else {}
+                    if prefix_ids and 0 not in done:
+                        # the prefix forces the first window only: it decodes
+                        # alone, the rest batched without it
+                        segments += self._transcribe_windows_sequential(
+                            audio16, windows[:1], prompt_ids, sot_idx,
+                            prefix_ids, **run)
+                        skip = {0}
+                    segments += self._transcribe_windows(
+                        audio16, windows, prompt_ids, sot_idx, diag, lang,
+                        progress_callback, skip_ids=skip, **run)
+                    segments.sort(key=lambda s: (s["start"], s["end"]))
+                if chunking_mode == "fixed":
+                    strategy = (overlap_strategy
+                                or self.config.chunking.overlap_strategy)
+                    segments = (merge_overlapping_segments(segments)
+                                if strategy == "merge"
+                                else remove_overlaps_drop(segments))
+            language = lang["code"]
 
-        if word_timestamps and segments:
-            from whisper_aries_tpu_torch.align.word_align import (
-                add_word_timestamps,
-            )
+            if word_timestamps and segments:
+                from whisper_aries_tpu_torch.align.word_align import (
+                    add_word_timestamps,
+                )
 
-            # no catch-all here: a kernel error in the word pass fails the
-            # call (the JAX engine logs a warning instead)
-            t_w = time.time()
-            self.last_stats["words"] = add_word_timestamps(
-                self, segments, pre.audio, windows,
-                prepend_punctuations=(
-                    prepend_punctuations if prepend_punctuations is not None
-                    else dc.prepend_punctuations),
-                append_punctuations=(
-                    append_punctuations if append_punctuations is not None
-                    else dc.append_punctuations))
-            self.last_stats["words"]["seconds"] = time.time() - t_w
+                # no catch-all here: a kernel error in the word pass fails the
+                # call (the JAX engine logs a warning instead)
+                t_w = time.time()
+                self.last_stats["words"] = add_word_timestamps(
+                    self, segments, pre.audio, windows,
+                    prepend_punctuations=(
+                        dc.prepend_punctuations if prepend_punctuations is None
+                        else prepend_punctuations),
+                    append_punctuations=(
+                        dc.append_punctuations if append_punctuations is None
+                        else append_punctuations))
+                self.last_stats["words"]["seconds"] = time.time() - t_w
 
-        wall = time.time() - t0
-        result: Dict[str, Any] = {
-            "success": True,
-            "segments": segments,
-            "text": " ".join(s["text"] for s in segments).strip(),
-            "language": language,
-            "language_probability": lang["prob"],
-            "duration": duration,
-            "processing_time": wall,
-            "real_time_factor": duration / wall if wall > 0 else 0.0,
-            "num_windows": len(windows),
-            "performance": self.last_stats,
-            "diagnostics": diag.summary(),
-            "metadata": {
-                "audio_file": audio_path,
-                "model": self.model_size,
-                "device": str(self.device),
-                "total_segments": len(segments),
-            },
-        }
+            wall = time.time() - t0
+            result: Dict[str, Any] = {
+                "success": True,
+                "segments": segments,
+                "text": " ".join(s["text"] for s in segments).strip(),
+                "language": language,
+                "language_probability": lang["prob"],
+                "duration": duration,
+                "processing_time": wall,
+                "real_time_factor": duration / wall if wall > 0 else 0.0,
+                "num_windows": len(windows),
+                "performance": self.last_stats,
+                "diagnostics": diag.summary(),
+                "metadata": {
+                    "audio_file": audio_path,
+                    "model": self.model_size,
+                    "device": str(self.device),
+                    "total_segments": len(segments),
+                },
+            }
         if output_formats:
             result["output_files"] = self._generate_outputs(
                 audio_path, segments, result, output_formats, output_dir)

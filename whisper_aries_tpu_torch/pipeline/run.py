@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 from collections import defaultdict
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -40,19 +41,23 @@ from whisper_aries_tpu_torch.utils.media import extract_audio_if_needed
 log = logging.getLogger(__name__)
 
 _ENGINE_CACHE: Dict[str, Any] = {}
+_ENGINE_CACHE_LOCK = threading.Lock()
 
 
 def get_transcriber(model_size: str = "large-v3",
                     device: Optional[str] = None, **kwargs):
     """Process-wide engine cache: one resident model per (size, device,
-    options). ``device`` None means CUDA."""
+    options). ``device`` None means CUDA. Every caller in the process, in
+    any thread, gets the same engine; its ``transcribe_file`` runs one call
+    at a time on the card (the engine's card lock)."""
     from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
 
     key = f"{model_size}:{device}:{sorted(kwargs.items())!r}"
-    if key not in _ENGINE_CACHE:
-        _ENGINE_CACHE[key] = AriesTranscriber(model_size=model_size,
-                                              device=device, **kwargs)
-    return _ENGINE_CACHE[key]
+    with _ENGINE_CACHE_LOCK:
+        if key not in _ENGINE_CACHE:
+            _ENGINE_CACHE[key] = AriesTranscriber(model_size=model_size,
+                                                  device=device, **kwargs)
+        return _ENGINE_CACHE[key]
 
 
 def run_pipeline(

@@ -1,9 +1,13 @@
 """The port's device rule: entry points run on a CUDA card unless the caller
-passes ``device="cpu"``; with no card and no explicit CPU they raise."""
+passes ``device="cpu"``; with no card and no explicit CPU they raise. And
+the rule for threads: one job's device work at a time on a device
+(``on_card``)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -18,3 +22,31 @@ def resolve_device(device: Optional[str], who: str) -> torch.device:
                 "device='cpu' for the plain CPU path")
         return torch.device(device or "cuda")
     return torch.device(device)
+
+
+_CARD_LOCKS: Dict[Tuple[str, int], threading.RLock] = {}
+_CARD_LOCKS_GUARD = threading.Lock()
+
+
+def card_lock(device: torch.device) -> threading.RLock:
+    """The one lock of ``device`` in this process. Every engine and diarizer
+    on that device holds it around its device work, weight uploads
+    included: a CUDA graph captured by one job must not see another job's
+    launches, allocations, copies or synchronisations, and the launch
+    counters are module globals. Re-entrant, so a holder may call another
+    holder (the engine's constructor runs its smoke test)."""
+    key = (device.type, device.index or 0)
+    with _CARD_LOCKS_GUARD:
+        return _CARD_LOCKS.setdefault(key, threading.RLock())
+
+
+@contextlib.contextmanager
+def on_card(device: torch.device) -> Iterator[None]:
+    """Hold ``device``'s lock, with ``device`` the calling thread's current
+    CUDA device (a worker thread starts on device 0)."""
+    with card_lock(device):
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                yield
+        else:
+            yield
