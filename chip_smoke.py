@@ -156,7 +156,8 @@ caught; a kernel check that fails is printed at once and fails the run
      then a greedy call on the 125 s WAV with chunk_size 60, overlap
      merge, suppress_tokens [-1], no_repeat_ngram_size 3,
      repetition_penalty 1.1, max_initial_timestamp 0.5 and a
-     progress_callback; counts from 0 over both calls. Both encoder
+     progress_callback; counts from 0 over both calls (the directory is
+     kept for the cli path). Both encoder
      contexts (800, 1500) must appear in the main pass, seven kernels
      must launch, the word pass must read the checkpoint's 10 heads and
      every segment carry a language; prints the write, load and smoke
@@ -177,7 +178,8 @@ caught; a kernel check that fails is printed at once and fails the run
      segments. Prints the "pipeline" line (stage seconds, RTF, ms a step
      at R 5 and T 451, DER against the truth turns, the diarizer's peak).
  11. serve path: the same conversation at 44.1 kHz stereo as an s16 WAV,
-     a FLAC (tests/flac_encoder.py) and an s24 WAV, and as MP3, Ogg and
+     a FLAC (tests/flac_encoder.py, encoded once per content hash into
+     chip_smoke_out/ and reused) and an s24 WAV, and as MP3, Ogg and
      m4a where this host's system libraries allow (the "codecs" line says
      which ran and why any was left out; decode and resample ms per
      format); the FLAC must decode to the s16 WAV's samples bit for bit,
@@ -195,6 +197,23 @@ caught; a kernel check that fails is printed at once and fails the run
      removes a job's outputs. Prints the "serve" line (per job the queue
      wait, upload to completion and stage seconds, the jobs' overlap, the
      card's peak memory, over HTTP).
+ 12. cli path: on phase 9's checkpoint directory, each command-line
+     tool's main() in this process, counts from 0 before each: transcribe
+     (the 125 s WAV, beam 5, txt/json/srt, word timestamps; every kernel
+     of the path, every file parsing, the segments of an in-process
+     transcribe_file with the same options), batch_transcribe (two WAVs
+     and a manifest; a rerun without --overwrite skips both and launches
+     nothing), diarize and conversation (phase 10's scene: 2 speakers
+     each), meeting (no API key: rc 1, its error recorded), verify_setup
+     --smoke-test, and the legacy FixedUltraFastTranscriber (parallel_info
+     and performance filled). Replicas: the beam slice's engine at one
+     window a replica, one replica against mesh [cuda:0, cuda:0] (the same
+     tokens in every window, scores within 1e-3 relative, both replicas
+     in per_device_distribution, the same launch counts); then an engine
+     over make_mesh() (every visible card; its count printed) whose card
+     peak must not exceed auto_windows_per_device's byte model at the
+     windows it ran and at 8. Prints the ``cli`` line (each tool's rc,
+     wall seconds and launches, the replicas' seconds, the chosen size).
 The second-to-last lines are the kernels JSON (all seventeen kernels) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
@@ -2671,6 +2690,9 @@ PATH_KERNELS = {
                  "beam_tail", "beam_reorder"),
     "serve": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
               "beam_tail", "beam_reorder"),
+    # the transcribe tool's run (beam 5, words) of the cli phase
+    "cli": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+            "beam_tail", "beam_reorder"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -2815,6 +2837,7 @@ def slice_phase(dev, path: str, keep: bool = False):
         res = eng.transcribe_file(str(wav), **call)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        stats = eng.last_stats  # the port's counters of this call
         launches = {k: fn.launches for k, fn in counters().items()}
         # the fused step's replays, or the unfused decoder_step's
         graph_replays = (DL.fused_decoder_layers.graph_replays if eng.fused
@@ -2828,7 +2851,7 @@ def slice_phase(dev, path: str, keep: bool = False):
         else:
             os.environ["ARIES_QUANT_IMPL"] = old_impl
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    decodes = res["performance"].get("decodes", [])
+    decodes = stats.get("decodes", [])
     if res["num_windows"] < 1 or not decodes:
         fail(f"{path}: no window was decoded")
     for k in PATH_KERNELS[path]:
@@ -2900,11 +2923,10 @@ def slice_phase(dev, path: str, keep: bool = False):
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
         gemm_rows=by_rows,
-        peak_mem_gb=peak_gb,
+        peak_mem_gb=peak_gb, performance=res["performance"],
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":
-        summary["word_pass"] = word_pass_split(res["performance"]["words"],
-                                               costs)
+        summary["word_pass"] = word_pass_split(stats["words"], costs)
         summary["words"] = n_words
     tag = {"greedy": "slice", "beam": "slice_beam"}.get(path, f"slice_{path}")
     print(f"{tag} " + json.dumps(summary), flush=True)
@@ -3051,7 +3073,8 @@ def checkpoint_phase(dev):
     progress_callback. Launch counts are set to 0 just before (1) and read
     just after (2). Prints the write, load and smoke-test seconds and the
     host RSS at the start and peak of the write and of the constructor;
-    the directory is deleted after."""
+    returns the launches, the GEMM's launches by path and the directory,
+    which the cli path uses and deletes."""
     import os
     import shutil
 
@@ -3091,8 +3114,12 @@ def checkpoint_phase(dev):
         AriesTranscriber.smoke_test = timed_smoke
         with RssPeak() as rss:
             t0 = time.time()
+            # 8 windows a batch: the bucket encodes at T 800 only a batch
+            # made of short windows alone, and a batch sized from the
+            # card's memory holds every window of this file
             eng = AriesTranscriber(model_size=str(ckpt),
-                                   compute_type="int8", audio_ctx="bucket")
+                                   compute_type="int8", audio_ctx="bucket",
+                                   windows_per_device=8)
             torch.cuda.synchronize()
             figures["construct_s"] = time.time() - t0
         figures["construct_rss_gb"] = {"start": rss.start, "peak": rss.gb}
@@ -3150,6 +3177,7 @@ def checkpoint_phase(dev):
             output_dir=str(OUT / "checkpoint"))
         torch.cuda.synchronize()
         wall = time.time() - t0
+        stats = eng.last_stats  # the port's counters of call (1)
         progress = []
         t0 = time.time()
         opt = eng.transcribe_file(
@@ -3171,20 +3199,19 @@ def checkpoint_phase(dev):
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
             os.environ["ARIES_QUANT_IMPL"] = old_impl
-        shutil.rmtree(ckpt, ignore_errors=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for k in PATH_KERNELS["checkpoint"]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the checkpoint path")
     # (1): both contexts in the main pass, ten heads, languages, words
-    decodes = res["performance"]["decodes"]
+    decodes = stats["decodes"]
     main_pass = [d for d in decodes if d["temperature"] == 0.0]
     contexts = sorted({d["audio_ctx"] for d in main_pass})
     if contexts != [800, 1500]:
         fail(f"checkpoint: main-pass contexts {contexts}, not [800, 1500]")
     if not all(d["beam_size"] == 5 for d in main_pass):
         fail("checkpoint: the main pass did not decode by beam search")
-    words = res["performance"].get("words", {})
+    words = stats.get("words", {})
     if words.get("heads") != len(ALIGNMENT_HEADS):
         fail(f"checkpoint: the word pass read {words.get('heads')} heads, "
              f"not the checkpoint's {len(ALIGNMENT_HEADS)}")
@@ -3225,7 +3252,7 @@ def checkpoint_phase(dev):
     # first), and the W8A16 GEMM calls at M = windows x 800
     at800 = [d for d in decodes if d["audio_ctx"] == 800]
     bucket = dict(
-        encoded_windows=res["performance"]["encodes"].get(800, 0),
+        encoded_windows=stats["encodes"].get(800, 0),
         decode_calls=len(at800),
         step_replays=sum(d["steps"] - 1 for d in at800),
         gemm_by_m=dict(Counter(f"M {m} {p}" for m, p in planned
@@ -3235,7 +3262,7 @@ def checkpoint_phase(dev):
         segments=len(res["segments"]), words=n_words, wall_s=wall,
         real_time_factor=res["real_time_factor"], language=res["language"],
         languages=dict(Counter(s["language"] for s in res["segments"])),
-        encodes=res["performance"]["encodes"],
+        encodes=stats["encodes"],
         main_pass=[{k: d[k] for k in ("rows", "windows", "audio_ctx",
                                       "steps", "seconds")}
                    for d in main_pass],
@@ -3251,7 +3278,7 @@ def checkpoint_phase(dev):
         dict(summary, decodes=decodes), indent=2))
     del eng
     torch.cuda.empty_cache()
-    return launches, gemm_paths
+    return launches, gemm_paths, ckpt
 
 
 # ---------------------------------------------------------------------------
@@ -3664,12 +3691,39 @@ def resampler_checks() -> dict:
 SCENE_SR = 44_100
 
 
+def cached_flac(s16: np.ndarray, sr: int) -> tuple:
+    """FLAC bytes of the stereo s16 samples (tests/flac_encoder.py, fixed
+    order 2, blocks of 4096): encoded once per content hash (the samples,
+    the rate, the encoder's source and its settings) into chip_smoke_out/
+    and read back on later runs; the pure-Python encoder takes tens of
+    seconds. Returns (bytes, encode seconds, whether it was cached)."""
+    import hashlib
+
+    enc = ROOT / "tests" / "flac_encoder.py"
+    h = hashlib.sha256(np.ascontiguousarray(s16, "<i8").tobytes())
+    h.update(f"{sr} fixed 2 4096".encode())
+    h.update(enc.read_bytes())
+    path = OUT / f"scene_{h.hexdigest()[:16]}.flac"
+    if path.exists():
+        return path.read_bytes(), 0.0, True
+    t0 = time.time()
+    blob = load_test_module("flac_encoder").encode_flac(
+        [s16[:, 0], s16[:, 1]], sample_rate=sr, mode="fixed", order=2,
+        block_size=4096)
+    seconds = time.time() - t0
+    OUT.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(blob)
+    tmp.rename(path)
+    return blob, seconds, False
+
+
 def scene_blobs():
     """The pipeline path's conversation (seed 1) at 44.1 kHz stereo as s16
-    WAV, s24 WAV and FLAC bytes (tests/flac_encoder.py, of the s16
-    samples), and the mono downmix. main() runs this in a thread while
-    nvcc builds the kernels: the pure-Python FLAC encoder takes tens of
-    seconds of host time. Returns (blobs, mono, FLAC encode seconds)."""
+    WAV, s24 WAV and FLAC bytes (``cached_flac``, of the s16 samples), and
+    the mono downmix. main() runs this in a thread while nvcc builds the
+    kernels. Returns (blobs, mono, FLAC encode seconds, whether the FLAC
+    was cached)."""
     from whisper_aries_tpu_torch.audio import _native as tn
 
     sr = SCENE_SR
@@ -3679,12 +3733,10 @@ def scene_blobs():
     s16 = np.round(np.clip(stereo, -1, 1) * 32767).astype(np.int64)
     s24 = np.round(np.clip(stereo, -1, 1) * 8388607).astype(np.int64)
     mono = stereo.mean(axis=1).astype(np.float32)
-    t0 = time.time()
+    flac, seconds, cached = cached_flac(s16, sr)
     blobs = {"s16.wav": pcm_wav(s16, 16, sr), "s24.wav": pcm_wav(s24, 24, sr),
-             "flac": load_test_module("flac_encoder").encode_flac(
-                 [s16[:, 0], s16[:, 1]], sample_rate=sr, mode="fixed",
-                 order=2, block_size=4096)}
-    return blobs, mono, time.time() - t0
+             "flac": flac}
+    return blobs, mono, seconds, cached
 
 
 def scene_formats(work: Path, scene):
@@ -3700,7 +3752,7 @@ def scene_formats(work: Path, scene):
     from whisper_aries_tpu_torch.audio.decode import resample
 
     sr = SCENE_SR
-    blobs, mono, encode_s = scene
+    blobs, mono, encode_s, flac_cached = scene
     blobs = dict(blobs)
     left_out = {}
     mp3_enc = load_test_module("mp3_encoder")
@@ -3750,6 +3802,7 @@ def scene_formats(work: Path, scene):
           f"{len(decoded['flac'])} samples at 44.1 kHz, bit for bit")
     print("codecs " + json.dumps(dict(
         ran=sorted(report), left_out=left_out, flac_encode_s=encode_s,
+        flac_cached=flac_cached,
         formats=report)), flush=True)
     return files, dict(ran=sorted(report), left_out=left_out,
                        formats=report)
@@ -3873,7 +3926,7 @@ def preload_paths(eng, work: Path, minutes: float = 36.0) -> dict:
 
     def int16_path(vad):
         pre = td.AudioPreloader(str(path))
-        buf = eng._upload(pre)
+        buf = eng._upload(pre)[eng.device]  # a copy a device of the mesh
         if vad:
             pre.audio
         torch.cuda.synchronize()
@@ -3967,7 +4020,8 @@ def serve_phase(dev, eng, scene):
         t0 = time.time()
         res = real_transcribe(path, **kw)
         stamp(path, "transcribe", t0)
-        stamps[Path(path).name]["card_wait_s"] = res["performance"][
+        # this job thread's own call's counters
+        stamps[Path(path).name]["card_wait_s"] = eng.last_stats[
             "card_wait_s"]
         return res
 
@@ -4142,6 +4196,342 @@ def serve_phase(dev, eng, scene):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# cli path
+# ---------------------------------------------------------------------------
+
+#: the kernels a bf16 run launches greedy, and at beam 5
+GREEDY_KERNELS = ("mel", "encoder_attn", "decode_layers", "cross_attn_q8")
+BEAM_KERNELS = GREEDY_KERNELS + ("beam_tail", "beam_reorder")
+
+
+def counted(fn, *args, **kw):
+    """(fn(*args, **kw), wall seconds, launches) with every launch count
+    set to 0 just before and read just after (``graph_replays``: the fused
+    step's replays)."""
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    for c in counters().values():
+        c.launches = 0
+    DL.fused_decoder_layers.graph_replays = 0
+    W.decoder_step.graph_replays = 0
+    t0 = time.time()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: c.launches for k, c in counters().items()}
+    launches["graph_replays"] = DL.fused_decoder_layers.graph_replays
+    return out, wall, launches
+
+
+def run_tool(report: dict, name: str, main, argv, kernels=(), rc_want=0):
+    """A tool's ``main(argv)`` in this process with counts from 0, its
+    stdout and stderr kept in chip_smoke_out/cli/<name>.log: the exit code
+    must be ``rc_want`` and each of ``kernels`` must have launched.
+    Records rc, wall seconds and the nonzero launches in ``report[name]``;
+    returns (rc, stdout, stderr, launches)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    o, e = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+        rc, wall, launches = counted(main, list(argv))
+    gc.collect()  # the tool's engine goes with it
+    torch.cuda.empty_cache()
+    (OUT / "cli" / f"{name}.log").write_text(
+        f"argv {argv}\nrc {rc}\n--- stdout\n{o.getvalue()}\n--- stderr\n"
+        f"{e.getvalue()}")
+    report[name] = dict(rc=rc, wall_s=wall,
+                        launches={k: n for k, n in launches.items() if n})
+    if rc != rc_want:
+        fail(f"cli: {name} returned {rc}, not {rc_want} (see "
+             f"chip_smoke_out/cli/{name}.log)")
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"cli: kernel {k} was not launched by {name}")
+    return rc, o.getvalue(), e.getvalue(), launches
+
+
+def parse_outputs(tag: str, stem: Path, formats) -> dict:
+    """Each of the TXT, JSON and SRT files at ``stem`` exists and parses;
+    returns the JSON's content ({} without one)."""
+    import re
+
+    data = {}
+    stamp = re.compile(r"^\d\d:\d\d:\d\d,\d\d\d --> \d\d:\d\d:\d\d,\d\d\d$")
+    for fmt in formats:
+        p = stem.with_suffix(f".{fmt}")
+        if not p.exists():
+            fail(f"cli: {tag} wrote no {p.name}")
+        text = p.read_text(encoding="utf-8")
+        if fmt == "json":
+            data = json.loads(text)
+            if not isinstance(data.get("transcription"), list):
+                fail(f"cli: {tag}'s JSON has no transcription")
+        if fmt == "srt":
+            blocks = [b for b in text.strip().split("\n\n") if b]
+            if not all(b.split("\n")[0] == str(i)
+                       and stamp.match(b.split("\n")[1])
+                       for i, b in enumerate(blocks, 1)):
+                fail(f"cli: {tag}'s SRT does not parse")
+    return data
+
+
+def window_tokens(res: dict) -> dict:
+    """{window id: its segments' tokens, in order}."""
+    out: dict = {}
+    for s in res["segments"]:
+        out.setdefault(s["window_id"], []).extend(s.get("tokens", []))
+    return out
+
+
+def cli_phase(dev, ckpt: Path, beam_engine):
+    """The command-line tools and the legacy engine on phase 9's large-v3
+    checkpoint directory (seeded random weights), each tool's main() in
+    this process with every launch count set to 0 just before: transcribe
+    on the 125 s WAV (beam 5, txt/json/srt, word timestamps; every kernel
+    of the path launched, every file parsing, its segments those of an
+    in-process transcribe_file with the same engine options);
+    batch_transcribe on a directory of two WAVs with a manifest, then a
+    rerun without --overwrite that skips both and launches no kernel;
+    diarize and conversation on phase 10's two-speaker scene (both finding
+    the 2 speakers); meeting with no API key (its error recorded);
+    verify_setup --smoke-test (rc 0); FixedUltraFastTranscriber on the
+    125 s WAV (parallel_info and performance filled). Then the replicas:
+    the beam slice's engine at one window a replica, as one replica and
+    with mesh [cuda:0, cuda:0] (the same tokens in every window, scores
+    within 1e-3 relative, per_device_distribution over both replicas, the
+    one-replica run's launch counts), and an engine on make_mesh() over
+    every visible card at its own batch size, whose card peak over its
+    resident memory must not exceed auto_windows_per_device's byte model.
+    Prints the ``cli`` line; deletes the checkpoint directory after.
+    Returns the transcribe tool's launches."""
+    import os
+    import shutil
+
+    import torch
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.cli import batch_transcribe as cbt
+    from whisper_aries_tpu_torch.cli import conversation as cconv
+    from whisper_aries_tpu_torch.cli import diarize as cdz
+    from whisper_aries_tpu_torch.cli import meeting as cmeet
+    from whisper_aries_tpu_torch.cli import transcribe as ctr
+    from whisper_aries_tpu_torch.cli import verify_setup as cvs
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.parallel.mesh import (
+        auto_windows_per_device,
+        make_mesh,
+        window_bytes,
+    )
+    from whisper_aries_tpu_torch.pipeline import run as PR
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+    from whisper_aries_tpu_torch.pipeline.legacy import (
+        FixedUltraFastTranscriber,
+    )
+
+    work = OUT / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    wav125 = OUT / "synthetic_2min.wav"
+    if not wav125.exists():
+        write_wav(str(wav125), synth_audio(125.0, seed=7))
+    tools: dict = {}
+    model = ["--model", str(ckpt)]
+
+    # transcribe, and the same call in-process
+    out = work / "transcribe"
+    _, _, _, tr_launches = run_tool(
+        tools, "transcribe", ctr.main,
+        [str(wav125), *model, "--beam-size", "5", "--formats",
+         "txt,json,srt", "--word-timestamps", "--output-dir", str(out)],
+        BEAM_KERNELS)
+    data = parse_outputs("transcribe", out / "synthetic_2min",
+                         ("txt", "json", "srt"))
+    eng = AriesTranscriber(model_size=str(ckpt))
+    want = eng.transcribe_file(
+        str(wav125), beam_size=5, repetition_penalty=1.0,
+        max_new_tokens=224, output_formats=[], word_timestamps=True)
+    del eng
+    torch.cuda.empty_cache()
+    keys = ("start", "end", "text", "avg_logprob", "no_speech_prob",
+            "chunk_id", "worker_id")
+    same = data["transcription"] == [{k: s[k] for k in keys if k in s}
+                                     for s in want["segments"]]
+    check("cli transcribe = an in-process transcribe_file",
+          same and bool(want["segments"]),
+          f"{len(data['transcription'])} segments against "
+          f"{len(want['segments'])}, every field equal: {same}")
+
+    # batch_transcribe: two files with a manifest, then a rerun
+    src = work / "batch_in"
+    src.mkdir()
+    write_wav(str(src / "one.wav"), synth_audio(40.0, seed=8))
+    write_wav(str(src / "two.wav"), synth_audio(25.0, seed=9))
+    manifest = work / "manifest.json"
+    batch = [str(src), *model, "--output-dir", str(work / "batch_out"),
+             "--manifest", str(manifest)]
+    run_tool(tools, "batch_transcribe", cbt.main, batch, GREEDY_KERNELS)
+    results = json.loads(manifest.read_text())["results"]
+    if len(results) != 2 or any("error" in r for r in results):
+        fail(f"cli: batch_transcribe's manifest {results}")
+    for stem in ("one", "two"):
+        parse_outputs("batch_transcribe", work / "batch_out" / stem,
+                      ("txt", "json"))
+    _, rerun_out, _, rerun = run_tool(tools, "batch_transcribe_rerun",
+                                      cbt.main, batch)
+    if rerun_out.count("skip (exists)") != 2 or any(rerun.values()):
+        fail(f"cli: the rerun without --overwrite did not skip both files "
+             f"without a launch: {rerun}")
+
+    # diarize and conversation on the two-speaker scene
+    scene, _ = conversation_audio()
+    wav = work / "conversation.wav"
+    write_wav(str(wav), scene)
+    run_tool(tools, "diarize", cdz.main,
+             [str(wav), "--output-dir", str(work / "diarize")])
+    turns = json.loads((work / "diarize" / "conversation_diarization.json")
+                       .read_text())
+    speakers = {"diarize": len({t["speaker"] for t in turns})}
+    run_tool(tools, "conversation", cconv.main,
+             [str(wav), *model, "--output-dir", str(work / "conversation"),
+              "--no-llm"], GREEDY_KERNELS)
+    PR._ENGINE_CACHE.clear()  # the pipeline's resident engine
+    torch.cuda.empty_cache()
+    conv_json = work / "conversation" / "conversation.json"
+    segs = json.loads(conv_json.read_text())["segments"]
+    # segments under the confidence threshold carry no speaker
+    speakers["conversation"] = len({s["speaker"] for s in segs
+                                    if s["speaker"]})
+    if speakers != {"diarize": 2, "conversation": 2}:
+        fail(f"cli: speakers found {speakers}, not 2 and 2")
+
+    # meeting with no key: the error is recorded
+    key_env = load_config().analyze.api_key_env
+    saved_key = os.environ.pop(key_env, None)
+    try:
+        _, _, err, _ = run_tool(tools, "meeting", cmeet.main,
+                                [str(conv_json)], rc_want=1)
+    finally:
+        if saved_key is not None:
+            os.environ[key_env] = saved_key
+    tools["meeting"]["error"] = err.strip()
+    if key_env not in err:
+        fail(f"cli: meeting's error does not name ${key_env}: {err!r}")
+
+    run_tool(tools, "verify_setup", cvs.main, ["--smoke-test", *model],
+             ("mel", "encoder_attn"))
+
+    # the legacy engine
+    conf = work / "whisper_config.json"
+    conf.write_text(json.dumps({"model_size": str(ckpt)}))
+
+    def legacy():
+        t = FixedUltraFastTranscriber(str(conf))
+        return t.transcribe_ultra_fast(str(wav125),
+                                       output_dir=str(work / "legacy"))
+
+    leg, leg_s, leg_launches = counted(legacy)
+    torch.cuda.empty_cache()
+    pi, lp = leg["parallel_info"], leg["performance"]
+    tools["legacy"] = dict(wall_s=leg_s, parallel_info=pi, performance=lp,
+                           launches={k: n for k, n in leg_launches.items()
+                                     if n})
+    if not (leg["success"] and pi["workers_used"] >= 1
+            and pi["chunks_processed"] >= 1
+            and isinstance(pi["parallel_efficiency"], float)
+            and pi["chunks_per_minute"] > 0 and lp["speed_factor"] > 0
+            and lp["assessment"]):
+        fail(f"cli: the legacy engine's blocks are not filled: {pi} {lp}")
+    for k in GREEDY_KERNELS:
+        if leg_launches[k] <= 0:
+            fail(f"cli: kernel {k} was not launched by the legacy engine")
+
+    # replicas: one window a replica, one replica against two on cuda:0
+    saved = beam_engine.batch_size
+    beam_engine.batch_size = 1
+    try:
+        one, one_s, one_l = counted(beam_engine.transcribe_file, str(wav125))
+    finally:
+        beam_engine.batch_size = saved
+    two_eng = AriesTranscriber(
+        "large-v3", allow_random=True,
+        config=load_config(overrides=SLICE_CONFIG["beam"]),
+        mesh=[torch.device("cuda", 0)] * 2, windows_per_device=1)
+    two, two_s, two_l = counted(two_eng.transcribe_file, str(wav125))
+    del two_eng
+    torch.cuda.empty_cache()
+    tok1, tok2 = window_tokens(one), window_tokens(two)
+    lp1 = np.asarray([s["avg_logprob"] for s in one["segments"]])
+    lp2 = np.asarray([s["avg_logprob"] for s in two["segments"]])
+    rel = (float(np.max(np.abs(lp2 - lp1) / np.maximum(np.abs(lp1), 1e-9)))
+           if lp1.shape == lp2.shape and len(lp1) else float("inf"))
+    check("two replicas on cuda:0 = one replica, tokens of every window",
+          tok1 == tok2 and bool(tok1), f"{len(tok2)} windows against "
+          f"{len(tok1)}, identical tokens: {tok1 == tok2}")
+    check("two replicas on cuda:0 = one replica, scores", rel <= 1e-3,
+          f"avg_logprob within {rel:.2e} relative (limit 1e-3)")
+    dist = two["performance"]["per_device_distribution"]
+    check("two replicas: per_device_distribution over both",
+          sorted(dist) == [0, 1], f"{dist}")
+    check("two replicas: launch counts = the one replica's", one_l == two_l,
+          f"one {dict((k, n) for k, n in one_l.items() if n)}, two "
+          f"{dict((k, n) for k, n in two_l.items() if n)}")
+    for k in BEAM_KERNELS:
+        if two_l[k] <= 0:
+            fail(f"cli: kernel {k} was not launched by the replicas")
+
+    # every visible card, at the engine's own batch; the byte model
+    mesh = make_mesh()
+    all_eng = AriesTranscriber(
+        "large-v3", allow_random=True,
+        config=load_config(overrides=SLICE_CONFIG["beam"]), mesh=mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full, full_s, full_l = counted(all_eng.transcribe_file, str(wav125))
+    act = torch.cuda.max_memory_allocated() - base
+    windows = max(d["windows"] for d in all_eng.last_stats["decodes"])
+    wpd = all_eng.batch_size // len(mesh)
+    del all_eng
+    torch.cuda.empty_cache()
+    per = window_bytes(W.PRESETS["large-v3"], rows=5, cache_len=3 + 224)
+    chosen = auto_windows_per_device("large-v3", beam_size=5)
+    check("auto_windows_per_device's bytes >= the measured peak",
+          windows * per >= act and 8 * per >= act,
+          f"{per} bytes a window: {windows} windows {windows * per}, 8 "
+          f"windows {8 * per}, the run's peak over its resident memory "
+          f"{act}")
+    if not full["segments"] or not all(
+            math.isfinite(s["avg_logprob"]) for s in full["segments"]):
+        fail("cli: the run over every visible card has no finite segment")
+    full_tok = window_tokens(full)
+    summary = dict(
+        tools=tools, speakers=speakers,
+        replicas=dict(one_s=one_s, two_s=two_s, windows=len(tok2),
+                      identical_windows=sum(tok1.get(w) == t
+                                            for w, t in tok2.items()),
+                      max_score_rel=rel, per_device_distribution=dist,
+                      launches={k: n for k, n in two_l.items() if n}),
+        mesh=dict(count=len(mesh), windows_per_device=wpd, wall_s=full_s,
+                  windows_a_batch=windows,
+                  windows_equal_to_one_a_batch=sum(
+                      tok1.get(w) == t for w, t in full_tok.items()),
+                  launches={k: n for k, n in full_l.items() if n}),
+        auto_windows=dict(chosen=chosen, window_bytes=per,
+                          model_bytes_run=windows * per,
+                          model_bytes_8=8 * per, measured_peak_bytes=act))
+    print("cli " + json.dumps(summary), flush=True)
+    (OUT / "cli.json").write_text(json.dumps(summary, indent=2))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return tr_launches
+
+
 def main() -> None:
     import torch
 
@@ -4183,7 +4573,8 @@ def main() -> None:
               flush=True)
         t0 = time.time()
         scene = scene_job.result()
-    print(f"scene encoded beside the build: FLAC {scene[2]:.1f}s, waited "
+    print(f"scene encoded beside the build: FLAC {scene[2]:.1f}s "
+          f"({'cached' if scene[3] else 'encoded'}), waited "
           f"{time.time() - t0:.1f}s after the build", flush=True)
     for name in cuda_build.SOURCES:
         log = cuda_build.BUILD_DIR / f"{name}.log"
@@ -4209,11 +4600,12 @@ def main() -> None:
     probe_launches = probes_phase(dev, entries)
     runs = {path: slice_phase(dev, path, keep=path == "beam")
             for path in PATH_KERNELS
-            if path not in ("checkpoint", "pipeline", "serve")}
+            if path not in ("checkpoint", "pipeline", "serve", "cli")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
-    runs["checkpoint"] = checkpoint_phase(dev)
+    *runs["checkpoint"], ckpt = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
     runs["serve"] = (serve_phase(dev, beam_engine, scene), {})
+    runs["cli"] = (cli_phase(dev, ckpt, beam_engine), {})
     del beam_engine
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches

@@ -204,7 +204,7 @@ def test_beam_transcribe_file_matches_jax_engine(engine_pair, tmp_path,
                                **call)
     assert got["num_windows"] == want["num_windows"] >= 3
     assert _segments(got) == _segments(want) and got["segments"]
-    decodes = got["performance"]["decodes"]
+    decodes = teng.last_stats["decodes"]
     assert all(d["beam_size"] == 5 and d["rows"] == 5 * d["windows"]
                for d in decodes)
     for fmt in ("txt", "srt"):
@@ -227,9 +227,9 @@ def test_transcribe_file_beam_arguments_override_config(engine_pair,
                                       "decode.patience": 2.0}))
     call = dict(temperature=(0.0,), max_new_tokens=6, output_formats=())
     res = eng.transcribe_file(wav, **call)
-    assert {d["beam_size"] for d in res["performance"]["decodes"]} == {3}
+    assert {d["beam_size"] for d in eng.last_stats["decodes"]} == {3}
     res = eng.transcribe_file(wav, beam_size=1, **call)
-    assert {d["beam_size"] for d in res["performance"]["decodes"]} == {1}
+    assert {d["beam_size"] for d in eng.last_stats["decodes"]} == {1}
 
 
 def test_fallback_shared_cross_equals_repeated_windows(engine_pair):

@@ -110,7 +110,7 @@ def test_conditioned_option_matches_jax(engines, wav, base, case):
     np.testing.assert_allclose(
         [s["avg_logprob"] for s in got["segments"]],
         [s["avg_logprob"] for s in want["segments"]], atol=1e-3, rtol=0)
-    decodes = got["performance"]["decodes"]
+    decodes = teng.last_stats["decodes"]
     if CASES[case].get("condition_on_previous_text"):
         # one window a decode call, each at its own left pad over one
         # cache length: 224 + the sot sequence (3) + the prefix + 10

@@ -702,7 +702,7 @@ def test_engine_beam_runs_the_kernels(dev, tmp_path):
     res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=12)
     assert res["num_windows"] >= 1
     assert all(c.launches > b for c, b in zip(counters, before))
-    assert all(d["beam_size"] == 5 for d in res["performance"]["decodes"])
+    assert all(d["beam_size"] == 5 for d in eng.last_stats["decodes"])
 
 
 
@@ -1118,7 +1118,7 @@ def test_engine_self_int8_runs_the_kernels(dev, tmp_path, monkeypatch):
     assert res["num_windows"] >= 1
     assert all(c.launches > b for c, b in zip(counters, before))
     assert DL.fused_decoder_layers.launches == fused
-    decodes = res["performance"]["decodes"]
+    decodes = eng.last_stats["decodes"]
     assert W.decoder_step.graph_replays - replays == sum(
         d["steps"] - 1 for d in decodes)
 

@@ -77,7 +77,7 @@ def test_fallback_ladder_output_well_formed(pair, tmp_path):
                               log_prob_threshold=0.0, max_new_tokens=12,
                               output_formats=("txt", "srt"),
                               output_dir=str(tmp_path))
-    decodes = res["performance"]["decodes"]
+    decodes = eng.last_stats["decodes"]
     main = [d for d in decodes if d["temperature"] == 0.0]
     ladder = [d for d in decodes if d["temperature"] > 0.0]
     assert sum(d["rows"] for d in main) == res["num_windows"]

@@ -70,9 +70,10 @@ def _cut(path, keep, tail=""):
         f.write("\n".join(lines) + "\n" + tail)
 
 
-def _decoded(res):
-    """The windows the run decoded (its decode calls' windows)."""
-    return sum(d["windows"] for d in res["performance"].get("decodes", []))
+def _decoded(eng):
+    """The windows the engine's last run decoded (its decode calls'
+    windows)."""
+    return sum(d["windows"] for d in eng.last_stats.get("decodes", []))
 
 
 @pytest.fixture(scope="module")
@@ -118,11 +119,11 @@ def test_resume_after_a_cut_journal(engines, wav, full_runs, tmp_path, mode):
     path = str(tmp_path / "j.jsonl")
     open(path, "w").write(open(src).read())
     again = teng.transcribe_file(wav, resume_path=path, **KW, **MODES[mode])
-    assert _decoded(again) == 0
+    assert _decoded(teng) == 0
     assert _segs(again["segments"]) == _segs(full["segments"])
     _cut(path, 1)
     res = teng.transcribe_file(wav, resume_path=path, **KW, **MODES[mode])
-    assert _decoded(res) == full["num_windows"] - 1
+    assert _decoded(teng) == full["num_windows"] - 1
     assert _segs(res["segments"]) == _segs(full["segments"])
     assert len(_lines(path)) == 1 + full["num_windows"]
 
@@ -137,7 +138,7 @@ def test_changed_signature_discards_the_journal(engines, wav, full_runs,
     open(path, "w").write(open(src).read())
     res = teng.transcribe_file(wav, resume_path=path,
                                **dict(KW, max_new_tokens=6))
-    assert _decoded(res) == res["num_windows"] == 3
+    assert _decoded(teng) == res["num_windows"] == 3
     assert _lines(path)[0] != _lines(src)[0]
     assert len(_lines(path)) == 4
 
@@ -152,7 +153,7 @@ def test_torn_tail_line_is_skipped(engines, wav, full_runs, tmp_path):
     journal = ResumeJournal(path, json.loads(_lines(src)[0])["plan_sig"])
     assert list(journal.done) == [json.loads(_lines(src)[1])["window_id"]]
     res = teng.transcribe_file(wav, resume_path=path, **KW)
-    assert _decoded(res) == 2
+    assert _decoded(teng) == 2
     assert _segs(res["segments"]) == _segs(full["segments"])
 
 

@@ -335,11 +335,11 @@ def test_bucket_encodes_short_windows_at_800(model, sparse_wav, mixed_wav,
     want = jeng.transcribe_file(wav, **kw)
     got = teng.transcribe_file(wav, **kw)
     _assert_same(got, want)
-    assert got["performance"]["encodes"] == jcounts
-    assert got["performance"]["encodes"][800] >= 2
+    assert teng.last_stats["encodes"] == jcounts
+    assert teng.last_stats["encodes"][800] >= 2
     long_windows = 1 if wav_name == "mixed" else 0
-    assert got["performance"]["encodes"].get(1500, 0) == long_windows
-    assert {d["audio_ctx"] for d in got["performance"]["decodes"]} == (
+    assert teng.last_stats["encodes"].get(1500, 0) == long_windows
+    assert {d["audio_ctx"] for d in teng.last_stats["decodes"]} == (
         {800, 1500} if long_windows else {800})
     for s in got["segments"]:
         assert 0.0 <= s["start"] <= s["end"] <= got["duration"] + 0.5
@@ -355,7 +355,7 @@ def test_bucket_without_vad_keeps_the_30s_context(model, sparse_wav):
     want = jeng.transcribe_file(sparse_wav, **kw)
     got = teng.transcribe_file(sparse_wav, **kw)
     _assert_same(got, want)
-    assert got["performance"]["encodes"] == jcounts == {1500: 1}
+    assert teng.last_stats["encodes"] == jcounts == {1500: 1}
 
 
 def test_bucket_off_encodes_at_1500(model, sparse_wav):
@@ -365,7 +365,7 @@ def test_bucket_off_encodes_at_1500(model, sparse_wav):
         overrides={"vad.backend": "energy"}))
     res = teng.transcribe_file(sparse_wav, language="en", temperature=(0.0,),
                                max_new_tokens=4, output_formats=())
-    assert res["performance"]["encodes"] == {1500: res["num_windows"]}
+    assert teng.last_stats["encodes"] == {1500: res["num_windows"]}
 
 
 # ---------------------------------------------------------------------------

@@ -151,6 +151,14 @@ def _params_of(path: Path, name: str, cls: str = None):
      "DiarizationPipeline"),
     ("diarize/pipeline.py", "diarize/pipeline.py", "__call__",
      "DiarizationPipeline"),
+    ("pipeline/engine.py", "pipeline/engine.py", "__init__",
+     "AriesTranscriber"),
+    ("pipeline/legacy.py", "pipeline/legacy.py", "__init__",
+     "FixedUltraFastTranscriber"),
+    ("pipeline/legacy.py", "pipeline/legacy.py", "transcribe_ultra_fast",
+     "FixedUltraFastTranscriber"),
+    ("decoding/generate.py", "decoding/generate.py",
+     "beam_search_decode_sharded", None),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_entry_points_take_every_jax_parameter(jax_file, port_file, name,
                                                cls):
@@ -450,3 +458,78 @@ def test_attention_micro_row_names_the_build_functions():
         path, line = ref.split(":")
         text = (ROOT / path).read_text(encoding="utf-8").splitlines()
         assert text[int(line) - 1].startswith("def build(")
+
+
+#: the command-line tools, each with its JAX counterpart; the ones that
+#: run a model take ``--device`` (the JAX tools have none but transcribe)
+CLIS = ("transcribe", "batch_transcribe", "diarize", "conversation",
+        "meeting", "demo", "verify_setup", "install_packages", "clients")
+DEVICE_CLIS = ("transcribe", "batch_transcribe", "diarize", "conversation",
+               "demo", "verify_setup")
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser_of(main, monkeypatch):
+    """The ArgumentParser ``main`` builds, caught at its parse_args."""
+    import argparse
+
+    caught = {}
+
+    def grab(self, args=None, namespace=None):
+        caught["parser"] = self
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(_Parsed):
+        main(["x"])
+    monkeypatch.undo()
+    return caught["parser"]
+
+
+def _options(parser):
+    """{option string or positional dest: default}."""
+    out = {}
+    for a in parser._actions:
+        if a.dest == "help":
+            continue
+        for name in a.option_strings or [a.dest]:
+            out[name] = a.default
+    return out
+
+
+@pytest.mark.parametrize("name", CLIS)
+def test_cli_takes_every_jax_flag_with_its_default(name, monkeypatch):
+    """Each port CLI's parser has every option string (and positional) of
+    its JAX counterpart with the same default, and ``--device`` where it
+    runs a model; nothing else."""
+    import importlib
+
+    jax_main = importlib.import_module(f"whisper_aries_tpu.cli.{name}").main
+    port_main = importlib.import_module(
+        f"whisper_aries_tpu_torch.cli.{name}").main
+    want = _options(_parser_of(jax_main, monkeypatch))
+    got = _options(_parser_of(port_main, monkeypatch))
+    missing = [o for o in want if o not in got]
+    assert not missing, f"cli/{name} lacks {missing}"
+    assert {o: got[o] for o in want} == want
+    extra = set(got) - set(want)
+    assert extra == ({"--device"} - set(want) if name in DEVICE_CLIS
+                     else set())
+    if name in DEVICE_CLIS:
+        assert got["--device"] is None  # CUDA unless asked for the CPU
+
+
+def test_cli_and_parallel_import_nothing_of_jax():
+    """The new directories exist with their modules, and none imports
+    jax or the JAX package (the scan above covers them too)."""
+    cli = sorted(f.stem for f in (PORT / "cli").glob("*.py"))
+    assert cli == sorted(CLIS + ("__init__",))
+    par = sorted(f.stem for f in (PORT / "parallel").glob("*.py"))
+    assert par == ["__init__", "mesh"]
+    for f in list((PORT / "cli").glob("*.py")) + list(
+            (PORT / "parallel").glob("*.py")):
+        names = list(_imports(f))
+        assert not [n for n in names if _forbidden(n)], f

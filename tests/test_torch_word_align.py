@@ -270,7 +270,7 @@ def test_engine_attaches_words_to_every_segment(model, tmp_path,
         output_formats=("txt", "json", "srt"),
         output_dir=str(tmp_path / "out"))
     assert res["segments"]
-    assert res["performance"]["words"]["windows"] == len(
+    assert eng.last_stats["words"]["windows"] == len(
         {s["window_id"] for s in res["segments"]})
     for s in res["segments"]:
         assert s["words"]

@@ -491,3 +491,61 @@ def detect_language_logits(params: Dict[str, Any], xa: torch.Tensor,
     prompt = torch.full((B, 1), sot, dtype=torch.long, device=xa.device)
     logits = W.decoder_step(params, prompt, 0, cache, cross, dims)
     return torch.softmax(logits[:, 0, lang0:lang0 + n_lang], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# One decode replica a card
+# ---------------------------------------------------------------------------
+
+
+def beam_search_decode_sharded(
+    mesh,
+    params,
+    xa: torch.Tensor,
+    prompt: torch.Tensor,
+    dims: W.WhisperDims,
+    ids: DecodeSpecialIds,
+    suppress_mask: torch.Tensor,
+    sot_index: int,
+    repetition_penalty: Optional[float] = None,
+    prompt_start: Optional[int] = None,
+    row_lang: Optional[torch.Tensor] = None,
+    **static_kw,
+) -> Dict[str, torch.Tensor]:
+    """Beam decode with one full replica a mesh entry (the JAX package's
+    ``beam_search_decode_sharded``, which runs one under ``shard_map`` a
+    device with no collective): ``xa`` and ``prompt`` are cut into the
+    mesh's contiguous shards (parallel/mesh.py), each shard decodes by
+    ``beam_search_decode`` on its device's copy of ``params`` in its own
+    thread under that card's lock, and the outputs join in window order
+    on the first entry's device.
+
+    ``params`` is one tree (replicated here) or ``replicate_params``'
+    list; a ``wpack`` in ``static_kw`` likewise. ``row_lang`` (B,), each
+    window's language token, is written after <|sot|> in its prompt row
+    (the JAX function accepts it but drops it). The other keywords go to
+    ``beam_search_decode`` as they are."""
+    from whisper_aries_tpu_torch.parallel.mesh import (
+        join_shards,
+        map_shards,
+        replicate_params,
+    )
+
+    reps = (params if isinstance(params, list)
+            else replicate_params(params, mesh))
+    wpack = static_kw.pop("wpack", None)
+    if wpack is not None and not isinstance(wpack, list):
+        wpack = replicate_params(wpack, mesh)
+    if row_lang is not None:
+        prompt = prompt.clone()
+        prompt[:, sot_index + 1] = row_lang.to(prompt)
+
+    def one(i, device, lo, hi):
+        return beam_search_decode(
+            reps[i], xa[lo:hi].to(device), prompt[lo:hi].to(device), dims,
+            ids, suppress_mask.to(device), sot_index,
+            repetition_penalty=repetition_penalty,
+            prompt_start=prompt_start or 0,
+            wpack=wpack[i] if wpack is not None else None, **static_kw)
+
+    return join_shards(map_shards(mesh, int(xa.shape[0]), one), mesh[0])

@@ -50,13 +50,10 @@ from whisper_aries_tpu_torch.models.layers import (
 from whisper_aries_tpu_torch.ops import cuda_build as cb
 from whisper_aries_tpu_torch.ops.cross_attn import (
     cross_attention_q8,
-    cross_attention_q8_kernel,
     quantize_kv_per_position,
 )
-from whisper_aries_tpu_torch.ops.quant import quant_matmul_dequant_kernel
 from whisper_aries_tpu_torch.ops.self_attn import (
     self_attention_q8,
-    self_attention_q8_kernel,
     self_attention_q8_plain,
 )
 
@@ -441,7 +438,7 @@ def encoder_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     cb.launch(_attn_fn(), q, "encoder attention kernel", cb.ptr(q), cb.ptr(k),
               cb.ptr(v), cb.ptr(out), B, H, T)
-    encoder_attention_kernel.launches += 1
+    cb.count(encoder_attention_kernel)
     return out
 
 
@@ -751,24 +748,6 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
 decoder_step.graph_replays = 0
 
 
-def _launch_counts() -> Dict[Tuple[Any, Optional[str]], int]:
-    """The launch counts of the kernels ``decoder_step`` reaches, keyed by
-    (wrapper, GEMM path or None)."""
-    gemm = quant_matmul_dequant_kernel
-    counts = {(f, None): f.launches for f in (
-        self_attention_q8_kernel, cross_attention_q8_kernel, gemm)}
-    counts.update({(gemm, p): n for p, n in gemm.launches_by_path.items()})
-    return counts
-
-
-def _add_launches(counts: Dict[Tuple[Any, Optional[str]], int]) -> None:
-    for (f, path), n in counts.items():
-        if path is None:
-            f.launches += n
-        else:
-            f.launches_by_path[path] += n
-
-
 class UnfusedStepGraph:
     """One unfused decode step, ``decoder_step`` at S = 1 with its vocab
     product, captured once as a CUDA graph over fixed operands: the
@@ -810,11 +789,10 @@ class UnfusedStepGraph:
         with torch.cuda.device(dev):
             step()  # the warm-up
             torch.cuda.synchronize()
-        before = _launch_counts()
-        self.graph = cb.capture(dev, step)
-        self.launches = {k: n - before[k]
-                         for k, n in _launch_counts().items()}
-        _add_launches({k: -n for k, n in self.launches.items()})
+        # the kernels the capture records, counted at each replay (in this
+        # thread's record: replicas may launch in other threads meanwhile)
+        with cb.recording() as self.launches:
+            self.graph = cb.capture(dev, step)
 
     def run(self, tok: torch.Tensor, pos: int,
             valid_start: Optional[int] = None) -> torch.Tensor:
@@ -831,6 +809,6 @@ class UnfusedStepGraph:
         self.step[0].fill_(pos)
         with torch.cuda.device(self.dev):
             self.graph.replay()
-        _add_launches(self.launches)
-        decoder_step.graph_replays += 1
+        cb.add_counts(self.launches)
+        cb.bump(decoder_step, "graph_replays")
         return self.logits

@@ -60,7 +60,7 @@ def permute_rows_kernel(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     row_bytes = x[0, 0].numel() * x.element_size()
     cb.launch(_fn(), x, "beam reorder kernel", cb.ptr(x), cb.ptr(src), L, B,
               K, row_bytes)
-    permute_rows_kernel.launches += 1
+    cb.count(permute_rows_kernel)
     return x
 
 

@@ -144,7 +144,7 @@ def beam_tail_kernel(logits_flat, sum_logprob, last_tok, penult_tok,
               eot, blank, no_ts, init_cap, int(with_timestamps),
               int(suppress_blank), int(bool(is_first)), sms, cb.ptr(cand),
               cb.ptr(live), cb.ptr(idx), cb.ptr(eots))
-    beam_tail_kernel.launches += 1
+    cb.count(beam_tail_kernel)
     return live, idx, eots
 
 

@@ -152,7 +152,7 @@ def cross_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
               cb.ptr(vs), ks.stride(0), ks.stride(1), cb.ptr(out),
               int(out.dtype == torch.bfloat16), os_[0], os_[1], os_[2], B, H,
               G, T, sms)
-    cross_attention_q8_kernel.launches += 1
+    cb.count(cross_attention_q8_kernel)
     return out
 
 

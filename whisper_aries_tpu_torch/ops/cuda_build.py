@@ -18,6 +18,7 @@ CPU has no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -149,12 +150,70 @@ def launch(fn, t, what: str, *args) -> None:
 def capture(dev: torch.device, fn) -> torch.cuda.CUDAGraph:
     """``fn``'s launches captured as one CUDA graph on card ``dev``, on a
     capture stream of that card, whatever the current device is. Replay it
-    under ``torch.cuda.device(dev)``. Raises if the capture fails."""
+    under ``torch.cuda.device(dev)``. Raises if the capture fails. The
+    capture is thread-local: only this thread's unsafe CUDA calls break
+    it, so replicas on other cards go on working in their own threads
+    meanwhile."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(dev):
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                              capture_error_mode="thread_local"):
             fn()
     return graph
+
+
+# launch counters: every wrapper adds to its function's ``launches``
+# (and, for the W8A16 GEMM, ``launches_by_path``) through ``count``, under
+# one process lock, so the counts stay exact when replicas launch from
+# several threads; a thread inside ``recording()`` adds to its own record
+_count_lock = threading.Lock()
+_count_local = threading.local()
+
+
+def count(fn, n: int = 1, path: str = None) -> None:
+    """Add ``n`` launches to wrapper ``fn`` (to its ``launches_by_path
+    [path]`` too where ``path`` is given); inside ``recording()`` to the
+    calling thread's record instead."""
+    rec = getattr(_count_local, "record", None)
+    if rec is not None:
+        rec[(fn, path)] = rec.get((fn, path), 0) + n
+        if path is not None:
+            rec[(fn, None)] = rec.get((fn, None), 0) + n
+        return
+    with _count_lock:
+        fn.launches += n
+        if path is not None:
+            fn.launches_by_path[path] += n
+
+
+def bump(fn, attr: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``attr`` of ``fn`` (e.g. ``graph_replays``)
+    under the counters' lock."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches this thread counts inside the block, as {(wrapper,
+    path or None): n}, kept out of the counters (a graph capture runs no
+    kernel: its launches count at each replay)."""
+    rec: Dict = {}
+    _count_local.record = rec
+    try:
+        yield rec
+    finally:
+        _count_local.record = None
+
+
+def add_counts(rec: Dict, times: int = 1) -> None:
+    """Add a ``recording()`` record ``times`` over to the counters."""
+    with _count_lock:
+        for (fn, path), n in rec.items():
+            if path is None:
+                fn.launches += n * times
+            else:
+                fn.launches_by_path[path] += n * times
 
 
 # csrc/hopper.cuh's codes beside cudaError_t values

@@ -518,7 +518,7 @@ def layer_norm_kernel(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor
     y = torch.empty_like(x)
     cb.launch(_kernels(x).aries_layer_norm, x, "layer norm", cb.ptr(x), R,
               d, cb.ptr(s), cb.ptr(b), cb.ptr(y))
-    layer_norm_kernel.launches += 1
+    cb.count(layer_norm_kernel)
     return y
 
 
@@ -550,7 +550,7 @@ def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     cb.launch(_kernels(x).aries_w8a16_gemm, x, "w8a16 gemm", cb.ptr(x), K,
               R, K, cb.ptr(w8), w8.stride(0), N, cb.ptr(scale), cb.ptr(bias),
               mode, cb.ptr(out), N, cb.sm_count(x))
-    w8a16_gemm_kernel.launches += 1
+    cb.count(w8a16_gemm_kernel)
     return out
 
 
@@ -587,7 +587,7 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
               cb.ptr(qkv), R, d, n_head, cb.ptr(ckv),
               cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step),
               cb.ptr(att))
-    self_attn_kernel.launches += 1
+    cb.count(self_attn_kernel)
     return att
 
 
@@ -609,7 +609,7 @@ def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
     cb.launch(_kernels(cq).aries_cross_attn, cq, "cross attention",
               cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l), cb.ptr(sc_l), Ta, Bw,
               cb.ptr(att), cb.sm_count(cq))
-    cross_attn_kernel.launches += 1
+    cb.count(cross_attn_kernel)
     return att
 
 
@@ -681,7 +681,7 @@ def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
         raise ValueError(f"need 0 <= valid_start <= pos < {ops.T}")
     x = x.clone()
     ops.launch(x, _step_scalars(pos, valid_start, x.device))
-    fused_decoder_layers.launches += 1
+    cb.count(fused_decoder_layers)
     return x
 
 
@@ -747,6 +747,6 @@ class DecodeStepGraph:
         self.step[0].fill_(pos)
         with torch.cuda.device(self.dev):
             self.graph.replay()
-        fused_decoder_layers.launches += 1
-        fused_decoder_layers.graph_replays += 1
+        cb.count(fused_decoder_layers)
+        cb.bump(fused_decoder_layers, "graph_replays")
         return self.x

@@ -164,7 +164,7 @@ def mel_power_kernel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
     cb.launch(_kernel(), audio, "mel kernel", cb.ptr(audio), B, n_samples,
               cb.ptr(tw), cb.ptr(hann), cb.ptr(rows), cb.ptr(weights),
               cb.ptr(out), n_frames, n_mels)
-    mel_power_kernel.launches += 1
+    cb.count(mel_power_kernel)
     return out
 
 

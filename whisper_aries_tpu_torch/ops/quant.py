@@ -206,8 +206,7 @@ def quant_matmul_dequant_kernel(x: torch.Tensor, q: torch.Tensor,
               cb.ptr(q), cb.ptr(s), cb.ptr(out),
               int(out_dtype == torch.bfloat16), M, N, K, GEMM_PATHS[path],
               sms, cb.ptr(scratch) if scratch is not None else None)
-    quant_matmul_dequant_kernel.launches += 1
-    quant_matmul_dequant_kernel.launches_by_path[path] += 1
+    cb.count(quant_matmul_dequant_kernel, path=path)
     return out
 
 

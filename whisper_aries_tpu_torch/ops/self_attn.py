@@ -120,7 +120,7 @@ def self_attention_q8_kernel(q: torch.Tensor, k8: torch.Tensor,
               q.stride(1), cb.ptr(k8), cb.ptr(v8), k8.stride(0), k8.stride(1),
               cb.ptr(ks), cb.ptr(vs), ks.stride(0), ks.stride(1),
               cb.ptr(mask), cb.ptr(out), B, H, T, sms)
-    self_attention_q8_kernel.launches += 1
+    cb.count(self_attention_q8_kernel)
     return out
 
 

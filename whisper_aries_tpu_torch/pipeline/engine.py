@@ -31,9 +31,22 @@ and decodes its file first, then holds the device's lock
 (``utils/device.py::on_card``, shared with every engine and diarizer on
 that device) over all its device work, so calls from several threads (the
 server's jobs) take turns on the card: a decode call's CUDA graph capture
-never sees another job's launches, and ``last_stats`` is the call's own
-(``card_wait_s``: the seconds it waited for the lock). The constructor's
-weight upload, ``smoke_test`` and ``detect_language`` hold it too.
+never sees another job's launches. The constructor's weight upload,
+``smoke_test`` and ``detect_language`` hold it too. ``last_stats`` holds
+the port's own counters of the calling thread's last call (``encodes``,
+``decodes``, ``words``, ``card_wait_s``: the seconds it waited for the
+lock); the result's ``performance`` is the JAX engine's
+``PerformanceMonitor`` report, one unit a window batch.
+
+Replicas (``mesh``, parallel/mesh.py; the JAX engine's mesh): one copy of
+the weights on each card of the mesh, and each batch of windows cut into
+the mesh's contiguous shards; each shard's card work (gather, mel, encode,
+language probe, decode, the fallback rungs) runs in its own host thread
+against its replica under that card's lock, and the outputs join in
+window order. The calling thread then holds no card lock (an engine lock
+keeps the engine's calls one at a time); the sequential mode, the language
+detection and the word pass run on the first replica. With one replica
+every shard runs in the calling thread under the card lock, as before.
 Activations are bf16 on CUDA and f32 on the CPU. "auto" config values
 resolve to the card's path: int8 cross K/V, decode steps through the
 decoder-layer kernels with in-kernel int8 self-cache quantization. On the
@@ -67,10 +80,12 @@ resets that context when the accepted temperature exceeds
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -99,8 +114,18 @@ from whisper_aries_tpu_torch.ops.decode_layers import pack_layer_weights
 from whisper_aries_tpu_torch.ops.mel import log_mel
 from whisper_aries_tpu_torch.pipeline.journal import ResumeJournal, plan_signature
 from whisper_aries_tpu_torch.render.renderers import srt_timestamp
+from whisper_aries_tpu_torch.parallel.mesh import (
+    auto_windows_per_device,
+    join_shards,
+    map_shards,
+    replicate_params,
+)
 from whisper_aries_tpu_torch.utils.device import on_card, resolve_device
-from whisper_aries_tpu_torch.utils.perf import WorkerDiagnostics
+from whisper_aries_tpu_torch.utils.memory import is_oom_error
+from whisper_aries_tpu_torch.utils.perf import (
+    PerformanceMonitor,
+    WorkerDiagnostics,
+)
 from whisper_aries_tpu_torch.utils.segments import (
     merge_overlapping_segments,
     remove_overlaps_drop,
@@ -168,7 +193,8 @@ class _CallOpts:
 
 
 class AriesTranscriber:
-    """Long-form transcription engine on one CUDA card (or the CPU)."""
+    """Long-form transcription engine on one CUDA card (or the CPU), or
+    one replica a card of a mesh."""
 
     WINDOW_SAMPLES = 480_000  # 30 s @ 16 kHz
     # audio_ctx="bucket": a batch made only of windows of <= 16 s is
@@ -189,6 +215,7 @@ class AriesTranscriber:
         cache_dir: str = "./models",
         config: Optional[AriesConfig] = None,
         allow_random: bool = False,
+        mesh=None,
         windows_per_device: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,  # "auto" | "int8" | "bf16"
         mel_backend: Optional[str] = None,     # "auto" | "pallas" | "xla"
@@ -201,8 +228,22 @@ class AriesTranscriber:
         self.model_size = model_size
         self.chunk_length_minutes = chunk_length_minutes
         self.overlap_seconds = overlap_seconds
-        self.device = resolve_device(device, "AriesTranscriber")
+        # the mesh: the data axis of replicas (default: one, on ``device``)
+        if mesh is not None:
+            self.mesh = [resolve_device(str(d), "AriesTranscriber")
+                         for d in mesh]
+            self.mesh = [torch.device("cuda", torch.cuda.current_device())
+                         if d.type == "cuda" and d.index is None else d
+                         for d in self.mesh]
+            self.device = self.mesh[0]
+        else:
+            self.device = resolve_device(device, "AriesTranscriber")
+            self.mesh = [self.device]
         on_cuda = self.device.type == "cuda"
+        self._tls = threading.local()        # a thread's call stats
+        self._stats_lock = threading.Lock()  # shards update them at once
+        self._call_lock = threading.RLock()  # calls across several cards
+        self.last_monitor: Optional[PerformanceMonitor] = None
         dc = self.config.decode
         # one mel: the kernel on the card ("auto" and "pallas"), its plain
         # version on the CPU, where "xla" (the FFT version) is the same
@@ -246,7 +287,6 @@ class AriesTranscriber:
             # the default mask (config.decode.suppress_tokens); a call's
             # own suppress_tokens build theirs
             self.suppress_mask = self._make_suppress_mask(dc.suppress_tokens)
-            self.batch_size = max(1, windows_per_device or num_workers or 8)
 
             kvd = kv_cache_dtype or dc.kv_cache_dtype
             self.kv_int8 = kvd == "int8" or (kvd == "auto" and on_cuda)
@@ -265,14 +305,63 @@ class AriesTranscriber:
             self.alignment_heads: Optional[List[Tuple[int, int]]] = (
                 load_alignment_heads(self.model_dir))
             self._speech_scorer = self._make_speech_scorer()
-            self.last_stats: Dict[str, Any] = {}
+            self.last_stats = {}
             self.last_diagnostics: Optional[WorkerDiagnostics] = None
-            # a corrupt checkpoint fails here, not mid-job (the reference
-            # runs 0.5 s of noise through a loaded model before serving);
-            # random and injected weights skip it
-            if self.model_dir is not None and os.environ.get(
-                    "ARIES_SMOKE_TEST", "1") != "0":
-                self.smoke_test()
+        self._others = self._make_replicas()
+        # windows a replica decodes at once: given, else sized from the
+        # card's free memory (as the JAX engine sizes them on the TPU), 8
+        # on the CPU; the batch is that times the replicas
+        wpd = windows_per_device or num_workers
+        if wpd is None:
+            wpd = (auto_windows_per_device(
+                dims=self.dims, beam_size=dc.beam_size or 5,
+                sample_len=dc.max_new_tokens, kv_int8=self.kv_int8,
+                self_kv_int8=self.self_kv_int8, mesh=self.mesh)
+                if on_cuda else 8)
+        self.batch_size = max(1, len(self.mesh) * wpd)
+        # a corrupt checkpoint fails here, not mid-job (the reference
+        # runs 0.5 s of noise through a loaded model before serving);
+        # random and injected weights skip it
+        if self.model_dir is not None and os.environ.get(
+                "ARIES_SMOKE_TEST", "1") != "0":
+            self.smoke_test()
+
+    @property
+    def replicas(self) -> List["AriesTranscriber"]:
+        """One engine view a mesh entry: this engine for the first."""
+        return [self] + self._others
+
+    def _make_replicas(self) -> List["AriesTranscriber"]:
+        """The views of the mesh entries after the first: shallow copies
+        holding that device's copy of the weights (and weight pack and
+        suppress mask); entries on one device share it. (None holds this
+        engine, so dropping it frees its card memory at once.)"""
+        if len(self.mesh) == 1:
+            return []
+        trees = {}
+        for d in dict.fromkeys(self.mesh):
+            with on_card(d):  # the uploads are card work
+                trees[d] = (replicate_params(self.params, [d])[0],
+                            replicate_params(self.wpack, [d])[0]
+                            if self.wpack is not None else None,
+                            self.suppress_mask.to(d))
+        reps = []
+        for d in self.mesh[1:]:
+            r = copy.copy(self)
+            r.device = d
+            r.params, r.wpack, r.suppress_mask = trees[d]
+            reps.append(r)
+        return reps
+
+    @property
+    def last_stats(self) -> Dict[str, Any]:
+        """The port's counters of the calling thread's last call (else of
+        the last call made)."""
+        return getattr(self._tls, "stats", self._last_stats)
+
+    @last_stats.setter
+    def last_stats(self, stats: Dict[str, Any]) -> None:
+        self._tls.stats = self._last_stats = stats
 
     def smoke_test(self) -> None:
         """0.5 s of noise through mel -> encoder -> one teacher-forced
@@ -355,24 +444,31 @@ class AriesTranscriber:
         """Log-mel: the mel kernel on CUDA, the FFT version on the CPU."""
         return log_mel(audio, n_mels=self.dims.n_mels)
 
-    def _upload(self, pre: AudioPreloader) -> torch.Tensor:
-        """The whole file as int16 on the device, zero-padded by one window
-        so every window gathers in bounds (16-bit, the reference's
-        pcm_s16le ingest contract): a PCM16 file's own samples, else the
-        decoded audio quantized."""
+    def _upload(self, pre: AudioPreloader
+                ) -> Dict[torch.device, torch.Tensor]:
+        """The whole file as int16 on each device of the mesh, zero-padded
+        by one window so every window gathers in bounds (16-bit, the
+        reference's pcm_s16le ingest contract): a PCM16 file's own
+        samples, else the decoded audio quantized."""
         a16 = pre.audio_i16
         if a16 is None:
             a16 = np.clip(pre.audio * 32768.0, -32768, 32767).astype(np.int16)
-        buf = torch.zeros(len(a16) + self.WINDOW_SAMPLES, dtype=torch.int16,
-                          device=self.device)
-        buf[: len(a16)] = torch.from_numpy(a16).to(self.device)
-        return buf
+        bufs = {}
+        for d in dict.fromkeys(self.mesh):
+            with on_card(d):
+                buf = torch.zeros(len(a16) + self.WINDOW_SAMPLES,
+                                  dtype=torch.int16, device=d)
+                buf[: len(a16)] = torch.from_numpy(a16).to(d)
+            bufs[d] = buf
+        return bufs
 
-    def _gather(self, audio16: torch.Tensor, windows: Sequence[Window],
-                idx: Sequence[int], win: Optional[int] = None
-                ) -> torch.Tensor:
-        """(B, win) f32 windows gathered on the device, zeroed past each
-        window's length; ``win`` defaults to the 30 s WINDOW_SAMPLES."""
+    def _gather(self, audio16: Dict[torch.device, torch.Tensor],
+                windows: Sequence[Window], idx: Sequence[int],
+                win: Optional[int] = None) -> torch.Tensor:
+        """(B, win) f32 windows gathered on this replica's device from its
+        copy of the file (``_upload``), zeroed past each window's length;
+        ``win`` defaults to the 30 s WINDOW_SAMPLES."""
+        audio16 = audio16[self.device]
         win = win or self.WINDOW_SAMPLES
         starts = [int(round(windows[i].start * SR)) for i in idx]
         lens = [min(win, int(round(windows[i].duration * SR))) for i in idx]
@@ -422,10 +518,53 @@ class AriesTranscriber:
         """The encoder over a batch's mel; counts the windows encoded at
         each context in ``last_stats["encodes"]`` ({T: windows})."""
         xa = W.encode(self.params, mel.to(self.activation_dtype), self.dims)
-        enc = self.last_stats.setdefault("encodes", {})
-        T = int(xa.shape[1])
-        enc[T] = enc.get(T, 0) + int(xa.shape[0])
+        with self._stats_lock:
+            enc = self.last_stats.setdefault("encodes", {})
+            T = int(xa.shape[1])
+            enc[T] = enc.get(T, 0) + int(xa.shape[0])
         return xa
+
+    def _encode_windows(self, audio16, windows: Sequence[Window],
+                        idx: Sequence[int], win: Optional[int] = None
+                        ) -> torch.Tensor:
+        """Gather, mel and encode windows ``idx`` on this replica."""
+        return self._encode_batch(self._mel(self._gather(audio16, windows,
+                                                         idx, win)))
+
+    def _on_shards(self, n: int, fn, sharded: bool = True) -> List[Any]:
+        """``fn(i, replica, lo, hi)`` over the mesh's shards of ``n`` windows
+        (parallel/mesh.py::map_shards): each in its replica's thread under
+        its card's lock, with this call's ``last_stats``. ``sharded=False``
+        runs all ``n`` on the first replica in the calling thread (the
+        sequential mode, which holds that card's lock)."""
+        if not sharded:
+            with on_card(self.device):
+                return [fn(0, self, 0, n)]
+        stats = self.last_stats
+
+        def one(i, device, lo, hi):
+            self._tls.stats = stats
+            return fn(i, self.replicas[i], lo, hi)
+
+        return map_shards(self.mesh, n, one)
+
+    def _decode_shards(self, xs: Sequence[Optional[torch.Tensor]],
+                       prompt: np.ndarray, temperature: float,
+                       sample_len: int, sharded: bool = True, **kw
+                       ) -> Dict[str, np.ndarray]:
+        """``_decode_batch`` of each replica's encoded shard ``xs[i]``
+        (None: an empty shard) over its windows' prompt rows (a multiple of
+        the windows, window-major), joined in window order. A sampled
+        decode seeds each shard's generator alike: every replica samples
+        its shard as a one-replica engine samples a batch of it."""
+        n = sum(int(x.shape[0]) for x in xs if x is not None)
+        g = prompt.shape[0] // n
+
+        def one(i, r, lo, hi):
+            return r._decode_batch(xs[i], prompt[lo * g:hi * g], temperature,
+                                   sample_len, **kw)
+
+        return join_shards(self._on_shards(n, one, sharded))
 
     def _call_opts(self, suppress_tokens=None, without_timestamps=None,
                    max_initial_timestamp=None, multilingual=None,
@@ -466,6 +605,7 @@ class AriesTranscriber:
         ``opts`` default to config.decode's."""
         opts = opts or self._call_opts()
         rep = opts.repetition_penalty
+        suppress_mask = opts.suppress_mask.to(self.device)
         common = dict(
             with_timestamps=opts.with_timestamps,
             kv_int8=self.kv_int8, self_kv_int8=self.self_kv_int8,
@@ -477,7 +617,7 @@ class AriesTranscriber:
         if beam_size > 1 and temperature == 0:
             out = G.beam_search_decode(
                 self.params, xa, prompt_t, self.dims, opts.ids,
-                opts.suppress_mask, sot_index, beam_size=beam_size,
+                suppress_mask, sot_index, beam_size=beam_size,
                 sample_len=sample_len, length_penalty=length_penalty,
                 patience=patience, **common)
             rows = int(xa.shape[0]) * beam_size
@@ -488,7 +628,7 @@ class AriesTranscriber:
                 gen.manual_seed(seed)
             out = G.greedy_decode(
                 self.params, xa, prompt_t, self.dims, opts.ids,
-                opts.suppress_mask, sot_index, float(temperature), gen,
+                suppress_mask, sot_index, float(temperature), gen,
                 sample_len=sample_len, **common)
             rows = int(prompt_t.shape[0])
         res = {k: v.cpu().numpy() for k, v in out.items()}
@@ -501,7 +641,8 @@ class AriesTranscriber:
                  "seconds": time.time() - t0}
         if "permuted" in res:
             stats["permuted"] = int(res["permuted"])
-        self.last_stats.setdefault("decodes", []).append(stats)
+        with self._stats_lock:
+            self.last_stats.setdefault("decodes", []).append(stats)
         return res
 
     def _probe_languages(self, xa: torch.Tensor
@@ -599,10 +740,14 @@ class AriesTranscriber:
         # host work outside the card lock: read, decode and resample
         pre = AudioPreloader(audio_path)
         t_wait = time.time()
-        with on_card(self.device):
-            # one job's card work at a time: encode, decode calls with their
-            # graph captures, the word pass (last_stats is this call's)
+        # one job's card work at a time: encode, decode calls with their
+        # graph captures, the word pass (last_stats is this call's). Across
+        # several cards the calling thread holds the engine's own lock and
+        # each shard its card's (one replica: the card's over the call)
+        with (on_card(self.device) if len(self.mesh) == 1
+              else self._call_lock):
             self.last_stats = {"card_wait_s": time.time() - t_wait}
+            self.last_monitor = None
             diag = WorkerDiagnostics()
             self.last_diagnostics = diag
             dc = self.config.decode
@@ -651,8 +796,11 @@ class AriesTranscriber:
                     if (opts.multilingual or condition_on_previous_text
                             or prefix):
                         # the file's language from its first window at 30 s
-                        mel0 = self._mel(self._gather(audio16, windows, [0]))
-                        lang["code"], lang["prob"] = self.detect_language(mel0)
+                        with on_card(self.device):
+                            mel0 = self._mel(self._gather(audio16, windows,
+                                                          [0]))
+                            lang["code"], lang["prob"] = (
+                                self.detect_language(mel0))
                     else:
                         # detected from the first batch's first window, at the
                         # batch's context, before that batch decodes
@@ -692,18 +840,21 @@ class AriesTranscriber:
                            thresholds=thresholds, best_of=best_of, beam=beam,
                            opts=opts, journal=journal)
                 if condition_on_previous_text:
-                    segments = self._transcribe_windows_sequential(
-                        audio16, windows, prompt_ids, sot_idx, prefix_ids,
-                        progress_callback=progress_callback, **run)
+                    with on_card(self.device):  # on the first replica
+                        segments = self._transcribe_windows_sequential(
+                            audio16, windows, prompt_ids, sot_idx,
+                            prefix_ids, progress_callback=progress_callback,
+                            **run)
                 else:
                     skip = set()
                     done = journal.done if journal else {}
                     if prefix_ids and 0 not in done:
                         # the prefix forces the first window only: it decodes
                         # alone, the rest batched without it
-                        segments += self._transcribe_windows_sequential(
-                            audio16, windows[:1], prompt_ids, sot_idx,
-                            prefix_ids, **run)
+                        with on_card(self.device):
+                            segments += self._transcribe_windows_sequential(
+                                audio16, windows[:1], prompt_ids, sot_idx,
+                                prefix_ids, **run)
                         skip = {0}
                     segments += self._transcribe_windows(
                         audio16, windows, prompt_ids, sot_idx, diag, lang,
@@ -725,14 +876,17 @@ class AriesTranscriber:
                 # no catch-all here: a kernel error in the word pass fails the
                 # call (the JAX engine logs a warning instead)
                 t_w = time.time()
-                self.last_stats["words"] = add_word_timestamps(
-                    self, segments, pre.audio, windows,
-                    prepend_punctuations=(
-                        dc.prepend_punctuations if prepend_punctuations is None
-                        else prepend_punctuations),
-                    append_punctuations=(
-                        dc.append_punctuations if append_punctuations is None
-                        else append_punctuations))
+                with on_card(self.device):  # on the first replica
+                    self.last_stats["words"] = add_word_timestamps(
+                        self, segments, pre.audio, windows,
+                        prepend_punctuations=(
+                            dc.prepend_punctuations
+                            if prepend_punctuations is None
+                            else prepend_punctuations),
+                        append_punctuations=(
+                            dc.append_punctuations
+                            if append_punctuations is None
+                            else append_punctuations))
                 self.last_stats["words"]["seconds"] = time.time() - t_w
 
             wall = time.time() - t0
@@ -746,7 +900,9 @@ class AriesTranscriber:
                 "processing_time": wall,
                 "real_time_factor": duration / wall if wall > 0 else 0.0,
                 "num_windows": len(windows),
-                "performance": self.last_stats,
+                # the JAX engine's report (None without a batched pass)
+                "performance": (self.last_monitor.final_report()
+                                if self.last_monitor else None),
                 "diagnostics": diag.summary(),
                 "metadata": {
                     "audio_file": audio_path,
@@ -770,15 +926,22 @@ class AriesTranscriber:
         """Every window in batches, but those the journal holds (their
         segments taken from it) and ``skip_ids`` (decoded by the caller).
         Under the bucket, short windows come first so whole batches
-        qualify for the 16 s context. A deferred language
+        qualify for the 16 s context. Each batch is cut into the mesh's
+        shards: the replicas gather, encode and probe their windows, then
+        decode them, each in its thread. A deferred language
         (``lang["defer"]``) is detected from the first batch's first window
         and written into every prompt; under ``opts.multilingual`` each
         window's own detected language token replaces it in its prompt row
         (beam rows, and the fallback ladder's, take their window's). A
         window whose tokens fail to parse becomes one failed segment and is
-        not journaled (a resume retries it)."""
+        not journaled (a resume retries it). On a card's out-of-memory
+        error (utils/memory.py::is_oom_error) the batch is halved once and
+        retried. Each batch is one unit of the call's PerformanceMonitor,
+        on device ``batch % replicas``; a segment's ``worker_id`` is its
+        row in the batch modulo the replicas (the JAX engine's)."""
         parse_skip = len(prompt_ids)
         N = len(windows)
+        n_dev = len(self.mesh)
         done = dict(journal.done) if journal is not None else {}
         all_segments: List[Dict[str, Any]] = [
             s for wid, segs in done.items() if wid not in skip_ids
@@ -790,51 +953,74 @@ class AriesTranscriber:
         for i in pending:
             diag.log(i, "PLANNED",
                      f"{windows[i].start:.1f}-{windows[i].end:.1f}s")
+        monitor = PerformanceMonitor(
+            total_audio_s=sum(windows[i].duration for i in pending))
+        self.last_monitor = monitor
         has_langs = bool(self.tokenizer.specials.language_tokens)
+        sp = self.tokenizer.specials
+        lang0 = min(sp.language_tokens.values()) if has_langs else 0
         n_pend = len(pending)
         # size the batches to the file: ceil-divide the windows over the
-        # batch count the cap implies, so no batch is mostly padding
-        B = (min(self.batch_size, -(-n_pend // -(-n_pend // self.batch_size)))
-             if n_pend else 1)
-        p = 0
+        # batch count the cap implies, so no batch is mostly padding, and
+        # round up to a multiple of the replicas, so their shards are equal
+        B = 1
+        if n_pend:
+            per = -(-n_pend // -(-n_pend // self.batch_size))
+            B = min(self.batch_size, -(-per // n_dev) * n_dev)
+        p = bi = 0
         while p < n_pend:
             batch_idx = pending[p:p + B]
+            t_batch = time.time()
             prompt = np.tile(np.asarray(prompt_ids, np.int64),
                              (len(batch_idx), 1))
             win_langs: Optional[List[str]] = None
+            defer = bool(lang.get("defer"))
+            win = self._batch_win(windows, batch_idx)
+            for i in batch_idx:
+                diag.log(i, "ENCODING", f"batch@{p} size={len(batch_idx)}")
+
+            def encode(i, r, lo, hi):
+                xa = r._encode_windows(audio16, windows, batch_idx[lo:hi],
+                                       win)
+                first = (r._probe_languages(xa[:1]) if defer and lo == 0
+                         else None)
+                langs = (r._probe_languages(xa)[0]
+                         if opts.multilingual and has_langs else None)
+                return xa, first, langs
+
             try:
-                for i in batch_idx:
-                    diag.log(i, "ENCODING", f"batch@{p} size={len(batch_idx)}")
-                xa = self._encode_batch(self._mel(self._gather(
-                    audio16, windows, batch_idx,
-                    self._batch_win(windows, batch_idx))))
-                if lang.pop("defer", False):
-                    tok, prob = self._probe_languages(xa[:1])
-                    sp = self.tokenizer.specials
-                    lang["code"] = LANGUAGES[int(tok[0]) - min(
-                        sp.language_tokens.values())]
+                shards = self._on_shards(len(batch_idx), encode)
+                if defer:
+                    lang.pop("defer")
+                    tok, prob = shards[0][1]
+                    lang["code"] = LANGUAGES[int(tok[0]) - lang0]
                     lang["prob"] = float(prob[0])
                     prompt_ids = list(prompt_ids)
                     prompt_ids[sot_idx + 1] = int(tok[0])
                     prompt[:, sot_idx + 1] = int(tok[0])
                 if opts.multilingual and has_langs:
-                    tok, _ = self._probe_languages(xa)
-                    lang0 = min(self.tokenizer.specials.language_tokens
-                                .values())
+                    tok = np.concatenate([sh[2] for sh in shards
+                                          if sh is not None])
                     prompt[:, sot_idx + 1] = tok
                     win_langs = [LANGUAGES[int(t) - lang0] for t in tok]
-                out = self._decode_batch(xa, prompt, temps[0], sample_len,
-                                         opts=opts, sot_index=sot_idx, **beam)
-            except torch.cuda.OutOfMemoryError:
-                # halve the window batch and retry this batch
-                if B == 1:
+                out = self._decode_shards(
+                    [sh[0] if sh is not None else None for sh in shards],
+                    prompt, temps[0], sample_len, opts=opts,
+                    sot_index=sot_idx, **beam)
+            except Exception as e:
+                # halve the window batch once for the whole batch (a
+                # shard's error is re-raised here) and retry it
+                if not is_oom_error(e) or B == 1:
                     raise
                 B = max(1, B // 2)
                 self.batch_size = B
                 log.warning("device OOM — retrying with batch_size=%d", B)
-                torch.cuda.empty_cache()
+                for d in dict.fromkeys(self.mesh):
+                    if d.type == "cuda":
+                        with torch.cuda.device(d):
+                            torch.cuda.empty_cache()
                 continue
-            del xa
+            del shards
             for i in batch_idx:
                 diag.log(i, "DECODING", f"batch@{p} size={len(batch_idx)}")
             rows, fails = [], []
@@ -868,7 +1054,7 @@ class AriesTranscriber:
                 for s in segs:
                     s["chunk_id"] = window.chunk_id
                     s["window_id"] = win_id
-                    s["worker_id"] = 0
+                    s["worker_id"] = w_i % n_dev
                 if not failed:
                     if journal is not None:
                         journal.record(win_id, segs)
@@ -876,6 +1062,10 @@ class AriesTranscriber:
                 all_segments.extend(segs)
             if journal is not None:
                 journal.flush()  # one fsync a batch
+            monitor.record(bi, sum(windows[i].duration for i in batch_idx),
+                           time.time() - t_batch, device=bi % n_dev,
+                           kind="batch")
+            bi += 1
             p += len(batch_idx)
             if progress_callback:
                 progress_callback(len(done) + p, N)
@@ -927,8 +1117,7 @@ class AriesTranscriber:
             pad = P_max - len(prompt)
             prompt = [-1] * pad + prompt  # the decoder masks the pad
             parse_skip = len(prompt) - len(pfx)
-            xa = self._encode_batch(self._mel(self._gather(audio16, windows,
-                                                           [wi])))
+            xa = self._encode_windows(audio16, windows, [wi])
             win_lang = None
             if opts.multilingual and has_langs:
                 tok, _ = self._probe_languages(xa)
@@ -954,7 +1143,8 @@ class AriesTranscriber:
                 segs, used_t = self._fallback_windows(
                     audio16, windows, [(wi, window, prompt, segs)],
                     temps[1:], sample_len, thresholds, best_of, parse_skip,
-                    opts, sot_index=w_sot, prompt_start=pad)[wi]
+                    opts, sot_index=w_sot, prompt_start=pad,
+                    sharded=False)[wi]
                 # the context resets only when the ACCEPTED temperature
                 # exceeds the threshold
                 was_reset = used_t > opts.prompt_reset_on_temperature
@@ -1018,21 +1208,24 @@ class AriesTranscriber:
 
     def _fallback_windows(self, audio16, windows, fails, temps, sample_len,
                           thresholds, best_of, parse_skip, opts,
-                          sot_index=0, prompt_start=0
+                          sot_index=0, prompt_start=0, sharded=True
                           ) -> Dict[int, Tuple[List[Dict[str, Any]], float]]:
         """Temperature-fallback ladder for failing windows: at each rung,
         ``best_of`` samples of every still-failing window decode as one
         batch (the samples of a window share its cross K/V; every window
         re-encoded at 30 s, each sample's prompt its window's row, language
-        and left pad included) and the best by sum logprob is kept. Returns
-        {window id: (segments, accepted temperature)}."""
+        and left pad included) and the best by sum logprob is kept. The
+        group's windows are cut into the mesh's shards as a batch is
+        (``sharded=False``: all on the first replica).
+        Returns {window id: (segments, accepted temperature)}."""
         K = max(1, best_of)
         results: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
         last_t = float(temps[-1])
         for g0 in range(0, len(fails), self.FALLBACK_GROUP):
             group = fails[g0:g0 + self.FALLBACK_GROUP]
-            xa = self._encode_batch(self._mel(self._gather(
-                audio16, windows, [f[0] for f in group])))
+            ids = [f[0] for f in group]
+            xs = self._on_shards(len(group), lambda i, r, lo, hi: (
+                r._encode_windows(audio16, windows, ids[lo:hi])), sharded)
             prompt = np.repeat(np.stack([np.asarray(f[2]) for f in group]),
                                K, axis=0)
             best = {f[0]: (f[3], last_t) for f in group}
@@ -1040,10 +1233,10 @@ class AriesTranscriber:
             for t_i, t in enumerate(temps):
                 if not pending:
                     break
-                out = self._decode_batch(xa, prompt, float(t), sample_len,
-                                         seed=1234 + t_i, opts=opts,
-                                         sot_index=sot_index,
-                                         prompt_start=prompt_start)
+                out = self._decode_shards(xs, prompt, float(t), sample_len,
+                                          sharded, seed=1234 + t_i,
+                                          opts=opts, sot_index=sot_index,
+                                          prompt_start=prompt_start)
                 for i in list(pending):
                     win_idx, window = pending[i][0], pending[i][1]
                     b = i * K + int(np.argmax(
@@ -1060,6 +1253,7 @@ class AriesTranscriber:
                         del pending[i]
                     else:
                         best[win_idx] = (segs, last_t)
+            del xs
             for f in pending.values():
                 results[f[0]] = best[f[0]]
         return results

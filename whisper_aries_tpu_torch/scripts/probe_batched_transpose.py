@@ -129,7 +129,7 @@ def transpose_sum_kernel(x: torch.Tensor, variant: str,
     out = torch.empty((D, KP), dtype=torch.float32, device=x.device)
     cb.launch(_transpose_fn(), x, "probe transpose kernel", cb.ptr(x), Bw,
               KP, D, reps, VARIANTS[variant], cb.ptr(out))
-    transpose_sum_kernel.launches += 1
+    cb.count(transpose_sum_kernel)
     return out
 
 

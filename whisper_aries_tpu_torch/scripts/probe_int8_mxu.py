@@ -27,6 +27,7 @@ from typing import List, Optional
 
 import torch
 
+from whisper_aries_tpu_torch.ops import cuda_build as cb
 from whisper_aries_tpu_torch.scripts import common
 from whisper_aries_tpu_torch.scripts import probe_mxu as PM
 
@@ -53,7 +54,7 @@ def mma_fold_kernel(a: torch.Tensor, b: torch.Tensor, n_iter: int,
     """``make_kernel``'s kernel: (i mod 3 + 1) products an iteration;
     (blocks, M, N), int32 for s8, else f32."""
     out = PM.launch_mma(a, b, n_iter, kind, True, blocks)
-    mma_fold_kernel.launches += 1
+    cb.count(mma_fold_kernel)
     return out
 
 

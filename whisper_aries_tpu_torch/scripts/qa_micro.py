@@ -246,7 +246,7 @@ def counted_kernel(variants: Dict[str, Spec], extra: str) -> Callable:
 
     def kernel(variant: str, ops: dict, reps: int, blocks: int = None):
         res = launch(variants[variant], ops, extra, reps, blocks)
-        kernel.launches += 1
+        cb.count(kernel)
         return res
 
     kernel.launches = 0
