@@ -16,7 +16,13 @@ caught; a kernel check that fails is printed at once and fails the run
      g++, and look for each codec's system library.
   3. kernels: hold each kernel against its plain PyTorch version on the card
      at the main paths' large-v3 shapes (mel at B=8 with 128 and 80 mels,
-     encoder attention at (8, 20, 1500, 64) bf16, and at the 16 s
+     and at 80 mels on the diarizer trainers' 10 s windows and 2 s
+     utterances, each example floored at its own max - 8; encoder
+     attention at (8, 20, 1500, 64) bf16; the training attention's
+     forward (out and row log-sum-exp) and backward (dq, dk, dv) at (2,
+     20, 1500, 64) f32 with "one key past T scored", two backward runs
+     bitwise, timed beside scaled_dot_product_attention's f32 forward and
+     backward; and at the 16 s
      bucket's shapes: mel at 8 x 256,000 samples, encoder attention at
      (8, 20, 800, 64), the decode step over Ta 800 cross K/V at R 8 and
      R 40, the grouped cross-attention at 8 windows x G 3 and 5 over 800
@@ -214,7 +220,22 @@ caught; a kernel check that fails is printed at once and fails the run
      peak must not exceed auto_windows_per_device's byte model at the
      windows it ran and at 8. Prints the ``cli`` line (each tool's rc,
      wall seconds and launches, the replicas' seconds, the chosen size).
-The second-to-last lines are the kernels JSON (all seventeen kernels) and
+ 13. train path (counts from 0 over all of it): three make_train_step
+     steps of Whisper large-v3 at its published widths (f32 seeded random
+     params on the card, 2 windows of the synthetic WAV through the mel
+     kernel, 448 target tokens a window, AdamW lr 1e-5): the loss finite
+     and falling at each step, 32 training-attention forward and 32
+     backward launches a step, each step's seconds (forward, backward,
+     update) and the card's peak; the train state at large-v3's widths
+     with 2 + 2 layers saved and restored bit for bit; train_vad,
+     train_segmentation and train_embedding on the card for tens of steps
+     on small synthetic sets (each loss falling: the mean of the last 5
+     below the first 5; the mel kernel launched by the last two; each net
+     written by _save_verified to chip_smoke_out/trained/); run_battery
+     with the shipped weights on 2 scenes of 15 s, clean and augmented,
+     its DER below tests/test_der.py's gate (0.45, 0.75). Prints the
+     ``train`` line.
+The second-to-last lines are the kernels JSON (all nineteen entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -429,13 +450,16 @@ def kernel_mel(dev, entries):
     B = 8
     tols = {"max_abs": 5e-4, "mean_abs": 2e-6}
     entry = None
-    # 30 s windows at 128 and 80 mels; the 16 s bucket's 256,000 samples
-    for seconds, n_mels in ((30, 128), (30, 80), (16, 128)):
+    # 30 s windows at 128 and 80 mels; the 16 s bucket's 256,000 samples;
+    # the diarizer trainers' 10 s windows and 2 s utterances at 80 mels
+    for seconds, n_mels in ((30, 128), (30, 80), (16, 128), (10, 80),
+                            (2, 80)):
         audio = torch.as_tensor(np.stack([
             synth_audio(float(seconds), 100 + i) for i in range(B)]),
             device=dev)
         n_frames = audio.shape[1] // 160
-        at = f"{n_mels} mels" + (", 16 s bucket" if seconds == 16 else "")
+        at = f"{n_mels} mels" + ("" if seconds == 30 else ", 16 s bucket"
+                                 if seconds == 16 else f", {seconds} s")
         got = M.log_mel(audio, n_mels)
         want = log_mel_spectrogram(audio, n_mels)
         mistakes = {
@@ -451,6 +475,13 @@ def kernel_mel(dev, entries):
         errs = err(got)
         for name, wrong in mistakes.items():
             held(f"mel[{at}, {name}]", errs, tols, err(wrong))
+        # the floor at each example's own max - 8 (features (x + 4) / 4:
+        # each example's max - min is at most 2, as the plain version's)
+        span = lambda a: a.amax(dim=(1, 2)) - a.amin(dim=(1, 2))
+        check(f"mel[{at}, per-example floor]",
+              float((span(got) - span(want)).abs().max()) < 2 * tols[
+                  "max_abs"] and float(span(got).max()) <= 2.0 + 1e-6,
+              f"max - min per example {span(got).tolist()}")
         kern = lambda: M.mel_power_kernel(audio, n_mels)
         times = dict(ms=time_ms(lambda: M.log_mel(audio, n_mels), 20),
                      device_ms=device_ms(kern),
@@ -479,7 +510,8 @@ def kernel_mel(dev, entries):
                 dft_design_bound_ms=bound(nbytes, dft_ops, PEAK_F32)[0],
                 library_ms=None, shape=shape)
         else:
-            entry["bucket" if seconds == 16 else f"at_{n_mels}_mels"] = dict(
+            entry["bucket" if seconds == 16 else f"at_{n_mels}_mels"
+                  if seconds == 30 else f"at_{seconds}_s"] = dict(
                 max_abs_err=errs["max_abs"], bound_ms=b_ms, bound_by=b_by,
                 shape=shape, **times)
     entries.append(entry)
@@ -558,6 +590,104 @@ def encoder_attn_at(dev, T):
                 bound_by=b_by, library_ms=lib_ms,
                 shape=f"q, k, v ({B}, {H}, {T}, {dh}) bf16; one call per "
                       "layer")
+
+
+#: the train path's encoder attention: 2 windows of large-v3, f32
+TRAIN_SHAPE = (2, 20, 1500, 64)
+
+
+def kernel_encoder_attn_train(dev, entries):
+    """The training attention kernels (csrc/encoder_attn_train.cu) at the
+    train path's (2, 20, 1500, 64) f32: the forward's out and row
+    log-sum-exp, then the backward's dq, dk and dv, against the plain
+    versions (attention_plain, attention_lse_plain and the autograd of
+    attention_plain), each within 2e-5 of max |want| (max) and 1e-5
+    (mean), below the same errors of a plain version that scores one key
+    past T (a zero key); two runs of the backward give the same bits.
+    Timed by events and device time beside the plain versions (the plain
+    backward recomputes its forward) and scaled_dot_product_attention in
+    f32: its forward, and its backward alone (a retained graph)."""
+    import torch
+    import torch.nn.functional as F
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    B, H, T, dh = TRAIN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=g, device=dev)
+                     for _ in range(4))
+    # f32 sums of 1,500 terms in another order: ~2e-6 of max |want|
+    tol = {"max_rel": 2e-5, "mean_rel": 1e-5}
+    z = torch.zeros((B, H, 1, dh), device=dev)
+    kz, vz = torch.cat([k, z], 2), torch.cat([v, z], 2)
+    errs = lambda got, want: {"max_rel": max_rel(got, want),
+                              "mean_rel": mean_rel(got, want)}
+    out, lse = W.encoder_attn_train_fwd_kernel(q, k, v)
+    pairs = (("out", out, W.attention_plain(q, k, v),
+              W.attention_plain(q, kz, vz)),
+             ("lse", lse, W.attention_lse_plain(q, k),
+              W.attention_lse_plain(q, kz)))
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(out).all())
+            and bool(torch.isfinite(lse).all())):
+        fail("training attention forward output is not finite")
+    fwd_err = 0.0
+    for name, got, want, wrong in pairs:
+        held(f"encoder_attn_train[forward {name}, one key past T]",
+             errs(got, want), tol, errs(wrong, want))
+        fwd_err = max(fwd_err, float((got - want).abs().max()))
+    del pairs
+    grads = W.encoder_attn_train_bwd_kernel(q, k, v, out, lse, dout)
+    again = W.encoder_attn_train_bwd_kernel(q, k, v, out, lse, dout)
+    check("encoder_attn_train[backward, two runs]",
+          all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "dq, dk, dv bitwise")
+    del again
+    want_g = W.attention_backward_plain(q, k, v, dout)
+    wq, wk, wv = W.attention_backward_plain(q, kz, vz, dout)
+    wrong_g = (wq, wk[:, :, :T], wv[:, :, :T])
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        fail("training attention backward output is not finite")
+    bwd_err = 0.0
+    for name, got, want, wrong in zip(("dq", "dk", "dv"), grads, want_g,
+                                      wrong_g):
+        held(f"encoder_attn_train[backward {name}, one key past T]",
+             errs(got, want), tol, errs(wrong, want))
+        bwd_err = max(bwd_err, float((got - want).abs().max()))
+    del want_g, wrong_g, wq, wk, wv, grads
+    fwd = lambda: W.encoder_attn_train_fwd_kernel(q, k, v)
+    bwd = lambda: W.encoder_attn_train_bwd_kernel(q, k, v, out, lse, dout)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qq, kk, vv)
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qq, kk, vv), dout, retain_graph=True), 5)
+    elems = B * H * T * dh
+    # bytes: each input read once, each output written once; operations:
+    # the forward's two products, the backward's five (S recomputed, dP,
+    # dV, dK, dQ), 2 T^2 dh each a head, at the f32 rate
+    f_ms, f_by = bound(4 * elems * 4 + B * H * T * 4,
+                       4 * B * H * T * T * dh, PEAK_F32)
+    b_ms, b_by = bound(8 * elems * 4 + B * H * T * 4,
+                       10 * B * H * T * T * dh, PEAK_F32)
+    common = dict(route="cuda",
+                  source="whisper_aries_tpu_torch/csrc/encoder_attn_train.cu",
+                  tolerance=tol, shape=f"q, k, v ({B}, {H}, {T}, {dh}) f32; "
+                  "one call per encoder layer a train step")
+    entries.append(dict(
+        name="encoder_attn_train", variant="train forward",
+        replaces="whisper_aries_tpu/models/whisper.py:337",
+        max_abs_err=fwd_err, ms=time_ms(fwd, 10), device_ms=device_ms(fwd, 10),
+        plain_ms=time_ms(lambda: W.attention_plain(q, k, v), 3),
+        bound_ms=f_ms, bound_by=f_by, library_ms=lib_f, **common))
+    entries.append(dict(
+        name="encoder_attn_train_bwd", variant="train backward",
+        replaces="whisper_aries_tpu/models/whisper.py:337",
+        max_abs_err=bwd_err, ms=time_ms(bwd, 5), device_ms=device_ms(bwd, 5),
+        plain_ms=time_ms(lambda: W.attention_backward_plain(q, k, v, dout),
+                         3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_b,
+        library_fwd_bwd_ms=lib_f + lib_b, **common))
 
 
 def kernel_encoder_attn(dev, entries):
@@ -2646,6 +2776,8 @@ def counters():
 
     return {"mel": M.mel_power_kernel,
             "encoder_attn": W.encoder_attention_kernel,
+            "encoder_attn_train": W.encoder_attn_train_fwd_kernel,
+            "encoder_attn_train_bwd": W.encoder_attn_train_bwd_kernel,
             "decode_layers": DL.fused_decoder_layers,
             "cross_attn_q8": XA.cross_attention_q8_kernel,
             "beam_tail": BT.beam_tail_kernel,
@@ -2693,6 +2825,9 @@ PATH_KERNELS = {
     # the transcribe tool's run (beam 5, words) of the cli phase
     "cli": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
             "beam_tail", "beam_reorder"),
+    # three large-v3 f32 train steps, the train state, the diarizer's
+    # trainers (mel on their batches)
+    "train": ("mel", "encoder_attn_train", "encoder_attn_train_bwd"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -4532,6 +4667,223 @@ def cli_phase(dev, ckpt: Path, beam_engine):
     return tr_launches
 
 
+# ---------------------------------------------------------------------------
+# train path
+# ---------------------------------------------------------------------------
+
+#: the train path's Whisper batch: 2 windows, S target tokens a window,
+#: the second window's last 48 positions masked
+TRAIN_S = 448
+#: the diarizer trainers' steps and data (small n: the nets at their
+#: published dims memorise it, so each loss falls within tens of steps)
+DIARIZER_RUNS = {
+    "vad": dict(steps=30, batch=8, n_train=16, n_val=4, log_every=10),
+    "segmentation": dict(steps=20, batch=4, n_train=8, n_val=4,
+                         log_every=10),
+    "embedding": dict(steps=30, n_batches=2, log_every=10),
+}
+#: the DER gate of tests/test_der.py:146-147 (clean, augmented)
+DER_GATE = {"clean": 0.45, "augmented": 0.75}
+
+
+def falling(losses) -> bool:
+    """The mean of the last 5 losses below the mean of the first 5."""
+    return float(np.mean(losses[-5:])) < float(np.mean(losses[:5]))
+
+
+def whisper_train(dev, report: dict) -> None:
+    """Three make_train_step steps of Whisper large-v3 at its published
+    widths, f32 seeded random params on the card, on a fixed batch: the
+    mels of 2 windows of the synthetic WAV by the mel kernel, TRAIN_S
+    random target tokens a window. The loss must be finite and fall at
+    each step, and each step must launch the training attention forward
+    and backward once an encoder layer (32 each)."""
+    import gc
+
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops.mel import log_mel
+    from whisper_aries_tpu_torch.pipeline.train import make_train_step
+    from whisper_aries_tpu_torch.utils.params_io import flatten_params
+
+    dims = W.PRESETS["large-v3"]
+    t0 = time.time()
+    params = W.init_params(dims, seed=0, device=dev)
+    audio = torch.as_tensor(synth_audio(60.0, 7).reshape(2, 480_000),
+                            device=dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, dims.n_vocab, (2, TRAIN_S + 1)),
+                             device=dev)
+    mask = torch.ones((2, TRAIN_S), device=dev)
+    mask[1, TRAIN_S - 48:] = 0.0
+    batch = {"mel": log_mel(audio, dims.n_mels), "tokens_in": tokens[:, :-1],
+             "tokens_tgt": tokens[:, 1:], "mask": mask}
+    init, step, _ = make_train_step(dims, [dev], timing=True)
+    opt = init(params)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    fwd, bwd = W.encoder_attn_train_fwd_kernel, W.encoder_attn_train_bwd_kernel
+    steps = []
+    for i in range(3):
+        torch.cuda.reset_peak_memory_stats(dev)
+        f0, b0 = fwd.launches, bwd.launches
+        params, opt, loss = step(params, opt, batch)
+        st = dict(step.last_stats, loss=float(loss),
+                  peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                  attn_fwd_launches=fwd.launches - f0,
+                  attn_bwd_launches=bwd.launches - b0)
+        steps.append(st)
+        print(f"train step {i}: " + json.dumps(st), flush=True)
+        if not math.isfinite(st["loss"]):
+            fail(f"train: large-v3 step {i} loss is not finite")
+        if (st["attn_fwd_launches"], st["attn_bwd_launches"]) != (32, 32):
+            fail(f"train: step {i} launched the training attention "
+                 f"{st['attn_fwd_launches']} / {st['attn_bwd_launches']} "
+                 "times, not 32 / 32")
+    losses = [st["loss"] for st in steps]
+    if not losses[0] > losses[1] > losses[2]:
+        fail(f"train: the large-v3 loss did not fall: {losses}")
+    n_params = sum(t.numel() for t in flatten_params(params).values())
+    report["whisper"] = dict(dims="large-v3", params=n_params,
+                             batch=f"2 windows x {TRAIN_S} tokens",
+                             setup_s=setup_s, steps=steps, losses=losses,
+                             lr=1e-5, weight_decay=0.01)
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_state(dev, report: dict) -> None:
+    """The train state at large-v3's widths, 2 + 2 layers: one step, then
+    save_train_state and restore_train_state (to the CPU) bit for bit."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.pipeline.checkpoint import (
+        restore_train_state,
+        save_train_state,
+    )
+    from whisper_aries_tpu_torch.pipeline.train import make_train_step
+    from whisper_aries_tpu_torch.utils.params_io import flatten_params
+
+    dims = dataclasses.replace(W.PRESETS["large-v3"], n_audio_layer=2,
+                               n_text_layer=2)
+    params = W.init_params(dims, seed=1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"mel": torch.randn((1, dims.n_mels, 3000), generator=g,
+                                device=dev),
+             "tokens_in": torch.arange(16, device=dev)[None],
+             "tokens_tgt": torch.arange(1, 17, device=dev)[None],
+             "mask": torch.ones((1, 16), device=dev)}
+    init, step, _ = make_train_step(dims, [dev])
+    opt = init(params)
+    params, opt, _ = step(params, opt, batch)
+    root = OUT / "train_state"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    path = save_train_state(str(root), 1, params, opt)
+    t1 = time.time()
+    step_no, state = restore_train_state(str(root))
+    t2 = time.time()
+    same = lambda a, b: all(
+        a[k].dtype == b[k].dtype and a[k].cpu().numpy().tobytes()
+        == b[k].cpu().numpy().tobytes() for k in b) and set(a) == set(b)
+    ok = (step_no == 1 and same(flatten_params(state["params"]),
+                                flatten_params(params))
+          and same(state["opt_state"]["mu"], opt["mu"])
+          and same(state["opt_state"]["nu"], opt["nu"])
+          and state["opt_state"]["count"] == opt["count"] == 1)
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    check("train state[2 + 2 layers, save / restore]", ok,
+          f"{size / 1e9:.2f} GB bit for bit")
+    report["train_state"] = dict(layers="2 + 2", bytes=size,
+                                 save_s=t1 - t0, restore_s=t2 - t1)
+    shutil.rmtree(root, ignore_errors=True)
+    del params, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def diarizer_train(dev, report: dict) -> None:
+    """train_vad, train_segmentation and train_embedding on the card at the
+    nets' published dims (DIARIZER_RUNS), each loss falling, each net
+    written by _save_verified into chip_smoke_out/trained/; then
+    run_battery with the shipped weights on 2 scenes of 15 s, clean and
+    augmented, its DER held to DER_GATE."""
+    from whisper_aries_tpu_torch.diarize.pipeline import DiarizationPipeline
+    from whisper_aries_tpu_torch.eval.diarize_battery import run_battery
+    from whisper_aries_tpu_torch.ops import mel as M
+    from whisper_aries_tpu_torch.training import diarize_train as DT
+
+    trainers = {"vad": DT.train_vad, "segmentation": DT.train_segmentation,
+                "embedding": DT.train_embedding}
+    out = OUT / "trained"
+    for name, fn in trainers.items():
+        m0 = M.mel_power_kernel.launches
+        t0 = time.time()
+        params, metrics = fn(device=dev, **DIARIZER_RUNS[name])
+        wall = time.time() - t0
+        DT._save_verified(str(out / f"{name}.safetensors"), params)
+        losses = metrics.pop("losses")
+        rep = dict(DIARIZER_RUNS[name], seconds=wall,
+                   loss_first=losses[0], loss_last=losses[-1],
+                   loss_first5=float(np.mean(losses[:5])),
+                   loss_last5=float(np.mean(losses[-5:])),
+                   mel_launches=M.mel_power_kernel.launches - m0,
+                   metrics=metrics)
+        print(f"train {name}: " + json.dumps(rep), flush=True)
+        if not falling(losses):
+            fail(f"train: the {name} loss did not fall: {losses}")
+        if name != "vad" and rep["mel_launches"] <= 0:
+            fail(f"train: {name} did not launch the mel kernel")
+        report[name] = rep
+    t0 = time.time()
+    bat = run_battery(DiarizationPipeline(device=dev), n_scenes=2, seed=7000,
+                      dur_s=15.0, collar_s=0.25,
+                      conditions=list(DER_GATE))
+    report["battery"] = dict(
+        seconds=time.time() - t0, scenes=2, dur_s=15.0, seed=7000,
+        **{f"{c}_der": bat[f"{c}_der"] for c in DER_GATE},
+        per_scene=[{c: r[c]["der"] for c in DER_GATE} for r in bat["scenes"]])
+    print("train battery: " + json.dumps(report["battery"]), flush=True)
+    for c, gate in DER_GATE.items():
+        if not bat[f"{c}_der"] < gate:
+            fail(f"train: the battery's {c} DER {bat[c + '_der']:.3f} is "
+                 f"not below {gate}")
+
+
+def train_phase(dev):
+    """The train path, counts from 0 over all of it: the large-v3 train
+    steps, the train state, the diarizer's trainers and the battery.
+    Prints the ``train`` line; returns the launches."""
+    import gc
+
+    import torch
+
+    gc.collect()  # the earlier phases' engines
+    torch.cuda.empty_cache()
+    report: dict = {}
+
+    def run():
+        whisper_train(dev, report)
+        train_state(dev, report)
+        diarizer_train(dev, report)
+
+    _, wall, launches = counted(run)
+    for k in PATH_KERNELS["train"]:
+        if launches[k] <= 0:
+            fail(f"train: kernel {k} was not launched")
+    report["wall_s"] = wall
+    report["launches"] = {k: n for k, n in launches.items() if n}
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "train.json").write_text(json.dumps(report, indent=2))
+    print("train " + json.dumps(report), flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4586,6 +4938,7 @@ def main() -> None:
     entries, parts = [], []
     kernel_mel(dev, entries)
     kernel_encoder_attn(dev, entries)
+    kernel_encoder_attn_train(dev, entries)
     kernel_decode_layers(dev, entries, parts)
     kernel_cross_attn(dev, entries)
     kernel_beam_tail(dev, entries)
@@ -4600,13 +4953,15 @@ def main() -> None:
     probe_launches = probes_phase(dev, entries)
     runs = {path: slice_phase(dev, path, keep=path == "beam")
             for path in PATH_KERNELS
-            if path not in ("checkpoint", "pipeline", "serve", "cli")}
+            if path not in ("checkpoint", "pipeline", "serve", "cli",
+                            "train")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     *runs["checkpoint"], ckpt = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
     runs["serve"] = (serve_phase(dev, beam_engine, scene), {})
     runs["cli"] = (cli_phase(dev, ckpt, beam_engine), {})
     del beam_engine
+    runs["train"] = (train_phase(dev), {})
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches
     paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)

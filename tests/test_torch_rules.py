@@ -533,3 +533,39 @@ def test_cli_and_parallel_import_nothing_of_jax():
             (PORT / "parallel").glob("*.py")):
         names = list(_imports(f))
         assert not [n for n in names if _forbidden(n)], f
+
+
+def test_training_attention_is_a_second_counterpart_of_kernel_2():
+    """The encoder's TPU attention kernel has two Hopper counterparts:
+    row 2 (the bf16 serving kernel) and row 2t (the f32 training forward
+    and backward), each naming its own built source, and chip_smoke.py
+    holds a kernel entry for each of the three wrappers with the same
+    ``replaces=``."""
+    import re
+
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+
+    ref = "whisper_aries_tpu/models/whisper.py:337"
+    rows = [r for r in _table_rows() if r[0] == [ref]]
+    sources = sorted(re.findall(r"(\w+)\.cu\b", r[2])[0] for r in rows)
+    assert sources == ["encoder_attn", "encoder_attn_train"]
+    assert set(sources) <= set(cb.SOURCES)
+    smoke = (ROOT / "chip_smoke.py").read_text(encoding="utf-8")
+    names = re.findall(r'name="(encoder_attn\w*)"[^)]*?replaces="'
+                       + re.escape(ref) + '"', smoke, re.S)
+    assert sorted(set(names)) == ["encoder_attn", "encoder_attn_train",
+                                  "encoder_attn_train_bwd"]
+
+
+def test_training_modules_import_nothing_of_jax():
+    """The training slice's modules exist, and none imports jax or the
+    JAX package (the scan above covers them too)."""
+    files = [PORT / "training" / f for f in ("__init__.py", "synth.py",
+                                             "augment.py",
+                                             "diarize_train.py")]
+    files += [PORT / "pipeline" / "train.py",
+              PORT / "pipeline" / "checkpoint.py",
+              PORT / "eval" / "diarize_battery.py"]
+    for f in files:
+        assert f.exists(), f
+        assert not [n for n in _imports(f) if _forbidden(n)], f

@@ -99,6 +99,14 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     return finish_log_mel(torch.log10(torch.clamp(mels, min=1e-10)))
 
 
+def pad_or_trim(audio: np.ndarray, length: int = N_SAMPLES) -> np.ndarray:
+    """Pad with zeros or trim to exactly ``length`` samples (host-side)."""
+    audio = np.asarray(audio, dtype=np.float32)
+    if len(audio) >= length:
+        return audio[:length]
+    return np.pad(audio, (0, length - len(audio)))
+
+
 def log_mel_spectrogram_np(audio: np.ndarray, n_mels: int = 80) -> np.ndarray:
     """The host (numpy) log-mel of one clip, shape (n_mels, n_frames): the
     diarizer's front end, which runs on the host as in the JAX package."""

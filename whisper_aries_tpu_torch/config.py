@@ -110,7 +110,8 @@ class DecodeConfig:
     mel_backend: str = "auto"
     #: encoder audio-context policy: "full" pads every window to 30 s
     #: (Whisper's training-time contract, exact faster-whisper semantics);
-    #: "bucket" (short-window encoder context) is not ported yet.
+    #: "bucket" encodes a batch made only of windows <= 16 s at a 16 s
+    #: context (T 800), as the JAX engine does.
     audio_ctx: str = "full"
 
 
@@ -304,3 +305,31 @@ def load_config(
             elif val is not None:
                 _set_dotted(cfg, key, val)
     return cfg
+
+
+def write_default_config(path: str = "aries_config.json",
+                         cfg: Optional[AriesConfig] = None) -> str:
+    """Write (and return the path of) a JSON config file with the current
+    or default values; an existing file is left as it is."""
+    cfg = cfg or AriesConfig()
+    p = Path(path)
+    if not p.exists():
+        p.write_text(json.dumps(cfg.to_dict(), indent=2), encoding="utf-8")
+    return str(p)
+
+
+def print_config(cfg: AriesConfig) -> str:
+    """Print and return a human-readable dump, ``hf_token`` masked."""
+    lines = ["AriesConfig:"]
+    for section_field in dataclasses.fields(cfg):
+        val = getattr(cfg, section_field.name)
+        if dataclasses.is_dataclass(val):
+            lines.append(f"  [{section_field.name}]")
+            for f2 in dataclasses.fields(val):
+                lines.append(f"    {f2.name} = {getattr(val, f2.name)!r}")
+        else:
+            shown = "***" if section_field.name == "hf_token" and val else val
+            lines.append(f"  {section_field.name} = {shown!r}")
+    text = "\n".join(lines)
+    print(text)
+    return text

@@ -15,13 +15,14 @@ across the threshold and changes the window plan.
 
 from __future__ import annotations
 
-import contextlib
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from whisper_aries_tpu_torch.utils.device import no_tf32
 from whisper_aries_tpu_torch.utils.params_io import read_safetensors
 
 FRAME = 512  # samples per probability frame
@@ -31,6 +32,34 @@ SILENCE_RMS_FLOOR = 1.5e-3
 #: the trained weights shipped with the JAX package
 VAD_WEIGHTS = (Path(__file__).resolve().parents[2] / "whisper_aries_tpu"
                / "weights" / "vad.safetensors")
+
+
+@dataclass(frozen=True)
+class VadDims:
+    stem_channels: Tuple[int, int, int] = (16, 32, 64)
+    stem_kernel: int = 15
+    stem_stride: int = 8
+    ctx_layers: int = 3
+    ctx_kernel: int = 3
+    hidden: int = 64
+
+
+def init_vad(dims: VadDims = VadDims(), seed: int = 0) -> Dict[str, Any]:
+    """A seeded random VAD tree in the checkpoint's layout (the trainer's
+    start): N(0, 0.2) stem, N(0, 0.1) context and head weights, zero
+    biases, drawn with a torch.Generator on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    normal = lambda shape, std: std * torch.randn(shape, generator=g)
+    stem, c_in = [], 1
+    for c_out in dims.stem_channels:
+        stem.append({"w": normal((c_out, c_in, dims.stem_kernel), 0.2),
+                     "b": torch.zeros((c_out,))})
+        c_in = c_out
+    h = dims.hidden
+    ctx = [{"w": normal((h, h, dims.ctx_kernel), 0.1),
+            "b": torch.zeros((h,))} for _ in range(dims.ctx_layers)]
+    head = {"w": normal((h, 1), 0.1), "b": torch.zeros((1,))}
+    return {"stem": stem, "ctx": ctx, "head": head}
 
 
 def load_vad_params(path=VAD_WEIGHTS, device="cpu") -> Dict[str, Any]:
@@ -46,16 +75,6 @@ def load_vad_params(path=VAD_WEIGHTS, device="cpu") -> Dict[str, Any]:
                 for i in range(n_ctx)],
         "head": {"w": t("head.w"), "b": t("head.b")},
     }
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _conv1d(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
@@ -87,7 +106,7 @@ def vad_forward(params: Dict[str, Any], audio: torch.Tensor,
                      / torch.clamp(denom, min=1.0))
     x = x / torch.clamp(rms, min=1e-3)
     h = x[:, None, :]
-    with _no_tf32():
+    with no_tf32():
         for p in params["stem"]:
             h = torch.relu(_conv1d(h, p, stride=stem_stride))
         for i, p in enumerate(params["ctx"]):

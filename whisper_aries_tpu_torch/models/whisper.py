@@ -18,7 +18,8 @@ updates, so a decode step allocates nothing per layer):
     rows of a window share its cross K/V (grouped cross-attention).
 
 The encoder's attention goes through the hand-written encoder-attention
-kernel (csrc/encoder_attn.cu), the int8 cross-attention of a prefill
+kernel (csrc/encoder_attn.cu) in bf16 and through the training kernels
+(csrc/encoder_attn_train.cu, forward and backward) in f32, the int8 cross-attention of a prefill
 through the grouped cross-attention kernel (csrc/cross_attn.cu), and a
 decode step's self-attention over an int8 self cache through the int8
 self-attention kernel (csrc/self_attn.cu), for CUDA tensors; CPU tensors
@@ -445,13 +446,124 @@ def encoder_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 encoder_attention_kernel.launches = 0
 
 
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp (B, H, T) f32 of ``attention_plain``'s logits:
+    the plain version of the training forward's second output."""
+    dh = q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", (q * attn_scale(dh)).float(),
+                          k.float())
+    return torch.logsumexp(logits, dim=-1)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of ``attention_plain`` given d(out) ``dout``, by its
+    autograd: the plain version of the training backward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_plain(*leaves)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+@functools.lru_cache(maxsize=None)
+def _train_fns():
+    lib = cb.library("encoder_attn_train")
+    fwd, bwd = lib.aries_attn_train_fwd, lib.aries_attn_train_bwd
+    fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _require_train(tensors, like: torch.Tensor) -> None:
+    B, H, T, dh = like.shape
+    if dh != 64:
+        raise ValueError(f"training attention kernel needs dh 64, got {dh}")
+    for name, t in tensors:
+        cb.require(t, name, torch.float32, (B, H, T, dh), like.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def encoder_attn_train_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (csrc/encoder_attn_train.cu): q, k, v (B, H, T,
+    64) f32 contiguous CUDA -> out (B, H, T, 64) f32 and the row
+    log-sum-exp (B, H, T) f32 its backward reads."""
+    _require_train((("q", q), ("k", k), ("v", v)), q)
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    cb.launch(_train_fns()[0], q, "training attention forward", cb.ptr(q),
+              cb.ptr(k), cb.ptr(v), cb.ptr(out), cb.ptr(lse), B, H, T,
+              attn_scale(64))
+    cb.count(encoder_attn_train_fwd_kernel)
+    return out, lse
+
+
+encoder_attn_train_fwd_kernel.launches = 0
+
+
+def encoder_attn_train_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, dout: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """The training backward (csrc/encoder_attn_train.cu; one C call, three
+    device kernels: D = rowsum(dO * out), dK/dV by key tiles, dQ by query
+    tiles) -> (dq, dk, dv), each (B, H, T, 64) f32."""
+    _require_train((("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)), q)
+    B, H, T, _ = q.shape
+    cb.require(lse, "lse", torch.float32, (B, H, T), q.device)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    cb.launch(_train_fns()[1], q, "training attention backward", cb.ptr(q),
+              cb.ptr(k), cb.ptr(v), cb.ptr(out), cb.ptr(lse), cb.ptr(dout),
+              cb.ptr(delta), cb.ptr(dq), cb.ptr(dk), cb.ptr(dv), B, H, T,
+              attn_scale(64))
+    cb.count(encoder_attn_train_bwd_kernel)
+    return dq, dk, dv
+
+
+encoder_attn_train_bwd_kernel.launches = 0
+
+
+class EncoderAttentionTrain(torch.autograd.Function):
+    """f32 encoder attention on the card with a gradient: the training
+    forward saves (q, k, v, out, lse); the backward launches the training
+    backward. Nothing falls back to the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = encoder_attn_train_fwd_kernel(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return encoder_attn_train_bwd_kernel(*ctx.saved_tensors,
+                                             dout.contiguous())
+
+
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                       ) -> torch.Tensor:
-    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    """The plain version for CPU tensors. On the card: f32 through the
+    training kernels (with a gradient), bf16 through the encoder-attention
+    kernel, which has no backward: a bf16 call that needs a gradient
+    raises."""
     if not q.is_cuda:
         return attention_plain(q, k, v)
-    return encoder_attention_kernel(q.contiguous(), k.contiguous(),
-                                    v.contiguous())
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.float32:
+        return EncoderAttentionTrain.apply(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the bf16 encoder-attention kernel has no "
+                           "backward: train with f32 params")
+    return encoder_attention_kernel(q, k, v)
 
 
 def encode(params: Dict[str, Any], mel: torch.Tensor, dims: WhisperDims

@@ -34,9 +34,9 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mel", "encoder_attn", "decode_layers", "cross_attn",
-           "beam_tail", "beam_reorder", "quant_matmul", "self_attn",
-           "probe_copy", "probe_mma", "probe_transpose", "probe_qa")
+SOURCES = ("mel", "encoder_attn", "encoder_attn_train", "decode_layers",
+           "cross_attn", "beam_tail", "beam_reorder", "quant_matmul",
+           "self_attn", "probe_copy", "probe_mma", "probe_transpose", "probe_qa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

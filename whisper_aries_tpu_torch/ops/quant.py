@@ -46,6 +46,13 @@ def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 (..., K, N) x f32 scales (..., N) -> weights in ``dtype``: the
+    f32 product, then the cast."""
+    return (q.float() * scale[..., None, :].float()).to(dtype)
+
+
 def dequantize_bf16(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int8 (K, N) x f32 scales (N,) -> bf16 weights: an f32 multiply, then
     round to nearest even (the TPU kernel's per-tile dequant)."""

@@ -1301,3 +1301,7 @@ class AriesTranscriber:
                 continue
             out[fmt] = path
         return out
+
+
+#: the reference's class name
+OptimizedParallelTranscriber = AriesTranscriber

@@ -12,6 +12,22 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """TF32 off for matmuls and cuDNN inside the block (restored after): the
+    VAD's convolutions and the train steps compute f32 as the JAX package
+    does; a trainer's backward runs inside it too."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
 def resolve_device(device: Optional[str], who: str) -> torch.device:
     """``device`` as a torch.device; None means CUDA. Raises RuntimeError
     naming ``who`` when CUDA is asked for and no card is visible."""
