@@ -606,12 +606,25 @@ def kernel_encoder_attn_train(dev, entries):
     past T (a zero key); two runs of the backward give the same bits.
     Timed by events and device time beside the plain versions (the plain
     backward recomputes its forward) and scaled_dot_product_attention in
-    f32: its forward, and its backward alone (a retained graph)."""
+    f32: its forward, and its backward alone (a retained graph). First a
+    line of each device kernel's compiled registers, spilled bytes and
+    shared bytes, and the grid's waves on this card; a spill fails."""
     import torch
     import torch.nn.functional as F
     from whisper_aries_tpu_torch.models import whisper as W
 
     B, H, T, dh = TRAIN_SHAPE
+    # each device kernel's registers, spilled (local) bytes and shared
+    # bytes as compiled, and its grid's waves at this shape
+    attrs = W.encoder_attn_train_attrs(dev, B, H, T)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for a in attrs.values():
+        a["waves"] = a["blocks"] / (sms * a["blocks_an_sm"])
+    print("encoder_attn_train attrs " + json.dumps(attrs), flush=True)
+    check("encoder_attn_train[no spill]",
+          all(a["local_bytes"] == 0 for a in attrs.values()),
+          "local bytes " + ", ".join(f"{n} {a['local_bytes']}"
+                                     for n, a in attrs.items()))
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=g, device=dev)
                      for _ in range(4))
@@ -673,7 +686,12 @@ def kernel_encoder_attn_train(dev, entries):
     common = dict(route="cuda",
                   source="whisper_aries_tpu_torch/csrc/encoder_attn_train.cu",
                   tolerance=tol, shape=f"q, k, v ({B}, {H}, {T}, {dh}) f32; "
-                  "one call per encoder layer a train step")
+                  "one call per encoder layer a train step",
+                  design="register-blocked f32 FMA on the CUDA cores: a warp "
+                  "16 rows, a lane an 8 x 4 micro-tile; 64-row tiles "
+                  "double-buffered by cp.async; no tensor cores, no atomics",
+                  dq_option="b: each key tile's partial dQ to scratch, summed "
+                  "in key-tile order", attrs=attrs)
     entries.append(dict(
         name="encoder_attn_train", variant="train forward",
         replaces="whisper_aries_tpu/models/whisper.py:337",

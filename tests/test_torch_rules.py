@@ -15,7 +15,12 @@
   * every kernel launches on the stream of its operands' card, never on
     the current device's (no ``cb.stream()`` without a device);
   * every file of the repo that reaches ``pl.pallas_call`` is named in
-    PERF.md's kernel table.
+    PERF.md's kernel table;
+  * the f32 training attention (csrc/encoder_attn_train.cu) computes in
+    exact f32 on the CUDA cores, deterministically: its code (comments
+    stripped) has no atomic, no TF32, no tensor-core instruction and no
+    fast exponential, nothing is built with fast math, and chip_smoke.py
+    bounds it by the f32 rate.
 """
 
 import ast
@@ -569,3 +574,85 @@ def test_training_modules_import_nothing_of_jax():
     for f in files:
         assert f.exists(), f
         assert not [n for n in _imports(f) if _forbidden(n)], f
+
+
+#: what the training attention's code must not hold: atomics (a sum in an
+#: order that changes from run to run), TF32 and tensor-core products
+#: (not exact f32), the fast exponential
+TRAIN_ATTN_FORBIDDEN = {
+    "atomic": r"atomic|\batom\.|\bred\.",
+    "tf32": r"tf32",
+    "tensor core": r"\bwgmma|\bwmma|\bmma\.|\bmma_|\bhgmma|\bhmma",
+    "fast exp": r"__expf|ex2\.approx",
+}
+
+
+def _strip_comments(src: str) -> str:
+    """C++ source without its // and /* */ comments (strings kept)."""
+    import re
+
+    return re.sub(r'//[^\n]*|/\*.*?\*/|("(?:\\.|[^"\\])*")',
+                  lambda m: m.group(1) or " ", src, flags=re.S)
+
+
+def _train_attn_findings(src: str):
+    import re
+
+    code = _strip_comments(src)
+    return sorted(name for name, pat in TRAIN_ATTN_FORBIDDEN.items()
+                  if re.search(pat, code, re.I))
+
+
+def test_training_attention_is_exact_f32_without_atomics():
+    """csrc/encoder_attn_train.cu, its comments stripped (the header note
+    names what the design avoids), has no atomic, no TF32, no wgmma, wmma
+    or mma instruction and no __expf; the kernels are built without fast
+    math."""
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+
+    src = (PORT / "csrc" / "encoder_attn_train.cu").read_text(
+        encoding="utf-8")
+    assert "attn_fwd_kernel" in _strip_comments(src)
+    assert _train_attn_findings(src) == []
+    assert not [f for f in cb.NVCC_FLAGS if "fast" in f.lower()]
+
+
+@pytest.mark.parametrize("line,found", [
+    ("atomicAdd(p, x);", ["atomic"]),
+    ('asm("red.global.add.f32 [%0], %1;" :: "l"(p), "f"(x));', ["atomic"]),
+    ('asm("atom.global.add.f32 %0, [%1], %2;");', ["atomic"]),
+    ('asm("cvt.rna.tf32.f32 %0, %1;");', ["tf32"]),
+    ("torch_backend_allow_TF32 = 1;", ["tf32"]),
+    ('asm("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32");',
+     ["tensor core", "tf32"]),
+    ('asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32");',
+     ["tensor core"]),
+    ("mma_bf16(c, a, b0, b1);", ["tensor core"]),
+    ("wmma::mma_sync(c, a, b, c);", ["tensor core"]),
+    ("const float p = __expf(s - m);", ["fast exp"]),
+    ('asm("ex2.approx.ftz.f32 %0, %1;");', ["fast exp"]),
+    ("const float p = expf(s - m);  // not __expf, no atomicAdd, no tf32",
+     []),
+    ("/* wgmma and atomics avoided */ float x = expf(y);", []),
+])
+def test_training_attention_rule_itself(line, found):
+    """The rule finds each forbidden form in code and none in comments."""
+    assert _train_attn_findings(line) == found
+
+
+def test_training_attention_bound_is_the_f32_rate():
+    """chip_smoke.py divides the training attention's operations by the
+    f32 rate of the CUDA cores (PEAK_F32), never a tensor-core rate: no
+    design of this kind can read above it."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text(encoding="utf-8"))
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "kernel_encoder_attn_train")
+    calls = [c for c in ast.walk(fn) if isinstance(c, ast.Call)
+             and isinstance(c.func, ast.Name) and c.func.id == "bound"]
+    assert len(calls) == 2  # the forward's and the backward's
+    for c in calls:
+        assert isinstance(c.args[2], ast.Name) and c.args[2].id == "PEAK_F32"
+    names = [k.value.value for c in ast.walk(fn) if isinstance(c, ast.Call)
+             for k in c.keywords if k.arg == "name"
+             and isinstance(k.value, ast.Constant)]
+    assert names == ["encoder_attn_train", "encoder_attn_train_bwd"]

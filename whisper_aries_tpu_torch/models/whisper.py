@@ -472,10 +472,40 @@ def _train_fns():
     fwd, bwd = lib.aries_attn_train_fwd, lib.aries_attn_train_bwd
     fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+    bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    lib.aries_attn_train_key_tile.argtypes = []
+    lib.aries_attn_train_key_tile.restype = ctypes.c_int
+    return fwd, bwd, lib.aries_attn_train_key_tile()
+
+
+#: the training kernels' device kernels, in launch order (csrc/
+#: encoder_attn_train.cu ``aries_attn_train_attrs``)
+TRAIN_DEVICE_KERNELS = ("attn_fwd_kernel", "attn_delta_kernel",
+                        "attn_dkdv_kernel", "attn_dq_sum_kernel")
+
+
+def encoder_attn_train_attrs(device, B: int, H: int, T: int
+                             ) -> Dict[str, Dict[str, int]]:
+    """Each training device kernel's compiled attributes on ``device``'s
+    card: registers and local (spilled) bytes a thread, static and dynamic
+    shared bytes, threads a block, blocks resident an SM, and the blocks of
+    the grid it launches at q, k, v (B, H, T, 64)."""
+    lib = cb.library("encoder_attn_train")
+    fn = lib.aries_attn_train_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    keys = ("registers", "local_bytes", "static_shared_bytes",
+            "dynamic_shared_bytes", "threads", "blocks_an_sm", "blocks")
+    n, w = len(TRAIN_DEVICE_KERNELS), len(keys)
+    buf = (ctypes.c_int * (w * n))()
+    with torch.cuda.device(device):
+        got = fn(B, H, T, buf, n)
+    if got < 0:
+        cb.check(-got, "training attention attributes")
+    return {name: dict(zip(keys, buf[w * i: w * i + w]))
+            for i, name in enumerate(TRAIN_DEVICE_KERNELS)}
 
 
 def _require_train(tensors, like: torch.Tensor) -> None:
@@ -513,18 +543,23 @@ def encoder_attn_train_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                   lse: torch.Tensor, dout: torch.Tensor
                                   ) -> Tuple[torch.Tensor, ...]:
     """The training backward (csrc/encoder_attn_train.cu; one C call, three
-    device kernels: D = rowsum(dO * out), dK/dV by key tiles, dQ by query
-    tiles) -> (dq, dk, dv), each (B, H, T, 64) f32."""
+    device kernels: D = rowsum(dO * out), dK/dV and each key tile's partial
+    dQ by key tiles, then the partials summed in key-tile order) -> (dq,
+    dk, dv), each (B, H, T, 64) f32. The partials' scratch is (B H,
+    ceil(T / keys a block), T, 64) f32."""
     _require_train((("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)), q)
     B, H, T, _ = q.shape
     cb.require(lse, "lse", torch.float32, (B, H, T), q.device)
+    _, bwd, key_tile = _train_fns()
     delta = torch.empty_like(lse)
+    part = torch.empty((B * H, -(-T // key_tile), T, 64),
+                       dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    cb.launch(_train_fns()[1], q, "training attention backward", cb.ptr(q),
-              cb.ptr(k), cb.ptr(v), cb.ptr(out), cb.ptr(lse), cb.ptr(dout),
-              cb.ptr(delta), cb.ptr(dq), cb.ptr(dk), cb.ptr(dv), B, H, T,
-              attn_scale(64))
+    cb.launch(bwd, q, "training attention backward", cb.ptr(q), cb.ptr(k),
+              cb.ptr(v), cb.ptr(out), cb.ptr(lse), cb.ptr(dout),
+              cb.ptr(delta), cb.ptr(part), cb.ptr(dq), cb.ptr(dk),
+              cb.ptr(dv), B, H, T, attn_scale(64))
     cb.count(encoder_attn_train_bwd_kernel)
     return dq, dk, dv
 
