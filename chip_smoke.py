@@ -235,7 +235,29 @@ caught; a kernel check that fails is printed at once and fails the run
      with the shipped weights on 2 scenes of 15 s, clean and augmented,
      its DER below tests/test_der.py's gate (0.45, 0.75). Prints the
      ``train`` line.
-The second-to-last lines are the kernels JSON (all nineteen entries) and
+ 14. speculative path (speculative decode's verify step, kernel 3 at S
+     queries a cache row): held at large-v3, 16 windows x S 4 (R 64), a
+     256-position self cache whose every lane is random (stale drafts),
+     pos 30 / valid_start 0 and pos 62 / valid_start 2 (pos .. pos + 3
+     crossing a split of 32 keys), both self-cache dtypes: its
+     self-attention part against the plain version in bf16 steps, below
+     "a drafted query sees the key one past its own position" and "the
+     drafted block's keys read before this launch appended them"; the 32
+     layers teacher-forced per layer (below the cross tail dropped); bit
+     for bit the x and cache of 4 one-token steps; a graph replay bit for
+     bit a direct launch; a verify accepting 1 of 4 then a verify at pos
+     + 1 over the rejected lanes bit for bit fresh one-token steps; the
+     verify step and the one-token step over the 16 windows profiled by
+     kernel (``profile decode step verify S 4, B 16`` and ``one token,
+     B 16`` lines, with and without PDL). Then
+     scripts/bench_speculative.py's main() at its defaults, counts from 0:
+     the SYNTHETIC-acceptance chains (S 4, 3 accepted a step, 16 windows,
+     24 steps against 72 one-token steps; never a real-speech speedup) and
+     the fused step's replay ms at S 1 / 2 / 4 / 8 (its line and cost(S) /
+     cost(1)); prints the ``speculative`` line (the launches: verify
+     replays, one-token replays, drafter calls; the card's peak) and adds
+     the verify mode's kernels entry.
+The second-to-last lines are the kernels JSON (all twenty entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -775,7 +797,7 @@ def pos_unscored_layers(x, wpack, cache, cross, vs, pos, H):
     import torch
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
-    def self_attn(qkv, cache_l, pos, vs, n_head):
+    def self_attn(qkv, cache_l, pos, vs, n_head, queries=1):
         qw, ckv, ksc = DL._append_self(qkv, cache_l, pos, n_head)
         t = torch.arange(ckv.shape[3], device=qkv.device)
         lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
@@ -1226,17 +1248,19 @@ def profile_step(label: str, step, n: int = 5,
         flush=True)
 
 
-def profile_graph_step(label, wpack, cache, cross, H, R, x, pos):
+def profile_graph_step(label, wpack, cache, cross, H, R, x, pos, queries=1):
     """The step replayed from one graph, profiled as the slices run it
     (each kernel a programmatic dependent of the one before), then from a
     graph captured without PDL: there each kernel's device time is its own,
-    not stretched by waiting for its predecessor."""
+    not stretched by waiting for its predecessor. ``queries``: the verify
+    step's drafted tokens a window."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     for pdl in (True, False):
         DL.PDL = pdl
         try:
-            graph = DL.DecodeStepGraph(wpack, cache, cross, R, H)
+            graph = DL.DecodeStepGraph(wpack, cache, cross, R, H, 0,
+                                       queries=queries)
             profile_step(label + ("" if pdl else ", no PDL"),
                          lambda: graph.run(x, pos))
             del graph
@@ -2802,6 +2826,9 @@ def counters():
             "beam_reorder": BR.permute_rows_kernel,
             "quant_matmul": Q.quant_matmul_dequant_kernel,
             "self_attn_q8": SA.self_attention_q8_kernel,
+            # kernel 3's launches and replays at S > 1 (also in
+            # decode_layers)
+            "decode_layers_verify": DL.VERIFY,
             **probe_counters()}
 
 
@@ -2846,6 +2873,9 @@ PATH_KERNELS = {
     # three large-v3 f32 train steps, the train state, the diarizer's
     # trainers (mel on their batches)
     "train": ("mel", "encoder_attn_train", "encoder_attn_train_bwd"),
+    # bench_speculative.main(): the verify step's replays (kernel 3 at
+    # S 4), the one-token step's
+    "speculative": ("decode_layers_verify", "decode_layers"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -4902,6 +4932,275 @@ def train_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# speculative path
+# ---------------------------------------------------------------------------
+
+# the verify step held at large-v3: 16 windows, 4 drafted tokens a window
+# (R 64), a 256-position self cache (attn_split: 8 splits of 32 keys);
+# pos .. pos + 3 crosses a split boundary at both positions
+SPEC_B, SPEC_S, SPEC_T = 16, 4, 256
+SPEC_CASES = ((30, 0), (62, 2))
+
+
+class key_one_past:
+    """A mistake the verify step's limits must catch: each drafted query
+    of the plain version also sees the key one past its own position (its
+    neighbour's draft; never past the drafted block)."""
+
+    def __enter__(self):
+        from whisper_aries_tpu_torch.models import whisper as W
+
+        self.W, self.right = W, W.multi_token_mask
+
+        def shifted(group, n_draft, pos, vs, Tmax, minor, n_groups):
+            m = self.right(group, n_draft, pos + 1, vs, Tmax, minor,
+                           n_groups).clone()
+            m[..., pos + n_draft:] = W.NEG
+            return m
+
+        W.multi_token_mask = shifted
+
+    def __exit__(self, *exc):
+        self.W.multi_token_mask = self.right
+
+
+def self_attn_block_early(qkv, cache_l, pos, vs, n_head, queries):
+    """A mistake the verify step's limits must catch: the plain verify
+    self-attention scoring the drafted block's lanes pos .. pos + S - 1 as
+    they stood before this launch appended them (stale lanes), then
+    appending."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    before = clone(cache_l)
+    qw, _, _ = DL._append_self(qkv, cache_l, pos, n_head, queries)
+    ckv = before["kv8"] if "kv8" in before else before["kv"]
+    att = DL._self_attend(
+        qw, ckv, before.get("ksc"), pos, vs, queries,
+        lambda lg: torch.softmax(lg, dim=-1),
+        lambda pr, v: torch.einsum("rht,rhtd->rhd", pr.float(), v.float()))
+    return att.reshape(qkv.shape[0], -1).to(qkv.dtype)
+
+
+def verify_one_token_steps(x, wpack, cache, cross, vs, pos, H, S):
+    """S consecutive one-token kernel steps at pos .. pos + S - 1, query
+    s of each window its x row: the bits the verify step must give."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    B, d = x.shape[0] // S, x.shape[1]
+    xs = x.view(B, S, d)
+    return torch.stack([DL.fused_decoder_layers(
+        xs[:, s].contiguous(), wpack, cache, cross, vs, pos + s, H)
+        for s in range(S)], dim=1).view(B * S, d)
+
+
+def hold_verify(dev, self_int8: bool) -> dict:
+    """The verify step (kernel 3 at S 4 queries a cache row) at large-v3,
+    16 windows, T 256, every lane of the self cache random (stale drafts
+    past pos), at pos 30 / valid_start 0 and pos 62 / valid_start 2:
+      * its self-attention part against the plain version in bf16 steps,
+        below both named mistakes (a drafted query seeing the key one past
+        its own position; the drafted block's keys read before this launch
+        appended them), the appended lanes the plain version's bits;
+      * the 32 layers teacher-forced per layer against the plain layer,
+        as the one-token step (below the cross tail dropped);
+      * bit for bit the x and the cache of 4 one-token steps;
+      * a graph replay bit for bit a direct launch;
+      * a verify at pos accepting 1 of 4, then one at pos + 1 over the
+        rejected drafts' lanes: the bits of fresh one-token steps.
+    Returns the max abs error, the plain version's ms and the bound."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    B, S, T = SPEC_B, SPEC_S, SPEC_T
+    R = B * S
+    dims, _, wpack, cross, cache, g = decode_inputs(
+        dev, B, T, self_int8, seed=4, windows=B, T=T)
+    H, L, d = dims.n_text_head, dims.n_text_layer, dims.n_text_state
+    tag = f"verify S {S}, {'int8' if self_int8 else 'bf16'} self cache"
+    sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+    rnd = lambda scale=1.0: (scale * torch.randn(
+        (R, d), generator=g, device=dev)).to(torch.bfloat16)
+    # (1) the self-attention part, layer 0's cache
+    part_tol = {"bf16_steps": 1.5, "flipped": 2e-3}
+    c0 = sl(cache, 0)
+    c0 = {k: v[0].contiguous() for k, v in c0.items()}
+    for pos, vs in SPEC_CASES:
+        qkv = (0.5 * torch.randn((R, 3 * d), generator=g, device=dev)).to(
+            torch.bfloat16)
+        ck, cp, c_past, c_early = (clone(c0) for _ in range(4))
+        got = DL.self_attn_kernel(qkv, ck, pos, vs, H, queries=S)
+        want = DL.self_attn_plain(qkv, cp, pos, vs, H, queries=S)
+        with key_one_past():
+            past = DL.self_attn_plain(qkv, c_past, pos, vs, H, queries=S)
+        early = self_attn_block_early(qkv, c_early, pos, vs, H, S)
+        errs = bf16_steps(got, want)
+        held(f"{tag} self_attn part, pos {pos}, valid_start {vs}: "
+             "a drafted query sees the key one past its own position",
+             errs, part_tol, bf16_steps(past, want))
+        held(f"{tag} self_attn part, pos {pos}, valid_start {vs}: the "
+             "drafted block's keys read before this launch appended them",
+             errs, part_tol, bf16_steps(early, want))
+        check(f"{tag} self_attn part append, pos {pos}",
+              all(torch.equal(ck[k], cp[k]) for k in ck),
+              "appended lanes identical to the plain version's")
+    # (2) the layers, teacher-forced per layer
+    tols = {"max_rel": 3e-2, "mean_rel": 1e-2}
+    errs = {"max_rel": 0.0, "mean_rel": 0.0}
+    mistake = {"mean_rel": math.inf}
+    worst_abs = 0.0
+    cross_m = tail_dropped(cross)
+    for pos, vs in SPEC_CASES:
+        ck, cp, cm = clone(cache), clone(cache), clone(cache)
+        for l in range(L):
+            xin = rnd(0.25)
+            args = (sl(wpack, l),)
+            got = DL.fused_decoder_layers(xin, *args, sl(ck, l),
+                                          sl(cross, l), vs, pos, H, queries=S)
+            want = DL.fused_decoder_layers_plain(
+                xin, *args, sl(cp, l), sl(cross, l), vs, pos, H, queries=S)
+            wrong = DL.fused_decoder_layers_plain(
+                xin, *args, sl(cm, l), sl(cross_m, l), vs, pos, H, queries=S)
+            worst_abs = max(worst_abs, float(
+                (got.float() - want.float()).abs().max()))
+            errs["max_rel"] = max(errs["max_rel"], max_rel(got, want))
+            errs["mean_rel"] = max(errs["mean_rel"], mean_rel(got, want, xin))
+            mistake["mean_rel"] = min(mistake["mean_rel"],
+                                      mean_rel(wrong, want, xin))
+        del ck, cp, cm
+    held(f"{tag} x, {L} layers x 2 positions", errs, tols, mistake)
+    del cross_m
+    # (3) bits of 4 one-token steps, the whole stack
+    for pos, vs in SPEC_CASES:
+        x = rnd()
+        c1, c2 = clone(cache), clone(cache)
+        a = DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H,
+                                    queries=S)
+        b = verify_one_token_steps(x, wpack, c2, cross, vs, pos, H, S)
+        same = torch.equal(a, b) and all(torch.equal(c1[k], c2[k])
+                                         for k in c1)
+        check(f"{tag} = {S} one-token steps, bitwise, pos {pos}", same,
+              "x and every cache lane identical" if same else "differ")
+        del c1, c2
+    # (4) a graph replay against a direct launch
+    pos, vs = SPEC_CASES[1]
+    cg_, cd = clone(cache), clone(cache)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H, vs, queries=S)
+    same = True
+    for p in (pos, pos + 1, pos + 4):
+        x = rnd()
+        same &= torch.equal(graph.run(x, p), DL.fused_decoder_layers(
+            x, wpack, cd, cross, vs, p, H, queries=S))
+        same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
+    check(f"{tag} graph replay = direct launch, bitwise", same,
+          "3 positions" if same else "differ")
+    del graph, cg_, cd
+    # (5) stale lanes: accept 1 of 4 at pos, verify again at pos + 1
+    pos, vs = SPEC_CASES[0]
+    x, y = rnd(), rnd()
+    c1, c2 = clone(cache), clone(cache)
+    DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H, queries=S)
+    a = DL.fused_decoder_layers(y, wpack, c1, cross, vs, pos + 1, H,
+                                queries=S)
+    DL.fused_decoder_layers(x.view(B, S, d)[:, 0].contiguous(), wpack, c2,
+                            cross, vs, pos, H)
+    b = verify_one_token_steps(y, wpack, c2, cross, vs, pos + 1, H, S)
+    lanes = slice(0, pos + 1 + S)
+    same = torch.equal(a, b) and all(
+        torch.equal(c1[k][:, :, :, :, lanes], c2[k][:, :, :, :, lanes])
+        for k in c1)
+    check(f"{tag} over a rejected draft's lanes = fresh one-token steps, "
+          "bitwise", same, f"verify at {pos} accepting 1, then at {pos + 1}"
+          if same else "differ")
+    del c1, c2
+    out = {"max_abs_err": worst_abs, "tolerance": dict(
+        self_attn_part=part_tol, x=tols)}
+    if self_int8:
+        # where the time goes: the verify step and the one-token step over
+        # the same 16 windows, by kernel (the sweep's position)
+        x, pos = rnd(), 128
+        profile_graph_step(f"verify S {S}, B {B}", wpack, cache, cross, H, R,
+                           x, pos, queries=S)
+        profile_graph_step(f"one token, B {B}", wpack, cache, cross, H, B,
+                           x[:B].contiguous(), pos)
+        out["plain_ms"] = time_ms(lambda: DL.fused_decoder_layers_plain(
+            x, wpack, cache, cross, 0, pos, H, queries=S), 3, warmup=1)
+    del dims, wpack, cross, cache
+    return out
+
+
+def spec_phase(dev, entries):
+    """14. The speculative path: the verify step held (hold_verify) on both
+    self-cache dtypes, then bench_speculative.main() at its defaults (the
+    synthetic-acceptance chains and the S sweep) with every launch count
+    set to 0 just before and read just after. Prints the ``speculative``
+    line; appends the verify mode's kernels entry; returns the launches."""
+    import gc
+
+    import torch
+    from whisper_aries_tpu_torch.decoding import drafter as DR
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.scripts import bench_speculative as BS
+
+    gc.collect()  # the earlier phases' models
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    held_by = {tag: hold_verify(dev, int8) for tag, int8 in
+               (("bf16", False), ("int8", True))}
+    hold_s = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    DR.ngram_draft.calls = 0
+    out, wall, launches = counted(BS.main, [])
+    drafts = DR.ngram_draft.calls
+    for k in PATH_KERNELS["speculative"]:
+        if launches[k] <= 0:
+            fail(f"speculative: kernel {k} was not launched")
+    knobs = BS.knobs()
+    # the speculative chain twice (untimed, timed), the sweep's S > 1
+    want = (2 * knobs["steps"] + sum(S > 1 for S in BS.SWEEP_S)
+            * (BS.SWEEP_WARMUP + BS.SWEEP_REPS))
+    if launches["decode_layers_verify"] != want:
+        FAILED.append(f"speculative: {launches['decode_layers_verify']} "
+                      f"verify launches, not {want}")
+    sweep = out["sweep"]
+    dims = W.PRESETS["large-v3"]
+    traffic = BS.verify_traffic(dims, knobs["B"], knobs["S"], BS.SWEEP_POS)
+    b_ms, b_by = bound(traffic["bytes"], traffic["ops"], PEAK_BF16)
+    report = dict(
+        hold_s=hold_s, wall_s=wall, bench=out["bench"], sweep_ms=sweep["ms"],
+        cost_over_s1=sweep["cost_over_s1"],
+        launches={"verify_replays": launches["decode_layers_verify"],
+                  "decode_layers": launches["decode_layers"],
+                  "graph_replays": launches["graph_replays"],
+                  "drafter_calls": drafts},
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "speculative.json").write_text(json.dumps(report, indent=2))
+    print("speculative " + json.dumps(report), flush=True)
+    S = knobs["S"]
+    entries.append(dict(
+        name="decode_layers_verify", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/decode_layers.cu",
+        replaces="whisper_aries_tpu/models/whisper.py:1382",
+        also_replaces="whisper_aries_tpu/ops/pallas_decode_layers.py:775",
+        max_abs_err=max(h["max_abs_err"] for h in held_by.values()),
+        tolerance=held_by["int8"]["tolerance"],
+        ms=sweep["ms"][S], plain_ms=held_by["int8"]["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_by_s=sweep["ms"], bound_ms_by_s=sweep["bound_ms"],
+        one_token_ms=sweep["ms"][1],
+        shape=(f"one verify step, all 32 layers, {knobs['B']} windows x S "
+               f"{S} drafted tokens (R {knobs['B'] * S}), pos "
+               f"{BS.SWEEP_POS}, T {BS.CACHE_LEN}, int8 self cache; ms a "
+               "CUDA graph replay (bench_speculative.cost_sweep); plain_ms "
+               "the plain version at pos 128")))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4972,7 +5271,7 @@ def main() -> None:
     runs = {path: slice_phase(dev, path, keep=path == "beam")
             for path in PATH_KERNELS
             if path not in ("checkpoint", "pipeline", "serve", "cli",
-                            "train")}
+                            "train", "speculative")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     *runs["checkpoint"], ckpt = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
@@ -4980,6 +5279,7 @@ def main() -> None:
     runs["cli"] = (cli_phase(dev, ckpt, beam_engine), {})
     del beam_engine
     runs["train"] = (train_phase(dev), {})
+    runs["speculative"] = (spec_phase(dev, entries), {})
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches
     paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)

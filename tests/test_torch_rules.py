@@ -20,7 +20,10 @@
     exact f32 on the CUDA cores, deterministically: its code (comments
     stripped) has no atomic, no TF32, no tensor-core instruction and no
     fast exponential, nothing is built with fast math, and chip_smoke.py
-    bounds it by the f32 rate.
+    bounds it by the f32 rate;
+  * no kernel source sets a kernel's function attributes (its shared
+    memory opt-in) behind a once-a-process flag: a per-card
+    ``std::call_once``, ``aries_decode_init`` or every call.
 """
 
 import ast
@@ -656,3 +659,180 @@ def test_training_attention_bound_is_the_f32_rate():
              for k in c.keywords if k.arg == "name"
              and isinstance(k.value, ast.Constant)]
     assert names == ["encoder_attn_train", "encoder_attn_train_bwd"]
+
+
+def _functions(code: str):
+    """{name: body} of the functions of a C++ source (comments stripped):
+    each top-level brace block (namespace and extern "C" blocks are looked
+    through) preceded by a parameter list, named by the identifier before
+    it; template and qualified names keep their last identifier."""
+    import re
+
+    out, depth, start, head = {}, 0, None, 0
+    opens = []  # for each open brace: whether it counts as a level
+    for i, ch in enumerate(code):
+        if ch == "{":
+            before = code[head:i]
+            transparent = depth == 0 and re.search(
+                r'(namespace\s*\w*|extern\s+"C")\s*$', before)
+            opens.append(not transparent)
+            if not transparent:
+                if depth == 0:
+                    start = i
+                depth += 1
+            else:
+                head = i + 1
+        elif ch == "}" and opens:
+            if opens.pop():
+                depth -= 1
+                if depth == 0:
+                    m = re.search(r"(\w+)\s*\([^;{}]*\)[^;{}()]*$",
+                                  code[head:start])
+                    if m:
+                        out[m.group(1)] = code[start:i + 1]
+            if depth == 0:
+                head = i + 1
+        elif ch == ";" and depth == 0:
+            head = i + 1
+    return out
+
+
+def _smem_opt_in_findings(sources):
+    """Places where a kernel's shared-memory (or other function-attribute)
+    opt-in is kept once a process instead of once a card. ``sources``:
+    {file name: C++ text}. A function sets attributes when its body calls
+    cudaFuncSetAttribute or a function that does. Such a function must
+    hold no ``static bool`` (nor any other static flag); a setter that
+    keeps state keeps it in per-card ``std::once_flag`` arrays under
+    ``std::call_once`` or ``once_per_card`` (common.cuh); the rest set the
+    attribute at every call (on the current card), or are
+    ``aries_decode_init``, which the Python side calls once a card."""
+    import re
+
+    funcs = {}
+    for name, src in sources.items():
+        for fn, body in _functions(_strip_comments(src)).items():
+            funcs[f"{name}::{fn}"] = (fn, body)
+    setters = {k for k, (_, b) in funcs.items()
+               if "cudaFuncSetAttribute" in b}
+    while True:
+        names = {funcs[k][0] for k in setters}
+        more = {k for k, (_, b) in funcs.items() if k not in setters and any(
+            re.search(rf"\b{n}\b", b) for n in names)}
+        if not more:
+            break
+        setters |= more
+    found = []
+    for k in sorted(setters):
+        fn, body = funcs[k]
+        if fn == "aries_decode_init":
+            continue
+        statics = re.findall(r"\bstatic\s+([\w:<>]+)[^;]*;", body)
+        if re.search(r"\bstatic\s+(volatile\s+)?bool\b", body):
+            found.append(f"{k}: static bool")
+        elif statics and not (
+                re.search(r"\bstatic\s+std::once_flag\s+\w+\s*\[", body)
+                and re.search(r"\b(std::call_once\s*\(\s*\w+\s*\[|"
+                              r"once_per_card\s*\()", body)):
+            found.append(f"{k}: static {statics[0]} without a per-card "
+                         "std::call_once")
+    return found
+
+
+def test_shared_memory_opt_in_is_set_once_a_card():
+    """No kernel source keeps its cudaFuncSetAttribute opt-in behind a
+    process-wide flag: the attribute belongs to the current card's
+    context, so a second card's first launch would run without it."""
+    import re
+
+    sources = {p.name: p.read_text(encoding="utf-8")
+               for p in sorted((PORT / "csrc").glob("*.cu*"))}
+    assert _smem_opt_in_findings(sources) == []
+    # the per-card guards are where the once-a-process flags were
+    guarded = {"encoder_attn.cu": 1, "quant_matmul.cu": 2, "probe_qa.cu": 1,
+               "cross_attn.cu": 1, "encoder_attn_train.cu": 1}
+    for name, n in guarded.items():
+        code = _strip_comments(sources[name])
+        assert len(re.findall(r"static\s+std::once_flag\s+\w+\s*\[",
+                              code)) == n, name
+    assert "static bool" not in "".join(map(_strip_comments,
+                                            sources.values()))
+
+
+#: the old pattern (csrc/encoder_attn.cu before the repair), a per-card
+#: guard, a per-call opt-in and a helper reached through a flag
+OLD_OPT_IN = """
+extern "C" int aries_encoder_attn(int B, void* stream) {
+  static bool configured = false;  // the attribute is set once a process
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        encoder_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  return 0;
+}
+"""
+PER_CARD = """
+namespace {
+template <typename QT>
+int allow_smem() {
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  return once_per_card(once, status, [] {
+    return (int)cudaFuncSetAttribute(k<QT>, attr, SMEM);
+  });
+}
+}  // namespace
+"""
+PER_CALL = """
+template <int K>
+int launch_k(int smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(tail<K>, attr, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+"""
+HELPER_FLAG = """
+int cross_allow_smem() {
+  return (int)cudaFuncSetAttribute(k, attr, SMEM);  // a helper
+}
+int allow_smem() {
+  static bool ready[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!ready[dev]) {
+    cross_allow_smem();
+    ready[dev] = true;
+  }
+  return 0;
+}
+"""
+ONCE_A_PROCESS = """
+int allow() {
+  static std::once_flag once;
+  static int status;
+  std::call_once(once, [] { status = cudaFuncSetAttribute(k, attr, 1); });
+  return status;
+}
+"""
+
+
+@pytest.mark.parametrize("src,found", [
+    (OLD_OPT_IN, ["a.cu::aries_encoder_attn: static bool"]),
+    (HELPER_FLAG, ["a.cu::allow_smem: static bool"]),
+    (ONCE_A_PROCESS, ["a.cu::allow: static std::once_flag without a "
+                      "per-card std::call_once"]),
+    (PER_CARD, []),
+    (PER_CALL, []),
+    ("/* static bool configured; cudaFuncSetAttribute */ int f() "
+     "{ return 0; }", []),
+])
+def test_shared_memory_opt_in_rule_itself(src, found):
+    """The rule catches the old once-a-process flag, directly and around
+    a helper, and a single once_flag; it passes a per-card guard, a
+    per-call opt-in and a comment."""
+    assert _smem_opt_in_findings({"a.cu": src}) == found

@@ -55,7 +55,9 @@
 // never on `pos`: the step is replayed as a CUDA graph with one fixed grid,
 // and `pos` / `valid_start` are read from device memory. The split holding
 // `pos` appends this step's K/V (quantizing when the cache is int8) and
-// scores it as stored.
+// scores it as stored. The speculative verify step runs the self-attention
+// with NQ drafted queries a cache row (self_verify_kernel<INT8, NQ>): query
+// q appends at pos + q and attends over [valid_start, pos + q].
 //
 // Every kernel here waits with griddepcontrol.wait before it reads what
 // the previous kernel of the step writes: it may be launched as a
@@ -190,26 +192,32 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cl, float* v,
 // ---------------------------------------------------------------- self
 
 struct SelfArgs {
-  const bf16* qkv;  // (R, 3d): q | k | v
+  const bf16* qkv;  // (R, 3d): q | k | v; row c NQ + q is query q of row c
   int d;
-  void* cache;      // (R, 2, H, Tmax, 64) bf16 or int8
-  float* csc;       // (R, 2, H, Tmax) f32 scales (int8 cache)
+  void* cache;      // (R / NQ, 2, H, Tmax, 64) bf16 or int8
+  float* csc;       // (R / NQ, 2, H, Tmax) f32 scales (int8 cache)
   int H, Tmax, C, HPB;
   const int* step;  // device {pos, valid_start}
   bf16* att;        // (R, d)
 };
+
+// queries a cache row the self-attention takes: 1 (a decode step) or up to
+// SELF_MAX_QUERIES drafted tokens (the speculative verify step)
+constexpr int SELF_MAX_QUERIES = 8;
 
 template <bool INT8>
 __host__ __device__ constexpr int self_row_stride() {
   return INT8 ? 64 + 16 : 128 + 16;  // padded: conflict-free row reads
 }
 
-// dynamic shared memory of one self-attention block: V rows,
-// probabilities, queries, per-warp and per-head partials, stats
+// dynamic shared memory of one self-attention block: V rows (shared by
+// the NQ queries), and a query's probabilities, query, per-head and
+// per-warp partials and stats, NQ times
 template <bool INT8>
-__host__ __device__ inline int self_smem_bytes(int HPB, int C) {
-  return HPB * C * self_row_stride<INT8>() + HPB * C * 4 +
-         HPB * DH * 4 * 2 + HPB * (C / 32) * (DH + 1) * 4 + 2 * HPB * 4;
+__host__ __device__ inline int self_smem_bytes(int HPB, int C, int NQ) {
+  return HPB * C * self_row_stride<INT8>() +
+         NQ * (HPB * C * 4 + HPB * DH * 4 * 2 +
+               HPB * (C / 32) * (DH + 1) * 4 + 2 * HPB * 4);
 }
 
 // grid (S, H / HPB, R), cluster (S, 1, 1), HPB x C threads: the block
@@ -421,6 +429,293 @@ self_split_kernel(SelfArgs a) {
       for (int q2 = 0; q2 < S; ++q2) o += *cl.map_shared_rank(&os[i], q2);
       a.att[(size_t)r * d + blockIdx.y * HPB * DH + i] = f2bf(o);
     }
+  }
+  cl.sync();
+}
+
+// The verify step's self-attention: grid (S, H / HPB, R / NQ), cluster
+// (S, 1, 1), HPB x C threads, NQ >= 2 drafted queries a cache row. As
+// self_split_kernel, the block takes split s of HPB heads of cache row c,
+// a thread a key, loading its K and V rows before the wait; it scores
+// each key against all NQ queries of row c (query q at position pos + q),
+// so the self cache is read once for NQ queries.
+//
+// Query q appends its K/V at pos + q and attends over [vs, pos + q], so
+// it reads the rows pos .. pos + q - 1 that the same launch appends for
+// the queries before it. Blocks of one grid are not ordered, so every key
+// is appended and read by one block: the split that holds position
+// pos + q appends it (from qkv row c NQ + q), syncs, and reloads it as
+// stored, as self_split_kernel does with pos. A block reads only lanes of
+// its own split that it wrote itself or that earlier launches wrote;
+// lanes pos .. pos + NQ - 1 may hold drafts an earlier verify rejected,
+// which are always rewritten before they are read (the preload stays
+// t < pos). Each query keeps its own causal limit, split max and sum and
+// P . V, every sum in self_split_kernel's order, so query q gives the
+// bits of a one-token step at pos + q. The shared memory holds the V rows
+// once and each query's probabilities, query, partials and statistics.
+template <bool INT8, int NQ>
+__global__ void __launch_bounds__(SELF_MAX_KEYS, 2)
+self_verify_kernel(SelfArgs a) {
+  extern __shared__ __align__(16) uint8_t sm_self[];
+  constexpr int RS = self_row_stride<INT8>();
+  constexpr int NV = INT8 ? 4 : 8;  // 16-byte words per K or V row
+  const int C = a.C, HPB = a.HPB, NW = C / 32;
+  uint8_t* vsm = sm_self;
+  float* ps = reinterpret_cast<float*>(vsm + HPB * C * RS);  // (NQ, HPB, C)
+  float* qs = ps + NQ * HPB * C;                             // (NQ, HPB, DH)
+  float* os = qs + NQ * HPB * DH;                            // (NQ, HPB, DH)
+  float* po = os + NQ * HPB * DH;  // (NQ, HPB, NW, DH + 1)
+  float* stat_m = po + NQ * HPB * NW * (DH + 1);             // (NQ, HPB)
+  float* stat_l = stat_m + NQ * HPB;
+  float* wred = po;                     // reused before P . V
+  cg::cluster_group cl = cg::this_cluster();
+  const int s = blockIdx.x, r = blockIdx.z, S = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int sub = tid / C, lt = tid - sub * C, wh = lt >> 5;
+  const int h = blockIdx.y * HPB + sub;
+  const int d = a.d;
+  const int t0 = s * C;
+  // pos and valid_start were written before the step began
+  const int pos = a.step[0], vs = a.step[1];
+  const size_t kb = (((size_t)r * 2 + 0) * a.H + h) * a.Tmax;
+  const size_t vb = (((size_t)r * 2 + 1) * a.H + h) * a.Tmax;
+  int8_t* c8 = static_cast<int8_t*>(a.cache);
+  bf16* c16 = static_cast<bf16*>(a.cache);
+  const int4* rows16 = static_cast<const int4*>(a.cache);
+
+  // this thread's key, live for some query; rows below pos were written by
+  // earlier steps, so their loads go out before the wait
+  const int t = t0 + lt;
+  const bool live = t >= vs && t <= pos + NQ - 1 && t < a.Tmax;
+  // live for query q (the one-query kernel's `live` at position pos + q)
+  auto live_q = [&](int q) { return live && t <= pos + q; };
+  int4 kr[NV], vr[NV];
+  float ksc = 1.f, vsc = 1.f;
+  if (live && t < pos) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      kr[c] = rows16[(kb + t) * NV + c];
+      vr[c] = rows16[(vb + t) * NV + c];
+    }
+    if (INT8) {
+      ksc = a.csc[kb + t];
+      vsc = a.csc[vb + t];
+    }
+  }
+  pdl_wait();
+  pdl_trigger();
+
+  // the split holding position pos + q appends query q's k and v (each
+  // head's first warp)
+  if (wh == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int tp = pos + q;
+      if (tp < t0 || tp >= t0 + C) continue;
+      const bf16* row = a.qkv + ((size_t)r * NQ + q) * 3 * d;
+      for (int which = 0; which < 2; ++which) {
+        const bf16* src = row + (which + 1) * d + h * DH + 2 * lane;
+        const size_t dst = (which == 0 ? kb : vb) + tp;
+        if (INT8) {
+          const float f0 = bf2f(src[0]), f1 = bf2f(src[1]);
+          const float am = warp_max(fmaxf(fabsf(f0), fabsf(f1)));
+          const float sc = am > 0.f ? am / 127.f : 1.f;
+          const int q0 = max(-127, min(127, __float2int_rn(f0 / sc)));
+          const int q1 = max(-127, min(127, __float2int_rn(f1 / sc)));
+          c8[dst * DH + 2 * lane] = (int8_t)q0;
+          c8[dst * DH + 2 * lane + 1] = (int8_t)q1;
+          if (lane == 0) a.csc[dst] = sc;
+        } else {
+          c16[dst * DH + 2 * lane] = src[0];
+          c16[dst * DH + 2 * lane + 1] = src[1];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const bf16* row = a.qkv + ((size_t)r * NQ + q) * 3 * d;
+    for (int j = lt; j < DH; j += C)
+      qs[(q * HPB + sub) * DH + j] =
+          round_bf(__fmul_rn(bf2f(row[h * DH + j]), 0.125f));
+  }
+  __syncthreads();  // the append (global) and qs are visible to the block
+  if (live && t >= pos) {  // an appended row, as stored
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      kr[c] = rows16[(kb + t) * NV + c];
+      vr[c] = rows16[(vb + t) * NV + c];
+    }
+    if (INT8) {
+      ksc = a.csc[kb + t];
+      vsc = a.csc[vb + t];
+    }
+  }
+
+  // 1) each query's logits of this split's live keys, the split's max per
+  // head; the V rows to shared memory
+  float lg[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) lg[q] = -INFINITY;
+  if (live) {
+    int4* vdst = reinterpret_cast<int4*>(vsm + (sub * C + lt) * RS);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) vdst[c] = vr[c];
+    float acc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
+    if (INT8) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int w[4] = {kr[c].x, kr[c].y, kr[c].z, kr[c].w};
+#pragma unroll
+        for (int wd = 0; wd < 4; ++wd) {
+          float f[4];
+          i8x4_to_f32(w[wd], f);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+              acc[q] = fmaf(qs[(q * HPB + sub) * DH + 16 * c + 4 * wd + i],
+                            f[i], acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        if (live_q(q)) lg[q] = __fmul_rn(acc[q], ksc);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const __nv_bfloat162* p2 =
+            reinterpret_cast<const __nv_bfloat162*>(&kr[c]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(p2[i]);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const float* qq = qs + (q * HPB + sub) * DH + 8 * c + 2 * i;
+            acc[q] = fmaf(qq[0], f.x, acc[q]);
+            acc[q] = fmaf(qq[1], f.y, acc[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        if (live_q(q)) lg[q] = acc[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const float m = warp_max(lg[q]);
+    if (lane == 0) wred[(q * HPB + sub) * NW + wh] = m;
+  }
+  __syncthreads();
+  if (lt == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float v = -INFINITY;
+      for (int w = 0; w < NW; ++w) v = fmaxf(v, wred[(q * HPB + sub) * NW + w]);
+      stat_m[q * HPB + sub] = v;
+    }
+  }
+  cl.sync();
+
+  // 2) each query's global max (finite: pos + q is live); this split's sum
+  float e[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const float M = cluster_max(cl, &stat_m[q * HPB + sub], S);
+    e[q] = live_q(q) ? expf(lg[q] - M) : 0.f;
+    const float sm = warp_sum(e[q]);
+    if (lane == 0) wred[NQ * HPB * NW + (q * HPB + sub) * NW + wh] = sm;
+  }
+  __syncthreads();
+  if (lt == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float v = 0.f;
+      for (int w = 0; w < NW; ++w)
+        v += wred[NQ * HPB * NW + (q * HPB + sub) * NW + w];
+      stat_l[q * HPB + sub] = v;
+    }
+  }
+  cl.sync();
+
+  // 3) probabilities (v scale folded in, rounded to bf16) and P . V
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const float sum = cluster_sum(cl, &stat_l[q * HPB + sub], S);
+    float p = 0.f;
+    if (live_q(q)) {
+      p = e[q] / sum;
+      if (INT8) p = p * vsc;
+      p = round_bf(p);
+    }
+    ps[(q * HPB + sub) * C + lt] = p;
+  }
+  __syncthreads();  // ps ready; wred no longer read
+  const int hl = lane & 15;
+  const int klo = max(t0, vs) - t0;
+  float acc[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[q][j] = 0.f;
+  for (int k2 = 0; k2 < 16; ++k2) {
+    const int kl = wh * 32 + 2 * k2 + (lane >> 4);
+    // keys past the last query's position, or past the split's end
+    if (kl < klo || kl > min(t0 + C - 1, pos + NQ - 1) - t0) continue;
+    const uint8_t* vrow = vsm + (sub * C + kl) * RS;
+    float f[4];
+    if (INT8) {
+      i8x4_to_f32(*reinterpret_cast<const int*>(vrow + 4 * hl), f);
+    } else {
+      const uint2 raw = *reinterpret_cast<const uint2*>(vrow + 8 * hl);
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 f0 = __bfloat1622float2(p2[0]);
+      const float2 f1 = __bfloat1622float2(p2[1]);
+      f[0] = f0.x;
+      f[1] = f0.y;
+      f[2] = f1.x;
+      f[3] = f1.y;
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (t0 + kl > pos + q) continue;  // past query q's own position
+      const float p = ps[(q * HPB + sub) * C + kl];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][j] = fmaf(p, f[j], acc[q][j]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[q][j] += __shfl_xor_sync(0xffffffffu, acc[q][j], 16);
+      if (lane < 16)
+        po[((q * HPB + sub) * NW + wh) * (DH + 1) + 4 * hl + j] = acc[q][j];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    for (int j = lt; j < DH; j += C) {
+      float o = 0.f;
+      for (int w = 0; w < NW; ++w)
+        o += po[((q * HPB + sub) * NW + w) * (DH + 1) + j];
+      os[(q * HPB + sub) * DH + j] = o;
+    }
+  cl.sync();
+
+  // 4) rank 0 sums the splits' outputs in rank order
+  if (s == 0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      for (int i = tid; i < HPB * DH; i += blockDim.x) {
+        float o = 0.f;
+        for (int q2 = 0; q2 < S; ++q2)
+          o += *cl.map_shared_rank(&os[q * HPB * DH + i], q2);
+        a.att[((size_t)r * NQ + q) * d + blockIdx.y * HPB * DH + i] = f2bf(o);
+      }
   }
   cl.sync();
 }
@@ -1179,35 +1474,59 @@ int launch(Kern kern, dim3 grid, int threads, size_t smem, int cluster,
 }
 
 // heads per self-attention block: 4, 2 or 1, dividing H, at most 256
-// threads and SELF_MAX_SMEM bytes
-inline int self_heads_per_block(int H, int C, int int8) {
+// threads and SELF_MAX_SMEM bytes at NQ queries a cache row
+inline int self_heads_per_block(int H, int C, int int8, int NQ) {
   for (int hp = 4; hp > 1; hp /= 2) {
-    const int smem = int8 ? self_smem_bytes<true>(hp, C)
-                          : self_smem_bytes<false>(hp, C);
+    const int smem = int8 ? self_smem_bytes<true>(hp, C, NQ)
+                          : self_smem_bytes<false>(hp, C, NQ);
     if (H % hp == 0 && hp * C <= SELF_MAX_KEYS && smem <= SELF_MAX_SMEM)
       return hp;
   }
   return 1;
 }
 
-inline int launch_self(const SelfArgs& a0, int R, int int8, int pdl,
-                       cudaStream_t st) {
-  SelfArgs a = a0;
-  int S, C;
-  split_plan(a.Tmax, &S, &C);
-  if (S > MAX_SPLITS || C > SELF_MAX_KEYS || R <= 0 || R > 65535)
-    return (int)cudaErrorInvalidValue;
-  a.C = C;
-  a.HPB = self_heads_per_block(a.H, C, int8);
-  const int smem = int8 ? self_smem_bytes<true>(a.HPB, C)
-                        : self_smem_bytes<false>(a.HPB, C);
-  if (smem > SELF_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S, a.H / a.HPB, R);
-  const int threads = a.HPB * C;
-  return int8 ? launch(self_split_kernel<true>, grid, threads, smem, S, pdl,
-                       st, a)
-              : launch(self_split_kernel<false>, grid, threads, smem, S, pdl,
-                       st, a);
+template <bool INT8>
+int launch_self_nq(const SelfArgs& a, dim3 grid, int threads, int smem,
+                   int NQ, int pdl, cudaStream_t st) {
+#define ARIES_SELF(N)                                                        \
+  case N:                                                                    \
+    return launch(self_verify_kernel<INT8, N>, grid, threads, smem, grid.x, \
+                  pdl, st, a)
+  switch (NQ) {
+    case 1:
+      return launch(self_split_kernel<INT8>, grid, threads, smem, grid.x, pdl,
+                    st, a);
+    ARIES_SELF(2);
+    ARIES_SELF(3);
+    ARIES_SELF(4);
+    ARIES_SELF(5);
+    ARIES_SELF(6);
+    ARIES_SELF(7);
+    ARIES_SELF(8);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ARIES_SELF
+}
+
+// allow every self-attention instantiation SELF_MAX_SMEM of dynamic shared
+// memory on the current card, before its first launch or capture there
+template <bool INT8>
+int self_allow_smem() {
+  const void* kerns[] = {(const void*)self_split_kernel<INT8>,
+                         (const void*)self_verify_kernel<INT8, 2>,
+                         (const void*)self_verify_kernel<INT8, 3>,
+                         (const void*)self_verify_kernel<INT8, 4>,
+                         (const void*)self_verify_kernel<INT8, 5>,
+                         (const void*)self_verify_kernel<INT8, 6>,
+                         (const void*)self_verify_kernel<INT8, 7>,
+                         (const void*)self_verify_kernel<INT8, 8>};
+  for (const void* k : kerns) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, SELF_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // the cross-attention over cross_plan's S splits of C keys on `sms` SMs:

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
@@ -107,3 +109,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 static inline int launch_status() { return (int)cudaGetLastError(); }
+
+// A kernel's function attributes (its dynamic shared memory above 48 KB)
+// belong to the current card's context: each card needs its own
+// cudaFuncSetAttribute. `set()` (returning 0 or an error code) runs once a
+// card, at the first call on that card; concurrent callers there (the
+// replicas' threads) wait for it, and every caller gets its status. Each
+// call site keeps its own `once` and `status` arrays (static, MAX_CARDS
+// long); the cards of a host are numbered below MAX_CARDS.
+constexpr int MAX_CARDS = 64;
+
+template <typename F>
+int once_per_card(std::once_flag* once, int* status, F set) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_CARDS) return (int)cudaErrorInvalidDevice;
+  std::call_once(once[dev], [&] { status[dev] = set(); });
+  return status[dev];
+}

@@ -43,20 +43,12 @@ namespace {
 using splitkv::CrossArgs;
 
 // the largest dynamic shared memory a launch asks for, allowed once per
-// card and type pair (the cards of a host are numbered below 64)
+// card and type pair
 template <typename QT, typename OT>
 int allow_smem() {
-  static bool ready[64];
-  int dev = 0;
-  const cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    const int err = splitkv::cross_allow_smem<QT, OT>();
-    if (err) return err;
-    ready[dev] = true;
-  }
-  return 0;
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  return once_per_card(once, status, splitkv::cross_allow_smem<QT, OT>);
 }
 
 template <typename QT, typename OT>

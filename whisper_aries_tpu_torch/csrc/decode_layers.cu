@@ -26,6 +26,13 @@
 // applied to the f32 accumulator with separate multiply and add, as the
 // plain version does.
 //
+// The speculative verify step (replacing also whisper_aries_tpu/models/
+// whisper.py, decoder_step_fused_multi, which packs drafts into the TPU
+// kernel's beam slots) runs the same layers on R = rows x Q queries: the Q
+// drafted tokens of a self-cache row, query q appending at pos + q and
+// attending over [vs, pos + q]; the GEMMs, LayerNorms and cross-attention
+// (G = Q queries a window) take its rows as any others.
+//
 // Bound on the H100: bytes. At large-v3 (d 1280, ff 5120, L 32) a step
 // streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales for
 // 8 windows (whatever the beams per window) and the self cache up to
@@ -385,11 +392,29 @@ int run_gemm(const bf16* x, int ldx, int K, const int8_t* w, int ldw, int N,
 
 // --------------------------------------------- (c), (d) attention parts
 
-int run_self_attn(const bf16* qkv, int R, int d, int H, void* cache,
-                  float* csc, int self_int8, int Tmax, const int* step,
-                  bf16* att, int pdl, cudaStream_t st) {
-  splitkv::SelfArgs a{qkv, d, cache, csc, H, Tmax, 0, 0, step, att};
-  return splitkv::launch_self(a, R, self_int8, pdl, st);
+// R rows, `queries` a cache row (the verify step's drafted tokens; 1 for
+// a decode step)
+int run_self_attn(const bf16* qkv, int R, int queries, int d, int H,
+                  void* cache, float* csc, int self_int8, int Tmax,
+                  const int* step, bf16* att, int pdl, cudaStream_t st) {
+  using namespace splitkv;
+  SelfArgs a{qkv, d, cache, csc, H, Tmax, 0, 0, step, att};
+  int S, C;
+  split_plan(Tmax, &S, &C);
+  if (S > MAX_SPLITS || C > SELF_MAX_KEYS || queries < 1 ||
+      queries > SELF_MAX_QUERIES || R <= 0 || R % queries ||
+      R / queries > 65535)
+    return (int)cudaErrorInvalidValue;
+  a.C = C;
+  a.HPB = self_heads_per_block(H, C, self_int8, queries);
+  const int smem = self_int8 ? self_smem_bytes<true>(a.HPB, C, queries)
+                             : self_smem_bytes<false>(a.HPB, C, queries);
+  if (smem > SELF_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid(S, H / a.HPB, R / queries);
+  const int threads = a.HPB * C;
+  return self_int8
+             ? launch_self_nq<true>(a, grid, threads, smem, queries, pdl, st)
+             : launch_self_nq<false>(a, grid, threads, smem, queries, pdl, st);
 }
 
 // cq (R, d) with R = Bw * G rows, window-major (the G beams of a window
@@ -451,18 +476,14 @@ void vec_offsets(int d, int ff, int* offs) {
 
 extern "C" {
 
-// Once per process, before any launch or capture: every kernel of the
+// Once per card, before any launch or capture there: every kernel of the
 // step loaded (a module loaded lazily at its first launch would otherwise
 // load inside a graph capture) and allowed its dynamic shared memory.
 int aries_decode_init() {
   cudaFuncAttributes fa;
   RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::self_split_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      splitkv::self_split_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, splitkv::SELF_MAX_SMEM));
+  RETURN_IF(splitkv::self_allow_smem<true>());
+  RETURN_IF(splitkv::self_allow_smem<false>());
   RETURN_IF((splitkv::cross_allow_smem<bf16, bf16>()));
   RETURN_IF((int)cudaFuncSetAttribute(
       gemm_w8_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -506,12 +527,12 @@ int aries_w8a16_gemm(const void* x, int ldx, int R, int K, const int8_t* w,
                   (cudaStream_t)stream);
 }
 
-int aries_self_attn(const void* qkv, int R, int d, int H, void* cache,
-                    float* csc, int self_int8, int Tmax, const int* step,
-                    void* att, void* stream) {
-  return run_self_attn(static_cast<const bf16*>(qkv), R, d, H, cache, csc,
-                       self_int8, Tmax, step, static_cast<bf16*>(att), 0,
-                       (cudaStream_t)stream);
+int aries_self_attn(const void* qkv, int R, int queries, int d, int H,
+                    void* cache, float* csc, int self_int8, int Tmax,
+                    const int* step, void* att, void* stream) {
+  return run_self_attn(static_cast<const bf16*>(qkv), R, queries, d, H,
+                       cache, csc, self_int8, Tmax, step,
+                       static_cast<bf16*>(att), 0, (cudaStream_t)stream);
 }
 
 int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
@@ -525,14 +546,18 @@ int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
 // All L decoder layers of one step. x (R, d) bf16 is updated in place; the
 // self cache (L, R, 2, H, Tmax, 64) [bf16, or int8 with scales csc
 // (L, R, 2, H, Tmax)] gets this step's K/V at position step[0], attending
-// over [step[1], step[0]] (step: two device int32). The cross K/V
+// over [step[1], step[0]] (step: two device int32). With `queries` Q > 1
+// (the speculative verify step) the self cache holds R / Q rows, row c's
+// Q queries being x rows c Q .. c Q + Q - 1: query q appends at step[0] +
+// q and attends over [step[1], step[0] + q]. The cross K/V
 // (L, Bw, 2, H, Ta, 64) and scales (L, Bw, 2, H, Ta) hold Bw windows, each
 // shared by its R / Bw rows (window-major). h (R, d), qkv (R, 3d),
 // att (R, d), h1 (R, ff) bf16 are scratch the caller owns. `sms` is the
 // card's SM count (the GEMM plan); `pdl` launches each kernel as a
 // programmatic dependent of the one before. Nothing here queries or sets
 // the device, so the call can be captured in a CUDA graph.
-int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
+int aries_decode_layers(void* x_, int R, int queries, int d, int ff, int H,
+                        int L,
                         const int8_t* wq8, const int8_t* wf1,
                         const int8_t* wf2, const float* vecs, int vec_len,
                         void* cache, float* csc, int self_int8, int Tmax,
@@ -547,8 +572,9 @@ int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
   bf16* h1 = static_cast<bf16*>(h1_);
   int off[19];
   vec_offsets(d, ff, off);
-  const size_t self_stride = (size_t)R * 2 * H * Tmax * DH;
-  const size_t self_sc_stride = (size_t)R * 2 * H * Tmax;
+  if (queries < 1 || R % queries) return (int)cudaErrorInvalidValue;
+  const size_t self_stride = (size_t)(R / queries) * 2 * H * Tmax * DH;
+  const size_t self_sc_stride = (size_t)(R / queries) * 2 * H * Tmax;
   const size_t cross_stride = (size_t)Bw * 2 * H * Ta * DH;
   const size_t cross_sc_stride = (size_t)Bw * 2 * H * Ta;
   const int ldq = 6 * d;
@@ -563,8 +589,8 @@ int aries_decode_layers(void* x_, int R, int d, int ff, int H, int L,
     RETURN_IF(run_layer_norm(x, R, d, v + off[0], v + off[1], h, pdl, st));
     RETURN_IF(run_gemm(h, d, d, wq, ldq, 3 * d, R, v + off[12], v + off[2],
                        EPI_STORE, qkv, 3 * d, sms, pdl, st));
-    RETURN_IF(run_self_attn(qkv, R, d, H, cache_l, csc_l, self_int8, Tmax,
-                            step, att, pdl, st));
+    RETURN_IF(run_self_attn(qkv, R, queries, d, H, cache_l, csc_l,
+                            self_int8, Tmax, step, att, pdl, st));
     RETURN_IF(run_gemm(att, d, d, wq + 3 * d, ldq, d, R, v + off[13],
                        v + off[3], EPI_RESIDUAL, x, d, sms, pdl, st));
     // cross-attention block (cq overwrites h once its GEMM has read it)

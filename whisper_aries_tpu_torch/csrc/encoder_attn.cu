@@ -258,14 +258,14 @@ extern "C" int aries_encoder_attn(const void* q, const void* k, const void* v,
                                   void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  static bool configured = false;  // the attribute is set once a process
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  const int e = once_per_card(once, status, [] {
+    return (int)cudaFuncSetAttribute(
         encoder_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  });
+  if (e) return e;
   const cuuint64_t dims[3] = {DH, (cuuint64_t)T, (cuuint64_t)B * H};
   const cuuint64_t strides[2] = {DH * 2, (cuuint64_t)T * DH * 2};
   const cuuint32_t box[3] = {DH, BKV, 1}, qbox[3] = {DH, BQ, 1},

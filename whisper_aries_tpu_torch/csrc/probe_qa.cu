@@ -830,13 +830,14 @@ int launch_qa(const void* q, const void* k, const void* v, const void* wo,
               int blocks, void* attr, float* out, double* checksum,
               cudaStream_t st) {
   auto kern = qa_kernel<MASK, NORM, MAXSUB, LAYOUT, PHASE, BRANCH>;
-  static bool configured = false;  // the attribute is set once a process
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  const int e = once_per_card(once, status, [kern] {
+    const cudaError_t r = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return ERR_ATTRIBUTE + (int)e;
-    configured = true;
-  }
+    return r == cudaSuccess ? 0 : ERR_ATTRIBUTE + (int)r;
+  });
+  if (e) return e;
   CUtensorMap mq, mk, mv, ma;
   int err;
   if ((err = map2d(&mq, q, BQ, H * DH)) || (err = map2d(&mk, k, TP, H * DH)) ||

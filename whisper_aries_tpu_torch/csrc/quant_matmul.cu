@@ -317,13 +317,14 @@ template <int G, bool OUT_BF16>
 int launch_splitk_g(const bf16* x, const int8_t* q, const float* s, void* out,
                     int M, int N, int K, int S, cudaStream_t st) {
   auto kern = splitk_kernel<G, OUT_BF16>;
-  static bool configured = false;  // the attribute is set once a process
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  const int e = once_per_card(once, status, [kern] {
+    const cudaError_t r = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S_MAX_SMEM);
-    if (e != cudaSuccess) return ERR_ATTRIBUTE + (int)e;
-    configured = true;
-  }
+    return r == cudaSuccess ? 0 : ERR_ATTRIBUTE + (int)r;
+  });
+  if (e) return e;
   const dim3 grid(S, (N + S_COLS - 1) / S_COLS);
   return splitkv::launch(kern, grid, S_THREADS, splitk_smem(G * 8, K / S, S),
                          S, 0, st, x, q, s, out, M, N, K);
@@ -502,14 +503,14 @@ int dequant(const int8_t* q, const float* s, bf16* w, int K, int N,
 template <bool OUT_BF16>
 int launch_gemm(const CUtensorMap& mx, const CUtensorMap& mw, void* out,
                 int M, int N, int K, cudaStream_t st) {
-  static bool configured = false;  // the attribute is set once a process
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  const int e = once_per_card(once, status, [] {
+    return (int)cudaFuncSetAttribute(
         gemm_kernel<OUT_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         G_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  });
+  if (e) return e;
   const dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
   gemm_kernel<OUT_BF16><<<grid, G_THREADS, G_SMEM, st>>>(mx, mw, out, M, N,
                                                           K);

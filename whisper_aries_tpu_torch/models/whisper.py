@@ -959,3 +959,68 @@ class UnfusedStepGraph:
         cb.add_counts(self.launches)
         cb.bump(decoder_step, "graph_replays")
         return self.logits
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify step
+# ---------------------------------------------------------------------------
+
+
+def multi_token_mask(group: int, n_draft: int, pos, vs, Tmax: int,
+                     minor: int, n_groups: int) -> torch.Tensor:
+    """(G, S*group, minor) additive f32 mask of the S-token verify step over
+    a group-minor cache (m = t*group + j), the JAX package's function: row
+    r = s*group + j may attend to window j's positions t <= pos + s (causal
+    through the drafted block, appended before it is read), t >= vs,
+    t < Tmax. The port's cache is one row a window (group 1); its plain
+    self-attention takes each query's live keys from this mask at group 1."""
+    S, Kg = n_draft, group
+    r = torch.arange(S * Kg)
+    m = torch.arange(minor)
+    r_s, r_j = (r // Kg)[:, None], (r % Kg)[:, None]
+    m_t, m_j = (m // Kg)[None, :], (m % Kg)[None, :]
+    ok = (m_j == r_j) & (m_t <= pos + r_s) & (m_t >= vs) & (m_t < Tmax)
+    out = torch.where(ok, 0.0, NEG).to(torch.float32)
+    return out[None].expand(n_groups, S * Kg, minor)
+
+
+def decoder_step_fused_multi(params: Dict[str, Any],
+                             wpack: Dict[str, torch.Tensor],
+                             tokens: torch.Tensor, pos: int,
+                             cache: Dict[str, torch.Tensor],
+                             cross: Dict[str, torch.Tensor],
+                             dims: WhisperDims,
+                             valid_start: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The S-token verify step of speculative decode: score S drafted
+    tokens a window in one decoder-layer step (the JAX package's
+    ``decoder_step_fused_multi``).
+
+    tokens (B, S) int, the drafts of the B windows of ``cross`` (int8 cross
+    K/V, ``precompute_cross_kv_int8``); ``pos`` the cache position of
+    tokens[:, 0]; ``cache`` the decoder-layer kernels' self cache, one row a
+    window ({"kv"} or {"kv8", "ksc"}, (L, B, 2, H, T, dh)), which gets the
+    drafts' K/V at pos .. pos + S - 1 in place; ``wpack`` from
+    ``ops.decode_layers.pack_layer_weights``. Token s attends over
+    [valid_start, pos + s]. Lanes left by drafts an earlier verify rejected
+    are rewritten before they are read. Returns (logits (B, S, n_vocab)
+    f32, cache).
+
+    The JAX function's ``group`` (windows packed into one kernel window
+    with a group-minor cache) and ``interpret`` (Pallas interpret mode) are
+    TPU layout and TPU mode: the port's kernels take S queries a cache row
+    directly (``fused_decoder_layers(..., queries=S)``), on CUDA tensors,
+    and the plain version on CPU tensors."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dec = params["decoder"]
+    B, S = tokens.shape
+    vs = 0 if valid_start is None else int(valid_start)
+    at = pos + torch.arange(S, device=tokens.device)
+    pos_idx = torch.clamp(at - vs, 0, dims.n_text_ctx - 1)
+    x = (dec["tok_emb"][tokens.clamp(min=0)] + dec["pos_emb"][pos_idx][None]
+         ).to(dec["tok_emb"].dtype)
+    # rows window-major: row b S + s is window b's draft s
+    x = DL.fused_decoder_layers(x.reshape(B * S, -1), wpack, cache, cross,
+                                vs, pos, dims.n_text_head, queries=S)
+    return vocab_logits(dec, x).reshape(B, S, -1), cache

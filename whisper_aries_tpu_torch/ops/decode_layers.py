@@ -8,14 +8,21 @@ append. The port decodes R rows, window-major: G = R / Bw rows per window
 (its beams; G = 1 for greedy), one self-cache slot per row, the window's
 cross K/V shared by its G rows, with dh-minor caches:
 
-    self cache, bf16:  {"kv":  (L, R, 2, H, T, dh) bf16}
-    self cache, int8:  {"kv8": (L, R, 2, H, T, dh) int8,
-                        "ksc": (L, R, 2, H, T) f32}  (scales NOT folding
+    self cache, bf16:  {"kv":  (L, R / S, 2, H, T, dh) bf16}
+    self cache, int8:  {"kv8": (L, R / S, 2, H, T, dh) int8,
+                        "ksc": (L, R / S, 2, H, T) f32}  (scales NOT folding
                                                       1/sqrt(dh); q is
                                                       pre-scaled)
     cross K/V:         {"kv8": (L, Bw, 2, H, Ta, dh) int8,
                         "sc":  (L, Bw, 2, H, Ta) f32}  (K scales fold
                                                         1/sqrt(dh))
+
+``queries`` S > 1 is the speculative verify step (the JAX package's
+``decoder_step_fused_multi``): S drafted queries share one self-cache row,
+x's rows grouped by cache row (r = c S + s), query s appending its K/V at
+pos + s and attending over [valid_start, pos + s]. With one cache row a
+window, cross-attention then sees G = S queries a window. S = 1 is the
+ordinary step.
 
 ``fused_decoder_layers`` launches the kernels for CUDA tensors (one C call
 runs all L layers: LayerNorm, a one-launch cluster split-K W8A16 GEMM per
@@ -157,47 +164,83 @@ def w8a16_gemm_plain(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
 
 
 def _append_self(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
-                 pos: int, n_head: int):
-    """Write this step's K/V at ``pos`` into one layer's self cache (in
-    place; quantized when the cache is int8). Returns the scaled queries
-    (R, H, dh), the cache values and the int8 cache's scales (or None)."""
+                 pos: int, n_head: int, queries: int = 1):
+    """Write this step's K/V into one layer's self cache (in place;
+    quantized per (row, head) when the cache is int8): row c S + s of qkv
+    at position pos + s of cache row c, S = ``queries``. Returns the scaled
+    queries (R, H, dh), the cache values and the int8 cache's scales (or
+    None)."""
     R, d3 = qkv.shape
     d = d3 // 3
-    H, dh = n_head, d // n_head
+    H, dh, S = n_head, d // n_head, queries
     q, k, v = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
     new_kv = torch.stack([k.reshape(R, H, dh), v.reshape(R, H, dh)], dim=1)
+    # (R, 2, H, dh) -> (R / S, 2, H, S, dh): the S positions of a cache row
+    lanes = lambda a: a.reshape((R // S, S) + a.shape[1:]).movedim(1, 3)
     ksc = None
     if "kv8" in cache_l:
         ckv, ksc = cache_l["kv8"], cache_l["ksc"]
         q8, sc = quantize_heads(new_kv)
-        ckv[:, :, :, pos] = q8
-        ksc[:, :, :, pos] = sc
+        ckv[:, :, :, pos:pos + S] = lanes(q8)
+        ksc[:, :, :, pos:pos + S] = lanes(sc)
     else:
         ckv = cache_l["kv"]
-        ckv[:, :, :, pos] = new_kv.to(ckv.dtype)
+        ckv[:, :, :, pos:pos + S] = lanes(new_kv.to(ckv.dtype))
     qw = (q.float() * attn_scale(dh)).to(q.dtype).reshape(R, H, dh)
     return qw, ckv, ksc
 
 
+def _self_attend(qw: torch.Tensor, ckv: torch.Tensor, ksc, pos: int,
+                 vs: int, queries: int, softmax, pv) -> torch.Tensor:
+    """Query s of each cache row over keys [vs, pos + s], query by query
+    (each the one-query computation): qw (R, H, dh) -> (R, H, dh) f32."""
+    from whisper_aries_tpu_torch.models.whisper import multi_token_mask
+
+    R, H, dh = qw.shape
+    S, T = queries, ckv.shape[3]
+    # query s's keys: row s of the verify step's mask at one window a row
+    lives = multi_token_mask(1, S, pos, vs, T, T, 1)[0].to(qw.device) == 0
+    qs = qw.reshape(R // S, S, H, dh)
+    outs = []
+    for s in range(S):
+        live = lives[s]
+        lg = torch.einsum("rhd,rhtd->rht", qs[:, s].float(), ckv[:, 0].float())
+        if ksc is not None:
+            lg = lg * ksc[:, 0]
+        pr = softmax(torch.where(live, lg, float("-inf")))
+        if ksc is not None:
+            pr = pr * ksc[:, 1]
+        outs.append(pv(pr.to(qw.dtype), ckv[:, 1]))
+    return torch.stack(outs, dim=1).reshape(R, H, dh)
+
+
+def _cache_len(cache_l: Dict[str, torch.Tensor]) -> int:
+    return (cache_l["kv8"] if "kv8" in cache_l else cache_l["kv"]).shape[-2]
+
+
+def _check_queries(R: int, pos: int, queries: int, T: int) -> None:
+    if queries < 1 or R % queries:
+        raise ValueError(f"{R} rows do not split into cache rows of "
+                         f"{queries} queries")
+    if pos + queries > T:
+        raise ValueError(f"positions {pos} .. {pos + queries - 1} exceed "
+                         f"the self cache's {T}")
+
+
 def self_attn_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
-                    pos: int, vs: int, n_head: int) -> torch.Tensor:
-    """Append this step's K/V at ``pos`` to one layer's self cache (in
-    place), then attend over [vs, pos]. qkv (R, 3d) -> att (R, d)."""
+                    pos: int, vs: int, n_head: int,
+                    queries: int = 1) -> torch.Tensor:
+    """Append this step's K/V to one layer's self cache (in place), then
+    attend: qkv (R, 3d) -> att (R, d). With S = ``queries``, row c S + s is
+    query s of cache row c: its K/V go to pos + s, it attends over
+    [vs, pos + s]."""
     R, d3 = qkv.shape
     d = d3 // 3
-    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head)
-    T = ckv.shape[3]
-    t = torch.arange(T, device=qkv.device)
-    live = (t >= vs) & (t <= pos)
-    lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
-    if ksc is not None:
-        lg = lg * ksc[:, 0]
-    lg = torch.where(live, lg, float("-inf"))
-    pr = torch.softmax(lg, dim=-1)
-    if ksc is not None:
-        pr = pr * ksc[:, 1]
-    pr = pr.to(qkv.dtype)
-    att = torch.einsum("rht,rhtd->rhd", pr.float(), ckv[:, 1].float())
+    _check_queries(R, pos, queries, _cache_len(cache_l))
+    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head, queries)
+    att = _self_attend(
+        qw, ckv, ksc, pos, vs, queries, lambda lg: torch.softmax(lg, dim=-1),
+        lambda pr, v: torch.einsum("rht,rhtd->rhd", pr.float(), v.float()))
     return att.reshape(R, d).to(qkv.dtype)
 
 
@@ -314,25 +357,19 @@ def _split_pv(p: torch.Tensor, v: torch.Tensor, ranges) -> torch.Tensor:
 
 def self_attn_split_plain(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
                           pos: int, vs: int, n_head: int,
-                          splits: Optional[int] = None) -> torch.Tensor:
+                          splits: Optional[int] = None,
+                          queries: int = 1) -> torch.Tensor:
     """``self_attn_plain`` computed the way the split-KV kernel combines
     its splits (the keys of each (row, head) cut as ``_split_ranges``):
-    the same function, its sums in another order."""
+    the same function, its sums in another order, each query's apart."""
     R = qkv.shape[0]
-    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head)
-    T = ckv.shape[3]
-    t = torch.arange(T, device=qkv.device)
-    live = (t >= vs) & (t <= pos)
-    lg = torch.einsum("rhd,rhtd->rht", qw.float(), ckv[:, 0].float())
-    if ksc is not None:
-        lg = lg * ksc[:, 0]
-    lg = torch.where(live, lg, float("-inf"))
+    T = _cache_len(cache_l)
+    _check_queries(R, pos, queries, T)
+    qw, ckv, ksc = _append_self(qkv, cache_l, pos, n_head, queries)
     ranges = _split_ranges(T, splits)
-    pr = _split_softmax(lg, ranges)
-    if ksc is not None:
-        pr = pr * ksc[:, 1]
-    pr = pr.to(qkv.dtype)
-    att = _split_pv(pr, ckv[:, 1], ranges)
+    att = _self_attend(qw, ckv, ksc, pos, vs, queries,
+                       lambda lg: _split_softmax(lg, ranges),
+                       lambda pr, v: _split_pv(pr, v, ranges))
     return att.reshape(R, -1).to(qkv.dtype)
 
 
@@ -389,11 +426,12 @@ def fused_decoder_layers_plain(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
                                self_cache: Dict[str, torch.Tensor],
                                cross: Dict[str, torch.Tensor],
                                valid_start: int, pos: int,
-                               n_head: int) -> torch.Tensor:
+                               n_head: int, queries: int = 1) -> torch.Tensor:
     """All L decoder layers of one step in plain torch (the math of the
     JAX package's ``fused_decoder_layers_reference``). x (R, d) -> x (R, d),
     R = Bw * G rows window-major over the Bw windows of ``cross``; the self
-    cache gets this step's K/V."""
+    cache gets this step's K/V (``queries`` S: S queries a cache row, the
+    verify step; module docstring)."""
     L = wpack["wq8"].shape[0]
     R, d = x.shape
     ff = wpack["wf18"].shape[-1]
@@ -410,7 +448,8 @@ def fused_decoder_layers_plain(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
         h = layer_norm_plain(x, seg(0), seg(1))
         qkv = gemm(h, wq[:, :3 * d], 12, 2).to(h.dtype)
         cache_l = {k: c[l] for k, c in self_cache.items()}
-        att = self_attn_plain(qkv, cache_l, pos, valid_start, n_head)
+        att = self_attn_plain(qkv, cache_l, pos, valid_start, n_head,
+                              queries=queries)
         x = x + gemm(att, wq[:, 3 * d:4 * d], 13, 3).to(x.dtype)
 
         h = layer_norm_plain(x, seg(4), seg(5))
@@ -445,11 +484,12 @@ def _lib():
         "aries_layer_norm": [_P, _I, _I, _P, _P, _P, _P],
         "aries_w8a16_gemm": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                              _I, _P],
-        "aries_self_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+        "aries_self_attn": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                            _P],
         "aries_cross_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P],
-        "aries_decode_layers": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
-                                _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                                _P, _P, _I, _I, _P],
+        "aries_decode_layers": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                                _P, _P, _P, _I, _I, _P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -568,23 +608,26 @@ def _check_cross(Ta: int) -> None:
 
 
 def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
-                     pos: int, vs: int, n_head: int) -> torch.Tensor:
+                     pos: int, vs: int, n_head: int,
+                     queries: int = 1) -> torch.Tensor:
     """One layer's split-KV self-attention with append; cache_l holds that
-    layer's (R, 2, H, T, dh) cache [and (R, 2, H, T) scales]."""
+    layer's (R / S, 2, H, T, dh) cache [and (R / S, 2, H, T) scales], S =
+    ``queries`` (``self_attn_plain``)."""
     R, d3 = qkv.shape
     d = d3 // 3
     cb.require(qkv, "qkv", torch.bfloat16)
     ckv, ksc, int8 = _self_operands(cache_l)
     T = ckv.shape[3]
+    _check_queries(R, pos, queries, T)
     cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
-               (R, 2, n_head, T, d // n_head), qkv.device)
-    if not 0 <= vs <= pos < T:
-        raise ValueError(f"need 0 <= valid_start <= pos < {T}")
+               (R // queries, 2, n_head, T, d // n_head), qkv.device)
+    if not 0 <= vs <= pos:
+        raise ValueError("need 0 <= valid_start <= pos")
     _check_splits(T, "self cache")
     att = torch.empty((R, d), dtype=torch.bfloat16, device=qkv.device)
     step = _step_scalars(pos, vs, qkv.device)
     cb.launch(_kernels(qkv).aries_self_attn, qkv, "self attention",
-              cb.ptr(qkv), R, d, n_head, cb.ptr(ckv),
+              cb.ptr(qkv), R, queries, d, n_head, cb.ptr(ckv),
               cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step),
               cb.ptr(att))
     cb.count(self_attn_kernel)
@@ -629,7 +672,7 @@ class _StepOperands:
     """The validated operands of one fused step and its scratch (owned
     here, so a captured graph's pointers stay alive with it)."""
 
-    def __init__(self, wpack, self_cache, cross, R, n_head, dev):
+    def __init__(self, wpack, self_cache, cross, R, n_head, dev, queries=1):
         L, d, _ = wpack["wq8"].shape
         ff = wpack["wf18"].shape[-1]
         H, dh = n_head, d // n_head
@@ -640,8 +683,9 @@ class _StepOperands:
         cb.require(wpack["vecs"], "vecs", torch.float32, (L, VEC), dev)
         ckv, ksc, int8 = _self_operands(self_cache)
         T = ckv.shape[4]
+        _check_queries(R, 0, queries, T)
         cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
-                   (L, R, 2, H, T, dh), dev)
+                   (L, R // queries, 2, H, T, dh), dev)
         Ta = cross["kv8"].shape[4]
         Bw = _cross_windows(R, cross["kv8"])
         cb.require(cross["kv8"], "cross kv8", torch.int8,
@@ -658,13 +702,19 @@ class _StepOperands:
         self.att = torch.empty((R, d), **bf)
         self.h1 = torch.empty((R, ff), **bf)
         self.keep = (wpack, self_cache, cross)
-        self.args = (R, d, ff, H, L, cb.ptr(wpack["wq8"]),
+        self.args = (R, queries, d, ff, H, L, cb.ptr(wpack["wq8"]),
                      cb.ptr(wpack["wf18"]), cb.ptr(wpack["wf28"]),
                      cb.ptr(wpack["vecs"]), VEC, cb.ptr(ckv),
                      cb.ptr(ksc) if int8 else None, int8, T,
                      cb.ptr(cross["kv8"]), cb.ptr(cross["sc"]), Ta, Bw)
         self.T = T
+        self.queries = queries
         self.sms = cb.sm_count(dev)
+
+    def check(self, valid_start: int, pos: int) -> None:
+        if not 0 <= valid_start <= pos or pos + self.queries > self.T:
+            raise ValueError(f"need 0 <= valid_start <= pos and positions "
+                             f"pos .. pos + {self.queries - 1} < {self.T}")
 
     def launch(self, x: torch.Tensor, step: torch.Tensor) -> None:
         cb.launch(_kernels(x).aries_decode_layers, x, "decoder-layer kernels",
@@ -673,31 +723,53 @@ class _StepOperands:
                   self.sms, int(PDL))
 
 
-def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head):
+class _LaunchCount:
+    """A launch counter that is no wrapper of its own (``cb.count``)."""
+
+    launches = 0
+
+
+# the fused step's launches and replays at S > 1 queries a cache row (the
+# verify step), counted here as well as in fused_decoder_layers.launches
+VERIFY = _LaunchCount()
+
+
+def _count_step(queries: int) -> None:
+    cb.count(fused_decoder_layers)
+    if queries > 1:
+        cb.count(VERIFY)
+
+
+def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head,
+                queries):
     R, d = x.shape
     cb.require(x, "x", torch.bfloat16, (R, d))
-    ops = _StepOperands(wpack, self_cache, cross, R, n_head, x.device)
-    if not 0 <= valid_start <= pos < ops.T:
-        raise ValueError(f"need 0 <= valid_start <= pos < {ops.T}")
+    ops = _StepOperands(wpack, self_cache, cross, R, n_head, x.device,
+                        queries)
+    ops.check(valid_start, pos)
     x = x.clone()
     ops.launch(x, _step_scalars(pos, valid_start, x.device))
-    cb.count(fused_decoder_layers)
+    _count_step(queries)
     return x
 
 
 def fused_decoder_layers(x: torch.Tensor, wpack: Dict[str, torch.Tensor],
                          self_cache: Dict[str, torch.Tensor],
                          cross: Dict[str, torch.Tensor], valid_start: int,
-                         pos: int, n_head: int) -> torch.Tensor:
+                         pos: int, n_head: int,
+                         queries: int = 1) -> torch.Tensor:
     """All L decoder layers of one decode step: x (R, d) -> x (R, d), with
     this step's K/V appended to ``self_cache`` at ``pos`` in place. The rows
     are window-major over the Bw windows of ``cross`` (R / Bw beams each).
-    The kernels for CUDA tensors (launched directly; ``DecodeStepGraph``
-    replays them as one graph); the plain version for CPU tensors."""
+    ``queries`` S > 1 verifies S drafted tokens a cache row in one step
+    (module docstring): K/V at pos .. pos + S - 1. The kernels for CUDA
+    tensors (launched directly; ``DecodeStepGraph`` replays them as one
+    graph); the plain version for CPU tensors."""
     if not x.is_cuda:
         return fused_decoder_layers_plain(x, wpack, self_cache, cross,
-                                          valid_start, pos, n_head)
-    return _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head)
+                                          valid_start, pos, n_head, queries)
+    return _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head,
+                       queries)
 
 
 fused_decoder_layers.launches = 0
@@ -712,18 +784,20 @@ class DecodeStepGraph:
     replay. Make one per decode call and drop it with the call: the graph
     holds references to its operands, never replays on freed memory, and
     raises if capture or replay fails (it never falls back to launching the
-    kernels directly or to the plain version)."""
+    kernels directly or to the plain version). ``queries`` S > 1 captures
+    the verify step over ``rows`` = cache rows x S (``fused_decoder_layers``).
+    """
 
     def __init__(self, wpack: Dict[str, torch.Tensor],
                  self_cache: Dict[str, torch.Tensor],
                  cross: Dict[str, torch.Tensor], rows: int, n_head: int,
-                 valid_start: int = 0):
+                 valid_start: int = 0, queries: int = 1):
         dev = wpack["wq8"].device
         if dev.type != "cuda":
             raise ValueError("DecodeStepGraph needs CUDA operands")
-        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev)
-        if not 0 <= valid_start < self.ops.T:
-            raise ValueError(f"need 0 <= valid_start < {self.ops.T}")
+        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev,
+                                 queries)
+        self.ops.check(valid_start, valid_start)
         d = wpack["wq8"].shape[1]
         self.dev = dev
         self.valid_start = valid_start
@@ -741,12 +815,11 @@ class DecodeStepGraph:
         if valid_start is not None and valid_start != self.valid_start:
             raise ValueError(f"graph made for valid_start {self.valid_start},"
                              f" got {valid_start}")
-        if not self.valid_start <= pos < self.ops.T:
-            raise ValueError(f"need {self.valid_start} <= pos < {self.ops.T}")
+        self.ops.check(self.valid_start, pos)
         self.x.copy_(x)
         self.step[0].fill_(pos)
         with torch.cuda.device(self.dev):
             self.graph.replay()
-        cb.count(fused_decoder_layers)
+        _count_step(self.ops.queries)
         cb.bump(fused_decoder_layers, "graph_replays")
         return self.x
