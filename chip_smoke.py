@@ -220,7 +220,32 @@ caught; a kernel check that fails is printed at once and fails the run
      peak must not exceed auto_windows_per_device's byte model at the
      windows it ran and at 8. Prints the ``cli`` line (each tool's rc,
      wall seconds and launches, the replicas' seconds, the chosen size).
- 13. train path (counts from 0 over all of it): three make_train_step
+ 13. pipeline depth path (the engine's double-buffered batch loop,
+     ARIES_PIPELINE): the beam slice's engine at 2 windows a batch over the
+     125 s WAV (6 windows, 3 batches), transcribe_file with a resume
+     journal at ARIES_PIPELINE=1 (depth 2: batch k parsed in a helper
+     thread while batch k + 1 decodes, then batch k's ladder) and =0
+     (depth 1), counts from 0 before each; equal segments, journals and
+     diagnostics events (as multisets), at depth 2 batch k + 1's DECODING
+     before batch k's first COMPLETED, the same batch size, every kernel
+     of the path launched at both depths; one out-of-memory error injected
+     into batch 1's decode at depth 2 keeps the batch (2), drops to depth 1
+     and gives the same segments. Prints the ``depth`` line (each depth's
+     wall, parse seconds a batch, the seconds of parse that overlapped a
+     decode, the card's peak).
+ 14. tools path: the port's repo tools (whisper_aries_tpu_torch/scripts/),
+     each main() with counts from 0: calibrate_emb_threshold on the
+     shipped weights (threshold and pair accuracy beside the shipped
+     0.53; one seed's similarities on the card within 5e-4 of the CPU's,
+     below "the log-mel rounded to bf16 before the net"),
+     sweep_cluster_threshold at 0.53 and 0.60 over one development scene,
+     make_sample_audio (bytes equal to examples/sample_audio.wav),
+     setup_environment --check-only, and parity_vs_goldens.run_job in
+     mock mode (12 s cap) on a one-job golden directory written here,
+     through run_pipeline with the beam slice's engine (every kernel of
+     the path launched, no structure problem). Prints the ``tools`` line
+     (each tool's seconds, rc, launches and readings).
+ 15. train path (counts from 0 over all of it): three make_train_step
      steps of Whisper large-v3 at its published widths (f32 seeded random
      params on the card, 2 windows of the synthetic WAV through the mel
      kernel, 448 target tokens a window, AdamW lr 1e-5): the loss finite
@@ -235,7 +260,7 @@ caught; a kernel check that fails is printed at once and fails the run
      with the shipped weights on 2 scenes of 15 s, clean and augmented,
      its DER below tests/test_der.py's gate (0.45, 0.75). Prints the
      ``train`` line.
- 14. speculative path (speculative decode's verify step, kernel 3 at S
+ 16. speculative path (speculative decode's verify step, kernel 3 at S
      queries a cache row): held at large-v3, 16 windows x S 4 (R 64), a
      256-position self cache whose every lane is random (stale drafts),
      pos 30 / valid_start 0 and pos 62 / valid_start 2 (pos .. pos + 3
@@ -2873,6 +2898,12 @@ PATH_KERNELS = {
     # three large-v3 f32 train steps, the train state, the diarizer's
     # trainers (mel on their batches)
     "train": ("mel", "encoder_attn_train", "encoder_attn_train_bwd"),
+    # the beam engine at 2 windows a batch, depth 2 then depth 1
+    "depth": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+              "beam_tail", "beam_reorder"),
+    # the parity harness's mock job through run_pipeline (beam 5)
+    "tools": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+              "beam_tail", "beam_reorder"),
     # bench_speculative.main(): the verify step's replays (kernel 3 at
     # S 4), the one-token step's
     "speculative": ("decode_layers_verify", "decode_layers"),
@@ -4716,6 +4747,309 @@ def cli_phase(dev, ckpt: Path, beam_engine):
 
 
 # ---------------------------------------------------------------------------
+# pipeline depth path
+# ---------------------------------------------------------------------------
+
+#: the depth path's windows a batch: the 125 s WAV's 6 windows in 3 batches
+DEPTH_BATCH = 2
+
+
+def batches_of(events) -> list:
+    """The units of each batch, in dispatch order, from the ENCODING
+    events' "batch@p" details (a retried batch counted once)."""
+    seen: dict = {}
+    for e in events:
+        if e["state"] == "ENCODING":
+            seen.setdefault(e["detail"].split()[0], []).append(e["unit"])
+    return [list(dict.fromkeys(u)) for u in seen.values()]
+
+
+def depth_phase(dev, eng):
+    """The engine's double-buffered batch loop on the card: the beam
+    slice's engine at DEPTH_BATCH windows a batch (windows_per_device 2 on
+    one card) over the 125 s WAV (6 windows, 3 batches), transcribe_file
+    with a resume journal at ARIES_PIPELINE=1 (depth 2) and =0 (depth 1),
+    counts from 0 before each. Holds: equal segments (tokens, text, times,
+    window and worker), equal journals, equal diagnostics events as
+    multisets, at depth 2 each batch k + 1's DECODING before batch k's
+    first COMPLETED (at depth 1 after its last), the same batch size, and
+    every kernel of the path launched at both depths. Then one
+    out-of-memory error injected into batch 1's decode at depth 2: the
+    batch size kept, the depth dropped to 1, the segments equal. Prints the
+    ``depth`` line (each depth's wall, its parse seconds a batch and the
+    seconds of parse that overlapped the next batch's card work and its
+    decode, the card's peak over the resident memory). Returns the depth-2 run's launches."""
+    import os
+    import shutil
+
+    import torch
+
+    work = OUT / "depth"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    wav = OUT / "synthetic_2min.wav"
+    saved_bs, saved_env = eng.batch_size, os.environ.get("ARIES_PIPELINE")
+    eng.batch_size = DEPTH_BATCH
+    runs: dict = {}
+
+    def one(pipeline: str, **kw):
+        os.environ["ARIES_PIPELINE"] = pipeline
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches = counted(eng.transcribe_file, str(wav),
+                                      output_formats=(), **kw)
+        stats = eng.last_stats
+        return dict(res=res, wall=wall, launches=launches,
+                    peak=torch.cuda.max_memory_allocated() - base,
+                    events=list(eng.last_diagnostics.events),
+                    parses=stats["parses"], depth=stats["pipeline_depth"],
+                    batch_size=eng.batch_size)
+
+    try:
+        for pipeline in ("1", "0"):
+            journal = work / f"journal{pipeline}.jsonl"
+            runs[pipeline] = one(pipeline, resume_path=str(journal))
+            runs[pipeline]["journal"] = [
+                json.loads(line) for line in journal.read_text().splitlines()]
+        real, calls = eng._decode_batch, []
+
+        def flaky(*a, **k):
+            calls.append(1)
+            if len(calls) == 2:  # batch 1, while batch 0 is parsed
+                raise RuntimeError("CUDA out of memory. Tried to allocate "
+                                   "1.00 GiB (injected)")
+            return real(*a, **k)
+
+        eng._decode_batch = flaky
+        try:
+            oom = one("1")
+        finally:
+            del eng._decode_batch
+    finally:
+        eng.batch_size = saved_bs
+        if saved_env is None:
+            os.environ.pop("ARIES_PIPELINE", None)
+        else:
+            os.environ["ARIES_PIPELINE"] = saved_env
+        torch.cuda.empty_cache()
+
+    def segs(run):
+        return [(s["text"], list(s.get("tokens", [])), s["start"], s["end"],
+                 s["window_id"], s["worker_id"])
+                for s in run["res"]["segments"]]
+
+    def pairs(run):
+        return sorted((e["unit"], e["state"]) for e in run["events"])
+
+    d2, d1 = runs["1"], runs["0"]
+    if not d2["res"]["segments"]:
+        fail("depth: the depth-2 run has no segment")
+    n_batches = len(batches_of(d2["events"]))
+    check("depth: 3 batches of 2 windows at both depths",
+          n_batches == 3 and len(batches_of(d1["events"])) == 3
+          and d2["res"]["num_windows"] == 6,
+          f"{n_batches} batches, {d2['res']['num_windows']} windows")
+    check("depth: depth 2 = depth 1, segments", segs(d2) == segs(d1),
+          f"{len(segs(d2))} against {len(segs(d1))} segments")
+    check("depth: depth 2 = depth 1, journal", d2["journal"] == d1["journal"],
+          f"{len(d2['journal'])} against {len(d1['journal'])} records")
+    check("depth: depth 2 = depth 1, events as multisets",
+          pairs(d2) == pairs(d1), f"{len(pairs(d2))} events")
+    check("depth: the same batch size, the depths as asked",
+          d2["batch_size"] == d1["batch_size"] == DEPTH_BATCH
+          and (d2["depth"], d1["depth"]) == (2, 1),
+          f"batch {d2['batch_size']} / {d1['batch_size']}, depths "
+          f"{d2['depth']} / {d1['depth']}")
+
+    def ahead(run) -> bool:
+        """Every batch k + 1's last DECODING before batch k's first
+        COMPLETED."""
+        ev = [(e["unit"], e["state"]) for e in run["events"]]
+        bs = batches_of(run["events"])
+        return all(
+            max(ev.index((u, "DECODING")) for u in bs[k + 1])
+            < min(ev.index(e) for e in ev
+                  if e[1] == "COMPLETED" and e[0] in bs[k])
+            for k in range(len(bs) - 1))
+
+    check("depth: at depth 2 batch k + 1 decodes before batch k completes",
+          ahead(d2) and not ahead(d1), f"depth 2 {ahead(d2)}, depth 1 "
+          f"{ahead(d1)}")
+    check("depth: an OOM at depth 2 keeps the batch and drops the depth",
+          oom["batch_size"] == DEPTH_BATCH and oom["depth"] == 1
+          and len(calls) >= 4, f"batch {oom['batch_size']}, depth "
+          f"{oom['depth']}, decode calls {len(calls)}")
+    check("depth: the OOM run's segments = the depth-2 run's",
+          segs(oom) == segs(d2), f"{len(segs(oom))} segments")
+    for label, run in (("depth 2", d2), ("depth 1", d1)):
+        for k in PATH_KERNELS["depth"]:
+            if run["launches"][k] <= 0:
+                fail(f"depth: kernel {k} was not launched at {label}")
+    summary = {
+        label: dict(
+            wall_s=run["wall"], peak_bytes=run["peak"],
+            parse_s=[p["seconds"] for p in run["parses"]],
+            parse_in_helper=[p["helper"] for p in run["parses"]],
+            parse_overlapping_dispatch_s=[p["overlap_dispatch_s"]
+                                          for p in run["parses"]],
+            parse_overlapping_decode_s=[p["overlap_decode_s"]
+                                        for p in run["parses"]],
+            launches={k: n for k, n in run["launches"].items() if n})
+        for label, run in (("depth2", d2), ("depth1", d1), ("oom", oom))}
+    summary.update(audio_s=d2["res"]["duration"], windows=6,
+                   batch=DEPTH_BATCH, batches=n_batches,
+                   oom_decode_calls=len(calls))
+    print("depth " + json.dumps(summary), flush=True)
+    (OUT / "depth.json").write_text(json.dumps(summary, indent=2))
+    return d2["launches"]
+
+
+# ---------------------------------------------------------------------------
+# tools path
+# ---------------------------------------------------------------------------
+
+#: the shipped diarizer's clustering threshold (diarize/pipeline.py)
+SHIPPED_THRESHOLD = 0.53
+#: calibrate's card-against-CPU limit on one seed's cosine similarities;
+#: the log-mel rounded to bf16 before the net moves them 1.6e-3 (CPU run)
+CALIBRATE_TOL = 5e-4
+
+
+def golden_job(root: Path) -> None:
+    """A one-job golden directory in the reference pipeline's layout: a
+    job's JSON (5-key segments, 5-key metadata), SRT and HTML."""
+    segments = [
+        {"text": "good morning everyone", "start": 0.4, "end": 3.1,
+         "speaker": "SPEAKER_00", "confidence": 0.91},
+        {"text": "thanks for joining", "start": 3.6, "end": 6.2,
+         "speaker": "SPEAKER_01", "confidence": 0.88},
+        {"text": "let us begin", "start": 7.0, "end": 10.5,
+         "speaker": "SPEAKER_00", "confidence": 0.93}]
+    golden = {"segments": segments, "metadata": {
+        "audio_file": "standup.wav", "pipeline_version": "1.0",
+        "confidence_threshold": 0.7, "language": "en",
+        "total_segments": len(segments)}}
+    job = root / "job_0"
+    job.mkdir(parents=True)
+    (job / "standup.json").write_text(json.dumps(golden))
+    (job / "standup.srt").write_text("".join(
+        f"{i + 1}\n00:00:00,000 --> 00:00:01,000\n{s['text']}\n\n"
+        for i, s in enumerate(segments)))
+    (job / "standup.html").write_text("<html><body></body></html>")
+
+
+def tools_phase(dev, eng):
+    """The port's repo tools on the card (whisper_aries_tpu_torch/scripts/),
+    each main() in this process with counts from 0 (chip_smoke_out/cli/
+    <tool>.log): calibrate_emb_threshold on the shipped weights (its
+    threshold and pair accuracy beside the shipped 0.53; the mel kernel
+    launched), with one seed's similarities on the card held against the
+    CPU's within CALIBRATE_TOL; sweep_cluster_threshold at 0.53 and 0.60
+    over one development scene; make_sample_audio into chip_smoke_out/,
+    its bytes the checked-in examples/sample_audio.wav's; setup_environment
+    --check-only (no pip: it reports, builds, verifies); then
+    parity_vs_goldens.run_job in mock mode (12 s cap) on a one-job golden
+    directory written here, through run_pipeline with the beam slice's
+    engine and a card diarizer (every kernel of the path launched, no
+    structure problem). Prints the ``tools`` line (each tool's seconds,
+    rc and launches, the readings). Returns the launches summed over the
+    tools."""
+    import argparse
+    import shutil
+
+    import torch
+    from whisper_aries_tpu_torch.config import load_config
+    from whisper_aries_tpu_torch.scripts import calibrate_emb_threshold as CT
+    from whisper_aries_tpu_torch.scripts import make_sample_audio as MS
+    from whisper_aries_tpu_torch.scripts import parity_vs_goldens as PG
+    from whisper_aries_tpu_torch.scripts import setup_environment as SE
+    from whisper_aries_tpu_torch.scripts import sweep_cluster_threshold as SW
+    from whisper_aries_tpu_torch.utils.params_io import default_weights_dir
+
+    work = OUT / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (OUT / "cli").mkdir(parents=True, exist_ok=True)
+    wdir = str(default_weights_dir())
+    tools: dict = {}
+    total: Counter = Counter()
+
+    _, out, _, launches = run_tool(tools, "calibrate_emb_threshold", CT.main,
+                                   [wdir], ("mel",))
+    total.update(launches)
+    line = next(s for s in out.splitlines() if s.startswith("calibrated"))
+    nums = [float(x) for x in line.replace("=", " ").split()
+            if x.replace(".", "", 1).isdigit()]
+    tools["calibrate_emb_threshold"].update(
+        threshold=nums[0], pair_accuracy=nums[1], shipped=SHIPPED_THRESHOLD,
+        printed=out.strip().splitlines())
+    audio = CT.utterances(CT.SEEDS[0])
+    n = (CT.N_SPK, CT.N_UTT)
+    on_card = CT.load_embedding(wdir, dev)
+    got, same = CT.similarities(on_card, audio, *n)
+    want, _ = CT.similarities(CT.load_embedding(wdir, "cpu"), audio, *n)
+    mistake, _ = CT.similarities(on_card, audio, *n,
+                                 mel_dtype=torch.bfloat16)
+    err, mis = float(np.abs(got - want).max()), float(
+        np.abs(mistake - want).max())
+    tools["calibrate_emb_threshold"].update(
+        similarity_err=err, similarity_tol=CALIBRATE_TOL,
+        similarity_mistake=mis, pairs=int(len(got)), same_pairs=int(
+            same.sum()))
+    held("tools: calibrate's similarities, card against CPU (seed 30000)",
+         {"max_abs": err}, {"max_abs": CALIBRATE_TOL},
+         {"max_abs": mis})
+
+    _, out, _, launches = run_tool(tools, "sweep_cluster_threshold",
+                                   SW.main, [wdir, "0.53,0.60", "1"])
+    total.update(launches)
+    sweep = json.loads(out.strip().splitlines()[-1])
+    tools["sweep_cluster_threshold"]["result"] = sweep
+    if sorted(sweep) != ["0.53", "0.6"] or not all(
+            math.isfinite(v["clean"]) and math.isfinite(v["aug"])
+            for v in sweep.values()):
+        fail(f"tools: the sweep's result is not two finite rows: {sweep}")
+
+    sample = work / "sample_audio.wav"
+    _, _, _, launches = run_tool(tools, "make_sample_audio", MS.main,
+                                 [str(sample)])
+    total.update(launches)
+    same_bytes = sample.read_bytes() == (
+        ROOT / "examples" / "sample_audio.wav").read_bytes()
+    tools["make_sample_audio"]["bytes_equal"] = same_bytes
+    check("tools: make_sample_audio = examples/sample_audio.wav, bytes",
+          same_bytes, f"{sample.stat().st_size} bytes")
+
+    _, _, _, launches = run_tool(tools, "setup_environment", SE.main,
+                                 ["--check-only"])
+    total.update(launches)
+
+    goldens = work / "goldens"
+    golden_job(goldens)
+    job = PG.find_golden_jobs(goldens)[0]
+    cfg = load_config(overrides=dict(SLICE_CONFIG["beam"], **{
+        "analyze.api_key_env": NO_KEY}))
+    args = argparse.Namespace(out=str(work / "parity"), audio_dir=None,
+                              mock_cap_seconds=12.0, device=None)
+    rep, wall, launches = counted(PG.run_job, job, args, eng, cfg)
+    torch.cuda.empty_cache()
+    total.update(launches)
+    tools["parity_vs_goldens.run_job"] = dict(
+        wall_s=wall, report=rep,
+        launches={k: v for k, v in launches.items() if v})
+    if not (rep["pipeline_success"] and rep["mock_audio"]
+            and rep.get("structure_problems") == []):
+        fail(f"tools: the parity harness's mock job failed: {rep}")
+    for k in PATH_KERNELS["tools"]:
+        if launches[k] <= 0:
+            fail(f"tools: kernel {k} was not launched by the parity job")
+    print("tools " + json.dumps(tools), flush=True)
+    (OUT / "tools.json").write_text(json.dumps(tools, indent=2))
+    return dict(total)
+
+
+# ---------------------------------------------------------------------------
 # train path
 # ---------------------------------------------------------------------------
 
@@ -5204,6 +5538,7 @@ def spec_phase(dev, entries):
 def main() -> None:
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this test needs a card")
     try:
@@ -5271,12 +5606,14 @@ def main() -> None:
     runs = {path: slice_phase(dev, path, keep=path == "beam")
             for path in PATH_KERNELS
             if path not in ("checkpoint", "pipeline", "serve", "cli",
-                            "train", "speculative")}
+                            "depth", "tools", "train", "speculative")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     *runs["checkpoint"], ckpt = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
     runs["serve"] = (serve_phase(dev, beam_engine, scene), {})
     runs["cli"] = (cli_phase(dev, ckpt, beam_engine), {})
+    runs["depth"] = (depth_phase(dev, beam_engine), {})
+    runs["tools"] = (tools_phase(dev, beam_engine), {})
     del beam_engine
     runs["train"] = (train_phase(dev), {})
     runs["speculative"] = (spec_phase(dev, entries), {})
@@ -5296,6 +5633,8 @@ def main() -> None:
                                if launches[p]["quant_matmul"]}
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "kernels.json").write_text(json.dumps(entries, indent=2))
+    print(f"chip_smoke: {time.time() - t_start:.1f} s from start to the "
+          "kernels line", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,22 @@ window order. The calling thread then holds no card lock (an engine lock
 keeps the engine's calls one at a time); the sequential mode, the language
 detection and the word pass run on the first replica. With one replica
 every shard runs in the calling thread under the card lock, as before.
+
+The batch loop is the JAX engine's double-buffered one (``ARIES_PIPELINE``,
+read per call: "1", the default, is depth 2; anything else depth 1, each
+batch run to its end). At depth 2 a helper thread parses batch k's tokens
+on the host while the calling thread (and the replicas' threads) gather,
+encode, probe and decode batch k + 1; batch k's fallback ladder runs after
+that decode. All card work stays in the calling and replica threads: the
+card's lock keeps one holder, no two decode calls of a job capture CUDA
+graphs at once, and the launch counters see one sequence. Depth 2 holds
+nothing more on the card: batch k's outputs are host arrays and its
+encoder output is freed before batch k + 1 runs, so
+``auto_windows_per_device`` sizes a batch as at depth 1. An out-of-memory
+error at depth 2 drops to depth 1 and keeps the batch; at depth 1 it
+halves the batch (the JAX engine's ladder). The sequential mode is not
+pipelined.
+
 Activations are bf16 on CUDA and f32 on the CPU. "auto" config values
 resolve to the card's path: int8 cross K/V, decode steps through the
 decoder-layer kernels with in-kernel int8 self-cache quantization. On the
@@ -87,6 +103,7 @@ import logging
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -165,6 +182,18 @@ class DummyTokenizer:
 
     def non_speech_tokens(self, encoder):
         return []
+
+
+class _EventBuffer:
+    """A diagnostics log that keeps its events in order, (unit, state,
+    detail), for the calling thread to log into the call's
+    WorkerDiagnostics: the parse helper logs nothing itself."""
+
+    def __init__(self):
+        self.events: List[Tuple[Any, str, str]] = []
+
+    def log(self, unit_id: Any, state: str, detail: str = "") -> None:
+        self.events.append((unit_id, state, detail))
 
 
 def _cast_floats(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
@@ -934,11 +963,25 @@ class AriesTranscriber:
         window's own detected language token replaces it in its prompt row
         (beam rows, and the fallback ladder's, take their window's). A
         window whose tokens fail to parse becomes one failed segment and is
-        not journaled (a resume retries it). On a card's out-of-memory
-        error (utils/memory.py::is_oom_error) the batch is halved once and
-        retried. Each batch is one unit of the call's PerformanceMonitor,
-        on device ``batch % replicas``; a segment's ``worker_id`` is its
-        row in the batch modulo the replicas (the JAX engine's)."""
+        not journaled (a resume retries it).
+
+        The batch loop is the JAX engine's double-buffered one: at depth 2
+        (``ARIES_PIPELINE`` "1", the default) batch k's host parse runs in
+        a helper thread while this thread gathers, encodes, probes and
+        decodes batch k + 1; then batch k's fallback ladder runs, so the
+        card's order is decode 0, decode 1, ladder 0, decode 2, ladder 1,
+        ... The helper touches no tensor and takes no lock; its events are
+        logged here after batch k + 1's DECODING, as the JAX engine logs
+        them. Depth 1 runs each batch to its end. On a card's
+        out-of-memory error (utils/memory.py::is_oom_error) depth 2 drops
+        to depth 1 with the batch kept; at depth 1 the batch halves and the
+        windows left are planned again at the new size. Each batch is one
+        unit of the call's PerformanceMonitor, timed from the start of its
+        dispatch, on device ``batch % replicas``; a segment's ``worker_id``
+        is its row in the batch modulo the replicas (the JAX engine's).
+        ``last_stats["parses"]`` holds each batch's parse seconds and the
+        seconds of it that overlapped the next batch's card work and its
+        decode."""
         parse_skip = len(prompt_ids)
         N = len(windows)
         n_dev = len(self.mesh)
@@ -960,18 +1003,28 @@ class AriesTranscriber:
         sp = self.tokenizer.specials
         lang0 = min(sp.language_tokens.values()) if has_langs else 0
         n_pend = len(pending)
-        # size the batches to the file: ceil-divide the windows over the
-        # batch count the cap implies, so no batch is mostly padding, and
-        # round up to a multiple of the replicas, so their shards are equal
-        B = 1
-        if n_pend:
-            per = -(-n_pend // -(-n_pend // self.batch_size))
-            B = min(self.batch_size, -(-per // n_dev) * n_dev)
-        p = bi = 0
-        while p < n_pend:
-            batch_idx = pending[p:p + B]
-            t_batch = time.time()
-            prompt = np.tile(np.asarray(prompt_ids, np.int64),
+        prompt_row = list(prompt_ids)
+
+        def plan(start: int, cap: int) -> Tuple[int, List[Tuple[int, int]]]:
+            """(batch size, [(offset, size)]) of pending[start:]: the windows
+            ceil-divided over the batch count ``cap`` implies, so no batch
+            is mostly padding, the size rounded up to a multiple of the
+            replicas, so their shards are equal."""
+            n = n_pend - start
+            if n <= 0:
+                return cap, []
+            per = -(-n // -(-n // cap))
+            size = min(cap, -(-per // n_dev) * n_dev)
+            return size, [(s, min(size, n_pend - s))
+                          for s in range(start, n_pend, size)]
+
+        def dispatch(p: int, nB: int) -> Dict[str, Any]:
+            """The card work of pending[p:p + nB], in this thread and the
+            replicas': gather, mel, encode, language probe, decode. The
+            outputs come back as host arrays."""
+            batch_idx = pending[p:p + nB]
+            t0 = time.time()
+            prompt = np.tile(np.asarray(prompt_row, np.int64),
                              (len(batch_idx), 1))
             win_langs: Optional[List[str]] = None
             defer = bool(lang.get("defer"))
@@ -988,64 +1041,76 @@ class AriesTranscriber:
                          if opts.multilingual and has_langs else None)
                 return xa, first, langs
 
-            try:
-                shards = self._on_shards(len(batch_idx), encode)
-                if defer:
-                    lang.pop("defer")
-                    tok, prob = shards[0][1]
-                    lang["code"] = LANGUAGES[int(tok[0]) - lang0]
-                    lang["prob"] = float(prob[0])
-                    prompt_ids = list(prompt_ids)
-                    prompt_ids[sot_idx + 1] = int(tok[0])
-                    prompt[:, sot_idx + 1] = int(tok[0])
-                if opts.multilingual and has_langs:
-                    tok = np.concatenate([sh[2] for sh in shards
-                                          if sh is not None])
-                    prompt[:, sot_idx + 1] = tok
-                    win_langs = [LANGUAGES[int(t) - lang0] for t in tok]
-                out = self._decode_shards(
-                    [sh[0] if sh is not None else None for sh in shards],
-                    prompt, temps[0], sample_len, opts=opts,
-                    sot_index=sot_idx, **beam)
-            except Exception as e:
-                # halve the window batch once for the whole batch (a
-                # shard's error is re-raised here) and retry it
-                if not is_oom_error(e) or B == 1:
-                    raise
-                B = max(1, B // 2)
-                self.batch_size = B
-                log.warning("device OOM — retrying with batch_size=%d", B)
-                for d in dict.fromkeys(self.mesh):
-                    if d.type == "cuda":
-                        with torch.cuda.device(d):
-                            torch.cuda.empty_cache()
-                continue
+            shards = self._on_shards(len(batch_idx), encode)
+            if defer:
+                # every later batch's prompt carries it
+                lang.pop("defer")
+                tok, prob = shards[0][1]
+                lang["code"] = LANGUAGES[int(tok[0]) - lang0]
+                lang["prob"] = float(prob[0])
+                prompt_row[sot_idx + 1] = int(tok[0])
+                prompt[:, sot_idx + 1] = int(tok[0])
+            if opts.multilingual and has_langs:
+                tok = np.concatenate([sh[2] for sh in shards
+                                      if sh is not None])
+                prompt[:, sot_idx + 1] = tok
+                win_langs = [LANGUAGES[int(t) - lang0] for t in tok]
+            t_dec = time.time()
+            out = self._decode_shards(
+                [sh[0] if sh is not None else None for sh in shards],
+                prompt, temps[0], sample_len, opts=opts, sot_index=sot_idx,
+                **beam)
+            decoded = (t_dec, time.time())
             del shards
             for i in batch_idx:
                 diag.log(i, "DECODING", f"batch@{p} size={len(batch_idx)}")
-            rows, fails = [], []
-            for w_i, win_id in enumerate(batch_idx):
+            return dict(batch_idx=batch_idx, prompt=prompt, out=out,
+                        win_langs=win_langs, t0=t0, decoded=decoded)
+
+        def parse(head: Dict[str, Any]) -> Dict[str, Any]:
+            """The host parse of a decoded batch (the helper's work at depth
+            2): its rows, its silent and its failing windows, and the
+            diagnostics events, kept for the calling thread to log."""
+            t0 = time.time()
+            events = _EventBuffer()
+            out, prompt = head["out"], head["prompt"]
+            rows, fails, silent = [], [], []
+            for w_i, win_id in enumerate(head["batch_idx"]):
                 window = windows[win_id]
                 segs, quality, failed = self._parse_or_fail(
-                    out, w_i, window, parse_skip, thresholds, win_id, diag)
+                    out, w_i, window, parse_skip, thresholds, win_id, events)
                 if quality["is_silence"]:
-                    if journal is not None:
-                        journal.record(win_id, [])
-                    diag.log(win_id, "COMPLETED", "silence")
+                    silent.append(win_id)
+                    events.log(win_id, "COMPLETED", "silence")
                     continue
                 if quality["needs_fallback"] and len(temps) > 1:
                     fails.append((win_id, window, prompt[w_i], segs))
-                    diag.log(win_id, "FALLBACK",
-                             f"cr={quality['compression_ratio']:.2f} "
-                             f"lp={out['avg_logprob'][w_i]:.2f}")
+                    events.log(win_id, "FALLBACK",
+                               f"cr={quality['compression_ratio']:.2f} "
+                               f"lp={out['avg_logprob'][w_i]:.2f}")
                 rows.append((w_i, win_id, window, segs, failed))
+            return dict(rows=rows, fails=fails, silent=silent,
+                        events=events.events, span=(t0, time.time()))
+
+        n_parsed = bi = 0
+
+        def finish(head: Dict[str, Any], parsed: Dict[str, Any]) -> None:
+            """Log a parsed batch's events, run its fallback ladder (card
+            work, in this thread), then journal, record and report it."""
+            nonlocal n_parsed, bi
+            for unit, state, detail in parsed["events"]:
+                diag.log(unit, state, detail)
+            batch_idx, win_langs = head["batch_idx"], head["win_langs"]
+            if journal is not None:
+                for win_id in parsed["silent"]:
+                    journal.record(win_id, [])
             fb: Dict[int, Tuple[List[Dict[str, Any]], float]] = {}
-            if fails:
-                fb = self._fallback_windows(audio16, windows, fails,
+            if parsed["fails"]:
+                fb = self._fallback_windows(audio16, windows, parsed["fails"],
                                             temps[1:], sample_len,
                                             thresholds, best_of, parse_skip,
                                             opts, sot_index=sot_idx)
-            for w_i, win_id, window, segs, failed in rows:
+            for w_i, win_id, window, segs, failed in parsed["rows"]:
                 if win_id in fb:
                     segs = fb[win_id][0]
                 if win_langs is not None and not failed:
@@ -1063,12 +1128,65 @@ class AriesTranscriber:
             if journal is not None:
                 journal.flush()  # one fsync a batch
             monitor.record(bi, sum(windows[i].duration for i in batch_idx),
-                           time.time() - t_batch, device=bi % n_dev,
+                           time.time() - head["t0"], device=bi % n_dev,
                            kind="batch")
             bi += 1
-            p += len(batch_idx)
+            n_parsed += len(batch_idx)
             if progress_callback:
-                progress_callback(len(done) + p, N)
+                progress_callback(len(done) + n_parsed, N)
+
+        depth = 2 if os.environ.get("ARIES_PIPELINE", "1") == "1" else 1
+        B, grid = plan(0, self.batch_size)
+        gi = 0
+        held: Optional[Dict[str, Any]] = None  # decoded, not yet parsed
+        parses = self.last_stats.setdefault("parses", [])
+        with ThreadPoolExecutor(1, thread_name_prefix="aries-parse") as helper:
+            while gi < len(grid) or held is not None:
+                job = None
+                if held is not None and depth > 1 and gi < len(grid):
+                    job = helper.submit(parse, held)
+                nxt = None
+                if gi < len(grid) and (held is None or depth > 1):
+                    try:
+                        nxt = dispatch(*grid[gi])
+                        gi += 1
+                    except Exception as e:
+                        if not is_oom_error(e) or (depth == 1 and B == 1):
+                            raise
+                        if depth > 1:
+                            # the batch kept, the rest of the grid too
+                            depth = 1
+                            log.warning("device OOM — disabling batch "
+                                        "pipelining")
+                        else:
+                            B = max(1, B // 2)
+                            self.batch_size = B
+                            log.warning("device OOM — retrying with "
+                                        "batch_size=%d", B)
+                            grid = grid[:gi] + plan(grid[gi][0], B)[1]
+                        for d in dict.fromkeys(self.mesh):
+                            if d.type == "cuda":
+                                with torch.cuda.device(d):
+                                    torch.cuda.empty_cache()
+                if held is not None:
+                    parsed = job.result() if job is not None else parse(held)
+                    # the parse's seconds beside the next batch's card
+                    # work: all of it, and its decode
+                    a, b = parsed["span"]
+                    beside = dict(overlap_dispatch_s=0.0, overlap_decode_s=0.0)
+                    if job is not None and nxt is not None:
+                        d0, d1 = nxt["decoded"]
+                        beside = dict(
+                            overlap_dispatch_s=max(0.0, min(b, d1)
+                                                   - max(a, nxt["t0"])),
+                            overlap_decode_s=max(0.0, min(b, d1)
+                                                 - max(a, d0)))
+                    parses.append(dict(
+                        batch=bi, windows=len(held["batch_idx"]),
+                        seconds=b - a, helper=job is not None, **beside))
+                    finish(held, parsed)
+                held = nxt
+        self.last_stats["pipeline_depth"] = depth
         all_segments.sort(key=lambda s: (s["start"], s["end"]))
         return all_segments
 
