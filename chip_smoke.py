@@ -76,7 +76,20 @@ caught; a kernel check that fails is printed at once and fails the run
      held at two runs giving the same bits, and their C plans equal their
      Python mirrors. The unfused step is replayed from one CUDA graph
      (UnfusedStepGraph), which must give the bits of direct launches; both
-     are timed and profiled.
+     are timed and profiled, under ARIES_QUANT_IMPL=pallas and =native.
+     The native int8 path's two kernels (csrc/int8_gemm.cu: the row
+     quantization and the s8 tensor-core GEMM) at a large-v3 layer's four
+     products at M 6, 18, 227, 1135, 6400 and 9000, bf16 activations with
+     a zero row, a row of exact halves and a row whose max tells a / 127
+     from a * (1 / 127): both bit for bit their plain versions (the GEMM in
+     bf16 and f32 out), each named mistake failing its hold (ax * (1 /
+     127), roundf, sx = 0 on a zero row; (acc * s) * sx, B read as if
+     K-major, a K slice dropped); timed beside the plain versions,
+     torch._int_mm (B row-major and column-major, where it takes the call)
+     with the torch ops around it, kernel 5 and cuBLAS bf16 ("int8 native
+     shapes" line); the GEMM at forced (row tile, K slices) around its
+     plan at M 6-1135, every plan the same bits ("int8 GEMM plan sweep",
+     the measurement ops/quant.py's plan is set from).
      The conditioned shapes (conditioned_phase): the fused step over a
      T 451 self cache at R 1 and R 5 (one window's cross K/V),
      valid_start 0 / 100 / 224, pos 227 and 450, teacher-forced per layer
@@ -150,7 +163,10 @@ caught; a kernel check that fails is printed at once and fails the run
      greedy at temperature 0: unfused steps, which must launch the int8
      self-attention kernel and the W8A16 GEMM, every step after a prefill
      a replay of the decode call's decoder_step graph (graph_replays =
-     layer_steps); prints ms per step.
+     layer_steps); prints ms per step. Then the native slice: the same
+     under ARIES_QUANT_IMPL=native, which must launch the row quantization
+     and the s8 GEMM and never the W8A16 GEMM; prints every (M, N, K) the
+     native GEMM's wrapper took (native_gemm_shapes).
   9. checkpoint path: write a large-v3 HF checkpoint directory (published
      widths and depth, seeded random weights as f16 model.safetensors in
      HF key names through the port's writer, large-v3's config.json,
@@ -282,7 +298,7 @@ caught; a kernel check that fails is printed at once and fails the run
      cost(1)); prints the ``speculative`` line (the launches: verify
      replays, one-token replays, drafter calls; the card's peak) and adds
      the verify mode's kernels entry.
-The second-to-last lines are the kernels JSON (all twenty entries) and
+The second-to-last lines are the kernels JSON (all 22 entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -358,13 +374,16 @@ def device_ms(fn, n: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "device_time_total", 0)
-             for ev in prof.key_averages()
-             if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    for _ in range(3):  # a profile that caught no device event is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "device_time_total", 0)
+                 for ev in prof.key_averages()
+                 if getattr(ev, "device_type", None) == DeviceType.CUDA)
+        if us > 0:
+            break
     return us / 1e3 / n
 
 
@@ -2020,6 +2039,299 @@ def quant_matmul_crossover(dev, g):
     return rows
 
 
+#: a large-v3 decoder layer's four dense products (K, N): the fused q/k/v,
+#: o (and the cross q, o), fc1, fc2
+LAYER_PRODUCTS = (("qkv", 1280, 3840), ("o", 1280, 1280), ("fc1", 1280, 5120),
+                  ("fc2", 5120, 1280))
+#: the native path's row counts: the unfused step (6 windows), the words
+#: prefill (6 x 3 prompt tokens), the conditioned prefill and its ladder's
+#: 5 rows, a 16 s bucket batch (8 x 800), 6 windows x 1500
+NATIVE_M = (6, 18, 227, 1135, 6400, 9000)
+
+
+def reciprocal_trap() -> float:
+    """A bf16 value a whose a / 127 and a * f32(1 / 127) are two f32
+    values: a row whose max |x| is a shows the reciprocal mistake in its
+    scale."""
+    r = np.float32(1.0 / 127.0)
+    for i in range(128):
+        a = np.float32(1.0 + i / 128.0)  # exact in bf16
+        if np.float32(a / np.float32(127.0)) != np.float32(a * r):
+            return float(a)
+    fail("no value in [1, 2) tells a / 127 from a * (1 / 127)")
+
+
+def native_rows(dev, g, M, K, trap):
+    """x (M, K) bf16: row 0 exact halves once divided by its scale (max
+    |x| 127, so sx = 1), row 1 zero, row 2 with max |x| the reciprocal
+    trap, the rest N(0, 1)."""
+    import torch
+
+    x = torch.randn((M, K), generator=g, device=dev)
+    x[0] = torch.arange(K, device=dev).float() * 37 % 254 - 126.5
+    x[0, 0] = 127.0
+    x[1] = 0.0
+    x[2] = (0.25 * trap * x[2]).clamp(-0.9 * trap, 0.9 * trap)
+    x[2, 0] = trap
+    return x.to(torch.bfloat16)
+
+
+def int_mm_or_none(a, b):
+    """torch._int_mm(a, b), or None where it refuses the shapes (M <= 16)."""
+    import torch
+
+    try:
+        return torch._int_mm(a, b)
+    except RuntimeError:
+        return None
+
+
+def kernel_int8_gemm(dev, entries):
+    """The native int8 path's two kernels (ARIES_QUANT_IMPL=native) at a
+    large-v3 layer's four products (LAYER_PRODUCTS) at each NATIVE_M, bf16
+    activations: the row quantization (int8 values and f32 scales) and the
+    s8 GEMM (bf16 and f32 out) held bit for bit against their plain
+    versions on the card. Each named mistake must fail its hold: the scale
+    as ax * (1 / 127), round half away from zero (roundf), sx = 0 on a zero
+    row; the rescale as (acc * s) * sx, B read as if K-major, the plan's
+    last K slice (or the last 32 K rows) dropped. Timed beside the plain
+    versions, torch._int_mm (B row-major and column-major, where it takes
+    the call; with the torch ops for the quantization and the rescale, and
+    whether that gives the kernels' bits), kernel 5 (the W8A16 GEMM) and
+    cuBLAS bf16 on the dequantized weights."""
+    import torch
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    trap = reciprocal_trap()
+    g = torch.Generator(device=dev).manual_seed(21)
+    weights = {}
+    for name, K, N in LAYER_PRODUCTS:
+        q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
+                                                   device=dev))
+        weights[name] = (q8, s, q8.t().contiguous().t(),
+                         Q.dequantize_bf16(q8, s))
+    c127 = torch.tensor(127.0, device=dev)
+    rows, worst = [], 0.0
+    for M in NATIVE_M:
+        xs = {K: native_rows(dev, g, M, K, trap)
+              for K in {k for _, k, _ in LAYER_PRODUCTS}}
+        for name, K, N in LAYER_PRODUCTS:
+            x = xs[K]
+            q8, s, q8_cm, w16 = weights[name]
+            label = f"int8 native[{name}: M {M}, K {K}, N {N}]"
+            x8, sx = Q.quantize_rows_kernel(x)
+            x8_p, sx_p = Q.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+
+            def same_q(a8, asx):
+                return (torch.equal(a8, x8_p)
+                        and torch.equal(asx.view(torch.int32),
+                                        sx_p.view(torch.int32)))
+
+            xf = x.float()
+            ax = xf.abs().amax(-1, keepdim=True)
+            v = xf / sx_p
+            sx_r = torch.where(ax > 0, ax * (1.0 / 127.0),
+                               torch.ones_like(ax))
+            sx_0 = torch.where(ax > 0, sx_p, torch.zeros_like(ax))
+            mistakes = {
+                "ax * (1/127)": (torch.clamp(torch.round(xf / sx_r), -127,
+                                             127).to(torch.int8), sx_r),
+                "roundf": (torch.clamp(torch.sign(v) * torch.floor(
+                    v.abs() + 0.5), -127, 127).to(torch.int8), sx_p),
+                "sx = 0 on a zero row": (x8_p, sx_0)}
+            ok = same_q(x8, sx)
+            caught = {k: not same_q(*m) for k, m in mistakes.items()}
+            check(f"{label} row quantization bitwise", ok and all(
+                caught.values()), f"equal: {ok}; mistakes caught: {caught}")
+            acc = (x8_p.double() @ q8.double()).float()
+            nk = K // 32
+            plan_rows, splits = Q.int8_gemm_plan(M, N, K)
+            cut = 32 * ((splits - 1) * nk // splits) if splits > 1 else K - 32
+            x8_cut = x8_p.clone()
+            x8_cut[:, cut:] = 0
+            wrong = {
+                "(acc * s) * sx": (acc * s) * sx_p,
+                "B read as if K-major": (x8_p.double() @ q8.reshape(
+                    N, K).t().double()).float() * sx_p * s,
+                (f"K slice {splits - 1} of {splits} dropped" if splits > 1
+                 else "last 32 K rows dropped"): (
+                    x8_cut.double() @ q8.double()).float() * sx_p * s}
+            for dt in (torch.float32, torch.bfloat16):
+                got = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, dt)
+                want = Q.quant_matmul_int8io_plain(x, q8, s, dt)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"{label}: int8 GEMM output is not finite")
+                ok = torch.equal(got, want)
+                worst = max(worst, float((got.float() - want.float())
+                                         .abs().max()))
+                detail = f"{str(dt)[6:]} out equal: {ok}"
+                if dt == torch.float32:  # a mistake fails the f32 hold
+                    caught = {k: not torch.equal(m, want)
+                              for k, m in wrong.items()}
+                    ok = ok and all(caught.values())
+                    detail += f"; mistakes caught: {caught}"
+                check(f"{label} GEMM bitwise, rows {plan_rows}, {splits} "
+                      "K slices", ok, detail)
+            del acc, x8_cut, wrong, mistakes, v, xf
+            # times (bf16 out, as the path writes it)
+            iters = 50 if M < 100 else 20
+            quant = lambda: Q.quantize_rows_kernel(x)
+            gemm = lambda: Q.quant_matmul_int8io_kernel(x8, sx, q8, s)
+            both = lambda: Q.quant_matmul_int8io(x, q8, s)
+            mm_rm = int_mm_or_none(x8, q8)
+            mm_cm = int_mm_or_none(x8, q8_cm)
+
+            def torch_native():
+                xf = x.float()
+                ax = xf.abs().amax(-1, keepdim=True)
+                sxt = torch.where(ax > 0, ax / c127, torch.ones_like(ax))
+                a8 = torch.clamp(torch.round(xf / sxt), -127, 127).to(
+                    torch.int8)
+                return ((torch._int_mm(a8, q8_cm).float() * sxt) * s).to(
+                    torch.bfloat16)
+
+            row = dict(
+                what=name, M=M, K=K, N=N, rows=plan_rows, splits=splits,
+                ms=time_ms(both, iters), host_ms=host_ms(both),
+                quantize_ms=time_ms(quant, iters),
+                quantize_device_ms=device_ms(quant, 10),
+                gemm_ms=time_ms(gemm, iters),
+                gemm_device_ms=device_ms(gemm, 10),
+                plain_ms=time_ms(lambda: Q.quant_matmul_int8io_plain(
+                    x, q8, s, torch.bfloat16), 3),
+                quantize_plain_ms=time_ms(lambda: Q.quantize_rows_plain(x),
+                                          5),
+                gemm_plain_ms=time_ms(lambda: (
+                    (x8.double() @ q8.double()).float() * sx * s).to(
+                        torch.bfloat16), 3),
+                int_mm_row_major_ms=(time_ms(lambda: torch._int_mm(x8, q8),
+                                             iters) if mm_rm is not None
+                                     else None),
+                int_mm_col_major_ms=(time_ms(lambda: torch._int_mm(
+                    x8, q8_cm), iters) if mm_cm is not None else None),
+                int_mm_col_major_device_ms=(device_ms(lambda: torch._int_mm(
+                    x8, q8_cm), 10) if mm_cm is not None else None),
+                torch_ops_native_ms=(time_ms(torch_native, iters)
+                                     if mm_cm is not None else None),
+                torch_ops_native_equal=(torch.equal(
+                    torch_native(), Q.quant_matmul_int8io(x, q8, s))
+                    if mm_cm is not None else None),
+                w8a16_ms=time_ms(lambda: Q.quant_matmul_dequant_kernel(
+                    x, q8, s), iters),
+                w8a16_device_ms=device_ms(
+                    lambda: Q.quant_matmul_dequant_kernel(x, q8, s), 10),
+                cublas_bf16_ms=time_ms(lambda: torch.matmul(x, w16), iters),
+                cublas_bf16_device_ms=device_ms(
+                    lambda: torch.matmul(x, w16), 10))
+            row["device_ms"] = row["quantize_device_ms"] + row[
+                "gemm_device_ms"]
+            # the function from x: x read once, q and s once, out written
+            row["bound_ms"], row["bound_by"] = bound(
+                M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
+                PEAK_S8)
+            row["gemm_bound_ms"], row["gemm_bound_by"] = bound(
+                M * K + M * 4 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
+                PEAK_S8)
+            row["quantize_bound_ms"], _ = bound(M * K * 2 + M * K + M * 4,
+                                                0, PEAK_S8)
+            rows.append(row)
+            del x8, sx, x8_p, sx_p, mm_rm, mm_cm
+        del xs
+    print("int8 native shapes " + json.dumps(rows), flush=True)
+    sweep = int8_gemm_sweep(dev, g)
+    print("int8 GEMM plan sweep " + json.dumps(sweep), flush=True)
+    head = next(r for r in rows
+                if (r["M"], r["what"]) == (NATIVE_M[-1], "o"))
+    step = [r for r in rows if r["M"] == NATIVE_M[0]]
+    # a decoder layer at M 6: qkv, o (with the cross q and o: 3 products),
+    # fc1, fc2
+    per_layer = {k: sum(r[k] * (3 if r["what"] == "o" else 1) for r in step)
+                 for k in ("ms", "device_ms", "gemm_device_ms",
+                           "quantize_device_ms", "bound_ms",
+                           "w8a16_device_ms", "cublas_bf16_device_ms")}
+    tol = "bit for bit (the plain version's bits)"
+    shape = (f"x ({head['M']}, {head['K']}) bf16, q int8 ({head['K']}, "
+             f"{head['N']}) + f32 scales")
+    entries.append(dict(
+        name="int8_quantize_rows", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/int8_gemm.cu",
+        replaces="whisper_aries_tpu/ops/quant.py:151",
+        max_abs_err=0.0, tolerance=tol, ms=head["quantize_ms"],
+        device_ms=head["quantize_device_ms"],
+        plain_ms=head["quantize_plain_ms"],
+        bound_ms=head["quantize_bound_ms"], bound_by="bytes",
+        library_ms=None,
+        library_note="none: no one PyTorch call quantizes rows by their "
+                     "own absmax scales",
+        shape=f"x ({head['M']}, {head['K']}) bf16 -> int8 + f32 row "
+              "scales"))
+    entries.append(dict(
+        name="int8_gemm", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/int8_gemm.cu",
+        replaces="whisper_aries_tpu/ops/quant.py:151",
+        max_abs_err=worst, tolerance=tol, ms=head["gemm_ms"],
+        device_ms=head["gemm_device_ms"], plain_ms=head["gemm_plain_ms"],
+        bound_ms=head["gemm_bound_ms"], bound_by=head["gemm_bound_by"],
+        library_ms=head["int_mm_col_major_ms"],
+        library_device_ms=head["int_mm_col_major_device_ms"],
+        library_note="torch._int_mm with B column-major (the s32 product "
+                     "alone: no row quantization, no rescale); B "
+                     "row-major, as the port keeps q, in int_mm_row_major_ms",
+        int_mm_row_major_ms=head["int_mm_row_major_ms"],
+        native_ms=head["ms"], native_bound_ms=head["bound_ms"],
+        torch_ops_native_ms=head["torch_ops_native_ms"],
+        w8a16_ms=head["w8a16_ms"], cublas_bf16_ms=head["cublas_bf16_ms"],
+        decoder_layer_at_m6=per_layer, shapes=rows,
+        plan_sweep=sweep["best"], shape=shape + " -> bf16"))
+
+
+def int8_gemm_sweep(dev, g):
+    """Device ms of the native s8 GEMM at forced (row tile, K slices)
+    around its plan, over a large-v3 layer's four products at M 6, 18, 64,
+    227 and 1135: the measurement ops/quant.py's INT8_STAGES_A_SLICE is
+    set from. Every plan must give the same bits. Returns the rows and,
+    for each (M, product), the best plan beside the chosen one."""
+    import torch
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    rows, same = [], True
+    for M, tiles, slices in ((6, (16,), (1, 2, 4, 8, 16)),
+                             (18, (16, 32), (1, 2, 4, 8, 16)),
+                             (64, (32, 64), (1, 2, 4, 8, 16)),
+                             (227, (32, 64), (1, 2, 3, 4, 8)),
+                             (1135, (32, 64), (1, 2))):
+        for name, K, N in LAYER_PRODUCTS:
+            x8, sx = Q.quantize_rows_kernel(torch.randn(
+                (M, K), generator=g, device=dev).to(torch.bfloat16))
+            q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
+                                                       device=dev))
+            want = Q.quant_matmul_int8io_kernel(x8, sx, q8, s)
+            chosen = Q.int8_gemm_plan(M, N, K)
+            plans = {(r, sp) for r in tiles for sp in slices
+                     if sp <= K // 32} | {chosen}
+            for plan in sorted(plans):
+                kern = lambda: Q.quant_matmul_int8io_kernel(x8, sx, q8, s,
+                                                            plan=plan)
+                same = same and torch.equal(kern(), want)
+                rows.append(dict(M=M, what=name, K=K, N=N, rows=plan[0],
+                                 splits=plan[1], chosen=plan == chosen,
+                                 device_ms=device_ms(kern, 10)))
+    check("int8 GEMM plan sweep: every plan gives the same bits", same,
+          f"{len(rows)} plans")
+    best = []
+    for key in dict.fromkeys((r["M"], r["what"]) for r in rows):
+        rs = [r for r in rows if (r["M"], r["what"]) == key]
+        b = min(rs, key=lambda r: r["device_ms"])
+        c = next(r for r in rs if r["chosen"])
+        best.append(dict(M=key[0], what=key[1], best=[b["rows"], b["splits"]],
+                         best_ms=b["device_ms"],
+                         chosen=[c["rows"], c["splits"]],
+                         chosen_ms=c["device_ms"]))
+    return dict(plans=rows, best=best)
+
+
 def self_split_dropped(q, k8, ks, v8, vs, mask, lo, hi):
     """The plain int8 self-attention with keys lo .. hi - 1 (one split)
     left out of P . V, still in the softmax: a cluster sum that drops one
@@ -2120,14 +2432,15 @@ def kernel_self_attn(dev, entries):
 
 
 def profile_unfused_step(dev, parts):
-    """One unfused decode step as the self_int8 slice runs it (large-v3 at
-    int8 compute under ARIES_QUANT_IMPL=pallas, 6 rows over 6 windows'
-    bf16 cross K/V, an int8 self cache of 227 positions, position 116):
-    decoder_step, whose dense layers run the W8A16 GEMM and whose
-    self-attention runs the int8 self-attention kernel. The step replayed
-    from one CUDA graph (UnfusedStepGraph, as the slice runs it) must give
-    the bits of direct launches; both are timed and profiled (device time
-    by kernel, the device's busy share)."""
+    """One unfused decode step as the self_int8 and native slices run it
+    (large-v3 at int8 compute under ARIES_QUANT_IMPL=pallas, then =native;
+    6 rows over 6 windows' bf16 cross K/V, an int8 self cache of 227
+    positions, position 116): decoder_step, whose dense layers run the
+    W8A16 GEMM (pallas) or the row quantization and the s8 GEMM (native),
+    and whose self-attention runs the int8 self-attention kernel. The step
+    replayed from one CUDA graph (UnfusedStepGraph, as the slices run it)
+    must give the bits of direct launches; both are timed and profiled
+    (device time by kernel, the device's busy share)."""
     import os
 
     import torch
@@ -2139,43 +2452,49 @@ def profile_unfused_step(dev, parts):
     params = W.fuse_decoder_qkv(quantize_model_params(
         {"decoder": full["decoder"]}))
     del full
-    g = torch.Generator(device=dev).manual_seed(13)
     B, pos = 6, 116
     old_impl = os.environ.get("ARIES_QUANT_IMPL")
-    os.environ["ARIES_QUANT_IMPL"] = "pallas"
-    try:
-        xa = torch.randn((B, dims.n_audio_ctx, dims.n_text_state),
-                         generator=g, device=dev).to(torch.bfloat16)
-        cross = W.precompute_cross_kv(params, xa, dims)
-        cache = W.init_kv_cache(dims, B, max_len=3 + 224, int8=True,
-                                device=dev)
-        tok = torch.randint(0, 50000, (B, 1), generator=g, device=dev)
-        direct = lambda: W.decoder_step(params, tok, pos, cache, cross, dims)
-        graph = W.UnfusedStepGraph(params, cache, cross, dims, B)
-        replay = lambda: graph.run(tok[:, 0], pos)
-        a = replay().clone()
-        cache_a = {k: v.clone() for k, v in cache.items()}
-        b = direct()[:, 0]
-        torch.cuda.synchronize()
-        check("unfused step: graph replay = direct launches",
-              torch.equal(a, b) and all(torch.equal(cache_a[k], cache[k])
-                                        for k in cache),
-              f"R {B}, position {pos}: logits and the int8 self cache bit "
-              "for bit")
-        ms, direct_ms = time_ms(replay, 20), time_ms(direct, 10)
-        label = (f"R {B} ({B} windows), position {pos}, int8 self cache, "
-                 "bf16 cross K/V")
-        profile_step(label, replay, what="unfused step")
-        profile_step(label + ", direct launches", direct, what="unfused step")
-        del graph
-    finally:
-        if old_impl is None:
-            os.environ.pop("ARIES_QUANT_IMPL", None)
-        else:
-            os.environ["ARIES_QUANT_IMPL"] = old_impl
-    parts.append(dict(name=f"unfused step R {B}", ms=ms,
-                      direct_ms=direct_ms))
-    del params, cross, cache, xa
+    for impl in ("pallas", "native"):
+        g = torch.Generator(device=dev).manual_seed(13)
+        os.environ["ARIES_QUANT_IMPL"] = impl
+        try:
+            xa = torch.randn((B, dims.n_audio_ctx, dims.n_text_state),
+                             generator=g, device=dev).to(torch.bfloat16)
+            cross = W.precompute_cross_kv(params, xa, dims)
+            cache = W.init_kv_cache(dims, B, max_len=3 + 224, int8=True,
+                                    device=dev)
+            tok = torch.randint(0, 50000, (B, 1), generator=g, device=dev)
+            direct = lambda: W.decoder_step(params, tok, pos, cache, cross,
+                                            dims)
+            graph = W.UnfusedStepGraph(params, cache, cross, dims, B)
+            replay = lambda: graph.run(tok[:, 0], pos)
+            a = replay().clone()
+            cache_a = {k: v.clone() for k, v in cache.items()}
+            b = direct()[:, 0]
+            torch.cuda.synchronize()
+            tag = "" if impl == "pallas" else f" ({impl})"
+            check(f"unfused step{tag}: graph replay = direct launches",
+                  torch.equal(a, b) and all(torch.equal(cache_a[k], cache[k])
+                                            for k in cache),
+                  f"R {B}, position {pos}: logits and the int8 self cache "
+                  "bit for bit")
+            ms, direct_ms = time_ms(replay, 20), time_ms(direct, 10)
+            label = (f"R {B} ({B} windows), position {pos}, int8 self cache, "
+                     "bf16 cross K/V")
+            if impl != "pallas":
+                label += f", ARIES_QUANT_IMPL={impl}"
+            profile_step(label, replay, what="unfused step")
+            profile_step(label + ", direct launches", direct,
+                         what="unfused step")
+            del graph, cross, cache, xa
+        finally:
+            if old_impl is None:
+                os.environ.pop("ARIES_QUANT_IMPL", None)
+            else:
+                os.environ["ARIES_QUANT_IMPL"] = old_impl
+        parts.append(dict(name=f"unfused step R {B}{tag}", ms=ms,
+                          direct_ms=direct_ms))
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2850,6 +3169,8 @@ def counters():
             "beam_tail": BT.beam_tail_kernel,
             "beam_reorder": BR.permute_rows_kernel,
             "quant_matmul": Q.quant_matmul_dequant_kernel,
+            "int8_quantize_rows": Q.quantize_rows_kernel,
+            "int8_gemm": Q.quant_matmul_int8io_kernel,
             "self_attn_q8": SA.self_attention_q8_kernel,
             # kernel 3's launches and replays at S > 1 (also in
             # decode_layers)
@@ -2886,6 +3207,10 @@ PATH_KERNELS = {
     "words": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
               "cross_attn_q8", "beam_tail", "beam_reorder"),
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
+    # self_int8 under ARIES_QUANT_IMPL=native: every dense product through
+    # the row quantization and the s8 GEMM, none through kernel 5
+    "native": ("mel", "encoder_attn", "int8_quantize_rows", "int8_gemm",
+               "self_attn_q8"),
     "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
                    "cross_attn_q8", "beam_tail", "beam_reorder"),
     "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
@@ -2915,7 +3240,7 @@ PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
                  "probe_qa_micro.build", "probe_qa_opt.build",
                  "probe_qa_bisect.build")
 # each slice's config overrides; words and self_int8 run compute int8
-# under ARIES_QUANT_IMPL=pallas
+# under ARIES_QUANT_IMPL=pallas, native under ARIES_QUANT_IMPL=native
 SLICE_CONFIG = {
     "greedy": {},
     "beam": {"decode.beam_size": 5},
@@ -2923,6 +3248,9 @@ SLICE_CONFIG = {
     "self_int8": {"decode.kv_cache_dtype": "bf16",
                   "decode.self_kv_cache_dtype": "int8"},
 }
+SLICE_CONFIG["native"] = SLICE_CONFIG["self_int8"]
+#: each int8 slice's ARIES_QUANT_IMPL
+SLICE_IMPL = {"words": "pallas", "self_int8": "pallas", "native": "native"}
 # the words slice's alignment heads: 10 (layer, head) pairs in the top
 # half of large-v3's 32 decoder layers (the size of a checkpoint's list)
 ALIGNMENT_HEADS = [(16, 3), (18, 11), (19, 0), (21, 7), (23, 14), (25, 5),
@@ -2975,11 +3303,12 @@ def slice_phase(dev, path: str, keep: bool = False):
     """transcribe_file on the synthetic WAV at large-v3 width, seeded
     random weights: "greedy" (config defaults), "beam" (decode.beam_size
     5), "words" (compute int8, beam 5, word timestamps with 10 alignment
-    heads) or "self_int8" (compute int8, bf16 cross K/V with an int8 self
-    cache: unfused steps, greedy at temperature 0). The int8 slices run
-    under ARIES_QUANT_IMPL=pallas, restored after. Launch counts are set to
-    0 just before and read just after. Returns the launches, the GEMM's
-    launches by path and, with ``keep``, the engine (else None)."""
+    heads), "self_int8" (compute int8, bf16 cross K/V with an int8 self
+    cache: unfused steps, greedy at temperature 0) or "native" (self_int8
+    under ARIES_QUANT_IMPL=native: the s8 GEMM, never kernel 5). The int8
+    slices run under their SLICE_IMPL, restored after. Launch counts are
+    set to 0 just before and read just after. Returns the launches, the
+    GEMM's launches by path and, with ``keep``, the engine (else None)."""
     import os
 
     import torch
@@ -2993,7 +3322,7 @@ def slice_phase(dev, path: str, keep: bool = False):
     if not wav.exists():
         write_wav(str(wav), synth_audio(125.0, seed=7))
     out_dir = OUT / path
-    int8 = path in ("words", "self_int8")
+    int8 = path in SLICE_IMPL
     t0 = time.time()
     eng = AriesTranscriber(  # seed 0
         "large-v3", allow_random=True, compute_type="int8" if int8 else "bf16",
@@ -3001,9 +3330,9 @@ def slice_phase(dev, path: str, keep: bool = False):
         _tokenizer=word_tokenizer() if path == "words" else None)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    if path == "self_int8":
+    if path in ("self_int8", "native"):
         if eng.fused or eng.kv_int8 or not eng.self_kv_int8:
-            fail("self_int8: the engine did not resolve to unfused steps "
+            fail(f"{path}: the engine did not resolve to unfused steps "
                  "with an int8 self cache")
     elif not (eng.fused and eng.kv_int8 and eng.self_kv_int8):
         fail("the engine did not resolve 'auto' to the card's path")
@@ -3012,21 +3341,27 @@ def slice_phase(dev, path: str, keep: bool = False):
         eng.alignment_heads = list(ALIGNMENT_HEADS)
         print(f"words: alignment heads {ALIGNMENT_HEADS}", flush=True)
         call["word_timestamps"] = True
-    if path == "self_int8":
+    if path in ("self_int8", "native"):
         call["temperature"] = (0.0,)
     old_impl = os.environ.get("ARIES_QUANT_IMPL")
     if int8:
-        os.environ["ARIES_QUANT_IMPL"] = "pallas"
-    # every W8A16 GEMM call's (M, N, K, path) as the plan gave it; the
-    # plan itself is unchanged
+        os.environ["ARIES_QUANT_IMPL"] = SLICE_IMPL[path]
+    # every W8A16 GEMM call's (M, N, K, path) as the plan gave it, and
+    # every native GEMM call's (M, N, K); the plans themselves unchanged
     plan, planned = Q.gemm_plan, []
+    plan8, planned8 = Q.int8_gemm_plan, []
 
     def recording_plan(M, N, K, sms):
         out = plan(M, N, K, sms)
         planned.append((M, N, K, out[0]))
         return out
 
+    def recording_plan8(M, N, K):
+        planned8.append((M, N, K))
+        return plan8(M, N, K)
+
     Q.gemm_plan = recording_plan
+    Q.int8_gemm_plan = recording_plan8
     from whisper_aries_tpu_torch.align import word_align as WA
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
@@ -3059,6 +3394,7 @@ def slice_phase(dev, path: str, keep: bool = False):
         gemm_paths = dict(gemm.launches_by_path)
     finally:
         Q.gemm_plan = plan
+        Q.int8_gemm_plan = plan8
         WA.dtw_path = dtw
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
@@ -3071,6 +3407,9 @@ def slice_phase(dev, path: str, keep: bool = False):
     for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {path} path")
+    if path == "native" and launches["quant_matmul"]:
+        fail(f"native: the W8A16 GEMM launched {launches['quant_matmul']} "
+             "times under ARIES_QUANT_IMPL=native")
     if sum(gemm_paths.values()) != launches["quant_matmul"]:
         fail(f"{path}: W8A16 GEMM launches by path {gemm_paths} do not add "
              f"up to {launches['quant_matmul']}")
@@ -3137,6 +3476,8 @@ def slice_phase(dev, path: str, keep: bool = False):
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
         gemm_rows=by_rows,
+        native_gemm_shapes=dict(Counter(f"M {m} N {n} K {k}"
+                                 for m, n, k in planned8)),
         peak_mem_gb=peak_gb, performance=res["performance"],
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":
@@ -5596,6 +5937,7 @@ def main() -> None:
     kernel_beam_tail(dev, entries)
     kernel_reorder(dev, entries)
     kernel_quant_matmul(dev, entries)
+    kernel_int8_gemm(dev, entries)
     kernel_self_attn(dev, entries)
     conditioned_phase(dev, entries, parts)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8

@@ -12,6 +12,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import (
     PieceTokenizer,
     random_jax_tree,

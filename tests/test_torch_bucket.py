@@ -20,6 +20,7 @@ from test_torch_options import (  # noqa: F401  (fixtures)
     model,
     wav,
 )
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from whisper_aries_tpu_torch.audio.decode import write_wav
 from whisper_aries_tpu_torch.models import whisper as TW
 from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber as TEngine

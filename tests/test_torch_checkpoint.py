@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import speechy_audio
 from whisper_aries_tpu_torch.audio.decode import write_wav
 from whisper_aries_tpu_torch.models import loader as TL

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import random_jax_tree, speechy_audio
 from whisper_aries_tpu.cli import batch_transcribe as jbt
 from whisper_aries_tpu.cli import demo as jdemo

@@ -14,6 +14,7 @@ temperature is tested without sampling."""
 import numpy as np
 import pytest
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import PieceTokenizer, random_jax_tree, speechy_audio, to_jax
 from whisper_aries_tpu.decoding.tokenizer import build_special_tokens
 from whisper_aries_tpu.models import whisper as JW

@@ -1422,6 +1422,63 @@ def test_probe_qa_build_failure_raises(dev, tmp_path, monkeypatch):
         cb.build(["probe_qa"])
 
 
+# ---------------------------------------------------------------------------
+# the native int8 GEMM (ARIES_QUANT_IMPL=native): row quantization and the
+# s8 tensor-core GEMM, each bit for bit its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 32), (6, 256, 384), (17, 96, 144),
+                                   (70, 1280, 128), (300, 160, 1280)])
+def test_native_int8_kernels_bitwise(dev, M, K, N, dtype):
+    """quantize_rows_kernel and quant_matmul_int8io_kernel against
+    quantize_rows_plain and quant_matmul_int8io_plain, bit for bit (every
+    step exact or one IEEE operation), with a zero row and a row of exact
+    halves; the GEMM both with and without K slices (the plan's), in bf16
+    and f32 out, one launch each, two runs the same bits."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(M * 7 + K)
+    x = torch.randn((M, K), generator=g, device=dev)
+    x[0] = torch.arange(K, device=dev).float() * 37 % 254 - 126.5
+    x[0, 0] = 127.0
+    if M > 1:
+        x[1] = 0
+    x = x.to(dtype)
+    q8, s = Q.quantize_int8(0.05 * torch.randn((K, N), generator=g,
+                                               device=dev))
+    n = Q.quantize_rows_kernel.launches
+    x8, sx = Q.quantize_rows_kernel(x)
+    x8_p, sx_p = Q.quantize_rows_plain(x)
+    assert Q.quantize_rows_kernel.launches == n + 1
+    assert torch.equal(x8, x8_p) and torch.equal(sx.view(torch.int32),
+                                                 sx_p.view(torch.int32))
+    for out_dtype in (torch.bfloat16, torch.float32):
+        n = Q.quant_matmul_int8io_kernel.launches
+        got = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, out_dtype)
+        again = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, out_dtype)
+        torch.cuda.synchronize()
+        assert Q.quant_matmul_int8io_kernel.launches == n + 2
+        want = Q.quant_matmul_int8io_plain(x, q8, s, out_dtype)
+        assert torch.equal(got, want), float((got.float() - want.float())
+                                             .abs().max())
+        assert torch.equal(got, again)
+
+
+def test_native_int8_wrappers_refuse_other_shapes(dev):
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    with pytest.raises(ValueError, match="K % 32"):
+        Q.quantize_rows_kernel(torch.zeros((4, 48), device=dev))
+    x8 = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="N % 16"):
+        Q.quant_matmul_int8io_kernel(
+            x8, torch.ones((4, 1), device=dev),
+            torch.zeros((64, 40), dtype=torch.int8, device=dev),
+            torch.ones(40, device=dev))
+
+
 def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
     """A step that reads a value back to the host cannot be captured: the
     decode raises, and no step runs eagerly in its place. (Last in the

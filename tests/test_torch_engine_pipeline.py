@@ -24,8 +24,8 @@ import threading
 
 import numpy as np
 import pytest
-import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import PieceTokenizer, random_jax_tree, speechy_audio, to_jax
 from whisper_aries_tpu.decoding.tokenizer import build_special_tokens
 from whisper_aries_tpu.models import whisper as JW
@@ -40,16 +40,6 @@ SR = 16_000
 KW = dict(temperature=(0.0,), max_new_tokens=8, output_formats=(),
           vad_filter=False, language="en")
 REPORT = ("completed_units", "completed_audio_s", "per_device_distribution")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny models gain nothing from torch's intra-op threads, and beside
-    the suite's other workers those threads contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

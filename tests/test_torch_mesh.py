@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import PieceTokenizer, random_jax_tree, speechy_audio, to_jax
 from whisper_aries_tpu.decoding import generate as JG
 from whisper_aries_tpu.decoding.tokenizer import build_special_tokens

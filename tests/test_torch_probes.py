@@ -37,6 +37,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from whisper_aries_tpu_torch.scripts import common
 from whisper_aries_tpu_torch.scripts import probe_batched_transpose as PT
 from whisper_aries_tpu_torch.scripts import probe_dma as PD

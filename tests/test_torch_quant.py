@@ -1,8 +1,9 @@
 """The port's int8 dense path (whisper_aries_tpu_torch.ops.quant) against the
 JAX package's ops/quant.py on the CPU: the plain version of the W8A16 GEMM
 kernel against the Pallas kernel ``_quant_matmul_pallas`` in interpret
-mode, ``quant_matmul`` under each ``ARIES_QUANT_IMPL`` and ``dense`` under
-"pallas". Inputs are made with numpy from a seed."""
+mode, ``quant_matmul`` under "outscale", "xla" and "pallas" ("native" is
+tests/test_torch_quant_native.py's) and ``dense`` under "pallas". Inputs
+are made with numpy from a seed."""
 
 import numpy as np
 import pytest
@@ -114,13 +115,6 @@ def test_quant_matmul_pallas_is_the_kernel_function(monkeypatch, dtype):
         assert _rel(got, want) <= 1e-5
     else:
         np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-6)
-
-
-def test_quant_matmul_native_is_not_ported(monkeypatch):
-    x, q, s = _operands(2, 64, 32, seed=6)
-    monkeypatch.setenv("ARIES_QUANT_IMPL", "native")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TQ.quant_matmul(_t(x), _t(q), _t(s))
 
 
 def test_dense_pallas_matches_jax(monkeypatch):

@@ -17,6 +17,7 @@ import threading
 import numpy as np
 import pytest
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from whisper_aries_tpu_torch.audio.decode import write_wav
 from whisper_aries_tpu_torch.config import AriesConfig, load_config
 from whisper_aries_tpu_torch.serve.jobstore import JobStore

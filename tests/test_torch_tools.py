@@ -32,21 +32,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_util import PieceTokenizer, random_jax_tree
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = REPO / "scripts"
 WEIGHTS = REPO / "whisper_aries_tpu" / "weights"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny models gain nothing from torch's intra-op threads, and beside
-    the suite's other workers those threads contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_script(name: str, replace=(), file=None):

@@ -1,11 +1,26 @@
 """Shared helpers of the tests that hold the PyTorch port
 (whisper_aries_tpu_torch) against the JAX package: tiny random models made
 with numpy from a seed, and converters between the two packages' cache
-layouts. Not a test module itself."""
+layouts, and ``one_torch_thread``, the module fixture that pins torch to
+one intra-op thread (a test module imports it to use it). Not a test module
+itself."""
 
 import numpy as np
+import pytest
 
 NEG = float(np.finfo(np.float32).min)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Tiny models gain nothing from torch's intra-op threads, and beside
+    the suite's other workers those threads contend for the cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_jax_tree(dims, seed, weight_std=0.05):

@@ -26,7 +26,8 @@ self-attention kernel (csrc/self_attn.cu), for CUDA tensors; CPU tensors
 take the plain versions. ``decoder_step`` takes its positions as ints or as
 device tensors, so ``UnfusedStepGraph`` replays one captured step at every
 position. Dense layers go through ops/quant.py when int8
-(the W8A16 GEMM kernel under ARIES_QUANT_IMPL=pallas); float dense layers,
+(the W8A16 GEMM kernel under ARIES_QUANT_IMPL=pallas, the row quantization
+and the s8 GEMM under =native); float dense layers,
 the conv stem and the attention of the teacher-forced passes stay torch
 products, as the JAX package leaves them to XLA.
 """

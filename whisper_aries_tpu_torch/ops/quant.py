@@ -19,9 +19,17 @@ package reads it when it traces:
     ``quant_matmul_dequant_plain`` for CPU tensors. (On the CPU the JAX
     package maps "pallas" to "xla"; the port runs what the TPU kernel
     computes.)
+  * "native": CTranslate2's int8 GEMM (the JAX package's
+    ``_quant_matmul_int8io``): each activation row quantized to int8 by its
+    own absmax scale (an IEEE division by 127, rounded half to even), an
+    s8 x s8 -> s32 product, then ``(f32(acc) * sx[m]) * s[n]``. Two
+    kernels for CUDA tensors (csrc/int8_gemm.cu: the row quantization, then
+    the tensor-core s8 GEMM with the rescale in its epilogue, by
+    ``int8_gemm_plan``), ``quant_matmul_int8io_plain`` for CPU tensors.
+    The JAX package's jitted function multiplies by 1/127 where it divides
+    (XLA's rewrite); the port divides, as the eager JAX function does.
   * "xla" (and any other value, as in JAX): weights dequantized in the
     activation dtype, then the product.
-  * "native" (JAX's s8 x s8 -> s32 scheme) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -233,6 +241,164 @@ def quant_matmul_dequant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
     return y.to(x.dtype)
 
 
+def quantize_rows_plain(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, K) -> (int8 (M, K), f32 scales (M, 1)): each row divided by
+    its own max |x| / 127 (1 for a zero row), rounded half to even and
+    clipped to [-127, 127]. Both divisions are by tensors: on the card
+    PyTorch multiplies by the reciprocal of a host scalar instead."""
+    xf = x.float()
+    ax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.where(ax > 0, ax / torch.full_like(ax, 127.0),
+                     torch.ones_like(ax))
+    x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return x8, sx
+
+
+def quant_matmul_int8io_plain(x: torch.Tensor, q: torch.Tensor,
+                              s: torch.Tensor,
+                              out_dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """x (M, K) @ int8 (K, N) -> (M, N) in ``out_dtype`` by the native
+    scheme: the rows quantized (``quantize_rows_plain``), the integer
+    product taken in f64 (exact: |acc| <= 127^2 K < 2^53), then
+    (f32(acc) * sx) * s, in that order."""
+    x8, sx = quantize_rows_plain(x)
+    acc = (x8.double() @ q.double()).float()
+    return (acc * sx * s.float()).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_lib():
+    lib = cb.library("int8_gemm")
+    lib.aries_int8_quantize_rows.argtypes = [_P, _I, _P, _P, _I, _I, _P]
+    lib.aries_int8_quantize_rows.restype = _I
+    lib.aries_int8_gemm.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _P, _P, _P]
+    lib.aries_int8_gemm.restype = _I
+    return lib
+
+
+# csrc/int8_gemm.cu's tiling: output columns a block, K rows a stage, the
+# row tiles (a warp's m16 tiles, all the block's rows) and the most K slices
+INT8_COLS, INT8_KC, INT8_MAX_SPLITS = 128, 32, 16
+INT8_ROW_TILES = (16, 32, 64)
+# the least 32-row stages a K slice, by the M it serves: a slice's blocks
+# run their stages in series, and each slice adds M x N s32 atomics. Set
+# from chip_smoke.py's "int8 GEMM plan sweep" on the H100 (PERF.md): at M
+# 6-18 about 10 stages a slice were fastest, at M 64 about 40 (fc2's 160
+# stages in 4 slices), at M 227 fc2 in 3 slices; from M 1135 one slice.
+INT8_STAGES_A_SLICE = ((32, 10), (64, 40), (256, 48))
+
+
+@functools.lru_cache(maxsize=None)  # a few shapes, called per layer
+def int8_gemm_plan(M: int, N: int, K: int) -> Tuple[int, int]:
+    """(rows a tile, K slices) of the native GEMM for an (M, K) x (K, N)
+    product: the least row tile that holds M (64 above 32), and K / 32
+    stages cut into slices of at least INT8_STAGES_A_SLICE's stages for M
+    (at most 16 slices; one above M 256)."""
+    if M <= 0 or N <= 0 or K <= 0 or K % INT8_KC or N % 16:
+        raise ValueError(f"the int8 GEMM kernel needs K % 32 == 0 and "
+                         f"N % 16 == 0, got M {M}, K {K}, N {N}")
+    rows = next((r for r in INT8_ROW_TILES if M <= r), INT8_ROW_TILES[-1])
+    per = next((n for m, n in INT8_STAGES_A_SLICE if M <= m), None)
+    splits = 1 if per is None else min(INT8_MAX_SPLITS, K // INT8_KC // per)
+    return rows, max(1, splits)
+
+
+def _aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def quantize_rows_kernel(x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row quantization kernel (csrc/int8_gemm.cu): x (M, K) bf16 or
+    f32, a contiguous 16-byte aligned CUDA tensor with K % 32 == 0 ->
+    (int8 (M, K), f32 (M, 1)), bit for bit ``quantize_rows_plain``. Other
+    shapes raise. Counts ``launches``."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bf16 or f32, got {x.dtype}")
+    cb.require(x, "x", x.dtype)
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] % INT8_KC:
+        raise ValueError(f"the row quantization kernel needs x (M, K) with "
+                         f"K % 32 == 0, got {tuple(x.shape)}")
+    _aligned(x=x)
+    M, K = x.shape
+    x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    cb.launch(_int8_lib().aries_int8_quantize_rows, x,
+              "int8 row quantization", cb.ptr(x),
+              int(x.dtype == torch.bfloat16), cb.ptr(x8), cb.ptr(sx), M, K)
+    cb.count(quantize_rows_kernel)
+    return x8, sx
+
+
+quantize_rows_kernel.launches = 0
+
+
+def quant_matmul_int8io_kernel(x8: torch.Tensor, sx: torch.Tensor,
+                               q: torch.Tensor, s: torch.Tensor,
+                               out_dtype: torch.dtype = torch.bfloat16,
+                               plan: Optional[Tuple[int, int]] = None
+                               ) -> torch.Tensor:
+    """The s8 GEMM kernel (csrc/int8_gemm.cu): x8 (M, K) int8 with its row
+    scales sx (M, 1) f32, q (K, N) int8, s (N,) f32, contiguous CUDA
+    tensors with K % 32 == 0 and N % 16 == 0 -> (f32(x8 @ q) * sx) * s,
+    (M, N) in bf16 or f32, by the tiling ``int8_gemm_plan`` picks (``plan``
+    names one instead, (rows, K slices): the sweep the plan is set from).
+    Other shapes raise. Counts ``launches``."""
+    cb.require(x8, "x8", torch.int8)
+    if x8.dim() != 2 or q.dim() != 2 or q.shape[0] != x8.shape[1]:
+        raise ValueError(f"x8 (M, K) and q (K, N) do not match: "
+                         f"{tuple(x8.shape)}, {tuple(q.shape)}")
+    (M, K), N = x8.shape, q.shape[1]
+    cb.require(sx, "sx", torch.float32, (M, 1), x8.device)
+    cb.require(q, "q", torch.int8, (K, N), x8.device)
+    cb.require(s, "s", torch.float32, (N,), x8.device)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("the kernel writes bf16 or f32")
+    rows, splits = int8_gemm_plan(M, N, K)  # raises on other shapes
+    if plan is not None:
+        rows, splits = plan
+        if rows not in INT8_ROW_TILES or not (
+                1 <= splits <= min(INT8_MAX_SPLITS, K // INT8_KC)):
+            raise ValueError(f"no plan {plan} for K {K}: rows one of "
+                             f"{INT8_ROW_TILES}, 1 to {INT8_MAX_SPLITS} "
+                             "slices of at least 32 K rows")
+    _aligned(x8=x8, q=q, s=s)
+    out = torch.empty((M, N), dtype=out_dtype, device=x8.device)
+    acc = arrived = None
+    if splits > 1:  # the slices' s32 sums and each tile's arrivals
+        acc = torch.zeros((M, N), dtype=torch.int32, device=x8.device)
+        arrived = torch.zeros(-(-M // rows) * -(-N // INT8_COLS),
+                              dtype=torch.int32, device=x8.device)
+    cb.launch(_int8_lib().aries_int8_gemm, x8, "int8 GEMM", cb.ptr(x8),
+              cb.ptr(sx), cb.ptr(q), cb.ptr(s), cb.ptr(out),
+              int(out_dtype == torch.bfloat16), M, N, K, rows, splits,
+              cb.ptr(acc) if acc is not None else None,
+              cb.ptr(arrived) if arrived is not None else None)
+    cb.count(quant_matmul_int8io_kernel)
+    return out
+
+
+quant_matmul_int8io_kernel.launches = 0
+
+
+def quant_matmul_int8io(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
+                        ) -> torch.Tensor:
+    """x (M, K) -> (M, N) in x.dtype by the native scheme: the two kernels
+    for CUDA tensors (bf16 activations give a bf16 output, others f32),
+    the plain version for CPU tensors."""
+    if not x.is_cuda:
+        return quant_matmul_int8io_plain(x, q, s, x.dtype)
+    xk = x if x.dtype in (torch.bfloat16, torch.float32) else x.float()
+    x8, sx = quantize_rows_kernel(xk.contiguous())
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    return quant_matmul_int8io_kernel(x8, sx, q, s, out_dtype).to(x.dtype)
+
+
 def _quant_matmul_outscale(x: torch.Tensor, q: torch.Tensor,
                            s: torch.Tensor) -> torch.Tensor:
     """bf16 x int8 products are exact in f32, so the f32 product of the
@@ -258,9 +424,8 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if impl == "native":
-        raise NotImplementedError(
-            "ARIES_QUANT_IMPL=native (s8 x s8 -> s32) is not ported yet")
-    if impl == "outscale":
+        y = quant_matmul_int8io(x2, q, s)
+    elif impl == "outscale":
         y = _quant_matmul_outscale(x2, q, s)
     elif impl == "pallas":
         y = quant_matmul_dequant(x2, q, s)

@@ -75,7 +75,15 @@ fallback ladder's rungs sample with ``best_of``.
 
 ``compute_type="int8"`` quantizes every transformer dense layer; with
 ``ARIES_QUANT_IMPL=pallas`` their products go through the W8A16 GEMM
-kernel on the card. ``decode.kv_cache_dtype="bf16"`` with
+kernel on the card, with ``=native`` through the row quantization and the
+s8 x s8 -> s32 GEMM (CTranslate2's scheme), wherever ``quant_matmul`` runs:
+the encoder, the cross K/V, the prefills, the word pass and the unfused
+decode steps (the fused decoder-layer kernel keeps its own W8A16 products
+under every value, as the JAX fused kernel does). A call without a
+language detects it from the first batch's first window at that batch's
+context (deferred), or, when multilingual, conditioned or prefixed or at
+``ARIES_DEFER_LANG=0`` (read per call), from window 0's 30 s mel before
+any batch. ``decode.kv_cache_dtype="bf16"`` with
 ``decode.self_kv_cache_dtype="int8"`` decodes by unfused steps with an
 int8 self cache (the int8 self-attention kernel on the card).
 ``word_timestamps=True`` attaches DTW word times to every segment
@@ -823,8 +831,11 @@ class AriesTranscriber:
                 sp = self.tokenizer.specials
                 if language is None and sp.language_tokens:
                     if (opts.multilingual or condition_on_previous_text
-                            or prefix):
+                            or prefix or os.environ.get(
+                                "ARIES_DEFER_LANG", "1") == "0"):
                         # the file's language from its first window at 30 s
+                        # (ARIES_DEFER_LANG=0, read per call as in JAX,
+                        # asks for this too)
                         with on_card(self.device):
                             mel0 = self._mel(self._gather(audio16, windows,
                                                           [0]))
