@@ -77,19 +77,22 @@ caught; a kernel check that fails is printed at once and fails the run
      Python mirrors. The unfused step is replayed from one CUDA graph
      (UnfusedStepGraph), which must give the bits of direct launches; both
      are timed and profiled, under ARIES_QUANT_IMPL=pallas and =native.
-     The native int8 path's two kernels (csrc/int8_gemm.cu: the row
-     quantization and the s8 tensor-core GEMM) at a large-v3 layer's four
+     The native int8 GEMM (csrc/int8_gemm.cu) at a large-v3 layer's four
      products at M 6, 18, 227, 1135, 6400 and 9000, bf16 activations with
-     a zero row, a row of exact halves and a row whose max tells a / 127
-     from a * (1 / 127): both bit for bit their plain versions (the GEMM in
-     bf16 and f32 out), each named mistake failing its hold (ax * (1 /
-     127), roundf, sx = 0 on a zero row; (acc * s) * sx, B read as if
-     K-major, a K slice dropped); timed beside the plain versions,
-     torch._int_mm (B row-major and column-major, where it takes the call)
-     with the torch ops around it, kernel 5 and cuBLAS bf16 ("int8 native
-     shapes" line); the GEMM at forced (row tile, K slices) around its
-     plan at M 6-1135, every plan the same bits ("int8 GEMM plan sweep",
-     the measurement ops/quant.py's plan is set from).
+     a zero row, a row of exact halves, a row whose max tells a / 127 from
+     a * (1 / 127) and a row whose max lies in its last K slice: the
+     wgmma path's preparation launch (rows quantized, weights transposed)
+     and both paths (wgmma; cluster, the quantization inside) bit for bit
+     their plain versions at every M and product (bf16 and f32 out), each
+     named mistake failing its hold (ax * (1 / 127), roundf, sx = 0 on a
+     zero row; (acc * s) * sx, B read as if K-major, the last 32 K rows
+     dropped; a K slice quantized by its own max, a cluster rank's partial
+     left out); timed beside the plain versions, torch._int_mm (B
+     row-major and column-major, where it takes the call) with the torch
+     ops around it, kernel 5 and cuBLAS bf16 ("int8 native shapes" line);
+     every plan (path, tile, S) at M 6-1135, every plan the same bits
+     ("int8 GEMM plan sweep", the measurement ops/quant.py's plan is set
+     from).
      The conditioned shapes (conditioned_phase): the fused step over a
      T 451 self cache at R 1 and R 5 (one window's cross K/V),
      valid_start 0 / 100 / 224, pos 227 and 450, teacher-forced per layer
@@ -164,9 +167,10 @@ caught; a kernel check that fails is printed at once and fails the run
      self-attention kernel and the W8A16 GEMM, every step after a prefill
      a replay of the decode call's decoder_step graph (graph_replays =
      layer_steps); prints ms per step. Then the native slice: the same
-     under ARIES_QUANT_IMPL=native, which must launch the row quantization
-     and the s8 GEMM and never the W8A16 GEMM; prints every (M, N, K) the
-     native GEMM's wrapper took (native_gemm_shapes).
+     under ARIES_QUANT_IMPL=native, which must launch both paths of the
+     native GEMM (the wgmma path and its preparation launch, the cluster
+     path) and never the W8A16 GEMM; prints every (M, N, K, path) the
+     native GEMM's plan gave (native_gemm_shapes).
   9. checkpoint path: write a large-v3 HF checkpoint directory (published
      widths and depth, seeded random weights as f16 model.safetensors in
      HF key names through the port's writer, large-v3's config.json,
@@ -1281,15 +1285,16 @@ def profile_step(label: str, step, n: int = 5,
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     busy_ms = covered / 1e3 / n
-    print(f"profile {what} {label} " + json.dumps({
+    out = {
         "wall_ms_per_step": wall_ms, "kernel_ms_sum_per_step": busy,
         "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / wall_ms if wall_ms else None,
         "launches_per_step": sum(r[2] for r in rows),
         "kernels": [{"name": k.replace("(anonymous namespace)::", "")
                      .split("(")[0], "ms_per_step": ms,
-                     "launches_per_step": c} for k, ms, c in rows[:12]]}),
-        flush=True)
+                     "launches_per_step": c} for k, ms, c in rows[:12]]}
+    print(f"profile {what} {label} " + json.dumps(out), flush=True)
+    return out
 
 
 def profile_graph_step(label, wpack, cache, cross, H, R, x, pos, queries=1):
@@ -2064,7 +2069,8 @@ def reciprocal_trap() -> float:
 def native_rows(dev, g, M, K, trap):
     """x (M, K) bf16: row 0 exact halves once divided by its scale (max
     |x| 127, so sx = 1), row 1 zero, row 2 with max |x| the reciprocal
-    trap, the rest N(0, 1)."""
+    trap, row 3 with its max |x| in its last K entry (outside every K
+    slice of a cluster but the last), the rest N(0, 1)."""
     import torch
 
     x = torch.randn((M, K), generator=g, device=dev)
@@ -2073,6 +2079,7 @@ def native_rows(dev, g, M, K, trap):
     x[1] = 0.0
     x[2] = (0.25 * trap * x[2]).clamp(-0.9 * trap, 0.9 * trap)
     x[2, 0] = trap
+    x[3, -1] = 9.0
     return x.to(torch.bfloat16)
 
 
@@ -2086,29 +2093,83 @@ def int_mm_or_none(a, b):
         return None
 
 
-def kernel_int8_gemm(dev, entries):
-    """The native int8 path's two kernels (ARIES_QUANT_IMPL=native) at a
-    large-v3 layer's four products (LAYER_PRODUCTS) at each NATIVE_M, bf16
-    activations: the row quantization (int8 values and f32 scales) and the
-    s8 GEMM (bf16 and f32 out) held bit for bit against their plain
-    versions on the card. Each named mistake must fail its hold: the scale
-    as ax * (1 / 127), round half away from zero (roundf), sx = 0 on a zero
-    row; the rescale as (acc * s) * sx, B read as if K-major, the plan's
-    last K slice (or the last 32 K rows) dropped. Timed beside the plain
-    versions, torch._int_mm (B row-major and column-major, where it takes
-    the call; with the torch ops for the quantization and the rescale, and
-    whether that gives the kernels' bits), kernel 5 (the W8A16 GEMM) and
-    cuBLAS bf16 on the dequantized weights."""
+def native_mistakes(x, q8, s, S, x8_p, sx_p):
+    """The named mistakes of the native path: (the quantization's, each of
+    which the preparation's hold of x8 and sx must catch: the scale as ax
+    * (1 / 127), round half away from zero (roundf), sx = 0 on a zero
+    row), (the f32 outputs of the GEMM's, each of which a path's f32 hold
+    must catch: the first two above, which show in the output (a zero
+    row's output is 0 at any scale), (acc * s) * sx, B read as if K-major,
+    the last 32 K rows dropped, and the cluster path's two: a block
+    quantizing its K slice by its own slice's max (the cluster's exchange
+    skipped), and rank S - 1's partial left out of the sum (its K slice
+    dropped))."""
     import torch
     from whisper_aries_tpu_torch.ops import quant as Q
 
+    M, K = x.shape
+    N = q8.shape[1]
+    qd = q8.double()
+
+    def out(a8, asx):
+        return (a8.double() @ qd).float() * asx * s
+
+    xf = x.float()
+    ax = xf.abs().amax(-1, keepdim=True)
+    v = xf / sx_p
+    sx_r = torch.where(ax > 0, ax * (1.0 / 127.0), torch.ones_like(ax))
+    cut = x8_p.clone()
+    cut[:, K - 32:] = 0
+    left = x8_p.clone()
+    left[:, (S - 1) * (K // S):] = 0
+    own = torch.cat([Q.quantize_rows_plain(sl)[0]
+                     for sl in x.split(K // S, dim=1)], dim=1)
+    quant = {
+        "ax * (1/127)": (torch.clamp(torch.round(xf / sx_r), -127,
+                                     127).to(torch.int8), sx_r),
+        "roundf": (torch.clamp(torch.sign(v) * torch.floor(
+            v.abs() + 0.5), -127, 127).to(torch.int8), sx_p),
+        "sx = 0 on a zero row": (x8_p, torch.where(
+            ax > 0, sx_p, torch.zeros_like(ax)))}
+    return quant, {
+        "ax * (1/127)": out(*quant["ax * (1/127)"]),
+        "roundf": out(*quant["roundf"]),
+        "(acc * s) * sx": ((x8_p.double() @ qd).float() * s) * sx_p,
+        "B read as if K-major": (x8_p.double() @ q8.reshape(
+            N, K).t().double()).float() * sx_p * s,
+        "last 32 K rows dropped": out(cut, sx_p),
+        f"K slice by its own max (S {S})": out(own, sx_p),
+        f"rank {S - 1} of {S} left out": out(left, sx_p)}
+
+
+def kernel_int8_gemm(dev, entries):
+    """The native int8 path (ARIES_QUANT_IMPL=native, csrc/int8_gemm.cu) at
+    a large-v3 layer's four products (LAYER_PRODUCTS) at each NATIVE_M,
+    bf16 activations (native_rows): the "wgmma" path's preparation launch
+    held bit for bit against quantize_rows_plain and q.t() (each
+    quantization mistake failing that hold), and both paths, "wgmma" (its
+    GEMM on the preparation's scratch) and "cluster" (one launch, the
+    quantization inside, at the plan's S), held bit for bit against
+    quant_matmul_int8io_plain in bf16 and f32 out at every M and product,
+    with each named mistake (native_mistakes) failing the f32 hold; the
+    plan's own path (quant_matmul_int8io_kernel) too. Timed by the
+    profiler's device ms: each path, the plan's, torch._int_mm with B
+    column-major (where it takes the call), kernel 5 and cuBLAS bf16; by
+    events the wrapper, the plain versions, torch._int_mm with B row-major
+    and the torch ops around torch._int_mm (whether they give the kernels'
+    bits)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import quant as Q
+
     trap = reciprocal_trap()
+    sms = cb.sm_count(dev)
     g = torch.Generator(device=dev).manual_seed(21)
     weights = {}
     for name, K, N in LAYER_PRODUCTS:
         q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
                                                    device=dev))
-        weights[name] = (q8, s, q8.t().contiguous().t(),
+        weights[name] = (q8, s, q8.t().contiguous(),
                          Q.dequantize_bf16(q8, s))
     c127 = torch.tensor(127.0, device=dev)
     rows, worst = [], 0.0
@@ -2117,9 +2178,12 @@ def kernel_int8_gemm(dev, entries):
               for K in {k for _, k, _ in LAYER_PRODUCTS}}
         for name, K, N in LAYER_PRODUCTS:
             x = xs[K]
-            q8, s, q8_cm, w16 = weights[name]
+            q8, s, qt_p, w16 = weights[name]
+            plan = Q.int8_gemm_plan(M, N, K, sms)
+            S = Q.int8_cluster_size(N, K, sms)
+            wtile = Q.int8_wgmma_tile(M, N, sms)
             label = f"int8 native[{name}: M {M}, K {K}, N {N}]"
-            x8, sx = Q.quantize_rows_kernel(x)
+            x8, sx, qt = Q.int8_prepare_kernel(x, q8)
             x8_p, sx_p = Q.quantize_rows_plain(x)
             torch.cuda.synchronize()
 
@@ -2128,60 +2192,49 @@ def kernel_int8_gemm(dev, entries):
                         and torch.equal(asx.view(torch.int32),
                                         sx_p.view(torch.int32)))
 
-            xf = x.float()
-            ax = xf.abs().amax(-1, keepdim=True)
-            v = xf / sx_p
-            sx_r = torch.where(ax > 0, ax * (1.0 / 127.0),
-                               torch.ones_like(ax))
-            sx_0 = torch.where(ax > 0, sx_p, torch.zeros_like(ax))
-            mistakes = {
-                "ax * (1/127)": (torch.clamp(torch.round(xf / sx_r), -127,
-                                             127).to(torch.int8), sx_r),
-                "roundf": (torch.clamp(torch.sign(v) * torch.floor(
-                    v.abs() + 0.5), -127, 127).to(torch.int8), sx_p),
-                "sx = 0 on a zero row": (x8_p, sx_0)}
-            ok = same_q(x8, sx)
-            caught = {k: not same_q(*m) for k, m in mistakes.items()}
-            check(f"{label} row quantization bitwise", ok and all(
-                caught.values()), f"equal: {ok}; mistakes caught: {caught}")
-            acc = (x8_p.double() @ q8.double()).float()
-            nk = K // 32
-            plan_rows, splits = Q.int8_gemm_plan(M, N, K)
-            cut = 32 * ((splits - 1) * nk // splits) if splits > 1 else K - 32
-            x8_cut = x8_p.clone()
-            x8_cut[:, cut:] = 0
-            wrong = {
-                "(acc * s) * sx": (acc * s) * sx_p,
-                "B read as if K-major": (x8_p.double() @ q8.reshape(
-                    N, K).t().double()).float() * sx_p * s,
-                (f"K slice {splits - 1} of {splits} dropped" if splits > 1
-                 else "last 32 K rows dropped"): (
-                    x8_cut.double() @ q8.double()).float() * sx_p * s}
+            quant, wrong = native_mistakes(x, q8, s, S, x8_p, sx_p)
+            ok = same_q(x8, sx) and torch.equal(qt, qt_p)
+            caught = {k: not same_q(*m) for k, m in quant.items()}
+            check(f"{label} preparation bitwise", ok and all(
+                caught.values()), f"x8, sx and the transposed weights "
+                f"equal: {ok}; mistakes caught: {caught}")
+            paths = {"wgmma": lambda dt: Q.int8_gemm_wgmma_kernel(
+                         x8, sx, qt, s, dt, wtile),
+                     "cluster": lambda dt: Q.int8_gemm_cluster_kernel(
+                         x, q8, s, dt, S),
+                     "plan": lambda dt: Q.quant_matmul_int8io_kernel(
+                         x, q8, s, dt)}
             for dt in (torch.float32, torch.bfloat16):
-                got = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, dt)
                 want = Q.quant_matmul_int8io_plain(x, q8, s, dt)
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(got.float()).all()):
-                    fail(f"{label}: int8 GEMM output is not finite")
-                ok = torch.equal(got, want)
-                worst = max(worst, float((got.float() - want.float())
-                                         .abs().max()))
-                detail = f"{str(dt)[6:]} out equal: {ok}"
-                if dt == torch.float32:  # a mistake fails the f32 hold
-                    caught = {k: not torch.equal(m, want)
-                              for k, m in wrong.items()}
-                    ok = ok and all(caught.values())
-                    detail += f"; mistakes caught: {caught}"
-                check(f"{label} GEMM bitwise, rows {plan_rows}, {splits} "
-                      "K slices", ok, detail)
-            del acc, x8_cut, wrong, mistakes, v, xf
+                for path, run in paths.items():
+                    got = run(dt)
+                    torch.cuda.synchronize()
+                    if not bool(torch.isfinite(got.float()).all()):
+                        fail(f"{label}: {path} output is not finite")
+                    ok = torch.equal(got, want)
+                    worst = max(worst, float((got.float() - want.float())
+                                             .abs().max()))
+                    detail = f"{str(dt)[6:]} out equal: {ok}"
+                    if dt == torch.float32 and path != "plan":
+                        caught = {k: not torch.equal(m, want)
+                                  for k, m in wrong.items()}
+                        ok = ok and all(caught.values())
+                        detail += f"; mistakes caught: {caught}"
+                    tag = {"wgmma": f"wgmma {wtile}",
+                           "cluster": f"cluster S {S}",
+                           "plan": f"plan {plan}"}[path]
+                    check(f"{label} GEMM bitwise, {tag}", ok, detail)
+            del wrong, quant
             # times (bf16 out, as the path writes it)
             iters = 50 if M < 100 else 20
-            quant = lambda: Q.quantize_rows_kernel(x)
-            gemm = lambda: Q.quant_matmul_int8io_kernel(x8, sx, q8, s)
+            big = M > Q.INT8_CLUSTER_MAX_M
+            prep = lambda: Q.int8_prepare_kernel(x, q8)
+            wg = lambda: Q.int8_gemm_wgmma_kernel(x8, sx, qt, s)
+            cl = lambda: Q.int8_gemm_cluster_kernel(x, q8, s,
+                                                    torch.bfloat16, S)
             both = lambda: Q.quant_matmul_int8io(x, q8, s)
             mm_rm = int_mm_or_none(x8, q8)
-            mm_cm = int_mm_or_none(x8, q8_cm)
+            mm_cm = int_mm_or_none(x8, qt_p.t())
 
             def torch_native():
                 xf = x.float()
@@ -2189,20 +2242,23 @@ def kernel_int8_gemm(dev, entries):
                 sxt = torch.where(ax > 0, ax / c127, torch.ones_like(ax))
                 a8 = torch.clamp(torch.round(xf / sxt), -127, 127).to(
                     torch.int8)
-                return ((torch._int_mm(a8, q8_cm).float() * sxt) * s).to(
+                return ((torch._int_mm(a8, qt_p.t()).float() * sxt) * s).to(
                     torch.bfloat16)
 
             row = dict(
-                what=name, M=M, K=K, N=N, rows=plan_rows, splits=splits,
+                what=name, M=M, K=K, N=N, plan=list(plan), cluster_S=S,
                 ms=time_ms(both, iters), host_ms=host_ms(both),
-                quantize_ms=time_ms(quant, iters),
-                quantize_device_ms=device_ms(quant, 10),
-                gemm_ms=time_ms(gemm, iters),
-                gemm_device_ms=device_ms(gemm, 10),
+                device_ms=device_ms(both, 10),
+                prepare_ms=time_ms(prep, iters),
+                prepare_device_ms=device_ms(prep, 10),
+                wgmma_ms=time_ms(wg, iters),
+                wgmma_device_ms=device_ms(wg, 10),
+                cluster_ms=time_ms(cl, 3 if big else iters),
+                cluster_device_ms=device_ms(cl, 3 if big else 10),
                 plain_ms=time_ms(lambda: Q.quant_matmul_int8io_plain(
                     x, q8, s, torch.bfloat16), 3),
-                quantize_plain_ms=time_ms(lambda: Q.quantize_rows_plain(x),
-                                          5),
+                prepare_plain_ms=time_ms(lambda: (
+                    Q.quantize_rows_plain(x), q8.t().contiguous()), 5),
                 gemm_plain_ms=time_ms(lambda: (
                     (x8.double() @ q8.double()).float() * sx * s).to(
                         torch.bfloat16), 3),
@@ -2210,9 +2266,9 @@ def kernel_int8_gemm(dev, entries):
                                              iters) if mm_rm is not None
                                      else None),
                 int_mm_col_major_ms=(time_ms(lambda: torch._int_mm(
-                    x8, q8_cm), iters) if mm_cm is not None else None),
+                    x8, qt_p.t()), iters) if mm_cm is not None else None),
                 int_mm_col_major_device_ms=(device_ms(lambda: torch._int_mm(
-                    x8, q8_cm), 10) if mm_cm is not None else None),
+                    x8, qt_p.t()), 10) if mm_cm is not None else None),
                 torch_ops_native_ms=(time_ms(torch_native, iters)
                                      if mm_cm is not None else None),
                 torch_ops_native_equal=(torch.equal(
@@ -2225,98 +2281,133 @@ def kernel_int8_gemm(dev, entries):
                 cublas_bf16_ms=time_ms(lambda: torch.matmul(x, w16), iters),
                 cublas_bf16_device_ms=device_ms(
                     lambda: torch.matmul(x, w16), 10))
-            row["device_ms"] = row["quantize_device_ms"] + row[
-                "gemm_device_ms"]
             # the function from x: x read once, q and s once, out written
             row["bound_ms"], row["bound_by"] = bound(
                 M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
                 PEAK_S8)
-            row["gemm_bound_ms"], row["gemm_bound_by"] = bound(
+            row["wgmma_bound_ms"], row["wgmma_bound_by"] = bound(
                 M * K + M * 4 + K * N + N * 4 + M * N * 2, 2 * M * N * K,
                 PEAK_S8)
-            row["quantize_bound_ms"], _ = bound(M * K * 2 + M * K + M * 4,
-                                                0, PEAK_S8)
+            row["prepare_bound_ms"], _ = bound(
+                M * K * 2 + M * K + M * 4 + 2 * K * N, 0, PEAK_S8)
             rows.append(row)
-            del x8, sx, x8_p, sx_p, mm_rm, mm_cm
+            del x8, sx, qt, x8_p, sx_p, mm_rm, mm_cm
         del xs
     print("int8 native shapes " + json.dumps(rows), flush=True)
     sweep = int8_gemm_sweep(dev, g)
     print("int8 GEMM plan sweep " + json.dumps(sweep), flush=True)
     head = next(r for r in rows
                 if (r["M"], r["what"]) == (NATIVE_M[-1], "o"))
+    small = next(r for r in rows
+                 if (r["M"], r["what"]) == (NATIVE_M[0], "o"))
     step = [r for r in rows if r["M"] == NATIVE_M[0]]
     # a decoder layer at M 6: qkv, o (with the cross q and o: 3 products),
     # fc1, fc2
     per_layer = {k: sum(r[k] * (3 if r["what"] == "o" else 1) for r in step)
-                 for k in ("ms", "device_ms", "gemm_device_ms",
-                           "quantize_device_ms", "bound_ms",
-                           "w8a16_device_ms", "cublas_bf16_device_ms")}
+                 for k in ("ms", "device_ms", "cluster_device_ms",
+                           "bound_ms", "w8a16_device_ms",
+                           "cublas_bf16_device_ms")}
     tol = "bit for bit (the plain version's bits)"
-    shape = (f"x ({head['M']}, {head['K']}) bf16, q int8 ({head['K']}, "
-             f"{head['N']}) + f32 scales")
     entries.append(dict(
-        name="int8_quantize_rows", route="cuda",
+        name="int8_prepare", route="cuda",
         source="whisper_aries_tpu_torch/csrc/int8_gemm.cu",
         replaces="whisper_aries_tpu/ops/quant.py:151",
-        max_abs_err=0.0, tolerance=tol, ms=head["quantize_ms"],
-        device_ms=head["quantize_device_ms"],
-        plain_ms=head["quantize_plain_ms"],
-        bound_ms=head["quantize_bound_ms"], bound_by="bytes",
+        max_abs_err=0.0, tolerance=tol, ms=head["prepare_ms"],
+        device_ms=head["prepare_device_ms"],
+        plain_ms=head["prepare_plain_ms"],
+        bound_ms=head["prepare_bound_ms"], bound_by="bytes",
         library_ms=None,
         library_note="none: no one PyTorch call quantizes rows by their "
-                     "own absmax scales",
+                     "own absmax scales and transposes the weights",
         shape=f"x ({head['M']}, {head['K']}) bf16 -> int8 + f32 row "
-              "scales"))
+              f"scales; q int8 ({head['K']}, {head['N']}) -> K-major"))
     entries.append(dict(
-        name="int8_gemm", route="cuda",
+        name="int8_gemm_wgmma", route="cuda",
         source="whisper_aries_tpu_torch/csrc/int8_gemm.cu",
         replaces="whisper_aries_tpu/ops/quant.py:151",
-        max_abs_err=worst, tolerance=tol, ms=head["gemm_ms"],
-        device_ms=head["gemm_device_ms"], plain_ms=head["gemm_plain_ms"],
-        bound_ms=head["gemm_bound_ms"], bound_by=head["gemm_bound_by"],
+        max_abs_err=worst, tolerance=tol, ms=head["wgmma_ms"],
+        device_ms=head["wgmma_device_ms"], plain_ms=head["gemm_plain_ms"],
+        bound_ms=head["wgmma_bound_ms"], bound_by=head["wgmma_bound_by"],
         library_ms=head["int_mm_col_major_ms"],
         library_device_ms=head["int_mm_col_major_device_ms"],
         library_note="torch._int_mm with B column-major (the s32 product "
                      "alone: no row quantization, no rescale); B "
                      "row-major, as the port keeps q, in int_mm_row_major_ms",
         int_mm_row_major_ms=head["int_mm_row_major_ms"],
-        native_ms=head["ms"], native_bound_ms=head["bound_ms"],
+        native_ms=head["ms"], native_device_ms=head["device_ms"],
+        native_bound_ms=head["bound_ms"],
         torch_ops_native_ms=head["torch_ops_native_ms"],
-        w8a16_ms=head["w8a16_ms"], cublas_bf16_ms=head["cublas_bf16_ms"],
+        w8a16_device_ms=head["w8a16_device_ms"],
+        cublas_bf16_device_ms=head["cublas_bf16_device_ms"],
+        plan_sweep=sweep["best"],
+        shape=f"x8 ({head['M']}, {head['K']}) int8 @ q ({head['K']}, "
+              f"{head['N']}) int8 + f32 scales -> bf16"))
+    entries.append(dict(
+        name="int8_gemm_cluster", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/int8_gemm.cu",
+        replaces="whisper_aries_tpu/ops/quant.py:151",
+        max_abs_err=worst, tolerance=tol, ms=small["cluster_ms"],
+        device_ms=small["cluster_device_ms"], plain_ms=small["plain_ms"],
+        bound_ms=small["bound_ms"], bound_by=small["bound_by"],
+        library_ms=None,
+        library_note="none: torch._int_mm refuses M <= 16, and no one "
+                     "PyTorch call quantizes the rows; kernel 5 and cuBLAS "
+                     "bf16 on the same weights in w8a16_device_ms, "
+                     "cublas_bf16_device_ms",
+        w8a16_device_ms=small["w8a16_device_ms"],
+        cublas_bf16_device_ms=small["cublas_bf16_device_ms"],
         decoder_layer_at_m6=per_layer, shapes=rows,
-        plan_sweep=sweep["best"], shape=shape + " -> bf16"))
+        shape=f"x ({small['M']}, {small['K']}) bf16 @ q ({small['K']}, "
+              f"{small['N']}) int8 + f32 scales -> bf16, cluster "
+              f"S {small['cluster_S']}"))
+
+
+def cluster_fits(M, K, S) -> bool:
+    """Whether the cluster path takes bf16 x (M, K) at cluster size S (a
+    row group of its K slice fits in a block's shared memory)."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    try:
+        Q.int8_cluster_rows(M, K, S)
+    except ValueError:
+        return False
+    return True
 
 
 def int8_gemm_sweep(dev, g):
-    """Device ms of the native s8 GEMM at forced (row tile, K slices)
-    around its plan, over a large-v3 layer's four products at M 6, 18, 64,
-    227 and 1135: the measurement ops/quant.py's INT8_STAGES_A_SLICE is
-    set from. Every plan must give the same bits. Returns the rows and,
-    for each (M, product), the best plan beside the chosen one."""
+    """Device ms of the native GEMM at every plan (path, tile, S) over a
+    large-v3 layer's four products at M 6, 18, 32, 48, 64, 128 and 227
+    (both paths) and 1135 and 6400 (the wgmma tiles): the measurement
+    ops/quant.py's plan (its cut-overs INT8_CLUSTER_ANY_M and
+    INT8_CLUSTER_MAX_M, int8_cluster_size, int8_wgmma_tile) is set from. A
+    wgmma plan is timed with its preparation launch. Every plan must give
+    the same bits. Returns the rows and, for each (M, product), the best
+    plan beside the chosen one."""
     import torch
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
     from whisper_aries_tpu_torch.ops import quant as Q
 
+    sms = cb.sm_count(dev)
     rows, same = [], True
-    for M, tiles, slices in ((6, (16,), (1, 2, 4, 8, 16)),
-                             (18, (16, 32), (1, 2, 4, 8, 16)),
-                             (64, (32, 64), (1, 2, 4, 8, 16)),
-                             (227, (32, 64), (1, 2, 3, 4, 8)),
-                             (1135, (32, 64), (1, 2))):
+    for M in (6, 18, 32, 48, 64, 128, 227, 1135, 6400):
         for name, K, N in LAYER_PRODUCTS:
-            x8, sx = Q.quantize_rows_kernel(torch.randn(
-                (M, K), generator=g, device=dev).to(torch.bfloat16))
+            x = torch.randn((M, K), generator=g, device=dev).to(
+                torch.bfloat16)
             q8, s = Q.quantize_int8(0.02 * torch.randn((K, N), generator=g,
                                                        device=dev))
-            want = Q.quant_matmul_int8io_kernel(x8, sx, q8, s)
-            chosen = Q.int8_gemm_plan(M, N, K)
-            plans = {(r, sp) for r in tiles for sp in slices
-                     if sp <= K // 32} | {chosen}
-            for plan in sorted(plans):
-                kern = lambda: Q.quant_matmul_int8io_kernel(x8, sx, q8, s,
-                                                            plan=plan)
+            want = Q.quant_matmul_int8io_plain(x, q8, s, torch.bfloat16)
+            chosen = Q.int8_gemm_plan(M, N, K, sms)
+            plans = [("wgmma", t, 1) for t in Q.INT8_TILES["wgmma"]]
+            plans += [("cluster", "64", S)
+                      for S in range(1, Q.INT8_MAX_CLUSTER + 1)
+                      if (K // 32) % S == 0 and M <= 227
+                      and cluster_fits(M, K, S)]
+            for plan in plans:
+                kern = lambda: Q.quant_matmul_int8io_kernel(
+                    x, q8, s, plan=plan)
                 same = same and torch.equal(kern(), want)
-                rows.append(dict(M=M, what=name, K=K, N=N, rows=plan[0],
-                                 splits=plan[1], chosen=plan == chosen,
+                rows.append(dict(M=M, what=name, K=K, N=N, plan=list(plan),
+                                 chosen=plan == chosen,
                                  device_ms=device_ms(kern, 10)))
     check("int8 GEMM plan sweep: every plan gives the same bits", same,
           f"{len(rows)} plans")
@@ -2325,9 +2416,8 @@ def int8_gemm_sweep(dev, g):
         rs = [r for r in rows if (r["M"], r["what"]) == key]
         b = min(rs, key=lambda r: r["device_ms"])
         c = next(r for r in rs if r["chosen"])
-        best.append(dict(M=key[0], what=key[1], best=[b["rows"], b["splits"]],
-                         best_ms=b["device_ms"],
-                         chosen=[c["rows"], c["splits"]],
+        best.append(dict(M=key[0], what=key[1], best=b["plan"],
+                         best_ms=b["device_ms"], chosen=c["plan"],
                          chosen_ms=c["device_ms"]))
     return dict(plans=rows, best=best)
 
@@ -2436,11 +2526,13 @@ def profile_unfused_step(dev, parts):
     (large-v3 at int8 compute under ARIES_QUANT_IMPL=pallas, then =native;
     6 rows over 6 windows' bf16 cross K/V, an int8 self cache of 227
     positions, position 116): decoder_step, whose dense layers run the
-    W8A16 GEMM (pallas) or the row quantization and the s8 GEMM (native),
-    and whose self-attention runs the int8 self-attention kernel. The step
-    replayed from one CUDA graph (UnfusedStepGraph, as the slices run it)
-    must give the bits of direct launches; both are timed and profiled
-    (device time by kernel, the device's busy share)."""
+    W8A16 GEMM (pallas) or the native GEMM's cluster path, one launch a
+    product (native), and whose self-attention runs the int8
+    self-attention kernel. The step replayed from one CUDA graph
+    (UnfusedStepGraph, as the slices run it) must give the bits of direct
+    launches; both are timed and profiled (device time by kernel, the
+    device's busy share), and the native replay may launch no more
+    kernels a step than the pallas one."""
     import os
 
     import torch
@@ -2454,6 +2546,7 @@ def profile_unfused_step(dev, parts):
     del full
     B, pos = 6, 116
     old_impl = os.environ.get("ARIES_QUANT_IMPL")
+    launches = {}
     for impl in ("pallas", "native"):
         g = torch.Generator(device=dev).manual_seed(13)
         os.environ["ARIES_QUANT_IMPL"] = impl
@@ -2483,7 +2576,8 @@ def profile_unfused_step(dev, parts):
                      "bf16 cross K/V")
             if impl != "pallas":
                 label += f", ARIES_QUANT_IMPL={impl}"
-            profile_step(label, replay, what="unfused step")
+            launches[impl] = profile_step(label, replay, what="unfused "
+                                          "step")["launches_per_step"]
             profile_step(label + ", direct launches", direct,
                          what="unfused step")
             del graph, cross, cache, xa
@@ -2494,6 +2588,9 @@ def profile_unfused_step(dev, parts):
                 os.environ["ARIES_QUANT_IMPL"] = old_impl
         parts.append(dict(name=f"unfused step R {B}{tag}", ms=ms,
                           direct_ms=direct_ms))
+    check("unfused step (native): launches a replay <= the pallas step's",
+          launches["native"] <= launches["pallas"],
+          f"R {B}: {launches['native']} against {launches['pallas']}")
     del params
     torch.cuda.empty_cache()
 
@@ -3169,8 +3266,9 @@ def counters():
             "beam_tail": BT.beam_tail_kernel,
             "beam_reorder": BR.permute_rows_kernel,
             "quant_matmul": Q.quant_matmul_dequant_kernel,
-            "int8_quantize_rows": Q.quantize_rows_kernel,
-            "int8_gemm": Q.quant_matmul_int8io_kernel,
+            "int8_prepare": Q.int8_prepare_kernel,
+            "int8_gemm_wgmma": Q.int8_gemm_wgmma_kernel,
+            "int8_gemm_cluster": Q.int8_gemm_cluster_kernel,
             "self_attn_q8": SA.self_attention_q8_kernel,
             # kernel 3's launches and replays at S > 1 (also in
             # decode_layers)
@@ -3208,9 +3306,10 @@ PATH_KERNELS = {
               "cross_attn_q8", "beam_tail", "beam_reorder"),
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
     # self_int8 under ARIES_QUANT_IMPL=native: every dense product through
-    # the row quantization and the s8 GEMM, none through kernel 5
-    "native": ("mel", "encoder_attn", "int8_quantize_rows", "int8_gemm",
-               "self_attn_q8"),
+    # the native GEMM (the encoder's by the wgmma path and its preparation,
+    # the steps' and prefills' by the cluster path), none through kernel 5
+    "native": ("mel", "encoder_attn", "int8_prepare", "int8_gemm_wgmma",
+               "int8_gemm_cluster", "self_attn_q8"),
     "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
                    "cross_attn_q8", "beam_tail", "beam_reorder"),
     "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
@@ -3356,9 +3455,10 @@ def slice_phase(dev, path: str, keep: bool = False):
         planned.append((M, N, K, out[0]))
         return out
 
-    def recording_plan8(M, N, K):
-        planned8.append((M, N, K))
-        return plan8(M, N, K)
+    def recording_plan8(M, N, K, *args):
+        out = plan8(M, N, K, *args)
+        planned8.append((M, N, K, out[0]))
+        return out
 
     Q.gemm_plan = recording_plan
     Q.int8_gemm_plan = recording_plan8
@@ -3476,8 +3576,8 @@ def slice_phase(dev, path: str, keep: bool = False):
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
         gemm_rows=by_rows,
-        native_gemm_shapes=dict(Counter(f"M {m} N {n} K {k}"
-                                 for m, n, k in planned8)),
+        native_gemm_shapes=dict(Counter(f"M {m} N {n} K {k} {p}"
+                                 for m, n, k, p in planned8)),
         peak_mem_gb=peak_gb, performance=res["performance"],
         language=res["language"], real_time_factor=res["real_time_factor"])
     if path == "words":

@@ -1423,60 +1423,141 @@ def test_probe_qa_build_failure_raises(dev, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the native int8 GEMM (ARIES_QUANT_IMPL=native): row quantization and the
-# s8 tensor-core GEMM, each bit for bit its plain version
+# the native int8 GEMM (ARIES_QUANT_IMPL=native): the "wgmma" path (the
+# preparation launch, then TMA + s8 wgmma) and the "cluster" path (one
+# launch, the row quantization inside), each bit for bit its plain version
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N", [(1, 64, 32), (6, 256, 384), (17, 96, 144),
-                                   (70, 1280, 128), (300, 160, 1280)])
-def test_native_int8_kernels_bitwise(dev, M, K, N, dtype):
-    """quantize_rows_kernel and quant_matmul_int8io_kernel against
-    quantize_rows_plain and quant_matmul_int8io_plain, bit for bit (every
-    step exact or one IEEE operation), with a zero row and a row of exact
-    halves; the GEMM both with and without K slices (the plan's), in bf16
-    and f32 out, one launch each, two runs the same bits."""
+def _native_operands(dev, M, K, N, dtype, seed):
+    """x (M, K) with row 0 of exact halves (max 127: sx 1), row 1 zero and
+    row 2's max in its last K entries (outside every K slice but the
+    last), q (K, N) int8 and its scales."""
     from whisper_aries_tpu_torch.ops import quant as Q
 
-    g = torch.Generator(device=dev).manual_seed(M * 7 + K)
+    g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((M, K), generator=g, device=dev)
     x[0] = torch.arange(K, device=dev).float() * 37 % 254 - 126.5
     x[0, 0] = 127.0
     if M > 1:
         x[1] = 0
-    x = x.to(dtype)
+    if M > 2:
+        x[2, -1] = 9.0
     q8, s = Q.quantize_int8(0.05 * torch.randn((K, N), generator=g,
                                                device=dev))
-    n = Q.quantize_rows_kernel.launches
-    x8, sx = Q.quantize_rows_kernel(x)
+    return x.to(dtype), q8, s
+
+
+def _native_plans(M, N, K):
+    """Every plan the sweep tries at this shape: each wgmma tile, and the
+    cluster path at each S dividing K / 32 (at most 8) whose rows fit."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    plans = [("wgmma", t, 1) for t in Q.INT8_TILES["wgmma"]]
+    for S in range(1, Q.INT8_MAX_CLUSTER + 1):
+        if (K // 32) % S:
+            continue
+        try:
+            Q.int8_cluster_rows(M, K, S, 4)  # f32 x takes the most
+        except ValueError:
+            continue
+        plans.append(("cluster", "64", S))
+    return plans
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 32), (6, 256, 384), (17, 96, 144),
+                                   (70, 1280, 128), (300, 160, 1280),
+                                   (13, 320, 16)])
+def test_native_int8_kernels_bitwise(dev, M, K, N, dtype):
+    """The preparation launch against quantize_rows_plain and q.t(), and
+    both GEMM paths at every plan the sweep tries against
+    quant_matmul_int8io_plain, bit for bit (every step exact or one IEEE
+    operation), in bf16 and f32 out, one launch each, two runs the same
+    bits."""
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    x, q8, s = _native_operands(dev, M, K, N, dtype, M * 7 + K)
+    n = Q.int8_prepare_kernel.launches
+    x8, sx, qt = Q.int8_prepare_kernel(x, q8)
     x8_p, sx_p = Q.quantize_rows_plain(x)
-    assert Q.quantize_rows_kernel.launches == n + 1
+    assert Q.int8_prepare_kernel.launches == n + 1
     assert torch.equal(x8, x8_p) and torch.equal(sx.view(torch.int32),
                                                  sx_p.view(torch.int32))
+    assert torch.equal(qt, q8.t().contiguous())
     for out_dtype in (torch.bfloat16, torch.float32):
-        n = Q.quant_matmul_int8io_kernel.launches
-        got = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, out_dtype)
-        again = Q.quant_matmul_int8io_kernel(x8, sx, q8, s, out_dtype)
-        torch.cuda.synchronize()
-        assert Q.quant_matmul_int8io_kernel.launches == n + 2
         want = Q.quant_matmul_int8io_plain(x, q8, s, out_dtype)
-        assert torch.equal(got, want), float((got.float() - want.float())
-                                             .abs().max())
-        assert torch.equal(got, again)
+        for path, tile, S in _native_plans(M, N, K):
+            if path == "wgmma":
+                fn = Q.int8_gemm_wgmma_kernel
+                run = lambda: fn(x8, sx, qt, s, out_dtype, tile)
+            else:
+                fn = Q.int8_gemm_cluster_kernel
+                run = lambda: fn(x, q8, s, out_dtype, S)
+            n = fn.launches
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            assert fn.launches == n + 2
+            assert torch.equal(got, want), (path, tile, S, float(
+                (got.float() - want.float()).abs().max()))
+            assert torch.equal(got, again)
+        got = Q.quant_matmul_int8io_kernel(x, q8, s, out_dtype)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(6, 1280, 384), (18, 640, 144),
+                                   (24, 320, 16), (8, 64, 512)])
+def test_native_int8_cluster_in_a_graph(dev, M, K, N):
+    """The cluster path captured in a CUDA graph (as UnfusedStepGraph runs
+    it: no host sync, no value-sized allocation) and replayed on new
+    activations gives the plain version's bits; its plan's one launch a
+    product."""
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import quant as Q
+
+    x, q8, s = _native_operands(dev, M, K, N, torch.bfloat16, M + K)
+    assert Q.int8_gemm_plan(M, N, K, cb.sm_count(x))[0] == "cluster"
+    xs = x.clone()
+    Q.quant_matmul_int8io_kernel(xs, q8, s)  # built and warm
+    torch.cuda.synchronize()
+    out = {}
+    with cb.recording() as rec:
+        graph = cb.capture(dev, lambda: out.update(
+            y=Q.quant_matmul_int8io_kernel(xs, q8, s)))
+    assert rec == {(Q.int8_gemm_cluster_kernel, None): 1}
+    for scale in (1.0, -3.0, 0.25):
+        xs.copy_(x * scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out["y"], Q.quant_matmul_int8io_plain(
+            xs, q8, s, torch.bfloat16))
 
 
 def test_native_int8_wrappers_refuse_other_shapes(dev):
     from whisper_aries_tpu_torch.ops import quant as Q
 
     with pytest.raises(ValueError, match="K % 32"):
-        Q.quantize_rows_kernel(torch.zeros((4, 48), device=dev))
-    x8 = torch.zeros((4, 64), dtype=torch.int8, device=dev)
+        Q.int8_prepare_kernel(torch.zeros((4, 48), device=dev),
+                              torch.zeros((48, 32), dtype=torch.int8,
+                                          device=dev))
+    x = torch.zeros((4, 64), device=dev)
     with pytest.raises(ValueError, match="N % 16"):
-        Q.quant_matmul_int8io_kernel(
-            x8, torch.ones((4, 1), device=dev),
-            torch.zeros((64, 40), dtype=torch.int8, device=dev),
+        Q.int8_gemm_cluster_kernel(
+            x, torch.zeros((64, 40), dtype=torch.int8, device=dev),
             torch.ones(40, device=dev))
+    with pytest.raises(ValueError, match="no cluster plan"):
+        Q.int8_gemm_cluster_kernel(
+            x, torch.zeros((64, 32), dtype=torch.int8, device=dev),
+            torch.ones(32, device=dev), S=3)
+    with pytest.raises(ValueError, match="no wgmma tile"):
+        Q.int8_gemm_wgmma_kernel(
+            torch.zeros((4, 64), dtype=torch.int8, device=dev),
+            torch.ones((4, 1), device=dev),
+            torch.zeros((32, 64), dtype=torch.int8, device=dev),
+            torch.ones(32, device=dev), tile="64x64")
+    for x_bytes in (2, 4):
+        assert Q.kernel_cluster_smem(24, 640, 8, x_bytes) == \
+            Q.int8_cluster_smem(24, 640, 8, x_bytes)
 
 
 def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):

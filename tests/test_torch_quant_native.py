@@ -18,8 +18,10 @@ on the CPU:
   * the engine's ``transcribe_file`` at compute int8 under native against
     the JAX engine under native, at temperature 0: the same tokens and
     segments;
-  * the plan of the kernel's tiling, and the kernel wrappers refusing CPU
-    operands (the kernels themselves: ``-m cuda`` in
+  * the plan of the kernels' paths (path, tile, cluster size) at a
+    large-v3 layer's products, its refusals, a plain emulation of the
+    cluster path's row-maximum exchange by K slices, and the kernel
+    wrappers refusing CPU operands (the kernels themselves: ``-m cuda`` in
     tests/test_torch_cuda.py).
 
 Inputs are made with numpy from a seed."""
@@ -172,35 +174,132 @@ def test_quant_matmul_native_runs_on_cpu_tensors(monkeypatch):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("M,N,K,rows,splits", [
-    (1, 3840, 1280, 16, 4), (6, 1280, 1280, 16, 4), (6, 5120, 1280, 16, 4),
-    (6, 1280, 5120, 16, 16), (18, 3840, 1280, 32, 4),
-    (64, 1280, 5120, 64, 4), (227, 1280, 1280, 64, 1),
-    (227, 1280, 5120, 64, 3), (1135, 1280, 5120, 64, 1),
-    (9000, 5120, 1280, 64, 1), (40, 16, 32, 64, 1)])
-def test_int8_gemm_plan(M, N, K, rows, splits):
-    """The least row tile holding M (64 above 32); K / 32 stages in slices
-    of at least 10 stages up to M 32, 40 up to M 64, 48 up to M 256 (at
-    most 16 slices), one slice above."""
-    assert TQ.int8_gemm_plan(M, N, K) == (rows, splits)
+#: a large-v3 decoder layer's four products (K, N) and the native path's
+#: row counts (chip_smoke.py's LAYER_PRODUCTS and NATIVE_M), M 1 besides
+LAYER_PRODUCTS = {"qkv": (1280, 3840), "o": (1280, 1280),
+                  "fc1": (1280, 5120), "fc2": (5120, 1280)}
+#: the plan on a 132-SM H100: S by kernel 5's rule (the least divisor of
+#: K / 32 up to 8 giving 2 x 132 blocks of 64 columns, else the largest)
+CLUSTER_S = {"qkv": 5, "o": 8, "fc1": 4, "fc2": 8}
 
 
-@pytest.mark.parametrize("M,N,K", [(6, 100, 64), (6, 128, 48), (0, 128, 64)])
+@pytest.mark.parametrize("what", list(LAYER_PRODUCTS))
+@pytest.mark.parametrize("M", [1, 6, 18, 227, 1135, 6400, 9000])
+def test_int8_gemm_plan(M, what):
+    """The cluster path (64 columns a block, kernel 5's cluster size) up to
+    M 8, and up to M 24 where N <= K (o and fc2 at the words prefill's M
+    18), the wgmma path (S 1) otherwise, its wide tile at one and a half
+    an SM; S
+    divides K into whole 32-row stages, at most 8, and a block's shared
+    memory at the rows it takes fits under the opt-in limit."""
+    K, N = LAYER_PRODUCTS[what]
+    path, tile, S = TQ.int8_gemm_plan(M, N, K, 132)
+    assert tile in TQ.INT8_TILES[path]
+    if M <= 8 or (M <= 24 and N <= K):
+        assert (path, tile, S) == ("cluster", "64", CLUSTER_S[what])
+        rows = TQ.int8_cluster_rows(M, K, S)
+        assert rows >= min(M, 8) and rows <= TQ.INT8_MAX_ROWS
+        assert TQ.int8_cluster_smem(rows, K // S, S) <= 232448
+    else:
+        wide = 2 * -(-M // 128) * -(-N // 256) >= 3 * 132
+        assert (path, tile, S) == ("wgmma", "128x256" if wide else
+                                   "128x128", 1)
+    assert 1 <= S <= 8 and (K // 32) % S == 0 and (K // S) % 32 == 0
+
+
+@pytest.mark.parametrize("M,N,K", [(6, 100, 64), (6, 128, 48), (0, 128, 64),
+                                   (6, 0, 64), (6, 128, 0)])
 def test_int8_gemm_plan_refuses_other_shapes(M, N, K):
     with pytest.raises(ValueError, match="K % 32 == 0"):
-        TQ.int8_gemm_plan(M, N, K)
+        TQ.int8_gemm_plan(M, N, K, 132)
+
+
+def test_int8_gemm_plan_refuses_too_many_row_tiles():
+    with pytest.raises(ValueError, match="65,535 row tiles"):
+        TQ.int8_gemm_plan(128 * 65535 + 1, 128, 64, 132)
+
+
+def test_int8_gemm_plan_takes_wgmma_where_no_slice_fits():
+    """A K slice too deep for even 8 s8 rows in a block's shared memory
+    goes to the wgmma path, which takes any K % 32 == 0."""
+    K = 32 * 7 * 1100  # K / 32 = 7,700: its largest divisor up to 8 is 7
+    S = TQ.int8_cluster_size(16, K, 132)
+    assert S == 7
+    with pytest.raises(ValueError, match="too deep"):
+        TQ.int8_cluster_rows(6, K, S)
+    assert TQ.int8_gemm_plan(6, 16, K, 132) == ("wgmma", "128x128", 1)
+
+
+@pytest.mark.parametrize("M,K,S,x_bytes,rows", [
+    (6, 1280, 8, 2, 8), (18, 1280, 5, 2, 24), (300, 1280, 4, 2, 64),
+    (64, 5120, 8, 2, 64), (64, 5120, 8, 4, 48), (64, 1280, 1, 2, 40),
+    (64, 1280, 1, 4, 24), (6, 3200, 1, 4, 8)])
+def test_int8_cluster_rows(M, K, S, x_bytes, rows):
+    """M rounded up to a group of 8, at most 64, fewer where the block's
+    shared memory (x's slice as it lies and as s8 among it) would pass the
+    limit: f32 x takes fewer rows than bf16."""
+    assert TQ.int8_cluster_rows(M, K, S, x_bytes) == rows
+    assert TQ.int8_cluster_smem(rows, K // S, S,
+                                x_bytes) <= TQ.INT8_MAX_SMEM
+
+
+def cluster_quantize(x, S):
+    """The cluster path's row quantization, emulated by K slices: each of
+    the S blocks takes the max |x| of its own slice of every row, the
+    blocks exchange them, and each quantizes its slice by the row scale
+    from the max of the S partial maxima. Returns (int8 (M, K), f32 scales
+    (M, 1))."""
+    xf = x.float()
+    parts = xf.abs().reshape(x.shape[0], S, -1).amax(dim=-1)  # (M, S)
+    ax = parts.amax(dim=1, keepdim=True)  # the exchange: a max of maxima
+    sx = torch.where(ax > 0, ax / torch.full_like(ax, 127.0),
+                     torch.ones_like(ax))
+    x8 = torch.cat([torch.clamp(torch.round(sl / sx), -127, 127)
+                    for sl in xf.split(x.shape[1] // S, dim=1)], dim=1)
+    return x8.to(torch.int8), sx
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_cluster_max_exchange_is_the_row_quantization(S):
+    """For every cluster size, the slices' exchange gives
+    quantize_rows_plain's bits, on rows whose max |x| sits in each slice
+    in turn (and a zero row, and the ties row); quantizing each slice by
+    its own slice's max instead does not."""
+    K = 32 * S * 3
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((S + 2, K)).astype(np.float32)
+    for j in range(S):  # row j's max in slice j
+        x[j, j * (K // S) + 5] = 7.5
+    x[S] = ties_row(K)
+    x[S + 1] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = _t(x).to(dtype)
+        want8, want_sx = TQ.quantize_rows_plain(xt)
+        got8, got_sx = cluster_quantize(xt, S)
+        assert torch.equal(got8, want8)
+        assert torch.equal(got_sx.view(torch.int32),
+                           want_sx.view(torch.int32))
+        if S > 1:  # the named mistake: a slice by its own max
+            own = torch.cat([TQ.quantize_rows_plain(sl)[0] for sl in
+                             xt.split(K // S, dim=1)], dim=1)
+            assert not torch.equal(own[:S], want8[:S])
 
 
 def test_native_kernel_wrappers_reject_cpu_operands():
-    """The two kernels' entry points take CUDA tensors only; the CPU path
-    goes to the plain version in quant_matmul_int8io, never through
-    them."""
+    """The kernels' entry points take CUDA tensors only; the CPU path goes
+    to the plain version in quant_matmul_int8io, never through them."""
+    x = torch.zeros((6, 64), dtype=torch.bfloat16)
+    q = torch.zeros((64, 32), dtype=torch.int8)
     with pytest.raises(ValueError, match="CUDA"):
-        TQ.quantize_rows_kernel(torch.zeros((6, 64), dtype=torch.bfloat16))
+        TQ.int8_prepare_kernel(x, q)
     with pytest.raises(ValueError, match="CUDA"):
-        TQ.quant_matmul_int8io_kernel(
+        TQ.int8_gemm_cluster_kernel(x, q, torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TQ.int8_gemm_wgmma_kernel(
             torch.zeros((6, 64), dtype=torch.int8), torch.ones((6, 1)),
-            torch.zeros((64, 32), dtype=torch.int8), torch.ones(32))
+            torch.zeros((32, 64), dtype=torch.int8), torch.ones(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        TQ.quant_matmul_int8io_kernel(x, q, torch.ones(32))
 
 
 @pytest.fixture(scope="module")

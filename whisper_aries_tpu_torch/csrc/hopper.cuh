@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (quant_matmul.cu's large-M GEMM, encoder_attn.cu, probe_qa.cu):
+// (quant_matmul.cu's and int8_gemm.cu's large-M GEMMs, encoder_attn.cu,
+// probe_qa.cu):
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     an expected transaction count alone, and a parity wait; a ring
@@ -10,21 +11,26 @@
 //   * wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled
 //     tile, fence / commit / wait, m64n128k16 and m64n64k16 with A and B
 //     from shared memory (either K- or MN-major) and m64n64k16 with A from
-//     registers (bf16 in, f32 sums);
+//     registers (bf16 in, f32 sums); m64n128k32 s8 x s8 -> s32 with A and
+//     B from shared memory, both K-major (int8_gemm.cu's large-M GEMM;
+//     wgmma has no transpose bit for 8-bit types);
 //   * fence.proxy.async (ordinary stores -> TMA or wgmma reads), named
 //     barriers, setmaxnreg;
-//   * on the host, encode_map(): a CUtensorMap for a bf16 tensor, through
-//     cuTensorMapEncodeTiled found with cudaGetDriverEntryPoint, so the
-//     libraries need no -lcuda link. Maps go to kernels by value as
+//   * on the host, encode_map(): a CUtensorMap for a bf16 tensor (or, by
+//     its last argument, one of another element type: int8 as bytes),
+//     through cuTensorMapEncodeTiled found with cudaGetDriverEntryPoint, so
+//     the libraries need no -lcuda link. Maps go to kernels by value as
 //     `const __grid_constant__ CUtensorMap` parameters.
 //
 // The 128-byte swizzle, shared by the TMA maps and the descriptors: a tile
-// is stored as rows of 128 bytes (64 bf16); within each 1024-byte group of
-// 8 rows, the 16-byte chunk c of row r sits at chunk c ^ (r % 8). Tiles
-// start on 1024-byte boundaries, so the descriptors' base offset is 0.
+// is stored as rows of 128 bytes (64 bf16, 128 int8); within each
+// 1024-byte group of 8 rows, the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8). Tiles start on 1024-byte boundaries, so the descriptors'
+// base offset is 0.
 //   K-major operand (the reduction dim contiguous: x in the GEMM, Q and K in
 //   attention): 8-row groups 1024 bytes apart (SBO); the k16 step s of a
-//   64-wide row starts 32 s bytes in.
+//   64-wide bf16 row (the k32 step s of a 128-wide int8 row) starts 32 s
+//   bytes in.
 //   MN-major operand (the output dim contiguous: the weights (K, N) in the
 //   GEMM, V in attention; wgmma's transpose bit): rows are K, 64 output
 //   columns per 128-byte row; 8-row (K) groups 1024 bytes apart (SBO),
@@ -211,6 +217,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (+)= a . b: m64n128k16, A (TRANS_A 0: K-major, 1: MN-major) and B
 // (TRANS_B 0: K-major, 1: MN-major) from shared memory; scale_d 0
 // overwrites d. The accumulator
@@ -297,6 +309,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// d (+)= a . b: m64n128k32, s8 x s8 with s32 sums (exact), A and B from
+// shared memory, both K-major (the only layout wgmma takes for 8-bit
+// types); scale_d 0 overwrites d. The accumulator layout is
+// m64n128k16's above, in s32.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -335,17 +381,20 @@ constexpr int ERR_NO_TENSOR_MAP = 8999;
 constexpr int ERR_TENSOR_MAP = 9000;
 constexpr int ERR_ATTRIBUTE = 10000;
 
-// A bf16 tensor map of `rank` dims (innermost first: dims[0] contiguous),
-// byte strides of dims 1.. in `strides`, a `box` tile, 128-byte swizzle;
-// reads outside the dims fill zeros, stores outside are dropped. Returns 0,
-// or one of the codes above.
-static int encode_map(CUtensorMap* map, const void* base, int rank,
-                      const cuuint64_t* dims, const cuuint64_t* strides,
-                      const cuuint32_t* box) {
+// A tensor map of `rank` dims (innermost first: dims[0] contiguous), byte
+// strides of dims 1.. in `strides`, a `box` tile, 128-byte swizzle, of
+// bf16 elements unless `type` names another (int8 tiles go as
+// CU_TENSOR_MAP_DATA_TYPE_UINT8: bytes are moved, not read); reads outside
+// the dims fill zeros, stores outside are dropped. Returns 0, or one of
+// the codes above.
+static int encode_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return ERR_NO_TENSOR_MAP;
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const CUresult r = fn(map, type, rank,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -179,13 +179,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-using ::fence_regs;  // hopper.cuh's, for the f32 accumulators
-
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
+using ::fence_regs;  // hopper.cuh's, for the f32 and s32 accumulators
 
 template <int KIND>
 struct Acc {

@@ -22,12 +22,19 @@ package reads it when it traces:
   * "native": CTranslate2's int8 GEMM (the JAX package's
     ``_quant_matmul_int8io``): each activation row quantized to int8 by its
     own absmax scale (an IEEE division by 127, rounded half to even), an
-    s8 x s8 -> s32 product, then ``(f32(acc) * sx[m]) * s[n]``. Two
-    kernels for CUDA tensors (csrc/int8_gemm.cu: the row quantization, then
-    the tensor-core s8 GEMM with the rescale in its epilogue, by
-    ``int8_gemm_plan``), ``quant_matmul_int8io_plain`` for CPU tensors.
-    The JAX package's jitted function multiplies by 1/127 where it divides
-    (XLA's rewrite); the port divides, as the eager JAX function does.
+    s8 x s8 -> s32 product, then ``(f32(acc) * sx[m]) * s[n]``. For CUDA
+    tensors csrc/int8_gemm.cu, by the path ``int8_gemm_plan`` picks from M:
+    "wgmma" at large M (the encoder's windows x 1500; bound: operations),
+    a preparation launch (the rows quantized, the weights transposed into
+    a K-major scratch, made again each call: the weights keep one copy)
+    and a TMA + s8 wgmma GEMM with the rescale in its epilogue; "cluster"
+    at small M (a decode step's rows; bound: the weights' bytes), one
+    launch a product, the K slices of a column tile one thread-block
+    cluster that exchanges its slices' row maxima in shared memory,
+    quantizes x itself and sums its s32 partials in the owning block.
+    ``quant_matmul_int8io_plain`` for CPU tensors. The JAX package's
+    jitted function multiplies by 1/127 where it divides (XLA's rewrite);
+    the port divides, as the eager JAX function does.
   * "xla" (and any other value, as in JAX): weights dequantized in the
     activation dtype, then the product.
 """
@@ -271,39 +278,121 @@ def quant_matmul_int8io_plain(x: torch.Tensor, q: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _int8_lib():
     lib = cb.library("int8_gemm")
-    lib.aries_int8_quantize_rows.argtypes = [_P, _I, _P, _P, _I, _I, _P]
-    lib.aries_int8_quantize_rows.restype = _I
-    lib.aries_int8_gemm.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _P, _P, _P]
-    lib.aries_int8_gemm.restype = _I
+    lib.aries_int8_prepare.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.aries_int8_prepare.restype = _I
+    lib.aries_int8_gemm_wgmma.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _P]
+    lib.aries_int8_gemm_wgmma.restype = _I
+    lib.aries_int8_gemm_cluster.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _I, _P]
+    lib.aries_int8_gemm_cluster.restype = _I
+    lib.aries_int8_cluster_smem.argtypes = [_I, _I, _I, _I]
+    lib.aries_int8_cluster_smem.restype = _I
     return lib
 
 
-# csrc/int8_gemm.cu's tiling: output columns a block, K rows a stage, the
-# row tiles (a warp's m16 tiles, all the block's rows) and the most K slices
-INT8_COLS, INT8_KC, INT8_MAX_SPLITS = 128, 32, 16
-INT8_ROW_TILES = (16, 32, 64)
-# the least 32-row stages a K slice, by the M it serves: a slice's blocks
-# run their stages in series, and each slice adds M x N s32 atomics. Set
-# from chip_smoke.py's "int8 GEMM plan sweep" on the H100 (PERF.md): at M
-# 6-18 about 10 stages a slice were fastest, at M 64 about 40 (fc2's 160
-# stages in 4 slices), at M 227 fc2 in 3 slices; from M 1135 one slice.
-INT8_STAGES_A_SLICE = ((32, 10), (64, 40), (256, 48))
+# csrc/int8_gemm.cu's constants: the "cluster" path's output columns a
+# block, K rows a ring stage, the most ring stages and a stage's bytes (32
+# rows x 80), the largest cluster, the most rows a pass and a block's
+# shared-memory limit; the "wgmma" path's rows a tile
+INT8_COLS, INT8_KC, INT8_NST, INT8_STAGE = 64, 32, 16, 32 * 80
+INT8_MAX_CLUSTER, INT8_MAX_ROWS, INT8_MAX_SMEM = 8, 64, 232448
+INT8_WGMMA_ROWS = 128
+#: each path's tiles: "wgmma" a 128-row output tile of 128 or 256
+#: columns; "cluster" 64 columns a block (its K slice set by S)
+INT8_TILES = {"wgmma": ("128x128", "128x256"), "cluster": ("64",)}
+#: the plan's choices (chip_smoke.py's "int8 GEMM plan sweep", PERF.md):
+#: the cluster path takes every product up to INT8_CLUSTER_ANY_M rows and
+#: those with N <= K up to INT8_CLUSTER_MAX_M (on the H100 at M 18, o and
+#: fc2 ran faster on it and qkv and fc1 on the wgmma path; at M 32 the
+#: wgmma path beat it at the plan's S); its blocks an SM aimed at
+INT8_CLUSTER_ANY_M, INT8_CLUSTER_MAX_M = 8, 24
+INT8_TARGET_WAVES = 2
+
+
+def int8_wgmma_tile(M: int, N: int, sms: int) -> str:
+    """The wgmma path's tile: 128 x 256 where its tiles give each of the
+    ``sms`` SMs one and a half, else 128 x 128 (twice the tiles: on 132
+    SMs the wide tile's 135 and 180 tiles at M 1135 were about 10% slower,
+    its 250 at M 6400 and 355 at M 9000 4-8% faster)."""
+    wide = -(-M // INT8_WGMMA_ROWS) * -(-N // 256)
+    return "128x256" if 2 * wide >= 3 * sms else "128x128"
+
+
+def int8_cluster_smem(rows: int, kslice: int, S: int,
+                      x_bytes: int = 2) -> int:
+    """Shared memory of a "cluster" block (csrc/int8_gemm.cu,
+    cluster_smem): the weight ring (a stage for each 32 rows of the K
+    slice, at most 16), ``rows`` rows of its K slice of x as they lie
+    (``x_bytes`` a value) and as s8 (16 bytes of pad each), its units' 2 S
+    partials (16 bytes a unit), the S ranks' row maxima and the rows'
+    scales and their reciprocals."""
+    per = -(-rows * (INT8_COLS // 4) // S)
+    ring = min(kslice // INT8_KC, INT8_NST) * INT8_STAGE
+    return (ring + rows * kslice * x_bytes + rows * (kslice + 16)
+            + 2 * S * per * 16 + S * rows * 4 + rows * 8)
+
+
+def int8_cluster_size(N: int, K: int, sms: int) -> int:
+    """The "cluster" path's cluster size S for (K, N) on ``sms`` SMs: the
+    least divisor s <= 8 of K / 32 giving ceil(N / 64) x s >= 2 x sms
+    blocks, else the largest such divisor (kernel 5's split-K rule), so
+    each K slice is a whole number of 32-row stages."""
+    cols, units = -(-N // INT8_COLS), K // INT8_KC
+    S = 1
+    for s in range(1, INT8_MAX_CLUSTER + 1):
+        if units % s:
+            continue
+        S = s
+        if cols * s >= INT8_TARGET_WAVES * sms:
+            break
+    return S
+
+
+def int8_cluster_rows(M: int, K: int, S: int, x_bytes: int = 2) -> int:
+    """Rows a pass of the "cluster" path for x of ``x_bytes`` a value: M
+    rounded up to a group of 8 (the mma's n8 operand), at most 64, fewer
+    while a block's shared memory would pass the opt-in limit. Raises
+    where not even one group fits (a bf16 K slice of about 3,400 or
+    more)."""
+    rows = min(INT8_MAX_ROWS, -(-M // 8) * 8)
+    while rows > 8 and int8_cluster_smem(rows, K // S, S,
+                                         x_bytes) > INT8_MAX_SMEM:
+        rows -= 8
+    if int8_cluster_smem(rows, K // S, S, x_bytes) > INT8_MAX_SMEM:
+        raise ValueError(f"K {K} is too deep for the cluster path at S {S}: "
+                         f"a {K // S}-row slice of x does not fit")
+    return rows
+
+
+def _int8_shape(M: int, N: int, K: int) -> None:
+    if M <= 0 or N <= 0 or K <= 0 or K % INT8_KC or N % 16:
+        raise ValueError(f"the int8 GEMM kernels need K % 32 == 0 and "
+                         f"N % 16 == 0, got M {M}, K {K}, N {N}")
+    if -(-M // INT8_WGMMA_ROWS) > 65535:
+        raise ValueError(f"M {M} passes the wgmma grid's 65,535 row tiles")
 
 
 @functools.lru_cache(maxsize=None)  # a few shapes, called per layer
-def int8_gemm_plan(M: int, N: int, K: int) -> Tuple[int, int]:
-    """(rows a tile, K slices) of the native GEMM for an (M, K) x (K, N)
-    product: the least row tile that holds M (64 above 32), and K / 32
-    stages cut into slices of at least INT8_STAGES_A_SLICE's stages for M
-    (at most 16 slices; one above M 256)."""
-    if M <= 0 or N <= 0 or K <= 0 or K % INT8_KC or N % 16:
-        raise ValueError(f"the int8 GEMM kernel needs K % 32 == 0 and "
-                         f"N % 16 == 0, got M {M}, K {K}, N {N}")
-    rows = next((r for r in INT8_ROW_TILES if M <= r), INT8_ROW_TILES[-1])
-    per = next((n for m, n in INT8_STAGES_A_SLICE if M <= m), None)
-    splits = 1 if per is None else min(INT8_MAX_SPLITS, K // INT8_KC // per)
-    return rows, max(1, splits)
+def int8_gemm_plan(M: int, N: int, K: int, sms: int, x_bytes: int = 2
+                   ) -> Tuple[str, str, int]:
+    """(path, tile, cluster size S) of the native GEMM for an (M, K) x
+    (K, N) product of x with ``x_bytes`` a value (bf16 2, f32 4) on a card
+    with ``sms`` SMs: "cluster" (one launch, the row quantization inside,
+    S from ``int8_cluster_size``) up to M INT8_CLUSTER_ANY_M, and up to
+    INT8_CLUSTER_MAX_M where N <= K, where a row group of the K slice
+    fits; else "wgmma" (the preparation launch and
+    the TMA + wgmma GEMM, S 1, the tile from ``int8_wgmma_tile``). Raises
+    on shapes the kernels do not take."""
+    _int8_shape(M, N, K)
+    if M <= INT8_CLUSTER_ANY_M or (M <= INT8_CLUSTER_MAX_M and N <= K):
+        S = int8_cluster_size(N, K, sms)
+        try:
+            int8_cluster_rows(M, K, S, x_bytes)
+            return "cluster", INT8_TILES["cluster"][0], S
+        except ValueError:
+            pass  # the slice is too deep: the wgmma path takes any K
+    return "wgmma", int8_wgmma_tile(M, N, sms), 1
 
 
 def _aligned(**tensors) -> None:
@@ -312,91 +401,171 @@ def _aligned(**tensors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def quantize_rows_kernel(x: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The row quantization kernel (csrc/int8_gemm.cu): x (M, K) bf16 or
-    f32, a contiguous 16-byte aligned CUDA tensor with K % 32 == 0 ->
-    (int8 (M, K), f32 (M, 1)), bit for bit ``quantize_rows_plain``. Other
-    shapes raise. Counts ``launches``."""
+def _activations(x: torch.Tensor) -> None:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bf16 or f32, got {x.dtype}")
     cb.require(x, "x", x.dtype)
-    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] % INT8_KC:
-        raise ValueError(f"the row quantization kernel needs x (M, K) with "
-                         f"K % 32 == 0, got {tuple(x.shape)}")
-    _aligned(x=x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+
+
+def _weights(q: torch.Tensor, K: int, device: torch.device) -> int:
+    if q.dim() != 2 or q.shape[0] != K:
+        raise ValueError(f"q must be ({K}, N), got {tuple(q.shape)}")
+    cb.require(q, "q", torch.int8, device=device)
+    return q.shape[1]
+
+
+def int8_prepare_kernel(x: torch.Tensor, q: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The "wgmma" path's preparation launch (csrc/int8_gemm.cu,
+    prepare_kernel): x (M, K) bf16 or f32 and q (K, N) int8, contiguous
+    16-byte aligned CUDA tensors with K % 32 == 0 and N % 16 == 0 ->
+    (x8 (M, K) int8, sx (M, 1) f32, qt (N, K) int8): ``quantize_rows_plain``
+    and ``q.t().contiguous()`` bit for bit. Other shapes raise. Counts
+    ``launches``."""
+    _activations(x)
     M, K = x.shape
+    N = _weights(q, K, x.device)
+    _int8_shape(M, N, K)
+    _aligned(x=x, q=q)
     x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    cb.launch(_int8_lib().aries_int8_quantize_rows, x,
-              "int8 row quantization", cb.ptr(x),
-              int(x.dtype == torch.bfloat16), cb.ptr(x8), cb.ptr(sx), M, K)
-    cb.count(quantize_rows_kernel)
-    return x8, sx
+    qt = torch.empty((N, K), dtype=torch.int8, device=x.device)
+    cb.launch(_int8_lib().aries_int8_prepare, x, "int8 GEMM preparation",
+              cb.ptr(x), int(x.dtype == torch.bfloat16), cb.ptr(x8),
+              cb.ptr(sx), cb.ptr(q), cb.ptr(qt), M, N, K)
+    cb.count(int8_prepare_kernel)
+    return x8, sx, qt
 
 
-quantize_rows_kernel.launches = 0
+int8_prepare_kernel.launches = 0
 
 
-def quant_matmul_int8io_kernel(x8: torch.Tensor, sx: torch.Tensor,
-                               q: torch.Tensor, s: torch.Tensor,
-                               out_dtype: torch.dtype = torch.bfloat16,
-                               plan: Optional[Tuple[int, int]] = None
-                               ) -> torch.Tensor:
-    """The s8 GEMM kernel (csrc/int8_gemm.cu): x8 (M, K) int8 with its row
-    scales sx (M, 1) f32, q (K, N) int8, s (N,) f32, contiguous CUDA
-    tensors with K % 32 == 0 and N % 16 == 0 -> (f32(x8 @ q) * sx) * s,
-    (M, N) in bf16 or f32, by the tiling ``int8_gemm_plan`` picks (``plan``
-    names one instead, (rows, K slices): the sweep the plan is set from).
-    Other shapes raise. Counts ``launches``."""
-    cb.require(x8, "x8", torch.int8)
-    if x8.dim() != 2 or q.dim() != 2 or q.shape[0] != x8.shape[1]:
-        raise ValueError(f"x8 (M, K) and q (K, N) do not match: "
-                         f"{tuple(x8.shape)}, {tuple(q.shape)}")
-    (M, K), N = x8.shape, q.shape[1]
-    cb.require(sx, "sx", torch.float32, (M, 1), x8.device)
-    cb.require(q, "q", torch.int8, (K, N), x8.device)
-    cb.require(s, "s", torch.float32, (N,), x8.device)
+def _out_dtype(out_dtype: torch.dtype) -> None:
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("the kernel writes bf16 or f32")
-    rows, splits = int8_gemm_plan(M, N, K)  # raises on other shapes
-    if plan is not None:
-        rows, splits = plan
-        if rows not in INT8_ROW_TILES or not (
-                1 <= splits <= min(INT8_MAX_SPLITS, K // INT8_KC)):
-            raise ValueError(f"no plan {plan} for K {K}: rows one of "
-                             f"{INT8_ROW_TILES}, 1 to {INT8_MAX_SPLITS} "
-                             "slices of at least 32 K rows")
-    _aligned(x8=x8, q=q, s=s)
+
+
+def int8_gemm_wgmma_kernel(x8: torch.Tensor, sx: torch.Tensor,
+                           qt: torch.Tensor, s: torch.Tensor,
+                           out_dtype: torch.dtype = torch.bfloat16,
+                           tile: Optional[str] = None) -> torch.Tensor:
+    """The "wgmma" path's GEMM (csrc/int8_gemm.cu, wgmma_kernel): x8 (M, K)
+    int8 with its row scales sx (M, 1) f32, qt (N, K) int8 (the weights
+    K-major, from ``int8_prepare_kernel``), s (N,) f32, contiguous 16-byte
+    aligned CUDA tensors with K % 32 == 0 and N % 16 == 0 -> (f32(x8 qt^T)
+    * sx) * s, (M, N) in bf16 or f32, by the plan's tile (``tile`` names
+    one of INT8_TILES["wgmma"] instead: the sweep). Other shapes raise.
+    Counts ``launches``."""
+    cb.require(x8, "x8", torch.int8)
+    if x8.dim() != 2 or qt.dim() != 2 or qt.shape[1] != x8.shape[1]:
+        raise ValueError(f"x8 (M, K) and qt (N, K) do not match: "
+                         f"{tuple(x8.shape)}, {tuple(qt.shape)}")
+    (M, K), N = x8.shape, qt.shape[0]
+    cb.require(sx, "sx", torch.float32, (M, 1), x8.device)
+    cb.require(qt, "qt", torch.int8, (N, K), x8.device)
+    cb.require(s, "s", torch.float32, (N,), x8.device)
+    _out_dtype(out_dtype)
+    _int8_shape(M, N, K)
+    if tile is None:
+        tile = int8_wgmma_tile(M, N, cb.sm_count(x8))
+    if tile not in INT8_TILES["wgmma"]:
+        raise ValueError(f"no wgmma tile {tile!r}: one of "
+                         f"{INT8_TILES['wgmma']}")
+    _aligned(x8=x8, sx=sx, qt=qt, s=s)
     out = torch.empty((M, N), dtype=out_dtype, device=x8.device)
-    acc = arrived = None
-    if splits > 1:  # the slices' s32 sums and each tile's arrivals
-        acc = torch.zeros((M, N), dtype=torch.int32, device=x8.device)
-        arrived = torch.zeros(-(-M // rows) * -(-N // INT8_COLS),
-                              dtype=torch.int32, device=x8.device)
-    cb.launch(_int8_lib().aries_int8_gemm, x8, "int8 GEMM", cb.ptr(x8),
-              cb.ptr(sx), cb.ptr(q), cb.ptr(s), cb.ptr(out),
-              int(out_dtype == torch.bfloat16), M, N, K, rows, splits,
-              cb.ptr(acc) if acc is not None else None,
-              cb.ptr(arrived) if arrived is not None else None)
-    cb.count(quant_matmul_int8io_kernel)
+    cb.launch(_int8_lib().aries_int8_gemm_wgmma, x8, "int8 wgmma GEMM",
+              cb.ptr(x8), cb.ptr(sx), cb.ptr(qt), cb.ptr(s), cb.ptr(out),
+              int(out_dtype == torch.bfloat16), M, N, K,
+              int(tile.split("x")[1]), cb.sm_count(x8))
+    cb.count(int8_gemm_wgmma_kernel)
     return out
 
 
-quant_matmul_int8io_kernel.launches = 0
+int8_gemm_wgmma_kernel.launches = 0
+
+
+def int8_gemm_cluster_kernel(x: torch.Tensor, q: torch.Tensor,
+                             s: torch.Tensor,
+                             out_dtype: torch.dtype = torch.bfloat16,
+                             S: Optional[int] = None) -> torch.Tensor:
+    """The "cluster" path (csrc/int8_gemm.cu, cluster_kernel): x (M, K)
+    bf16 or f32, q (K, N) int8, s (N,) f32, contiguous 16-byte aligned
+    CUDA tensors with K % 32 == 0 and N % 16 == 0 -> (M, N) in bf16 or
+    f32, ``quant_matmul_int8io_plain`` bit for bit, in one launch (the row
+    quantization inside), by the plan's cluster size S (``S`` names
+    another instead: the sweep; it must divide K / 32, at most 8). Other
+    shapes raise. Counts ``launches``."""
+    _activations(x)
+    M, K = x.shape
+    N = _weights(q, K, x.device)
+    cb.require(s, "s", torch.float32, (N,), x.device)
+    _out_dtype(out_dtype)
+    _int8_shape(M, N, K)
+    S = int8_cluster_size(N, K, cb.sm_count(x)) if S is None else S
+    if not (1 <= S <= INT8_MAX_CLUSTER and (K // INT8_KC) % S == 0):
+        raise ValueError(f"no cluster plan at S {S} for K {K}: S 1 to "
+                         f"{INT8_MAX_CLUSTER} dividing K / 32")
+    rows = int8_cluster_rows(M, K, S, x.element_size())  # or raises
+    _aligned(x=x, q=q, s=s)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    cb.launch(_int8_lib().aries_int8_gemm_cluster, x, "int8 cluster GEMM",
+              cb.ptr(x), int(x.dtype == torch.bfloat16), cb.ptr(q),
+              cb.ptr(s), cb.ptr(out), int(out_dtype == torch.bfloat16), M,
+              N, K, S, rows)
+    cb.count(int8_gemm_cluster_kernel)
+    return out
+
+
+int8_gemm_cluster_kernel.launches = 0
+
+
+def kernel_cluster_smem(rows: int, kslice: int, S: int,
+                        x_bytes: int = 2) -> int:
+    """The C side's shared memory of a "cluster" block (the card check of
+    ``int8_cluster_smem``)."""
+    return int(_int8_lib().aries_int8_cluster_smem(rows, kslice, S,
+                                                   x_bytes))
+
+
+def quant_matmul_int8io_kernel(x: torch.Tensor, q: torch.Tensor,
+                               s: torch.Tensor,
+                               out_dtype: torch.dtype = torch.bfloat16,
+                               plan: Optional[Tuple[str, str, int]] = None
+                               ) -> torch.Tensor:
+    """The native GEMM on CUDA tensors, x (M, K) bf16 or f32, q (K, N)
+    int8, s (N,) f32 -> (M, N) in bf16 or f32, ``quant_matmul_int8io_plain``
+    bit for bit, by ``int8_gemm_plan``'s (path, tile, S) (``plan`` names
+    one instead). Other shapes raise."""
+    _activations(x)
+    M, K = x.shape
+    N = _weights(q, K, x.device)
+    if plan is None:
+        _int8_shape(M, N, K)
+        plan = int8_gemm_plan(M, N, K, cb.sm_count(x), x.element_size())
+    path, tile, S = plan
+    if path not in INT8_TILES or tile not in INT8_TILES[path] or (
+            path == "wgmma" and S != 1):
+        raise ValueError(f"no plan {plan}: ('cluster', '64', S) or "
+                         "('wgmma', tile, 1)")
+    if path == "cluster":
+        return int8_gemm_cluster_kernel(x, q, s, out_dtype, S)
+    x8, sx, qt = int8_prepare_kernel(x, q)
+    return int8_gemm_wgmma_kernel(x8, sx, qt, s, out_dtype, tile)
 
 
 def quant_matmul_int8io(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
                         ) -> torch.Tensor:
-    """x (M, K) -> (M, N) in x.dtype by the native scheme: the two kernels
-    for CUDA tensors (bf16 activations give a bf16 output, others f32),
-    the plain version for CPU tensors."""
+    """x (M, K) -> (M, N) in x.dtype by the native scheme: the kernels
+    for CUDA tensors, by ``int8_gemm_plan`` (bf16 activations give a bf16
+    output, others f32), the plain version for CPU tensors."""
     if not x.is_cuda:
         return quant_matmul_int8io_plain(x, q, s, x.dtype)
     xk = x if x.dtype in (torch.bfloat16, torch.float32) else x.float()
-    x8, sx = quantize_rows_kernel(xk.contiguous())
     out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    return quant_matmul_int8io_kernel(x8, sx, q, s, out_dtype).to(x.dtype)
+    return quant_matmul_int8io_kernel(xk.contiguous(), q, s,
+                                      out_dtype).to(x.dtype)
 
 
 def _quant_matmul_outscale(x: torch.Tensor, q: torch.Tensor,
