@@ -104,6 +104,28 @@ caught; a kernel check that fails is printed at once and fails the run
      1135 (K = N = 1280); kernel 7 at R 1 and R 5 over T 451 at
      valid_start 224; kernel 8 at R 5 over T 451. Each kernel's entry
      carries a "conditioned" part (times, device times, bounds).
+     Kernel 8's identity skip: an all-identity map moves nothing, timed
+     (events and device) beside every row moving. The sampled rungs' draw
+     kernel (csrc/decode_loop.cu) at R 30 x 51866, position 116, bit for
+     bit its plain version, below "the position left out of the key".
+ 3b. decode loop (decode_loop_phase): the on-device loop (one CUDA graph a
+     decode call: the condition kernel, then a WHILE node over the
+     captured step) at large-v3 width, 6 windows of random encoder output,
+     seeded random weights, 224 tokens: greedy fused with a bf16 and an
+     int8 self cache (R 6), beam 5 (R 30), the unfused int8-self-cache
+     step under ARIES_QUANT_IMPL=pallas and =native; each decoded through
+     the loop graph and through the loop's plain version (the same bodies
+     in a host loop, direct launches) in the order host, device, device,
+     host: tokens, steps and permuted identical, sum_logprob within 1e-6
+     of its max (below "one token's log-probability left out"), no host
+     read inside the device loop (host_reads 0), its bodies, step and
+     launch under torch.cuda.set_sync_debug_mode("error"); ms a step of
+     each loop (the call's wall, and the loop alone by events). For greedy
+     and beam, the smallest end-of-text bias that ends every row before 64
+     tokens: the loops held there, and the mutant (a condition that
+     ignores the finished state) must fail the hold (it runs to the end).
+     Prints the ``decode_loop`` line; the decode_loop entry's ms is the
+     int8 greedy case's loop a step, its plain_ms the host loop's.
   4. probes: the nine counterparts of the TPU probes in scripts/
      (whisper_aries_tpu_torch/scripts/: probe_dma's probe and probe_multi,
      probe_vmem's try_size, probe_mxu's probe, probe_int8_mxu's
@@ -145,9 +167,10 @@ caught; a kernel check that fails is printed at once and fails the run
      temperature ladder, txt/json/srt), with every launch count set to 0
      just before and read just after; every kernel of the path (mel,
      encoder attention, decoder layers, grouped cross-attention) must have
-     launched, and every decode step after a prefill must have been a
-     replay of the decode call's graph (graph_replays, layer_steps; also in
-     the beam and words slices).
+     launched, every decode call must have run as one loop graph with no
+     host read inside (decode_loops, host_reads), and every decode step
+     after a prefill must have been an iteration of it (graph_replays,
+     layer_steps; also in the beam and words slices).
   6. beam slice: the same file and weights with config decode.beam_size=5;
      all six kernels must have launched, counted from 0 again.
   7. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
@@ -165,8 +188,8 @@ caught; a kernel check that fails is printed at once and fails the run
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
      self-attention kernel and the W8A16 GEMM, every step after a prefill
-     a replay of the decode call's decoder_step graph (graph_replays =
-     layer_steps); prints ms per step. Then the native slice: the same
+     an iteration of the decode call's loop graph over decoder_step
+     (graph_replays = layer_steps); prints ms per step. Then the native slice: the same
      under ARIES_QUANT_IMPL=native, which must launch both paths of the
      native GEMM (the wgmma path and its preparation launch, the cluster
      path) and never the W8A16 GEMM; prints every (M, N, K, path) the
@@ -302,7 +325,11 @@ caught; a kernel check that fails is printed at once and fails the run
      cost(1)); prints the ``speculative`` line (the launches: verify
      replays, one-token replays, drafter calls; the card's peak) and adds
      the verify mode's kernels entry.
-The second-to-last lines are the kernels JSON (all 22 entries) and
+Every decode path's decode calls must each have run as one loop graph
+with no host read inside it (the slice lines' host_reads and
+decode_loops; the ``decode_loop_paths`` line before the kernels line,
+every path's loop graphs, steps and reads).
+The second-to-last lines are the kernels JSON (all 24 entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -1817,6 +1844,19 @@ def kernel_reorder(dev, entries):
     work = clone(cache)
     ms = time_ms(lambda: BR.permute_cache_rows(work, roll), 20)
     ms_random = time_ms(lambda: BR.permute_cache_rows(work, src), 20)
+    # the identity skip: every window keeps its beams (the loop graph
+    # launches the reorder at every step), device time beside the moving
+    # map's
+    ident = torch.arange(K, device=dev, dtype=torch.int32)[None].expand(
+        B, K).contiguous()
+    ms_identity = time_ms(lambda: BR.permute_cache_rows(work, ident), 20)
+    dms_identity = device_ms(lambda: BR.permute_cache_rows(work, ident))
+    dms_moving = device_ms(lambda: BR.permute_cache_rows(work, roll))
+    kept = clone(work)
+    BR.permute_cache_rows(kept, ident)
+    check("beam_reorder[identity map]: nothing moves",
+          all(torch.equal(kept[k], work[k]) for k in work),
+          "kv8 and ksc unchanged")
     plain_ms = time_ms(lambda: {k: BR.permute_rows_plain(v, roll)
                                 for k, v in work.items()}, 5)
     flat = (torch.arange(B, device=dev)[:, None] * K + roll.long()).reshape(-1)
@@ -1839,6 +1879,8 @@ def kernel_reorder(dev, entries):
         library_ms=lib_ms,
         library_note="torch.index_select along the row axis, out of place",
         ms_random_map=ms_random, bound_ms_random_map=b_random,
+        ms_identity_map=ms_identity, device_ms_identity_map=dms_identity,
+        device_ms=dms_moving,
         rows_moved_random_map=int(moved.sum()),
         shape=f"kv8 ({L}, {B * K}, 2, {H}, {T}, 64) int8 + ksc f32, "
               "one launch per leaf, every row moving"))
@@ -2912,6 +2954,300 @@ def conditioned_phase(dev, entries, parts):
 
 
 # ---------------------------------------------------------------------------
+# the on-device decode loop
+# ---------------------------------------------------------------------------
+
+#: the decode_loop phase's cases, the slices' decode configurations:
+#: (label, beam size, fused steps, int8 self cache, ARIES_QUANT_IMPL)
+LOOP_CASES = (("greedy fused, bf16 self cache", 1, True, False, None),
+              ("greedy fused, int8 self cache", 1, True, True, None),
+              ("beam 5 fused, int8 self cache", 5, True, True, None),
+              ("self_int8 unfused", 1, False, True, "pallas"),
+              ("native unfused", 1, False, True, "native"))
+LOOP_WINDOWS = 6          # the slices' 6 windows: R 6 greedy, R 30 beam
+LOOP_SHORT = 64           # the mutant runs' sample_len
+#: end-of-text biases tried (added to its logit through the additive
+#: suppress mask) until every row finishes before LOOP_SHORT tokens
+EOT_BIASES = (2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+def erroring(fn):
+    """``fn`` run under torch.cuda.set_sync_debug_mode("error"): any
+    synchronising call inside raises (the decode loop's counted reads
+    switch it off around themselves)."""
+    import torch
+
+    def wrapped(*args, **kw):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    return wrapped
+
+
+def loop_models(dev):
+    """The cases' large-v3 decoders from one seeded random init: bf16
+    weights with their int8 pack (fused steps over int8 cross K/V) and
+    int8 compute (unfused steps over bf16 cross K/V); encoder output of
+    LOOP_WINDOWS windows."""
+    import torch
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops.quant import quantize_model_params
+
+    dims = W.PRESETS["large-v3"]
+    full = W.init_params(dims, seed=5, device=dev, dtype=torch.bfloat16)
+    dec = {"decoder": full.pop("decoder")}
+    del full
+    fused = W.fuse_decoder_qkv(dec)
+    wpack = DL.pack_layer_weights(fused["decoder"]["blocks"])
+    unfused = W.fuse_decoder_qkv(quantize_model_params(dec))
+    g = torch.Generator(device=dev).manual_seed(21)
+    xa = torch.randn((LOOP_WINDOWS, dims.n_audio_ctx, dims.n_text_state),
+                     generator=g, device=dev).to(torch.bfloat16)
+    return dims, {"fused": (fused, wpack), "unfused": (unfused, None)}, xa
+
+
+def loop_call(dev, kind, case, dims, models, xa, sample_len=224,
+              eot_bias=0.0):
+    """One decode call of ``case`` through the ``kind`` loop: "device"
+    (the loop graph; its bodies, its step and its launch under
+    set_sync_debug_mode("error")), "host" (the loop's plain version on
+    the card: the same bodies in a Python loop, direct launches) or
+    "mutant" (the loop graph with a condition that ignores the finished
+    state, so it runs to L). Returns (outputs on the host, the call's wall
+    seconds, the loop's milliseconds by CUDA events around its launch or
+    around the host loop)."""
+    import torch
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    _, K, fused, int8, impl = case
+    params, wpack = models["fused" if fused else "unfused"]
+    ids = large_v3_ids()
+    mask = torch.zeros(ids.n_vocab, device=dev)
+    mask[ids.eot] = eot_bias
+    prompt = torch.tensor([[ids.sot, ids.sot + 1]] * LOOP_WINDOWS,
+                          device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    real = dict(run=DLP.DeviceLoop.run, device_loop=G.device_loop,
+                greedy_body=G.greedy_body, beam_body=G.beam_body,
+                device=G._Step.device)
+
+    def timed_run(self):
+        start.record()
+        real["run"](self)
+        end.record()
+
+    def timed_host(*args, **kw):
+        start.record()
+        G.host_loop(*args, **kw)
+        end.record()
+
+    def mutant(st, iteration, step, rules, cache, P, L, reads, **flags):
+        flags = {k: torch.zeros_like(v) if k in ("finished", "counts")
+                 else v for k, v in flags.items()}
+        return real["device_loop"](st, iteration, step, rules, cache, P, L,
+                                   reads, **flags)
+
+    old_impl = os.environ.get("ARIES_QUANT_IMPL")
+    if impl:
+        os.environ["ARIES_QUANT_IMPL"] = impl
+    if kind == "host":
+        G.device_loop = timed_host
+    else:
+        DLP.DeviceLoop.run = erroring(timed_run)
+        G.greedy_body = erroring(real["greedy_body"])
+        G.beam_body = erroring(real["beam_body"])
+        G._Step.device = erroring(real["device"])
+        if kind == "mutant":
+            G.device_loop = mutant
+    try:
+        kw = dict(sample_len=sample_len, kv_int8=fused, self_kv_int8=int8,
+                  fused=fused, wpack=wpack)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if K > 1:
+            out = G.beam_search_decode(params, xa, prompt, dims, ids, mask,
+                                       0, beam_size=K, **kw)
+        else:
+            out = G.greedy_decode(params, xa, prompt, dims, ids, mask, 0,
+                                  0.0, **kw)
+        out = {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        DLP.DeviceLoop.run = real["run"]
+        G.device_loop = real["device_loop"]
+        G.greedy_body, G.beam_body = real["greedy_body"], real["beam_body"]
+        G._Step.device = real["device"]
+        if old_impl is None:
+            os.environ.pop("ARIES_QUANT_IMPL", None)
+        else:
+            os.environ["ARIES_QUANT_IMPL"] = old_impl
+    return out, wall, start.elapsed_time(end)
+
+
+def hold_loops(label, got, want, kinds=("device", "host")) -> dict:
+    """The device loop's outputs against the host loop's on the same card
+    and inputs: tokens, steps and permuted identical (check), sum_logprob
+    within 1e-6 of max |sum_logprob| (expected 0: the same kernels on the
+    same operands), below "one token's log-probability left out" (each
+    row's mean a token, the smallest, over max |sum_logprob|)."""
+    same = {k: torch_equal(got[k], want[k]) for k in
+            ("tokens", "steps", "permuted", "n_sampled") if k in want}
+    check(f"decode loop {label}: {kinds[0]} = {kinds[1]} (tokens, steps, "
+          "permuted)", all(same.values()),
+          f"{same}; steps {int(got['steps'])} / {int(want['steps'])}")
+    s, w = got["sum_logprob"].float(), want["sum_logprob"].float()
+    scale = float(w.abs().max())
+    per_token = (w.abs() / (want["n_sampled"].float() + 1.0)).min()
+    return held(f"decode loop {label}: sum_logprob", {
+        "sum_logprob": float((s - w).abs().max()) / scale},
+        {"sum_logprob": 1e-6},
+        {"sum_logprob": float(per_token) / scale})
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def decode_loop_phase(dev, entries):
+    """The on-device decode loop at large-v3 width (phase 3b): each case
+    of LOOP_CASES (greedy fused over 6 windows with a bf16 and an int8
+    self cache, beam 5 over them (R 30), the unfused int8-self-cache step
+    under ARIES_QUANT_IMPL=pallas and =native) decoded 224 tokens through
+    the loop graph and through the loop's plain version, in the order
+    host, device, device, host: tokens, steps and permuted identical,
+    sum_logprob held, no host read inside the device loop (host_reads 0)
+    and the bodies, step and launch under set_sync_debug_mode("error");
+    ms a step of each (the call's wall over its steps, and the loop alone
+    by events over its iterations). Then, for greedy and beam, the
+    smallest end-of-text bias that ends every row before 64 tokens: the
+    device loop held against the host loop there, and the mutant (a
+    condition that ignores the finished state) must fail that hold by
+    running to the end. Prints the ``decode_loop`` line and adds the
+    decode_loop entry."""
+    import torch
+
+    dims, models, xa = loop_models(dev)
+    report = {}
+    for case in LOOP_CASES:
+        label, K = case[0], case[1]
+        runs = {}
+        for i, kind in enumerate(("host", "device", "device", "host")):
+            out, wall, loop_ms = loop_call(dev, kind, case, dims, models, xa)
+            runs.setdefault(kind, []).append((out, wall, loop_ms))
+        dev_out, host_out = runs["device"][0][0], runs["host"][0][0]
+        hold = hold_loops(label, dev_out, host_out)
+        check(f"decode loop {label}: no host read inside the device loop",
+              all(int(r[0]["host_reads"]) == 0 for r in runs["device"])
+              and all(int(r[0]["host_reads"]) == int(r[0]["steps"])
+                      for r in runs["host"]),
+              f"device {[int(r[0]['host_reads']) for r in runs['device']]}, "
+              f"host {[int(r[0]['host_reads']) for r in runs['host']]}")
+        steps = int(host_out["steps"])
+        per = lambda kind: dict(
+            call_ms_per_step=[1e3 * r[1] / steps for r in runs[kind]],
+            loop_ms_per_step=[r[2] / max(1, steps - 1) for r in runs[kind]])
+        report[label] = dict(rows=LOOP_WINDOWS * K, steps=steps,
+                             permuted=int(host_out.get("permuted", -1)),
+                             device=per("device"), host=per("host"),
+                             hold=hold)
+        if label in ("greedy fused, int8 self cache",
+                     "beam 5 fused, int8 self cache"):
+            for bias in EOT_BIASES:
+                host, _, _ = loop_call(dev, "host", case, dims, models, xa,
+                                       LOOP_SHORT, bias)
+                if int(host["steps"]) < LOOP_SHORT:
+                    break
+            got, _, _ = loop_call(dev, "device", case, dims, models, xa,
+                                  LOOP_SHORT, bias)
+            wrong, _, _ = loop_call(dev, "mutant", case, dims, models, xa,
+                                    LOOP_SHORT, bias)
+            short = f"{label}, eot bias {bias}, sample_len {LOOP_SHORT}"
+            held_short = hold_loops(short, got, host)
+            mutant_same = all(torch_equal(wrong[k], host[k])
+                              for k in ("tokens", "steps"))
+            check(f"decode loop {short}: the mutant (condition ignoring "
+                  "finished) fails its hold", int(host["steps"]) < LOOP_SHORT
+                  and not mutant_same,
+                  f"steps: host {int(host['steps'])}, device "
+                  f"{int(got['steps'])}, mutant {int(wrong['steps'])}")
+            report[label]["early_end"] = dict(
+                eot_bias=bias, steps=int(host["steps"]),
+                mutant_steps=int(wrong["steps"]), hold=held_short)
+    print("decode_loop " + json.dumps(report), flush=True)
+    main_case = report["greedy fused, int8 self cache"]
+    ms = float(np.mean(main_case["device"]["loop_ms_per_step"]))
+    plain_ms = float(np.mean(main_case["host"]["loop_ms_per_step"]))
+    # one step of the loop at the mean live length (positions 2 .. 2 +
+    # 222): the step's weights, cross K/V and live cache, the vocab
+    # product's bf16 embedding, the logits written
+    R, V = LOOP_WINDOWS, 51866
+    s_ms, s_by = step_bound(dims, R, 2 + 111, True, LOOP_WINDOWS)
+    v_ms = (V * dims.n_text_state * 2 + R * V * 4) / PEAK_BYTES * 1e3
+    entries.append(dict(
+        name="decode_loop", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/decode_loop.cu",
+        replaces="whisper_aries_tpu/decoding/generate.py:423",
+        max_abs_err=main_case["hold"]["errors"]["sum_logprob"],
+        tolerance="tokens, steps, permuted identical to the host loop; "
+                  "sum_logprob 1e-6 of max",
+        ms=ms, plain_ms=plain_ms, bound_ms=s_ms + v_ms, bound_by=s_by,
+        library_ms=None,
+        library_note="none: no one call runs a decode loop",
+        shape=f"greedy, {R} windows, fused int8 self cache, large-v3, "
+              f"{main_case['steps']} steps: ms a step of the loop graph "
+              "(events around its launch, over its iterations); plain_ms "
+              "the host loop's",
+        cases=report))
+    del models, xa
+    torch.cuda.empty_cache()
+
+
+def kernel_uniform_draw(dev, entries):
+    """The sampled rungs' draw kernel at the greedy slice's best_of rows
+    (6 windows x 5, R 30) over 51866 ids at position 116: bit for bit the
+    plain version (the same hash in torch ops), below "the position left
+    out of the key" (the draw of another position)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    R, V, seed = 30, 51866, 11
+    pos = torch.full((), 116, dtype=torch.int32, device=dev)
+    got = DLP.uniform_draw_kernel(seed, pos, R, V)
+    want = DLP.uniform_draw_plain(seed, pos, R, V)
+    other = DLP.uniform_draw_plain(seed, pos + 1, R, V)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    hold = held("uniform_draw[R 30, V 51866]", {"max_abs": err},
+                {"max_abs": 1e-12},
+                {"max_abs": float((other - want).abs().max())})
+    ms = time_ms(lambda: DLP.uniform_draw_kernel(seed, pos, R, V), 50)
+    dms = device_ms(lambda: DLP.uniform_draw_kernel(seed, pos, R, V))
+    plain_ms = time_ms(lambda: DLP.uniform_draw_plain(seed, pos, R, V), 5)
+    rand_ms = time_ms(lambda: torch.rand((R, V), device=dev), 50)
+    b_ms, b_by = bound(R * V * 4 + 4, 0, PEAK_F32)
+    entries.append(dict(
+        name="uniform_draw", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/decode_loop.cu",
+        replaces="whisper_aries_tpu/decoding/generate.py:364",
+        max_abs_err=err, tolerance="bitwise", hold=hold,
+        ms=ms, device_ms=dms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        library_note="none: no one call draws this hash; torch.rand of "
+                     "the same shape (other numbers) in rand_ms",
+        rand_ms=rand_ms, shape=f"({R}, {V}) f32 at position 116"))
+
+
+# ---------------------------------------------------------------------------
 # probe phase
 # ---------------------------------------------------------------------------
 
@@ -3248,11 +3584,13 @@ def probes_phase(dev, entries) -> dict:
 
 
 def counters():
+    from whisper_aries_tpu_torch.decoding import generate as G
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import beam_reorder as BR
     from whisper_aries_tpu_torch.ops import beam_tail as BT
     from whisper_aries_tpu_torch.ops import cross_attn as XA
     from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
     from whisper_aries_tpu_torch.ops import mel as M
     from whisper_aries_tpu_torch.ops import quant as Q
     from whisper_aries_tpu_torch.ops import self_attn as SA
@@ -3273,6 +3611,13 @@ def counters():
             # kernel 3's launches and replays at S > 1 (also in
             # decode_layers)
             "decode_layers_verify": DL.VERIFY,
+            # the decode loop graphs launched (one a decode call), their
+            # condition kernel (one a step), the sampled rungs' draws
+            "decode_loop": DLP.DeviceLoop,
+            "loop_cond": DLP.loop_cond_kernel,
+            "uniform_draw": DLP.uniform_draw_kernel,
+            # reads of device data inside decode loops (0 on the card)
+            "host_reads": G._Reads,
             **probe_counters()}
 
 
@@ -3299,35 +3644,48 @@ def probe_counters():
 
 # the kernels each slice's path must launch, in the order the slices run
 PATH_KERNELS = {
-    "greedy": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8"),
+    # every decode path runs each decode call as one loop graph
+    # (decode_loop, loop_cond); the greedy slice's ladder samples
+    "greedy": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+               "decode_loop", "loop_cond", "uniform_draw"),
     "beam": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-             "beam_tail", "beam_reorder"),
+             "beam_tail", "beam_reorder",
+             "decode_loop", "loop_cond"),
     "words": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
-              "cross_attn_q8", "beam_tail", "beam_reorder"),
-    "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8"),
+              "cross_attn_q8", "beam_tail", "beam_reorder",
+              "decode_loop", "loop_cond"),
+    "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8",
+                  "decode_loop", "loop_cond"),
     # self_int8 under ARIES_QUANT_IMPL=native: every dense product through
     # the native GEMM (the encoder's by the wgmma path and its preparation,
     # the steps' and prefills' by the cluster path), none through kernel 5
     "native": ("mel", "encoder_attn", "int8_prepare", "int8_gemm_wgmma",
-               "int8_gemm_cluster", "self_attn_q8"),
+               "int8_gemm_cluster", "self_attn_q8",
+               "decode_loop", "loop_cond"),
     "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
-                   "cross_attn_q8", "beam_tail", "beam_reorder"),
+                   "cross_attn_q8", "beam_tail", "beam_reorder",
+                   "decode_loop", "loop_cond"),
     "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-                 "beam_tail", "beam_reorder"),
+                 "beam_tail", "beam_reorder",
+                 "decode_loop", "loop_cond"),
     "serve": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-              "beam_tail", "beam_reorder"),
+              "beam_tail", "beam_reorder",
+              "decode_loop", "loop_cond"),
     # the transcribe tool's run (beam 5, words) of the cli phase
     "cli": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-            "beam_tail", "beam_reorder"),
+            "beam_tail", "beam_reorder",
+            "decode_loop", "loop_cond"),
     # three large-v3 f32 train steps, the train state, the diarizer's
     # trainers (mel on their batches)
     "train": ("mel", "encoder_attn_train", "encoder_attn_train_bwd"),
     # the beam engine at 2 windows a batch, depth 2 then depth 1
     "depth": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-              "beam_tail", "beam_reorder"),
+              "beam_tail", "beam_reorder",
+              "decode_loop", "loop_cond"),
     # the parity harness's mock job through run_pipeline (beam 5)
     "tools": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-              "beam_tail", "beam_reorder"),
+              "beam_tail", "beam_reorder",
+              "decode_loop", "loop_cond"),
     # bench_speculative.main(): the verify step's replays (kernel 3 at
     # S 4), the one-token step's
     "speculative": ("decode_layers_verify", "decode_layers"),
@@ -3561,6 +3919,13 @@ def slice_phase(dev, path: str, keep: bool = False):
         fail(f"{path}: {graph_replays} graph replays, "
              f"{launches['decode_layers']} decoder-layer launches, "
              f"{layer_steps} layer steps: not every step was a replay")
+    # every decode call one loop graph, no host read inside any loop
+    host_reads = sum(d["host_reads"] for d in decodes)
+    if host_reads or launches["host_reads"]:
+        fail(f"{path}: {host_reads} host reads inside the decode loops")
+    if launches["decode_loop"] != len(decodes):
+        fail(f"{path}: {launches['decode_loop']} loop graphs for "
+             f"{len(decodes)} decode calls")
     rows_steps = sum(d["steps"] * d["rows"] for d in decodes)
     dec_s = sum(d["seconds"] for d in decodes)
     summary = dict(
@@ -3573,6 +3938,7 @@ def slice_phase(dev, path: str, keep: bool = False):
                     + (("permuted",) if "permuted" in d else ())}
                    for d in main_pass],
         permuting_steps=sum(d.get("permuted", 0) for d in decodes),
+        host_reads=host_reads, decode_loops=launches["decode_loop"],
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
         gemm_rows=by_rows,
@@ -4103,7 +4469,8 @@ def pipeline_phase(dev, eng):
             return turns
 
     real_transcribe, real_decode = eng.transcribe_file, eng._decode_batch
-    graph_init = DL.DecodeStepGraph.__init__
+    # the fused step each decode call's loop graph captures
+    graph_init = DL.FusedStep.__init__
 
     def timed_transcribe(*a, **k):
         t = time.time()
@@ -4120,8 +4487,9 @@ def pipeline_phase(dev, eng):
         return real_decode(xa, prompt, *a, **k)
 
     def recording_init(self, wpack, self_cache, cross, rows, n_head,
-                       valid_start=0):
-        graph_init(self, wpack, self_cache, cross, rows, n_head, valid_start)
+                       valid_start, max_pos):
+        graph_init(self, wpack, self_cache, cross, rows, n_head, valid_start,
+                   max_pos)
         graphs.append((rows, valid_start, self.ops.T))
 
     def run(tag, journal, **over):
@@ -4153,7 +4521,7 @@ def pipeline_phase(dev, eng):
     old_config = eng.config
     eng.transcribe_file = timed_transcribe
     eng._decode_batch = spy_decode
-    DL.DecodeStepGraph.__init__ = recording_init
+    DL.FusedStep.__init__ = recording_init
     try:
         main = run("main", work / "main.jsonl")
         journal = work / "resume.jsonl"
@@ -4166,7 +4534,7 @@ def pipeline_phase(dev, eng):
                   **{"decode.temperature": (0.0,)})
     finally:
         del eng.transcribe_file, eng._decode_batch
-        DL.DecodeStepGraph.__init__ = graph_init
+        DL.FusedStep.__init__ = graph_init
         eng.config = old_config
 
     # the main run: every kernel of the path, each decode call at its own
@@ -4690,9 +5058,9 @@ def serve_phase(dev, eng, scene):
             fail("serve: the job's diarizer is not on the card")
         return turns
 
-    # every decode call's graph capture: in a job's thread, with the
-    # engine's card that thread's current device and the graph's
-    graph_init, captures = DL.DecodeStepGraph.__init__, []
+    # every decode call's loop-graph step: in a job's thread, with the
+    # engine's card that thread's current device and the step's
+    graph_init, captures = DL.FusedStep.__init__, []
 
     def recording_init(self, *a, **k):
         graph_init(self, *a, **k)
@@ -4715,7 +5083,7 @@ def serve_phase(dev, eng, scene):
 
     old_config = eng.config
     eng.config = cfg
-    DL.DecodeStepGraph.__init__ = recording_init
+    DL.FusedStep.__init__ = recording_init
     for cls in net_classes:
         cls.load = recording_load(cls)
     E.AriesTranscriber, real_class = resident, E.AriesTranscriber
@@ -4750,7 +5118,7 @@ def serve_phase(dev, eng, scene):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         eng.config = old_config
-        DL.DecodeStepGraph.__init__ = graph_init
+        DL.FusedStep.__init__ = graph_init
         for cls, own in zip(net_classes, own_loads):
             if own is None:
                 del cls.load
@@ -4856,7 +5224,8 @@ def serve_phase(dev, eng, scene):
 # ---------------------------------------------------------------------------
 
 #: the kernels a bf16 run launches greedy, and at beam 5
-GREEDY_KERNELS = ("mel", "encoder_attn", "decode_layers", "cross_attn_q8")
+GREEDY_KERNELS = ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
+                  "decode_loop")
 BEAM_KERNELS = GREEDY_KERNELS + ("beam_tail", "beam_reorder")
 
 
@@ -6040,6 +6409,8 @@ def main() -> None:
     kernel_int8_gemm(dev, entries)
     kernel_self_attn(dev, entries)
     conditioned_phase(dev, entries, parts)
+    kernel_uniform_draw(dev, entries)
+    decode_loop_phase(dev, entries)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8
         profile_beam_step(dev, parts, B)
     profile_unfused_step(dev, parts)
@@ -6062,6 +6433,15 @@ def main() -> None:
     launches = {path: run[0] for path, run in runs.items()}
     launches["probes"] = probe_launches
     paths = dict(PATH_KERNELS, probes=PROBE_KERNELS)
+    # every decode path's loop graphs and its reads inside them
+    loops = {p: dict(loops=launches[p]["decode_loop"],
+                     steps=launches[p]["loop_cond"],
+                     host_reads=launches[p]["host_reads"])
+             for p, ks in PATH_KERNELS.items() if "decode_loop" in ks}
+    print("decode_loop_paths " + json.dumps(loops), flush=True)
+    check("every decode path: no host read inside a decode loop",
+          all(v["host_reads"] == 0 and v["loops"] > 0
+              for v in loops.values()), json.dumps(loops))
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:

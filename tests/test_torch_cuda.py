@@ -636,6 +636,162 @@ def test_greedy_decode_replays_every_step(small):
     assert DL.fused_decoder_layers.graph_replays - n == int(out["steps"]) - 1
 
 
+# ---------------------------------------------------------------------------
+# the on-device decode loop (ops/decode_loop.py)
+# ---------------------------------------------------------------------------
+
+LOOP_IDS = dict(eot=511, sot=500, no_speech=510, no_timestamps=509,
+                timestamp_begin=512, blank=1, n_vocab=512)
+
+LOOP_CASES = {
+    "greedy-fused-int8": dict(fused=True, self_int8=True),
+    "greedy-fused-bf16": dict(fused=True, self_int8=False),
+    "greedy-unfused-int8": dict(fused=False, self_int8=True),
+    "greedy-sampled": dict(fused=True, self_int8=True, temperature=0.7),
+    "greedy-penalties": dict(fused=True, self_int8=True, rep=1.3, ngram=3),
+    "beam-fused": dict(fused=True, self_int8=True, beam=3),
+    "beam-unfused-penalties": dict(fused=False, self_int8=True, beam=3,
+                                   rep=1.3, ngram=3),
+}
+
+
+def _loop_decode(small, case, sample_len=12):
+    """One decode call of a LOOP_CASES case on 2 windows (3 rows a window
+    at a temperature), prompt of 3 tokens, no timestamps."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+
+    dims, params, wpack, _ = small
+    dev = wpack["wq8"].device
+    c = dict(LOOP_CASES[case])
+    g = torch.Generator(device=dev).manual_seed(5)
+    xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    ids = G.DecodeSpecialIds(**LOOP_IDS)
+    temp = c.get("temperature", 0.0)
+    rows = 6 if temp else 2
+    prompt = torch.randint(0, 400, (rows, 3), generator=g, device=dev)
+    prompt[:, 0] = 500
+    kw = dict(sample_len=sample_len, with_timestamps=False,
+              kv_int8=c["fused"], self_kv_int8=c["self_int8"],
+              fused=c["fused"], wpack=wpack if c["fused"] else None,
+              repetition_penalty=c.get("rep"),
+              no_repeat_ngram_size=c.get("ngram", 0))
+    mask = torch.zeros(512, device=dev)
+    if "beam" in c:
+        return G.beam_search_decode(params, xa, prompt, dims, ids, mask, 0,
+                                    beam_size=c["beam"], **kw)
+    gen = torch.Generator(device=dev).manual_seed(11) if temp else None
+    return G.greedy_decode(params, xa, prompt, dims, ids, mask, 0, temp,
+                           gen, **kw)
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_device_loop_equals_host_loop(small, case, monkeypatch):
+    """Each decode call runs as one loop graph: no host read inside its
+    loop, the captured launches counted once an iteration, and the tokens,
+    scores, steps and permuted of the loop's plain version (the same
+    bodies in a host loop, direct launches) bit for bit."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    runs = DLP.DeviceLoop.launches
+    fused = DL.fused_decoder_layers.launches
+    cond = DLP.loop_cond_kernel.launches
+    got = _loop_decode(small, case)
+    steps = int(got["steps"])
+    assert DLP.DeviceLoop.launches == runs + 1
+    assert int(got["host_reads"]) == 0
+    assert DLP.loop_cond_kernel.launches - cond == steps
+    if LOOP_CASES[case]["fused"]:
+        assert DL.fused_decoder_layers.launches - fused == steps - 1
+    monkeypatch.setattr(G, "_decode_loop", G.host_loop)
+    fused = DL.fused_decoder_layers.launches
+    want = _loop_decode(small, case)
+    assert int(want["host_reads"]) == steps
+    if LOOP_CASES[case]["fused"]:
+        assert DL.fused_decoder_layers.launches - fused == steps - 1
+    assert set(got) == set(want)
+    for k in set(want) - {"host_reads"}:
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def test_device_loop_runs_no_step_when_cond_is_false(small, monkeypatch):
+    """sample_len 1: the condition is false after the prefill's token, so
+    the loop graph runs no step (the condition kernel before the WHILE
+    node), as JAX's loop does."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    n = DL.fused_decoder_layers.launches
+    out = _loop_decode(small, "greedy-fused-int8", sample_len=1)
+    assert int(out["steps"]) == 1
+    assert DL.fused_decoder_layers.launches == n
+
+
+def test_loop_cond_kernel_equals_plain(dev):
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    cont = torch.zeros((), dtype=torch.int32, device=dev)
+    for n in (1, 5, 40, 70):
+        for p, L in ((3, 10), (9, 10), (10, 10)):
+            pos = torch.full((), p, dtype=torch.int32, device=dev)
+            fin = torch.ones(n, dtype=torch.bool, device=dev)
+            cnt = torch.full((n,), 4, dtype=torch.long, device=dev)
+            for flip in (None, 0, n - 1):
+                f, c = fin.clone(), cnt.clone()
+                if flip is not None:
+                    f[flip], c[flip] = False, 3
+                for kw in (dict(finished=f), dict(counts=c, need=4)):
+                    DLP.loop_cond_kernel(pos, L, cont, **kw)
+                    want = DLP.loop_cond_plain(pos, L, **kw)
+                    assert int(cont) == int(want), (n, p, flip, kw.keys())
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**40 + 3])
+def test_uniform_draw_kernel_bits(dev, seed):
+    """The draw kernel gives the plain version's bits, in (0, 1); another
+    position or seed draws other numbers."""
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    draws = []
+    for p in (0, 3, 447):
+        pos = torch.full((), p, dtype=torch.int32, device=dev)
+        n = DLP.uniform_draw_kernel.launches
+        got = DLP.uniform_draw(seed, pos, 5, 51866)
+        assert DLP.uniform_draw_kernel.launches == n + 1
+        want = DLP.uniform_draw_plain(seed, pos.cpu(), 5, 51866)
+        assert torch.equal(got.cpu(), want)
+        assert float(want.min()) > 0 and float(want.max()) < 1
+        draws.append(want)
+    assert not torch.equal(draws[0], draws[1])
+    other = DLP.uniform_draw_plain(seed + 1, torch.tensor(0), 5, 51866)
+    assert not torch.equal(other, draws[0])
+
+
+def test_beam_reorder_identity_skip(dev):
+    """Kernel 8 with the identity skip: a window whose map is the
+    identity is left as it is, a moving window is permuted, bit for bit
+    the plain version; an all-identity map changes nothing."""
+    from whisper_aries_tpu_torch.ops import beam_reorder as BR
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    for leaf in (torch.randint(-127, 128, (3, 4 * 5, 2, 2, 40, 64),
+                               generator=g, device=dev).to(torch.int8),
+                 torch.randn((3, 4 * 5, 2, 2, 40), generator=g, device=dev)):
+        src = torch.tensor([[0, 1, 2, 3, 4], [1, 1, 0, 3, 2],
+                            [0, 1, 2, 3, 4], [4, 3, 2, 1, 0]],
+                           dtype=torch.int32, device=dev)
+        got, want = leaf.clone(), leaf.clone()
+        n = BR.permute_rows_kernel.launches
+        BR.permute_rows_kernel(got, src)
+        assert BR.permute_rows_kernel.launches == n + 1
+        BR.permute_rows_plain(want, src)
+        assert torch.equal(got, want)
+        ident = torch.arange(5, dtype=torch.int32, device=dev).repeat(4, 1)
+        same = leaf.clone()
+        BR.permute_rows_kernel(same, ident.contiguous())
+        assert torch.equal(same, leaf)
+
+
 F32_MIN = float(np.finfo(np.float32).min)  # the masked logit
 
 
@@ -1105,7 +1261,7 @@ def test_greedy_decode_unfused_replays_every_step(small, monkeypatch):
     out = G.greedy_decode(params, xa, prompt, dims, ids,
                           torch.zeros(512, device=dev), 0, 0.0, **kw)
     assert W.decoder_step.graph_replays - n == int(out["steps"]) - 1 > 0
-    monkeypatch.setattr(G, "_step_graph", lambda *a, **k: None)
+    monkeypatch.setattr(G, "_decode_loop", G.host_loop)
     eager = G.greedy_decode(params, xa, prompt, dims, ids,
                             torch.zeros(512, device=dev), 0, 0.0, **kw)
     for k in ("tokens", "sum_logprob"):

@@ -216,12 +216,10 @@ def test_cross_split_combine_matches_jax_reference(splits):
 
 
 def test_decode_graph_only_on_the_card():
-    """On CPU operands the decode loop takes no graph and the graph
-    refuses to be built."""
-    from whisper_aries_tpu_torch.decoding import generate as G
-
+    """On CPU operands the decode loop takes no graph: the fused step of
+    the loop graph and the step graph refuse to be built."""
     wpack = {"wq8": torch.zeros((1, 128, 768), dtype=torch.int8)}
-    assert G._step_graph(True, wpack, {}, {}, LARGE_V3, 2) is None
-    assert G._step_graph(False, None, {}, {}, LARGE_V3, 2) is None
+    with pytest.raises(ValueError, match="CUDA"):
+        DL.FusedStep(wpack, {}, {}, 2, 2, 0, 4)
     with pytest.raises(ValueError, match="CUDA"):
         DL.DecodeStepGraph(wpack, {}, {}, 2, 2)

@@ -120,6 +120,57 @@ def test_stream_rule_itself(tmp_path):
         "line 1", "line 3"]
 
 
+#: the decode loop's bodies and the step they call (decoding/generate.py):
+#: captured once into the loop graph, they must read nothing back
+LOOP_BODIES = ("greedy_body", "beam_body", "_greedy_iteration",
+               "_beam_iteration", "_penalised", "ngram_banned_mask",
+               "apply_repetition_penalty", "device")
+HOST_READS = ("item", "tolist", "cpu", "numpy", "nonzero", "synchronize")
+
+
+def _host_reads(tree, names=LOOP_BODIES):
+    """Host reads in the functions (or methods) of ``tree`` named in
+    ``names``: a call of ``.item()``, ``.tolist()``, ``.cpu()``,
+    ``.numpy()``, ``.nonzero()`` or ``synchronize()``, or ``bool()``,
+    ``int()`` or ``float()`` of anything but a literal."""
+    for fn in ast.walk(tree):
+        if not (isinstance(fn, ast.FunctionDef) and fn.name in names):
+            continue
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if isinstance(f, ast.Attribute) and f.attr in HOST_READS:
+                yield f"{fn.name} line {node.lineno}: .{f.attr}()"
+            if (isinstance(f, ast.Name) and f.id in ("bool", "int", "float")
+                    and node.args
+                    and not isinstance(node.args[0], ast.Constant)):
+                yield f"{fn.name} line {node.lineno}: {f.id}()"
+
+
+def test_decode_loop_bodies_read_nothing_back():
+    """The loop bodies in decoding/generate.py (and the step's device
+    form) make no host read: every read of device data inside a decode
+    loop goes through the one counted helper, ``_Reads``."""
+    path = PORT / "decoding" / "generate.py"
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    found = {fn.name for fn in ast.walk(tree)
+             if isinstance(fn, ast.FunctionDef)}
+    assert set(LOOP_BODIES) <= found
+    bad = list(_host_reads(tree))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("line,found", [
+    ("x.item()", True), ("bool(t.all())", True), ("int(pos)", True),
+    ("t.tolist()", True), ("t.cpu()", True), ("m.nonzero()", True),
+    ("torch.cuda.synchronize()", True), ("bool(1)", False),
+    ("t.any()", False), ("max(a, 1e-6)", False)])
+def test_decode_loop_read_rule_itself(line, found):
+    tree = ast.parse(f"def greedy_body(st):\n    {line}\n")
+    assert bool(list(_host_reads(tree))) == found
+
+
 def test_forbidden_rule_itself():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert _forbidden("whisper_aries_tpu.models.whisper")

@@ -236,12 +236,24 @@ def test_stream_and_sm_count_read_the_operands_device(monkeypatch):
 
 
 def test_step_graphs_are_card_only(model):
-    """Off the card no step is captured: ``_step_graph`` gives None for CPU
-    caches, and both graph objects refuse CPU operands."""
+    """Off the card no step is captured: a decode on CPU state takes the
+    host loop, and the loop graph and the unfused step graph refuse CPU
+    operands."""
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
     tree, xa = model
     tp = TW.fuse_decoder_qkv(TW.params_from_jax(tree))
     ct = TW.precompute_cross_kv(tp, torch.from_numpy(xa), DIMS_T)
     cache = TW.init_kv_cache(DIMS_T, 2, max_len=T, int8=True)
-    assert TG._step_graph(False, None, cache, ct, DIMS_T, 2, tp) is None
+    pos = torch.zeros((), dtype=torch.int32)
+    state = type("S", (), {"pos": pos})()
+    picked = []
+    TG._decode_loop(state, None, None, None, cache, 0, 0, TG._Reads(),
+                    finished=torch.ones(2, dtype=torch.bool)) or picked.append(
+        "host")
+    assert picked == ["host"]
+    with pytest.raises(ValueError, match="CUDA"):
+        DLP.DeviceLoop(torch.device("cpu"), lambda: None, pos, T,
+                       finished=torch.zeros(2, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA"):
         TW.UnfusedStepGraph(tp, cache, ct, DIMS_T, 2)

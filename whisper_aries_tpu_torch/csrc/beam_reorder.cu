@@ -16,6 +16,13 @@
 // written). No block writes bytes another block reads, so the permutation
 // runs in place, with no second cache buffer. Loads and stores are 16
 // bytes a thread where the row length allows.
+//
+// Identity skip: a block whose window's map is the identity (every beam
+// keeps its own history) returns before it reads a byte. The decode loop
+// graph launches the reorder at every step and lets the kernel decide on
+// the device; JAX skips the permute when every window's map is the
+// identity (generate.py:877-881), this skips each such window, with the
+// same result.
 #include "common.cuh"
 
 namespace {
@@ -32,6 +39,9 @@ reorder_kernel(char* __restrict__ data, const int* __restrict__ src, int B,
   VT* sbuf = reinterpret_cast<VT*>(sbuf4);
   constexpr int CH = CHUNK / (int)sizeof(VT);  // elements per row chunk
   const int c = blockIdx.x, b = blockIdx.y, l = blockIdx.z;
+  bool identity = true;
+  for (int k = 0; k < K; ++k) identity = identity && src[b * K + k] == k;
+  if (identity) return;
   const long long off = (long long)c * CHUNK;
   const long long left = row_bytes - off;
   const int n = (int)((left < CHUNK ? left : CHUNK) / (long long)sizeof(VT));

@@ -24,8 +24,8 @@ through the grouped cross-attention kernel (csrc/cross_attn.cu), and a
 decode step's self-attention over an int8 self cache through the int8
 self-attention kernel (csrc/self_attn.cu), for CUDA tensors; CPU tensors
 take the plain versions. ``decoder_step`` takes its positions as ints or as
-device tensors, so ``UnfusedStepGraph`` replays one captured step at every
-position. Dense layers go through ops/quant.py when int8
+device tensors, so one captured step serves every position (a decode
+call's loop graph, decoding/generate.py; ``UnfusedStepGraph``). Dense layers go through ops/quant.py when int8
 (the W8A16 GEMM kernel under ARIES_QUANT_IMPL=pallas, the row quantization
 and the s8 GEMM under =native); float dense layers,
 the conv stem and the attention of the teacher-forced passes stay torch
@@ -906,8 +906,10 @@ class UnfusedStepGraph:
 
     A warm-up call runs first, outside the capture (library loads, SM-count
     queries, plans, kernel attributes), at the cache's last position, which
-    no decode step reads before writing it. Make one per decode call and
-    drop it with the call. A failed capture or replay raises; nothing falls
+    no decode step reads before writing it. (A decode call's loop graph
+    captures the same step inside its iteration, decoding/generate.py;
+    this graph replays the step alone, for the checks and profiles.) A
+    failed capture or replay raises; nothing falls
     back to eager launches or to the plain versions. The kernels the graph
     records count their launches at each replay (the capture itself runs
     nothing), and ``decoder_step.graph_replays`` counts the replays."""

@@ -36,8 +36,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mel", "encoder_attn", "encoder_attn_train", "decode_layers",
            "cross_attn", "beam_tail", "beam_reorder", "quant_matmul",
-           "int8_gemm", "self_attn", "probe_copy", "probe_mma",
-           "probe_transpose", "probe_qa")
+           "int8_gemm", "self_attn", "decode_loop", "probe_copy",
+           "probe_mma", "probe_transpose", "probe_qa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -148,14 +148,16 @@ def launch(fn, t, what: str, *args) -> None:
         check(fn(*args, stream(t)), what)
 
 
-def capture(dev: torch.device, fn) -> torch.cuda.CUDAGraph:
+def capture(dev: torch.device, fn,
+            keep_graph: bool = False) -> torch.cuda.CUDAGraph:
     """``fn``'s launches captured as one CUDA graph on card ``dev``, on a
     capture stream of that card, whatever the current device is. Replay it
     under ``torch.cuda.device(dev)``. Raises if the capture fails. The
     capture is thread-local: only this thread's unsafe CUDA calls break
     it, so replicas on other cards go on working in their own threads
-    meanwhile."""
-    graph = torch.cuda.CUDAGraph()
+    meanwhile. ``keep_graph`` keeps the cudaGraph_t
+    (``raw_cuda_graph()``) uninstantiated, for a graph that embeds it."""
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     with torch.cuda.device(dev):
         with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
                               capture_error_mode="thread_local"):

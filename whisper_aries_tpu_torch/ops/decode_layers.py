@@ -27,9 +27,11 @@ ordinary step.
 ``fused_decoder_layers`` launches the kernels for CUDA tensors (one C call
 runs all L layers: LayerNorm, a one-launch cluster split-K W8A16 GEMM per
 product, split-KV self- and cross-attention) and takes the plain version,
-``fused_decoder_layers_plain``, only for CPU tensors. ``DecodeStepGraph``
-captures the step once per decode call as a CUDA graph and replays it each
-step. The kernel parts are also bound one by one (``layer_norm_kernel``,
+``fused_decoder_layers_plain``, only for CPU tensors. ``FusedStep`` is the
+step a decode call's loop graph captures once (its position read on the
+device); ``DecodeStepGraph`` captures the step alone as a CUDA graph and
+replays it at a host position (the verify step's and the checks'). The
+kernel parts are also bound one by one (``layer_norm_kernel``,
 ``w8a16_gemm_kernel``, ``self_attn_kernel``, ``cross_attn_kernel``) so each
 can be held against its plain counterpart on the card. ``gemm_plan`` and
 ``attn_split`` mirror the kernels' grid plans, and ``self_attn_split_plain``
@@ -776,12 +778,46 @@ fused_decoder_layers.launches = 0
 fused_decoder_layers.graph_replays = 0
 
 
+class FusedStep:
+    """The fused step of one decode call, launched inside the call's loop
+    graph (decoding/generate.py): fixed operands (the weight pack, the
+    self cache, updated only in place, the cross K/V, ``valid_start``) and
+    static buffers, with the cache position read on the device, so one
+    capture serves every step. Positions up to ``max_pos`` are checked
+    once, here; a step reads no position on the host."""
+
+    def __init__(self, wpack: Dict[str, torch.Tensor],
+                 self_cache: Dict[str, torch.Tensor],
+                 cross: Dict[str, torch.Tensor], rows: int, n_head: int,
+                 valid_start: int, max_pos: int):
+        dev = wpack["wq8"].device
+        if dev.type != "cuda":
+            raise ValueError("FusedStep needs CUDA operands")
+        self.dev = dev
+        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev)
+        self.ops.check(valid_start, max_pos)
+        self.x = torch.zeros((rows, wpack["wq8"].shape[1]),
+                             dtype=torch.bfloat16, device=dev)
+        self.step = _step_scalars(valid_start, valid_start, dev)
+        _kernels(dev)  # built, loaded and set up before any capture
+
+    def __call__(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The L layers on x (R, d) at the cache position ``pos`` (a 0-d
+        int32 on the card); returns the static output buffer."""
+        self.x.copy_(x)
+        self.step[:1].copy_(pos.reshape(1))
+        self.ops.launch(self.x, self.step)
+        _count_step(1)
+        return self.x
+
+
 class DecodeStepGraph:
     """One decode step (all L layers, 11 launches a layer) captured once as
     a CUDA graph over fixed operands: the weight pack, the self cache (which
     must be updated only in place, as the beam reorder does), the cross K/V
     and ``valid_start``; ``pos`` is a device scalar written before each
-    replay. Make one per decode call and drop it with the call: the graph
+    replay. The verify step's graph and the checks' (a decode call's loop
+    graph captures ``FusedStep`` instead): the graph
     holds references to its operands, never replays on freed memory, and
     raises if capture or replay fails (it never falls back to launching the
     kernels directly or to the plain version). ``queries`` S > 1 captures

@@ -149,8 +149,9 @@ def join_shards(outs: Sequence[Optional[dict]],
                 device: Optional[torch.device] = None) -> dict:
     """The shards' decode outputs (dicts of tensors, moved to ``device``,
     or of numpy arrays; None for an empty shard) as one batch's, rows in
-    window order: ``steps`` the most any shard took, ``permuted`` their
-    sum, every other value concatenated on its leading axis."""
+    window order: ``steps`` the most any shard took, ``permuted`` and
+    ``host_reads`` their sums, every other value concatenated on its
+    leading axis."""
     outs = [o for o in outs if o is not None]
     if len(outs) == 1:
         return outs[0]
@@ -164,7 +165,7 @@ def join_shards(outs: Sequence[Optional[dict]],
             stack, cat = np.stack, np.concatenate
         if k == "steps":
             joined[k] = stack(vals).max()
-        elif k == "permuted":
+        elif k in ("permuted", "host_reads"):
             joined[k] = stack(vals).sum()
         else:
             joined[k] = cat(vals)

@@ -674,6 +674,9 @@ class AriesTranscriber:
                  "prompt_start": int(prompt_start),
                  "cache_len": int(prompt_t.shape[1]) + sample_len,
                  "steps": int(res["steps"]),
+                 # reads of device data inside the decode loop: 0 on the
+                 # card (one loop graph a call), one a step on the CPU
+                 "host_reads": int(res["host_reads"]),
                  "temperature": float(temperature), "beam_size": beam_size,
                  "seconds": time.time() - t0}
         if "permuted" in res:
