@@ -107,7 +107,20 @@ caught; a kernel check that fails is printed at once and fails the run
      Kernel 8's identity skip: an all-identity map moves nothing, timed
      (events and device) beside every row moving. The sampled rungs' draw
      kernel (csrc/decode_loop.cu) at R 30 x 51866, position 116, bit for
-     bit its plain version, below "the position left out of the key".
+     bit its plain version, below "the position left out of the key" (no
+     path launches it since the choice kernel draws the same bits inside).
+     The step's vocab product (csrc/vocab_gemm.cu) at M 6, 30, 40, 64 and
+     the conditioned prefill's 1135 over large-v3's bf16 embedding: within
+     1e-5 of max |want| of the plain version, below "a 128-id tile
+     dropped", "the last 26 ids unwritten" and "bf16-rounded logits",
+     timed beside the plain version and cuBLAS ("vocab_product" line).
+     The greedy choice (csrc/decode_choice.cu) at R 6, 30, 40 and 64 over
+     51866 ids, first step or not, timestamps on and off, temperature 0,
+     0.7 and 1.3: tokens and integer state identical to the plain
+     version's, sum_logprob within 1e-6; each named mistake (the monotonic
+     rule left out, the force rule inverted, the draw at pos + 1 or at the
+     next row, a finished row not forced to eot) changes some tokens;
+     timed at R 6 and 30 ("decode_choice" line).
  3b. decode loop (decode_loop_phase): the on-device loop (one CUDA graph a
      decode call: the condition kernel, then a WHILE node over the
      captured step) at large-v3 width, 6 windows of random encoder output,
@@ -120,7 +133,10 @@ caught; a kernel check that fails is printed at once and fails the run
      of its max (below "one token's log-probability left out"), no host
      read inside the device loop (host_reads 0), its bodies, step and
      launch under torch.cuda.set_sync_debug_mode("error"); ms a step of
-     each loop (the call's wall, and the loop alone by events). For greedy
+     each loop (the call's wall, and the loop alone by events), and of the
+     loop graph over the plain body (the plain vocab product and the
+     plain choice's torch ops, the design before the two kernels) in the
+     same call, with both bodies' node counts (body_nodes). For greedy
      and beam, the smallest end-of-text bias that ends every row before 64
      tokens: the loops held there, and the mutant (a condition that
      ignores the finished state) must fail the hold (it runs to the end).
@@ -329,7 +345,7 @@ Every decode path's decode calls must each have run as one loop graph
 with no host read inside it (the slice lines' host_reads and
 decode_loops; the ``decode_loop_paths`` line before the kernels line,
 every path's loop graphs, steps and reads).
-The second-to-last lines are the kernels JSON (all 24 entries) and
+The second-to-last lines are the kernels JSON (all 27 entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -3016,13 +3032,19 @@ def loop_call(dev, kind, case, dims, models, xa, sample_len=224,
     """One decode call of ``case`` through the ``kind`` loop: "device"
     (the loop graph; its bodies, its step and its launch under
     set_sync_debug_mode("error")), "host" (the loop's plain version on
-    the card: the same bodies in a Python loop, direct launches) or
+    the card: the same bodies in a Python loop, direct launches),
     "mutant" (the loop graph with a condition that ignores the finished
-    state, so it runs to L). Returns (outputs on the host, the call's wall
+    state, so it runs to L) or "plain_body" (the loop graph over the body
+    of the design before the vocab and choice kernels: the plain vocab
+    product, an f32 copy of the embedding and an f32 GEMM, and the plain
+    choice's torch ops). Returns (outputs on the host, with the loop
+    body's node count as ``body_nodes`` for a loop graph, the call's wall
     seconds, the loop's milliseconds by CUDA events around its launch or
     around the host loop)."""
     import torch
     from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_choice as DC
     from whisper_aries_tpu_torch.ops import decode_loop as DLP
 
     _, K, fused, int8, impl = case
@@ -3036,9 +3058,12 @@ def loop_call(dev, kind, case, dims, models, xa, sample_len=224,
     end = torch.cuda.Event(enable_timing=True)
     real = dict(run=DLP.DeviceLoop.run, device_loop=G.device_loop,
                 greedy_body=G.greedy_body, beam_body=G.beam_body,
-                device=G._Step.device)
+                device=G._Step.device, vocab=W.vocab_logits_step,
+                choice=DC.greedy_choice)
+    nodes = []
 
     def timed_run(self):
+        nodes.append(self.body_nodes)
         start.record()
         real["run"](self)
         end.record()
@@ -3066,6 +3091,9 @@ def loop_call(dev, kind, case, dims, models, xa, sample_len=224,
         G._Step.device = erroring(real["device"])
         if kind == "mutant":
             G.device_loop = mutant
+        if kind == "plain_body":
+            W.vocab_logits_step = W.vocab_logits
+            DC.greedy_choice = DC.greedy_choice_plain
     try:
         kw = dict(sample_len=sample_len, kv_int8=fused, self_kv_int8=int8,
                   fused=fused, wpack=wpack)
@@ -3080,11 +3108,14 @@ def loop_call(dev, kind, case, dims, models, xa, sample_len=224,
         out = {k: v.cpu() for k, v in out.items()}
         torch.cuda.synchronize()
         wall = time.time() - t0
+        if nodes:
+            out["body_nodes"] = nodes[0]
     finally:
         DLP.DeviceLoop.run = real["run"]
         G.device_loop = real["device_loop"]
         G.greedy_body, G.beam_body = real["greedy_body"], real["beam_body"]
         G._Step.device = real["device"]
+        W.vocab_logits_step, DC.greedy_choice = real["vocab"], real["choice"]
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
@@ -3141,7 +3172,8 @@ def decode_loop_phase(dev, entries):
     for case in LOOP_CASES:
         label, K = case[0], case[1]
         runs = {}
-        for i, kind in enumerate(("host", "device", "device", "host")):
+        for kind in ("host", "device", "plain_body", "plain_body", "device",
+                     "host"):
             out, wall, loop_ms = loop_call(dev, kind, case, dims, models, xa)
             runs.setdefault(kind, []).append((out, wall, loop_ms))
         dev_out, host_out = runs["device"][0][0], runs["host"][0][0]
@@ -3153,12 +3185,22 @@ def decode_loop_phase(dev, entries):
               f"device {[int(r[0]['host_reads']) for r in runs['device']]}, "
               f"host {[int(r[0]['host_reads']) for r in runs['host']]}")
         steps = int(host_out["steps"])
-        per = lambda kind: dict(
-            call_ms_per_step=[1e3 * r[1] / steps for r in runs[kind]],
-            loop_ms_per_step=[r[2] / max(1, steps - 1) for r in runs[kind]])
+        per = lambda kind: dict(  # each run over its own steps
+            call_ms_per_step=[1e3 * r[1] / int(r[0]["steps"])
+                              for r in runs[kind]],
+            loop_ms_per_step=[r[2] / max(1, int(r[0]["steps"]) - 1)
+                              for r in runs[kind]])
+        old = runs["plain_body"][0][0]
         report[label] = dict(rows=LOOP_WINDOWS * K, steps=steps,
                              permuted=int(host_out.get("permuted", -1)),
                              device=per("device"), host=per("host"),
+                             plain_body=dict(per("plain_body"),
+                                       steps=int(old["steps"]),
+                                       same_tokens=torch_equal(
+                                           old["tokens"], host_out["tokens"])),
+                             body_nodes=dict(
+                                 device=dev_out["body_nodes"],
+                                 plain_body=old["body_nodes"]),
                              hold=hold)
         if label in ("greedy fused, int8 self cache",
                      "beam 5 fused, int8 self cache"):
@@ -3245,6 +3287,271 @@ def kernel_uniform_draw(dev, entries):
         library_note="none: no one call draws this hash; torch.rand of "
                      "the same shape (other numbers) in rand_ms",
         rand_ms=rand_ms, shape=f"({R}, {V}) f32 at position 116"))
+
+
+#: the vocab product's rows: greedy R 6, best_of / beam R 30, beam over 8
+#: windows R 40, the verify step's 16 windows x 4 drafts R 64, and the
+#: conditioned prefill's 5 rows x 227 positions (18 passes of 64 rows)
+VOCAB_M = (6, 30, 40, 64, 1135)
+
+
+def kernel_vocab(dev, entries):
+    """The step's vocab product (csrc/vocab_gemm.cu) at large-v3 (V 51866,
+    K 1280, a bf16 embedding) at each M of VOCAB_M: within 1e-5 of max
+    |want| of its plain version (x.float() @ E.float().T), below "a
+    128-id tile dropped", "the last 26 ids (past 405 whole tiles of 128)
+    unwritten" and "the logits rounded to bf16"; timed (events and the
+    profiler's device time) beside the plain version and one cuBLAS call
+    of the same function (torch.mm into f32 where the installed torch
+    takes out_dtype, else torch.matmul into bf16). The entry is M 6's."""
+    import torch
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    V, K = 51866, 1280
+    g = torch.Generator(device=dev).manual_seed(24)
+    emb = (0.05 * torch.randn((V, K), generator=g, device=dev)).to(
+        torch.bfloat16)
+    shapes = []
+    for M in VOCAB_M:
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        got = VO.vocab_product_kernel(x, emb)
+        want = VO.vocab_product_plain(x, emb)
+        torch.cuda.synchronize()
+        top = float(want.abs().max())
+        v0 = V // 2 // 128 * 128
+        tile, tail = want.clone(), want.clone()
+        tile[:, v0:v0 + 128] = 0
+        tail[:, V // 128 * 128:] = 0
+        mistakes = {
+            "a 128-id tile dropped": float((tile - want).abs().max()) / top,
+            "the last 26 ids unwritten":
+                float((tail - want).abs().max()) / top,
+            "bf16-rounded logits":
+                float((want.bfloat16().float() - want).abs().max()) / top}
+        err = float((got - want).abs().max()) / top
+        hold = held(f"vocab_product[M {M}, V {V}, K {K}]",
+                    {"max_rel": err}, {"max_rel": 1e-5},
+                    {"max_rel": min(mistakes.values())})
+        kern = lambda: VO.vocab_product_kernel(x, emb)
+        try:
+            lib = lambda: torch.mm(x, emb.T, out_dtype=torch.float32)
+            lib()
+            lib_note = "torch.mm(x, E.T, out_dtype=float32): cuBLAS, f32 out"
+        except (TypeError, RuntimeError):
+            lib = lambda: torch.matmul(x, emb.T)
+            lib_note = "torch.matmul(x, E.T): cuBLAS, bf16 out"
+        b_ms, b_by = bound(V * K * 2 + M * K * 2 + M * V * 4,
+                           2.0 * M * V * K, PEAK_BF16)
+        shapes.append(dict(
+            M=M, plan=VO.vocab_plan(dev, M, V, K), max_rel=err,
+            mistakes=mistakes, hold=hold,
+            ms=time_ms(kern, 50), device_ms=device_ms(kern),
+            plain_ms=time_ms(lambda: VO.vocab_product_plain(x, emb), 10),
+            library_ms=time_ms(lib, 50), library_device_ms=device_ms(lib),
+            library_note=lib_note, bound_ms=b_ms, bound_by=b_by))
+    print("vocab_product " + json.dumps(shapes), flush=True)
+    main = shapes[0]
+    entries.append(dict(
+        name="vocab_gemm", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/vocab_gemm.cu",
+        replaces="whisper_aries_tpu/models/whisper.py:510",
+        max_abs_err=main["max_rel"],
+        tolerance="1e-5 of max |logit| at every M",
+        ms=main["ms"], device_ms=main["device_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        library_note=main["library_note"],
+        shape=f"x ({VOCAB_M[0]}, {K}) bf16 . E ({V}, {K}) bf16 -> f32",
+        shapes=shapes))
+
+
+#: the choice's rows: greedy R 6, the sampled rungs' R 30, 8 windows x 5
+#: best_of R 40, 16 x 4 R 64
+CHOICE_R = (6, 30, 40, 64)
+#: (is_first, with_timestamps, temperature) held at each R
+CHOICE_CASES = ((False, True, 0.0), (True, True, 0.0), (False, False, 0.0),
+                (False, True, 0.7), (True, True, 1.3))
+CHOICE_MISTAKES = ("a filter rule left out (the monotonic floor)",
+                   "the force rule inverted", "the draw at pos + 1",
+                   "the draw at the next row",
+                   "a finished row not forced to eot")
+
+
+def choice_inputs(dev, R, V, ids, seed, L=448):
+    """Logits, suppress mask and a greedy loop state whose rows reach the
+    grammar's branches: fresh rows, open and closed pairs, the monotonic
+    floor, finished rows (20%), timestamps boosted on every sixth row (the
+    force rule)."""
+    import torch
+    from whisper_aries_tpu_torch.decoding import generate as G
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tsb = ids.timestamp_begin
+    neg = float(np.finfo(np.float32).min)
+    logits = 3 * torch.randn((R, V), generator=g, device=dev)
+    logits[1::6, tsb:] += 12
+    pick = lambda vals: torch.as_tensor(vals, device=dev)[torch.randint(
+        0, len(vals), (R,), generator=g, device=dev)]
+    mask = torch.where(torch.rand((V,), generator=g, device=dev) < 0.01,
+                       neg, 0.0)
+    st = G.LoopState(
+        tokens=torch.randint(0, ids.eot, (R, L), generator=g, device=dev),
+        pos=torch.full((), 116, dtype=torch.int32, device=dev),
+        finished=torch.rand((R,), generator=g, device=dev) < 0.2,
+        sum_logprob=-5 * torch.rand((R,), generator=g, device=dev),
+        last_tok=pick([100, 221, tsb + 3, tsb + 40]),
+        penult_tok=pick([-1, 50, tsb + 2, tsb + 39]),
+        max_ts_tok=pick([-1, tsb + 5, tsb + 90]),
+        present=None,
+        steps=torch.full((), 115, dtype=torch.int32, device=dev),
+        arrived=torch.zeros((), dtype=torch.int32, device=dev))
+    return logits, mask, st
+
+
+def clone_state(st):
+    import dataclasses
+
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone()
+        for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
+
+
+def choice_tokens(logits, st, ids, mask, first, with_ts, T, seed,
+                  mistake):
+    """The plain choice's tokens (R,) with one of CHOICE_MISTAKES made
+    (None where the mistake does not apply to this configuration)."""
+    import torch
+    from whisper_aries_tpu_torch.decoding.logit_filters import apply_filters
+    from whisper_aries_tpu_torch.ops import decode_loop as DLP
+
+    R, V = logits.shape
+    tsb = ids.timestamp_begin
+    neg = float(np.finfo(np.float32).min)
+    max_ts = st.max_ts_tok
+    if mistake == CHOICE_MISTAKES[0]:
+        max_ts = torch.full_like(max_ts, -1)
+    if mistake == CHOICE_MISTAKES[1]:
+        if not with_ts:
+            return None
+        # the filters without the force rule (the text region filtered
+        # with the timestamp logits sunk, where the rule cannot fire, the
+        # timestamp region as filtered), then the rule inverted
+        ts = torch.arange(V, device=logits.device)[None, :] >= tsb
+        sunk = apply_filters(torch.where(ts, -1e30, logits), ids, mask,
+                             first, st.last_tok, st.penult_tok, max_ts, True)
+        f = apply_filters(logits, ids, mask, first, st.last_tok,
+                          st.penult_tok, max_ts, True)
+        unforced = torch.where(ts, f, sunk)
+        ts_lp = torch.logsumexp(torch.where(ts, unforced, neg), dim=-1)
+        max_text = torch.where(ts, neg, unforced).amax(dim=-1)
+        force = ~(ts_lp > max_text)[:, None]
+        f = torch.where(force & ~ts, neg, unforced)
+    else:
+        f = apply_filters(logits, ids, mask, first, st.last_tok,
+                          st.penult_tok, max_ts, with_ts)
+    if T > 0:
+        pos = st.pos + 1 if mistake == CHOICE_MISTAKES[2] else st.pos
+        u = DLP.uniform_draw_plain(seed, pos, R + 1, V)
+        u = u[1:] if mistake == CHOICE_MISTAKES[3] else u[:R]
+        key = f / max(T, 1e-6) - torch.log(-torch.log(u))
+    elif mistake in CHOICE_MISTAKES[2:4]:
+        return None
+    else:
+        key = f
+    tok = torch.argmax(key, dim=-1)
+    if mistake != CHOICE_MISTAKES[4]:
+        tok = torch.where(st.finished, ids.eot, tok)
+    return tok
+
+
+def kernel_decode_choice(dev, entries):
+    """The greedy choice (csrc/decode_choice.cu) at the vocabulary of
+    large-v3 (51866), R in CHOICE_R, each case of CHOICE_CASES (first step
+    or not, timestamps on and off, temperature 0, 0.7, 1.3), position 116:
+    tokens and every integer state (finished, last / penultimate / max
+    timestamp token, pos, steps) identical to the plain version's, the
+    arrival counter back to 0, sum_logprob within 1e-6 of its magnitude;
+    each of CHOICE_MISTAKES must fail the token hold (some rows' tokens
+    differ) in some case. Timed at R 6 and R 30, temperature 0 and
+    0.7 (events over back-to-back launches, the profiler's device time),
+    beside the plain version. The entry is R 6's at temperature 0."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_choice as DC
+
+    V, ids, seed = 51866, large_v3_ids(), 31
+    cases = []
+    for R in CHOICE_R:
+        for first, with_ts, T in CHOICE_CASES:
+            logits, mask, st = choice_inputs(dev, R, V, ids, R + seed)
+            got, want = clone_state(st), clone_state(st)
+            DC.greedy_choice_kernel(logits, got, ids, mask, first, with_ts,
+                                    True, T, seed)
+            DC.greedy_choice_plain(logits, want, ids, mask, first, with_ts,
+                                   True, T, seed)
+            torch.cuda.synchronize()
+            differ = int((got.last_tok != want.last_tok).sum())
+            same = all(torch_equal(getattr(got, k), getattr(want, k)) for k
+                       in ("tokens", "finished", "last_tok", "penult_tok",
+                           "max_ts_tok", "pos", "steps")) and int(
+                got.arrived) == 0
+            wrong = {}
+            for m in CHOICE_MISTAKES:
+                tok = choice_tokens(logits, st, ids, mask, first, with_ts,
+                                    T, seed, m)
+                if tok is not None:
+                    wrong[m] = int((tok != want.last_tok).sum())
+            label = (f"decode_choice[R {R}, first {first}, timestamps "
+                     f"{with_ts}, T {T}]")
+            check(label + ": integer state identical", same,
+                  f"{differ} tokens differ")
+            w = want.sum_logprob.float()
+            lp = float((got.sum_logprob - w).abs().max() / w.abs().max())
+            hold = held(label, {"tokens_differing": differ,
+                                "sum_logprob": lp},
+                        {"tokens_differing": 0.5, "sum_logprob": 1e-6})
+            cases.append(dict(R=R, first=first, with_ts=with_ts, T=T,
+                              mistakes=wrong, hold=hold))
+    for m in CHOICE_MISTAKES:  # each mistake fails the token hold somewhere
+        worst = max(c["mistakes"].get(m, 0) for c in cases)
+        check(f"decode_choice: {m} fails the token hold", worst > 0.5,
+              f"at most {worst} rows' tokens differ")
+    times = {}
+    for R in (6, 30):
+        for T in (0.0, 0.7):
+            logits, mask, st = choice_inputs(dev, R, V, ids, seed)
+            st.finished.zero_()
+            mask[ids.eot] = float(np.finfo(np.float32).min)  # no row ends
+            kern = lambda: DC.greedy_choice_kernel(
+                logits, st, ids, mask, False, True, True, T, seed)
+            plain = lambda: DC.greedy_choice_plain(
+                logits, st, ids, mask, False, True, True, T, seed)
+            st.pos.fill_(5)
+            ms = time_ms(kern, 50)
+            st.pos.fill_(5)
+            dms = device_ms(kern)
+            st.pos.fill_(5)
+            pms = time_ms(plain, 10)
+            b_ms, b_by = bound(R * V * 4 + V * 4, 0, PEAK_F32)
+            times[f"R {R}, T {T}"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                                          bound_ms=b_ms, bound_by=b_by)
+    print("decode_choice " + json.dumps(dict(cases=cases, times=times)),
+          flush=True)
+    main = times["R 6, T 0.0"]
+    entries.append(dict(
+        name="decode_choice", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/decode_choice.cu",
+        replaces="whisper_aries_tpu/decoding/generate.py:341",
+        max_abs_err=max(c["hold"]["errors"]["sum_logprob"] for c in cases),
+        tolerance="tokens and integer state identical; sum_logprob 1e-6 "
+                  "of its magnitude",
+        ms=main["ms"], device_ms=main["device_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library_note="none: no one call filters, normalises, chooses and "
+                     "keeps the loop state",
+        shape=f"(6, {V}) f32 logits, greedy at temperature 0, position "
+              "116 on",
+        times=times))
 
 
 # ---------------------------------------------------------------------------
@@ -3589,11 +3896,13 @@ def counters():
     from whisper_aries_tpu_torch.ops import beam_reorder as BR
     from whisper_aries_tpu_torch.ops import beam_tail as BT
     from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import decode_choice as DC
     from whisper_aries_tpu_torch.ops import decode_layers as DL
     from whisper_aries_tpu_torch.ops import decode_loop as DLP
     from whisper_aries_tpu_torch.ops import mel as M
     from whisper_aries_tpu_torch.ops import quant as Q
     from whisper_aries_tpu_torch.ops import self_attn as SA
+    from whisper_aries_tpu_torch.ops import vocab as VO
 
     return {"mel": M.mel_power_kernel,
             "encoder_attn": W.encoder_attention_kernel,
@@ -3612,10 +3921,14 @@ def counters():
             # decode_layers)
             "decode_layers_verify": DL.VERIFY,
             # the decode loop graphs launched (one a decode call), their
-            # condition kernel (one a step), the sampled rungs' draws
+            # condition kernel (one a step), the standalone draw (off every
+            # path: the choice kernel draws inside), the step's vocab
+            # product, the greedy choice
             "decode_loop": DLP.DeviceLoop,
             "loop_cond": DLP.loop_cond_kernel,
             "uniform_draw": DLP.uniform_draw_kernel,
+            "vocab_gemm": VO.vocab_product_kernel,
+            "decode_choice": DC.greedy_choice_kernel,
             # reads of device data inside decode loops (0 on the card)
             "host_reads": G._Reads,
             **probe_counters()}
@@ -3645,47 +3958,52 @@ def probe_counters():
 # the kernels each slice's path must launch, in the order the slices run
 PATH_KERNELS = {
     # every decode path runs each decode call as one loop graph
-    # (decode_loop, loop_cond); the greedy slice's ladder samples
+    # (decode_loop, loop_cond) whose step ends in the vocab kernel; greedy
+    # decoding and the ladder's sampled rungs choose by the choice kernel
+    # (every path but serve, which decodes at temperature 0 only)
     "greedy": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-               "decode_loop", "loop_cond", "uniform_draw"),
+               "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
+    # the beam paths' ladders sample (random weights fail every window at
+    # temperature 0): the choice kernel too, but in serve (temperature 0)
     "beam": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
              "beam_tail", "beam_reorder",
-             "decode_loop", "loop_cond"),
+             "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     "words": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
               "cross_attn_q8", "beam_tail", "beam_reorder",
-              "decode_loop", "loop_cond"),
+              "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     "self_int8": ("mel", "encoder_attn", "quant_matmul", "self_attn_q8",
-                  "decode_loop", "loop_cond"),
+                  "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     # self_int8 under ARIES_QUANT_IMPL=native: every dense product through
     # the native GEMM (the encoder's by the wgmma path and its preparation,
     # the steps' and prefills' by the cluster path), none through kernel 5
     "native": ("mel", "encoder_attn", "int8_prepare", "int8_gemm_wgmma",
                "int8_gemm_cluster", "self_attn_q8",
-               "decode_loop", "loop_cond"),
+               "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     "checkpoint": ("mel", "encoder_attn", "quant_matmul", "decode_layers",
                    "cross_attn_q8", "beam_tail", "beam_reorder",
-                   "decode_loop", "loop_cond"),
+                   "decode_loop", "loop_cond", "vocab_gemm",
+                   "decode_choice"),
     "pipeline": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
                  "beam_tail", "beam_reorder",
-                 "decode_loop", "loop_cond"),
+                 "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     "serve": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
               "beam_tail", "beam_reorder",
-              "decode_loop", "loop_cond"),
+              "decode_loop", "loop_cond", "vocab_gemm"),
     # the transcribe tool's run (beam 5, words) of the cli phase
     "cli": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
             "beam_tail", "beam_reorder",
-            "decode_loop", "loop_cond"),
+            "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     # three large-v3 f32 train steps, the train state, the diarizer's
     # trainers (mel on their batches)
     "train": ("mel", "encoder_attn_train", "encoder_attn_train_bwd"),
     # the beam engine at 2 windows a batch, depth 2 then depth 1
     "depth": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
               "beam_tail", "beam_reorder",
-              "decode_loop", "loop_cond"),
+              "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     # the parity harness's mock job through run_pipeline (beam 5)
     "tools": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
               "beam_tail", "beam_reorder",
-              "decode_loop", "loop_cond"),
+              "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
     # bench_speculative.main(): the verify step's replays (kernel 3 at
     # S 4), the one-token step's
     "speculative": ("decode_layers_verify", "decode_layers"),
@@ -5225,7 +5543,7 @@ def serve_phase(dev, eng, scene):
 
 #: the kernels a bf16 run launches greedy, and at beam 5
 GREEDY_KERNELS = ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
-                  "decode_loop")
+                  "decode_loop", "vocab_gemm")
 BEAM_KERNELS = GREEDY_KERNELS + ("beam_tail", "beam_reorder")
 
 
@@ -6410,6 +6728,8 @@ def main() -> None:
     kernel_self_attn(dev, entries)
     conditioned_phase(dev, entries, parts)
     kernel_uniform_draw(dev, entries)
+    kernel_vocab(dev, entries)
+    kernel_decode_choice(dev, entries)
     decode_loop_phase(dev, entries)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8
         profile_beam_step(dev, parts, B)
@@ -6445,10 +6765,11 @@ def main() -> None:
     if FAILED:
         fail("; ".join(FAILED))
     for e in entries:
-        # the launches of the first path that needs the kernel; every
-        # path's count beside
-        path = next(p for p, ks in paths.items() if e["name"] in ks)
-        e["launches"] = launches[path][e["name"]]
+        # the launches of the first path that needs the kernel (0 for the
+        # standalone draw, which no path launches since the choice kernel
+        # draws inside); every path's count beside
+        path = next((p for p, ks in paths.items() if e["name"] in ks), None)
+        e["launches"] = launches[path][e["name"]] if path else 0
         e["launches_by_path"] = {p: n[e["name"]] for p, n in launches.items()}
         if e["name"] == "quant_matmul":  # by GEMM path, in each int8 slice
             e["gemm_paths"] = {p: run[1] for p, run in runs.items()

@@ -767,6 +767,130 @@ def test_uniform_draw_kernel_bits(dev, seed):
     assert not torch.equal(other, draws[0])
 
 
+@pytest.mark.parametrize("M,V,K", [(1, 51866, 1280), (6, 51866, 1280),
+                                   (30, 51866, 1280), (40, 51866, 1280),
+                                   (64, 51866, 1280), (70, 1000, 128),
+                                   (300, 51866, 1280), (17, 513, 384)])
+def test_vocab_product_kernel(dev, M, V, K):
+    """The vocab kernel against its plain version: within 1e-5 of max
+    |logit| (f32 sums in another order), below bf16-rounded logits; the
+    last ragged unit of E (V % 16 rows) and rows past 64 (a second walk
+    of E) written; one count a call."""
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    emb = (0.05 * torch.randn((V, K), generator=g, device=dev)).to(
+        torch.bfloat16)
+    n = VO.vocab_product_kernel.launches
+    got = VO.vocab_product(x, emb)
+    assert VO.vocab_product_kernel.launches == n + 1
+    want = VO.vocab_product_plain(x, emb)
+    err = _rel(got, want)
+    assert err < 1e-5 < _rel(want.bfloat16(), want), err
+    assert torch.equal(got, VO.vocab_product(x, emb))  # the same bits again
+    plan = VO.vocab_plan(dev, M, V, K)
+    assert plan["passes"] == -(-M // plan["rows"])
+
+
+def _choice_state(dev, R, V, tsb, eot, seed, present=False):
+    """A loop state whose rows reach the grammar's branches (fresh, pair
+    open, pair closed, the floor, finished, timestamps boosted), and its
+    logits and mask."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = 3 * torch.randn((R, V), generator=g, device=dev)
+    logits[1::6, tsb:] += 12
+    pick = lambda vals: torch.as_tensor(vals, device=dev)[torch.randint(
+        0, len(vals), (R,), generator=g, device=dev)]
+    mask = torch.where(torch.rand((V,), generator=g, device=dev) < 0.01,
+                       F32_MIN, 0.0)
+    st = G.LoopState(
+        tokens=torch.randint(0, eot, (R, 16), generator=g, device=dev),
+        pos=torch.full((), 7, dtype=torch.int32, device=dev),
+        finished=torch.rand((R,), generator=g, device=dev) < 0.2,
+        sum_logprob=-5 * torch.rand((R,), generator=g, device=dev),
+        last_tok=pick([3, 100, tsb + 4, tsb + 40]),
+        penult_tok=pick([-1, 50, tsb + 2, tsb + 39]),
+        max_ts_tok=pick([-1, tsb + 4, tsb + 40]),
+        present=(torch.zeros((R, V), dtype=torch.bool, device=dev)
+                 if present else None),
+        steps=torch.full((), 2, dtype=torch.int32, device=dev),
+        arrived=torch.zeros((), dtype=torch.int32, device=dev))
+    return logits, mask, st
+
+
+def _clone_state(st):
+    import dataclasses
+
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone()
+        for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
+
+
+@pytest.mark.parametrize("V,R", [(51866, 6), (51866, 30), (1535, 5)])
+@pytest.mark.parametrize("first,with_ts,T", [
+    (False, True, 0.0), (True, True, 0.0), (False, False, 0.0),
+    (False, True, 0.7), (True, True, 1.3), (False, False, 0.4)])
+def test_decode_choice_kernel(dev, V, R, first, with_ts, T):
+    """The choice kernel against its plain version on the card: tokens and
+    every integer state identical, sum_logprob within 1e-6 of its
+    magnitude; pos and steps advanced once, the arrival counter back to 0;
+    present marked at the chosen token of live rows."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.ops import decode_choice as DC
+
+    tsb = V - 1501
+    ids = G.DecodeSpecialIds(eot=tsb - 10, sot=tsb - 9, no_speech=tsb - 2,
+                             no_timestamps=tsb - 1, timestamp_begin=tsb,
+                             blank=220 % (tsb - 10), n_vocab=V)
+    logits, mask, st = _choice_state(dev, R, V, tsb, ids.eot, R + V,
+                                     present=True)
+    want = _clone_state(st)
+    n = DC.greedy_choice_kernel.launches
+    DC.greedy_choice(logits, st, ids, mask, first, with_ts, True, T, 77)
+    assert DC.greedy_choice_kernel.launches == n + 1
+    DC.greedy_choice_plain(logits, want, ids, mask, first, with_ts, True, T,
+                           77)
+    for k in ("tokens", "finished", "last_tok", "penult_tok", "max_ts_tok",
+              "pos", "steps", "present"):
+        assert torch.equal(getattr(st, k), getattr(want, k)), k
+    assert int(st.arrived) == 0
+    assert _rel(st.sum_logprob, want.sum_logprob) < 1e-6
+
+
+def test_decode_choice_kernel_in_a_graph(dev):
+    """Captured once and replayed: each replay chooses at the state's
+    device position (pos advancing, the draw keyed by it), as the plain
+    version step by step."""
+    from whisper_aries_tpu_torch.decoding import generate as G
+    from whisper_aries_tpu_torch.ops import cuda_build as cb
+    from whisper_aries_tpu_torch.ops import decode_choice as DC
+
+    V, R = 51866, 30
+    tsb = V - 1501
+    ids = G.DecodeSpecialIds(eot=tsb - 10, sot=tsb - 9, no_speech=tsb - 2,
+                             no_timestamps=tsb - 1, timestamp_begin=tsb,
+                             blank=220, n_vocab=V)
+    logits, mask, st = _choice_state(dev, R, V, tsb, ids.eot, 5)
+    want = _clone_state(st)
+    DC.greedy_choice(logits, st, ids, mask, False, True, True, 0.9, 5)
+    torch.cuda.synchronize()
+    graph = cb.capture(dev, lambda: DC.greedy_choice(
+        logits, st, ids, mask, False, True, True, 0.9, 5))
+    DC.greedy_choice_plain(logits, want, ids, mask, False, True, True, 0.9, 5)
+    for _ in range(3):
+        graph.replay()
+        DC.greedy_choice_plain(logits, want, ids, mask, False, True, True,
+                               0.9, 5)
+    torch.cuda.synchronize()
+    assert int(st.pos) == 7 + 4 and int(st.arrived) == 0
+    for k in ("tokens", "finished", "last_tok", "max_ts_tok", "steps"):
+        assert torch.equal(getattr(st, k), getattr(want, k)), k
+    assert _rel(st.sum_logprob, want.sum_logprob) < 1e-6
+
+
 def test_beam_reorder_identity_skip(dev):
     """Kernel 8 with the identity skip: a window whose map is the
     identity is left as it is, a moving window is permuted, bit for bit
@@ -1725,8 +1849,8 @@ def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
 
     dims, params, wpack, g = small
     dev = wpack["wq8"].device
-    logits = W.vocab_logits
-    monkeypatch.setattr(W, "vocab_logits",
+    logits = W.vocab_logits_step
+    monkeypatch.setattr(W, "vocab_logits_step",
                         lambda dec, x: logits(dec, x) + float(x.sum() * 0))
     xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
     ids = G.DecodeSpecialIds(eot=511, sot=500, no_speech=510,

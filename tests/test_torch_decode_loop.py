@@ -289,7 +289,7 @@ def test_sampled_rung_reproducible_from_seed(models):
 
 
 def test_uniform_draw_plain_is_the_kernel_hash():
-    """The plain draw is the kernel's 32-bit hash (csrc/decode_loop.cu's
+    """The plain draw is the kernel's 32-bit hash (csrc/draw.cuh's
     ``mix32`` chain) in int64 torch ops: checked against the same chain
     in Python integers, where a product wrapping at 2^32 is explicit."""
 

@@ -13,14 +13,20 @@ on a host without them.
 
 ``library()`` builds one ``libariesaudio.so`` with g++ into the gitignored
 ``whisper_aries_tpu_torch/_build/`` at first use, and again whenever a
-source is newer than it. Nothing falls back: a failed build raises with the
+source is newer than it. Processes that start at once (test workers) build
+it once: the check and the build run under a lock on a file beside the
+library, so a second process waits for the first build and loads that
+file, and no library a process has loaded is replaced behind it. Nothing
+falls back: a failed build raises with the
 compiler's output, and a codec whose system library does not resolve
 raises ``AudioError`` naming that library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import subprocess
@@ -132,6 +138,19 @@ def build() -> None:
     os.replace(tmp, LIB_PATH)
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path):
+    """An exclusive lock across processes on ``build_dir/.build.lock``
+    (``flock``: released when the holder exits, however it exits)."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _bind(lib: ctypes.CDLL, entries) -> None:
     for name, restype, argtypes in entries:
         fn = getattr(lib, name)
@@ -139,13 +158,16 @@ def _bind(lib: ctypes.CDLL, entries) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded library, built first when missing or stale."""
+    """The loaded library, built first when missing or stale (checked
+    again under the build lock, so processes that found it stale at once
+    build it once)."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
-            lib = ctypes.CDLL(str(LIB_PATH))
+            with build_lock(BUILD_DIR):
+                if _stale():
+                    build()
+                lib = ctypes.CDLL(str(LIB_PATH))
             _bind(lib, _CORE_ENTRIES)
             lib.has_av = hasattr(lib, "aries_av_available")
             if lib.has_av:

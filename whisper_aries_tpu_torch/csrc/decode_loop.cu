@@ -28,11 +28,14 @@
 // the graph, into the handle. Bound: a launch (it reads R bytes).
 //
 // The draw kernel: u[r, v] in (0, 1), a counter-based hash of (seed, row,
-// pos, v), so a graph that replays it at every step draws new numbers at
-// each position and the same numbers for the same seed. It gives the
-// plain version's bits (integer hash, exact conversions: 23 bits + 0.5).
-// Bound: bytes, R x V x 4 written.
+// pos, v) (draw.cuh), so a graph that replays it at every step draws new
+// numbers at each position and the same numbers for the same seed. It gives
+// the plain version's bits (integer hash, exact conversions: 23 bits +
+// 0.5). The decode loop no longer launches it: decode_choice.cu draws the
+// same bits in registers inside the greedy choice. It stays as the hold of
+// the hash against the plain version. Bound: bytes, R x V x 4 written.
 #include "common.cuh"
+#include "draw.cuh"
 
 namespace {
 
@@ -53,15 +56,6 @@ loop_cond_kernel(const unsigned char* __restrict__ finished,
   }
 }
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
 constexpr int DRAW_THREADS = 256;
 
 __global__ void __launch_bounds__(DRAW_THREADS)
@@ -69,14 +63,10 @@ uniform_draw_kernel(uint32_t seed_lo, uint32_t seed_hi,
                     const int* __restrict__ pos, int V,
                     float* __restrict__ u) {
   const int r = blockIdx.y;
-  const uint32_t key =
-      mix32(mix32(mix32(seed_lo ^ mix32(seed_hi)) ^ (uint32_t)r) ^
-            (uint32_t)*pos);
+  const uint32_t key = draw_key(seed_lo, seed_hi, r, *pos);
   const int v = blockIdx.x * DRAW_THREADS + threadIdx.x;
   if (v >= V) return;
-  const uint32_t h = mix32(key ^ (uint32_t)v);
-  // 23 bits: (h >> 9) + 0.5 is exact in f32, so u lies in (0, 1)
-  u[(long long)r * V + v] = ((float)(h >> 9) + 0.5f) * 1.1920928955078125e-7f;
+  u[(long long)r * V + v] = draw_uniform(key, v);
 }
 
 struct Loop {
@@ -201,6 +191,15 @@ int aries_loop_destroy(void* loop) {
     if (err == cudaSuccess) err = e2;
   }
   delete lp;
+  return (int)err;
+}
+
+// The number of nodes of graph `g` (the captured body), for the records.
+int aries_graph_nodes(void* g, unsigned long long* n) {
+  size_t k = 0;
+  const cudaError_t err =
+      cudaGraphGetNodes(static_cast<cudaGraph_t>(g), nullptr, &k);
+  *n = k;
   return (int)err;
 }
 

@@ -6,8 +6,10 @@ and of its structure: a decode call is a prefill, then one loop whose
 state (``LoopState``, ``BeamState``) is a set of static device buffers,
 ``pos`` among them. The first sampled token comes from the prefill's
 logits, outside the loop, as in JAX; then each iteration runs one decoder
-step at ``pos - 1`` and the body (``greedy_body``: filters, log_softmax,
-the token choice, the bookkeeping; ``beam_body``: the beam tail kernel,
+step at ``pos - 1`` (its vocab product ``W.vocab_logits_step``: the
+vocab kernel on the card) and the body (``greedy_body``: the penalties,
+then the choice kernel of ops/decode_choice.py: filters, log_softmax, the
+token choice, the bookkeeping; ``beam_body``: the beam tail kernel,
 the finished buffer, the beams' gathers), which update the buffers in
 place and read ``pos`` only as a device tensor. The loop stops at JAX's
 ``cond``: every row has emitted end-of-text (greedy) or every window's
@@ -32,8 +34,9 @@ weights, as on the TPU. Without it each step is the whole unfused
 encoded windows ``xa``: several rows of a window (best_of samples, beams)
 share its cross K/V through the grouped cross-attention. A sampled rung
 draws its Gumbel noise from a counter-based hash of (the generator's
-seed, row, position, vocab index) (``decode_loop.uniform_draw``), so it is
-reproducible from its seed but does not reproduce JAX's random bits.
+seed, row, position, vocab index) (``decode_loop.uniform_draw``'s bits,
+computed inside the choice kernel on the card), so it is reproducible
+from its seed but does not reproduce JAX's random bits.
 
 Beam search (``beam_search_decode``) has one path: its tail (filters,
 log_softmax, scores, top-K) is the beam-tail kernel (ops/beam_tail.py) and
@@ -52,9 +55,10 @@ import torch
 
 from whisper_aries_tpu_torch.models import whisper as W
 from whisper_aries_tpu_torch.ops import cuda_build as cb
+from whisper_aries_tpu_torch.ops import decode_choice as DC
 from whisper_aries_tpu_torch.ops import decode_layers as DL
 from whisper_aries_tpu_torch.ops import decode_loop as DLP
-from whisper_aries_tpu_torch.decoding.logit_filters import (
+from whisper_aries_tpu_torch.decoding.logit_filters import (  # noqa: F401
     NEG_INF,
     apply_filters,
 )
@@ -185,7 +189,7 @@ def _step_logits(params, dims, tok, pos, cache, cross, fused, wpack,
     else:
         x = DL.fused_decoder_layers(x, wpack, cache, cross, valid_start, pos,
                                     dims.n_text_head)
-    return W.vocab_logits(dec, x)
+    return W.vocab_logits_step(dec, x)
 
 
 class _Step:
@@ -236,7 +240,7 @@ class _Step:
             at = torch.clamp(pos - self.valid_start, 0,
                              self.dims.n_text_ctx - 1).long().reshape(1)
             x = dec["tok_emb"][tok] + dec["pos_emb"].index_select(0, at)
-            return W.vocab_logits(dec, self.fs(x, pos))
+            return W.vocab_logits_step(dec, self.fs(x, pos))
         return W.decoder_step(self.params, tok[:, None], pos, self.cache,
                               self.cross, self.dims,
                               valid_start=self.vs)[:, 0]
@@ -329,43 +333,22 @@ class LoopState:
     max_ts_tok: torch.Tensor    # (R,) int64
     present: Optional[torch.Tensor]  # (R, V) bool (repetition penalty)
     steps: torch.Tensor         # () int32, tokens sampled
+    arrived: torch.Tensor       # () int32, the choice kernel's rows done
+    #                             in a step (0 between steps)
 
 
 def greedy_body(st: LoopState, logits: torch.Tensor, rules: _Rules,
                 is_first: bool = False) -> None:
     """One greedy / sampled token from (R, V) logits at ``st.pos``, the
-    JAX package's ``step``: filters, log_softmax, the choice (Gumbel-max
-    at a temperature), the bookkeeping, all in place. ``is_first`` (the
-    prefill's logits) is a constant of the call, never of an iteration."""
-    ids = rules.ids
-    R, V = logits.shape
+    JAX package's ``step``: the penalties, then the choice
+    (ops/decode_choice.py: filters, log_softmax, argmax or the Gumbel-max
+    draw at a temperature, the bookkeeping; one kernel launch on the card),
+    all in place. ``is_first`` (the prefill's logits) is a constant of the
+    call, never of an iteration."""
     logits = _penalised(logits, st.present, st.tokens, st.pos, rules)
-    f = apply_filters(logits, ids, rules.suppress_mask, is_first, st.last_tok,
-                      st.penult_tok, st.max_ts_tok, rules.with_timestamps)
-    logprobs = torch.log_softmax(f, dim=-1)
-    if rules.temperature > 0:
-        u = DLP.uniform_draw(rules.seed, st.pos, R, V)
-        gumbel = -torch.log(-torch.log(u))
-        next_tok = torch.argmax(f / max(rules.temperature, 1e-6) + gumbel,
-                                dim=-1)
-    else:
-        next_tok = torch.argmax(f, dim=-1)
-    next_tok = torch.where(st.finished, ids.eot, next_tok)
-    col = next_tok[:, None]
-    tok_lp = logprobs.gather(1, col)[:, 0]
-    st.sum_logprob.add_(torch.where(st.finished, 0.0, tok_lp))
-    if st.present is not None:
-        st.present.scatter_(1, col, st.present.gather(1, col)
-                            | ~st.finished[:, None])
-    st.finished.logical_or_(next_tok == ids.eot)
-    st.tokens.scatter_(1, st.pos.long().expand(R, 1), col)
-    is_ts = next_tok >= ids.timestamp_begin
-    st.max_ts_tok.copy_(torch.where(
-        is_ts, torch.maximum(st.max_ts_tok, next_tok), st.max_ts_tok))
-    st.penult_tok.copy_(st.last_tok)
-    st.last_tok.copy_(next_tok)
-    st.pos.add_(1)
-    st.steps.add_(1)
+    DC.greedy_choice(logits, st, rules.ids, rules.suppress_mask, is_first,
+                     rules.with_timestamps, rules.suppress_blank,
+                     rules.temperature, rules.seed)
 
 
 def _greedy_iteration(st: LoopState, step_logits: Callable, rules: _Rules,
@@ -497,7 +480,8 @@ def greedy_decode(
         max_ts_tok=torch.full((B,), -1, dtype=torch.long, device=dev),
         present=(torch.zeros((B, ids.n_vocab), dtype=torch.bool, device=dev)
                  if repetition_penalty is not None else None),
-        steps=torch.zeros((), dtype=torch.int32, device=dev))
+        steps=torch.zeros((), dtype=torch.int32, device=dev),
+        arrived=torch.zeros((), dtype=torch.int32, device=dev))
     # the first sampled token, from the prefill's logits
     greedy_body(st, logits_p[:, -1], rules, is_first=True)
     del logits_p

@@ -58,6 +58,7 @@ from whisper_aries_tpu_torch.ops.self_attn import (
     self_attention_q8,
     self_attention_q8_plain,
 )
+from whisper_aries_tpu_torch.ops.vocab import vocab_product
 
 NEG = float(np.finfo(np.float32).min)
 
@@ -640,6 +641,20 @@ def vocab_logits(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), dec["tok_emb"].float().T)
 
 
+def vocab_logits_step(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """``vocab_logits`` for decoding: the final LayerNorm, then the product
+    with the tied embedding by the vocab kernel (ops/vocab.py: the bf16
+    embedding read once, f32 sums) for CUDA tensors, its plain version for
+    CPU ones. It has no gradient: training keeps ``vocab_logits``."""
+    emb = dec["tok_emb"]
+    if torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad):
+        raise RuntimeError("vocab_logits_step has no gradient: "
+                           "differentiate vocab_logits")
+    h = layer_norm(dec["ln"], x)
+    lead = h.shape[:-1]
+    return vocab_product(h.reshape(-1, h.shape[-1]), emb).reshape(*lead, -1)
+
+
 def _teacher_forced(params: Dict[str, Any], tokens: torch.Tensor,
                     xa: torch.Tensor, dims: WhisperDims, on_cross_qk=None
                     ) -> torch.Tensor:
@@ -890,7 +905,7 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
 
         h = layer_norm(p["ln2"], x)
         x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
-    return vocab_logits(dec, x)
+    return vocab_logits_step(dec, x)
 
 
 decoder_step.graph_replays = 0
@@ -1026,4 +1041,4 @@ def decoder_step_fused_multi(params: Dict[str, Any],
     # rows window-major: row b S + s is window b's draft s
     x = DL.fused_decoder_layers(x.reshape(B * S, -1), wpack, cache, cross,
                                 vs, pos, dims.n_text_head, queries=S)
-    return vocab_logits(dec, x).reshape(B, S, -1), cache
+    return vocab_logits_step(dec, x).reshape(B, S, -1), cache

@@ -8,7 +8,11 @@ a plain C interface and loaded with ctypes:
 
 The libraries go to ``whisper_aries_tpu_torch/_build/`` (listed in
 .gitignore) at first use and are rebuilt when a source is newer. The build
-reads only the sources in this package. ``build()`` starts one nvcc per
+reads only the sources in this package. Processes that start at once (test
+workers on one card) build each library once: the staleness check, the
+build and the load run under a lock on a file in the build directory
+(``audio/_native.py::build_lock``), so no process finds a library it has
+loaded replaced behind it. ``build()`` starts one nvcc per
 source, all at once, so the kernels build in parallel; ptxas' register and
 spill report for each source is kept beside its library as ``<name>.log``.
 
@@ -31,12 +35,15 @@ from typing import Dict, Iterable
 
 import torch
 
+from whisper_aries_tpu_torch.audio._native import build_lock
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mel", "encoder_attn", "encoder_attn_train", "decode_layers",
            "cross_attn", "beam_tail", "beam_reorder", "quant_matmul",
-           "int8_gemm", "self_attn", "decode_loop", "probe_copy",
+           "int8_gemm", "self_attn", "decode_loop", "decode_choice",
+           "vocab_gemm", "probe_copy",
            "probe_mma", "probe_transpose", "probe_qa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -67,12 +74,20 @@ def _stale(name: str) -> bool:
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every stale source, one nvcc process each, all started
-    together. Returns {name: seconds} for the sources built; raises with
-    nvcc's output when one fails."""
-    todo = [n for n in names if _stale(n)]
+    together, under the build directory's lock (the sources are checked
+    again once it is held: what another process built meanwhile is not
+    built twice). Returns {name: seconds} for the sources built; raises
+    with nvcc's output when one fails."""
+    names = list(names)
+    if not any(_stale(n) for n in names):
+        return {}
+    with build_lock(BUILD_DIR):
+        return _build([n for n in names if _stale(n)])
+
+
+def _build(todo) -> Dict[str, float]:
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.time()
@@ -107,7 +122,8 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_so(name)))
+            with build_lock(BUILD_DIR):  # no rebuild replaces it meanwhile
+                lib = ctypes.CDLL(str(_so(name)))
             _libs[name] = lib
         return lib
 

@@ -21,7 +21,10 @@ index), so the same seed gives the same tokens run after run and a
 captured step draws new numbers at each position. It replaces the TPU's
 own random bits in ``jax.random.categorical`` (generate.py:364) and does
 not reproduce them. The kernel for CUDA tensors, the plain version (the
-same integer hash in int64 torch ops) for CPU tensors, bit for bit.
+same integer hash in int64 torch ops) for CPU tensors, bit for bit. The
+decode loop's greedy choice (ops/decode_choice.py) draws the same bits in
+registers inside its own kernel; the standalone draw kernel is the hold of
+the hash against the plain version.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ def _lib():
         "aries_loop_launch": [_P, _P],
         "aries_loop_destroy": [_P],
         "aries_loop_runtime_version": [],
+        "aries_graph_nodes": [_P, ctypes.POINTER(_ULL)],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
@@ -205,8 +209,9 @@ class DeviceLoop:
     state's flags (``finished`` or ``counts`` with ``need``) and ``L`` are
     the condition's operands. The launches the capture records count at
     ``finish(iterations)``, when the caller has read how many iterations
-    ran. Keep the state alive until ``close()``; the captured graph and its
-    memory pool live as long as this object."""
+    ran; ``body_nodes`` is the captured iteration's node count. Keep the
+    state alive until ``close()``; the captured graph and its memory pool
+    live as long as this object."""
 
     def __init__(self, dev: torch.device, body: Callable[[], None],
                  pos: torch.Tensor, L: int,
@@ -234,6 +239,11 @@ class DeviceLoop:
             # the body's launches, counted once per iteration at finish()
             with cb.recording() as self.recorded:
                 self.graph = cb.capture(dev, step, keep_graph=True)
+            nodes = _ULL()
+            cb.check(lib.aries_graph_nodes(_P(self.graph.raw_cuda_graph()),
+                                           ctypes.byref(nodes)),
+                     "decode loop graph (counting its body's nodes)")
+            self.body_nodes = nodes.value
             fin, cnt, n = _flags(finished, counts)
             stage = _I(0)
             with torch.cuda.device(dev):
