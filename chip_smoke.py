@@ -109,11 +109,14 @@ caught; a kernel check that fails is printed at once and fails the run
      kernel (csrc/decode_loop.cu) at R 30 x 51866, position 116, bit for
      bit its plain version, below "the position left out of the key" (no
      path launches it since the choice kernel draws the same bits inside).
-     The step's vocab product (csrc/vocab_gemm.cu) at M 6, 30, 40, 64 and
-     the conditioned prefill's 1135 over large-v3's bf16 embedding: within
-     1e-5 of max |want| of the plain version, below "a 128-id tile
-     dropped", "the last 26 ids unwritten" and "bf16-rounded logits",
-     timed beside the plain version and cuBLAS ("vocab_product" line).
+     The vocab product (csrc/vocab_gemm.cu) at M 6, 30, 40, 64 (the
+     "passes" path) and 128, 256, 512, the words slice's 672, 1135 and
+     1536 (the "tiles" path) over large-v3's bf16 embedding: within 1e-5
+     of max |want| of the plain version, the same bits again, below "a
+     128-id tile dropped", "the last 26 ids unwritten", "bf16-rounded
+     logits" and, on tiles, "the last M % 128 rows unwritten" and "one
+     128 x 256 tile dropped", timed beside the plain version, cuBLAS and
+     the other path ("vocab_product" and "vocab crossover" lines).
      The greedy choice (csrc/decode_choice.cu) at R 6, 30, 40 and 64 over
      51866 ids, first step or not, timestamps on and off, temperature 0,
      0.7 and 1.3: tokens and integer state identical to the plain
@@ -186,7 +189,11 @@ caught; a kernel check that fails is printed at once and fails the run
      launched, every decode call must have run as one loop graph with no
      host read inside (decode_loops, host_reads), and every decode step
      after a prefill must have been an iteration of it (graph_replays,
-     layer_steps; also in the beam and words slices).
+     layer_steps; also in the beam and words slices). In every slice no
+     vocab product on CUDA tensors without a gradient may run through the
+     plain vocab_logits; the vocab kernel's launches by path (vocab_paths)
+     and the products' M by path (vocab_rows, calls from the host) are
+     printed.
   6. beam slice: the same file and weights with config decode.beam_size=5;
      all six kernels must have launched, counted from 0 again.
   7. words slice: compute int8 under ARIES_QUANT_IMPL=pallas, beam 5,
@@ -198,8 +205,10 @@ caught; a kernel check that fails is printed at once and fails the run
      launches by path (gemm_paths) and, for the products at M = windows x
      1500 (the encoder's and the cross K/V's), their count by M and path
      (gemm_windowed): every one must have taken the wgmma path, M 9000
-     among them. The C++ DTW must give _dtw_path_py's path on every cost
-     matrix the word pass handed it (both timed).
+     among them. The word pass's vocab product (M = windows x S_pad)
+     must have launched the vocab kernel's tiles path. The C++ DTW must
+     give _dtw_path_py's path on every cost matrix the word pass handed it
+     (both timed).
   8. self_int8 slice: compute int8 under ARIES_QUANT_IMPL=pallas,
      decode.kv_cache_dtype bf16 with decode.self_kv_cache_dtype int8,
      greedy at temperature 0: unfused steps, which must launch the int8
@@ -1932,7 +1941,7 @@ def profile_beam_step(dev, parts, B):
 
     def step():  # the layers replayed from one graph, as the slices run
         y = graph.run(x, pos)
-        logits = W.vocab_logits(dec, y)
+        logits = W.vocab_logits_step(dec, y)
         BT.beam_tail(logits, sum_lp, last, pen, mts, sup, False, K, **kw)
         BR.permute_cache_rows(cache, src)
 
@@ -3290,31 +3299,45 @@ def kernel_uniform_draw(dev, entries):
 
 
 #: the vocab product's rows: greedy R 6, best_of / beam R 30, beam over 8
-#: windows R 40, the verify step's 16 windows x 4 drafts R 64, and the
-#: conditioned prefill's 5 rows x 227 positions (18 passes of 64 rows)
-VOCAB_M = (6, 30, 40, 64, 1135)
+#: windows R 40, the verify step's 16 windows x 4 drafts R 64 (the
+#: "passes" path); 128, 256 and 512 (the cut-over's neighbourhood), the
+#: words slice's word pass (3 windows x 224 tokens: M 672), a conditioned
+#: full prefill's 5 rows x 227 positions (M 1135) and 6 windows x 256
+#: (M 1536) (the "tiles" path)
+VOCAB_M = (6, 30, 40, 64, 128, 256, 512, 672, 1135, 1536)
 
 
 def kernel_vocab(dev, entries):
-    """The step's vocab product (csrc/vocab_gemm.cu) at large-v3 (V 51866,
-    K 1280, a bf16 embedding) at each M of VOCAB_M: within 1e-5 of max
-    |want| of its plain version (x.float() @ E.float().T), below "a
-    128-id tile dropped", "the last 26 ids (past 405 whole tiles of 128)
-    unwritten" and "the logits rounded to bf16"; timed (events and the
-    profiler's device time) beside the plain version and one cuBLAS call
-    of the same function (torch.mm into f32 where the installed torch
-    takes out_dtype, else torch.matmul into bf16). The entry is M 6's."""
+    """The vocab product (csrc/vocab_gemm.cu) at large-v3 (V 51866, K
+    1280, a bf16 embedding) at each M of VOCAB_M, by the path the plan
+    names: within 1e-5 of max |want| of its plain version (x.float() @
+    E.float().T), the same bits on a second call, below "a 128-id tile
+    dropped", "the last 26 ids (past 405 whole tiles of 128) unwritten",
+    "the logits rounded to bf16" and, on the tiles path, "the last M % 128
+    rows unwritten" (the partial M tile; 128 where M is a multiple) and
+    "one 128 x 256 tile dropped"; timed (events and the profiler's device
+    time) beside the plain version, one cuBLAS call of the same function
+    (torch.mm into f32 where the installed torch takes out_dtype, else
+    torch.matmul into bf16) and the other path at the same M (the
+    "vocab crossover" line). The entry is M 6's; every M is in its
+    shapes."""
     import torch
     from whisper_aries_tpu_torch.ops import vocab as VO
 
+    t0 = time.time()
     V, K = 51866, 1280
     g = torch.Generator(device=dev).manual_seed(24)
     emb = (0.05 * torch.randn((V, K), generator=g, device=dev)).to(
         torch.bfloat16)
-    shapes = []
+    shapes, crossover = [], []
     for M in VOCAB_M:
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        plan = VO.vocab_plan(dev, M, V, K)
+        want_path = "tiles" if M > VO.TILES_ABOVE else "passes"
+        check(f"vocab_product plan [M {M}]", plan["path"] == want_path,
+              json.dumps(plan))
         got = VO.vocab_product_kernel(x, emb)
+        again = VO.vocab_product_kernel(x, emb)
         want = VO.vocab_product_plain(x, emb)
         torch.cuda.synchronize()
         top = float(want.abs().max())
@@ -3328,11 +3351,25 @@ def kernel_vocab(dev, entries):
                 float((tail - want).abs().max()) / top,
             "bf16-rounded logits":
                 float((want.bfloat16().float() - want).abs().max()) / top}
+        if plan["path"] == "tiles":
+            rows = M % 128 or 128
+            part, wide = want.clone(), want.clone()
+            part[M - rows:] = 0
+            m0, n0 = (M - 1) // 256 * 128, V // 2 // 256 * 256
+            wide[m0:m0 + 128, n0:n0 + 256] = 0
+            mistakes[f"the last {rows} rows unwritten"] = float(
+                (part - want).abs().max()) / top
+            mistakes["one 128 x 256 tile dropped"] = float(
+                (wide - want).abs().max()) / top
         err = float((got - want).abs().max()) / top
-        hold = held(f"vocab_product[M {M}, V {V}, K {K}]",
+        hold = held(f"vocab_product[M {M}, V {V}, K {K}, {plan['path']}]",
                     {"max_rel": err}, {"max_rel": 1e-5},
                     {"max_rel": min(mistakes.values())})
+        check(f"vocab_product[M {M}] the same bits on a second call",
+              torch.equal(got, again), f"path {plan['path']}")
+        del got, again, want, tile, tail
         kern = lambda: VO.vocab_product_kernel(x, emb)
+        other = "passes" if plan["path"] == "tiles" else "tiles"
         try:
             lib = lambda: torch.mm(x, emb.T, out_dtype=torch.float32)
             lib()
@@ -3342,14 +3379,24 @@ def kernel_vocab(dev, entries):
             lib_note = "torch.matmul(x, E.T): cuBLAS, bf16 out"
         b_ms, b_by = bound(V * K * 2 + M * K * 2 + M * V * 4,
                            2.0 * M * V * K, PEAK_BF16)
-        shapes.append(dict(
-            M=M, plan=VO.vocab_plan(dev, M, V, K), max_rel=err,
-            mistakes=mistakes, hold=hold,
-            ms=time_ms(kern, 50), device_ms=device_ms(kern),
-            plain_ms=time_ms(lambda: VO.vocab_product_plain(x, emb), 10),
-            library_ms=time_ms(lib, 50), library_device_ms=device_ms(lib),
-            library_note=lib_note, bound_ms=b_ms, bound_by=b_by))
+        n_calls = 50 if M <= 512 else 20
+        part = dict(
+            M=M, plan=plan, max_rel=err, mistakes=mistakes, hold=hold,
+            ms=time_ms(kern, n_calls), device_ms=device_ms(kern),
+            other_path=other,
+            other_device_ms=device_ms(
+                lambda: VO.vocab_product_kernel(x, emb, path=other)),
+            plain_ms=time_ms(lambda: VO.vocab_product_plain(x, emb), 5),
+            library_ms=time_ms(lib, n_calls),
+            library_device_ms=device_ms(lib),
+            library_note=lib_note, bound_ms=b_ms, bound_by=b_by)
+        shapes.append(part)
+        crossover.append({"M": M, plan["path"]: part["device_ms"],
+                          other: part["other_device_ms"],
+                          "cublas": part["library_device_ms"],
+                          "bound": b_ms, "by": b_by})
     print("vocab_product " + json.dumps(shapes), flush=True)
+    print("vocab crossover " + json.dumps(crossover), flush=True)
     main = shapes[0]
     entries.append(dict(
         name="vocab_gemm", route="cuda",
@@ -3362,7 +3409,7 @@ def kernel_vocab(dev, entries):
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         library_note=main["library_note"],
         shape=f"x ({VOCAB_M[0]}, {K}) bf16 . E ({V}, {K}) bf16 -> f32",
-        shapes=shapes))
+        shapes=shapes, phase_s=time.time() - t0))
 
 
 #: the choice's rows: greedy R 6, the sampled rungs' R 30, 8 windows x 5
@@ -4141,6 +4188,7 @@ def slice_phase(dev, path: str, keep: bool = False):
     from whisper_aries_tpu_torch.align import word_align as WA
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import vocab as VO
 
     # the words slice's DTW cost matrices, as the word pass hands them over
     dtw, costs = WA.dtw_path, []
@@ -4150,9 +4198,29 @@ def slice_phase(dev, path: str, keep: bool = False):
         return dtw(cost)
 
     WA.dtw_path = recording_dtw
+    # every vocab product's (M, path) on the card, and the products on CUDA
+    # tensors that autograd does not need but that went through the plain
+    # vocab_logits (none may)
+    vocab_rows, plain_vocab = Counter(), []
+    product, logits_plain = W.vocab_product, W.vocab_logits
+
+    def recording_product(x, emb):
+        if x.is_cuda:
+            vocab_rows[f"M {x.shape[0]} " + (
+                "tiles" if x.shape[0] > VO.TILES_ABOVE else "passes")] += 1
+        return product(x, emb)
+
+    def recording_logits(dec, x):
+        if x.is_cuda and not (torch.is_grad_enabled() and (
+                x.requires_grad or dec["tok_emb"].requires_grad)):
+            plain_vocab.append(tuple(x.shape))
+        return logits_plain(dec, x)
+
+    W.vocab_product, W.vocab_logits = recording_product, recording_logits
     try:
         for fn in counters().values():
             fn.launches = 0
+        VO.vocab_product_kernel.launches_by_path = dict.fromkeys(VO.PATHS, 0)
         DL.fused_decoder_layers.graph_replays = 0
         W.decoder_step.graph_replays = 0
         gemm = Q.quant_matmul_dequant_kernel
@@ -4168,10 +4236,12 @@ def slice_phase(dev, path: str, keep: bool = False):
         graph_replays = (DL.fused_decoder_layers.graph_replays if eng.fused
                          else W.decoder_step.graph_replays)
         gemm_paths = dict(gemm.launches_by_path)
+        vocab_paths = dict(VO.vocab_product_kernel.launches_by_path)
     finally:
         Q.gemm_plan = plan
         Q.int8_gemm_plan = plan8
         WA.dtw_path = dtw
+        W.vocab_product, W.vocab_logits = product, logits_plain
         if old_impl is None:
             os.environ.pop("ARIES_QUANT_IMPL", None)
         else:
@@ -4183,6 +4253,15 @@ def slice_phase(dev, path: str, keep: bool = False):
     for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {path} path")
+    if plain_vocab:
+        fail(f"{path}: {len(plain_vocab)} vocab products on CUDA tensors "
+             f"without a gradient went through vocab_logits: {plain_vocab}")
+    if sum(vocab_paths.values()) != launches["vocab_gemm"]:
+        fail(f"{path}: vocab launches by path {vocab_paths} do not add up "
+             f"to {launches['vocab_gemm']}")
+    if path == "words" and not vocab_paths["tiles"]:
+        fail(f"words: the word pass made no tiles launch of the vocab "
+             f"product: {dict(vocab_rows)}")
     if path == "native" and launches["quant_matmul"]:
         fail(f"native: the W8A16 GEMM launched {launches['quant_matmul']} "
              "times under ARIES_QUANT_IMPL=native")
@@ -4259,7 +4338,8 @@ def slice_phase(dev, path: str, keep: bool = False):
         host_reads=host_reads, decode_loops=launches["decode_loop"],
         launches=launches, graph_replays=graph_replays,
         layer_steps=layer_steps, gemm_paths=gemm_paths, gemm_windowed=by_m,
-        gemm_rows=by_rows,
+        gemm_rows=by_rows, vocab_paths=vocab_paths,
+        vocab_rows=dict(vocab_rows),
         native_gemm_shapes=dict(Counter(f"M {m} N {n} K {k} {p}"
                                  for m, n, k, p in planned8)),
         peak_mem_gb=peak_gb, performance=res["performance"],

@@ -790,7 +790,72 @@ def test_vocab_product_kernel(dev, M, V, K):
     assert err < 1e-5 < _rel(want.bfloat16(), want), err
     assert torch.equal(got, VO.vocab_product(x, emb))  # the same bits again
     plan = VO.vocab_plan(dev, M, V, K)
-    assert plan["passes"] == -(-M // plan["rows"])
+    assert plan["path"] == ("tiles" if M > VO.TILES_ABOVE else "passes")
+    if plan["path"] == "passes":
+        assert plan["passes"] == -(-M // plan["rows"])
+    else:
+        assert plan["m_tiles"] == -(-M // 128)
+
+
+@pytest.mark.parametrize("M,V,K", [(65, 51866, 1280), (128, 51866, 1280),
+                                   (129, 51866, 1280), (1135, 51866, 1280),
+                                   (1536, 51866, 1280), (65, 513, 384),
+                                   (300, 513, 384), (129, 1000, 384),
+                                   (700, 1000, 384)])
+def test_vocab_tiles_path(dev, M, V, K):
+    """The vocab kernel's tiles path (M above the plan's cut-over) against
+    the plain version: within 1e-5 of max |logit|, below "bf16-rounded
+    logits" and "the last M % 128 rows unwritten" (the partial M tile; 128
+    where M is a multiple); the ragged last band of ids (V % 256, V % 128)
+    written, an odd V's rows stored at every alignment; the same bits on a
+    second call; the path the plan names; one count a call, in
+    launches_by_path["tiles"]."""
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    g = torch.Generator(device=dev).manual_seed(M + V)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    emb = (0.05 * torch.randn((V, K), generator=g, device=dev)).to(
+        torch.bfloat16)
+    plan = VO.vocab_plan(dev, M, V, K)
+    assert plan["path"] == "tiles" and plan["m_tiles"] == -(-M // 128)
+    n = dict(VO.vocab_product_kernel.launches_by_path)
+    got = VO.vocab_product(x, emb)
+    assert VO.vocab_product_kernel.launches_by_path == {
+        "passes": n["passes"], "tiles": n["tiles"] + 1}
+    want = VO.vocab_product_plain(x, emb)
+    part = want.clone()
+    part[M - (M % 128 or 128):] = 0
+    err = _rel(got, want)
+    assert err < 1e-5 < min(_rel(want.bfloat16(), want), _rel(part, want))
+    assert torch.equal(got, VO.vocab_product(x, emb))
+
+
+def test_alignment_forward_launches_the_tiles_path(small, monkeypatch):
+    """The word pass's teacher-forced product (M = B x S = 80 rows) on the
+    card: the vocab kernel's tiles path, never vocab_logits; token_probs
+    within 1e-4 of the pass with the product through vocab_logits."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    xa = torch.randn((2, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, 500, (2, 40), generator=g, device=dev)
+    sel = np.zeros((2, 1, 2), np.float32)
+    sel[1, 0, 0] = 1.0
+    calls, logits = [], W.vocab_logits
+    monkeypatch.setattr(W, "vocab_logits",
+                        lambda dec, x: calls.append(x.shape) or logits(dec, x))
+    n = dict(VO.vocab_product_kernel.launches_by_path)
+    qk, probs = W.alignment_forward(params, tokens, xa, sel, dims)
+    torch.cuda.synchronize()
+    assert not calls
+    assert VO.vocab_product_kernel.launches_by_path == {
+        "passes": n["passes"], "tiles": n["tiles"] + 1}
+    assert bool(torch.isfinite(probs).all()) and bool(torch.isfinite(qk).all())
+    monkeypatch.setattr(W, "final_logits", logits)
+    _, want = W.alignment_forward(params, tokens, xa, sel, dims)
+    assert float((probs - want).abs().max()) < 1e-4
 
 
 def _choice_state(dev, R, V, tsb, eot, seed, present=False):

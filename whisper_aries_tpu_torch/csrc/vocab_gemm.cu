@@ -1,19 +1,22 @@
-// The vocab product of a decode step (ops/vocab.py): logits (M, V) f32 =
-// x (M, K) bf16 . E (V, K)^T bf16, E the tied token embedding as the model
-// holds it (row-major, K contiguous), products exact in f32 and summed in
-// f32 on the tensor cores.
+// The vocab product (ops/vocab.py): logits (M, V) f32 = x (M, K) bf16 .
+// E (V, K)^T bf16, E the tied token embedding as the model holds it
+// (row-major, K contiguous), products exact in f32 and summed in f32 on the
+// tensor cores.
 //
 // Replaces: whisper_aries_tpu/models/whisper.py:510 (decoder_forward's
 // `jnp.dot(x, emb.T, preferred_element_type=f32)`, and the same product in
-// decoder_step, :1249, and the verify step), an XLA dot that XLA fuses with
-// the embedding's read; no Pallas kernel. The port's plain version
-// (x.float() @ E.float().T) wrote an f32 copy of E at every step and read
-// it back in an f32 GEMM.
+// decoder_step, :1249, alignment_forward, :589, and the verify step), an
+// XLA dot that XLA fuses with the embedding's read; no Pallas kernel. The
+// port's plain version (x.float() @ E.float().T) writes an f32 copy of E
+// and reads it back in an f32 GEMM.
 //
-// Bound: bytes. At a decode step's M (6 to 64 rows) the product does
-// 2 M FLOP for each 2-byte element of E: far below the ~295 FLOP a byte at
-// which bf16 products become the limit, so the design is about keeping
-// E's 132.8 MB (large-v3: 51,866 x 1,280) streaming at the card's rate:
+// Two paths, picked by M (aries_vocab_gemm_plan; `path` forces one):
+//
+// "passes" (M <= VG_TILES_ABOVE: a decode step's 6 to 64 rows). Bound:
+// bytes. The product does 2 M FLOP for each 2-byte element of E: far below
+// the ~295 FLOP a byte at which bf16 products become the limit, so the
+// design is about keeping E's 132.8 MB (large-v3: 51,866 x 1,280)
+// streaming at the card's rate:
 //
 //   * A and B swapped: E's vocab rows are the MMAs' M dimension (the
 //     K-major A operand of mma.sync m16n8k16) and the decode rows the N
@@ -28,15 +31,43 @@
 //   * x staged in shared memory once a block (16-byte chunks swizzled
 //     against bank conflicts), up to 64 rows a pass; the ring takes the
 //     rest of the 227 KB (4 stages, 64 KB in flight, at 64 rows of K 1280;
-//     8 stages at 8 rows). More rows (the prefills: rows x prompt) run
-//     more passes in the same launch, the passes over one range of E
-//     adjacent in the grid, so they stream it together and all but one
-//     read it from L2.
+//     8 stages at 8 rows). More rows run more passes in the same launch,
+//     the passes over one range of E adjacent in the grid (all but one
+//     read it from L2), but every pass walks all of E through the SMs.
 //   * Each warp writes its 16 x 8 NB sums straight from the accumulators:
 //     a store instruction writes 8 consecutive ids (32 bytes) of each of
 //     four rows, and a block's units are contiguous, so the L2 holds whole
 //     sectors of a block's logits before they go to memory; the logits are
 //     1-10% of E's bytes at decode rows.
+//
+// "tiles" (M > VG_TILES_ABOVE: the teacher-forced passes, the word pass's
+// B x S_pad rows, the larger prefills). Bound: operations above M ~800
+// (2 M V K at 989 TFLOP/s: 0.152 ms at M 1135), bytes below (E once, x
+// once, the f32 logits once). A persistent TMA + bf16 wgmma GEMM:
+//
+//   * Output tiles of 128 rows x 256 ids. x (M, K) is the K-major A
+//     operand, E (V, K) already the K-major B operand: no transpose, no
+//     scratch. Both come by TMA in 64-k stages (128-byte swizzle; rows
+//     past M or V zero-filled, so their sums are 0 and never stored) into
+//     a ring of 4 stages (192 KB) with full and empty mbarriers, filled by
+//     one producer thread (its warpgroup gives its registers back by
+//     setmaxnreg). Two consumer warpgroups of 64 rows each run one
+//     m64n256k16 a k16 step, one commit group in flight.
+//   * The tile order keeps E's bands in L2: tiles are numbered with the M
+//     tile fastest and block b takes tiles b, b + grid, ..., so the ~132
+//     tiles in flight share ~132 / ceil(M / 128) vocab bands of E (0.66 MB
+//     each) and all of x: E comes from memory about once. (A block owning
+//     a band and walking its M tiles would keep 132 bands alive, 86 MB,
+//     more than the 50 MB L2.)
+//   * The epilogue is half the bytes at large M (the f32 logits, 235 MB at
+//     M 1135). Their row stride, V x 4 = 207,464 bytes at large-v3, is 8
+//     mod 16: TMA cannot store the tensor (strides must be multiples of 16)
+//     and 16-byte stores are misaligned on every other row. Each
+//     warpgroup stages its 64 rows a 32-id (128-byte) chunk at a time in
+//     shared memory and writes whole 128-byte row pieces with 8-byte
+//     streaming stores (4-byte where V is odd), which the L2 drains while
+//     the consumers run the next tile, the producer already filling its
+//     stages.
 #include "hopper.cuh"
 
 namespace {
@@ -234,52 +265,233 @@ inline int nb_of(int rows) {
   return rows <= 8 ? 1 : rows <= 16 ? 2 : rows <= 32 ? 4 : 8;
 }
 
+// ---------------------------------------------------------------------------
+// "tiles" path: TMA + bf16 wgmma, warp-specialised, persistent
+// ---------------------------------------------------------------------------
+
+constexpr int VG_TILES_ABOVE = 64;     // M above which the plan takes tiles
+constexpr int T_BM = 128;              // rows a tile: two warpgroups of 64
+constexpr int T_BK = 64;               // k a stage: a 128-byte swizzled row
+constexpr int T_THREADS = 384;         // consumers: warpgroups 0, 1;
+                                       // producer: warpgroup 2
+constexpr int T_A = T_BM * T_BK * 2;   // 16 KB: the x tile
+constexpr int T_CW = 32;               // ids a staged chunk (128 bytes)
+constexpr int T_PITCH = T_CW * 4 + 16; // bytes a staged row (16 of pad:
+                                       // conflict-free fragment writes)
+constexpr int T_OUT = 64 * T_PITCH;    // a consumer warpgroup's buffer
+constexpr int T_BN = 256;              // ids a tile: one m64n256k16 a k16
+constexpr int T_STAGES = 4;            // ring stages: 4 x 48 KB
+constexpr int T_STAGE = T_A + T_BN * T_BK * 2;
+// the ring, then 1 KB for the barriers, then the two output buffers
+constexpr int T_SMEM = 1024 + T_STAGES * T_STAGE + 1024 + 2 * T_OUT;
+
+// mx: x (K, M) box (64, 128); me: E (K, V) box (64, 256); both 128-byte
+// swizzled. Block b takes tiles b, b + gridDim.x, ... of tiles_m x
+// ceil(V / 256), the M tile fastest; the producer runs on into the next
+// tile's stages while the consumers store this one's.
+__global__ void __launch_bounds__(T_THREADS, 1)
+tiles_kernel(const __grid_constant__ CUtensorMap mx,
+             const __grid_constant__ CUtensorMap me, float* __restrict__ out,
+             int M, int V, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T_STAGES * T_STAGE);
+  uint64_t* empty = full + T_STAGES;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int kch = K / T_BK;
+  const int tiles_m = (M + T_BM - 1) / T_BM;
+  const int tiles = tiles_m * ((V + T_BN - 1) / T_BN);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < T_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int it = 0;  // stages issued, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * T_BM;
+        const int n0 = (tile / tiles_m) * T_BN;
+        for (int kc = 0; kc < kch; ++kc, ++it) {
+          const int st = it % T_STAGES;
+          if (it >= T_STAGES) mbar_wait(&empty[st], (it / T_STAGES - 1) & 1);
+          uint8_t* a = smem + st * T_STAGE;
+          mbar_arrive_expect_tx(&full[st], T_STAGE);
+          tma_load_2d(a, &mx, &full[st], kc * T_BK, m0);
+          tma_load_2d(a + T_A, &me, &full[st], kc * T_BK, n0);
+        }
+      }
+    }
+    return;
+  }
+  // consumers: rows m0 + 64 wg .. + 63 of each tile
+  setmaxnreg_inc<232>();
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool even = (V & 1) == 0;  // 8-byte stores line up on every row
+  uint8_t* buf = smem + T_STAGES * T_STAGE + 1024 + wg * T_OUT;
+  int it = 0;  // stages consumed
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % tiles_m) * T_BM, n0 = (tile / tiles_m) * T_BN;
+    float acc[T_BN / 2];
+#pragma unroll
+    for (int i = 0; i < T_BN / 2; ++i) acc[i] = 0.f;
+
+    for (int kc = 0; kc < kch; ++kc, ++it) {
+      const int st = it % T_STAGES;
+      mbar_wait(&full[st], (it / T_STAGES) & 1);
+      const uint8_t* a = smem + st * T_STAGE + wg * 64 * 128;
+      const uint8_t* b = smem + st * T_STAGE + T_A;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T_BK / 16; ++kk)
+        wgmma_m64n256k16_ss(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                            wgmma_desc(b + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_regs(acc);
+      if (kc > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % T_STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) mbar_arrive(&empty[(it - 1) % T_STAGES]);
+
+    // acc[4j + 2 half + e]: row 16 warp + g + 8 half of the warpgroup's
+    // 64, id n0 + 8j + 2t + e; staged a 32-id chunk (j = 4 cc .. 4 cc + 3)
+    // at a time, then written as 128-byte row pieces, 16 threads a row
+    const int rw = warp * 16 + g;
+    const int m1 = m0 + wg * 64;
+#pragma unroll
+    for (int cc = 0; cc < T_BN / T_CW; ++cc) {
+#pragma unroll
+      for (int jj = 0; jj < T_CW / 8; ++jj) {
+        const int j = cc * (T_CW / 8) + jj;  // constant: so is acc's index
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(buf + (rw + 8 * half) * T_PITCH +
+                                     (jj * 8 + 2 * t) * 4) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+      named_barrier(1 + wg, 128);  // the chunk is in the buffer
+#pragma unroll
+      for (int pass = 0; pass < 8; ++pass) {
+        const int r = pass * 8 + (tid >> 4), piece = tid & 15;
+        const int row = m1 + r, col = n0 + cc * T_CW + 2 * piece;
+        if (row < M && col < V) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(buf + r * T_PITCH + 8 * piece);
+          float* o = out + (size_t)row * V + col;
+          if (even) {  // col even, V even: 8-byte aligned, col + 1 < V
+            __stcs(reinterpret_cast<float2*>(o), v);
+          } else {
+            __stcs(o, v.x);
+            if (col + 1 < V) __stcs(o + 1, v.y);
+          }
+        }
+      }
+      named_barrier(1 + wg, 128);  // the buffer is free again
+    }
+  }
+}
+
+int launch_tiles(const CUtensorMap& mx, const CUtensorMap& me, float* out,
+                 int M, int V, int K, int blocks, cudaStream_t st) {
+  static std::once_flag once[MAX_CARDS];
+  static int status[MAX_CARDS];
+  const int e = once_per_card(once, status, [] {
+    const cudaError_t r = cudaFuncSetAttribute(
+        tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    return r == cudaSuccess ? 0 : ERR_ATTRIBUTE + (int)r;
+  });
+  if (e) return e;
+  tiles_kernel<<<blocks, T_THREADS, T_SMEM, st>>>(mx, me, out, M, V, K);
+  return launch_status();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The plan of a product (M, V, K) on `sms` SMs: out[0] blocks a pass,
-// out[1] rows a pass, out[2] passes, out[3] ring stages, out[4] a block's
-// dynamic shared memory. Returns 0 or ERR_BAD_ARGS.
-int aries_vocab_gemm_plan(int M, int V, int K, int sms, int* out) {
-  if (M <= 0 || V <= 0 || K <= 0 || K % VG_KC || sms <= 0)
+// The plan of a product (M, V, K) on `sms` SMs, by `path` (-1: by M, 0:
+// "passes", 1: "tiles"): out[0] the path (0 or 1), out[1] blocks (of a
+// pass, or of the persistent grid), out[2] rows a pass or a tile, out[3]
+// passes or M tiles, out[4] ring stages, out[5] a block's dynamic shared
+// memory, out[6] a tile's ids (0 for passes), out[7] tiles (0 for passes).
+// Returns 0 or ERR_BAD_ARGS.
+int aries_vocab_gemm_plan(int M, int V, int K, int sms, int path, int* out) {
+  if (M <= 0 || V <= 0 || K <= 0 || K % VG_KC || sms <= 0 || path < -1 ||
+      path > 1)
     return ERR_BAD_ARGS;
+  if (path == -1) path = M > VG_TILES_ABOVE ? 1 : 0;
+  out[0] = path;
+  if (path == 1) {
+    const long long tiles_m = (M + T_BM - 1) / T_BM;
+    const long long tiles = tiles_m * ((V + T_BN - 1) / T_BN);
+    if (tiles > 0x7fffffffLL) return ERR_BAD_ARGS;
+    out[1] = (int)(tiles < sms ? tiles : sms);
+    out[2] = T_BM;
+    out[3] = (int)tiles_m;
+    out[4] = T_STAGES;
+    out[5] = T_SMEM;
+    out[6] = T_BN;
+    out[7] = (int)tiles;
+    return 0;
+  }
   const int rows = rows_a_pass(K);
   if (rows == 0) return ERR_BAD_ARGS;
   const int units = (V + VG_UNIT - 1) / VG_UNIT;
   const int first = M < rows ? M : rows;
   const int rows8 = 8 * nb_of(first);
-  out[0] = units < sms ? units : sms;
-  out[1] = rows;
-  out[2] = (M + rows - 1) / rows;
-  out[3] = vg_stages(rows8, K);
-  out[4] = vg_smem(rows8, K, out[3]);
+  out[1] = units < sms ? units : sms;
+  out[2] = rows;
+  out[3] = (M + rows - 1) / rows;
+  out[4] = vg_stages(rows8, K);
+  out[5] = vg_smem(rows8, K, out[4]);
+  out[6] = 0;
+  out[7] = 0;
   return 0;
 }
 
 // x (M, K) bf16 and e (V, K) bf16, contiguous and 16-byte aligned, K % 64
-// == 0; out (M, V) f32. One launch: min(sms, ceil(V / 16)) blocks for
-// each pass of up to 64 rows. Returns 0, a cudaError_t, or hopper.cuh's
+// == 0; out (M, V) f32, contiguous. One launch, by the plan's path
+// (`path` as in the plan). Returns 0, a cudaError_t, or hopper.cuh's
 // codes.
 int aries_vocab_gemm(const void* x, const void* e, void* out, int M, int V,
-                     int K, int sms, void* stream) {
-  int plan[5];
-  if (aries_vocab_gemm_plan(M, V, K, sms, plan)) return ERR_BAD_ARGS;
-  CUtensorMap me;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)V};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {VG_KC, VG_UNIT};
-  int err = encode_map(&me, e, 2, dims, strides, box);
-  if (err) return err;
+                     int K, int sms, int path, void* stream) {
+  int plan[8];
+  if (aries_vocab_gemm_plan(M, V, K, sms, path, plan)) return ERR_BAD_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16* xb = static_cast<const bf16*>(x);
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
   float* o = static_cast<float*>(out);
-  switch (nb_of(M < plan[1] ? M : plan[1])) {
-    case 1: return launch<1>(me, xb, o, M, V, K, plan[0], plan[1], plan[2], st);
-    case 2: return launch<2>(me, xb, o, M, V, K, plan[0], plan[1], plan[2], st);
-    case 4: return launch<4>(me, xb, o, M, V, K, plan[0], plan[1], plan[2], st);
+  CUtensorMap me;
+  int err;
+  if (plan[0] == 1) {
+    CUtensorMap mx;
+    const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t ed[2] = {(cuuint64_t)K, (cuuint64_t)V};
+    const cuuint32_t xbox[2] = {T_BK, T_BM};
+    const cuuint32_t ebox[2] = {T_BK, T_BN};
+    if ((err = encode_map(&mx, x, 2, xd, strides, xbox))) return err;
+    if ((err = encode_map(&me, e, 2, ed, strides, ebox))) return err;
+    return launch_tiles(mx, me, o, M, V, K, plan[1], st);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)V};
+  const cuuint32_t box[2] = {VG_KC, VG_UNIT};
+  if ((err = encode_map(&me, e, 2, dims, strides, box))) return err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  switch (nb_of(M < plan[2] ? M : plan[2])) {
+    case 1: return launch<1>(me, xb, o, M, V, K, plan[1], plan[2], plan[3], st);
+    case 2: return launch<2>(me, xb, o, M, V, K, plan[1], plan[2], plan[3], st);
+    case 4: return launch<4>(me, xb, o, M, V, K, plan[1], plan[2], plan[3], st);
     default:
-      return launch<8>(me, xb, o, M, V, K, plan[0], plan[1], plan[2], st);
+      return launch<8>(me, xb, o, M, V, K, plan[1], plan[2], plan[3], st);
   }
 }
 

@@ -148,11 +148,14 @@ def _pack_fused_cache(cache: Dict[str, torch.Tensor], int8: bool
 
 
 def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
-             wpack, max_len, prompt_start=0):
+             wpack, max_len, prompt_start, sot_index):
     """Cross K/V for the windows of ``xa``, the self cache of the prompt's
-    rows and the prompt's logits (a left-padded prompt's first real token
-    at ``prompt_start``). With ``fused`` the cache is repacked for the
-    decoder-layer kernels and the weights are packed (when not given)."""
+    rows and the logits (B, 2, V) of two prompt positions, the sot's (the
+    no-speech probability) and the last (the first sampled token): the
+    only ones read, so the vocab product runs on 2 B rows, not B P (a
+    left-padded prompt's first real token at ``prompt_start``). With
+    ``fused`` the cache is repacked for the decoder-layer kernels and the
+    weights are packed (when not given)."""
     if fused and not kv_int8:
         raise ValueError("fused decode steps read the int8 cross K/V")
     cross = (W.precompute_cross_kv_int8(params, xa, dims) if kv_int8
@@ -161,7 +164,8 @@ def _prefill(params, xa, prompt, dims, kv_int8, self_kv_int8, fused,
                             max_len=max_len, int8=self_kv_int8 and not fused,
                             device=xa.device)
     logits_p = W.decoder_step(params, prompt, 0, cache, cross, dims,
-                              prompt_start)
+                              prompt_start,
+                              logits_at=(sot_index, prompt.shape[1] - 1))
     if fused:
         cache = _pack_fused_cache(cache, self_kv_int8)
         if wpack is None:
@@ -463,8 +467,9 @@ def greedy_decode(
     dev = xa.device
     cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
                                              kv_int8, self_kv_int8, fused,
-                                             wpack, L, prompt_start)
-    no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
+                                             wpack, L, prompt_start,
+                                             sot_index)
+    no_speech_prob = _no_speech_prob(logits_p, 0, ids)
     rules = _Rules(ids, suppress_mask, with_timestamps, repetition_penalty,
                    no_repeat_ngram_size, float(temperature),
                    generator.initial_seed() if generator is not None else 0)
@@ -669,9 +674,10 @@ def beam_search_decode(
     dev = xa.device
     cross, cache, logits_p, wpack = _prefill(params, xa, prompt, dims,
                                              kv_int8, self_kv_int8, fused,
-                                             wpack, L, prompt_start)
+                                             wpack, L, prompt_start,
+                                             sot_index)
     cache = {k: v.repeat_interleave(K, dim=1) for k, v in cache.items()}
-    no_speech_prob = _no_speech_prob(logits_p, sot_index, ids)
+    no_speech_prob = _no_speech_prob(logits_p, 0, ids)
     logits = logits_p[:, -1].repeat_interleave(K, dim=0)  # (B*K, V)
     del logits_p
     rules = _Rules(ids, suppress_mask, with_timestamps, repetition_penalty,

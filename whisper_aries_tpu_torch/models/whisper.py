@@ -38,7 +38,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -636,16 +636,20 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, dims: WhisperDims
 def vocab_logits(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Final LayerNorm + tied-embedding product -> f32 logits (bf16 values
     multiply exactly in f32, so this is the bf16 product with f32
-    accumulation)."""
+    accumulation), in torch ops that autograd differentiates: the product
+    of training. Every product without a gradient goes through
+    ``vocab_logits_step`` (``final_logits`` picks)."""
     x = layer_norm(dec["ln"], x)
     return torch.matmul(x.float(), dec["tok_emb"].float().T)
 
 
 def vocab_logits_step(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """``vocab_logits`` for decoding: the final LayerNorm, then the product
-    with the tied embedding by the vocab kernel (ops/vocab.py: the bf16
-    embedding read once, f32 sums) for CUDA tensors, its plain version for
-    CPU ones. It has no gradient: training keeps ``vocab_logits``."""
+    """``vocab_logits`` without a gradient: the final LayerNorm, then the
+    product with the tied embedding by the vocab kernel (ops/vocab.py: f32
+    sums of bf16 products, by the path its plan picks from the row count)
+    for CUDA tensors, its plain version for CPU ones (``vocab_logits``'s
+    bits). Decoding, language detection, the word pass and the smoke test
+    call it; training keeps ``vocab_logits``."""
     emb = dec["tok_emb"]
     if torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad):
         raise RuntimeError("vocab_logits_step has no gradient: "
@@ -653,6 +657,16 @@ def vocab_logits_step(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     h = layer_norm(dec["ln"], x)
     lead = h.shape[:-1]
     return vocab_product(h.reshape(-1, h.shape[-1]), emb).reshape(*lead, -1)
+
+
+def final_logits(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """The teacher-forced passes' logits: ``vocab_logits`` where autograd
+    needs the product (grad enabled and x or the embedding requiring it:
+    training), else ``vocab_logits_step``, the vocab kernel on the card."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or dec["tok_emb"].requires_grad):
+        return vocab_logits(dec, x)
+    return vocab_logits_step(dec, x)
 
 
 def _teacher_forced(params: Dict[str, Any], tokens: torch.Tensor,
@@ -702,7 +716,7 @@ def decoder_forward(params: Dict[str, Any], tokens: torch.Tensor,
                     xa: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
     """Teacher-forced decoder: tokens (B, S) -> logits (B, S, n_vocab) f32.
     Cross-attention reads ``xa`` directly (no cached K/V)."""
-    return vocab_logits(params["decoder"],
+    return final_logits(params["decoder"],
                         _teacher_forced(params, tokens, xa, dims))
 
 
@@ -731,7 +745,7 @@ def alignment_forward(params: Dict[str, Any], tokens: torch.Tensor,
             acc.add_(torch.einsum("nh,bhqk->nbqk", sel[l], cqk))
 
     x = _teacher_forced(params, tokens, xa, dims, take)
-    logits = vocab_logits(params["decoder"], x)
+    logits = final_logits(params["decoder"], x)
     lp = torch.log_softmax(logits, dim=-1)
     nxt = lp[:, :-1].gather(2, tokens[:, 1:, None].long())[..., 0]
     token_probs = torch.cat([torch.ones((B, 1), dtype=torch.float32,
@@ -835,7 +849,8 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
                  pos: Union[int, torch.Tensor],
                  cache: Dict[str, torch.Tensor],
                  cross_kv: Dict[str, torch.Tensor], dims: WhisperDims,
-                 valid_start: Union[int, torch.Tensor, None] = None
+                 valid_start: Union[int, torch.Tensor, None] = None,
+                 logits_at: Optional[Sequence[int]] = None
                  ) -> torch.Tensor:
     """One KV-cached decoder call (prefill S>1 or step S=1) on B rows.
 
@@ -852,7 +867,9 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
     to the host (positions, mask and cache writes are built on the device),
     so it can be captured as a CUDA graph (``UnfusedStepGraph``) and
     replayed at any position. Writes the S new K/V into ``cache`` in place
-    and returns logits (B, S, n_vocab) f32."""
+    and returns logits (B, S, n_vocab) f32, or with ``logits_at`` (indices
+    into the S tokens) only those positions' (B, len(logits_at), n_vocab):
+    the final LayerNorm and the vocab product run on those rows alone."""
     dec = params["decoder"]
     B, S = tokens.shape
     H = dims.n_text_head
@@ -905,6 +922,8 @@ def decoder_step(params: Dict[str, Any], tokens: torch.Tensor,
 
         h = layer_norm(p["ln2"], x)
         x = x + dense(p["mlp"]["fc2"], gelu(dense(p["mlp"]["fc1"], h)))
+    if logits_at is not None:
+        x = x[:, list(logits_at)]
     return vocab_logits_step(dec, x)
 
 

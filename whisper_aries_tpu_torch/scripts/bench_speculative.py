@@ -184,7 +184,7 @@ def chains(su: Setup, S: int, ACC: int, steps: int) -> Dict[str, float]:
         for _ in range(steps):
             draft = ngram_draft(tokens, pos, S, ngram=2, fallback=0)
             x = verify(su.embed(draft.long().clamp(min=0), pos), pos)
-            nxt = W.vocab_logits(dec, x).view(su.B, S, -1).argmax(-1)
+            nxt = W.vocab_logits_step(dec, x).view(su.B, S, -1).argmax(-1)
             # synthetic acceptance: ACC verified tokens, whatever matched
             tokens[:, pos:pos + ACC] = nxt[:, :ACC].to(torch.int32)
             pos += ACC
@@ -195,7 +195,8 @@ def chains(su: Setup, S: int, ACC: int, steps: int) -> Dict[str, float]:
         for _ in range(steps * ACC):
             tok = tokens[:, pos - 1:pos].long()
             x = one(su.embed(tok, pos - 1), pos - 1)
-            tokens[:, pos] = W.vocab_logits(dec, x).argmax(-1).to(torch.int32)
+            tokens[:, pos] = W.vocab_logits_step(dec, x).argmax(-1).to(
+                torch.int32)
             pos += 1
         return tokens
 
