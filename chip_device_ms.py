@@ -9,7 +9,8 @@ older chip_smoke.py reports event times only.
 CHECKOUT is the root of a checkout of this repository; its chip_smoke.py
 and its package are imported from there. PHASE names kernel-phase
 functions of that chip_smoke.py (default: kernel_mel kernel_cross_attn),
-or NAME:ARG for one called with a string in place of the list
+or NAME:ARG for one called with a string in place of the list (the
+phases of WITH_PARTS get a second list, for their parts)
 (slice_phase:self_int8 runs that slice), or probe:MODULE for a probe
 module of that checkout's scripts/ (probe_batched_transpose, probe_dma,
 probe_vmem): its kernel wrapper profiled at chip_smoke.py's entry shapes
@@ -106,6 +107,9 @@ def probe_vmem(smoke, mod, dev, timed) -> None:
 
 PROBES = {"probe_batched_transpose": probe_transpose, "probe_dma": probe_dma,
           "probe_vmem": probe_vmem}
+#: the kernel phases that take (dev, entries, parts) in every checkout
+#: that has them
+WITH_PARTS = ("kernel_decode_layers",)
 
 
 def main() -> None:
@@ -161,10 +165,13 @@ def main() -> None:
                 f"whisper_aries_tpu_torch.scripts.{arg}")
             PROBES[arg](smoke, mod, dev, timed)
             continue
-        getattr(smoke, fn)(dev, arg if arg else out)
-        if out:  # the phase's entries / parts (a profile's step times)
+        parts = []
+        extra = (parts,) if fn in WITH_PARTS and not arg else ()
+        getattr(smoke, fn)(dev, arg if arg else out, *extra)
+        if out or parts:  # the phase's entries / parts (a profile's times)
             print("phase_out " + json.dumps(
-                {"phase": name, "out": out}, default=str), flush=True)
+                {"phase": name, "out": out, "parts": parts}, default=str),
+                flush=True)
     if smoke.FAILED:
         smoke.fail("; ".join(smoke.FAILED))
 

@@ -350,11 +350,26 @@ caught; a kernel check that fails is printed at once and fails the run
      cost(1)); prints the ``speculative`` line (the launches: verify
      replays, one-token replays, drafter calls; the card's peak) and adds
      the verify mode's kernels entry.
+Besides, at compute_type "f32" (kernel_f32, after the decode-choice
+checks; f32_phase, after the tools path): row 3's f32 instantiation (x,
+qkv, cq, probabilities and a non-int8 self cache f32) teacher-forced per
+layer against its plain version at R 6 and R 30 with the int8 self cache
+and R 6 with an f32 one, the median over layer calls below "the bf16
+instantiation's roundings", graph replay = direct launch bit for bit,
+timed beside the bf16 replay on the same operands (``decode_layers f32``
+line, the kernels line's ``decode_layers_f32`` entry); row 2t's forward at
+inference at 6 x T 1500 and T 800 below "the tail key block dropped",
+beside SDPA f32; rows 6 and 7 with f32 queries; row 19's "f32" path (an
+f32 library product, TF32 off) at M 6, 30 and 672 below "TF32 left on".
+Then the f32 slice: large-v3 at f32 (the earlier engines freed), the
+125 s WAV greedy at temperature 0 and beam 5 with word timestamps, every
+kernel of the path launched, no plain version on a CUDA tensor, the
+``slice_f32`` line beside the bf16 slices' figures.
 Every decode path's decode calls must each have run as one loop graph
 with no host read inside it (the slice lines' host_reads and
 decode_loops; the ``decode_loop_paths`` line before the kernels line,
 every path's loop graphs, steps and reads).
-The second-to-last lines are the kernels JSON (all 27 entries) and
+The second-to-last lines are the kernels JSON (all 28 entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -961,21 +976,23 @@ def hold_step_bits(label, dev, wpack, cache, cross, H, R, windows, P, g,
     del graph, cg_, cd
 
 
-def step_bound(dims, R, pos, self_int8, windows=None, ta=None, vs=0):
+def step_bound(dims, R, pos, self_int8, windows=None, ta=None, vs=0,
+               act=2):
     """Least time of one decode step (all layers): int8 weights, the
     windows' int8 cross K/V with scales, the live self cache (positions vs
-    .. pos), x in and out, each moved once; or the products at the bf16
-    peak, whichever is longer."""
+    .. pos), x in and out (``act`` bytes an activation: 4 for the f32
+    residual stream, whose non-int8 cache is f32 too), each moved once; or
+    the products at the bf16 peak, whichever is longer."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     ff, Ta = 4 * d, ta or dims.n_audio_ctx
     w_bytes = L * (d * 6 * d + 2 * d * ff + DL.vec_offsets(d, ff)[1] * 4)
     cross_bytes = L * (windows or R) * 2 * H * Ta * (64 + 4)
-    elt = 1 if self_int8 else 2
+    elt = 1 if self_int8 else act
     live = pos + 1 - vs
     self_bytes = L * R * 2 * H * live * (64 * elt + (4 if self_int8 else 0))
-    nbytes = w_bytes + cross_bytes + self_bytes + 2 * R * d * 2
+    nbytes = w_bytes + cross_bytes + self_bytes + 2 * R * d * act
     ops = 2 * R * L * (6 * d * d + 2 * d * ff) + 4 * R * L * H * 64 * (live + Ta)
     return bound(nbytes, ops, PEAK_BF16)
 
@@ -1513,15 +1530,17 @@ def step_cross_kernel(cq, kv8_l, sc_l, H):
     return att
 
 
-def cross_case(dev, Bw, G, seed, Ta=1500):
+def cross_case(dev, Bw, G, seed, Ta=1500, q_dtype=None):
     """Grouped cross-attention operands at (Bw windows, 20 heads, G queries,
     Ta keys): K/V as views of the packed (Bw, 2, H, Ta, 64) cross layout,
     K scales folding 1/sqrt(dh); distinct peaked queries (x 4) per query
-    slot, bf16, in the strided layout the model hands over ((Bw, G, H, 64)
-    rows transposed to (Bw, H, G, 64)). Below 1500 keys (the 16 s
+    slot, bf16 (or f32 drawn as f32, most of them not exact in bf16), in
+    the strided layout the model hands over ((Bw, G, H, 64) rows
+    transposed to (Bw, H, G, 64)). Below 1500 keys (the 16 s
     bucket's 800) the case also returns, as a named mistake, the same
     views over 1500 keys whose first Ta are these (keys past Ta read from
-    the 30 s pad); else None there."""
+    the 30 s pad); else None there. The same seed gives the same K/V
+    whatever ``q_dtype``."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
 
@@ -1533,7 +1552,7 @@ def cross_case(dev, Bw, G, seed, Ta=1500):
     sc[:, 0] /= 8.0
     del kv
     q = (4 * torch.randn((Bw, G, H, dh), generator=g, device=dev)).to(
-        torch.bfloat16).transpose(1, 2)
+        q_dtype or torch.bfloat16).transpose(1, 2)
     views = lambda k8, s: (k8[:, 0], s[:, 0], k8[:, 1], s[:, 1])
     if Ta == T:
         return q, views(kv8, sc), None
@@ -1545,9 +1564,10 @@ def hold_cross(label, q, args, past=None):
     """The kernel (f32 out) against its plain version; each named mistake
     (the last 28 keys dropped, every window reading window 0's K/V over
     several windows, the last split's P . V dropped from the rank-order
-    sum, above 16 queries the last chunk of 16 left unwritten, and, given
-    ``past``, keys past Ta read from the 30 s pad) must exceed the
-    limits. Returns the largest |error|."""
+    sum, above 16 queries the last chunk of 16 left unwritten, given
+    ``past`` keys past Ta read from the 30 s pad, and for f32 queries the
+    queries rounded to bf16) must exceed the limits. Returns the largest
+    |error|."""
     import torch
     from whisper_aries_tpu_torch.ops import cross_attn as XA
     from whisper_aries_tpu_torch.ops import cuda_build as cb
@@ -1574,6 +1594,11 @@ def hold_cross(label, q, args, past=None):
     if past is not None:
         mistakes["keys past Ta read from the 30 s pad"] = \
             XA.cross_attention_q8_reference(q, *past)
+    if q.dtype == torch.float32:
+        if bool((q.to(torch.bfloat16).float() == q).all()):
+            fail(f"cross-attention f32 queries are exact in bf16 ({label})")
+        mistakes["q rounded to bf16"] = XA.cross_attention_q8_reference(
+            q.to(torch.bfloat16).float(), *args)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         fail(f"cross-attention kernel output is not finite ({label})")
@@ -1609,10 +1634,11 @@ def cross_bucket(dev):
 
     err, out = 0.0, {}
     for G in (3, 5):
-        q, args, past = cross_case(dev, 8, G, 60 + G, Ta=800)
-        for qdtype in (torch.bfloat16, torch.float32):
+        for qdtype in (torch.float32, torch.bfloat16):  # bf16 q is timed
+            q, args, past = cross_case(dev, 8, G, 60 + G, Ta=800,
+                                       q_dtype=qdtype)
             e, tols = hold_cross(f"Ta 800, 8 windows x {G}, q {qdtype}",
-                                 q.to(qdtype), args, past)
+                                 q, args, past)
             err = max(err, e)
         if G == 3:
             kern = lambda: XA.cross_attention_q8_kernel(q, *args)
@@ -1658,10 +1684,9 @@ def kernel_cross_attn(dev, entries):
     b_ms, b_by = cross_bound(Bw, G, T)
     extra = {}
     for Gp in (3, 15, 20):
-        qp, ap, _ = cross_case(dev, 6, Gp, 40 + Gp)
-        for qdtype in (torch.bfloat16, torch.float32):
-            qd = qp.to(qdtype)
-            e, _ = hold_cross(f"prefill, 6 windows x {Gp}, q {qdtype}", qd, ap)
+        for qdtype in (torch.float32, torch.bfloat16):  # bf16 q is timed
+            qp, ap, _ = cross_case(dev, 6, Gp, 40 + Gp, q_dtype=qdtype)
+            e, _ = hold_cross(f"prefill, 6 windows x {Gp}, q {qdtype}", qp, ap)
             err = max(err, e)
         if Gp != 20:
             kp = lambda: XA.cross_attention_q8_kernel(qp, *ap)
@@ -2814,11 +2839,10 @@ def cond_cross(dev):
     err, out = 0.0, {}
     for rows in (1, 5):
         G = rows * P_COND
-        q, args, _ = cross_case(dev, 1, G, 70 + rows)
-        for qdtype in (torch.bfloat16, torch.float32):
+        for qdtype in (torch.float32, torch.bfloat16):  # bf16 q is timed
+            q, args, _ = cross_case(dev, 1, G, 70 + rows, q_dtype=qdtype)
             e, tols = hold_cross(f"conditioned prefill, 1 window x {rows} "
-                                 f"rows x {P_COND}, q {qdtype}",
-                                 q.to(qdtype), args)
+                                 f"rows x {P_COND}, q {qdtype}", q, args)
             err = max(err, e)
         kern = lambda: XA.cross_attention_q8_kernel(q, *args)
         b_ms, b_by = cross_bound(1, G, 1500)
@@ -3976,6 +4000,11 @@ def counters():
             "uniform_draw": DLP.uniform_draw_kernel,
             "vocab_gemm": VO.vocab_product_kernel,
             "decode_choice": DC.greedy_choice_kernel,
+            # kernel 3's launches and replays of its f32 instantiation
+            # (also in decode_layers), and the vocab product's "f32" path
+            # (one library call each, no kernel)
+            "decode_layers_f32": DL.F32,
+            "vocab_f32": VO.vocab_product_f32,
             # reads of device data inside decode loops (0 on the card)
             "host_reads": G._Reads,
             **probe_counters()}
@@ -4054,6 +4083,12 @@ PATH_KERNELS = {
     # bench_speculative.main(): the verify step's replays (kernel 3 at
     # S 4), the one-token step's
     "speculative": ("decode_layers_verify", "decode_layers"),
+    # compute_type "f32": greedy and beam 5 with words, the encoder's f32
+    # attention at inference (row 2t's forward), the f32 step, its
+    # products on the vocab's "f32" path
+    "f32": ("mel", "encoder_attn_train", "decode_layers", "decode_layers_f32",
+            "cross_attn_q8", "beam_tail", "beam_reorder", "decode_loop",
+            "loop_cond", "decode_choice", "vocab_f32"),
 }
 # the probe phase's path: every probe kernel, through the probes' entries
 PROBE_KERNELS = ("probe_dma.probe", "probe_dma.probe_multi",
@@ -4119,6 +4154,11 @@ def word_pass_split(words: dict, costs: list) -> dict:
     split["dtw_check"] = dict(matrices=len(costs), shapes=shapes,
                               cpp_s=cpp_s, plain_s=plain_s)
     return split
+
+
+#: each bf16 / int8 slice's summary of this run (the f32 slice prints its
+#: figures beside its own)
+SLICE_SUMMARIES: dict = {}
 
 
 def slice_phase(dev, path: str, keep: bool = False):
@@ -4236,7 +4276,7 @@ def slice_phase(dev, path: str, keep: bool = False):
         graph_replays = (DL.fused_decoder_layers.graph_replays if eng.fused
                          else W.decoder_step.graph_replays)
         gemm_paths = dict(gemm.launches_by_path)
-        vocab_paths = dict(VO.vocab_product_kernel.launches_by_path)
+        vocab_paths = VO.launches_by_path()
     finally:
         Q.gemm_plan = plan
         Q.int8_gemm_plan = plan8
@@ -4256,9 +4296,10 @@ def slice_phase(dev, path: str, keep: bool = False):
     if plain_vocab:
         fail(f"{path}: {len(plain_vocab)} vocab products on CUDA tensors "
              f"without a gradient went through vocab_logits: {plain_vocab}")
-    if sum(vocab_paths.values()) != launches["vocab_gemm"]:
+    if (sum(vocab_paths[p] for p in VO.PATHS) != launches["vocab_gemm"]
+            or vocab_paths["f32"]):
         fail(f"{path}: vocab launches by path {vocab_paths} do not add up "
-             f"to {launches['vocab_gemm']}")
+             f"to {launches['vocab_gemm']} kernel launches, none f32")
     if path == "words" and not vocab_paths["tiles"]:
         fail(f"words: the word pass made no tiles launch of the vocab "
              f"product: {dict(vocab_rows)}")
@@ -4347,6 +4388,7 @@ def slice_phase(dev, path: str, keep: bool = False):
     if path == "words":
         summary["word_pass"] = word_pass_split(stats["words"], costs)
         summary["words"] = n_words
+    SLICE_SUMMARIES[path] = summary
     tag = {"greedy": "slice", "beam": "slice_beam"}.get(path, f"slice_{path}")
     print(f"{tag} " + json.dumps(summary), flush=True)
     (OUT / f"{tag}.json").write_text(json.dumps(
@@ -4885,9 +4927,9 @@ def pipeline_phase(dev, eng):
         return real_decode(xa, prompt, *a, **k)
 
     def recording_init(self, wpack, self_cache, cross, rows, n_head,
-                       valid_start, max_pos):
+                       valid_start, max_pos, *dtype):
         graph_init(self, wpack, self_cache, cross, rows, n_head, valid_start,
-                   max_pos)
+                   max_pos, *dtype)
         graphs.append((rows, valid_start, self.ops.T))
 
     def run(tag, journal, **over):
@@ -6743,6 +6785,631 @@ def spec_phase(dev, entries):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# f32 path (compute_type "f32")
+# ---------------------------------------------------------------------------
+
+#: row 3's f32 instantiation held at (rows, int8 self cache): greedy R 6
+#: and beam R 30 over the slices' 6 windows with the default int8 self
+#: cache, and R 6 with an f32 self cache
+F32_STEP_CASES = ((6, True), (30, True), (6, False))
+#: the f32 vocab path's M: greedy rows, beam rows, the word pass's 3 x 224
+F32_VOCAB_M = (6, 30, 672)
+
+
+def plain_variant(patch, x, wpack, cache, cross, vs, pos, H):
+    """The plain layers with ``patch`` ({decode_layers attribute: its
+    replacement}) in place for the call."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    saved = {k: getattr(DL, k) for k in patch}
+    for k, f in patch.items():
+        setattr(DL, k, f)
+    try:
+        return DL.fused_decoder_layers_plain(x, wpack, cache, cross, vs, pos,
+                                             H)
+    finally:
+        for k, f in saved.items():
+            setattr(DL, k, f)
+
+
+def f32_step_variants(wpack_l):
+    """The plain layer's variants the f32 step is read against, each a
+    ``plain_variant`` patch, for the one layer of ``wpack_l``: the named
+    mistakes, roundings the f32 instantiation must not make (qkv and the
+    self-attention probabilities rounded to bf16, as the bf16
+    instantiation does; each residual update y rounded to bf16 before the
+    add, as the bf16 epilogue stores it; the cross-attention's queries cq
+    rounded to bf16), and the floor's witnesses: "products in f64", the
+    same math with the LayerNorms and the products summed in f64, so that
+    only the f32 values' last bits differ before each bf16 rounding, and
+    the plain layer fed the card's own LayerNorm outputs (the LayerNorm
+    kernel), then also the card's products (the GEMM kernel, f32 out),
+    so that what is left is the attention's."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    self_attn, cross_attn = DL.self_attn_plain, DL.cross_attn_plain
+    gemm = DL.w8a16_gemm_plain
+    bf = lambda t: t.to(torch.bfloat16).float()
+    d, ff = wpack_l["wq8"].shape[1], wpack_l["wf18"].shape[-1]
+    offs, _ = DL.vec_offsets(d, ff)
+    vec = wpack_l["vecs"][0]
+    residual = {vec[int(offs[i]):].data_ptr() for i in (13, 15, 17)}
+
+    def ln64(x, s, b):
+        xd = x.double()
+        mu = xd.mean(-1, keepdim=True)
+        var = ((xd - mu) ** 2).mean(-1, keepdim=True)
+        return ((xd - mu) * torch.rsqrt(var + 1e-5) * s + b).to(x.dtype)
+
+    def card_ln(x, s, b):
+        return DL.layer_norm_kernel(x, s, b).float()
+
+    def gemm64(x, w8, scale, bias):
+        y = torch.matmul(x.to(torch.bfloat16).double(), w8.double())
+        return (y * scale + bias).float()
+
+    return {
+        "qkv and probabilities rounded to bf16": {
+            "self_attn_plain": lambda qkv, *a, **k: self_attn(
+                qkv.to(torch.bfloat16), *a, **k).float()},
+        "residual y rounded to bf16": {
+            "w8a16_gemm_plain": lambda x, w8, sc, b: (
+                bf(gemm(x, w8, sc, b)) if sc.data_ptr() in residual
+                else gemm(x, w8, sc, b))},
+        "cq rounded to bf16": {
+            "cross_attn_plain": lambda cq, *a: cross_attn(bf(cq), *a)},
+        "products in f64": {"layer_norm_plain": ln64,
+                            "w8a16_gemm_plain": gemm64},
+        "the card's LayerNorm": {"layer_norm_plain": card_ln},
+        "the card's LayerNorm and products": {
+            "layer_norm_plain": card_ln,
+            "w8a16_gemm_plain": lambda x, w8, sc, b: DL.w8a16_gemm_kernel(
+                x.to(torch.bfloat16), w8, sc, b, out_dtype=torch.float32)}}
+
+
+#: the f32 step's variants held as named mistakes (the others are read)
+F32_STEP_MISTAKES = ("qkv and probabilities rounded to bf16",
+                     "residual y rounded to bf16", "cq rounded to bf16")
+
+
+def decode_parts_f32(dev, wpack, cross, cache, H, g, tag):
+    """The decoder-layer kernels alone at f32 operands (layer 0's, R 6
+    over the 6 windows), each against its plain version on the same
+    inputs and below the rounding the f32 instantiation must not make:
+    LayerNorm of an f32 x (x rounded to bf16 first), the qkv product's
+    f32 store (y rounded to bf16), the f32 residual add (y rounded to
+    bf16 before the add), the self-attention on f32 qkv over this cache
+    (qkv rounded to bf16) and the cross-attention on f32 queries (cq
+    rounded to bf16). The f32 outputs are held within 1e-5 of max |want|
+    (the same f32 products summed in another order, ~1e-7); the bf16 ones
+    in bf16 steps, as the bf16 parts are (``decode_parts``)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    R, d = 6, wpack["wq8"].shape[1]
+    ff = wpack["wf18"].shape[-1]
+    offs, _ = DL.vec_offsets(d, ff)
+    vec = wpack["vecs"][0]
+    seg = lambda i: vec[int(offs[i]):int(offs[i + 1])].contiguous()
+    bf = lambda t: t.to(torch.bfloat16).float()
+    to_bf = lambda t: t.to(torch.bfloat16)
+    steps_tol = {"bf16_steps": 1.5, "flipped": 2e-3}
+    f32_tol = {"max_rel": 1e-5}
+    out = []
+
+    def rec(name, got, want, wrong, f32_out):
+        torch.cuda.synchronize()
+        if f32_out:
+            if got.dtype != torch.float32:
+                fail(f"decode part f32 {name} returned {got.dtype}")
+            out.append(dict(name=name, **held(
+                f"decode part f32[{tag}] {name}", {"max_rel": max_rel(
+                    got, want)}, f32_tol, {"max_rel": max_rel(wrong, want)})))
+        else:
+            out.append(dict(name=name, **held(
+                f"decode part f32[{tag}] {name}", bf16_steps(got, to_bf(want)),
+                steps_tol, bf16_steps(to_bf(wrong), to_bf(want)))))
+
+    x = 0.25 * torch.randn((R, d), generator=g, device=dev)
+    rec("layer_norm, x rounded to bf16", DL.layer_norm_kernel(x, seg(0),
+                                                               seg(1)),
+        DL.layer_norm_plain(x, seg(0), seg(1)),
+        DL.layer_norm_plain(bf(x), seg(0), seg(1)), False)
+    h = DL.layer_norm_kernel(x, seg(0), seg(1))
+    wq = wpack["wq8"][0]
+    qkv_want = DL.w8a16_gemm_plain(h, wq[:, :3 * d], seg(12), seg(2))
+    rec("w8a16_gemm[qkv] f32 store, y rounded to bf16",
+        DL.w8a16_gemm_kernel(h, wq[:, :3 * d], seg(12), seg(2),
+                             out_dtype=torch.float32),
+        qkv_want, bf(qkv_want), True)
+    y = DL.w8a16_gemm_plain(h, wq[:, 3 * d:4 * d], seg(13), seg(3))
+    res = DL.w8a16_gemm_kernel(h, wq[:, 3 * d:4 * d], seg(13), seg(3),
+                               DL.EPI_RESIDUAL, out=x.clone())
+    rec("w8a16_gemm[out] f32 residual add, y rounded to bf16", res, x + y,
+        x + bf(y), True)
+    cache_l = {k: v[0] for k, v in cache.items()}
+    ck = {k: v.clone() for k, v in cache_l.items()}
+    cp = {k: v.clone() for k, v in cache_l.items()}
+    cm = {k: v.clone() for k, v in cache_l.items()}
+    rec("self_attn, qkv rounded to bf16",
+        DL.self_attn_kernel(qkv_want, ck, 4, 0, H),
+        DL.self_attn_plain(qkv_want, cp, 4, 0, H),
+        DL.self_attn_plain(to_bf(qkv_want), cm, 4, 0, H), False)
+    cq = qkv_want[:, :d].contiguous()
+    kv8, sc = cross["kv8"][0], cross["sc"][0]
+    rec("cross_attn, cq rounded to bf16", DL.cross_attn_kernel(cq, kv8, sc, H),
+        DL.cross_attn_plain(cq, kv8, sc, H),
+        DL.cross_attn_plain(bf(cq), kv8, sc, H), False)
+    print(f"decode parts f32[{tag}] " + json.dumps(out), flush=True)
+    return out
+
+
+def hold_step_f32(dev, R, self_int8):
+    """Row 3's f32 instantiation at R rows over the 6 windows: at R 6 its
+    parts first (``decode_parts_f32``); then each of the 32 layers
+    teacher-forced (an f32 input of 0.25 N(0, 1)) at 2 positions, direct
+    launches against the plain version at x f32. The two round the same
+    products' inputs to bf16 from f32 values summed in other orders, so a
+    few inputs of a row land one bf16 step apart and move the row's
+    update: the floor, read by the variant "products in f64"
+    (``f32_step_variants``). The check is the median over the 64 calls of
+    mean |got - want| / mean |want - x|, below each named mistake's
+    (F32_STEP_MISTAKES); the largest over the calls is held as the bf16
+    step's is. Then the appended cache, graph replay = direct launch bit
+    for bit over 4 positions, and the replay and direct times at position
+    116 (with the bf16 instantiation's replay on the same operands, x
+    rounded to bf16)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, cross, cache, g = decode_inputs(dev, R, 4,
+                                                         self_int8,
+                                                         windows=6)
+    del params
+    if not self_int8:
+        cache = {"kv": cache["kv"].float()}
+    tag = f"R {R}, {'int8' if self_int8 else 'f32'} self cache"
+    H, L, d = dims.n_text_head, dims.n_text_layer, dims.n_text_state
+    sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+    if R == 6:
+        parts = decode_parts_f32(dev, wpack, cross, cache, H, g, tag)
+    ck, cp = clone(cache), clone(cache)
+    names = list(f32_step_variants(sl(wpack, 0)))
+    cv = {name: clone(cache) for name in names}
+    per_call, max_rels = [], []
+    per_variant = {name: [] for name in names}
+    worst_abs = 0.0
+    for pos in (4, 5):
+        for l in range(L):
+            xin = 0.25 * torch.randn((R, d), generator=g, device=dev)
+            got = DL.fused_decoder_layers(xin, sl(wpack, l), sl(ck, l),
+                                          sl(cross, l), 0, pos, H)
+            want = DL.fused_decoder_layers_plain(
+                xin, sl(wpack, l), sl(cp, l), sl(cross, l), 0, pos, H)
+            for name, patch in f32_step_variants(sl(wpack, l)).items():
+                other = plain_variant(patch, xin, sl(wpack, l),
+                                      sl(cv[name], l), sl(cross, l), 0, pos,
+                                      H)
+                per_variant[name].append(mean_rel(other, want, xin))
+            if got.dtype != torch.float32:
+                fail(f"decode_layers f32[{tag}] returned {got.dtype}")
+            per_call.append(mean_rel(got, want, xin))
+            max_rels.append(max_rel(got, want))
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+    med = lambda v: float(np.median(v))
+    errs = {"median_mean_rel": med(per_call), "max_mean_rel": max(per_call),
+            "max_rel": max(max_rels)}
+    tols = {"median_mean_rel": 1e-3, "max_mean_rel": 1e-2, "max_rel": 3e-2}
+    variants = {name: med(v) for name, v in per_variant.items()}
+    hold = {name: held(f"decode_layers f32[{tag}] x, {L} layers x 2 "
+                       f"positions, direct launches, {name}", errs, tols,
+                       {"median_mean_rel": variants[name]})
+            for name in F32_STEP_MISTAKES}
+    print(f"decode_layers f32[{tag}] median mean_rel of each variant "
+          + json.dumps(variants), flush=True)
+    del cv
+    key = "kv8" if self_int8 else "kv"
+    a, b = ck[key][..., 4:6, :], cp[key][..., 4:6, :]
+    if self_int8:
+        sa, sb = ck["ksc"][..., 4:6], cp["ksc"][..., 4:6]
+        cache_errs = {"int8_step": float((a.int() - b.int()).abs().max()),
+                      "int8_flipped": float((a != b).float().mean()),
+                      "scale_max_rel": float(((sa - sb).abs() / sb).max())}
+        cache_tols = {"int8_step": 1.5, "int8_flipped": 1e-3,
+                      "scale_max_rel": 1e-3}
+    else:
+        cache_errs = {"kv_max_rel": max_rel(a, b)}
+        cache_tols = {"kv_max_rel": 2e-3}
+    held(f"decode_layers f32[{tag}] appended cache", cache_errs, cache_tols)
+    del ck, cp
+    cg_, cd = clone(cache), clone(cache)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H, 0,
+                               dtype=torch.float32)
+    same = True
+    for pos in range(8, 12):
+        x = torch.randn((R, d), generator=g, device=dev)
+        same &= torch.equal(graph.run(x, pos), DL.fused_decoder_layers(
+            x, wpack, cd, cross, 0, pos, H))
+        same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
+    check(f"decode_layers f32[{tag}] graph replay = direct launch, bitwise",
+          same, "x and the appended cache, 4 positions")
+    pos = 116
+    x = torch.randn((R, d), generator=g, device=dev)
+    out = dict(R=R, self_cache="int8" if self_int8 else "f32",
+               errors=hold, variants=variants, max_abs_err=worst_abs,
+               ms=time_ms(lambda: graph.run(x, pos), 20),
+               ms_direct=time_ms(lambda: DL.fused_decoder_layers(
+                   x, wpack, cd, cross, 0, pos, H), 20))
+    if self_int8:
+        gb = DL.DecodeStepGraph(wpack, cd, cross, R, H)
+        xb = x.to(torch.bfloat16)
+        out["bf16_ms"] = time_ms(lambda: gb.run(xb, pos), 20)
+        del gb
+    if R == 6 and self_int8:
+        out["plain_ms"] = time_ms(lambda: DL.fused_decoder_layers_plain(
+            x, wpack, cd, cross, 0, pos, H), 3, warmup=1)
+    out["bound_ms"], out["bound_by"] = step_bound(
+        dims, R, pos, self_int8, windows=6, act=4)
+    if R == 6:
+        out["parts"] = parts
+    del graph, cg_, cd, wpack, cross, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_attn_f32(dev, B, T):
+    """Row 2t's forward at inference (compute_type "f32", no gradient:
+    the forward alone, no autograd context) at (B, 20, T, 64) f32 against
+    attention_plain, below "the tail key block dropped" (keys past the
+    last whole 64-key block); timed beside scaled_dot_product_attention in
+    f32."""
+    import torch
+    import torch.nn.functional as F
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    H, dh = 20, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev)
+               for _ in range(3))
+    keep = (T - 1) // 64 * 64
+    with torch.no_grad():
+        n = W.encoder_attn_train_fwd_kernel.launches
+        got = W.encoder_attention(q, k, v)
+        launched = W.encoder_attn_train_fwd_kernel.launches - n
+        want = W.attention_plain(q, k, v)
+        wrong = W.attention_plain(q, k[:, :, :keep], v[:, :, :keep])
+        torch.cuda.synchronize()
+        if got.grad_fn is not None or launched != 1:
+            fail(f"encoder attention f32 at inference: grad_fn "
+                 f"{got.grad_fn}, {launched} forward launches")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"encoder attention f32 at T {T} is not finite")
+        tol = {"max_rel": 2e-5, "mean_rel": 1e-5}
+        errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
+        hold = held(f"encoder_attn_train[inference forward, ({B}, {H}, {T}, "
+                    f"{dh}), the {T - keep} tail keys dropped]", errs, tol,
+                    {"max_rel": max_rel(wrong, want),
+                     "mean_rel": mean_rel(wrong, want)})
+        fwd = lambda: W.encoder_attention(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)
+        elems = B * H * T * dh
+        b_ms, b_by = bound(4 * elems * 4, 4 * B * H * T * T * dh, PEAK_F32)
+        out = dict(shape=[B, H, T, dh], hold=hold,
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=time_ms(fwd, 10), device_ms=device_ms(fwd, 10),
+                   plain_ms=time_ms(lambda: W.attention_plain(q, k, v), 3),
+                   library_ms=time_ms(lib, 10),
+                   library_device_ms=device_ms(lib, 10),
+                   bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, got, want, wrong
+    torch.cuda.empty_cache()
+    return out
+
+
+def vocab_f32(dev):
+    """Row 19's "f32" path (f32 operands: one f32 library product, TF32
+    off) at F32_VOCAB_M on the f32 embedding (51866 x 1280, 265.6 MB):
+    within 1e-5 of max |logit| of an f64 product, below "TF32 left on";
+    timed by events and device time beside its bound (the path is the
+    library call, and the plain version the same product)."""
+    import torch
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    V, K = 51866, 1280
+    g = torch.Generator(device=dev).manual_seed(26)
+    emb = 0.05 * torch.randn((V, K), generator=g, device=dev)
+    rows = []
+    for M in F32_VOCAB_M:
+        x = torch.randn((M, K), generator=g, device=dev)
+        got = VO.vocab_product(x, emb)
+        want = (x.double() @ emb.double().T)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = torch.matmul(x, emb.T)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        top = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / top
+        hold = held(f"vocab_product f32 path[M {M}]", {"max_rel": err},
+                    {"max_rel": 1e-5},
+                    {"max_rel": float((tf32.double() - want).abs().max())
+                     / top})
+        del want, tf32, got
+        path = lambda: VO.vocab_product_f32(x, emb)
+        b_ms, b_by = bound(V * K * 4 + M * K * 4 + M * V * 4,
+                           2.0 * M * V * K, PEAK_F32)
+        rows.append(dict(M=M, hold=hold, ms=time_ms(path, 20),
+                         device_ms=device_ms(path),
+                         plain_ms=time_ms(
+                             lambda: VO.vocab_product_plain(x, emb), 5),
+                         bound_ms=b_ms, bound_by=b_by))
+    print("vocab_product f32 path " + json.dumps(rows), flush=True)
+    del emb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_f32(dev, entries):
+    """The kernels of the f32 path at its shapes, each against its plain
+    version: row 3's f32 instantiation (F32_STEP_CASES, the kernels
+    line's ``decode_layers_f32`` entry), row 2t's forward at inference at
+    6 windows x T 1500 and T 800, row 6 with f32 queries at the prefills'
+    shapes, row 7 with f32 queries at the self_int8 slice's shape, and
+    row 19's "f32" path."""
+    import torch
+    from whisper_aries_tpu_torch.ops import cross_attn as XA
+    from whisper_aries_tpu_torch.ops import self_attn as SA
+
+    t0 = time.time()
+    steps = [hold_step_f32(dev, R, int8) for R, int8 in F32_STEP_CASES]
+    print("decode_layers f32 " + json.dumps(steps), flush=True)
+    main = steps[0]
+    entries.append(dict(
+        name="decode_layers_f32", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/decode_layers.cu",
+        replaces="whisper_aries_tpu/ops/pallas_decode_layers.py:775",
+        variant="the f32 residual stream (compute_type f32)",
+        max_abs_err=max(s["max_abs_err"] for s in steps),
+        tolerance=next(iter(main["errors"].values()))["tolerances"],
+        ms=main["ms"],
+        ms_direct=main["ms_direct"], bf16_ms=main["bf16_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, cases=steps,
+        shape="one step, all 32 layers, R 6 over 6 windows, position 116, "
+              "x f32, int8 self cache; ms a CUDA graph replay"))
+    enc = [encoder_attn_f32(dev, 6, T) for T in (1500, 800)]
+    print("encoder_attn_train inference " + json.dumps(enc), flush=True)
+    # rows 6 and 7 with f32 queries: the prefills' (6 windows x the
+    # prompt's 3 positions; x the ladder's best_of 5) and the unfused
+    # step's
+    cross = []
+    for G in (3, 15):
+        q, args, _ = cross_case(dev, 6, G, seed=G, q_dtype=torch.float32)
+        err, tols = hold_cross(f"f32 q, 6 windows x G {G}", q, args)
+        kern = lambda: XA.cross_attention_q8_kernel(q, *args)
+        cross.append(dict(G=G, max_abs_err=err, tolerance=tols,
+                          ms=time_ms(kern, 20), device_ms=device_ms(kern),
+                          bound_ms=cross_bound(6, G, 1500)[0]))
+        del q, args
+    print("cross_attn_q8 f32 q " + json.dumps(cross), flush=True)
+    B, H, T, dh = 6, 20, 227, 64
+    g = torch.Generator(device=dev).manual_seed(13)
+    kv8, sc = XA.quantize_kv_per_position(torch.randn(
+        (2, B, H, T, dh), generator=g, device=dev).to(torch.bfloat16))
+    k8, v8 = kv8[0].contiguous(), kv8[1].contiguous()
+    ks, vs = (sc[0] / 8.0).contiguous(), sc[1].contiguous()
+    q = torch.randn((B, 1, H, dh), generator=g, device=dev).transpose(1, 2)
+    t = torch.arange(T, device=dev)
+    neg = float(np.finfo(np.float32).min)
+    pos = 116
+    mask = torch.where(t <= pos, 0.0, neg).float()[None]
+    got = SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+    want = SA.self_attention_q8_plain(q, k8, ks, v8, vs, mask)
+    cut = mask.clone()
+    cut[..., pos] = neg
+    errs = {"max_rel": max_rel(got, want), "mean_rel": mean_rel(got, want)}
+    tol = {"max_rel": 1e-4, "mean_rel": 1e-5}
+    mistakes = {"last written position dropped": SA.self_attention_q8_plain(
+        q, k8, ks, v8, vs, cut), "q rounded to bf16":
+        SA.self_attention_q8_plain(q.to(torch.bfloat16).float(), k8, ks, v8,
+                                   vs, mask)}
+    self_hold = {name: held(
+        f"self_attn_q8[f32 q, R {B} x {H} heads, T {T}, pos {pos}, {name}]",
+        errs, tol, {"max_rel": max_rel(wrong, want),
+                    "mean_rel": mean_rel(wrong, want)})
+        for name, wrong in mistakes.items()}
+    kern = lambda: SA.self_attention_q8_kernel(q, k8, ks, v8, vs, mask)
+    self_f32 = dict(hold=self_hold, max_abs_err=float(
+        (got - want).abs().max()), ms=time_ms(kern, 50),
+        device_ms=device_ms(kern))
+    print("self_attn_q8 f32 q " + json.dumps(self_f32), flush=True)
+    vocab = vocab_f32(dev)
+    for e in entries:
+        if e["name"] == "encoder_attn_train":
+            e["inference"] = enc
+        elif e["name"] == "cross_attn_q8":
+            e["f32_q"] = cross
+        elif e["name"] == "self_attn_q8":
+            e["f32_q"] = self_f32
+        elif e["name"] == "vocab_gemm":
+            e["f32_path"] = vocab
+    print(f"kernel_f32: {time.time() - t0:.1f} s", flush=True)
+
+
+#: the plain versions a wrapper takes for CPU tensors: none may run on a
+#: CUDA tensor on the f32 path (module, attribute)
+F32_PLAIN = (("ops.decode_layers", "fused_decoder_layers_plain"),
+             ("models.whisper", "attention_plain"),
+             ("ops.vocab", "vocab_product_plain"),
+             ("ops.cross_attn", "cross_attention_q8_reference"),
+             ("ops.self_attn", "self_attention_q8_plain"),
+             ("ops.beam_tail", "beam_tail_plain"),
+             ("ops.decode_choice", "greedy_choice_plain"),
+             ("ops.mel", "log_mel_spectrogram"),
+             ("decoding.generate", "host_loop"))
+
+
+def f32_run(eng, label, call, wav):
+    """One transcribe_file of the f32 slice, counts from 0 before and read
+    after; its figures (the slice lines' names) and checks."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    for fn in counters().values():
+        fn.launches = 0
+    VO.vocab_product_kernel.launches_by_path = dict.fromkeys(VO.PATHS, 0)
+    DL.fused_decoder_layers.graph_replays = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = eng.transcribe_file(str(wav), **call)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    stats = eng.last_stats
+    launches = {k: fn.launches for k, fn in counters().items()}
+    vocab_paths = VO.launches_by_path()
+    decodes = stats.get("decodes", [])
+    if res["num_windows"] < 1 or not decodes:
+        fail(f"f32 {label}: no window was decoded")
+    end_limit = res["duration"] + (0.02 if call.get("word_timestamps")
+                                   else 1e-6)
+    last = -1.0
+    for s in res["segments"]:
+        if not (math.isfinite(s["avg_logprob"])
+                and math.isfinite(s["no_speech_prob"])
+                and 0.0 <= s["start"] < s["end"] <= end_limit
+                and s["start"] >= last - 1e-6):
+            fail(f"f32 {label}: malformed or unordered segment {s}")
+        last = s["start"]
+    n_words = 0
+    if call.get("word_timestamps"):
+        for s in res["segments"]:
+            if not s.get("words"):
+                fail(f"f32 {label}: a segment without words: {s}")
+            for w in s["words"]:
+                n_words += 1
+                if not (math.isfinite(w["start"]) and math.isfinite(w["end"])
+                        and math.isfinite(w["probability"])
+                        and 0.0 <= w["start"] < w["end"] <= end_limit):
+                    fail(f"f32 {label}: malformed word {w}")
+    steps = sum(d["steps"] for d in decodes)
+    host_reads = sum(d["host_reads"] for d in decodes)
+    if host_reads or launches["host_reads"]:
+        fail(f"f32 {label}: {host_reads} host reads inside the loops")
+    if launches["decode_loop"] != len(decodes):
+        fail(f"f32 {label}: {launches['decode_loop']} loop graphs for "
+             f"{len(decodes)} decode calls")
+    if DL.fused_decoder_layers.graph_replays != steps - len(decodes) or (
+            launches["decode_layers_f32"] != launches["decode_layers"]):
+        fail(f"f32 {label}: {DL.fused_decoder_layers.graph_replays} replays,"
+             f" {launches['decode_layers_f32']} f32 / "
+             f"{launches['decode_layers']} step launches for "
+             f"{steps - len(decodes)} layer steps")
+    dec_s = sum(d["seconds"] for d in decodes)
+    main_pass = [d for d in decodes if d["temperature"] == 0.0]
+    out = dict(
+        audio_s=res["duration"], windows=res["num_windows"],
+        segments=len(res["segments"]), wall_s=wall,
+        real_time_factor=res["real_time_factor"], decode_calls=len(decodes),
+        decode_steps=steps, decode_s=dec_s,
+        ms_per_step=1e3 * dec_s / max(1, steps),
+        main_pass=[{k: d[k] for k in ("rows", "windows", "steps",
+                                      "seconds")} for d in main_pass],
+        host_reads=host_reads, decode_loops=launches["decode_loop"],
+        graph_replays=DL.fused_decoder_layers.graph_replays,
+        launches={k: n for k, n in launches.items() if n},
+        vocab_paths=vocab_paths, peak_mem_gb=torch.cuda.max_memory_allocated()
+        / 1e9, words=n_words)
+    if call.get("word_timestamps"):
+        w = stats["words"]
+        out["word_pass"] = {k: w[k] for k in w if isinstance(w[k], (int,
+                                                                     float))}
+    return out, launches
+
+
+def f32_phase(dev):
+    """compute_type "f32" at large-v3 width, seeded random f32 weights
+    (6.2 GB; the earlier phases' engines freed first): transcribe_file on
+    the 125 s WAV greedy at temperature 0, then beam 5 with word
+    timestamps (10 alignment heads) at temperature 0, counts from 0 before
+    the first run and read after each. Every kernel of PATH_KERNELS["f32"]
+    launched, the f32 step on every layer step, the vocab products on the
+    "f32" path only, no plain version on a CUDA tensor (F32_PLAIN), every
+    decode call one loop graph with no host read; finite, ordered segments
+    and well-formed words. Prints the ``slice_f32`` line beside the bf16
+    slices' figures of this call."""
+    import gc
+    import importlib
+
+    import torch
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    wav = OUT / "synthetic_2min.wav"
+    t0 = time.time()
+    eng = AriesTranscriber("large-v3", allow_random=True, compute_type="f32",
+                           _tokenizer=word_tokenizer())
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    if eng.activation_dtype != torch.float32:
+        fail(f"f32: activation dtype {eng.activation_dtype}")
+    if not (eng.fused and eng.kv_int8 and eng.self_kv_int8):
+        fail("f32: the engine did not resolve 'auto' to the fused step "
+             "with int8 cross K/V and self cache")
+    eng.alignment_heads = list(ALIGNMENT_HEADS)
+    plain_on_card, saved = Counter(), []
+    for mod_name, attr in F32_PLAIN:
+        mod = importlib.import_module(f"whisper_aries_tpu_torch.{mod_name}")
+        fn = getattr(mod, attr)
+
+        def spy(*a, _fn=fn, _name=f"{mod_name}.{attr}", **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in list(a) + list(kw.values())):
+                plain_on_card[_name] += 1
+            return _fn(*a, **kw)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, spy)
+    runs, total = {}, Counter()
+    try:
+        for label, call in (
+                ("greedy", dict(temperature=(0.0,))),
+                ("beam5_words", dict(beam_size=5, word_timestamps=True,
+                                     temperature=(0.0,)))):
+            call.update(output_formats=("txt", "json"),
+                        output_dir=str(OUT / f"f32_{label}"))
+            runs[label], launches = f32_run(eng, label, call, wav)
+            total.update(launches)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    launches = dict(total)
+    for k in PATH_KERNELS["f32"]:
+        if launches.get(k, 0) <= 0:
+            fail(f"kernel {k} was not launched on the f32 path")
+    if plain_on_card:
+        fail(f"f32: plain versions ran on CUDA tensors: {dict(plain_on_card)}")
+    if launches["vocab_gemm"]:
+        fail(f"f32: {launches['vocab_gemm']} vocab kernel launches on f32 "
+             "operands")
+    bf16 = {k: {f: SLICE_SUMMARIES[k][f] for f in (
+        "wall_s", "real_time_factor", "ms_per_step", "main_pass",
+        "decode_loops", "host_reads", "peak_mem_gb", "vocab_paths")}
+        for k in ("greedy", "beam", "words") if k in SLICE_SUMMARIES}
+    summary = dict(setup_s=setup_s, batch_size=eng.batch_size, runs=runs,
+                   plain_on_card=dict(plain_on_card), bf16_slices=bf16)
+    print("slice_f32 " + json.dumps(summary), flush=True)
+    (OUT / "slice_f32.json").write_text(json.dumps(summary, indent=2))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -6810,6 +7477,7 @@ def main() -> None:
     kernel_uniform_draw(dev, entries)
     kernel_vocab(dev, entries)
     kernel_decode_choice(dev, entries)
+    kernel_f32(dev, entries)
     decode_loop_phase(dev, entries)
     for B in (6, 8):  # the slice's 6 windows; a full batch of 8
         profile_beam_step(dev, parts, B)
@@ -6819,7 +7487,7 @@ def main() -> None:
     runs = {path: slice_phase(dev, path, keep=path == "beam")
             for path in PATH_KERNELS
             if path not in ("checkpoint", "pipeline", "serve", "cli",
-                            "depth", "tools", "train", "speculative")}
+                            "depth", "tools", "train", "speculative", "f32")}
     beam_engine, runs["beam"] = runs["beam"][2], runs["beam"][:2]
     *runs["checkpoint"], ckpt = checkpoint_phase(dev)
     runs["pipeline"] = (pipeline_phase(dev, beam_engine), {})
@@ -6828,6 +7496,7 @@ def main() -> None:
     runs["depth"] = (depth_phase(dev, beam_engine), {})
     runs["tools"] = (tools_phase(dev, beam_engine), {})
     del beam_engine
+    runs["f32"] = (f32_phase(dev), {})
     runs["train"] = (train_phase(dev), {})
     runs["speculative"] = (spec_phase(dev, entries), {})
     launches = {path: run[0] for path, run in runs.items()}

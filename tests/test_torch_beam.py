@@ -54,13 +54,14 @@ def setup():
     return jparams, tparams, xa, mask, prompt
 
 
-def _jax_beam(setup, kv_int8, self_int8, tail="xla", rep=None, **kw):
+def _jax_beam(setup, kv_int8, self_int8, tail="xla", rep=None,
+              reorder="xla", **kw):
     jparams, _, xa, mask, prompt = setup
     out = JG.beam_search_decode(
         jparams, jnp.asarray(xa), jnp.asarray(prompt), DIMS_J,
         JG.DecodeSpecialIds(**IDS), jnp.asarray(mask), jnp.int32(0),
         beam_size=K, sample_len=SAMPLE_LEN, kv_int8=kv_int8,
-        self_kv_int8=self_int8, beam_reorder="xla", beam_tail=tail,
+        self_kv_int8=self_int8, beam_reorder=reorder, beam_tail=tail,
         beam_group=1,
         repetition_penalty=None if rep is None else jnp.float32(rep), **kw)
     return {k: np.asarray(v) for k, v in out.items()}
@@ -256,3 +257,21 @@ def test_fallback_shared_cross_equals_repeated_windows(engine_pair):
                                repeated["sum_logprob"], rtol=1e-5)
     assert eng.last_stats["decodes"][0]["windows"] == 2
     assert eng.last_stats["decodes"][0]["rows"] == 6
+
+
+def test_beam_fused_f32_cache_matches_jax_megakernel(setup):
+    """compute_type "f32" without an int8 self cache at beam 5: the port's
+    fused steps (plain version, x and the self cache f32) against the JAX
+    package's beam search through its Pallas megakernel
+    (``beam_reorder="mega"``, interpret mode on the CPU) at f32: tokens,
+    all_tokens and n_sampled identical; every score to the int8 cases'
+    tolerance (1e-3 relative: the int8 cross K/V)."""
+    want = _jax_beam(setup, True, False, reorder="mega")
+    got = _torch_beam(setup, True, False, fused=True)
+    for k in ("tokens", "all_tokens", "n_sampled"):
+        np.testing.assert_array_equal(got[k], want[k])
+    for k in ("sum_logprob", "avg_logprob", "no_speech_prob"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-5)
+    live = np.abs(want["all_scores"]) < 1e30
+    np.testing.assert_allclose(got["all_scores"][live],
+                               want["all_scores"][live], rtol=1e-3)

@@ -1933,3 +1933,233 @@ def test_unfused_step_graph_capture_failure_raises(small, monkeypatch):
                         self_kv_int8=True, fused=False)
     # the prefill, the warm-up and the capture; no eager step after it
     assert len(calls) == 3 and isinstance(calls[2], torch.Tensor)
+
+
+# ---------------------------------------------------------------------------
+# compute_type "f32": row 3's f32 instantiation, the vocab's "f32" path,
+# row 2t's forward at inference, the f32 engine
+# ---------------------------------------------------------------------------
+
+
+def _f32_step_operands(small, R, self_int8):
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    xa = torch.randn((R, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    kv = torch.zeros((2, R, 2, 2, 16, 64), device=dev)
+    kv[..., :3, :] = torch.randn((2, R, 2, 2, 3, 64), generator=g,
+                                 device=dev)
+    if self_int8:
+        q8, sc = DL.quantize_heads(kv)
+        return wpack, cross, {"kv8": q8, "ksc": sc}, g
+    return wpack, cross, {"kv": kv}, g
+
+
+@pytest.mark.parametrize("self_int8", [True, False])
+def test_decoder_layers_f32_instantiation(small, self_int8):
+    """Row 3 at x f32 (the f32 residual stream) against its plain version
+    at R 6: x stays f32; the median call's error under the bf16
+    instantiation's roundings, the appended cache within an int8 step /
+    1e-3; the f32 launch counter follows; a graph replay equals direct
+    launches bit for bit; an x of the other dtype is refused, not cast."""
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    wpack, cross, cache, g = _f32_step_operands(small, 6, self_int8)
+    dev = wpack["wq8"].device
+    ck = {k: v.clone() for k, v in cache.items()}
+    cp = {k: v.clone() for k, v in cache.items()}
+    n, n32 = DL.fused_decoder_layers.launches, DL.F32.launches
+    errs = []
+    for pos in (3, 4, 5):
+        x = 0.25 * torch.randn((6, 128), generator=g, device=dev)
+        got = DL.fused_decoder_layers(x, wpack, ck, cross, 1, pos, 2)
+        want = DL.fused_decoder_layers_plain(x, wpack, cp, cross, 1, pos, 2)
+        assert got.dtype == torch.float32
+        assert _rel(got, want) < 3e-2
+        errs.append(_mean_rel(got, want, x))
+    # a few products' inputs a row one bf16 step apart (f32 values summed
+    # in other orders), far under qkv rounded to bf16 (chip_smoke.py)
+    assert float(np.median(errs)) < 2e-3
+    assert DL.fused_decoder_layers.launches == n + 3
+    assert DL.F32.launches == n32 + 3
+    key = "kv8" if self_int8 else "kv"
+    a, b = ck[key][..., 3:6, :], cp[key][..., 3:6, :]
+    if self_int8:
+        assert int((a.int() - b.int()).abs().max()) <= 1
+    else:
+        assert _rel(a, b) < 1e-3
+    gc_, dc = ({k: v.clone() for k, v in ck.items()} for _ in range(2))
+    graph = DL.DecodeStepGraph(wpack, gc_, cross, 6, 2, dtype=torch.float32)
+    for pos in (6, 7):
+        x = torch.randn((6, 128), generator=g, device=dev)
+        assert torch.equal(graph.run(x, pos),
+                           DL.fused_decoder_layers(x, wpack, dc, cross, 0,
+                                                   pos, 2))
+    with pytest.raises(ValueError, match="made for"):
+        graph.run(x.to(torch.bfloat16), 8)
+    step = DL.FusedStep(wpack, dc, cross, 6, 2, 0, 9, torch.float32)
+    with pytest.raises(ValueError, match="made for"):
+        step(x.to(torch.bfloat16), torch.zeros((), dtype=torch.int32,
+                                                device=dev))
+
+
+def test_decoder_layer_parts_f32(small):
+    """Each part at f32 operands against its plain version: LayerNorm of
+    an f32 x, the GEMM's f32 store and f32 residual add, the
+    self-attention on f32 qkv (int8 and f32 caches) and the
+    cross-attention on f32 queries; bf16 outputs within one step."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    dims, params, wpack, g = small
+    dev = wpack["wq8"].device
+    offs, _ = DL.vec_offsets(128, 512)
+    vec = wpack["vecs"][0]
+    seg = lambda i: vec[int(offs[i]):int(offs[i + 1])].contiguous()
+    R = 6
+    x = torch.randn((R, 128), generator=g, device=dev)
+    assert _bf16_close(DL.layer_norm_kernel(x, seg(0), seg(1)),
+                       DL.layer_norm_plain(x, seg(0), seg(1)).to(
+                           torch.bfloat16))
+    h = x.to(torch.bfloat16)
+    w = wpack["wq8"][0][:, :384]
+    got = DL.w8a16_gemm_kernel(h, w, seg(12), seg(2),
+                               out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert _rel(got, DL.w8a16_gemm_plain(h, w, seg(12), seg(2))) < 1e-5
+    res = x.clone()
+    w2 = wpack["wq8"][0][:, 384:512]
+    got = DL.w8a16_gemm_kernel(h, w2, seg(13), seg(3), DL.EPI_RESIDUAL,
+                               out=res)
+    want = x + DL.w8a16_gemm_plain(h, w2, seg(13), seg(3))
+    assert _rel(got, want) < 1e-5
+    qkv = torch.randn((R, 384), generator=g, device=dev)
+    kv = torch.randn((R, 2, 2, 16, 64), generator=g, device=dev)
+    q8, sc = DL.quantize_heads(kv)
+    for cache in ({"kv": kv}, {"kv8": q8, "ksc": sc}):
+        ck = {k: v.clone() for k, v in cache.items()}
+        cp = {k: v.clone() for k, v in cache.items()}
+        got = DL.self_attn_kernel(qkv, ck, 9, 2, 2)
+        want = DL.self_attn_plain(qkv, cp, 9, 2, 2)
+        assert got.dtype == torch.bfloat16
+        assert _bf16_close(got, want.to(torch.bfloat16))
+        for k in ck:
+            assert _rel(ck[k].float(), cp[k].float()) < 1e-6
+    xa = torch.randn((R, 96, 128), generator=g, device=dev).to(torch.bfloat16)
+    cross = W.precompute_cross_kv_int8(params, xa, dims)
+    got = DL.cross_attn_kernel(x, cross["kv8"][0], cross["sc"][0], 2)
+    want = DL.cross_attn_plain(x, cross["kv8"][0], cross["sc"][0], 2)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_close(got, want.to(torch.bfloat16))
+
+
+def test_vocab_product_f32_path(dev):
+    """f32 operands take the counted "f32" path (TF32 off, against an f64
+    product), bf16 ones the kernel; the kernel refuses f32; mixed dtypes
+    raise."""
+    from whisper_aries_tpu_torch.ops import vocab as VO
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((6, 256), generator=g, device=dev)
+    emb = 0.05 * torch.randn((1000, 256), generator=g, device=dev)
+    n, kern = VO.vocab_product_f32.launches, VO.vocab_product_kernel.launches
+    got = VO.vocab_product(x, emb)
+    want = x.double() @ emb.double().T
+    assert _rel(got.double(), want) < 1e-6
+    assert VO.vocab_product_f32.launches == n + 1
+    assert VO.vocab_product_kernel.launches == kern
+    assert VO.launches_by_path()["f32"] == n + 1
+    VO.vocab_product(x.to(torch.bfloat16), emb.to(torch.bfloat16))
+    assert VO.vocab_product_kernel.launches == kern + 1
+    with pytest.raises(ValueError):
+        VO.vocab_product_kernel(x, emb)
+    with pytest.raises(ValueError, match="must both be bf16"):
+        VO.vocab_product(x, emb.to(torch.bfloat16))
+
+
+def test_encoder_attention_f32_without_gradient(dev):
+    """f32 encoder attention without a gradient launches the training
+    forward alone (no autograd context, no backward's saved tensors) and
+    gives its output bits; with a gradient it keeps the autograd path."""
+    from whisper_aries_tpu_torch.models import whisper as W
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn((2, 2, 100, 64), generator=g, device=dev)
+               for _ in range(3))
+    n = W.encoder_attn_train_fwd_kernel.launches
+    with torch.no_grad():
+        got = W.encoder_attention(q, k, v)
+    assert got.grad_fn is None
+    assert W.encoder_attn_train_fwd_kernel.launches == n + 1
+    assert torch.equal(got, W.encoder_attn_train_fwd_kernel(q, k, v)[0])
+    assert _rel(got, W.attention_plain(q, k, v)) < 2e-5
+    qq = q.clone().requires_grad_(True)
+    out = W.encoder_attention(qq, k, v)
+    assert out.grad_fn is not None and torch.equal(out.detach(), got)
+
+
+def test_cross_entropy_f32_without_gradient_equals_with(small):
+    """An f32 cross_entropy_loss on the card under torch.no_grad() (the
+    vocab's "f32" path, row 2t's forward alone) equals the same call with
+    gradients (vocab_logits, the autograd path)."""
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import vocab as VO
+    from whisper_aries_tpu_torch.pipeline import train as TT
+
+    dims = small[0]
+    dev = small[2]["wq8"].device
+    params = W.init_params(dims, seed=4, device=dev, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(8)
+    mel = torch.randn((2, 80, 2 * dims.n_audio_ctx), generator=g, device=dev)
+    tok = torch.randint(0, dims.n_vocab, (2, 12), generator=g, device=dev)
+    tgt = torch.roll(tok, -1, dims=1)
+    mask = torch.ones(tok.shape, device=dev)
+    n = VO.vocab_product_f32.launches
+    with torch.no_grad():
+        plain = TT.cross_entropy_loss(params, mel, tok, tgt, mask, dims)
+    assert VO.vocab_product_f32.launches == n + 1
+    leaves = {k: v.requires_grad_(True) for k, v in
+              TT.flatten_params(params).items() if v.is_floating_point()}
+    assert leaves
+    graded = TT.cross_entropy_loss(params, mel, tok, tgt, mask, dims)
+    assert graded.requires_grad and bool(torch.isfinite(plain))
+    assert VO.vocab_product_f32.launches == n + 1
+    torch.testing.assert_close(plain, graded.detach(), rtol=1e-6, atol=1e-6)
+
+
+def test_engine_f32_transcribes(dev, tmp_path):
+    """compute_type "f32" on the card: f32 activations, the fused f32 step
+    with int8 cross K/V and self cache, 30 s of the synthetic WAV with
+    finite, ordered segments; the f32 step, the training forward and the
+    vocab's "f32" path launched, the bf16 vocab kernel not."""
+    from whisper_aries_tpu_torch.audio.decode import write_wav
+    from whisper_aries_tpu_torch.models import whisper as W
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.ops import vocab as VO
+    from whisper_aries_tpu_torch.pipeline.engine import AriesTranscriber
+
+    dims = W.WhisperDims(80, 1500, 128, 2, 2, 51866, 448, 128, 2, 2)
+    eng = AriesTranscriber("tiny-card", _params=W.init_params(dims, seed=0),
+                           _dims=dims, compute_type="f32")
+    assert eng.activation_dtype == torch.float32
+    assert eng.fused and eng.kv_int8 and eng.self_kv_int8
+    t = np.arange(16000 * 30) / 16000
+    x = 0.3 * np.sin(2 * np.pi * 200 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    path = str(tmp_path / "a.wav")
+    write_wav(path, x.astype(np.float32))
+    counters = (DL.F32, W.encoder_attn_train_fwd_kernel, VO.vocab_product_f32)
+    before = [c.launches for c in counters]
+    kern = VO.vocab_product_kernel.launches
+    res = eng.transcribe_file(path, temperature=(0.0,), max_new_tokens=8)
+    assert res["num_windows"] >= 1
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert VO.vocab_product_kernel.launches == kern
+    last = -1.0
+    for s in res["segments"]:
+        assert np.isfinite(s["avg_logprob"]) and s["start"] >= last
+        assert 0.0 <= s["start"] < s["end"] <= res["duration"] + 1e-6
+        last = s["start"]
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -86,8 +86,36 @@ def _operands(tree, self_int8, P=5, seed=0):
     return wpack, cache, cross, rng
 
 
-@pytest.mark.parametrize("self_int8", [False, True])
-def test_plain_layers_match_jax_reference(tree, self_int8):
+def _jax_kernel_step(x, jpack, ckv_j, xkv8, xsc, pos, vs, ksc_j):
+    """One step of JAX's megakernel itself (``fused_decoder_layers``,
+    interpret mode) in its layouts: the self cache's minor padded to the
+    256 lanes it needs, the cross keys to a multiple of 128 (zero K/V,
+    dead by the cross mask). Returns x and the cache (and scales) cut back
+    to the test's T."""
+    M, TaP = 256, 128
+    lanes = lambda a, n: jnp.pad(a, ((0, 0),) * (a.ndim - 1)
+                                 + ((0, n - a.shape[-1]),))
+    t = np.arange(M)
+    amask = np.where((t >= vs) & (t <= pos), 0.0, NEG).astype(np.float32)
+    amask = jnp.asarray(np.broadcast_to(amask, (R, 1, M)))
+    cmask = np.where(np.arange(TaP) < TA, 0.0, NEG).astype(np.float32)
+    cmask = jnp.asarray(np.broadcast_to(cmask, (8, TaP)))
+    out = JDL.fused_decoder_layers(
+        jnp.asarray(x), jpack, lanes(ckv_j, M), lanes(xkv8, TaP),
+        lanes(xsc, TaP), cmask, amask, jnp.int32(pos), n_head=H, beam_k=1,
+        ksc=None if ksc_j is None else lanes(ksc_j, M), interpret=True)
+    return (out[0], out[1][..., :T]) + ((out[2][..., :T],)
+                                         if ksc_j is not None else ())
+
+
+# golden "reference": fused_decoder_layers_reference; "kernel": JAX's
+# megakernel in interpret mode, at x f32 with an f32 self cache (the
+# card's compute_type "f32" without an int8 self cache)
+@pytest.mark.parametrize("self_int8,golden",
+                         [(False, "reference"), (True, "reference"),
+                          (False, "kernel")],
+                         ids=["False", "True", "f32-cache-kernel"])
+def test_plain_layers_match_jax_reference(tree, self_int8, golden):
     """Four consecutive steps, valid_start 1, f32.
 
     bf16-layout cache: x within 1e-4, appended K/V within 1e-5. int8 cache:
@@ -95,7 +123,8 @@ def test_plain_layers_match_jax_reference(tree, self_int8):
     differ in the last bit before quantization; a value sitting on a
     rounding boundary then lands one int8 step away, and x moves by ~1e-3.
     So int8 values are held to at most one step apart in under 1% of the
-    entries, scales to 1e-6 relative, x to 2e-3."""
+    entries, scales to 1e-6 relative, x to 2e-3. Against the megakernel
+    (f32 cache) the same limits as against the reference."""
     P, vs = 5, 1
     wpack, cache, cross, rng = _operands(tree, self_int8, P)
     jpack = {"vecs": jnp.asarray(wpack["vecs"].numpy()[:, None]),
@@ -113,9 +142,13 @@ def test_plain_layers_match_jax_reference(tree, self_int8):
         t = np.arange(T)
         amask = np.where((t >= vs) & (t <= pos), 0.0, NEG).astype(np.float32)
         amask = jnp.asarray(np.broadcast_to(amask, (R, 1, T)))
-        out = JDL.fused_decoder_layers_reference(
-            jnp.asarray(x), jpack, ckv_j, xkv8, xsc, amask, jnp.int32(pos),
-            n_head=H, beam_k=1, ksc=ksc_j)
+        if golden == "kernel":
+            out = _jax_kernel_step(x, jpack, ckv_j, xkv8, xsc, pos, vs,
+                                   ksc_j)
+        else:
+            out = JDL.fused_decoder_layers_reference(
+                jnp.asarray(x), jpack, ckv_j, xkv8, xsc, amask,
+                jnp.int32(pos), n_head=H, beam_k=1, ksc=ksc_j)
         got = DL.fused_decoder_layers(torch.from_numpy(x), wpack, cache,
                                       cross, vs, pos, H)
         np.testing.assert_allclose(got.numpy(), np.asarray(out[0]),

@@ -167,3 +167,21 @@ def test_language_detection_matches_jax(setup):
         want = np.asarray(jfn(jp, jnp.asarray(xa), DIMS_J, SP.sot, lang0, 2))
         got = tfn(tp, torch.from_numpy(xa), DIMS_T, SP.sot, lang0, 2).numpy()
         np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_greedy_fused_f32_cache_matches_jax_megakernel(setup):
+    """compute_type "f32" without an int8 self cache: the port's fused
+    steps (the decoder-layer kernels' plain version, x and the self cache
+    f32) against the JAX package's greedy decode through its Pallas
+    megakernel (``mega_group``, interpret mode on the CPU) at f32:
+    identical tokens; scores to the int8 cases' tolerance (the int8 cross
+    K/V: 1e-3 relative), no_speech_prob within 1e-5."""
+    jparams, tparams, xa, mask, prompt = setup
+    want = _jax_greedy(jparams, xa, mask, prompt, False, mega_group=1)
+    got = _torch_greedy(tparams, xa, mask, prompt, False, fused=True)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_array_equal(got["n_sampled"], want["n_sampled"])
+    np.testing.assert_allclose(got["sum_logprob"], want["sum_logprob"],
+                               rtol=1e-3)
+    np.testing.assert_allclose(got["no_speech_prob"], want["no_speech_prob"],
+                               atol=1e-5)

@@ -192,9 +192,10 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cl, float* v,
 // ---------------------------------------------------------------- self
 
 struct SelfArgs {
-  const bf16* qkv;  // (R, 3d): q | k | v; row c NQ + q is query q of row c
+  const void* qkv;  // (R, 3d) bf16 or f32 (F32): q | k | v; row c NQ + q
+                    // is query q of row c
   int d;
-  void* cache;      // (R / NQ, 2, H, Tmax, 64) bf16 or int8
+  void* cache;      // (R / NQ, 2, H, Tmax, 64) bf16, f32 (F32) or int8
   float* csc;       // (R / NQ, 2, H, Tmax) f32 scales (int8 cache)
   int H, Tmax, C, HPB;
   const int* step;  // device {pos, valid_start}
@@ -205,35 +206,50 @@ struct SelfArgs {
 // SELF_MAX_QUERIES drafted tokens (the speculative verify step)
 constexpr int SELF_MAX_QUERIES = 8;
 
-template <bool INT8>
+// bytes of a staged cache row: int8, bf16, or f32 (an f32 self cache, F32
+// without INT8), padded: conflict-free row reads
+template <bool INT8, bool F32 = false>
 __host__ __device__ constexpr int self_row_stride() {
-  return INT8 ? 64 + 16 : 128 + 16;  // padded: conflict-free row reads
+  return INT8 ? 64 + 16 : (F32 ? 256 + 16 : 128 + 16);
 }
 
 // dynamic shared memory of one self-attention block: V rows (shared by
-// the NQ queries), and a query's probabilities, query, per-head and
-// per-warp partials and stats, NQ times
-template <bool INT8>
+// the NQ queries; an f32 cache stages its K rows too), and a query's
+// probabilities, query, per-head and per-warp partials and stats, NQ times
+template <bool INT8, bool F32 = false>
 __host__ __device__ inline int self_smem_bytes(int HPB, int C, int NQ) {
-  return HPB * C * self_row_stride<INT8>() +
+  return (F32 && !INT8 ? 2 : 1) * HPB * C * self_row_stride<INT8, F32>() +
          NQ * (HPB * C * 4 + HPB * DH * 4 * 2 +
                HPB * (C / 32) * (DH + 1) * 4 + 2 * HPB * 4);
 }
+
+__device__ __forceinline__ float to_f(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
 
 // grid (S, H / HPB, R), cluster (S, 1, 1), HPB x C threads: the block
 // takes split s of HPB heads of row r, C threads per head. Thread i of a
 // head owns key s C + i: it loads that key's K and V rows (and scales)
 // into registers before the wait, scores the key, and puts the V row in
 // shared memory, where half-warps own keys in P . V.
-template <bool INT8>
+//
+// F32 is the f32 residual stream's instantiation (compute_type "f32", the
+// JAX megakernel at x f32): qkv f32, the query scaled without a rounding,
+// K/V appended from their f32 values (quantized, or stored into an f32
+// cache), probabilities f32 into P . V. An f32 cache row (256 bytes) is
+// staged by cp.async, K beside V, into shared memory instead of registers.
+template <bool INT8, bool F32 = false>
 __global__ void __launch_bounds__(SELF_MAX_KEYS, SELF_BLOCKS_PER_SM)
 self_split_kernel(SelfArgs a) {
   extern __shared__ __align__(16) uint8_t sm_self[];
-  constexpr int RS = self_row_stride<INT8>();
-  constexpr int NV = INT8 ? 4 : 8;  // 16-byte words per K or V row
+  using QT = std::conditional_t<F32, float, bf16>;
+  constexpr bool CF32 = F32 && !INT8;  // an f32 self cache
+  constexpr int RS = self_row_stride<INT8, F32>();
+  // 16-byte words per K or V row held in registers (none: f32 cache)
+  constexpr int NV = INT8 ? 4 : (CF32 ? 1 : 8);
   const int C = a.C, HPB = a.HPB, NW = C / 32;
   uint8_t* vsm = sm_self;
-  float* ps = reinterpret_cast<float*>(vsm + HPB * C * RS);
+  uint8_t* ksm = vsm + HPB * C * RS;  // the f32 cache's K rows
+  float* ps = reinterpret_cast<float*>(vsm + (CF32 ? 2 : 1) * HPB * C * RS);
   float* qs = ps + HPB * C;
   float* os = qs + HPB * DH;
   float* po = os + HPB * DH;            // (HPB, NW, DH + 1)
@@ -253,7 +269,10 @@ self_split_kernel(SelfArgs a) {
   const size_t vb = (((size_t)r * 2 + 1) * a.H + h) * a.Tmax;
   int8_t* c8 = static_cast<int8_t*>(a.cache);
   bf16* c16 = static_cast<bf16*>(a.cache);
+  float* c32 = static_cast<float*>(a.cache);
   const int4* rows16 = static_cast<const int4*>(a.cache);
+  int4* kst = reinterpret_cast<int4*>(ksm + (sub * C + lt) * RS);
+  int4* vst = reinterpret_cast<int4*>(vsm + (sub * C + lt) * RS);
 
   // this thread's key: live rows below pos were written by earlier steps,
   // so their loads go out before the wait
@@ -262,28 +281,37 @@ self_split_kernel(SelfArgs a) {
   int4 kr[NV], vr[NV];
   float ksc = 1.f, vsc = 1.f;
   if (live && t < pos) {
+    if constexpr (CF32) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      kr[c] = rows16[(kb + t) * NV + c];
-      vr[c] = rows16[(vb + t) * NV + c];
+      for (int c = 0; c < 16; ++c) {
+        cp16(kst + c, rows16 + (kb + t) * 16 + c);
+        cp16(vst + c, rows16 + (vb + t) * 16 + c);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[c] = rows16[(kb + t) * NV + c];
+        vr[c] = rows16[(vb + t) * NV + c];
+      }
     }
     if (INT8) {
       ksc = a.csc[kb + t];
       vsc = a.csc[vb + t];
     }
   }
+  if constexpr (CF32) cp_commit();
   pdl_wait();
   pdl_trigger();
 
-  const bf16* row = a.qkv + (size_t)r * 3 * d;
+  const QT* row = static_cast<const QT*>(a.qkv) + (size_t)r * 3 * d;
   // the split holding pos appends this step's k and v (each head's first
   // warp)
   if (wh == 0 && pos >= t0 && pos < t0 + C) {
     for (int which = 0; which < 2; ++which) {
-      const bf16* src = row + (which + 1) * d + h * DH + 2 * lane;
+      const QT* src = row + (which + 1) * d + h * DH + 2 * lane;
       const size_t dst = (which == 0 ? kb : vb) + pos;
-      if (INT8) {
-        const float f0 = bf2f(src[0]), f1 = bf2f(src[1]);
+      if constexpr (INT8) {
+        const float f0 = to_f(src[0]), f1 = to_f(src[1]);
         const float am = warp_max(fmaxf(fabsf(f0), fabsf(f1)));
         const float sc = am > 0.f ? am / 127.f : 1.f;
         const int q0 = max(-127, min(127, __float2int_rn(f0 / sc)));
@@ -291,37 +319,65 @@ self_split_kernel(SelfArgs a) {
         c8[dst * DH + 2 * lane] = (int8_t)q0;
         c8[dst * DH + 2 * lane + 1] = (int8_t)q1;
         if (lane == 0) a.csc[dst] = sc;
+      } else if constexpr (CF32) {
+        c32[dst * DH + 2 * lane] = src[0];
+        c32[dst * DH + 2 * lane + 1] = src[1];
       } else {
         c16[dst * DH + 2 * lane] = src[0];
         c16[dst * DH + 2 * lane + 1] = src[1];
       }
     }
   }
-  for (int j = lt; j < DH; j += C)
-    qs[sub * DH + j] = round_bf(__fmul_rn(bf2f(row[h * DH + j]), 0.125f));
+  for (int j = lt; j < DH; j += C) {
+    const float qj = __fmul_rn(to_f(row[h * DH + j]), 0.125f);
+    qs[sub * DH + j] = F32 ? qj : round_bf(qj);
+  }
   __syncthreads();  // the append (global) and qs are visible to the block
   if (t == pos) {  // the appended row, as stored
+    if constexpr (CF32) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      kr[c] = rows16[(kb + t) * NV + c];
-      vr[c] = rows16[(vb + t) * NV + c];
+      for (int c = 0; c < 16; ++c) {
+        kst[c] = rows16[(kb + t) * 16 + c];
+        vst[c] = rows16[(vb + t) * 16 + c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[c] = rows16[(kb + t) * NV + c];
+        vr[c] = rows16[(vb + t) * NV + c];
+      }
     }
     if (INT8) {
       ksc = a.csc[kb + t];
       vsc = a.csc[vb + t];
     }
   }
+  // the f32 cache's staged rows: this thread's K row (read by it alone)
+  // and V row (read by others after the barrier before P . V) landed
+  if constexpr (CF32) cp_wait<0>();
 
   // 1) logits of this split's live keys, the split's max per head; the
   // V rows to shared memory
   const float* q = qs + sub * DH;
   float lg = -INFINITY;
   if (live) {
-    int4* vdst = reinterpret_cast<int4*>(vsm + (sub * C + lt) * RS);
-#pragma unroll
-    for (int c = 0; c < NV; ++c) vdst[c] = vr[c];
     float acc = 0.f;
-    if (INT8) {
+    if constexpr (!CF32) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) vst[c] = vr[c];
+    }
+    if constexpr (CF32) {
+      const float4* kp = reinterpret_cast<const float4*>(kst);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float4 f = kp[c];
+        acc = fmaf(q[4 * c], f.x, acc);
+        acc = fmaf(q[4 * c + 1], f.y, acc);
+        acc = fmaf(q[4 * c + 2], f.z, acc);
+        acc = fmaf(q[4 * c + 3], f.w, acc);
+      }
+      lg = acc;
+    } else if (INT8) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int w[4] = {kr[c].x, kr[c].y, kr[c].z, kr[c].w};
@@ -380,7 +436,7 @@ self_split_kernel(SelfArgs a) {
     if (live) {
       p = e / sum;
       if (INT8) p = p * vsc;
-      p = round_bf(p);
+      if (!F32) p = round_bf(p);
     }
     ps[sub * C + lt] = p;
   }
@@ -393,7 +449,13 @@ self_split_kernel(SelfArgs a) {
     if (kl < klo || kl > khi) continue;
     const float p = ps[sub * C + kl];
     const uint8_t* vr = vsm + (sub * C + kl) * RS;
-    if (INT8) {
+    if constexpr (CF32) {
+      const float4 f = *reinterpret_cast<const float4*>(vr + 16 * hl);
+      acc[0] = fmaf(p, f.x, acc[0]);
+      acc[1] = fmaf(p, f.y, acc[1]);
+      acc[2] = fmaf(p, f.z, acc[2]);
+      acc[3] = fmaf(p, f.w, acc[3]);
+    } else if (INT8) {
       float f[4];
       i8x4_to_f32(*reinterpret_cast<const int*>(vr + 4 * hl), f);
 #pragma unroll
@@ -512,7 +574,8 @@ self_verify_kernel(SelfArgs a) {
     for (int q = 0; q < NQ; ++q) {
       const int tp = pos + q;
       if (tp < t0 || tp >= t0 + C) continue;
-      const bf16* row = a.qkv + ((size_t)r * NQ + q) * 3 * d;
+      const bf16* row =
+          static_cast<const bf16*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
       for (int which = 0; which < 2; ++which) {
         const bf16* src = row + (which + 1) * d + h * DH + 2 * lane;
         const size_t dst = (which == 0 ? kb : vb) + tp;
@@ -534,7 +597,8 @@ self_verify_kernel(SelfArgs a) {
   }
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    const bf16* row = a.qkv + ((size_t)r * NQ + q) * 3 * d;
+    const bf16* row =
+        static_cast<const bf16*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
     for (int j = lt; j < DH; j += C)
       qs[(q * HPB + sub) * DH + j] =
           round_bf(__fmul_rn(bf2f(row[h * DH + j]), 0.125f));
@@ -1475,19 +1539,28 @@ int launch(Kern kern, dim3 grid, int threads, size_t smem, int cluster,
 
 // heads per self-attention block: 4, 2 or 1, dividing H, at most 256
 // threads and SELF_MAX_SMEM bytes at NQ queries a cache row
-inline int self_heads_per_block(int H, int C, int int8, int NQ) {
+inline int self_heads_per_block(int H, int C, int int8, int NQ,
+                                int f32 = 0) {
   for (int hp = 4; hp > 1; hp /= 2) {
     const int smem = int8 ? self_smem_bytes<true>(hp, C, NQ)
-                          : self_smem_bytes<false>(hp, C, NQ);
+                     : f32 ? self_smem_bytes<false, true>(hp, C, NQ)
+                           : self_smem_bytes<false>(hp, C, NQ);
     if (H % hp == 0 && hp * C <= SELF_MAX_KEYS && smem <= SELF_MAX_SMEM)
       return hp;
   }
   return 1;
 }
 
-template <bool INT8>
+// F32 (the f32 residual stream) takes one query a cache row: the verify
+// step runs bf16 activations
+template <bool INT8, bool F32 = false>
 int launch_self_nq(const SelfArgs& a, dim3 grid, int threads, int smem,
                    int NQ, int pdl, cudaStream_t st) {
+  if constexpr (F32) {
+    if (NQ != 1) return (int)cudaErrorInvalidValue;
+    return launch(self_split_kernel<INT8, true>, grid, threads, smem, grid.x,
+                  pdl, st, a);
+  }
 #define ARIES_SELF(N)                                                        \
   case N:                                                                    \
     return launch(self_verify_kernel<INT8, N>, grid, threads, smem, grid.x, \
@@ -1514,6 +1587,7 @@ int launch_self_nq(const SelfArgs& a, dim3 grid, int threads, int smem,
 template <bool INT8>
 int self_allow_smem() {
   const void* kerns[] = {(const void*)self_split_kernel<INT8>,
+                         (const void*)self_split_kernel<INT8, true>,
                          (const void*)self_verify_kernel<INT8, 2>,
                          (const void*)self_verify_kernel<INT8, 3>,
                          (const void*)self_verify_kernel<INT8, 4>,

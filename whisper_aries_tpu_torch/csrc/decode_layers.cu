@@ -33,6 +33,15 @@
 // attending over [vs, pos + q]; the GEMMs, LayerNorms and cross-attention
 // (G = Q queries a window) take its rows as any others.
 //
+// compute_type "f32" (the JAX megakernel at x f32) instantiates the step
+// with an f32 residual stream: x (R, d) f32, LayerNorm reading it, the
+// residual epilogues adding y into x without a rounding, qkv and cq
+// stored f32 (q scaled, K/V quantized or cached from their f32 values),
+// self-attention probabilities f32 into P . V, cross-attention on f32
+// queries, and an f32 self cache where it is not int8. The products' A
+// operands stay bf16 (h, att, the cross output, h1): the megakernel
+// rounds every product's input to bf16 too.
+//
 // Bound on the H100: bytes. At large-v3 (d 1280, ff 5120, L 32) a step
 // streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales for
 // 8 windows (whatever the beams per window) and the self cache up to
@@ -108,46 +117,50 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
 
 // ------------------------------------------------------------ (a) LayerNorm
 
-// one warp per row; d % 8 == 0, rows 16-byte aligned
+// one warp per row; d % 8 == 0, rows 16-byte aligned; x bf16 or f32 (XT),
+// y bf16 (the products' A operand)
+template <typename XT>
 __global__ void __launch_bounds__(32)
-layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ s,
+layer_norm_kernel(const XT* __restrict__ x, const float* __restrict__ s,
                   const float* __restrict__ b, bf16* __restrict__ y, int d) {
+  constexpr int E = 16 / sizeof(XT);  // elements a 16-byte load
+  using Out = std::conditional_t<E == 8, int4, uint2>;
   pdl_wait();
   pdl_trigger();
   const int lane = threadIdx.x;
-  const bf16* xr = x + (size_t)blockIdx.x * d;
+  const XT* xr = x + (size_t)blockIdx.x * d;
   bf16* yr = y + (size_t)blockIdx.x * d;
   float acc = 0.f;
-  for (int i = 8 * lane; i < d; i += 256) {
+  for (int i = E * lane; i < d; i += 32 * E) {
     const int4 raw = *reinterpret_cast<const int4*>(xr + i);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    const XT* v = reinterpret_cast<const XT*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc += bf2f(v[j]);
+    for (int j = 0; j < E; ++j) acc += splitkv::to_f(v[j]);
   }
   const float mu = warp_sum(acc) / (float)d;
   float sq = 0.f;
-  for (int i = 8 * lane; i < d; i += 256) {
+  for (int i = E * lane; i < d; i += 32 * E) {
     const int4 raw = *reinterpret_cast<const int4*>(xr + i);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    const XT* v = reinterpret_cast<const XT*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float dx = bf2f(v[j]) - mu;
+    for (int j = 0; j < E; ++j) {
+      const float dx = splitkv::to_f(v[j]) - mu;
       sq = fmaf(dx, dx, sq);
     }
   }
   const float var = warp_sum(sq) / (float)d;
   const float rstd = 1.f / sqrtf(var + 1e-5f);
-  for (int i = 8 * lane; i < d; i += 256) {
+  for (int i = E * lane; i < d; i += 32 * E) {
     const int4 raw = *reinterpret_cast<const int4*>(xr + i);
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
-    int4 outw;
+    const XT* v = reinterpret_cast<const XT*>(&raw);
+    Out outw;
     bf16* o = reinterpret_cast<bf16*>(&outw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float n = __fmul_rn(__fsub_rn(bf2f(v[j]), mu), rstd);
+    for (int j = 0; j < E; ++j) {
+      const float n = __fmul_rn(__fsub_rn(splitkv::to_f(v[j]), mu), rstd);
       o[j] = f2bf(__fadd_rn(__fmul_rn(n, s[i + j]), b[i + j]));
     }
-    *reinterpret_cast<int4*>(yr + i) = outw;
+    *reinterpret_cast<Out*>(yr + i) = outw;
   }
 }
 
@@ -198,7 +211,7 @@ struct GemmArgs {
   const float* scale;  // (N,)
   const float* bias;   // (N,)
   int mode;
-  bf16* out;           // (R, N), row stride ldo
+  void* out;           // (R, N) bf16 or f32 (the kernel's OT), stride ldo
   int ldo;
 };
 
@@ -207,7 +220,9 @@ struct GemmArgs {
 // columns (two n8 tiles): a thread's 16-bit weight load at column
 // 16 w + 2 g holds fragment column g of both tiles (tile j's column g is
 // physical column 16 w + 2 g + j). MT m16 row tiles (16 MT rows) a pass.
-template <int MT>
+// OT f32 (the f32 residual stream's qkv, cq and x) stores y, or adds it to
+// x, without a rounding.
+template <int MT, typename OT>
 __global__ void __launch_bounds__(G_THREADS)
 gemm_w8_kernel(GemmArgs a) {
   extern __shared__ __align__(128) uint8_t sm[];
@@ -330,9 +345,7 @@ gemm_w8_kernel(GemmArgs a) {
     for (int i = ks * G_THREADS + tid; i < nr * (G_COLS / 4);
          i += S * G_THREADS) {
       const int r = i >> 4, c = (i & 15) * 4;
-      bf16* o = a.out + (size_t)(r0 + r) * a.ldo + n0 + c;
-      uint2 res = make_uint2(0u, 0u);
-      if (a.mode == EPI_RESIDUAL) res = *reinterpret_cast<const uint2*>(o);
+      OT* o = static_cast<OT*>(a.out) + (size_t)(r0 + r) * a.ldo + n0 + c;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < S; ++q) {
         const float4 p = *reinterpret_cast<const float4*>(
@@ -343,31 +356,86 @@ gemm_w8_kernel(GemmArgs a) {
         v.w += p.w;
       }
       const float vv[4] = {v.x, v.y, v.z, v.w};
-      const bf16* rv = reinterpret_cast<const bf16*>(&res);
-      uint2 outw;
-      bf16* ob = reinterpret_cast<bf16*>(&outw);
+      if constexpr (std::is_same<OT, float>::value) {
+        float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (a.mode == EPI_RESIDUAL) res = *reinterpret_cast<const float4*>(o);
+        const float rv[4] = {res.x, res.y, res.z, res.w};
+        float ov[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float y =
-            __fadd_rn(__fmul_rn(vv[j], ssm[c + j]), ssm[G_COLS + c + j]);
-        if (a.mode == EPI_GELU)
-          ob[j] = f2bf(gelu_as(y));
-        else if (a.mode == EPI_RESIDUAL)
-          ob[j] = f2bf(__fadd_rn(bf2f(rv[j]), round_bf(y)));
-        else
-          ob[j] = f2bf(y);
+        for (int j = 0; j < 4; ++j) {
+          const float y =
+              __fadd_rn(__fmul_rn(vv[j], ssm[c + j]), ssm[G_COLS + c + j]);
+          if (a.mode == EPI_GELU)
+            ov[j] = gelu_as(y);
+          else if (a.mode == EPI_RESIDUAL)
+            ov[j] = __fadd_rn(rv[j], y);
+          else
+            ov[j] = y;
+        }
+        *reinterpret_cast<float4*>(o) = make_float4(ov[0], ov[1], ov[2], ov[3]);
+      } else {
+        uint2 res = make_uint2(0u, 0u);
+        if (a.mode == EPI_RESIDUAL) res = *reinterpret_cast<const uint2*>(o);
+        const bf16* rv = reinterpret_cast<const bf16*>(&res);
+        uint2 outw;
+        bf16* ob = reinterpret_cast<bf16*>(&outw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float y =
+              __fadd_rn(__fmul_rn(vv[j], ssm[c + j]), ssm[G_COLS + c + j]);
+          if (a.mode == EPI_GELU)
+            ob[j] = f2bf(gelu_as(y));
+          else if (a.mode == EPI_RESIDUAL)
+            ob[j] = f2bf(__fadd_rn(bf2f(rv[j]), round_bf(y)));
+          else
+            ob[j] = f2bf(y);
+        }
+        *reinterpret_cast<uint2*>(o) = outw;
       }
-      *reinterpret_cast<uint2*>(o) = outw;
     }
     cl.sync();  // red stays alive until every block has read it
   }
 }
 
+template <typename OT>
+int launch_gemm(const GemmArgs& a, dim3 grid, int s, int pdl,
+                cudaStream_t st) {
+  const int tiles = (a.R + 15) / 16;
+  if (tiles <= 1)
+    return launch(gemm_w8_kernel<1, OT>, grid, G_THREADS, gemm_smem_bytes(1),
+                  s, pdl, st, a);
+  if (tiles == 2)
+    return launch(gemm_w8_kernel<2, OT>, grid, G_THREADS, gemm_smem_bytes(2),
+                  s, pdl, st, a);
+  if (tiles == 3)
+    return launch(gemm_w8_kernel<3, OT>, grid, G_THREADS, gemm_smem_bytes(3),
+                  s, pdl, st, a);
+  return launch(gemm_w8_kernel<4, OT>, grid, G_THREADS, gemm_smem_bytes(4),
+                s, pdl, st, a);
+}
+
+template <typename OT>
+int allow_gemm_smem() {
+  const void* kerns[] = {(const void*)gemm_w8_kernel<1, OT>,
+                         (const void*)gemm_w8_kernel<2, OT>,
+                         (const void*)gemm_w8_kernel<3, OT>,
+                         (const void*)gemm_w8_kernel<4, OT>};
+  for (int mt = 1; mt <= 4; ++mt) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kerns[mt - 1], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_smem_bytes(mt));
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// out bf16, or f32 with `out_f32` (16-byte aligned rows)
 int run_gemm(const bf16* x, int ldx, int K, const int8_t* w, int ldw, int N,
              int R, const float* scale, const float* bias, int mode,
-             bf16* out, int ldo, int sms, int pdl, cudaStream_t st) {
+             void* out, int ldo, int out_f32, int sms, int pdl,
+             cudaStream_t st) {
   if (K % G_KC || N % G_COLS || R <= 0 || ldx % 8 || ldw % 16 || ldo % 4 ||
-      reinterpret_cast<uintptr_t>(out) % 8 ||
+      reinterpret_cast<uintptr_t>(out) % (out_f32 ? 16 : 8) ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 ||
       reinterpret_cast<uintptr_t>(scale) % 16 ||
@@ -376,42 +444,40 @@ int run_gemm(const bf16* x, int ldx, int K, const int8_t* w, int ldw, int N,
   const int s = gemm_plan(K, N, sms);
   const dim3 grid(s, N / G_COLS);
   GemmArgs a{x, ldx, w, ldw, K, N, R, scale, bias, mode, out, ldo};
-  const int tiles = (R + 15) / 16;
-  if (tiles <= 1)
-    return launch(gemm_w8_kernel<1>, grid, G_THREADS, gemm_smem_bytes(1),
-                     s, pdl, st, a);
-  if (tiles == 2)
-    return launch(gemm_w8_kernel<2>, grid, G_THREADS, gemm_smem_bytes(2),
-                     s, pdl, st, a);
-  if (tiles == 3)
-    return launch(gemm_w8_kernel<3>, grid, G_THREADS, gemm_smem_bytes(3),
-                     s, pdl, st, a);
-  return launch(gemm_w8_kernel<4>, grid, G_THREADS, gemm_smem_bytes(4), s,
-                   pdl, st, a);
+  return out_f32 ? launch_gemm<float>(a, grid, s, pdl, st)
+                 : launch_gemm<bf16>(a, grid, s, pdl, st);
 }
 
 // --------------------------------------------- (c), (d) attention parts
 
 // R rows, `queries` a cache row (the verify step's drafted tokens; 1 for
-// a decode step)
-int run_self_attn(const bf16* qkv, int R, int queries, int d, int H,
+// a decode step); `f32`: qkv f32 and a non-int8 cache f32 (one query a
+// cache row)
+int run_self_attn(const void* qkv, int R, int queries, int d, int H,
                   void* cache, float* csc, int self_int8, int Tmax,
-                  const int* step, bf16* att, int pdl, cudaStream_t st) {
+                  const int* step, bf16* att, int f32, int pdl,
+                  cudaStream_t st) {
   using namespace splitkv;
   SelfArgs a{qkv, d, cache, csc, H, Tmax, 0, 0, step, att};
   int S, C;
   split_plan(Tmax, &S, &C);
   if (S > MAX_SPLITS || C > SELF_MAX_KEYS || queries < 1 ||
       queries > SELF_MAX_QUERIES || R <= 0 || R % queries ||
-      R / queries > 65535)
+      R / queries > 65535 || (f32 && queries != 1))
     return (int)cudaErrorInvalidValue;
   a.C = C;
-  a.HPB = self_heads_per_block(H, C, self_int8, queries);
+  a.HPB = self_heads_per_block(H, C, self_int8, queries, f32);
   const int smem = self_int8 ? self_smem_bytes<true>(a.HPB, C, queries)
+                   : f32     ? self_smem_bytes<false, true>(a.HPB, C, queries)
                              : self_smem_bytes<false>(a.HPB, C, queries);
   if (smem > SELF_MAX_SMEM) return (int)cudaErrorInvalidValue;
   const dim3 grid(S, H / a.HPB, R / queries);
   const int threads = a.HPB * C;
+  if (f32)
+    return self_int8 ? launch_self_nq<true, true>(a, grid, threads, smem,
+                                                  queries, pdl, st)
+                     : launch_self_nq<false, true>(a, grid, threads, smem,
+                                                   queries, pdl, st);
   return self_int8
              ? launch_self_nq<true>(a, grid, threads, smem, queries, pdl, st)
              : launch_self_nq<false>(a, grid, threads, smem, queries, pdl, st);
@@ -419,10 +485,10 @@ int run_self_attn(const bf16* qkv, int R, int queries, int d, int H,
 
 // cq (R, d) with R = Bw * G rows, window-major (the G beams of a window
 // contiguous), over the Bw windows' K/V (Bw, 2, H, Ta, 64) and scales
-// (Bw, 2, H, Ta). Greedy decode is G = 1.
-int run_cross_attn(const bf16* cq, int R, int d, int H, const int8_t* kv8,
-                   const float* sc, int Ta, int Bw, bf16* att, int sms,
-                   int pdl, cudaStream_t st) {
+// (Bw, 2, H, Ta). Greedy decode is G = 1. cq bf16, or f32 with `q_f32`.
+int run_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
+                   const float* sc, int Ta, int Bw, bf16* att, int q_f32,
+                   int sms, int pdl, cudaStream_t st) {
   if (Bw <= 0 || R % Bw) return (int)cudaErrorInvalidValue;
   const int G = R / Bw;
   const size_t v_off = (size_t)H * Ta;  // V after K: rows, scales
@@ -446,14 +512,20 @@ int run_cross_attn(const bf16* cq, int R, int d, int H, const int8_t* kv8,
   a.H = H;
   a.Ta = Ta;
   a.G = G;
-  return splitkv::launch_cross_split<bf16, bf16>(a, Bw, sms, pdl, st);
+  return q_f32 ? splitkv::launch_cross_split<float, bf16>(a, Bw, sms, pdl, st)
+               : splitkv::launch_cross_split<bf16, bf16>(a, Bw, sms, pdl, st);
 }
 
-int run_layer_norm(const bf16* x, int R, int d, const float* s,
-                   const float* b, bf16* y, int pdl, cudaStream_t st) {
+// x bf16, or f32 with `x_f32`
+int run_layer_norm(const void* x, int R, int d, const float* s,
+                   const float* b, bf16* y, int x_f32, int pdl,
+                   cudaStream_t st) {
   if (d % 8) return (int)cudaErrorInvalidValue;
-  return launch(layer_norm_kernel, dim3(R), 32, 0, 0, pdl, st, x, s, b, y,
-                   d);
+  if (x_f32)
+    return launch(layer_norm_kernel<float>, dim3(R), 32, 0, 0, pdl, st,
+                  static_cast<const float*>(x), s, b, y, d);
+  return launch(layer_norm_kernel<bf16>, dim3(R), 32, 0, 0, pdl, st,
+                static_cast<const bf16*>(x), s, b, y, d);
 }
 
 // offsets of the packed per-layer vector (pack_layer_weights):
@@ -481,22 +553,14 @@ extern "C" {
 // load inside a graph capture) and allowed its dynamic shared memory.
 int aries_decode_init() {
   cudaFuncAttributes fa;
-  RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel));
+  RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel<bf16>));
+  RETURN_IF((int)cudaFuncGetAttributes(&fa, layer_norm_kernel<float>));
   RETURN_IF(splitkv::self_allow_smem<true>());
   RETURN_IF(splitkv::self_allow_smem<false>());
   RETURN_IF((splitkv::cross_allow_smem<bf16, bf16>()));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      gemm_w8_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem_bytes(1)));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      gemm_w8_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem_bytes(2)));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      gemm_w8_kernel<3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem_bytes(3)));
-  RETURN_IF((int)cudaFuncSetAttribute(
-      gemm_w8_kernel<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      gemm_smem_bytes(4)));
+  RETURN_IF((splitkv::cross_allow_smem<float, bf16>()));
+  RETURN_IF(allow_gemm_smem<bf16>());
+  RETURN_IF(allow_gemm_smem<float>());
   return 0;
 }
 
@@ -513,46 +577,51 @@ int aries_cross_split(int Ta, int pairs, int G, int sms, int* out) {
   return 0;
 }
 
+// the parts one by one; `f32` flags the f32 residual stream's operands
+// (x, the GEMM's output, qkv and the self cache, cq)
 int aries_layer_norm(const void* x, int R, int d, const float* s,
-                     const float* b, void* y, void* stream) {
-  return run_layer_norm(static_cast<const bf16*>(x), R, d, s, b,
-                        static_cast<bf16*>(y), 0, (cudaStream_t)stream);
+                     const float* b, void* y, int x_f32, void* stream) {
+  return run_layer_norm(x, R, d, s, b, static_cast<bf16*>(y), x_f32, 0,
+                        (cudaStream_t)stream);
 }
 
 int aries_w8a16_gemm(const void* x, int ldx, int R, int K, const int8_t* w,
                      int ldw, int N, const float* scale, const float* bias,
-                     int mode, void* out, int ldo, int sms, void* stream) {
+                     int mode, void* out, int ldo, int out_f32, int sms,
+                     void* stream) {
   return run_gemm(static_cast<const bf16*>(x), ldx, K, w, ldw, N, R, scale,
-                  bias, mode, static_cast<bf16*>(out), ldo, sms, 0,
+                  bias, mode, out, ldo, out_f32, sms, 0,
                   (cudaStream_t)stream);
 }
 
 int aries_self_attn(const void* qkv, int R, int queries, int d, int H,
                     void* cache, float* csc, int self_int8, int Tmax,
-                    const int* step, void* att, void* stream) {
-  return run_self_attn(static_cast<const bf16*>(qkv), R, queries, d, H,
-                       cache, csc, self_int8, Tmax, step,
-                       static_cast<bf16*>(att), 0, (cudaStream_t)stream);
+                    const int* step, void* att, int f32, void* stream) {
+  return run_self_attn(qkv, R, queries, d, H, cache, csc, self_int8, Tmax,
+                       step, static_cast<bf16*>(att), f32, 0,
+                       (cudaStream_t)stream);
 }
 
 int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
-                     const float* sc, int Ta, int Bw, void* att, int sms,
-                     void* stream) {
-  return run_cross_attn(static_cast<const bf16*>(cq), R, d, H, kv8, sc, Ta,
-                        Bw, static_cast<bf16*>(att), sms, 0,
+                     const float* sc, int Ta, int Bw, void* att, int q_f32,
+                     int sms, void* stream) {
+  return run_cross_attn(cq, R, d, H, kv8, sc, Ta, Bw,
+                        static_cast<bf16*>(att), q_f32, sms, 0,
                         (cudaStream_t)stream);
 }
 
-// All L decoder layers of one step. x (R, d) bf16 is updated in place; the
-// self cache (L, R, 2, H, Tmax, 64) [bf16, or int8 with scales csc
+// All L decoder layers of one step. x (R, d) bf16 (f32 with `x_f32`: the
+// f32 residual stream, one query a cache row) is updated in place; the
+// self cache (L, R, 2, H, Tmax, 64) [x's type, or int8 with scales csc
 // (L, R, 2, H, Tmax)] gets this step's K/V at position step[0], attending
 // over [step[1], step[0]] (step: two device int32). With `queries` Q > 1
 // (the speculative verify step) the self cache holds R / Q rows, row c's
 // Q queries being x rows c Q .. c Q + Q - 1: query q appends at step[0] +
 // q and attends over [step[1], step[0] + q]. The cross K/V
 // (L, Bw, 2, H, Ta, 64) and scales (L, Bw, 2, H, Ta) hold Bw windows, each
-// shared by its R / Bw rows (window-major). h (R, d), qkv (R, 3d),
-// att (R, d), h1 (R, ff) bf16 are scratch the caller owns. `sms` is the
+// shared by its R / Bw rows (window-major). h (R, d), qkv (R, 3d) (x's
+// type; at f32 it holds cq too), att (R, d), h1 (R, ff) bf16 are scratch
+// the caller owns. `sms` is the
 // card's SM count (the GEMM plan); `pdl` launches each kernel as a
 // programmatic dependent of the one before. Nothing here queries or sets
 // the device, so the call can be captured in a CUDA graph.
@@ -563,16 +632,22 @@ int aries_decode_layers(void* x_, int R, int queries, int d, int ff, int H,
                         void* cache, float* csc, int self_int8, int Tmax,
                         const int8_t* xkv, const float* xsc, int Ta, int Bw,
                         const int* step, void* h_, void* qkv_, void* att_,
-                        void* h1_, int sms, int pdl, void* stream) {
+                        void* h1_, int x_f32, int sms, int pdl,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  bf16* x = static_cast<bf16*>(x_);
+  void* x = x_;
   bf16* h = static_cast<bf16*>(h_);
-  bf16* qkv = static_cast<bf16*>(qkv_);
+  void* qkv = qkv_;
   bf16* att = static_cast<bf16*>(att_);
   bf16* h1 = static_cast<bf16*>(h1_);
+  // at f32, cq goes into qkv's scratch (free once self-attention has read
+  // it), in f32 as the cross-attention reads it
+  void* cq = x_f32 ? qkv : (void*)att;
+  const size_t xe = x_f32 ? 4 : 2;  // bytes of an x / cache element
   int off[19];
   vec_offsets(d, ff, off);
-  if (queries < 1 || R % queries) return (int)cudaErrorInvalidValue;
+  if (queries < 1 || R % queries || (x_f32 && queries != 1))
+    return (int)cudaErrorInvalidValue;
   const size_t self_stride = (size_t)(R / queries) * 2 * H * Tmax * DH;
   const size_t self_sc_stride = (size_t)(R / queries) * 2 * H * Tmax;
   const size_t cross_stride = (size_t)Bw * 2 * H * Ta * DH;
@@ -583,33 +658,37 @@ int aries_decode_layers(void* x_, int R, int queries, int d, int ff, int H,
     const int8_t* wq = wq8 + (size_t)l * d * ldq;
     void* cache_l = self_int8
         ? (void*)(static_cast<int8_t*>(cache) + l * self_stride)
-        : (void*)(static_cast<bf16*>(cache) + l * self_stride);
+        : (void*)(static_cast<uint8_t*>(cache) + l * self_stride * xe);
     float* csc_l = self_int8 ? csc + l * self_sc_stride : nullptr;
     // self-attention block
-    RETURN_IF(run_layer_norm(x, R, d, v + off[0], v + off[1], h, pdl, st));
-    RETURN_IF(run_gemm(h, d, d, wq, ldq, 3 * d, R, v + off[12], v + off[2],
-                       EPI_STORE, qkv, 3 * d, sms, pdl, st));
-    RETURN_IF(run_self_attn(qkv, R, queries, d, H, cache_l, csc_l,
-                            self_int8, Tmax, step, att, pdl, st));
-    RETURN_IF(run_gemm(att, d, d, wq + 3 * d, ldq, d, R, v + off[13],
-                       v + off[3], EPI_RESIDUAL, x, d, sms, pdl, st));
-    // cross-attention block (cq overwrites h once its GEMM has read it)
-    RETURN_IF(run_layer_norm(x, R, d, v + off[4], v + off[5], h, pdl, st));
-    RETURN_IF(run_gemm(h, d, d, wq + 4 * d, ldq, d, R, v + off[14],
-                       v + off[6], EPI_STORE, att, d, sms, pdl, st));
-    RETURN_IF(run_cross_attn(att, R, d, H, xkv + l * cross_stride,
-                             xsc + l * cross_sc_stride, Ta, Bw, h, sms, pdl,
+    RETURN_IF(run_layer_norm(x, R, d, v + off[0], v + off[1], h, x_f32, pdl,
                              st));
+    RETURN_IF(run_gemm(h, d, d, wq, ldq, 3 * d, R, v + off[12], v + off[2],
+                       EPI_STORE, qkv, 3 * d, x_f32, sms, pdl, st));
+    RETURN_IF(run_self_attn(qkv, R, queries, d, H, cache_l, csc_l,
+                            self_int8, Tmax, step, att, x_f32, pdl, st));
+    RETURN_IF(run_gemm(att, d, d, wq + 3 * d, ldq, d, R, v + off[13],
+                       v + off[3], EPI_RESIDUAL, x, d, x_f32, sms, pdl, st));
+    // cross-attention block (at bf16 cq overwrites att, and the
+    // cross-attention's output h, once their readers are done)
+    RETURN_IF(run_layer_norm(x, R, d, v + off[4], v + off[5], h, x_f32, pdl,
+                             st));
+    RETURN_IF(run_gemm(h, d, d, wq + 4 * d, ldq, d, R, v + off[14],
+                       v + off[6], EPI_STORE, cq, d, x_f32, sms, pdl, st));
+    RETURN_IF(run_cross_attn(cq, R, d, H, xkv + l * cross_stride,
+                             xsc + l * cross_sc_stride, Ta, Bw, h, x_f32,
+                             sms, pdl, st));
     RETURN_IF(run_gemm(h, d, d, wq + 5 * d, ldq, d, R, v + off[15],
-                       v + off[7], EPI_RESIDUAL, x, d, sms, pdl, st));
+                       v + off[7], EPI_RESIDUAL, x, d, x_f32, sms, pdl, st));
     // MLP block
-    RETURN_IF(run_layer_norm(x, R, d, v + off[8], v + off[9], h, pdl, st));
+    RETURN_IF(run_layer_norm(x, R, d, v + off[8], v + off[9], h, x_f32, pdl,
+                             st));
     RETURN_IF(run_gemm(h, d, d, wf1 + (size_t)l * d * ff, ff, ff, R,
-                       v + off[16], v + off[10], EPI_GELU, h1, ff, sms, pdl,
-                       st));
+                       v + off[16], v + off[10], EPI_GELU, h1, ff, 0, sms,
+                       pdl, st));
     RETURN_IF(run_gemm(h1, ff, ff, wf2 + (size_t)l * ff * d, d, d, R,
-                       v + off[17], v + off[11], EPI_RESIDUAL, x, d, sms, pdl,
-                       st));
+                       v + off[17], v + off[11], EPI_RESIDUAL, x, d, x_f32,
+                       sms, pdl, st));
   }
   return 0;
 }

@@ -223,9 +223,12 @@ class _Step:
     def prepare(self, dev: torch.device) -> None:
         vs, L = self.valid_start, self.L
         if self.fused:
+            # x in the parameters' dtype: bf16, or f32 (the f32 residual
+            # stream of compute_type "f32")
             self.fs = DL.FusedStep(self.wpack, self.cache, self.cross,
                                    self.rows, self.dims.n_text_head, vs,
-                                   L - 1)
+                                   L - 1,
+                                   self.params["decoder"]["tok_emb"].dtype)
             return
         leaf = self.cache["k8"] if "k8" in self.cache else self.cache["kv"]
         T = leaf.shape[3] if "k8" in self.cache else leaf.shape[4]

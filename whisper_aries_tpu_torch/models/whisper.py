@@ -589,15 +589,19 @@ class EncoderAttentionTrain(torch.autograd.Function):
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                       ) -> torch.Tensor:
     """The plain version for CPU tensors. On the card: f32 through the
-    training kernels (with a gradient), bf16 through the encoder-attention
-    kernel, which has no backward: a bf16 call that needs a gradient
-    raises."""
+    training kernels (with a gradient), or through the training forward
+    alone (compute_type "f32" at inference: no autograd context, no saved
+    tensors); bf16 through the encoder-attention kernel, which has no
+    backward: a bf16 call that needs a gradient raises."""
     if not q.is_cuda:
         return attention_plain(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if q.dtype == torch.float32:
-        return EncoderAttentionTrain.apply(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if grad:
+            return EncoderAttentionTrain.apply(q, k, v)
+        return encoder_attn_train_fwd_kernel(q, k, v)[0]
+    if grad:
         raise RuntimeError("the bf16 encoder-attention kernel has no "
                            "backward: train with f32 params")
     return encoder_attention_kernel(q, k, v)
@@ -647,9 +651,10 @@ def vocab_logits_step(dec: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """``vocab_logits`` without a gradient: the final LayerNorm, then the
     product with the tied embedding by the vocab kernel (ops/vocab.py: f32
     sums of bf16 products, by the path its plan picks from the row count)
-    for CUDA tensors, its plain version for CPU ones (``vocab_logits``'s
-    bits). Decoding, language detection, the word pass and the smoke test
-    call it; training keeps ``vocab_logits``."""
+    for bf16 CUDA tensors, by the "f32" library path for f32 ones, its
+    plain version for CPU ones (``vocab_logits``'s bits). Decoding,
+    language detection, the word pass and the smoke test call it;
+    training keeps ``vocab_logits``."""
     emb = dec["tok_emb"]
     if torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad):
         raise RuntimeError("vocab_logits_step has no gradient: "

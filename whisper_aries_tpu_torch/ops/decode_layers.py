@@ -17,6 +17,12 @@ cross K/V shared by its G rows, with dh-minor caches:
                         "sc":  (L, Bw, 2, H, Ta) f32}  (K scales fold
                                                         1/sqrt(dh))
 
+x may be bf16 or f32 (``compute_type="f32"``, the JAX megakernel at x
+f32): the kernels then keep an f32 residual stream (x, qkv, cq, the
+self-attention probabilities and a non-int8 self cache f32; every
+product's input rounded to bf16, as the megakernel's ``gemm`` rounds it).
+The plain version follows x's dtype alike.
+
 ``queries`` S > 1 is the speculative verify step (the JAX package's
 ``decoder_step_fused_multi``): S drafted queries share one self-cache row,
 x's rows grouped by cache row (r = c S + s), query s appending its K/V at
@@ -483,15 +489,16 @@ def _lib():
         "aries_gemm_plan": [_I, _I, _I],
         "aries_attn_split": [_I, _P],
         "aries_cross_split": [_I, _I, _I, _I, _P],
-        "aries_layer_norm": [_P, _I, _I, _P, _P, _P, _P],
+        "aries_layer_norm": [_P, _I, _I, _P, _P, _P, _I, _P],
         "aries_w8a16_gemm": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I,
-                             _I, _P],
+                             _I, _I, _P],
         "aries_self_attn": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
-                            _P],
-        "aries_cross_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _P],
+                            _I, _P],
+        "aries_cross_attn": [_P, _I, _I, _I, _P, _P, _I, _I, _P, _I, _I,
+                             _P],
         "aries_decode_layers": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                 _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
-                                _P, _P, _P, _I, _I, _P],
+                                _P, _P, _P, _I, _I, _I, _P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -544,6 +551,18 @@ def _self_operands(self_cache: Dict[str, torch.Tensor]):
     return self_cache["kv"], None, 0
 
 
+#: the activation dtypes the kernels take (x, qkv, cq; the non-int8 self
+#: cache)
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _act(t: torch.Tensor, name: str) -> int:
+    """1 for an f32 activation operand, 0 for bf16; anything else raises."""
+    if t.dtype not in ACT_DTYPES:
+        raise ValueError(f"{name} must be bf16 or f32, got {t.dtype}")
+    return int(t.dtype == torch.float32)
+
+
 def _step_scalars(pos: int, vs: int, dev: torch.device) -> torch.Tensor:
     """The device {pos, valid_start} the self-attention kernel reads."""
     return torch.tensor([pos, vs], dtype=torch.int32, device=dev)
@@ -551,26 +570,33 @@ def _step_scalars(pos: int, vs: int, dev: torch.device) -> torch.Tensor:
 
 def layer_norm_kernel(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor
                       ) -> torch.Tensor:
+    """x (R, d) bf16 or f32 -> LayerNorm(x) (R, d) bf16 (the products'
+    operand)."""
     R, d = x.shape
-    cb.require(x, "x", torch.bfloat16)
+    f32 = _act(x, "x")
+    cb.require(x, "x", x.dtype)
     cb.require(s, "scale", torch.float32, (d,), x.device)
     cb.require(b, "bias", torch.float32, (d,), x.device)
     if d % 8:
         raise ValueError(f"LayerNorm kernel needs d % 8 == 0, got {d}")
-    y = torch.empty_like(x)
+    y = torch.empty((R, d), dtype=torch.bfloat16, device=x.device)
     cb.launch(_kernels(x).aries_layer_norm, x, "layer norm", cb.ptr(x), R,
-              d, cb.ptr(s), cb.ptr(b), cb.ptr(y))
+              d, cb.ptr(s), cb.ptr(b), cb.ptr(y), f32)
     cb.count(layer_norm_kernel)
     return y
 
 
 def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, mode: int = EPI_STORE,
-                      out: torch.Tensor = None) -> torch.Tensor:
+                      out: torch.Tensor = None,
+                      out_dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
     """x (R, K) bf16 . w8 (K, N) int8 (a column block of a wider matrix is
-    fine: rows may be strided) with the chosen epilogue -> (R, N) bf16, one
-    launch (``gemm_plan``'s K slices as one cluster per column tile).
-    EPI_RESIDUAL adds into ``out`` in place."""
+    fine: rows may be strided) with the chosen epilogue -> (R, N) of
+    ``out_dtype`` (bf16, or f32: y stored, or added into an f32 x, without
+    a rounding; ``out``'s dtype when given), one launch (``gemm_plan``'s K
+    slices as one cluster per column tile). EPI_RESIDUAL adds into ``out``
+    in place."""
     R, K = x.shape
     N = w8.shape[1]
     cb.require(x, "x", torch.bfloat16)
@@ -585,13 +611,14 @@ def w8a16_gemm_kernel(x: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     if out is None:
         if mode == EPI_RESIDUAL:
             raise ValueError("the residual epilogue needs `out`")
-        out = torch.empty((R, N), dtype=torch.bfloat16, device=x.device)
-    cb.require(out, "out", torch.bfloat16, (R, N), x.device)
-    if out.data_ptr() % 8:
-        raise ValueError("out must be 8-byte aligned")
+        out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    f32 = _act(out, "out")
+    cb.require(out, "out", out.dtype, (R, N), x.device)
+    if out.data_ptr() % (16 if f32 else 8):
+        raise ValueError(f"out must be {16 if f32 else 8}-byte aligned")
     cb.launch(_kernels(x).aries_w8a16_gemm, x, "w8a16 gemm", cb.ptr(x), K,
               R, K, cb.ptr(w8), w8.stride(0), N, cb.ptr(scale), cb.ptr(bias),
-              mode, cb.ptr(out), N, cb.sm_count(x))
+              mode, cb.ptr(out), N, f32, cb.sm_count(x))
     cb.count(w8a16_gemm_kernel)
     return out
 
@@ -614,14 +641,17 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
                      queries: int = 1) -> torch.Tensor:
     """One layer's split-KV self-attention with append; cache_l holds that
     layer's (R / S, 2, H, T, dh) cache [and (R / S, 2, H, T) scales], S =
-    ``queries`` (``self_attn_plain``)."""
+    ``queries`` (``self_attn_plain``). qkv bf16, or f32 (one query a cache
+    row; a non-int8 cache then f32 too) -> att (R, d) bf16."""
     R, d3 = qkv.shape
     d = d3 // 3
-    cb.require(qkv, "qkv", torch.bfloat16)
+    f32 = _act(qkv, "qkv")
+    cb.require(qkv, "qkv", qkv.dtype)
     ckv, ksc, int8 = _self_operands(cache_l)
     T = ckv.shape[3]
     _check_queries(R, pos, queries, T)
-    cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
+    _check_f32_queries(f32, queries)
+    cb.require(ckv, "self cache", torch.int8 if int8 else qkv.dtype,
                (R // queries, 2, n_head, T, d // n_head), qkv.device)
     if not 0 <= vs <= pos:
         raise ValueError("need 0 <= valid_start <= pos")
@@ -631,18 +661,19 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     cb.launch(_kernels(qkv).aries_self_attn, qkv, "self attention",
               cb.ptr(qkv), R, queries, d, n_head, cb.ptr(ckv),
               cb.ptr(ksc) if int8 else None, int8, T, cb.ptr(step),
-              cb.ptr(att))
+              cb.ptr(att), f32)
     cb.count(self_attn_kernel)
     return att
 
 
 def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
                       sc_l: torch.Tensor, n_head: int) -> torch.Tensor:
-    """One layer's split-KV int8 cross-attention: cq (R, d) bf16, rows
-    window-major over the Bw windows of kv8_l (Bw, 2, H, Ta, dh) int8 and
-    sc_l (Bw, 2, H, Ta) f32 -> att (R, d) bf16."""
+    """One layer's split-KV int8 cross-attention: cq (R, d) bf16 or f32,
+    rows window-major over the Bw windows of kv8_l (Bw, 2, H, Ta, dh) int8
+    and sc_l (Bw, 2, H, Ta) f32 -> att (R, d) bf16."""
     R, d = cq.shape
-    cb.require(cq, "cq", torch.bfloat16)
+    f32 = _act(cq, "cq")
+    cb.require(cq, "cq", cq.dtype)
     Bw, _, H, Ta, dh = kv8_l.shape
     cb.require(kv8_l, "cross kv8", torch.int8, (Bw, 2, n_head, Ta, d // n_head),
                cq.device)
@@ -650,12 +681,18 @@ def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
                cq.device)
     _cross_windows(R, kv8_l)
     _check_cross(Ta)
-    att = torch.empty_like(cq)
+    att = torch.empty((R, d), dtype=torch.bfloat16, device=cq.device)
     cb.launch(_kernels(cq).aries_cross_attn, cq, "cross attention",
               cb.ptr(cq), R, d, n_head, cb.ptr(kv8_l), cb.ptr(sc_l), Ta, Bw,
-              cb.ptr(att), cb.sm_count(cq))
+              cb.ptr(att), f32, cb.sm_count(cq))
     cb.count(cross_attn_kernel)
     return att
+
+
+def _check_f32_queries(f32: int, queries: int) -> None:
+    if f32 and queries != 1:
+        raise ValueError("the f32 residual stream takes one query a cache "
+                         "row: the verify step runs bf16 activations")
 
 
 def _cross_windows(R: int, kv8: torch.Tensor) -> int:
@@ -672,9 +709,11 @@ for _f in (layer_norm_kernel, w8a16_gemm_kernel, self_attn_kernel,
 
 class _StepOperands:
     """The validated operands of one fused step and its scratch (owned
-    here, so a captured graph's pointers stay alive with it)."""
+    here, so a captured graph's pointers stay alive with it), for x of
+    ``dtype`` (bf16, or f32: the f32 residual stream)."""
 
-    def __init__(self, wpack, self_cache, cross, R, n_head, dev, queries=1):
+    def __init__(self, wpack, self_cache, cross, R, n_head, dev, queries=1,
+                 dtype=torch.bfloat16):
         L, d, _ = wpack["wq8"].shape
         ff = wpack["wf18"].shape[-1]
         H, dh = n_head, d // n_head
@@ -683,10 +722,14 @@ class _StepOperands:
         cb.require(wpack["wf18"], "wf18", torch.int8, (L, d, ff), dev)
         cb.require(wpack["wf28"], "wf28", torch.int8, (L, ff, d), dev)
         cb.require(wpack["vecs"], "vecs", torch.float32, (L, VEC), dev)
+        if dtype not in ACT_DTYPES:
+            raise ValueError(f"x must be bf16 or f32, got {dtype}")
+        f32 = int(dtype == torch.float32)
         ckv, ksc, int8 = _self_operands(self_cache)
         T = ckv.shape[4]
         _check_queries(R, 0, queries, T)
-        cb.require(ckv, "self cache", torch.int8 if int8 else torch.bfloat16,
+        _check_f32_queries(f32, queries)
+        cb.require(ckv, "self cache", torch.int8 if int8 else dtype,
                    (L, R // queries, 2, H, T, dh), dev)
         Ta = cross["kv8"].shape[4]
         Bw = _cross_windows(R, cross["kv8"])
@@ -699,8 +742,9 @@ class _StepOperands:
         _check_splits(T, "self cache")
         _check_cross(Ta)
         bf = dict(dtype=torch.bfloat16, device=dev)
+        self.dtype, self.f32 = dtype, f32
         self.h = torch.empty((R, d), **bf)
-        self.qkv = torch.empty((R, 3 * d), **bf)
+        self.qkv = torch.empty((R, 3 * d), dtype=dtype, device=dev)
         self.att = torch.empty((R, d), **bf)
         self.h1 = torch.empty((R, ff), **bf)
         self.keep = (wpack, self_cache, cross)
@@ -718,11 +762,18 @@ class _StepOperands:
             raise ValueError(f"need 0 <= valid_start <= pos and positions "
                              f"pos .. pos + {self.queries - 1} < {self.T}")
 
+    def check_x(self, x: torch.Tensor) -> None:
+        """x must be of the dtype the operands were made for: no step
+        casts it."""
+        if x.dtype != self.dtype:
+            raise ValueError(f"x is {x.dtype}; the step was made for "
+                             f"{self.dtype}")
+
     def launch(self, x: torch.Tensor, step: torch.Tensor) -> None:
         cb.launch(_kernels(x).aries_decode_layers, x, "decoder-layer kernels",
                   cb.ptr(x), *self.args, cb.ptr(step), cb.ptr(self.h),
                   cb.ptr(self.qkv), cb.ptr(self.att), cb.ptr(self.h1),
-                  self.sms, int(PDL))
+                  self.f32, self.sms, int(PDL))
 
 
 class _LaunchCount:
@@ -732,26 +783,31 @@ class _LaunchCount:
 
 
 # the fused step's launches and replays at S > 1 queries a cache row (the
-# verify step), counted here as well as in fused_decoder_layers.launches
+# verify step), and those of its f32 instantiation (the f32 residual
+# stream), counted here as well as in fused_decoder_layers.launches
 VERIFY = _LaunchCount()
+F32 = _LaunchCount()
 
 
-def _count_step(queries: int) -> None:
+def _count_step(queries: int, f32: int = 0) -> None:
     cb.count(fused_decoder_layers)
     if queries > 1:
         cb.count(VERIFY)
+    if f32:
+        cb.count(F32)
 
 
 def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head,
                 queries):
     R, d = x.shape
-    cb.require(x, "x", torch.bfloat16, (R, d))
+    _act(x, "x")
+    cb.require(x, "x", x.dtype, (R, d))
     ops = _StepOperands(wpack, self_cache, cross, R, n_head, x.device,
-                        queries)
+                        queries, x.dtype)
     ops.check(valid_start, pos)
     x = x.clone()
     ops.launch(x, _step_scalars(pos, valid_start, x.device))
-    _count_step(queries)
+    _count_step(queries, ops.f32)
     return x
 
 
@@ -784,30 +840,35 @@ class FusedStep:
     self cache, updated only in place, the cross K/V, ``valid_start``) and
     static buffers, with the cache position read on the device, so one
     capture serves every step. Positions up to ``max_pos`` are checked
-    once, here; a step reads no position on the host."""
+    once, here; a step reads no position on the host. x is of ``dtype``
+    (bf16, or f32: the f32 residual stream), as its buffer; an x of
+    another dtype raises."""
 
     def __init__(self, wpack: Dict[str, torch.Tensor],
                  self_cache: Dict[str, torch.Tensor],
                  cross: Dict[str, torch.Tensor], rows: int, n_head: int,
-                 valid_start: int, max_pos: int):
+                 valid_start: int, max_pos: int,
+                 dtype: torch.dtype = torch.bfloat16):
         dev = wpack["wq8"].device
         if dev.type != "cuda":
             raise ValueError("FusedStep needs CUDA operands")
         self.dev = dev
-        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev)
+        self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev,
+                                 dtype=dtype)
         self.ops.check(valid_start, max_pos)
-        self.x = torch.zeros((rows, wpack["wq8"].shape[1]),
-                             dtype=torch.bfloat16, device=dev)
+        self.x = torch.zeros((rows, wpack["wq8"].shape[1]), dtype=dtype,
+                             device=dev)
         self.step = _step_scalars(valid_start, valid_start, dev)
         _kernels(dev)  # built, loaded and set up before any capture
 
     def __call__(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """The L layers on x (R, d) at the cache position ``pos`` (a 0-d
         int32 on the card); returns the static output buffer."""
+        self.ops.check_x(x)
         self.x.copy_(x)
         self.step[:1].copy_(pos.reshape(1))
         self.ops.launch(self.x, self.step)
-        _count_step(1)
+        _count_step(1, self.ops.f32)
         return self.x
 
 
@@ -822,22 +883,25 @@ class DecodeStepGraph:
     raises if capture or replay fails (it never falls back to launching the
     kernels directly or to the plain version). ``queries`` S > 1 captures
     the verify step over ``rows`` = cache rows x S (``fused_decoder_layers``).
+    x is of ``dtype`` (bf16, or f32 at S 1), as its buffer; an x of another
+    dtype raises.
     """
 
     def __init__(self, wpack: Dict[str, torch.Tensor],
                  self_cache: Dict[str, torch.Tensor],
                  cross: Dict[str, torch.Tensor], rows: int, n_head: int,
-                 valid_start: int = 0, queries: int = 1):
+                 valid_start: int = 0, queries: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
         dev = wpack["wq8"].device
         if dev.type != "cuda":
             raise ValueError("DecodeStepGraph needs CUDA operands")
         self.ops = _StepOperands(wpack, self_cache, cross, rows, n_head, dev,
-                                 queries)
+                                 queries, dtype)
         self.ops.check(valid_start, valid_start)
         d = wpack["wq8"].shape[1]
         self.dev = dev
         self.valid_start = valid_start
-        self.x = torch.zeros((rows, d), dtype=torch.bfloat16, device=dev)
+        self.x = torch.zeros((rows, d), dtype=dtype, device=dev)
         self.step = _step_scalars(valid_start, valid_start, dev)
         _kernels(dev)  # built, loaded and set up before the capture
         self.graph = cb.capture(dev, lambda: self.ops.launch(self.x,
@@ -852,10 +916,11 @@ class DecodeStepGraph:
             raise ValueError(f"graph made for valid_start {self.valid_start},"
                              f" got {valid_start}")
         self.ops.check(self.valid_start, pos)
+        self.ops.check_x(x)
         self.x.copy_(x)
         self.step[0].fill_(pos)
         with torch.cuda.device(self.dev):
             self.graph.replay()
-        _count_step(self.ops.queries)
+        _count_step(self.ops.queries, self.ops.f32)
         cb.bump(fused_decoder_layers, "graph_replays")
         return self.x

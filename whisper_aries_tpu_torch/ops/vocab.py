@@ -10,7 +10,11 @@ rows (the bf16 embedding streamed once a pass of up to 64 rows), "tiles"
 above the cut-over (a persistent TMA + wgmma GEMM of 128-row tiles: the
 teacher-forced passes, the word pass, larger prefills). The plain version,
 ``x.float() @ emb.float().T`` (an f32 copy of the embedding, then an f32
-GEMM), runs for CPU operands only. Every product without a gradient calls
+GEMM), runs for CPU operands only. f32 CUDA operands (``compute_type
+"f32"``) take the counted path "f32", ``vocab_product_f32``: one f32
+library product with TF32 off, as the JAX package computes this product
+as a plain XLA dot at f32; the kernel itself takes bf16 only. Operands of
+mixed or other dtypes raise. Every product without a gradient calls
 it through ``models/whisper.py::vocab_logits_step`` (decoding, language
 detection, the word pass, the smoke test); only a product autograd must
 differentiate (training) keeps ``vocab_logits``.
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 
 from whisper_aries_tpu_torch.ops import cuda_build as cb
+from whisper_aries_tpu_torch.utils.device import no_tf32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -104,9 +109,39 @@ vocab_product_kernel.launches = 0
 vocab_product_kernel.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
+def vocab_product_f32(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """The "f32" path: x (M, K) and emb (V, K) f32 on one card -> (M, V)
+    f32 as one library product (``torch.matmul``, TF32 off: exact f32
+    products and sums). Counts ``launches`` (a call, inside a graph capture
+    to the capture's record)."""
+    M, K = x.shape
+    cb.require(x, "x", torch.float32)
+    cb.require(emb, "emb", torch.float32, (emb.shape[0], K), x.device)
+    with no_tf32():
+        out = torch.matmul(x, emb.T)
+    cb.count(vocab_product_f32)
+    return out
+
+
+vocab_product_f32.launches = 0
+
+
+def launches_by_path() -> dict:
+    """The card's vocab products by path: the kernel's "passes" and
+    "tiles", and the f32 library path."""
+    return dict(vocab_product_kernel.launches_by_path,
+                f32=vocab_product_f32.launches)
+
+
 def vocab_product(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """The logits of rows ``x``: the kernel for CUDA operands, the plain
-    version for CPU ones."""
-    if x.is_cuda:
+    """The logits of rows ``x``: the plain version for CPU operands; on the
+    card, by dtype, the kernel for bf16 operands and the "f32" path for f32
+    ones. Mixed or other dtypes raise: nothing is cast here."""
+    if not x.is_cuda:
+        return vocab_product_plain(x, emb)
+    if x.dtype == emb.dtype == torch.bfloat16:
         return vocab_product_kernel(x, emb)
-    return vocab_product_plain(x, emb)
+    if x.dtype == emb.dtype == torch.float32:
+        return vocab_product_f32(x, emb)
+    raise ValueError(f"vocab product: x {x.dtype} and embedding {emb.dtype} "
+                     "must both be bf16 (the kernel) or both f32")

@@ -186,9 +186,11 @@ ENC_TENSORS = 4 * 2 + 15 + 2 * 2
 
 
 def window_bytes(dims, rows: int = 5, cache_len: int = 227,
-                 kv_int8: bool = True, self_kv_int8: bool = True) -> int:
+                 kv_int8: bool = True, self_kv_int8: bool = True,
+                 act_bytes: int = 2) -> int:
     """The card bytes one window of a decode batch holds at its peak, with
-    bf16 activations (the card's):
+    activations of ``act_bytes`` (2: bf16, the card's default; 4: f32,
+    compute_type "f32"):
 
     * its cross K/V, 2·L·H·dh·n_audio_ctx elements (int8 with one f32
       scale a position, head and layer; or the activation type);
@@ -200,7 +202,6 @@ def window_bytes(dims, rows: int = 5, cache_len: int = 227,
       ``decode_layers.quantize_heads`` packs it (the cast, the rounded
       quotient, its clamped copy);
     * the encoder's activations (``ENC_TENSORS``)."""
-    act_bytes = 2
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     dh = d // H
     Ta = dims.n_audio_ctx
@@ -228,12 +229,14 @@ def auto_windows_per_device(model_name: str = "large-v3", beam_size: int = 5,
                             free_bytes: Optional[int] = None,
                             self_kv_int8: Optional[bool] = None,
                             kv_int8: bool = True, dims=None,
-                            mesh: Optional[Mesh] = None) -> int:
+                            mesh: Optional[Mesh] = None,
+                            act_bytes: int = 2) -> int:
     """Windows a replica can decode at once: its card's free memory
     (``torch.cuda.mem_get_info``, shared by the replicas on that card; the
     least over the mesh) over ``window_bytes`` at max(beam, LADDER_ROWS)
     rows and PROMPT_LEN + ``sample_len`` positions. ``self_kv_int8`` None
-    means the card's default (int8). At least 1."""
+    means the card's default (int8); ``act_bytes`` the activations' width
+    (4 at compute_type "f32"). At least 1."""
     from whisper_aries_tpu_torch.models.whisper import PRESETS
 
     dims = dims or PRESETS.get(model_name, PRESETS["large-v3"])
@@ -244,5 +247,5 @@ def auto_windows_per_device(model_name: str = "large-v3", beam_size: int = 5,
     per = window_bytes(dims, rows=max(beam_size, LADDER_ROWS),
                        cache_len=PROMPT_LEN + sample_len, kv_int8=kv_int8,
                        self_kv_int8=True if self_kv_int8 is None
-                       else self_kv_int8)
+                       else self_kv_int8, act_bytes=act_bytes)
     return max(1, int(free_bytes // per))

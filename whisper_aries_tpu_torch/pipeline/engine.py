@@ -106,6 +106,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -145,7 +146,8 @@ from whisper_aries_tpu_torch.parallel.mesh import (
     map_shards,
     replicate_params,
 )
-from whisper_aries_tpu_torch.utils.device import on_card, resolve_device
+from whisper_aries_tpu_torch.utils.device import (
+    no_tf32, on_card, resolve_device)
 from whisper_aries_tpu_torch.utils.memory import is_oom_error
 from whisper_aries_tpu_torch.utils.perf import (
     PerformanceMonitor,
@@ -202,6 +204,30 @@ class _EventBuffer:
 
     def log(self, unit_id: Any, state: str, detail: str = "") -> None:
         self.events.append((unit_id, state, detail))
+
+
+def activation_dtype(compute_type: str, on_cuda: bool) -> torch.dtype:
+    """The engine's activations: f32 for compute_type "f32" / "float32"
+    wherever it runs (the JAX engine's rule), else bf16 on the card and f32
+    on the CPU (int8 compute keeps bf16 activations)."""
+    if compute_type in ("f32", "float32"):
+        return torch.float32
+    return torch.bfloat16 if on_cuda else torch.float32
+
+
+def _exact_f32(method):
+    """Run an engine entry point with TF32 off when the engine computes f32
+    on a card (the encoder's dense layers and conv stem, the prefills, the
+    word pass, the "f32" vocab products: exact f32, as the JAX package),
+    whatever the caller's global setting; the setting is restored after."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        if (self.activation_dtype == torch.float32
+                and self.device.type == "cuda"):
+            with no_tf32():
+                return method(self, *args, **kw)
+        return method(self, *args, **kw)
+    return run
 
 
 def _cast_floats(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
@@ -294,12 +320,7 @@ class AriesTranscriber:
         if ctx not in ("full", "bucket"):
             raise ValueError(f"unknown audio_ctx {ctx!r}")
         self.audio_ctx_bucket = ctx == "bucket"
-        if compute_type in ("f32", "float32"):
-            if on_cuda:
-                raise ValueError("the CUDA path runs bf16 activations")
-            dtype = torch.float32
-        else:
-            dtype = torch.bfloat16 if on_cuda else torch.float32
+        dtype = activation_dtype(compute_type, on_cuda)
         self.activation_dtype = dtype
 
         # the weight upload, the packing and the smoke test are card work:
@@ -353,7 +374,8 @@ class AriesTranscriber:
             wpd = (auto_windows_per_device(
                 dims=self.dims, beam_size=dc.beam_size or 5,
                 sample_len=dc.max_new_tokens, kv_int8=self.kv_int8,
-                self_kv_int8=self.self_kv_int8, mesh=self.mesh)
+                self_kv_int8=self.self_kv_int8, mesh=self.mesh,
+                act_bytes=dtype.itemsize)
                 if on_cuda else 8)
         self.batch_size = max(1, len(self.mesh) * wpd)
         # a corrupt checkpoint fails here, not mid-job (the reference
@@ -400,6 +422,7 @@ class AriesTranscriber:
     def last_stats(self, stats: Dict[str, Any]) -> None:
         self._tls.stats = self._last_stats = stats
 
+    @_exact_f32
     def smoke_test(self) -> None:
         """0.5 s of noise through mel -> encoder -> one teacher-forced
         decoder call (the transcription's kernels on the card); raises
@@ -697,6 +720,7 @@ class AriesTranscriber:
         idx = probs.argmax(axis=1)
         return lang0 + idx, probs[np.arange(len(idx)), idx]
 
+    @_exact_f32
     def detect_language(self, mel: torch.Tensor) -> Tuple[str, float]:
         """Language of the first window (faster-whisper's detection)."""
         sp = self.tokenizer.specials
@@ -712,6 +736,7 @@ class AriesTranscriber:
     # Public API
     # ------------------------------------------------------------------
 
+    @_exact_f32
     def transcribe_file(
         self,
         audio_path: str,

@@ -12,20 +12,32 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 
+_TF32_LOCK = threading.Lock()
+_TF32_HELD = {"n": 0, "prev": None}
+
+
 @contextlib.contextmanager
 def no_tf32() -> Iterator[None]:
-    """TF32 off for matmuls and cuDNN inside the block (restored after): the
-    VAD's convolutions and the train steps compute f32 as the JAX package
-    does; a trainer's backward runs inside it too."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """TF32 off for matmuls and cuDNN inside the block: the VAD's
+    convolutions, the train steps and the f32 engine compute f32 as the
+    JAX package does; a trainer's backward runs inside it too. The flags
+    are the process's: blocks in several threads at once share one hold,
+    and the flags the first found are restored when the last leaves."""
+    with _TF32_LOCK:
+        if _TF32_HELD["n"] == 0:
+            _TF32_HELD["prev"] = (torch.backends.cuda.matmul.allow_tf32,
+                                  torch.backends.cudnn.allow_tf32)
+        _TF32_HELD["n"] += 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+        with _TF32_LOCK:
+            _TF32_HELD["n"] -= 1
+            if _TF32_HELD["n"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _TF32_HELD["prev"]
 
 
 def resolve_device(device: Optional[str], who: str) -> torch.device:
