@@ -349,7 +349,25 @@ caught; a kernel check that fails is printed at once and fails the run
      the fused step's replay ms at S 1 / 2 / 4 / 8 (its line and cost(S) /
      cost(1)); prints the ``speculative`` line (the launches: verify
      replays, one-token replays, drafter calls; the card's peak) and adds
-     the verify mode's kernels entry.
+     the verify mode's kernels entry. The verify step at f32 (the f32
+     residual stream: f32 queries, unrounded probabilities, an f32 self
+     cache where it is not int8) is held on the same operands at S 4 with
+     both self-cache dtypes and at S 2 and S 8 with an f32 self cache: its
+     self-attention part against the plain version (the share of outputs
+     a bf16 step apart, the largest difference within a step of the
+     largest output), the share below
+     "probabilities rounded to bf16 before P . V", "qkv rounded to bf16"
+     and "a drafted query sees its neighbour's key"; at S 4 the 32 layers
+     teacher-forced per layer (the median over the calls of mean_rel
+     below the same three mistakes); bit for bit the x and cache of S f32
+     one-token steps; a graph replay bit for bit a direct launch; the
+     rejected-draft case as above; at S 4 with the int8 cache its replay
+     timed beside the bf16 instantiation's on the same operands (x
+     rounded to bf16), both profiled by kernel (``profile decode step
+     verify f32 S 4, B 16`` and ``verify bf16 S 4, B 16``; the
+     ``verify_f32`` line). main() runs a second time in the same count
+     with ``--compute-type f32`` (its sweep at f32), and the f32 verify's
+     kernels entry is added.
 Besides, at compute_type "f32" (kernel_f32, after the decode-choice
 checks; f32_phase, after the tools path): row 3's f32 instantiation (x,
 qkv, cq, probabilities and a non-int8 self cache f32) teacher-forced per
@@ -369,7 +387,7 @@ Every decode path's decode calls must each have run as one loop graph
 with no host read inside it (the slice lines' host_reads and
 decode_loops; the ``decode_loop_paths`` line before the kernels line,
 every path's loop graphs, steps and reads).
-The second-to-last lines are the kernels JSON (all 28 entries) and
+The second-to-last lines are the kernels JSON (all 29 entries) and
 the card line; the last line is {"ok": true, "device": {...}}. Outputs go to
 chip_smoke_out/.
 
@@ -380,6 +398,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -454,8 +473,13 @@ def device_ms(fn, n: int = 20) -> float:
                  for ev in prof.key_averages()
                  if getattr(ev, "device_type", None) == DeviceType.CUDA)
         if us > 0:
-            break
-    return us / 1e3 / n
+            return us / 1e3 / n
+    # three profiles of one call caught no device event (seen once, at
+    # the transpose probe's 0.008 ms kernel): CUDA events instead, which
+    # count the wrapper's host time too
+    print("device_ms: the profiler caught no device event; timed by CUDA "
+          "events instead", flush=True)
+    return time_ms(fn, n)
 
 
 def host_ms(fn, n: int = 20) -> float:
@@ -1371,14 +1395,15 @@ def profile_graph_step(label, wpack, cache, cross, H, R, x, pos, queries=1):
     (each kernel a programmatic dependent of the one before), then from a
     graph captured without PDL: there each kernel's device time is its own,
     not stretched by waiting for its predecessor. ``queries``: the verify
-    step's drafted tokens a window."""
+    step's drafted tokens a window; the step's instantiation is x's
+    dtype's."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
     for pdl in (True, False):
         DL.PDL = pdl
         try:
             graph = DL.DecodeStepGraph(wpack, cache, cross, R, H, 0,
-                                       queries=queries)
+                                       queries=queries, dtype=x.dtype)
             profile_step(label + ("" if pdl else ", no PDL"),
                          lambda: graph.run(x, pos))
             del graph
@@ -3991,6 +4016,9 @@ def counters():
             # kernel 3's launches and replays at S > 1 (also in
             # decode_layers)
             "decode_layers_verify": DL.VERIFY,
+            # its launches and replays at f32 (also in decode_layers,
+            # decode_layers_verify and decode_layers_f32)
+            "decode_layers_verify_f32": DL.VERIFY_F32,
             # the decode loop graphs launched (one a decode call), their
             # condition kernel (one a step), the standalone draw (off every
             # path: the choice kernel draws inside), the step's vocab
@@ -4080,9 +4108,10 @@ PATH_KERNELS = {
     "tools": ("mel", "encoder_attn", "decode_layers", "cross_attn_q8",
               "beam_tail", "beam_reorder",
               "decode_loop", "loop_cond", "vocab_gemm", "decode_choice"),
-    # bench_speculative.main(): the verify step's replays (kernel 3 at
-    # S 4), the one-token step's
-    "speculative": ("decode_layers_verify", "decode_layers"),
+    # bench_speculative.main() at bf16 and at f32: the verify step's
+    # replays (kernel 3 at S 4), at f32 too, the one-token step's
+    "speculative": ("decode_layers_verify", "decode_layers_verify_f32",
+                    "decode_layers"),
     # compute_type "f32": greedy and beam 5 with words, the encoder's f32
     # attention at inference (row 2t's forward), the f32 step, its
     # products on the vocab's "f32" path
@@ -6580,6 +6609,60 @@ def verify_one_token_steps(x, wpack, cache, cross, vs, pos, H, S):
         for s in range(S)], dim=1).view(B * S, d)
 
 
+def hold_verify_bits(tag, wpack, cache, cross, H, S, rnd) -> None:
+    """The verify step's bit-for-bit checks at S queries a cache row, x
+    drawn by ``rnd()`` (its dtype the instantiation's): at SPEC_CASES the
+    x and every cache lane of S one-token steps; a graph replay against a
+    direct launch at 3 positions; a verify at pos accepting 1 of S, then
+    one at pos + 1 over the rejected drafts' lanes, against fresh
+    one-token steps."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    for pos, vs in SPEC_CASES:
+        x = rnd()
+        c1, c2 = clone(cache), clone(cache)
+        a = DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H,
+                                    queries=S)
+        b = verify_one_token_steps(x, wpack, c2, cross, vs, pos, H, S)
+        same = torch.equal(a, b) and all(torch.equal(c1[k], c2[k])
+                                         for k in c1)
+        check(f"{tag} = {S} one-token steps, bitwise, pos {pos}", same,
+              "x and every cache lane identical" if same else "differ")
+        del c1, c2
+    R, d = x.shape  # the last case's x
+    pos, vs = SPEC_CASES[1]
+    cg_, cd = clone(cache), clone(cache)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H, vs, queries=S,
+                               dtype=x.dtype)
+    same = True
+    for p in (pos, pos + 1, pos + 4):
+        x = rnd()
+        same &= torch.equal(graph.run(x, p), DL.fused_decoder_layers(
+            x, wpack, cd, cross, vs, p, H, queries=S))
+        same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
+    check(f"{tag} graph replay = direct launch, bitwise", same,
+          "3 positions" if same else "differ")
+    del graph, cg_, cd
+    pos, vs = SPEC_CASES[0]
+    x, y = rnd(), rnd()
+    c1, c2 = clone(cache), clone(cache)
+    DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H, queries=S)
+    a = DL.fused_decoder_layers(y, wpack, c1, cross, vs, pos + 1, H,
+                                queries=S)
+    DL.fused_decoder_layers(x.view(R // S, S, d)[:, 0].contiguous(), wpack,
+                            c2, cross, vs, pos, H)
+    b = verify_one_token_steps(y, wpack, c2, cross, vs, pos + 1, H, S)
+    lanes = slice(0, pos + 1 + S)
+    same = torch.equal(a, b) and all(
+        torch.equal(c1[k][:, :, :, :, lanes], c2[k][:, :, :, :, lanes])
+        for k in c1)
+    check(f"{tag} over a rejected draft's lanes = fresh one-token steps, "
+          "bitwise", same, f"verify at {pos} accepting 1, then at {pos + 1}"
+          if same else "differ")
+    del c1, c2
+
+
 def hold_verify(dev, self_int8: bool) -> dict:
     """The verify step (kernel 3 at S 4 queries a cache row) at large-v3,
     16 windows, T 256, every lane of the self cache random (stale drafts
@@ -6656,49 +6739,8 @@ def hold_verify(dev, self_int8: bool) -> dict:
         del ck, cp, cm
     held(f"{tag} x, {L} layers x 2 positions", errs, tols, mistake)
     del cross_m
-    # (3) bits of 4 one-token steps, the whole stack
-    for pos, vs in SPEC_CASES:
-        x = rnd()
-        c1, c2 = clone(cache), clone(cache)
-        a = DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H,
-                                    queries=S)
-        b = verify_one_token_steps(x, wpack, c2, cross, vs, pos, H, S)
-        same = torch.equal(a, b) and all(torch.equal(c1[k], c2[k])
-                                         for k in c1)
-        check(f"{tag} = {S} one-token steps, bitwise, pos {pos}", same,
-              "x and every cache lane identical" if same else "differ")
-        del c1, c2
-    # (4) a graph replay against a direct launch
-    pos, vs = SPEC_CASES[1]
-    cg_, cd = clone(cache), clone(cache)
-    graph = DL.DecodeStepGraph(wpack, cg_, cross, R, H, vs, queries=S)
-    same = True
-    for p in (pos, pos + 1, pos + 4):
-        x = rnd()
-        same &= torch.equal(graph.run(x, p), DL.fused_decoder_layers(
-            x, wpack, cd, cross, vs, p, H, queries=S))
-        same &= all(torch.equal(cg_[k], cd[k]) for k in cd)
-    check(f"{tag} graph replay = direct launch, bitwise", same,
-          "3 positions" if same else "differ")
-    del graph, cg_, cd
-    # (5) stale lanes: accept 1 of 4 at pos, verify again at pos + 1
-    pos, vs = SPEC_CASES[0]
-    x, y = rnd(), rnd()
-    c1, c2 = clone(cache), clone(cache)
-    DL.fused_decoder_layers(x, wpack, c1, cross, vs, pos, H, queries=S)
-    a = DL.fused_decoder_layers(y, wpack, c1, cross, vs, pos + 1, H,
-                                queries=S)
-    DL.fused_decoder_layers(x.view(B, S, d)[:, 0].contiguous(), wpack, c2,
-                            cross, vs, pos, H)
-    b = verify_one_token_steps(y, wpack, c2, cross, vs, pos + 1, H, S)
-    lanes = slice(0, pos + 1 + S)
-    same = torch.equal(a, b) and all(
-        torch.equal(c1[k][:, :, :, :, lanes], c2[k][:, :, :, :, lanes])
-        for k in c1)
-    check(f"{tag} over a rejected draft's lanes = fresh one-token steps, "
-          "bitwise", same, f"verify at {pos} accepting 1, then at {pos + 1}"
-          if same else "differ")
-    del c1, c2
+    # (3)-(5) bits
+    hold_verify_bits(tag, wpack, cache, cross, H, S, rnd)
     out = {"max_abs_err": worst_abs, "tolerance": dict(
         self_attn_part=part_tol, x=tols)}
     if self_int8:
@@ -6715,12 +6757,206 @@ def hold_verify(dev, self_int8: bool) -> dict:
     return out
 
 
+#: the f32 verify step's cases (S, int8 self cache): S 4 with both
+#: self-cache dtypes held in full; S 2 and S 8 (the kernel's most queries:
+#: 2 heads a block at an f32 cache) with an f32 self cache
+SPEC_F32_CASES = ((4, True), (4, False), (2, False), (8, False))
+
+
+def verify_f32_mistakes():
+    """The plain verify step's mistakes the f32 verify step's limits must
+    catch, {name: a context making it}: the probabilities (v scale folded
+    in) rounded to bf16 before P . V, as the bf16 instantiation rounds
+    them; qkv rounded to bf16 (the appended K/V and the queries); a
+    drafted query seeing the key one past its own position."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+
+    right = DL.self_attn_plain
+
+    def probs_bf16(qkv, cache_l, pos, vs, n_head, queries=1):
+        qw, ckv, ksc = DL._append_self(qkv, cache_l, pos, n_head, queries)
+        att = DL._self_attend(
+            qw, ckv, ksc, pos, vs, queries,
+            lambda lg: torch.softmax(lg, dim=-1),
+            lambda pr, v: torch.einsum("rht,rhtd->rhd",
+                                       pr.to(torch.bfloat16).float(),
+                                       v.float()))
+        return att.reshape(qkv.shape[0], -1).to(qkv.dtype)
+
+    def qkv_bf16(qkv, *a, **k):
+        return right(qkv.to(torch.bfloat16).float(), *a, **k)
+
+    @contextlib.contextmanager
+    def swap(f):
+        DL.self_attn_plain = f
+        try:
+            yield
+        finally:
+            DL.self_attn_plain = right
+
+    return {"probabilities rounded to bf16 before P . V":
+            lambda: swap(probs_bf16),
+            "qkv rounded to bf16": lambda: swap(qkv_bf16),
+            "a drafted query sees its neighbour's key": key_one_past}
+
+
+def hold_verify_f32(dev, S: int, self_int8: bool) -> dict:
+    """The verify step's f32 instantiation (kernel 3 at S queries a cache
+    row, x f32) at large-v3, 16 windows, T 256, every lane of the self
+    cache random, at pos 30 / valid_start 0 and pos 62 / valid_start 2:
+      * its self-attention part on f32 qkv against the plain version
+        rounded to bf16 (the kernel's output is bf16): the share of
+        outputs a bf16 step apart below each of ``verify_f32_mistakes``'
+        share, and the largest difference within one bf16 step of the
+        largest output (|want| / 128). Steps of each value are not held:
+        at R 64 x 20 heads some outputs cancel to near 0, where the f32
+        sums' other order moves them many of their own steps (30 at one
+        of 1.3e5 outputs on an H100); the appended lanes the plain
+        version's bits;
+      * at S 4: the 32 layers teacher-forced per layer (an f32 input of
+        0.25 N(0, 1)) against the plain layer at x f32, as
+        ``hold_step_f32``: the median over the 64 calls of mean |got -
+        want| / mean |want - x| below each mistake's median;
+      * bit for bit the x and the cache of S f32 one-token steps;
+      * a graph replay bit for bit a direct launch;
+      * a verify at pos accepting 1 of S, then one at pos + 1 over the
+        rejected drafts' lanes: the bits of fresh one-token steps;
+      * at S 4 with the int8 self cache: the f32 replay at pos 128 timed
+        beside the bf16 instantiation's on the same operands (x rounded to
+        bf16), in turns, both profiled by kernel; the plain version
+        timed.
+    Returns the max abs error against the plain version, the tolerances,
+    the mistakes' readings and the times."""
+    import torch
+    from whisper_aries_tpu_torch.ops import decode_layers as DL
+    from whisper_aries_tpu_torch.scripts import bench_speculative as BS
+
+    B, T = SPEC_B, SPEC_T
+    R = B * S
+    full = S == SPEC_S
+    dims, _, wpack, cross, cache, g = decode_inputs(
+        dev, B, T, self_int8, seed=4, windows=B, T=T)
+    if not self_int8:
+        cache = {"kv": cache["kv"].float()}
+    H, L, d = dims.n_text_head, dims.n_text_layer, dims.n_text_state
+    tag = f"verify f32 S {S}, {'int8' if self_int8 else 'f32'} self cache"
+    sl = lambda tree, l: {k: v[l:l + 1] for k, v in tree.items()}
+    rnd = lambda scale=1.0: scale * torch.randn((R, d), generator=g,
+                                                device=dev)
+    to_bf = lambda t: t.to(torch.bfloat16)
+    mistakes = verify_f32_mistakes()
+    out = {"S": S, "self_cache": "int8" if self_int8 else "f32"}
+    worst_abs = 0.0
+    # (1) the self-attention part, layer 0's cache
+    part_tol = {"flipped": 2e-3, "max_rel": 1 / 128}
+    part = {}
+    c0 = {k: v[0].contiguous() for k, v in cache.items()}
+    for pos, vs in SPEC_CASES:
+        qkv = 0.5 * torch.randn((R, 3 * d), generator=g, device=dev)
+        ck, cp = clone(c0), clone(c0)
+        got = DL.self_attn_kernel(qkv, ck, pos, vs, H, queries=S)
+        want = DL.self_attn_plain(qkv, cp, pos, vs, H, queries=S)
+        if got.dtype != torch.bfloat16 or want.dtype != torch.float32:
+            fail(f"{tag} self_attn part: {got.dtype} / {want.dtype}")
+        worst_abs = max(worst_abs, float((got.float() - want).abs().max()))
+        errs = {"flipped": bf16_steps(got, to_bf(want))["flipped"],
+                "max_rel": max_rel(got, to_bf(want))}
+        for name, ctx in mistakes.items():
+            with ctx():
+                wrong = DL.self_attn_plain(qkv, clone(c0), pos, vs, H,
+                                           queries=S)
+            part[f"pos {pos}, {name}"] = held(
+                f"{tag} self_attn part, pos {pos}, valid_start {vs}: "
+                f"{name}", errs, part_tol, {"flipped": bf16_steps(
+                    to_bf(wrong), to_bf(want))["flipped"]})
+        check(f"{tag} self_attn part append, pos {pos}",
+              all(torch.equal(ck[k], cp[k]) for k in ck),
+              "appended lanes identical to the plain version's")
+        del ck, cp
+    out["part"] = part
+    # (2) the layers, teacher-forced per layer
+    if full:
+        tols = {"median_mean_rel": 1e-3, "max_mean_rel": 1e-2,
+                "max_rel": 3e-2}
+        per_call, max_rels = [], []
+        per_mistake = {name: [] for name in mistakes}
+        ck, cp = clone(cache), clone(cache)
+        cm = {name: clone(cache) for name in mistakes}
+        for pos, vs in SPEC_CASES:
+            for l in range(L):
+                xin = rnd(0.25)
+                args = (sl(wpack, l),)
+                got = DL.fused_decoder_layers(xin, *args, sl(ck, l),
+                                              sl(cross, l), vs, pos, H,
+                                              queries=S)
+                want = DL.fused_decoder_layers_plain(
+                    xin, *args, sl(cp, l), sl(cross, l), vs, pos, H,
+                    queries=S)
+                for name, ctx in mistakes.items():
+                    with ctx():
+                        wrong = DL.fused_decoder_layers_plain(
+                            xin, *args, sl(cm[name], l), sl(cross, l), vs,
+                            pos, H, queries=S)
+                    per_mistake[name].append(mean_rel(wrong, want, xin))
+                if got.dtype != torch.float32:
+                    fail(f"{tag} returned {got.dtype}")
+                per_call.append(mean_rel(got, want, xin))
+                max_rels.append(max_rel(got, want))
+                worst_abs = max(worst_abs,
+                                float((got - want).abs().max()))
+        del ck, cp, cm
+        med = lambda v: float(np.median(v))
+        errs = {"median_mean_rel": med(per_call),
+                "max_mean_rel": max(per_call), "max_rel": max(max_rels)}
+        out["mistakes"] = {name: med(v) for name, v in per_mistake.items()}
+        out["layers"] = {name: held(
+            f"{tag} x, {L} layers x 2 positions, {name}", errs, tols,
+            {"median_mean_rel": out["mistakes"][name]})
+            for name in mistakes}
+        out["tolerance"] = dict(self_attn_part=part_tol, x=tols)
+    # (3)-(5) bits
+    hold_verify_bits(tag, wpack, cache, cross, H, S, rnd)
+    out["max_abs_err"] = worst_abs
+    if full and self_int8:
+        # the f32 and bf16 instantiations' replays on the same operands,
+        # in turns (f32, bf16, bf16, f32), at the sweep's position
+        x, pos = rnd(), 128
+        xb = x.to(torch.bfloat16)
+        g32 = DL.DecodeStepGraph(wpack, cache, cross, R, H, 0, queries=S,
+                                 dtype=torch.float32)
+        g16 = DL.DecodeStepGraph(wpack, cache, cross, R, H, 0, queries=S)
+        f32_ms, bf16_ms = [], []
+        for which in ("f32", "bf16", "bf16", "f32"):
+            if which == "f32":
+                f32_ms.append(time_ms(lambda: g32.run(x, pos), 20))
+            else:
+                bf16_ms.append(time_ms(lambda: g16.run(xb, pos), 20))
+        del g32, g16
+        out.update(ms=f32_ms, bf16_ms=bf16_ms, pos=pos)
+        profile_graph_step(f"verify f32 S {S}, B {B}", wpack, cache, cross,
+                           H, R, x, pos, queries=S)
+        profile_graph_step(f"verify bf16 S {S}, B {B}", wpack, cache, cross,
+                           H, R, xb, pos, queries=S)
+        out["plain_ms"] = time_ms(lambda: DL.fused_decoder_layers_plain(
+            x, wpack, cache, cross, 0, pos, H, queries=S), 3, warmup=1)
+        traffic = BS.verify_traffic(dims, B, S, pos, act=4)
+        out["bound_ms"], out["bound_by"] = bound(
+            traffic["bytes"], traffic["ops"], PEAK_BF16)
+    print(f"verify_f32 [{tag}] " + json.dumps(out), flush=True)
+    del dims, wpack, cross, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def spec_phase(dev, entries):
     """14. The speculative path: the verify step held (hold_verify) on both
-    self-cache dtypes, then bench_speculative.main() at its defaults (the
-    synthetic-acceptance chains and the S sweep) with every launch count
-    set to 0 just before and read just after. Prints the ``speculative``
-    line; appends the verify mode's kernels entry; returns the launches."""
+    self-cache dtypes and at f32 (hold_verify_f32, SPEC_F32_CASES), then
+    bench_speculative.main() at its defaults (the synthetic-acceptance
+    chains and the S sweep) and again with ``--compute-type f32``, with
+    every launch count set to 0 just before the two and read just after.
+    Prints the ``speculative`` line; appends the verify mode's kernels
+    entries (bf16 and f32); returns the launches."""
     import gc
 
     import torch
@@ -6734,30 +6970,45 @@ def spec_phase(dev, entries):
     held_by = {tag: hold_verify(dev, int8) for tag, int8 in
                (("bf16", False), ("int8", True))}
     hold_s = time.time() - t0
+    t0 = time.time()
+    held_f32 = {case: hold_verify_f32(dev, *case) for case in SPEC_F32_CASES}
+    hold_f32_s = time.time() - t0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     DR.ngram_draft.calls = 0
-    out, wall, launches = counted(BS.main, [])
+    (out, out32), wall, launches = counted(
+        lambda: (BS.main([]), BS.main(["--compute-type", "f32"])))
     drafts = DR.ngram_draft.calls
     for k in PATH_KERNELS["speculative"]:
         if launches[k] <= 0:
             fail(f"speculative: kernel {k} was not launched")
     knobs = BS.knobs()
-    # the speculative chain twice (untimed, timed), the sweep's S > 1
+    # a run's speculative chain twice (untimed, timed), its sweep's S > 1;
+    # the f32 run's also under decode_layers_verify_f32
     want = (2 * knobs["steps"] + sum(S > 1 for S in BS.SWEEP_S)
             * (BS.SWEEP_WARMUP + BS.SWEEP_REPS))
-    if launches["decode_layers_verify"] != want:
+    if (launches["decode_layers_verify"], launches[
+            "decode_layers_verify_f32"]) != (2 * want, want):
         FAILED.append(f"speculative: {launches['decode_layers_verify']} "
-                      f"verify launches, not {want}")
-    sweep = out["sweep"]
+                      f"verify launches ({launches['decode_layers_verify_f32']}"
+                      f" at f32), not {2 * want} ({want})")
+    sweep, sweep32 = out["sweep"], out32["sweep"]
     dims = W.PRESETS["large-v3"]
-    traffic = BS.verify_traffic(dims, knobs["B"], knobs["S"], BS.SWEEP_POS)
-    b_ms, b_by = bound(traffic["bytes"], traffic["ops"], PEAK_BF16)
+    bounds = {}
+    for ct, act in (("bf16", 2), ("f32", 4)):
+        traffic = BS.verify_traffic(dims, knobs["B"], knobs["S"],
+                                    BS.SWEEP_POS, act=act)
+        bounds[ct] = bound(traffic["bytes"], traffic["ops"], PEAK_BF16)
     report = dict(
-        hold_s=hold_s, wall_s=wall, bench=out["bench"], sweep_ms=sweep["ms"],
-        cost_over_s1=sweep["cost_over_s1"],
+        hold_s=hold_s, hold_f32_s=hold_f32_s, wall_s=wall,
+        bench=out["bench"], sweep_ms=sweep["ms"],
+        cost_over_s1=sweep["cost_over_s1"], bench_f32=out32["bench"],
+        sweep_f32_ms=sweep32["ms"], cost_over_s1_f32=sweep32["cost_over_s1"],
+        bound_ms_f32=sweep32["bound_ms"],
         launches={"verify_replays": launches["decode_layers_verify"],
+                  "verify_f32_replays": launches["decode_layers_verify_f32"],
+                  "f32_step_replays": launches["decode_layers_f32"],
                   "decode_layers": launches["decode_layers"],
                   "graph_replays": launches["graph_replays"],
                   "drafter_calls": drafts},
@@ -6766,6 +7017,7 @@ def spec_phase(dev, entries):
     (OUT / "speculative.json").write_text(json.dumps(report, indent=2))
     print("speculative " + json.dumps(report), flush=True)
     S = knobs["S"]
+    b_ms, b_by = bounds["bf16"]
     entries.append(dict(
         name="decode_layers_verify", route="cuda",
         source="whisper_aries_tpu_torch/csrc/decode_layers.cu",
@@ -6782,6 +7034,31 @@ def spec_phase(dev, entries):
                f"{BS.SWEEP_POS}, T {BS.CACHE_LEN}, int8 self cache; ms a "
                "CUDA graph replay (bench_speculative.cost_sweep); plain_ms "
                "the plain version at pos 128")))
+    main32 = held_f32[(S, True)]
+    entries.append(dict(
+        name="decode_layers_verify_f32", route="cuda",
+        source="whisper_aries_tpu_torch/csrc/attn_split.cuh",
+        replaces="whisper_aries_tpu/ops/pallas_decode_layers.py:775",
+        also_replaces="whisper_aries_tpu/models/whisper.py:1382",
+        variant="the verify step on the f32 residual stream "
+                "(compute_type f32)",
+        max_abs_err=max(h["max_abs_err"] for h in held_f32.values()),
+        tolerance=main32["tolerance"], ms=sweep32["ms"][S],
+        plain_ms=main32["plain_ms"], bound_ms=bounds["f32"][0],
+        bound_by=bounds["f32"][1], library_ms=None,
+        ms_by_s=sweep32["ms"], bound_ms_by_s=sweep32["bound_ms"],
+        one_token_ms=sweep32["ms"][1], bf16_ms=sweep["ms"][S],
+        same_operands=dict(f32_ms=main32["ms"], bf16_ms=main32["bf16_ms"],
+                           pos=main32["pos"]),
+        cases=[{k: h[k] for k in ("S", "self_cache", "max_abs_err",
+                                  "mistakes") if k in h}
+               for h in held_f32.values()],
+        shape=(f"one verify step at f32, all 32 layers, {knobs['B']} windows "
+               f"x S {S} drafted tokens (R {knobs['B'] * S}), pos "
+               f"{BS.SWEEP_POS}, T {BS.CACHE_LEN}, x f32, int8 self cache; "
+               "ms a CUDA graph replay (bench_speculative.cost_sweep at "
+               "--compute-type f32); plain_ms the plain version at pos "
+               "128")))
     return launches
 
 
@@ -7458,9 +7735,12 @@ def main() -> None:
     for name in cuda_build.SOURCES:
         log = cuda_build.BUILD_DIR / f"{name}.log"
         if log.exists():
+            entry = ""  # the mangled kernel the lines below report
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+                if "Compiling entry function '" in line:
+                    entry = line.split("'")[1]
+                elif "registers" in line or "spill" in line:
+                    print(f"ptxas {name} {entry}: {line.strip()}")
 
     entries, parts = [], []
     kernel_mel(dev, entries)

@@ -552,7 +552,7 @@ def test_step_graph_replay_equals_direct_launch(small):
                        DL.fused_decoder_layers(x, wpack, c2, cross, 0, 9, 2))
 
 
-def _verify_case(small, S, int8, T=64, Bw=3):
+def _verify_case(small, S, int8, T=64, Bw=3, dtype=torch.bfloat16):
     from whisper_aries_tpu_torch.models import whisper as W
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
@@ -561,35 +561,42 @@ def _verify_case(small, S, int8, T=64, Bw=3):
     xa = torch.randn((Bw, 96, 128), generator=g, device=dev).to(torch.bfloat16)
     cross = W.precompute_cross_kv_int8(params, xa, dims)
     kv = torch.randn((2, Bw, 2, 2, T, 64), generator=g, device=dev).to(
-        torch.bfloat16)  # every lane written: stale drafts past pos too
+        dtype)  # every lane written: stale drafts past pos too
     if int8:
         q8, sc = DL.quantize_heads(kv)
         cache = {"kv8": q8, "ksc": sc}
     else:
         cache = {"kv": kv}
-    x = torch.randn((Bw * S, 128), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((Bw * S, 128), generator=g, device=dev).to(dtype)
     return wpack, cross, cache, x
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("pos,vs", [(3, 0), (4, 2), (30, 0), (29, 5)])
 @pytest.mark.parametrize("S", [1, 2, 3, 4, 8])
-def test_verify_step_kernel(small, S, pos, vs, int8):
+def test_verify_step_kernel(small, S, pos, vs, int8, dtype):
     """The verify step (S drafted queries a cache row, one launch a part)
     on 3 windows over a 64-position self cache (2 splits of 32): pos 3 /
     4 keep the drafted block in split 0, 30 / 29 cross into split 1; every
-    lane past pos holds a stale value. Against its plain version (as the
+    lane past pos holds a stale value. x bf16, or f32 (the f32 residual
+    stream; a non-int8 cache f32 too). Against its plain version (as the
     stack test); bit for bit against S one-token steps at pos .. pos + S -
     1 (x of each query, the whole cache); a graph replay equals a direct
-    launch bit for bit."""
+    launch bit for bit; the launch counts under VERIFY (S > 1), F32 (f32)
+    and VERIFY_F32 (both)."""
     from whisper_aries_tpu_torch.ops import decode_layers as DL
 
-    wpack, cross, cache, x = _verify_case(small, S, int8)
+    wpack, cross, cache, x = _verify_case(small, S, int8, dtype=dtype)
     H, Bw = 2, 3
+    f32 = dtype == torch.float32
     ck, cp, c1 = (_clone(cache) for _ in range(3))
-    n = DL.VERIFY.launches
+    n = (DL.VERIFY.launches, DL.F32.launches, DL.VERIFY_F32.launches)
     got = DL.fused_decoder_layers(x, wpack, ck, cross, vs, pos, H, queries=S)
-    assert DL.VERIFY.launches == n + (S > 1)
+    assert got.dtype == dtype
+    assert (DL.VERIFY.launches, DL.F32.launches, DL.VERIFY_F32.launches) == (
+        n[0] + (S > 1), n[1] + f32, n[2] + (S > 1 and f32))
     want = DL.fused_decoder_layers_plain(x, wpack, cp, cross, vs, pos, H,
                                          queries=S)
     assert _rel(got, want) < 3e-2
@@ -602,7 +609,8 @@ def test_verify_step_kernel(small, S, pos, vs, int8):
     for k in ck:
         assert torch.equal(ck[k], c1[k]), k
     cg_, cd = _clone(cache), _clone(cache)
-    graph = DL.DecodeStepGraph(wpack, cg_, cross, Bw * S, H, vs, queries=S)
+    graph = DL.DecodeStepGraph(wpack, cg_, cross, Bw * S, H, vs, queries=S,
+                               dtype=dtype)
     for p in (pos, pos + 1):
         a = graph.run(x, p).clone()
         b = DL.fused_decoder_layers(x, wpack, cd, cross, vs, p, H, queries=S)

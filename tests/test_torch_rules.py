@@ -1,7 +1,7 @@
 """Rules of the PyTorch port (whisper_aries_tpu_torch):
 
-  * no module of the port, and not chip_smoke.py or chip_device_ms.py,
-    imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
+  * no module of the port, and not chip_smoke.py, chip_device_ms.py or
+    chip_step_bits.py, imports jax, jaxlib or anything of the JAX package (whisper_aries_tpu)
     — checked on the AST; nor safetensors, transformers, tokenizers or
     huggingface_hub, which the card's machine lacks;
   * the port builds and loads its own native library (its C++ codecs,
@@ -35,6 +35,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "whisper_aries_tpu_torch"
+#: the root scripts that run the port on the card
+CARD_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "chip_device_ms.py",
+                ROOT / "chip_step_bits.py"]
 FORBIDDEN = ("jax", "jaxlib", "whisper_aries_tpu")
 
 
@@ -57,9 +60,7 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py",
-                            ROOT / "chip_device_ms.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
@@ -72,9 +73,7 @@ CHECKPOINT_PACKAGES = ("safetensors", "transformers", "tokenizers",
                        "huggingface_hub")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py",
-                            ROOT / "chip_device_ms.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_checkpoint_package(path):
     bad = [n for n in _imports(path)
@@ -100,9 +99,7 @@ def _streams_without_a_device(path: Path):
             yield f"line {node.lineno}: current_stream()"
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py",
-                            ROOT / "chip_device_ms.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernels_launch_on_their_operands_card(path):
     """Every stream a kernel launches on is named by its operand's device

@@ -56,8 +56,8 @@
 // and `pos` / `valid_start` are read from device memory. The split holding
 // `pos` appends this step's K/V (quantizing when the cache is int8) and
 // scores it as stored. The speculative verify step runs the self-attention
-// with NQ drafted queries a cache row (self_verify_kernel<INT8, NQ>): query
-// q appends at pos + q and attends over [valid_start, pos + q].
+// with NQ drafted queries a cache row (self_verify_kernel<INT8, NQ, F32>):
+// query q appends at pos + q and attends over [valid_start, pos + q].
 //
 // Every kernel here waits with griddepcontrol.wait before it reads what
 // the previous kernel of the step writes: it may be launched as a
@@ -515,15 +515,28 @@ self_split_kernel(SelfArgs a) {
 // P . V, every sum in self_split_kernel's order, so query q gives the
 // bits of a one-token step at pos + q. The shared memory holds the V rows
 // once and each query's probabilities, query, partials and statistics.
-template <bool INT8, int NQ>
+//
+// F32 is the f32 residual stream's instantiation, query for query what
+// self_split_kernel<INT8, true> computes: qkv f32, each query scaled
+// without a rounding, K/V appended from their f32 values (quantized, or
+// stored into an f32 cache), probabilities f32 into P . V. An f32 cache
+// row (256 bytes) is staged by cp.async, K beside V, in shared memory
+// (self_smem_bytes<false, true> counts both), as the one-token kernel
+// stages it: in registers, the K and V rows of a thread would take 128.
+template <bool INT8, int NQ, bool F32 = false>
 __global__ void __launch_bounds__(SELF_MAX_KEYS, 2)
 self_verify_kernel(SelfArgs a) {
   extern __shared__ __align__(16) uint8_t sm_self[];
-  constexpr int RS = self_row_stride<INT8>();
-  constexpr int NV = INT8 ? 4 : 8;  // 16-byte words per K or V row
+  using QT = std::conditional_t<F32, float, bf16>;
+  constexpr bool CF32 = F32 && !INT8;  // an f32 self cache
+  constexpr int RS = self_row_stride<INT8, F32>();
+  // 16-byte words per K or V row held in registers (none: f32 cache)
+  constexpr int NV = INT8 ? 4 : (CF32 ? 1 : 8);
   const int C = a.C, HPB = a.HPB, NW = C / 32;
   uint8_t* vsm = sm_self;
-  float* ps = reinterpret_cast<float*>(vsm + HPB * C * RS);  // (NQ, HPB, C)
+  uint8_t* ksm = vsm + HPB * C * RS;  // the f32 cache's K rows
+  // (NQ, HPB, C)
+  float* ps = reinterpret_cast<float*>(vsm + (CF32 ? 2 : 1) * HPB * C * RS);
   float* qs = ps + NQ * HPB * C;                             // (NQ, HPB, DH)
   float* os = qs + NQ * HPB * DH;                            // (NQ, HPB, DH)
   float* po = os + NQ * HPB * DH;  // (NQ, HPB, NW, DH + 1)
@@ -543,7 +556,10 @@ self_verify_kernel(SelfArgs a) {
   const size_t vb = (((size_t)r * 2 + 1) * a.H + h) * a.Tmax;
   int8_t* c8 = static_cast<int8_t*>(a.cache);
   bf16* c16 = static_cast<bf16*>(a.cache);
+  float* c32 = static_cast<float*>(a.cache);
   const int4* rows16 = static_cast<const int4*>(a.cache);
+  int4* kst = reinterpret_cast<int4*>(ksm + (sub * C + lt) * RS);
+  int4* vst = reinterpret_cast<int4*>(vsm + (sub * C + lt) * RS);
 
   // this thread's key, live for some query; rows below pos were written by
   // earlier steps, so their loads go out before the wait
@@ -554,16 +570,25 @@ self_verify_kernel(SelfArgs a) {
   int4 kr[NV], vr[NV];
   float ksc = 1.f, vsc = 1.f;
   if (live && t < pos) {
+    if constexpr (CF32) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      kr[c] = rows16[(kb + t) * NV + c];
-      vr[c] = rows16[(vb + t) * NV + c];
+      for (int c = 0; c < 16; ++c) {
+        cp16(kst + c, rows16 + (kb + t) * 16 + c);
+        cp16(vst + c, rows16 + (vb + t) * 16 + c);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[c] = rows16[(kb + t) * NV + c];
+        vr[c] = rows16[(vb + t) * NV + c];
+      }
     }
     if (INT8) {
       ksc = a.csc[kb + t];
       vsc = a.csc[vb + t];
     }
   }
+  if constexpr (CF32) cp_commit();
   pdl_wait();
   pdl_trigger();
 
@@ -574,13 +599,13 @@ self_verify_kernel(SelfArgs a) {
     for (int q = 0; q < NQ; ++q) {
       const int tp = pos + q;
       if (tp < t0 || tp >= t0 + C) continue;
-      const bf16* row =
-          static_cast<const bf16*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
+      const QT* row =
+          static_cast<const QT*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
       for (int which = 0; which < 2; ++which) {
-        const bf16* src = row + (which + 1) * d + h * DH + 2 * lane;
+        const QT* src = row + (which + 1) * d + h * DH + 2 * lane;
         const size_t dst = (which == 0 ? kb : vb) + tp;
-        if (INT8) {
-          const float f0 = bf2f(src[0]), f1 = bf2f(src[1]);
+        if constexpr (INT8) {
+          const float f0 = to_f(src[0]), f1 = to_f(src[1]);
           const float am = warp_max(fmaxf(fabsf(f0), fabsf(f1)));
           const float sc = am > 0.f ? am / 127.f : 1.f;
           const int q0 = max(-127, min(127, __float2int_rn(f0 / sc)));
@@ -588,6 +613,9 @@ self_verify_kernel(SelfArgs a) {
           c8[dst * DH + 2 * lane] = (int8_t)q0;
           c8[dst * DH + 2 * lane + 1] = (int8_t)q1;
           if (lane == 0) a.csc[dst] = sc;
+        } else if constexpr (CF32) {
+          c32[dst * DH + 2 * lane] = src[0];
+          c32[dst * DH + 2 * lane + 1] = src[1];
         } else {
           c16[dst * DH + 2 * lane] = src[0];
           c16[dst * DH + 2 * lane + 1] = src[1];
@@ -597,24 +625,36 @@ self_verify_kernel(SelfArgs a) {
   }
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
-    const bf16* row =
-        static_cast<const bf16*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
-    for (int j = lt; j < DH; j += C)
-      qs[(q * HPB + sub) * DH + j] =
-          round_bf(__fmul_rn(bf2f(row[h * DH + j]), 0.125f));
+    const QT* row =
+        static_cast<const QT*>(a.qkv) + ((size_t)r * NQ + q) * 3 * d;
+    for (int j = lt; j < DH; j += C) {
+      const float qj = __fmul_rn(to_f(row[h * DH + j]), 0.125f);
+      qs[(q * HPB + sub) * DH + j] = F32 ? qj : round_bf(qj);
+    }
   }
   __syncthreads();  // the append (global) and qs are visible to the block
   if (live && t >= pos) {  // an appended row, as stored
+    if constexpr (CF32) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      kr[c] = rows16[(kb + t) * NV + c];
-      vr[c] = rows16[(vb + t) * NV + c];
+      for (int c = 0; c < 16; ++c) {
+        kst[c] = rows16[(kb + t) * 16 + c];
+        vst[c] = rows16[(vb + t) * 16 + c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[c] = rows16[(kb + t) * NV + c];
+        vr[c] = rows16[(vb + t) * NV + c];
+      }
     }
     if (INT8) {
       ksc = a.csc[kb + t];
       vsc = a.csc[vb + t];
     }
   }
+  // the f32 cache's staged rows: this thread's K row (read by it alone)
+  // and V row (read by others after the barrier before P . V) landed
+  if constexpr (CF32) cp_wait<0>();
 
   // 1) each query's logits of this split's live keys, the split's max per
   // head; the V rows to shared memory
@@ -622,13 +662,31 @@ self_verify_kernel(SelfArgs a) {
 #pragma unroll
   for (int q = 0; q < NQ; ++q) lg[q] = -INFINITY;
   if (live) {
-    int4* vdst = reinterpret_cast<int4*>(vsm + (sub * C + lt) * RS);
+    if constexpr (!CF32) {
 #pragma unroll
-    for (int c = 0; c < NV; ++c) vdst[c] = vr[c];
+      for (int c = 0; c < NV; ++c) vst[c] = vr[c];
+    }
     float acc[NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = 0.f;
-    if (INT8) {
+    if constexpr (CF32) {
+      const float4* kp = reinterpret_cast<const float4*>(kst);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float4 f = kp[c];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float* qq = qs + (q * HPB + sub) * DH + 4 * c;
+          acc[q] = fmaf(qq[0], f.x, acc[q]);
+          acc[q] = fmaf(qq[1], f.y, acc[q]);
+          acc[q] = fmaf(qq[2], f.z, acc[q]);
+          acc[q] = fmaf(qq[3], f.w, acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        if (live_q(q)) lg[q] = acc[q];
+    } else if (INT8) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int w[4] = {kr[c].x, kr[c].y, kr[c].z, kr[c].w};
@@ -705,7 +763,8 @@ self_verify_kernel(SelfArgs a) {
   }
   cl.sync();
 
-  // 3) probabilities (v scale folded in, rounded to bf16) and P . V
+  // 3) probabilities (v scale folded in, rounded to bf16 but at F32) and
+  // P . V
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     const float sum = cluster_sum(cl, &stat_l[q * HPB + sub], S);
@@ -713,7 +772,7 @@ self_verify_kernel(SelfArgs a) {
     if (live_q(q)) {
       p = e[q] / sum;
       if (INT8) p = p * vsc;
-      p = round_bf(p);
+      if (!F32) p = round_bf(p);
     }
     ps[(q * HPB + sub) * C + lt] = p;
   }
@@ -731,7 +790,13 @@ self_verify_kernel(SelfArgs a) {
     if (kl < klo || kl > min(t0 + C - 1, pos + NQ - 1) - t0) continue;
     const uint8_t* vrow = vsm + (sub * C + kl) * RS;
     float f[4];
-    if (INT8) {
+    if constexpr (CF32) {
+      const float4 v4 = *reinterpret_cast<const float4*>(vrow + 16 * hl);
+      f[0] = v4.x;
+      f[1] = v4.y;
+      f[2] = v4.z;
+      f[3] = v4.w;
+    } else if (INT8) {
       i8x4_to_f32(*reinterpret_cast<const int*>(vrow + 4 * hl), f);
     } else {
       const uint2 raw = *reinterpret_cast<const uint2*>(vrow + 8 * hl);
@@ -1551,24 +1616,20 @@ inline int self_heads_per_block(int H, int C, int int8, int NQ,
   return 1;
 }
 
-// F32 (the f32 residual stream) takes one query a cache row: the verify
-// step runs bf16 activations
+// the self-attention at NQ queries a cache row: the one-token kernel at 1,
+// the verify kernel at 2 .. SELF_MAX_QUERIES; F32 the f32 residual
+// stream's instantiation of either
 template <bool INT8, bool F32 = false>
 int launch_self_nq(const SelfArgs& a, dim3 grid, int threads, int smem,
                    int NQ, int pdl, cudaStream_t st) {
-  if constexpr (F32) {
-    if (NQ != 1) return (int)cudaErrorInvalidValue;
-    return launch(self_split_kernel<INT8, true>, grid, threads, smem, grid.x,
-                  pdl, st, a);
-  }
-#define ARIES_SELF(N)                                                        \
-  case N:                                                                    \
-    return launch(self_verify_kernel<INT8, N>, grid, threads, smem, grid.x, \
-                  pdl, st, a)
+#define ARIES_SELF(N)                                                       \
+  case N:                                                                   \
+    return launch(self_verify_kernel<INT8, N, F32>, grid, threads, smem,   \
+                  grid.x, pdl, st, a)
   switch (NQ) {
     case 1:
-      return launch(self_split_kernel<INT8>, grid, threads, smem, grid.x, pdl,
-                    st, a);
+      return launch(self_split_kernel<INT8, F32>, grid, threads, smem,
+                    grid.x, pdl, st, a);
     ARIES_SELF(2);
     ARIES_SELF(3);
     ARIES_SELF(4);
@@ -1594,7 +1655,14 @@ int self_allow_smem() {
                          (const void*)self_verify_kernel<INT8, 5>,
                          (const void*)self_verify_kernel<INT8, 6>,
                          (const void*)self_verify_kernel<INT8, 7>,
-                         (const void*)self_verify_kernel<INT8, 8>};
+                         (const void*)self_verify_kernel<INT8, 8>,
+                         (const void*)self_verify_kernel<INT8, 2, true>,
+                         (const void*)self_verify_kernel<INT8, 3, true>,
+                         (const void*)self_verify_kernel<INT8, 4, true>,
+                         (const void*)self_verify_kernel<INT8, 5, true>,
+                         (const void*)self_verify_kernel<INT8, 6, true>,
+                         (const void*)self_verify_kernel<INT8, 7, true>,
+                         (const void*)self_verify_kernel<INT8, 8, true>};
   for (const void* k : kerns) {
     const cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, SELF_MAX_SMEM);

@@ -40,7 +40,8 @@
 // self-attention probabilities f32 into P . V, cross-attention on f32
 // queries, and an f32 self cache where it is not int8. The products' A
 // operands stay bf16 (h, att, the cross output, h1): the megakernel
-// rounds every product's input to bf16 too.
+// rounds every product's input to bf16 too. The verify step runs at f32
+// alike, Q queries a cache row (self_verify_kernel<INT8, Q, true>).
 //
 // Bound on the H100: bytes. At large-v3 (d 1280, ff 5120, L 32) a step
 // streams 0.73 GB of int8 weights, ~1 GB of int8 cross K/V plus scales for
@@ -451,8 +452,7 @@ int run_gemm(const bf16* x, int ldx, int K, const int8_t* w, int ldw, int N,
 // --------------------------------------------- (c), (d) attention parts
 
 // R rows, `queries` a cache row (the verify step's drafted tokens; 1 for
-// a decode step); `f32`: qkv f32 and a non-int8 cache f32 (one query a
-// cache row)
+// a decode step); `f32`: qkv f32 and a non-int8 cache f32
 int run_self_attn(const void* qkv, int R, int queries, int d, int H,
                   void* cache, float* csc, int self_int8, int Tmax,
                   const int* step, bf16* att, int f32, int pdl,
@@ -463,7 +463,7 @@ int run_self_attn(const void* qkv, int R, int queries, int d, int H,
   split_plan(Tmax, &S, &C);
   if (S > MAX_SPLITS || C > SELF_MAX_KEYS || queries < 1 ||
       queries > SELF_MAX_QUERIES || R <= 0 || R % queries ||
-      R / queries > 65535 || (f32 && queries != 1))
+      R / queries > 65535)
     return (int)cudaErrorInvalidValue;
   a.C = C;
   a.HPB = self_heads_per_block(H, C, self_int8, queries, f32);
@@ -611,8 +611,8 @@ int aries_cross_attn(const void* cq, int R, int d, int H, const int8_t* kv8,
 }
 
 // All L decoder layers of one step. x (R, d) bf16 (f32 with `x_f32`: the
-// f32 residual stream, one query a cache row) is updated in place; the
-// self cache (L, R, 2, H, Tmax, 64) [x's type, or int8 with scales csc
+// f32 residual stream) is updated in place; the self cache
+// (L, R, 2, H, Tmax, 64) [x's type, or int8 with scales csc
 // (L, R, 2, H, Tmax)] gets this step's K/V at position step[0], attending
 // over [step[1], step[0]] (step: two device int32). With `queries` Q > 1
 // (the speculative verify step) the self cache holds R / Q rows, row c's
@@ -646,7 +646,7 @@ int aries_decode_layers(void* x_, int R, int queries, int d, int ff, int H,
   const size_t xe = x_f32 ? 4 : 2;  // bytes of an x / cache element
   int off[19];
   vec_offsets(d, ff, off);
-  if (queries < 1 || R % queries || (x_f32 && queries != 1))
+  if (queries < 1 || R % queries)
     return (int)cudaErrorInvalidValue;
   const size_t self_stride = (size_t)(R / queries) * 2 * H * Tmax * DH;
   const size_t self_sc_stride = (size_t)(R / queries) * 2 * H * Tmax;

@@ -1046,7 +1046,11 @@ def decoder_step_fused_multi(params: Dict[str, Any],
     ``ops.decode_layers.pack_layer_weights``. Token s attends over
     [valid_start, pos + s]. Lanes left by drafts an earlier verify rejected
     are rewritten before they are read. Returns (logits (B, S, n_vocab)
-    f32, cache).
+    f32, cache). x takes the embedding's dtype: with f32 params (the
+    ``compute_type="f32"`` model) the step runs the f32 residual stream (a
+    non-int8 cache then f32) and the logits the vocab product's "f32"
+    path, as the JAX function's einsum at f32; operands of mixed dtypes
+    raise (nothing is cast).
 
     The JAX function's ``group`` (windows packed into one kernel window
     with a group-minor cache) and ``interpret`` (Pallas interpret mode) are

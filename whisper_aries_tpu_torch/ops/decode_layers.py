@@ -20,8 +20,9 @@ cross K/V shared by its G rows, with dh-minor caches:
 x may be bf16 or f32 (``compute_type="f32"``, the JAX megakernel at x
 f32): the kernels then keep an f32 residual stream (x, qkv, cq, the
 self-attention probabilities and a non-int8 self cache f32; every
-product's input rounded to bf16, as the megakernel's ``gemm`` rounds it).
-The plain version follows x's dtype alike.
+product's input rounded to bf16, as the megakernel's ``gemm`` rounds it),
+at one query a cache row or at the verify step's S. The plain version
+follows x's dtype alike.
 
 ``queries`` S > 1 is the speculative verify step (the JAX package's
 ``decoder_step_fused_multi``): S drafted queries share one self-cache row,
@@ -641,8 +642,8 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
                      queries: int = 1) -> torch.Tensor:
     """One layer's split-KV self-attention with append; cache_l holds that
     layer's (R / S, 2, H, T, dh) cache [and (R / S, 2, H, T) scales], S =
-    ``queries`` (``self_attn_plain``). qkv bf16, or f32 (one query a cache
-    row; a non-int8 cache then f32 too) -> att (R, d) bf16."""
+    ``queries`` (``self_attn_plain``). qkv bf16, or f32 (a non-int8 cache
+    then f32 too) -> att (R, d) bf16."""
     R, d3 = qkv.shape
     d = d3 // 3
     f32 = _act(qkv, "qkv")
@@ -650,7 +651,6 @@ def self_attn_kernel(qkv: torch.Tensor, cache_l: Dict[str, torch.Tensor],
     ckv, ksc, int8 = _self_operands(cache_l)
     T = ckv.shape[3]
     _check_queries(R, pos, queries, T)
-    _check_f32_queries(f32, queries)
     cb.require(ckv, "self cache", torch.int8 if int8 else qkv.dtype,
                (R // queries, 2, n_head, T, d // n_head), qkv.device)
     if not 0 <= vs <= pos:
@@ -689,12 +689,6 @@ def cross_attn_kernel(cq: torch.Tensor, kv8_l: torch.Tensor,
     return att
 
 
-def _check_f32_queries(f32: int, queries: int) -> None:
-    if f32 and queries != 1:
-        raise ValueError("the f32 residual stream takes one query a cache "
-                         "row: the verify step runs bf16 activations")
-
-
 def _cross_windows(R: int, kv8: torch.Tensor) -> int:
     Bw = kv8.shape[-5]
     if Bw < 1 or R % Bw:
@@ -728,7 +722,6 @@ class _StepOperands:
         ckv, ksc, int8 = _self_operands(self_cache)
         T = ckv.shape[4]
         _check_queries(R, 0, queries, T)
-        _check_f32_queries(f32, queries)
         cb.require(ckv, "self cache", torch.int8 if int8 else dtype,
                    (L, R // queries, 2, H, T, dh), dev)
         Ta = cross["kv8"].shape[4]
@@ -783,10 +776,12 @@ class _LaunchCount:
 
 
 # the fused step's launches and replays at S > 1 queries a cache row (the
-# verify step), and those of its f32 instantiation (the f32 residual
-# stream), counted here as well as in fused_decoder_layers.launches
+# verify step), those of its f32 instantiation (the f32 residual stream),
+# and those of the verify step at f32 (in both of the others too), counted
+# here as well as in fused_decoder_layers.launches
 VERIFY = _LaunchCount()
 F32 = _LaunchCount()
+VERIFY_F32 = _LaunchCount()
 
 
 def _count_step(queries: int, f32: int = 0) -> None:
@@ -795,6 +790,8 @@ def _count_step(queries: int, f32: int = 0) -> None:
         cb.count(VERIFY)
     if f32:
         cb.count(F32)
+    if queries > 1 and f32:
+        cb.count(VERIFY_F32)
 
 
 def _fused_cuda(x, wpack, self_cache, cross, valid_start, pos, n_head,
@@ -883,8 +880,8 @@ class DecodeStepGraph:
     raises if capture or replay fails (it never falls back to launching the
     kernels directly or to the plain version). ``queries`` S > 1 captures
     the verify step over ``rows`` = cache rows x S (``fused_decoder_layers``).
-    x is of ``dtype`` (bf16, or f32 at S 1), as its buffer; an x of another
-    dtype raises.
+    x is of ``dtype`` (bf16, or f32: the f32 residual stream), as its
+    buffer; an x of another dtype raises.
     """
 
     def __init__(self, wpack: Dict[str, torch.Tensor],

@@ -30,7 +30,12 @@ step: the verify step's replay ms at S in {1, 2, 4, 8} for B windows and
 cost(S) / cost(1), beside the step's bytes / operations bound.
 
     python -m whisper_aries_tpu_torch.scripts.bench_speculative
-        [--device cpu]
+        [--compute-type {bf16,f32}] [--device cpu]
+
+``--compute-type f32`` runs the card's model at f32 (the engine's
+``compute_type="f32"``): f32 params and activations, the decoder-layer
+kernels' f32 residual stream at every S, the vocab product's "f32" path,
+TF32 off. bf16 is the default.
 
 Environment (the TPU script's knobs; its ARIES_SPEC_GROUP is TPU layout
 and is not taken): ARIES_SPEC_S (4), ARIES_SPEC_ACCEPT (3),
@@ -60,6 +65,7 @@ from whisper_aries_tpu_torch.scripts.common import (
     card_line,
     device_of,
 )
+from whisper_aries_tpu_torch.utils.device import no_tf32
 
 PROMPT = 3          # prompt tokens a window
 CACHE_LEN = 256     # self-cache positions
@@ -85,21 +91,25 @@ def knobs() -> Dict[str, int]:
 
 
 def verify_traffic(dims: W.WhisperDims, B: int, S: int, pos: int,
-                   vs: int = 0) -> Dict[str, float]:
+                   vs: int = 0, act: int = 2,
+                   self_int8: bool = True) -> Dict[str, float]:
     """The least bytes one verify step moves (int8 weights and their
-    vectors, the B windows' int8 cross K/V with scales, the int8 self
-    cache's live positions vs .. pos + S - 1 with scales, x in and out,
-    each once) and the operations it does (the dense products of B S rows,
-    each query's attention over its keys and the Ta cross keys)."""
+    vectors, the B windows' int8 cross K/V with scales, the self cache's
+    live positions vs .. pos + S - 1 (int8 with scales, or ``act`` bytes a
+    value where the cache is not int8), x in and out at ``act`` bytes an
+    activation (4 for the f32 residual stream), each once) and the
+    operations it does (the dense products of B S rows, each query's
+    attention over its keys and the Ta cross keys)."""
     L, d, H = dims.n_text_layer, dims.n_text_state, dims.n_text_head
     ff, Ta, R = 4 * d, dims.n_audio_ctx, B * S
     w_bytes = L * (6 * d * d + 2 * d * ff + DL.vec_offsets(d, ff)[1] * 4)
     cross_bytes = L * B * 2 * H * Ta * (64 + 4)
-    self_bytes = L * B * 2 * H * (pos + S - vs) * (64 + 4)
+    lane = 64 + 4 if self_int8 else 64 * act
+    self_bytes = L * B * 2 * H * (pos + S - vs) * lane
     keys = sum(pos + s + 1 - vs for s in range(S))  # over the queries
     ops = (2 * R * L * (6 * d * d + 2 * d * ff)
            + 4 * L * H * 64 * (B * keys + R * Ta))
-    return {"bytes": w_bytes + cross_bytes + self_bytes + 2 * R * d * 2,
+    return {"bytes": w_bytes + cross_bytes + self_bytes + 2 * R * d * act,
             "ops": ops}
 
 
@@ -110,16 +120,22 @@ def bound_ms(traffic: Dict[str, float]) -> float:
                traffic["ops"] / PEAK_OPS["bf16"]) * 1e3
 
 
-class Setup:
-    """The model, the windows' cross K/V and the prefilled self cache."""
+#: the card's model dtype by ``--compute-type``
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
-    def __init__(self, dev: torch.device, B: int, seed: int = 0):
+
+class Setup:
+    """The model, the windows' cross K/V and the prefilled self cache, at
+    ``dtype`` on the card (bf16 or f32); the CPU model is f32."""
+
+    def __init__(self, dev: torch.device, B: int, seed: int = 0,
+                 dtype: torch.dtype = torch.bfloat16):
         if dev.type == "cuda":
-            dims, dtype = W.PRESETS["large-v3"], torch.bfloat16
+            dims = W.PRESETS["large-v3"]
         else:  # the TPU script's CPU model: 6 heads of 64, 2 layers
             dims = W.WhisperDims(80, 192, 384, 6, 2, 1000, 64, 384, 6, 2)
             dtype = torch.float32
-        self.dev, self.dims, self.B = dev, dims, B
+        self.dev, self.dims, self.B, self.dtype = dev, dims, B, dtype
         full = W.init_params(dims, seed=seed, device=dev, dtype=dtype)
         self.params = W.fuse_decoder_qkv({"decoder": full["decoder"]})
         del full
@@ -153,7 +169,8 @@ class Setup:
             return lambda x, pos: DL.fused_decoder_layers(
                 x, self.wpack, self.cache, self.cross, 0, pos, H, queries=S)
         graph = DL.DecodeStepGraph(self.wpack, self.cache, self.cross,
-                                   self.B * S, H, 0, queries=S)
+                                   self.B * S, H, 0, queries=S,
+                                   dtype=self.dtype)
         return graph.run
 
     def embed(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
@@ -225,7 +242,7 @@ def cost_sweep(su: Setup, sweep=SWEEP_S, pos: int = SWEEP_POS,
     for S in sweep:
         step = su.step(S)
         x = torch.randn((su.B * S, su.dims.n_text_state), generator=g,
-                        device=su.dev).to(torch.bfloat16)
+                        device=su.dev).to(su.dtype)
         for _ in range(SWEEP_WARMUP):
             step(x, pos)
         start = torch.cuda.Event(enable_timing=True)
@@ -236,14 +253,20 @@ def cost_sweep(su: Setup, sweep=SWEEP_S, pos: int = SWEEP_POS,
         end.record()
         end.synchronize()
         ms[S] = start.elapsed_time(end) / reps
-        bounds[S] = bound_ms(verify_traffic(su.dims, su.B, S, pos))
+        bounds[S] = bound_ms(verify_traffic(su.dims, su.B, S, pos,
+                                            act=su.dtype.itemsize))
         del step
     base = ms[sweep[0]]
     return {"metric": "fused verify step, ms a graph replay by S "
                       f"(B {su.B} windows, pos {pos}, T {CACHE_LEN}, int8 "
-                      "self cache)",
+                      f"self cache, {compute_type(su.dtype)})",
+            "compute_type": compute_type(su.dtype),
             "ms": ms, "cost_over_s1": {S: v / base for S, v in ms.items()},
             "bound_ms": bounds}
+
+
+def compute_type(dtype: torch.dtype) -> str:
+    return next(k for k, v in DTYPES.items() if v == dtype)
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -253,6 +276,8 @@ def main(argv=None) -> Dict[str, object]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="cpu: the plain versions at a narrow model")
+    ap.add_argument("--compute-type", choices=tuple(DTYPES), default="bf16",
+                    help="the card's model dtype (the CPU model is f32)")
     args = ap.parse_args(argv)
     dev = device_of(args.device)
     k = knobs()
@@ -261,11 +286,15 @@ def main(argv=None) -> Dict[str, object]:
         B, steps = min(B, 4), min(steps, 4)
     card = (card_line(dev) if dev.type == "cuda"
             else "cpu (plain versions: a rehearsal, the host's times)")
-    su = Setup(dev, B)
-    t = chains(su, S, ACC, steps)
+    with no_tf32():
+        su = Setup(dev, B, dtype=DTYPES[args.compute_type])
+        t = chains(su, S, ACC, steps)
+        sweep = dict(cost_sweep(su), device=card) if dev.type == "cuda" \
+            else None
     verified = steps * ACC * B
     line = {
-        "metric": LABEL, "s_draft": S, "synthetic_accept": ACC, "batch": B,
+        "metric": LABEL, "compute_type": compute_type(su.dtype),
+        "s_draft": S, "synthetic_accept": ACC, "batch": B,
         "spec_s_per_step": t["spec"] / steps,
         "base_s_per_token": t["base"] / (steps * ACC),
         "verified_tokens_per_s_spec": verified / t["spec"],
@@ -275,8 +304,7 @@ def main(argv=None) -> Dict[str, object]:
     }
     print(json.dumps(line), flush=True)
     out = {"bench": line}
-    if dev.type == "cuda":
-        sweep = dict(cost_sweep(su), device=card)
+    if sweep is not None:
         print(json.dumps(sweep), flush=True)
         out["sweep"] = sweep
     print(card, flush=True)
